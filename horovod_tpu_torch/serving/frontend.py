@@ -1,0 +1,378 @@
+"""HTTP frontend: ``serve(model, params, port=…)``.
+
+A stdlib ``ThreadingHTTPServer`` per worker, no dependencies. Routes:
+
+* ``POST /generate``: body ``{"tokens": [...], "max_tokens"?,
+  "deadline_ms"?, "temperature"?, "top_k"?, "seed"?}``. The handler
+  thread parks on the request until the batcher's thread has finished
+  it, then replies the result JSON (tokens, status, TTFT, generation
+  wall). 400 on a malformed body, 429 when the request can never fit,
+  503 while draining, 500 when the scheduler failed under it.
+* ``GET /healthz``: liveness and capacity (free slots and pages, queue
+  depth).
+* ``GET /metrics``: the TTFT/TPOT Prometheus summaries, then the
+  registry rendered as gauges.
+* ``GET /stats``: engine and batcher counters as JSON.
+
+The HTTP threads never touch tensors: they queue requests and read host
+counters. ``serve()`` registers the frontend's drain with
+``preemption.register_drain``, so SIGTERM finishes every accepted
+request before the worker exits. This slice serves one unified worker;
+the JAX frontend's fleet router, capacity announcements, hedging,
+result dedupe, live migration and KV-transfer server come later.
+"""
+
+from __future__ import annotations
+
+import json
+import socket
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from ..common import tracing as _tracing
+from ..common.config import live_config
+from ..common.logging import TRACE as _TRACE, get_logger
+from ..common.metrics import registry as _metrics
+from ..common.telemetry import PROM_CONTENT_TYPE, render_prometheus
+from .batcher import ContinuousBatcher, Rejected
+
+_log = get_logger("serve.frontend")
+
+
+class ServeFrontend:
+    def __init__(
+        self,
+        batcher: ContinuousBatcher,
+        port: int = 0,
+        addr: str = "0.0.0.0",
+        advertise_addr: str = "127.0.0.1",
+        rank: Optional[int] = None,
+    ) -> None:
+        self.batcher = batcher
+        self.advertise_addr = advertise_addr
+        if rank is None:
+            rank = live_config().rank
+        self.rank = int(rank or 0)
+        self._draining = False
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        self._status_lock = threading.Lock()
+        self._status_counts = {2: 0, 4: 0, 5: 0}
+        outer = self
+
+        class _Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):
+                _log.log(_TRACE, "http " + fmt, *args)
+
+            def _reply(self, code, body: bytes, ctype: str) -> None:
+                if getattr(self, "_count_status", False):
+                    outer._note_status(code)
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _json(self, code, obj) -> None:
+                self._reply(code, json.dumps(obj).encode(),
+                            "application/json")
+
+            def do_GET(self):
+                path = self.path.split("?", 1)[0]
+                if path == "/healthz":
+                    return self._json(200, outer.capacity())
+                if path == "/stats":
+                    stats = dict(outer.batcher.stats())
+                    stats.update(outer.batcher.engine.stats())
+                    stats["slo"] = outer.batcher.recorder.summaries()
+                    return self._json(200, stats)
+                if path == "/metrics":
+                    body = "\n".join(
+                        outer.batcher.recorder.render_prometheus_summaries()
+                    ) + "\n" + render_prometheus(_metrics.snapshot())
+                    return self._reply(200, body.encode(), PROM_CONTENT_TYPE)
+                return self._reply(
+                    404, b"not found\n", "text/plain; charset=utf-8"
+                )
+
+            def do_POST(self):
+                # read the body first: a keep-alive connection with body
+                # bytes left on it would desynchronise its next request
+                length = int(self.headers.get("Content-Length", 0))
+                body = self.rfile.read(length) if length else b""
+                path = self.path.split("?", 1)[0]
+                if path != "/generate":
+                    return self._reply(
+                        404, b"not found\n", "text/plain; charset=utf-8"
+                    )
+                self._count_status = True
+                try:
+                    return self._generate(body)
+                finally:
+                    self._count_status = False
+
+            def _generate(self, body):
+                try:
+                    payload = json.loads(body or b"{}")
+                    if not isinstance(payload, dict):
+                        raise ValueError(
+                            f"body must be a JSON object, got "
+                            f"{type(payload).__name__}"
+                        )
+                    tokens = payload["tokens"]
+                except (json.JSONDecodeError, KeyError, ValueError) as e:
+                    return self._json(400, {"error": f"bad request: {e}"})
+                if outer.draining:
+                    return self._json(503, {"error": "draining",
+                                            "retry": True})
+                with outer._inflight_lock:
+                    outer._inflight += 1
+                try:
+                    try:
+                        req = outer.batcher.submit(
+                            tokens,
+                            max_new_tokens=payload.get("max_tokens"),
+                            deadline_ms=payload.get("deadline_ms"),
+                            temperature=float(
+                                payload.get("temperature", 0.0)
+                            ),
+                            top_k=int(payload.get("top_k", 0)),
+                            seed=payload.get("seed"),
+                        )
+                    except Rejected as e:
+                        # draining is the worker's state (503); 429 is
+                        # for requests that can never fit
+                        code = 503 if outer.draining else 429
+                        return self._json(code, {"error": str(e)})
+                    except (TypeError, ValueError) as e:
+                        return self._json(
+                            400, {"error": f"bad request: {e}"}
+                        )
+                    req.wait()
+                    code = 500 if req.status == "error" else 200
+                    return self._json(code, req.result())
+                finally:
+                    with outer._inflight_lock:
+                        outer._inflight -= 1
+
+        class _Server(ThreadingHTTPServer):
+            daemon_threads = True
+            allow_reuse_address = True
+
+        self._httpd = _Server((addr, port), _Handler)
+        self._thread: Optional[threading.Thread] = None
+
+    # ------------------------------------------------------------ lifecycle
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    @property
+    def draining(self) -> bool:
+        """A planned drain or the batcher's crash-drain: either way no
+        new requests."""
+        return self._draining or self.batcher.draining
+
+    def capacity(self) -> dict:
+        manager = self.batcher.engine.manager
+        mgr = manager.stats()
+        draining = self.draining
+        cap = {
+            "ok": not draining,
+            "rank": self.rank,
+            "addr": self.advertise_addr,
+            "port": self.port,
+            "role": "unified",
+            "free_slots": mgr["slots_free"],
+            "slots_total": mgr["slots_total"],
+            "queue_depth": self.batcher.queue_depth(),
+            "draining": draining,
+            "host": socket.gethostname(),
+            "ts": time.time(),
+        }
+        if "pages_total" in mgr:
+            # page headroom is what admission gates on; a saturated pool
+            # reads as no free slots, and no free slot as no free pages
+            free_pages = manager.admission_headroom()
+            cap["free_pages"] = free_pages
+            cap["pages_total"] = mgr["pages_total"]
+            cap["prefix_hit_rate"] = round(mgr["prefix_hit_rate"], 4)
+            if free_pages <= 0:
+                cap["free_slots"] = 0
+            if cap["free_slots"] <= 0:
+                cap["free_pages"] = 0
+        return cap
+
+    def start(self) -> int:
+        if self._thread is not None:
+            return self.port
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever,
+            name="hvd-serve-frontend",
+            daemon=True,
+        )
+        self._thread.start()
+        _log.info("serve frontend on port %d (rank %d)", self.port, self.rank)
+        return self.port
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Refuse new work, finish the accepted work, let the in-flight
+        responses flush."""
+        self._draining = True
+        ok = self.batcher.drain(timeout=timeout)
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline:
+            with self._inflight_lock:
+                if self._inflight == 0:
+                    break
+            time.sleep(0.01)
+        return ok
+
+    def _note_status(self, code: int) -> None:
+        """``serve.http_2xx/4xx/5xx`` counters and the
+        ``serve.http_error_rate`` gauge over /generate replies."""
+        klass = int(code) // 100
+        if klass not in (2, 4, 5):
+            klass = 5 if klass > 5 else 4
+        with self._status_lock:
+            self._status_counts[klass] += 1
+            counts = dict(self._status_counts)
+        _metrics.counter(f"serve.http_{klass}xx")
+        _metrics.gauge(
+            "serve.http_error_rate",
+            (counts[4] + counts[5]) / sum(counts.values()),
+        )
+
+    def stop(self) -> None:
+        if self._thread is None:
+            self._httpd.server_close()
+            return
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5)
+        self._thread = None
+
+
+class ServeHandle:
+    """What :func:`serve` returns: the running plane and its lifecycle."""
+
+    def __init__(self, engine, batcher, frontend, shutdown_ctx=None):
+        self.engine = engine
+        self.batcher = batcher
+        self.frontend = frontend
+        self._shutdown_ctx = shutdown_ctx
+        self._stopped = threading.Event()
+
+    @property
+    def port(self) -> int:
+        return self.frontend.port
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        return self.frontend.drain(timeout=timeout)
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until stop()."""
+        return self._stopped.wait(timeout)
+
+    def stop(self) -> None:
+        from .. import preemption
+
+        preemption.unregister_drain(self._drain_hook)
+        self.frontend.stop()
+        self.batcher.stop()
+        if self._shutdown_ctx is not None:
+            self._shutdown_ctx.__exit__(None, None, None)
+            self._shutdown_ctx = None
+        self._stopped.set()
+
+    def _drain_hook(self) -> None:
+        self.frontend.drain()
+
+
+def serve(
+    model,
+    params=None,
+    port: Optional[int] = None,
+    *,
+    slots: Optional[int] = None,
+    max_len: Optional[int] = None,
+    max_new_tokens: Optional[int] = None,
+    deadline_ms: Optional[float] = None,
+    max_admit_per_step: Optional[int] = None,
+    eos_id: Optional[int] = None,
+    addr: str = "0.0.0.0",
+    advertise_addr: str = "127.0.0.1",
+    rank: Optional[int] = None,
+    handle_sigterm: bool = True,
+    role: Optional[str] = None,
+    device=None,
+    **engine_kwargs,
+) -> ServeHandle:
+    """Start the inference plane on this worker: engine, continuous
+    batcher and HTTP frontend, drain-wired into SIGTERM.
+
+    ``model`` is a :class:`~horovod_tpu_torch.models.transformer.
+    Transformer`; ``params`` a ``state_dict`` to load into it, or None
+    to serve its own weights. ``device`` None means the CUDA card;
+    without one this raises. Env defaults: ``HOROVOD_SERVE_PORT``,
+    ``_KV_SLOTS``, ``_MAX_BATCH``, ``_MAX_TOKENS``, ``_DEADLINE_MS`` and
+    the paged-pool knobs; ``engine_kwargs`` go to
+    :class:`~.engine.InferenceEngine` (``prefill_ceiling``, ``paged``,
+    ``page_tokens``, ``pages``, ``paged_attn``, ...).
+
+    ``handle_sigterm=True`` installs a :class:`~horovod_tpu_torch.
+    preemption.GracefulShutdown`, so the worker drains on SIGTERM and
+    exits 143; pass False when the caller owns the signal.
+    """
+    from .. import preemption
+    from .engine import InferenceEngine
+
+    cfg = live_config()
+    if role is None:
+        role = cfg.serve_role
+    if role != "unified":
+        raise NotImplementedError(
+            f"role {role!r}: only the unified role is ported; the "
+            "prefill/decode split needs the KV-transfer plane"
+        )
+    _tracing.set_role(role)
+    if port is None:
+        port = cfg.serve_port
+    if slots is None:
+        slots = cfg.serve_kv_slots
+    if max_new_tokens is None:
+        max_new_tokens = cfg.serve_max_tokens
+    if deadline_ms is None:
+        deadline_ms = cfg.serve_deadline_ms
+    if max_admit_per_step is None:
+        max_admit_per_step = cfg.serve_max_batch
+    if max_len is None:
+        max_len = model.cfg.max_len
+    engine = InferenceEngine(
+        model, params, slots=slots, max_len=max_len, device=device,
+        **engine_kwargs,
+    )
+    batcher = ContinuousBatcher(
+        engine,
+        max_admit_per_step=max_admit_per_step,
+        default_max_new_tokens=max_new_tokens,
+        default_deadline_ms=deadline_ms,
+        eos_id=eos_id,
+    )
+    frontend = ServeFrontend(
+        batcher, port=port, addr=addr, advertise_addr=advertise_addr,
+        rank=rank,
+    )
+    shutdown_ctx = None
+    if handle_sigterm:
+        shutdown_ctx = preemption.GracefulShutdown().__enter__()
+    handle = ServeHandle(engine, batcher, frontend, shutdown_ctx)
+    preemption.register_drain(handle._drain_hook)
+    batcher.start()
+    frontend.start()
+    return handle
