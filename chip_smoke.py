@@ -21,13 +21,11 @@ and no network; it imports no JAX. Phases, each printing its own lines:
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero without that last line, as does a machine without a CUDA
-device or a directory without the package. ``--only kernels`` stops
-after phase 2.
+device or a directory without the package.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import os
@@ -416,11 +414,7 @@ def phase_fp32(model32, prompts, max_tokens):
 # ------------------------------------------------------------------ main
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="stop after the kernel phase")
-    args = ap.parse_args(argv)
+def main() -> int:
     try:
         import torch
     except ImportError:
@@ -457,8 +451,6 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     kernel_results = phase_kernels(gen)
-    if args.only == "kernels":
-        return 0
 
     # phase 3: GPT-2 medium at full width, random weights from the seed;
     # the fp32 copy for phase 4 is taken first (serving the bf16 model

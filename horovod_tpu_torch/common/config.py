@@ -37,9 +37,9 @@ DEFAULT_SERVE_PAGE_WATERMARK = -1
 # Fleet role: only "unified" is served by the port so far.
 DEFAULT_SERVE_ROLE = "unified"
 # Paged-attention read (ops/paged_attention.py): auto = the hand-written
-# kernel on CUDA devices and the gather read elsewhere; on = the kernel
+# kernel on CUDA devices and the plain read elsewhere; on = the kernel
 # path anywhere (its plain PyTorch version for CPU tensors); off = always
-# the gather read.
+# the plain read. A kernel asked for that cannot run raises.
 DEFAULT_SERVE_PAGED_ATTN = "auto"
 
 

@@ -23,18 +23,18 @@ Two forwards share the parameters:
   ``serving/paged_kv.py``. It is written in place, where the JAX model
   returns an updated copy for the engine to donate.
 
-On the paged layout ``paged_attn=True`` reads the pool through the
-hand-written kernel (``ops/paged_attention.py``); otherwise each slot's
-pages are gathered into a contiguous view and attended densely (the
-gather read, the numerics oracle). MoE feed-forward banks and the
-sliding window on the cached path are not ported yet.
+On the paged layout ``paged_attn=True`` reads the pool through
+:func:`~horovod_tpu_torch.ops.paged_attention.paged_attention`: the
+hand-written kernel for CUDA tensors (it launches or raises), its plain
+version for CPU tensors. ``paged_attn=False`` takes the plain version
+(gather the pages, attend densely) on any device. MoE feed-forward
+banks and the sliding window on the cached path are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-import warnings
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..common.metrics import registry as _metrics
+from ..common.config import resolve_device
 from ..ops import paged_attention as _pa
 
 _NEG_INF = -1e30
@@ -352,33 +352,15 @@ class MultiHeadAttention(nn.Module):
             if step.src is not None:
                 rows = rows[step.src]
             buf.view(-1, kvh, d).index_copy_(0, step.dst, rows.to(buf.dtype))
-        if step.table is not None and paged_attn:
-            reason = _pa.unsupported_reason(
-                d, k_cache.shape[1], dtype=q.dtype, device=q.device
-            )
-            if reason is None:
-                return _pa.paged_attention(
-                    q, k_cache, v_cache, step.table, step.index, causal=True
-                )
-            warnings.warn(
-                f"paged_attn=True but the kernel path is unsupported "
-                f"({reason}); falling back to the gather read",
-                stacklevel=2,
-            )
-            _metrics.counter("serve.paged_attn_fallbacks")
-        if step.table is None:
-            kk, vv = k_cache, v_cache
-        else:
-            # gather read: each row's pages in logical order, sentinel
-            # entries clamped into garbage the causal mask zeroes
-            num_pages = k_cache.shape[0]
-            tbl = step.table.long().clamp(0, num_pages - 1)
-            kk = k_cache[tbl].reshape(b, -1, kvh, d)
-            vv = v_cache[tbl].reshape(b, -1, kvh, d)
+        if step.table is not None:
+            attend = (_pa.paged_attention if paged_attn
+                      else _pa.paged_attention_plain)
+            return attend(q, k_cache, v_cache, step.table, step.index,
+                          causal=True)
         q_pos = step.index.long()[:, None] + torch.arange(t, device=q.device)
-        key_pos = torch.arange(kk.shape[1], device=q.device)
+        key_pos = torch.arange(k_cache.shape[1], device=q.device)
         valid = key_pos[None, None, :] <= q_pos[:, :, None]  # [b, t, seq]
-        return _attend(q, kk, vv, valid[:, None], cfg.dtype)
+        return _attend(q, k_cache, v_cache, valid[:, None], cfg.dtype)
 
 
 class Block(nn.Module):
@@ -426,10 +408,11 @@ class LMHead(nn.Module):
 
 class Transformer(nn.Module):
     """The decoder stack. Parameters are created in fp32 on ``device``
-    and initialised from ``generator`` (a ``torch.Generator`` on the same
-    device) as Flax initialises the JAX model: embeddings normal with
-    variance 1/d_model, kernels ``lecun_normal``, biases 0, LayerNorm
-    scale 1."""
+    (None means the CUDA card, and raises without one; the CPU only when
+    asked for) and initialised from ``generator`` (a ``torch.Generator``
+    on the same device) as Flax initialises the JAX model: embeddings
+    normal with variance 1/d_model, kernels ``lecun_normal``, biases 0,
+    LayerNorm scale 1."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -438,6 +421,7 @@ class Transformer(nn.Module):
             raise NotImplementedError(
                 "MoE feed-forward banks (moe_experts > 0) are not ported yet"
             )
+        device = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device)
         self.pos_embed = None

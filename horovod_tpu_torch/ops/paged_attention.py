@@ -50,9 +50,9 @@ def unsupported_reason(
     dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> Optional[str]:
-    """The fallback ladder, one rung per return: None means the kernel
-    takes this geometry on ``device``; a string names the rung (callers
-    log it and count ``serve.paged_attn_fallbacks``). The TPU ladder's
+    """The support ladder, one rung per return: None means the kernel
+    takes this geometry on ``device``; a string names the rung (the
+    engine raises with it when the kernel was asked for). The TPU ladder's
     lane and sublane floors are gone: Hopper takes GPT-2 medium's
     head_dim 64 and any page size. The kernel's own limits remain."""
     if head_dim < HEAD_DIM_MULTIPLE or head_dim > MAX_HEAD_DIM:

@@ -36,15 +36,12 @@ import numpy as np
 import torch
 
 from ..common.config import live_config, resolve_device
-from ..common.logging import get_logger
 from ..common.metrics import registry as _metrics
 from ..common import tracing as _tracing
 from ..models.transformer import init_cache
 from ..ops import paged_attention as _pa
 from .kv_cache import create_kv_manager
 from .paged_kv import PagePoolExhausted, page_hashes
-
-_log = get_logger("serve.engine")
 
 _STAT_KEYS = (
     "prefill_compiles", "decode_compiles", "prefills",
@@ -167,8 +164,10 @@ class InferenceEngine:
         """Resolve the ``HOROVOD_SERVE_PAGED_ATTN`` tri-state: ``auto``
         engages the kernel on a CUDA device, ``on`` anywhere (its plain
         version for CPU tensors), ``off`` and the slab always take the
-        gather read. A kernel that is asked for and cannot run falls
-        back loudly: a warning and ``serve.paged_attn_fallbacks``."""
+        plain read. A kernel that is asked for and cannot run raises
+        with the reason: the port never falls back, so
+        ``paged_attn_fallbacks`` (kept for the JAX engine's stats keys)
+        stays 0."""
         if isinstance(requested, bool):
             requested = "on" if requested else "off"
         requested = str(requested).lower()
@@ -188,17 +187,13 @@ class InferenceEngine:
         )
         if reason is None and model_cfg.sliding_window:
             reason = "sliding_window is not implemented by the paged kernel"
-        if reason is None:
-            return True
-        _log.warning(
-            "paged_attn=%s requested but the kernel path is "
-            "unsupported (%s); serving on the gather read",
-            requested, reason,
-        )
-        with self._lock:
-            self._counters["paged_attn_fallbacks"] += 1
-        _metrics.counter("serve.paged_attn_fallbacks")
-        return False
+        if reason is not None:
+            raise RuntimeError(
+                f"paged_attn={requested}: the paged-attention kernel cannot "
+                f"run on {self.device} ({reason}); pass paged_attn='off' "
+                "to serve on the plain read"
+            )
+        return True
 
     # ------------------------------------------------------------ execution
 

@@ -51,7 +51,7 @@ def models():
     )
     params = jax.tree_util.tree_map(np.asarray, params)
     tcfg = tt.TransformerConfig(dtype=torch.float32, **BASE)
-    tmodel = tt.Transformer(tcfg)
+    tmodel = tt.Transformer(tcfg, device="cpu")
     tmodel.load_state_dict(params_from_flax(params, tcfg))
     return jmodel, params, tmodel
 
@@ -140,6 +140,36 @@ def test_slab_engine_matches_paged(models):
     assert _run(ContinuousBatcher(slab), prompts, 6) == _run(
         ContinuousBatcher(paged), prompts, 6
     )
+
+
+@pytest.mark.parametrize("requested", ["auto", "on"])
+def test_kernel_that_cannot_run_raises(models, monkeypatch, requested):
+    """On a CUDA device with no built kernel the engine refuses to
+    resolve paged_attn instead of serving on the plain read; only an
+    explicit 'off' takes the plain read there."""
+    from horovod_tpu_torch.ops import _build
+
+    _, _, tmodel = models
+    eng = InferenceEngine(tmodel, None, device="cpu", **ENGINE_KW)
+    monkeypatch.setattr(eng, "device", torch.device("cuda"))
+    monkeypatch.setattr(_build, "available", lambda name: False)
+    with pytest.raises(RuntimeError, match="not built"):
+        eng._resolve_paged_attn(requested, tmodel.cfg)
+    assert eng._resolve_paged_attn("off", tmodel.cfg) is False
+    assert eng.stats()["paged_attn_fallbacks"] == 0
+
+
+def test_kernel_unsupported_geometry_raises():
+    """paged_attn='on' with a head_dim the kernel does not take raises
+    at construction, on the CPU too."""
+    cfg = tt.TransformerConfig(dtype=torch.float32,
+                               **dict(BASE, d_model=16))  # head_dim 4
+    model = tt.Transformer(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="head_dim 4"):
+        InferenceEngine(model, None, device="cpu", **ENGINE_KW)
+    eng = InferenceEngine(model, None, device="cpu",
+                          **dict(ENGINE_KW, paged_attn="off"))
+    assert not eng.paged_attn
 
 
 def test_sampled_decode_is_reproducible(models):

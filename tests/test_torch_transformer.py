@@ -43,7 +43,7 @@ def _models(variant):
         jax.random.PRNGKey(0), jnp.ones((1, 4), jnp.int32), train=False
     )
     params = jax.tree_util.tree_map(np.asarray, params)
-    tmodel = tt.Transformer(tcfg)
+    tmodel = tt.Transformer(tcfg, device="cpu")
     tmodel.load_state_dict(params_from_flax(params, tcfg))
     return jmodel, params, tmodel
 
@@ -127,15 +127,26 @@ def test_rope_matches_jax():
 def test_unported_paths_raise():
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError, match="MoE"):
-        tt.Transformer(dataclasses.replace(tcfg, moe_experts=2))
+        tt.Transformer(dataclasses.replace(tcfg, moe_experts=2), device="cpu")
     with pytest.raises(ValueError, match="position"):
         tt.init_cache(tcfg, 1, 128)
-    windowed = tt.Transformer(dataclasses.replace(tcfg, sliding_window=4))
+    windowed = tt.Transformer(dataclasses.replace(tcfg, sliding_window=4),
+                              device="cpu")
     with torch.no_grad():
         windowed(torch.zeros((1, 6), dtype=torch.long))  # uncached: fine
         with pytest.raises(NotImplementedError, match="sliding_window"):
             windowed(torch.zeros((1, 2), dtype=torch.long),
                      cache=tt.init_cache(tcfg, 1, 16), cache_index=[0])
+
+
+def test_default_device_needs_a_card():
+    """device=None means the CUDA card: without one the model raises
+    instead of building its parameters on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    _, tcfg = _cfgs()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.Transformer(tcfg)
 
 
 def test_gpt2_medium_shapes():
