@@ -8,7 +8,9 @@ and no network; it imports no JAX. Phases, each printing its own lines:
 1. Device: the card's name and power limit (``nvidia-smi``), then the
    build of every kernel from the repository's sources, timed.
 2. Kernels against their plain PyTorch versions on the card, at the
-   shapes the main path gives them, with the tolerance stated; each
+   shapes the main paths give them (paged attention: serving; flash
+   attention forward, dQ and dK/dV: training), with the tolerance
+   stated; each
    timed beside its plain version, a PyTorch library call computing the
    same function (timed only, never used by the port) and its bound.
 3. Main path: ``serve()`` of GPT-2 medium (full width, random weights
@@ -17,6 +19,19 @@ and no network; it imports no JAX. Phases, each printing its own lines:
 4. Correctness at full width: the same weights in fp32 serve two
    requests whose greedy tokens must equal the uncached full-forward
    argmax loop.
+5. Training, the second main path: GPT-2 medium (full width, random
+   weights from the seed, bf16 compute on fp32 master weights, remat)
+   takes a few steps through ``hvd.init()`` (a world of one on NCCL),
+   ``hvd.broadcast_parameters`` and ``hvd.DistributedOptimizer(SGD)``
+   on the learnable sequence of examples/transformer_lm.py, with the
+   flash-attention launch counters zeroed just before. The loss must
+   fall, each step must launch the forward kernel 48 times (24 layers,
+   and 24 again in the remat recompute) and each backward kernel 24
+   times, and the fusion layer must dispatch fused allreduces. One more
+   step runs under ``torch.profiler``.
+6. The flash kernels inside the whole backward: one fp32 training step
+   at full width through the kernels and through dense attention must
+   give the same loss and gradients.
 
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -272,6 +287,223 @@ def phase_kernels(gen):
     return results
 
 
+FLASH_CASES = [
+    # (name, b, t, h, kvh, d, causal, lengths, window)
+    # GPT-2 medium training, the main path's shape
+    ("gpt2-t512", 8, 512, 16, 16, 64, True, None, None),
+    ("gpt2-t1024", 8, 1024, 16, 16, 64, True, None, None),
+    # BERT-large's bidirectional attention
+    ("bert-full-t512", 8, 512, 16, 16, 64, False, None, None),
+    # grouped-query attention, 4 query heads per KV head, d = 128
+    ("gqa-t1024", 4, 1024, 32, 8, 128, True, None, None),
+    # right-padded batch
+    ("lengths-t512", 8, 512, 16, 16, 64, True,
+     [512, 500, 431, 300, 257, 129, 64, 1], None),
+    # causal sliding window
+    ("window-t1024", 8, 1024, 16, 16, 64, True, None, 256),
+]
+
+
+def _flash_pairs(t, causal, lengths, window, b, pad_rows):
+    """Attended (query, key) pairs of one head, summed over the batch:
+    the work this run's masks leave."""
+    import torch
+
+    q = torch.arange(t)[:, None]
+    k = torch.arange(t)[None, :]
+    valid = torch.ones((t, t), dtype=torch.bool)
+    if causal:
+        valid = k <= q
+    if window:
+        valid = valid & (q - k < window)
+    if lengths is None:
+        return b * int(valid.sum())
+    total = 0
+    for n in lengths:
+        v = valid & (k < n)
+        if pad_rows:
+            v = v & (q < n)
+        total += int(v.sum())
+    return total
+
+
+def _flash_bound(kind, c):
+    """Least time for one kernel's work: each input read once and each
+    output written once over the memory rate, or its multiply-adds (2
+    FLOP each) over the bf16 peak. Forward: q, k, v in, o and the fp32
+    lse out, QKᵀ and PV (4·d FLOP a pair). dQ: q, k, v, o, dO and lse
+    in, dq out, S, dP and dS·K (6·d). dK/dV: the same in, dk and dv out,
+    S, dP, Pᵀ·dO and dSᵀ·Q (8·d)."""
+    name, b, t, h, kvh, d, causal, lengths, window = c
+    q_bytes, kv_bytes = b * t * h * d * 2, b * t * kvh * d * 2
+    lse_bytes = b * h * t * 4 + (b * 4 if lengths else 0)
+    if kind == "fwd":
+        nbytes = 2 * q_bytes + 2 * kv_bytes + lse_bytes
+        flop_per_pair = 4 * d
+    elif kind == "dq":
+        nbytes = 4 * q_bytes + 2 * kv_bytes + lse_bytes
+        flop_per_pair = 6 * d
+    else:
+        nbytes = 3 * q_bytes + 4 * kv_bytes + lse_bytes
+        flop_per_pair = 8 * d
+    pairs = h * _flash_pairs(t, causal, lengths, window, b,
+                             pad_rows=kind != "fwd")
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = pairs * flop_per_pair / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _check_one_rounding(label, got, ref):
+    """|kernel − plain| within one bf16 ulp of the larger magnitude
+    (floored at 2^-6): both compute in fp32 and round once to bf16, so
+    only a rounding that the fp32 sum order tips may differ."""
+    import torch
+
+    if not torch.isfinite(got.float()).all():
+        fail(f"{label}: non-finite output")
+    diff = (got.float() - ref.float()).abs()
+    tol = _ulp_bf16(torch.maximum(got.float().abs(), ref.float().abs()))
+    if bool((diff > tol).any()):
+        fail(f"{label}: max |kernel - plain| {float(diff.max()):.3g} "
+             f"exceeds one bf16 rounding")
+    return float(diff.max())
+
+
+def phase_flash_kernels(gen):
+    """The three flash-attention kernels against their plain versions at
+    the training path's shapes, each timed beside its plain version, its
+    bound and the PyTorch library call computing the same function
+    (``scaled_dot_product_attention``: its forward for the forward
+    kernel, its backward for dQ and dK/dV together; timed only, never
+    used by the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    results = {"fwd": [], "dq": [], "dkv": []}
+    dev = torch.device("cuda")
+    for c in FLASH_CASES:
+        name, b, t, h, kvh, d, causal, lengths, window = c
+
+        def rnd(heads):
+            return torch.randn((b, t, heads, d), generator=gen,
+                               device=dev).to(torch.bfloat16)
+
+        q, k, v, do = rnd(h), rnd(kvh), rnd(kvh), rnd(h)
+        lens = (None if lengths is None else
+                torch.tensor(lengths, dtype=torch.int32, device=dev))
+        kw = dict(causal=causal, lengths=lens, window=window)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
+        dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do, **kw)
+        dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(q, k, v, o_ref, lse_ref,
+                                                    do, **kw)
+        torch.cuda.synchronize()
+        lse_err = float((lse - lse_ref).abs().max())
+        if lse_err > 1e-4:  # fp32 sums of up to t terms, lse up to ~10
+            fail(f"flash_fwd {name}: lse differs from plain by {lse_err}")
+        errs = {
+            "fwd": _check_one_rounding(f"flash_fwd {name}", o, o_ref),
+            "dq": _check_one_rounding(f"flash_bwd_dq {name}", dq, dq_ref),
+            "dkv": max(
+                _check_one_rounding(f"flash_bwd_dkv {name} dk", dk, dk_ref),
+                _check_one_rounding(f"flash_bwd_dkv {name} dv", dv, dv_ref),
+            ),
+        }
+        # the library yardstick: SDPA on [b, h, t, d] copies (made
+        # outside the timed calls), the mask as a boolean bias where
+        # lengths or a window need one
+        qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        mask = None
+        if lens is not None or window:
+            rows = torch.arange(t, device=dev)[:, None]
+            cols = torch.arange(t, device=dev)[None, :]
+            m = (cols <= rows) if causal else torch.ones(
+                (t, t), dtype=torch.bool, device=dev)
+            if window:
+                m = m & (rows - cols < window)
+            m = m[None, None]
+            if lens is not None:
+                m = m & (cols < lens.long()[:, None, None, None])
+            mask = m
+        sdpa_kw = dict(attn_mask=mask, is_causal=causal and mask is None,
+                       enable_gqa=h != kvh)
+        leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+
+        def lib_fwd(i):
+            F.scaled_dot_product_attention(qh, kh, vh, **sdpa_kw)
+
+        def lib_fwd_bwd(i):
+            out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+            torch.autograd.grad(out, leaves, doh)
+
+        lib_fwd_ms = _time_ms(lib_fwd, iters=20)
+        # SDPA's backward alone: forward and backward captured together
+        # in one graph (a backward runs on its forward's stream), less
+        # the forward; where the capture is refused, timed eagerly
+        # (Python and launch cost included) and labelled so
+        try:
+            lib_bwd_ms = _time_ms(lib_fwd_bwd, iters=20) - lib_fwd_ms
+            how = "graph-replayed, forward+backward less forward"
+        except RuntimeError as e:
+            log(f"flash {name}: SDPA backward capture refused ({e}); "
+                "timing it eagerly")
+            out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+            lib_bwd_ms = _time_ms(
+                lambda i: torch.autograd.grad(out, leaves, doh,
+                                              retain_graph=True),
+                iters=20, graph=False)
+            how = "eager"
+
+        timed = {
+            "fwd": (lambda i: fa.flash_fwd(q, k, v, **kw),
+                    lambda i: fa.flash_fwd_plain(q, k, v, **kw)),
+            "dq": (lambda i: fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do,
+                                             **kw),
+                   lambda i: fa.flash_bwd_plain(q, k, v, o_ref, lse_ref, do,
+                                                **kw)),
+            "dkv": (lambda i: fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do,
+                                               **kw),
+                    lambda i: fa.flash_bwd_plain(q, k, v, o_ref, lse_ref,
+                                                 do, **kw)),
+        }
+        library = {"fwd": lib_fwd_ms, "bwd": lib_bwd_ms}
+        for kind, (kern, plain) in timed.items():
+            # in turns: plain, kernel, kernel, plain, all graph-replayed
+            p1 = _time_ms(plain, iters=10)
+            k1 = _time_ms(kern, iters=20)
+            k2 = _time_ms(kern, iters=20)
+            p2 = _time_ms(plain, iters=10)
+            bound_ms, bound_by = _flash_bound(kind, c)
+            r = {
+                "name": name,
+                "shape": {"b": b, "t": t, "h": h, "kvh": kvh, "d": d,
+                          "causal": causal, "lengths": lengths,
+                          "window": window, "dtype": "bfloat16"},
+                "max_abs_err": errs[kind],
+                "ms": min(k1, k2),
+                "plain_ms": min(p1, p2),
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                # SDPA's backward computes dQ, dK and dV in one call: the
+                # same number stands beside both backward kernels
+                "library_ms": library["fwd" if kind == "fwd" else "bwd"],
+                "library_call": ("scaled_dot_product_attention forward"
+                                 if kind == "fwd" else
+                                 "scaled_dot_product_attention backward "
+                                 f"(dQ, dK and dV together, {how})"),
+            }
+            log(f"kernel flash_{kind}[{name}]: "
+                + json.dumps(r, sort_keys=True))
+            results[kind].append(r)
+        del leaves
+    return results
+
+
 # ------------------------------------------------------- phase 3 main path
 
 
@@ -411,6 +643,215 @@ def phase_fp32(model32, prompts, max_tokens):
         f"({max_tokens} tokens each)")
 
 
+# ------------------------------------------------------- phase 5 training
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+
+
+def _lm_batch(vocab, batch, seq):
+    """The learnable sequence of examples/transformer_lm.py: next token
+    = (token + 1) mod vocab, from the seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    base = rng.integers(0, vocab - 1, size=(batch, 1))
+    rows = (base + np.arange(seq + 1)[None, :]) % vocab
+    dev = torch.device("cuda")
+    return (torch.as_tensor(rows[:, :-1], device=dev),
+            torch.as_tensor(rows[:, 1:], device=dev))
+
+
+def _loss(model, tokens, labels):
+    import torch.nn.functional as F
+
+    logits = model(tokens)  # fp32, as optax's integer-label xent
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))
+
+
+def _profile_step(step):
+    """One step under torch.profiler: the device-busy share (the sum of
+    kernel time over the step's wall time; streams that overlap would
+    count twice) and the kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    kernels, host = [], []
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            if e.self_device_time_total > 0:
+                kernels.append((e.key, e.self_device_time_total / 1e3,
+                                e.count))
+        elif e.self_cpu_time_total > 0:
+            host.append((e.key, e.self_cpu_time_total / 1e3, e.count))
+    kernels.sort(key=lambda k: -k[1])
+    host.sort(key=lambda k: -k[1])
+    busy_ms = sum(k[1] for k in kernels)
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "host_ms": sum(k[1] for k in host),
+        "host_ops": sum(k[2] for k in host),
+        "top_kernels": [{"name": n[:90], "ms": ms, "count": c}
+                        for n, ms, c in kernels[:14]],
+        "top_host_ops": [{"name": n[:60], "self_ms": ms, "count": c}
+                         for n, ms, c in host[:14]],
+    }
+
+
+def phase_train(gen, card):
+    """GPT-2 medium at full width (bf16 compute, fp32 master weights,
+    remat) trained through ``hvd.init`` (a world of one on NCCL),
+    ``broadcast_parameters`` and ``DistributedOptimizer(SGD momentum,
+    op=Average)``, with the flash launch counters and the fusion counters
+    zeroed just before the steps. Returns the launch counts."""
+    import dataclasses
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import paged_attention as pa
+
+    hvd.init()
+    try:
+        cfg = dataclasses.replace(TransformerConfig.gpt2_medium(), remat=True)
+        model = Transformer(cfg, device="cuda", generator=gen)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+            named_parameters=model.named_parameters(), op=hvd.Average,
+        )
+        tokens, labels = _lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+        fusion = basics.state().fusion
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = _loss(model, tokens, labels)
+            loss.backward()
+            opt.step()
+            return loss
+
+        counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+                    pa.paged_attention)
+        for c in counters:
+            c.launches = 0
+        fusion.dispatched_batches = fusion.dispatched_bytes = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, per_step = [], [], []
+        for _ in range(TRAIN_STEPS):
+            before = [c.launches for c in counters[:3]] + [
+                fusion.dispatched_batches, fusion.dispatched_bytes]
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            loss = step()
+            losses.append(float(loss.detach()))  # waits for the step
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            after = [c.launches for c in counters[:3]] + [
+                fusion.dispatched_batches, fusion.dispatched_bytes]
+            per_step.append([a - b for a, b in zip(after, before)])
+        launches = {c.__name__: c.launches for c in counters}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for i, (fwd, dq, dkv, batches, nbytes) in enumerate(per_step):
+            want = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+            if (fwd, dq, dkv) != want:
+                fail(f"train step {i}: flash launches fwd/dq/dkv "
+                     f"{fwd}/{dq}/{dkv}, expected {want} (remat reruns "
+                     "the forward)")
+            if batches < 1:
+                fail(f"train step {i}: no fused allreduce was dispatched")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"train: loss did not fall: {losses}")
+        steady = step_ms[1:]
+        mean_ms = sum(steady) / len(steady)
+        prof = _profile_step(step)
+        summary = {
+            "model": "gpt2_medium", "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": cfg.remat,
+            "dtype": "bfloat16 compute, fp32 master weights",
+            "world": hvd.size(), "losses": losses, "step_ms": step_ms,
+            "step_ms_mean_after_first": mean_ms,
+            "samples_per_s": TRAIN_BATCH / (mean_ms / 1e3),
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (mean_ms / 1e3),
+            "peak_memory_gb": peak_gb,
+            "flash_launches_per_step": per_step[-1][:3],
+            "fused_batches_per_step": per_step[-1][3],
+            "fused_bytes_per_step": per_step[-1][4],
+            "launches": launches, "card": card,
+        }
+        log("train: " + json.dumps(summary, sort_keys=True))
+        log("train profile: " + json.dumps(prof, sort_keys=True))
+        opt.remove_hooks()
+        del model, opt
+        return launches
+    finally:
+        hvd.shutdown()
+
+
+def phase_train_fp32(gen):
+    """One training step of GPT-2 medium at full width in fp32, batch 2
+    × seq 256, through the flash kernels and through dense attention,
+    from the same weights: the loss within 1e-5 relative and every
+    gradient within 1e-3 of its largest magnitude (fp32 sums in other
+    orders, carried through 24 layers of backward)."""
+    import dataclasses
+
+    import torch
+
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    cfg = dataclasses.replace(TransformerConfig.gpt2_medium(),
+                              dtype=torch.float32)
+    tokens, labels = _lm_batch(cfg.vocab_size, 2, 256)
+    runs = []
+    state = None
+    for flash in (True, False):
+        model = Transformer(dataclasses.replace(cfg, flash_attention=flash),
+                            device="cuda", generator=gen)
+        if state is None:
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        before = fa.flash_fwd.launches
+        loss = _loss(model, tokens, labels)
+        loss.backward()
+        if flash and fa.flash_fwd.launches - before != cfg.num_layers:
+            fail("fp32 train: the flash model did not run the kernels")
+        runs.append((float(loss.detach()), {n: p.grad for n, p
+                                   in model.named_parameters()}))
+        del model
+    (l_flash, g_flash), (l_dense, g_dense) = runs
+    if abs(l_flash - l_dense) > 1e-5 * abs(l_dense):
+        fail(f"fp32 train: loss {l_flash} (flash) vs {l_dense} (dense)")
+    worst = 0.0
+    for name, gd in g_dense.items():
+        scale = float(gd.abs().max())
+        err = float((g_flash[name] - gd).abs().max())
+        rel = err / scale if scale else err
+        worst = max(worst, rel)
+        if rel > 1e-3:
+            fail(f"fp32 train: gradient {name} differs by {err:.3g} "
+                 f"({rel:.3g} of its largest magnitude)")
+    log(f"fp32 train: loss flash {l_flash:.8f} dense {l_dense:.8f}, "
+        f"{len(g_dense)} gradients, worst relative difference {worst:.3g}")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -450,7 +891,10 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    t0 = time.monotonic()
     kernel_results = phase_kernels(gen)
+    flash_results = phase_flash_kernels(gen)
+    log(f"kernel phase: {time.monotonic() - t0:.2f} s")
 
     # phase 3: GPT-2 medium at full width, random weights from the seed;
     # the fp32 copy for phase 4 is taken first (serving the bf16 model
@@ -482,6 +926,19 @@ def main() -> int:
     t0 = time.monotonic()
     phase_fp32(model32, [prompt(24), prompt(300)], 32)
     log(f"fp32 phase: {time.monotonic() - t0:.2f} s")
+    del model, model32
+    torch.cuda.empty_cache()
+
+    # phase 5: training, the second slice's main path
+    t0 = time.monotonic()
+    train_launches = phase_train(gen, card)
+    log(f"train phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 6: the kernels inside the whole backward, fp32 at full width
+    t0 = time.monotonic()
+    phase_train_fp32(gen)
+    log(f"fp32 train phase: {time.monotonic() - t0:.2f} s")
 
     decode = kernel_results[0]
     entry = {
@@ -499,7 +956,28 @@ def main() -> int:
         "shape": decode["shape"],
         "shapes": kernel_results,
     }
-    log(json.dumps({"kernels": [entry]}))
+    entries = [entry]
+    for kind, fn, line in (("fwd", "flash_fwd", 513),
+                           ("dq", "flash_bwd_dq", 621),
+                           ("dkv", "flash_bwd_dkv", 633)):
+        rows = flash_results[kind]
+        main_shape = rows[0]  # GPT-2 medium training, t 512
+        entries.append({
+            "name": fn,
+            "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"horovod_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[fn],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_shape["ms"],
+            "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape["library_ms"],
+            "shape": main_shape["shape"],
+            "shapes": rows,
+        })
+    log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({
         "ok": True,

@@ -1,17 +1,80 @@
-"""PyTorch/CUDA port of horovod_tpu, for one NVIDIA Hopper card.
+"""PyTorch/CUDA port of horovod_tpu, for NVIDIA Hopper cards.
 
-This first slice is the serving path: ``serve()`` answers HTTP
-``POST /generate`` through a continuous batcher and an engine over a
-paged KV pool, and attention reads the pool through a CUDA kernel
-written by hand for ``sm_90a`` (``ops/paged_attention.py``). It imports
-``torch``, numpy and the standard library only.
+``import horovod_tpu_torch as hvd`` stands in for ``import
+horovod_tpu.torch as hvd`` for the collectives and the optimizer. Two
+slices are ported:
+
+- training: ``hvd.init()`` on ``torch.distributed`` (NCCL on the card,
+  gloo on the CPU), the eager collectives batched by the fusion manager,
+  and ``DistributedOptimizer``, whose gradient hooks put fused
+  allreduces in flight during backward. The Transformer trains with
+  flash attention, forward and backward, as CUDA kernels written by
+  hand for ``sm_90a`` (``ops/flash_attention.py``);
+- serving: ``serve()`` answers HTTP ``POST /generate`` through a
+  continuous batcher and an engine over a paged KV pool, and attention
+  reads the pool through a hand-written CUDA kernel
+  (``ops/paged_attention.py``).
+
+It imports ``torch``, numpy and the standard library only.
 """
 
+from .common.basics import (  # noqa: F401
+    NotInitializedError,
+    add_process_set,
+    cross_rank,
+    cross_size,
+    global_process_set,
+    init,
+    is_initialized,
+    local_rank,
+    local_size,
+    mpi_threads_supported,
+    rank,
+    remove_process_set,
+    shutdown,
+    size,
+)
+from .common.process_sets import ProcessSet  # noqa: F401
 from .models.convert import params_from_flax  # noqa: F401
 from .models.transformer import (  # noqa: F401
     Transformer,
     TransformerConfig,
     init_cache,
+)
+from .ops.compression import Compression  # noqa: F401
+from .ops.eager import (  # noqa: F401
+    allgather,
+    allgather_async,
+    allreduce,
+    allreduce_,
+    allreduce_async,
+    allreduce_async_,
+    barrier,
+    broadcast,
+    broadcast_,
+    broadcast_async,
+    broadcast_async_,
+    grouped_allreduce,
+    grouped_allreduce_async,
+    poll,
+    synchronize,
+)
+from .ops.flash_attention import flash_attention  # noqa: F401
+from .ops.reduction_ops import (  # noqa: F401
+    Adasum,
+    Average,
+    Max,
+    Min,
+    Product,
+    ReduceOp,
+    Sum,
+)
+from .optimizer import (  # noqa: F401
+    DistributedOptimizer,
+    allgather_object,
+    broadcast_object,
+    broadcast_optimizer_state,
+    broadcast_parameters,
 )
 from .serving import (  # noqa: F401
     ContinuousBatcher,

@@ -1,0 +1,199 @@
+"""Global runtime state and the init/shutdown lifecycle, on
+``torch.distributed``.
+
+The counterpart of ``horovod_tpu/common/basics.py``. ``init()`` joins
+(or makes) the process group, reads the topology, registers the process
+sets and builds the fusion manager that batches the eager collectives:
+
+- With the launcher's variables (``HOROVOD_SIZE`` > 1, ``HOROVOD_RANK``)
+  the world meets at a TCP store on ``HOROVOD_GLOO_RENDEZVOUS_ADDR``/
+  ``_PORT``, hosted by rank 0; a test passes its own ``store=`` (a
+  ``FileStore``) instead.
+- Without them ``init()`` makes a world of one process from an
+  in-process ``HashStore``: no TCP port is opened.
+- A process group the caller made before ``init()`` is adopted as it is
+  and left to the caller at ``shutdown()``.
+
+The backend follows the device: ``init(device="cpu")`` makes a gloo
+group; the default device is the CUDA card (``resolve_device``), and the
+group then runs NCCL for CUDA tensors and gloo for CPU tensors
+(``"cpu:gloo,cuda:nccl"``), with ``torch.cuda.set_device`` called first.
+``init(); shutdown(); init()`` works: each init makes a fresh store and
+group.
+"""
+
+from __future__ import annotations
+
+import datetime
+import threading
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from . import topology as topo_mod
+from .config import TrainConfig, resolve_device
+from .process_sets import ProcessSet, ProcessSetTable
+
+_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+class NotInitializedError(RuntimeError):
+    def __init__(self):
+        super().__init__(
+            "horovod_tpu_torch has not been initialized; call hvd.init() "
+            "first."
+        )
+
+
+class _GlobalState:
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.initialized = False
+        self.config: Optional[TrainConfig] = None
+        self.topology: Optional[topo_mod.Topology] = None
+        self.process_set_table: Optional[ProcessSetTable] = None
+        self.intra_group = None
+        self.inter_group = None
+        self.fusion = None  # ops.fusion.FusionManager
+        self.owns_group = False  # init() made the process group
+
+
+_state = _GlobalState()
+
+
+def state() -> _GlobalState:
+    return _state
+
+
+def _require_init() -> _GlobalState:
+    if not _state.initialized:
+        raise NotInitializedError()
+    return _state
+
+
+def _store(cfg: TrainConfig, rank: int, size: int):
+    if size == 1:
+        return dist.HashStore()
+    if not cfg.rendezvous_addr or cfg.rendezvous_port is None:
+        raise RuntimeError(
+            f"a world of {size} ranks needs HOROVOD_GLOO_RENDEZVOUS_ADDR "
+            "and HOROVOD_GLOO_RENDEZVOUS_PORT (or init(store=...))"
+        )
+    return dist.TCPStore(cfg.rendezvous_addr, cfg.rendezvous_port, size,
+                         is_master=rank == 0, timeout=_TIMEOUT)
+
+
+def init(process_sets: Optional[Sequence[ProcessSet]] = None, *,
+         device=None, store=None) -> None:
+    """Join the world; idempotent, like the reference's
+    ``InitializeHorovodOnce``. ``device`` is where this rank computes
+    (default: the CUDA card; ``"cpu"`` for a gloo world). ``store`` is a
+    ``torch.distributed`` store to meet at instead of the one the
+    variables name."""
+    with _state.lock:
+        if _state.initialized:
+            return
+        cfg = TrainConfig.from_env()
+        dev = resolve_device(device)
+        owns = not dist.is_initialized()
+        if owns:
+            size = cfg.size if cfg.size is not None else 1
+            rank = cfg.rank if cfg.rank is not None else 0
+            if dev.type == "cuda":
+                torch.cuda.set_device(dev)
+                backend = "cpu:gloo,cuda:nccl"
+            else:
+                backend = "gloo"
+            if store is None:
+                store = _store(cfg, rank, size)
+            dist.init_process_group(backend, store=store, rank=rank,
+                                    world_size=size, timeout=_TIMEOUT)
+        try:
+            topology = topo_mod.discover(dist.get_rank(),
+                                         dist.get_world_size(), cfg)
+            table = ProcessSetTable(topology.size, new_group=dist.new_group)
+            intra, inter = topo_mod.stage_groups(topology, dist.new_group)
+            for ps in process_sets or ():
+                table.register(ps)
+        except BaseException:
+            if owns:
+                dist.destroy_process_group()
+            raise
+        from ..ops.fusion import FusionManager
+
+        _state.config = cfg
+        _state.topology = topology
+        _state.process_set_table = table
+        _state.intra_group, _state.inter_group = intra, inter
+        _state.fusion = FusionManager(cfg.fusion_threshold_bytes)
+        _state.owns_group = owns
+        _state.initialized = True
+
+
+def shutdown() -> None:
+    """Flush what is pending and leave the world; a later ``init()``
+    starts afresh."""
+    with _state.lock:
+        if not _state.initialized:
+            return
+        try:
+            _state.fusion.flush()
+            _state.fusion.wait_all()
+        finally:
+            if _state.owns_group and dist.is_initialized():
+                dist.destroy_process_group()
+            _state.initialized = False
+            _state.config = None
+            _state.topology = None
+            _state.process_set_table = None
+            _state.intra_group = _state.inter_group = None
+            _state.fusion = None
+            _state.owns_group = False
+
+
+def is_initialized() -> bool:
+    return _state.initialized
+
+
+def size() -> int:
+    return _require_init().topology.size
+
+
+def rank() -> int:
+    return _require_init().topology.rank
+
+
+def local_size() -> int:
+    return _require_init().topology.local_size
+
+
+def local_rank() -> int:
+    return _require_init().topology.local_rank
+
+
+def cross_size() -> int:
+    return _require_init().topology.cross_size
+
+
+def cross_rank() -> int:
+    return _require_init().topology.cross_rank
+
+
+def mpi_threads_supported() -> bool:
+    """The port runs no MPI."""
+    return False
+
+
+def add_process_set(ranks: Sequence[int]) -> ProcessSet:
+    """Register a set on every rank (collective, as in the reference)."""
+    ps = ranks if isinstance(ranks, ProcessSet) else ProcessSet(ranks)
+    return _require_init().process_set_table.register(ps)
+
+
+def remove_process_set(ps: ProcessSet) -> None:
+    _require_init().process_set_table.remove(ps)
+
+
+def global_process_set() -> ProcessSet:
+    return _require_init().process_set_table.global_set

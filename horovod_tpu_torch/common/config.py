@@ -1,13 +1,19 @@
-"""The ``HOROVOD_SERVE_*`` environment contract of the serving plane.
+"""The ``HOROVOD_*`` environment contract of the ported planes.
 
-The serving part of ``horovod_tpu/common/config.py`` (its defaults and
-``serve_*`` fields), with the same variable names, defaults and parsing,
-so a launch script configures either package the same way. Knobs of
-planes not ported yet (KV transfer, fleet router, migration) come with
-those planes. The JAX
-package snapshots its ``Config`` at ``hvd.init()``; the port has no init
-step, so :func:`live_config` reads the environment when a serving
-object is built.
+Two parts of ``horovod_tpu/common/config.py``, with the same variable
+names, defaults and parsing, so a launch script configures either
+package the same way:
+
+* :class:`TrainConfig`, the training part (fusion threshold and cycle
+  time, the launcher's rank and size variables, the hierarchical
+  switches), snapshotted at ``hvd.init()`` as the JAX package does;
+* :class:`ServeConfig`, the serving part (``HOROVOD_SERVE_*``), read by
+  :func:`live_config` when a serving object is built (serving needs no
+  init step).
+
+Knobs of planes not ported yet (wire compression of the fused buffer,
+autotune, timeline, KV transfer, the fleet router) come with those
+planes.
 """
 
 from __future__ import annotations
@@ -17,6 +23,12 @@ import os
 from typing import Optional
 
 import torch
+
+# Default fusion threshold matches the reference: 64 MB
+# (ref: horovod/common/fusion_buffer_manager.cc).
+DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
+# Batching window of pending collectives, milliseconds (HOROVOD_CYCLE_TIME).
+DEFAULT_CYCLE_TIME_MS = 1.0
 
 # Serving plane: decode-slot count (concurrent sequences), admissions per
 # decode step, default per-request token budget/deadline, and the
@@ -80,6 +92,64 @@ def _env_float(name: str, default: float) -> float:
         return float(val)
     except ValueError:
         raise ValueError(f"{name} must be a float, got {val!r}")
+
+
+def _env_opt_int(name: str) -> Optional[int]:
+    """An integer the launcher may set; None when it did not."""
+    if not os.environ.get(name, "").strip():
+        return None
+    return _env_int(name, -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Snapshot of the training knobs (field names as in the JAX Config)."""
+
+    fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD
+    # parsed and kept for the negotiated cycle of the multi-card wire
+    # (ROADMAP A3): the port's fusion ticks at poll/wait, not by clock
+    cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS
+    # parsed and kept for the multi-card wire (ROADMAP A3); the fused
+    # batch is flat until then
+    hierarchical_allreduce: bool = False
+    # ranks per node for the two-level split (HOROVOD_INTRA_SIZE); a
+    # value that does not divide the world degrades to gcd(intra, world)
+    intra_size: Optional[int] = None
+    # the launcher's view of this process (None outside a launcher)
+    rank: Optional[int] = None
+    size: Optional[int] = None
+    local_rank: Optional[int] = None
+    local_size: Optional[int] = None
+    cross_rank: Optional[int] = None
+    cross_size: Optional[int] = None
+    # TCP rendezvous of a multi-process world (rank 0 hosts the store)
+    rendezvous_addr: Optional[str] = None
+    rendezvous_port: Optional[int] = None
+
+    @staticmethod
+    def from_env() -> "TrainConfig":
+        return TrainConfig(
+            fusion_threshold_bytes=_env_int(
+                "HOROVOD_FUSION_THRESHOLD", DEFAULT_FUSION_THRESHOLD
+            ),
+            cycle_time_ms=_env_float(
+                "HOROVOD_CYCLE_TIME", DEFAULT_CYCLE_TIME_MS
+            ),
+            hierarchical_allreduce=_env_bool(
+                "HOROVOD_HIERARCHICAL_ALLREDUCE"
+            ),
+            intra_size=_env_opt_int("HOROVOD_INTRA_SIZE"),
+            rank=_env_opt_int("HOROVOD_RANK"),
+            size=_env_opt_int("HOROVOD_SIZE"),
+            local_rank=_env_opt_int("HOROVOD_LOCAL_RANK"),
+            local_size=_env_opt_int("HOROVOD_LOCAL_SIZE"),
+            cross_rank=_env_opt_int("HOROVOD_CROSS_RANK"),
+            cross_size=_env_opt_int("HOROVOD_CROSS_SIZE"),
+            rendezvous_addr=(
+                os.environ.get("HOROVOD_GLOO_RENDEZVOUS_ADDR") or None
+            ),
+            rendezvous_port=_env_opt_int("HOROVOD_GLOO_RENDEZVOUS_PORT"),
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,7 +5,10 @@
 output, with or without its ``{"params": ...}`` wrapper) as nested dicts
 of numpy arrays and returns the ``state_dict`` of
 :class:`~.transformer.Transformer`. The port keeps the Flax shapes of
-every kernel, so the mapping is by name only.
+every kernel, so the mapping is by name only. Any tree of that layout
+maps the same way: a JAX gradient tree (``jax.grad`` of a loss over the
+parameters) becomes the port's gradients by parameter name, which is how
+the tests compare a training step name by name.
 """
 
 from __future__ import annotations

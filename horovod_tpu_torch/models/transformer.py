@@ -1,4 +1,5 @@
-"""GPT-2-style Transformer in PyTorch: the serving model of the port.
+"""GPT-2-style Transformer in PyTorch: the model the port trains and
+serves.
 
 The counterpart of ``horovod_tpu/models/transformer.py``: the same
 configuration, the same parameter layout (``DenseGeneral`` kernels keep
@@ -11,8 +12,15 @@ an fp32 bias.
 
 Two forwards share the parameters:
 
-* the uncached dense forward (``model(tokens)``), the reference the
-  serving path is held against;
+* the uncached forward (``model(tokens)``), the training forward of
+  ``horovod_tpu/models/transformer.py:549-714``: ``train=`` with
+  dropout (``dropout_rate``; the masks come from the ``rng=``
+  ``torch.Generator``), ``remat`` (each block under
+  ``torch.utils.checkpoint``), ``lengths=`` for right-padded batches,
+  ``mask=`` (a ``[batch, seq]`` key-padding mask, dense attention only),
+  ``return_hidden``, and attention through the flash kernels
+  (:mod:`..ops.flash_attention`) where ``cfg.uses_flash`` says so. It is
+  also the reference the serving path is held against;
 * the cache-threaded forward (``model(tokens, cache=, cache_index=,
   pages=)``), the serving engine's model contract. Each call writes its
   k/v into the cache at every row's own position and attends under the
@@ -29,20 +37,30 @@ hand-written kernel for CUDA tensors (it launches or raises), its plain
 version for CPU tensors. ``paged_attn=False`` takes the plain version
 (gather the pages, attend densely) on any device. MoE feed-forward
 banks and the sliding window on the cached path are not ported yet.
+
+The flash gate differs from the JAX one where the TPU shaped it: the
+Mosaic rungs (``supports_seq``'s block divisibility, ``fits_vmem``)
+are gone, since the kernels take any sequence length; the kernels' own
+limits (head_dim a multiple of 8 up to 256) take their place, and
+``flash_block_q``/``_k`` (Mosaic tiling) are not carried over. Where
+the JAX model warns and goes dense (``flash_attention=True`` with a
+``mask=``), the port raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..common.config import resolve_device
+from ..ops import flash_attention as _fa
 from ..ops import paged_attention as _pa
 
 _NEG_INF = -1e30
@@ -58,7 +76,15 @@ class TransformerConfig:
     d_ff: int = 3072
     max_len: int = 1024
     causal: bool = True
+    dropout_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16
+    # recompute each block's activations in backward
+    # (torch.utils.checkpoint, non-reentrant)
+    remat: bool = False
+    # flash attention on the uncached forward: True/False, or "auto" =
+    # the kernels for CUDA tensors when no mask= is passed (see
+    # uses_flash)
+    flash_attention: Any = "auto"
     # rotary position embeddings on q/k ("rotate-half"); when on, the
     # learned absolute position table is not built
     rope: bool = False
@@ -80,6 +106,22 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.num_kv_heads or self.num_heads
+
+    def uses_flash(self, mask=None, seq=None, device=None) -> bool:
+        """The gate of the flash path. An arbitrary ``mask`` goes dense
+        (the kernels mask causally and by ``lengths`` only); "auto"
+        takes the kernels for CUDA tensors whose geometry they support;
+        True and False force the choice. ``seq`` is accepted for the
+        JAX signature: the kernels take any length."""
+        if mask is not None:
+            return False
+        if self.flash_attention == "auto":
+            return (
+                device is not None
+                and torch.device(device).type == "cuda"
+                and _fa.unsupported_reason(self.head_dim) is None
+            )
+        return bool(self.flash_attention)
 
     @staticmethod
     def gpt2_medium() -> "TransformerConfig":
@@ -301,11 +343,20 @@ class MultiHeadAttention(nn.Module):
             self.qkv = DenseGeneral((d,), (3, h, hd), **kw)
         self.out = DenseGeneral((h, hd), (d,), **kw)
 
-    def forward(self, x, cache: Optional[dict] = None,
+    def forward(self, x, mask=None, lengths=None,
+                cache: Optional[dict] = None,
                 step: Optional[CacheStep] = None, paged_attn: bool = False):
         cfg = self.cfg
-        if cache is not None and not cfg.causal:
-            raise ValueError("incremental decode (cache=) requires causal=True")
+        if cache is not None:
+            if not cfg.causal:
+                raise ValueError(
+                    "incremental decode (cache=) requires causal=True"
+                )
+            if mask is not None or lengths is not None:
+                raise ValueError(
+                    "cache= does not compose with mask=/lengths=: the "
+                    "cache_index is the per-slot length"
+                )
         if cfg.num_kv_heads:
             q = self.q(x)
             kv = self.kv(x)
@@ -320,19 +371,41 @@ class MultiHeadAttention(nn.Module):
         if cache is not None:
             return self.out(self._cached_attention(q, k, v, cache, step,
                                                    paged_attn))
+        if cfg.sliding_window and not cfg.causal:
+            raise ValueError("sliding_window requires causal=True")
+        if mask is not None and cfg.flash_attention not in ("auto", False):
+            raise ValueError(
+                "flash_attention=True but a mask= was passed: the flash "
+                "kernels mask causally and by lengths= only; pass lengths= "
+                "for right-padded batches, or flash_attention=False"
+            )
         t = x.shape[1]
-        valid = None
+        if cfg.uses_flash(mask, t, x.device):
+            return self.out(_fa.flash_attention(
+                q, k, v, causal=cfg.causal, lengths=lengths,
+                window=cfg.sliding_window,
+            ))
+        rows = torch.arange(t, device=x.device)[:, None]
+        cols = torch.arange(t, device=x.device)[None, :]
+        valid = torch.ones((t, t), dtype=torch.bool, device=x.device)
         if cfg.causal:
-            rows = torch.arange(t, device=x.device)[:, None]
-            cols = torch.arange(t, device=x.device)[None, :]
             valid = cols <= rows
             if cfg.sliding_window:
                 valid = valid & (rows - cols < cfg.sliding_window)
-        elif cfg.sliding_window:
-            raise ValueError("sliding_window requires causal=True")
-        if valid is None:
-            valid = torch.ones((t, t), dtype=torch.bool, device=x.device)
-        return self.out(_attend(q, k, v, valid, cfg.dtype))
+        valid = valid[None, None]
+        live = None
+        if lengths is not None:
+            # the dense twin of the kernels' lengths contract, combined
+            # (AND) with an explicit mask
+            live = cols < lengths.to(x.device).long()[:, None]  # [b, t]
+            mask = live if mask is None else (mask & live)
+        if mask is not None:
+            valid = valid & mask.to(x.device, torch.bool)[:, None, None, :]
+        out = _attend(q, k, v, valid, cfg.dtype)
+        if live is not None:
+            # as on the flash path: padded query rows are zero
+            out = torch.where(live[:, :, None, None], out, 0.0)
+        return self.out(out)
 
     def _cached_attention(self, q, k, v, cache, step, paged_attn):
         """Write this call's k/v into the cache at ``step.dst``, then
@@ -374,11 +447,32 @@ class Block(nn.Module):
         self.fc1 = DenseGeneral((cfg.d_model,), (cfg.d_ff,), **kw)
         self.fc2 = DenseGeneral((cfg.d_ff,), (cfg.d_model,), **kw)
 
-    def forward(self, x, cache=None, step=None, paged_attn=False):
-        h = self.attn(self.ln1(x.float()), cache, step, paged_attn)
-        x = x + h
+    def forward(self, x, mask=None, lengths=None, seed=None, cache=None,
+                step=None, paged_attn=False):
+        """``seed`` (an int, or None for no dropout) seeds this block's
+        dropout masks, so a recompute under ``remat`` draws the same."""
+        rate = self.cfg.dropout_rate
+        gen = None
+        if seed is not None and rate > 0:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(seed)
+        h = self.attn(self.ln1(x.float()), mask=mask, lengths=lengths,
+                      cache=cache, step=step, paged_attn=paged_attn)
+        x = x + _dropout(h, rate, gen)
         h = F.gelu(self.fc1(self.ln2(x.float())), approximate="tanh")
-        return x + self.fc2(h)
+        return x + _dropout(self.fc2(h), rate, gen)
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax's ``Dropout``: keep each element with probability ``1 −
+    rate`` and scale the kept ones by ``1 / (1 − rate)``; the identity
+    without a generator (not training)."""
+    if gen is None:
+        return x
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(kept, x / keep, 0.0).to(x.dtype)
 
 
 class LMHead(nn.Module):
@@ -466,11 +560,21 @@ class Transformer(nn.Module):
             p.data = p.data.to(dt)
         return self
 
-    def forward(self, tokens, cache: Optional[List[dict]] = None,
-                cache_index=None, pages=None, paged_attn: bool = False):
+    def forward(self, tokens, mask=None, train: bool = True,
+                return_hidden: bool = False, lengths=None,
+                cache: Optional[List[dict]] = None, cache_index=None,
+                pages=None, paged_attn: bool = False,
+                rng: Optional[torch.Generator] = None):
         """Logits ``[batch, t, vocab]`` in fp32.
 
-        Uncached: ``tokens`` is the whole sequence, attended causally.
+        Uncached: ``tokens`` is the whole sequence. ``train`` turns
+        dropout on (``cfg.dropout_rate`` > 0 then needs ``rng``, a
+        ``torch.Generator`` on the model's device) and, with
+        ``cfg.remat`` under autograd, recomputes each block in backward.
+        ``lengths`` (``[batch]``) right-pads the batch; ``mask``
+        (``[batch, t]`` bool, keys to attend) takes the dense path;
+        ``return_hidden`` returns the final LayerNorm's output instead
+        of the logits.
         Cached: ``cache`` (from :func:`init_cache`, one dict per layer)
         takes this call's k/v at ``cache_index`` (``[batch]``: tokens
         already cached per row) and is updated in place; ``pages``
@@ -481,6 +585,8 @@ class Transformer(nn.Module):
         b, t = tokens.shape
         step = None
         if cache is not None:
+            if return_hidden:
+                raise ValueError("return_hidden with cache= is not supported")
             step = CacheStep.build(cache, cache_index, pages, b, t,
                                    cache[0]["k"].device)
         elif pages is not None:
@@ -491,7 +597,31 @@ class Transformer(nn.Module):
             if step is not None:
                 positions = step.index.to(dev).long()[:, None] + positions
             x = x + self.pos_embed(positions).to(cfg.dtype)
-        for i, block in enumerate(self.blocks):
-            x = block(x, None if cache is None else cache[i], step,
-                      paged_attn)
-        return self.lm_head(self.ln_f(x.float()))
+        if cache is not None:
+            for i, block in enumerate(self.blocks):
+                x = block(x, cache=cache[i], step=step,
+                          paged_attn=paged_attn)
+            return self.lm_head(self.ln_f(x.float()))
+        seeds = [None] * cfg.num_layers
+        if train and cfg.dropout_rate > 0:
+            if rng is None:
+                raise ValueError(
+                    "train=True with dropout_rate > 0 needs rng= (a "
+                    "torch.Generator on the model's device)"
+                )
+            seeds = torch.randint(0, 2 ** 62, (cfg.num_layers,),
+                                  generator=rng, device=rng.device).tolist()
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, device=dev)
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=dev, dtype=torch.bool)
+        remat = cfg.remat and train and torch.is_grad_enabled()
+        for block, seed in zip(self.blocks, seeds):
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    block, x, mask, lengths, seed, use_reentrant=False
+                )
+            else:
+                x = block(x, mask, lengths, seed)
+        h = self.ln_f(x.float())
+        return h if return_hidden else self.lm_head(h)

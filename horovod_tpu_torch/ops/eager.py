@@ -1,0 +1,217 @@
+"""Eager collectives with async handles, on the fusion manager.
+
+The counterpart of ``horovod_tpu/ops/eager.py`` with the signatures of
+``horovod_tpu/torch/__init__.py`` (the reference's
+``horovod/torch/mpi_ops.py``): each rank passes its own tensor and gets
+the collective's result back as a tensor on the same device.
+
+- ``allreduce(_async)`` and the in-place ``allreduce_(_async_)``, with
+  ``op=``, ``prescale_factor``/``postscale_factor`` (the result is
+  ``postscale · reduce(prescale · x)``, divided by the set's size for
+  Average) and ``compression=``;
+- ``grouped_allreduce(_async)``: the list reduces as one unit, in one
+  fused collective per dtype;
+- ``allgather(_async)``: concatenation along dim 0, sizes may differ by
+  rank;
+- ``broadcast(_async)`` and ``broadcast_(_async_)`` from a global
+  ``root_rank``;
+- ``synchronize``, ``poll`` and ``barrier``.
+
+Alltoall, reducescatter and join come with ROADMAP A2.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from ..common import basics
+from ..common.process_sets import ProcessSet
+from .compression import Compression, check_supported
+from .fusion import _Entry
+from .reduction_ops import resolve_op
+
+_names = itertools.count()
+
+
+def _auto_name(kind: str, name: Optional[str]) -> str:
+    return name if name is not None else f"{kind}.noname.{next(_names)}"
+
+
+def _fusion():
+    return basics._require_init().fusion
+
+
+class TorchHandle:
+    """The result of an async collective: ``wait()`` returns the output
+    tensor (after ``post``, and copied into ``target`` for the in-place
+    spellings); ``poll()`` says whether it is ready without blocking."""
+
+    def __init__(self, inner, post=None, target=None):
+        self._inner = inner
+        self._post = post
+        self._target = target
+
+    def poll(self) -> bool:
+        return self._inner.poll()
+
+    def wait(self) -> torch.Tensor:
+        out = self._inner.wait()
+        if self._post is not None:
+            out = self._post(out)
+        if self._target is not None:
+            with torch.no_grad():
+                self._target.copy_(out)
+            return self._target
+        return out
+
+
+class GroupedHandle:
+    """One handle over a list: ``wait()`` returns the list of outputs."""
+
+    def __init__(self, handles: List[TorchHandle]):
+        self._handles = handles
+
+    def poll(self) -> bool:
+        return all(h.poll() for h in self._handles)
+
+    def wait(self) -> List[torch.Tensor]:
+        return [h.wait() for h in self._handles]
+
+
+def _allreduce_entry(tensor, name, op, prescale, postscale, process_set,
+                     compression):
+    check_supported(compression)
+    wire, ctx = compression.compress(tensor.detach())
+    entry = _Entry(kind="allreduce", tensor=wire, name=name, op=op,
+                   prescale=float(prescale), postscale=float(postscale),
+                   process_set=process_set)
+    return entry, (lambda out: compression.decompress(out, ctx))
+
+
+def allreduce_async(tensor, average=None, name=None, op=None,
+                    process_set: Optional[ProcessSet] = None,
+                    prescale_factor: float = 1.0,
+                    postscale_factor: float = 1.0,
+                    compression=Compression.none) -> TorchHandle:
+    entry, post = _allreduce_entry(
+        tensor, _auto_name("allreduce", name), resolve_op(op, average),
+        prescale_factor, postscale_factor, process_set, compression,
+    )
+    (handle,) = _fusion().enqueue([entry])
+    return TorchHandle(handle, post)
+
+
+def allreduce(tensor, average=None, name=None, op=None, process_set=None,
+              prescale_factor=1.0, postscale_factor=1.0,
+              compression=Compression.none) -> torch.Tensor:
+    return allreduce_async(
+        tensor, average, name, op, process_set, prescale_factor,
+        postscale_factor, compression,
+    ).wait()
+
+
+def allreduce_async_(tensor, average=None, name=None, op=None,
+                     process_set=None, prescale_factor=1.0,
+                     postscale_factor=1.0) -> TorchHandle:
+    """In place: ``wait()`` writes the result into ``tensor``."""
+    handle = allreduce_async(tensor, average, name, op, process_set,
+                             prescale_factor, postscale_factor)
+    handle._target = tensor
+    return handle
+
+
+def allreduce_(tensor, average=None, name=None, op=None, process_set=None,
+               prescale_factor=1.0, postscale_factor=1.0) -> torch.Tensor:
+    return allreduce_async_(tensor, average, name, op, process_set,
+                            prescale_factor, postscale_factor).wait()
+
+
+def grouped_allreduce_async(tensors: Sequence[torch.Tensor], average=None,
+                            name=None, op=None, process_set=None,
+                            prescale_factor=1.0, postscale_factor=1.0,
+                            compression=Compression.none) -> GroupedHandle:
+    """The list as one unit: its members share one fused collective
+    (per dtype), whatever the threshold."""
+    base = _auto_name("grouped_allreduce", name)
+    resolved = resolve_op(op, average)
+    pairs = [
+        _allreduce_entry(t, f"{base}.{i}", resolved, prescale_factor,
+                         postscale_factor, process_set, compression)
+        for i, t in enumerate(tensors)
+    ]
+    handles = _fusion().enqueue([e for e, _ in pairs])
+    return GroupedHandle([TorchHandle(h, post)
+                          for h, (_, post) in zip(handles, pairs)])
+
+
+def grouped_allreduce(tensors, average=None, name=None, op=None,
+                      process_set=None, prescale_factor=1.0,
+                      postscale_factor=1.0,
+                      compression=Compression.none) -> List[torch.Tensor]:
+    return grouped_allreduce_async(
+        tensors, average, name, op, process_set, prescale_factor,
+        postscale_factor, compression,
+    ).wait()
+
+
+def allgather_async(tensor, name=None,
+                    process_set: Optional[ProcessSet] = None) -> TorchHandle:
+    entry = _Entry(kind="allgather", tensor=tensor.detach(),
+                   name=_auto_name("allgather", name),
+                   process_set=process_set)
+    (handle,) = _fusion().enqueue([entry])
+    return TorchHandle(handle)
+
+
+def allgather(tensor, name=None, process_set=None) -> torch.Tensor:
+    return allgather_async(tensor, name, process_set).wait()
+
+
+def broadcast_async(tensor, root_rank: int, name=None,
+                    process_set: Optional[ProcessSet] = None) -> TorchHandle:
+    entry = _Entry(kind="broadcast", tensor=tensor.detach(),
+                   name=_auto_name("broadcast", name),
+                   root_rank=int(root_rank), process_set=process_set)
+    (handle,) = _fusion().enqueue([entry])
+    return TorchHandle(handle)
+
+
+def broadcast(tensor, root_rank: int, name=None,
+              process_set=None) -> torch.Tensor:
+    return broadcast_async(tensor, root_rank, name, process_set).wait()
+
+
+def broadcast_async_(tensor, root_rank: int, name=None,
+                     process_set=None) -> TorchHandle:
+    """In place: ``wait()`` writes root's value into ``tensor``."""
+    handle = broadcast_async(tensor, root_rank, name, process_set)
+    handle._target = tensor
+    return handle
+
+
+def broadcast_(tensor, root_rank: int, name=None,
+               process_set=None) -> torch.Tensor:
+    return broadcast_async_(tensor, root_rank, name, process_set).wait()
+
+
+def synchronize(handle):
+    return handle.wait()
+
+
+def poll(handle) -> bool:
+    return handle.poll()
+
+
+def barrier(process_set: Optional[ProcessSet] = None) -> None:
+    """Block until every rank (of ``process_set``) reaches the barrier;
+    collectives queued before it are dispatched first."""
+    state = basics._require_init()
+    state.fusion.flush()
+    group = None
+    if process_set is not None and process_set.process_set_id != 0:
+        group = process_set.group
+    dist.barrier(group=group)

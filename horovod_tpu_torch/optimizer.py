@@ -1,0 +1,223 @@
+"""Data-parallel training: ``DistributedOptimizer`` and the broadcast
+helpers.
+
+``DistributedOptimizer`` wraps a ``torch.optim`` optimizer in the
+reference's torch design (``horovod/torch/optimizer.py``; the JAX
+package's ``optimizer.py`` is its oracle):
+
+- a ``register_post_accumulate_grad_hook`` on every parameter enqueues
+  the parameter's gradient into the fusion manager the moment backward
+  has accumulated it, so fused allreduces are in flight while backward
+  runs on through earlier layers;
+- ``step()`` waits on the handles, writes the reduced gradients back
+  and steps the inner optimizer;
+- ``backward_passes_per_step=k`` accumulates k backward passes locally
+  and reduces their sum once (the reference's default). Each pass but
+  the last moves the gradient into a buffer of the wrapper, so
+  ``zero_grad()`` between passes (``set_to_none`` or not) loses nothing;
+  ``step()`` called in the middle of a window does nothing;
+- ``op=`` Average or Sum; ``gradient_predivide_factor`` f splits the
+  average as ``Sum`` of ``x / (n·f)`` times f; ``compression=`` none,
+  fp16 or bf16.
+
+Every rank must run the same model, so that the hooks enqueue the same
+gradients in the same order (the fusion manager issues collectives in
+that order).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from .common import basics
+from .ops import eager
+from .ops.compression import Compression, check_supported
+from .ops.reduction_ops import Average, Sum, resolve_op
+
+
+class DistributedOptimizer:
+    """``torch.optim`` wrapper that averages gradients across ranks."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 named_parameters=None, compression=Compression.none,
+                 backward_passes_per_step: int = 1, op=None,
+                 gradient_predivide_factor: float = 1.0):
+        basics._require_init()
+        op = resolve_op(op)
+        check_supported(compression)
+        if gradient_predivide_factor != 1.0 and op != Average:
+            raise ValueError(
+                "gradient_predivide_factor requires op=Average"
+            )
+        k = int(backward_passes_per_step)
+        if k < 1:
+            raise ValueError("backward_passes_per_step must be >= 1")
+        self._opt = optimizer
+        self._compression = compression
+        self._k = k
+        if gradient_predivide_factor != 1.0:
+            f = float(gradient_predivide_factor)
+            self._op, self._pre, self._post = (
+                Sum, 1.0 / (basics.size() * f), f
+            )
+        else:
+            self._op, self._pre, self._post = op, 1.0, 1.0
+        self._params: List[torch.nn.Parameter] = [
+            p for group in optimizer.param_groups for p in group["params"]
+            if p.requires_grad
+        ]
+        names = dict((id(p), n) for n, p in named_parameters or ())
+        self._names = {
+            id(p): names.get(id(p), f"grad.{i}")
+            for i, p in enumerate(self._params)
+        }
+        self._passes: Dict[int, int] = {}  # backward passes this window
+        self._accum: Dict[int, torch.Tensor] = {}  # earlier passes' sum
+        self._handles: Dict[int, eager.TorchHandle] = {}
+        self._hooks = [p.register_post_accumulate_grad_hook(self._hook)
+                       for p in self._params]
+
+    def __getattr__(self, name):
+        return getattr(self._opt, name)
+
+    def _hook(self, p: torch.nn.Parameter) -> None:
+        key = id(p)
+        if key in self._handles:
+            raise RuntimeError(
+                f"gradient of {self._names[key]} produced again before "
+                f"step(): call step() after each {self._k} backward "
+                "pass(es)"
+            )
+        passes = self._passes.get(key, 0) + 1
+        with torch.no_grad():
+            if passes < self._k:
+                buf = self._accum.get(key)
+                if buf is None:
+                    self._accum[key] = p.grad.clone()
+                else:
+                    buf.add_(p.grad)
+                p.grad.zero_()
+                self._passes[key] = passes
+                return
+            buf = self._accum.pop(key, None)
+            if buf is not None:
+                p.grad.add_(buf)
+        self._passes.pop(key, None)
+        self._enqueue(p)
+
+    def _enqueue(self, p: torch.nn.Parameter) -> None:
+        self._handles[id(p)] = eager.allreduce_async(
+            p.grad, name=self._names[id(p)], op=self._op,
+            prescale_factor=self._pre, postscale_factor=self._post,
+            compression=self._compression,
+        )
+
+    def synchronize(self) -> None:
+        """Wait for every enqueued gradient and write it back. With
+        ``backward_passes_per_step=1``, a gradient that no hook saw (one
+        set by hand) is reduced here."""
+        if self._k == 1:
+            for p in self._params:
+                if p.grad is not None and id(p) not in self._handles:
+                    self._enqueue(p)
+        handles, self._handles = self._handles, {}
+        by_id = {id(p): p for p in self._params}
+        with torch.no_grad():
+            for key, handle in handles.items():
+                by_id[key].grad.copy_(handle.wait())
+
+    def step(self, closure=None):
+        """Reduce and step once a window of backward passes is complete;
+        in the middle of a window, do nothing and return None."""
+        if self._passes and not self._handles:
+            return None
+        self.synchronize()
+        return self._opt.step(closure)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self._opt.zero_grad(set_to_none=set_to_none)
+
+    def state_dict(self):
+        return self._opt.state_dict()
+
+    def load_state_dict(self, state_dict) -> None:
+        self._opt.load_state_dict(state_dict)
+
+    def remove_hooks(self) -> None:
+        """Detach the gradient hooks from the parameters."""
+        for h in self._hooks:
+            h.remove()
+        self._hooks = []
+
+
+def broadcast_parameters(params, root_rank: int = 0) -> None:
+    """Copy root's values into every rank's tensors, in place: a
+    ``state_dict()``, ``named_parameters()`` or a list of (name, tensor)
+    pairs."""
+    items = list(params.items()) if hasattr(params, "items") else list(
+        params
+    )
+    handles = [
+        eager.broadcast_async_(p.data if hasattr(p, "data") else p,
+                               root_rank, name=f"broadcast.{name}")
+        for name, p in items if p is not None
+    ]
+    for h in handles:
+        h.wait()
+
+
+def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
+    """Make every rank's optimizer state root's: the structure and
+    scalars go by ``broadcast_object``, each state tensor by an in-place
+    broadcast (a rank without the state yet gets tensors of root's shape
+    first)."""
+    opt = getattr(optimizer, "_opt", optimizer)
+    sd = opt.state_dict()
+    layout = {
+        pid: {k: (("tensor", tuple(v.shape), v.dtype) if torch.is_tensor(v)
+                  else ("value", v)) for k, v in st.items()}
+        for pid, st in sd["state"].items()
+    }
+    meta = broadcast_object({"param_groups": sd["param_groups"],
+                             "layout": layout}, root_rank)
+    params = [p for g in opt.param_groups for p in g["params"]]
+    state = {}
+    for pid, entries in meta["layout"].items():
+        mine = sd["state"].get(pid, {})
+        state[pid] = {}
+        for k, spec in entries.items():
+            if spec[0] == "value":
+                state[pid][k] = spec[1]
+                continue
+            t = mine.get(k)
+            if t is None or tuple(t.shape) != spec[1]:
+                dev = params[pid].device if spec[1] else torch.device("cpu")
+                t = torch.zeros(spec[1], dtype=spec[2], device=dev)
+            state[pid][k] = t
+    handles = [eager.broadcast_async_(t, root_rank,
+                                      name=f"opt.{pid}.{k}")
+               for pid, st in state.items() for k, t in st.items()
+               if torch.is_tensor(t)]
+    for h in handles:
+        h.wait()
+    opt.load_state_dict({"state": state,
+                         "param_groups": meta["param_groups"]})
+
+
+def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None):
+    """Root's picklable ``obj`` on every rank."""
+    basics._require_init()
+    box = [obj]
+    dist.broadcast_object_list(box, src=root_rank)
+    return box[0]
+
+
+def allgather_object(obj, name: Optional[str] = None) -> list:
+    """One picklable object per rank, in rank order."""
+    basics._require_init()
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out

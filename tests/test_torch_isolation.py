@@ -22,7 +22,10 @@ def _forbidden(module: str) -> bool:
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, horovod_tpu_torch, horovod_tpu_torch.serving, "
-        "horovod_tpu_torch.ops.paged_attention\n"
+        "horovod_tpu_torch.ops.paged_attention, "
+        "horovod_tpu_torch.optimizer, horovod_tpu_torch.ops.flash_attention, "
+        "horovod_tpu_torch.ops.fusion, horovod_tpu_torch.ops.eager, "
+        "horovod_tpu_torch.common.basics\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"

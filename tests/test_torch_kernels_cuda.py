@@ -94,3 +94,89 @@ def test_kernel_matches_plain(cuda_card, name, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got, pa.paged_attention_plain(*args),
                                **_tolerance(dtype))
+
+
+# ------------------------------------------------------ flash attention
+
+from horovod_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+FLASH_CASES = {
+    # GPT-2 medium's head_dim, a ragged last tile, causal
+    "causal-t130": dict(b=2, t=130, h=4, kvh=4, d=64, causal=True),
+    # BERT's bidirectional attention, an odd length
+    "full-t77": dict(b=1, t=77, h=3, kvh=3, d=64, causal=False),
+    # GQA, head_dim 128, lengths (one row fully padded) and a window
+    "gqa-lengths-window": dict(b=3, t=100, h=8, kvh=2, d=128, causal=True,
+                               lengths=[100, 37, 0], window=33),
+    # head_dim 24 and 256: the narrowest tile group and the widest
+    "d24": dict(b=1, t=40, h=2, kvh=1, d=24, causal=True, lengths=[29]),
+    "d256": dict(b=1, t=70, h=2, kvh=2, d=256, causal=True, window=20),
+}
+
+
+def _flash_inputs(device, dtype, b, t, h, kvh, d, causal, lengths=None,
+                  window=None, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape):
+        return torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)
+        ).to(device, dtype)
+
+    q, k, v, do = mk(b, t, h, d), mk(b, t, kvh, d), mk(b, t, kvh, d), \
+        mk(b, t, h, d)
+    lens = None
+    if lengths is not None:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, k, v, do, dict(causal=causal, lengths=lens, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda_card, name, dtype):
+    """Forward (o, lse), dQ and dK/dV against the plain versions. fp32:
+    sums over up to t terms in another order (atol 2e-5, rtol 1e-4);
+    bf16: one rounding of the output."""
+    q, k, v, do, kw = _flash_inputs(cuda_card, dtype, **FLASH_CASES[name])
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
+    dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do, **kw)
+    dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(q, k, v, o_ref, lse_ref,
+                                                do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    tol = (dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32
+           else _tolerance(dtype))
+    torch.testing.assert_close(o, o_ref, **tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got, want, **tol)
+
+
+def test_flash_function_gradients_on_card(cuda_card):
+    """The autograd Function on strided slices of one fused projection
+    (the model's layout): gradients equal the plain backward's."""
+    b, t, h, d = 2, 96, 4, 64
+    rng = np.random.default_rng(1)
+    qkv = torch.from_numpy(
+        rng.normal(size=(b, t, 3, h, d)).astype(np.float32)
+    ).to(cuda_card).requires_grad_()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    w = torch.from_numpy(rng.normal(size=(b, t, h, d)).astype(np.float32))
+    w = w.to(cuda_card)
+    lengths = torch.tensor([96, 50], device=cuda_card)
+    (fa.flash_attention(q, k, v, causal=True, lengths=lengths) * w).sum() \
+        .backward()
+    got = qkv.grad.clone()
+    qkv.grad = None
+    o, lse = fa.flash_fwd_plain(q, k, v, True, lengths)
+    valid = (torch.arange(t, device=cuda_card)[None] < lengths[:, None])
+    do = torch.where(valid[:, :, None, None], w, 0.0)
+    want = torch.stack(fa.flash_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                          o, lse, do, True, lengths), dim=2)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
