@@ -32,6 +32,21 @@ and no network; it imports no JAX. Phases, each printing its own lines:
 6. The flash kernels inside the whole backward: one fp32 training step
    at full width through the kernels and through dense attention must
    give the same loss and gradients.
+7. The wire kernels (scale-cast, the two int8 quantizers, Adasum's dots
+   and apply passes) against their plain versions at the sizes the
+   paths use: bit for bit for the first three, within 1e-5 (fp32) or one
+   rounding (bf16) for Adasum; the stochastic contract on the card.
+8. Training on the int8 wire: phase 5 again through
+   ``DistributedOptimizer(compression=Compression.int8_block,
+   error_feedback=True)``; the loss must fall, each fused batch must run
+   the block quantizer twice, and the wire bytes a step must stay under
+   0.27 × phase 5's. One more step runs under ``torch.profiler``.
+9. Adasum and the codec: GPT-2 medium's gradients of 4 microbatches
+   combined tensor by tensor with Adasum's tree (882 launches each of
+   the dots and apply kernels), held against the plain tree and the
+   fp64 host oracle, then an SGD step; ``hvd.allreduce(op=hvd.Adasum)``
+   in the world of one returns its input; every parameter through
+   ``Compression.int8`` compress → ``hvd.broadcast`` → decompress.
 
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -713,7 +728,8 @@ def phase_train(gen, card):
     remat) trained through ``hvd.init`` (a world of one on NCCL),
     ``broadcast_parameters`` and ``DistributedOptimizer(SGD momentum,
     op=Average)``, with the flash launch counters and the fusion counters
-    zeroed just before the steps. Returns the launch counts."""
+    zeroed just before the steps. Returns the launch counts and the
+    fused bytes of the last step."""
     import dataclasses
 
     import torch
@@ -798,7 +814,7 @@ def phase_train(gen, card):
         log("train profile: " + json.dumps(prof, sort_keys=True))
         opt.remove_hooks()
         del model, opt
-        return launches
+        return launches, per_step[-1][4]
     finally:
         hvd.shutdown()
 
@@ -850,6 +866,470 @@ def phase_train_fp32(gen):
                  f"({rel:.3g} of its largest magnitude)")
     log(f"fp32 train: loss flash {l_flash:.8f} dense {l_dense:.8f}, "
         f"{len(g_dense)} gradients, worst relative difference {worst:.3g}")
+
+
+# ------------------------------------------------ phase 7 wire kernels
+
+WIRE_N = {"fusion-64MiB": 16_777_216, "wte": 50257 * 1024,
+          "ragged": 1_000_003}
+# each kernel's row at the shape its path gives it: the codec's and the
+# Adasum tree's largest tensor (wte), the int8 wire's 64 MiB batch
+WIRE_MAIN = {
+    "scale_cast": "scale_cast[wte, int8 to fp32]",
+    "int8_quantize": "int8_quantize[wte]",
+    "int8_block_quantize": "int8_block_quantize[fusion-64MiB, block 512]",
+    "adasum_dots": "adasum_dots[wte]",
+    "adasum_apply": "adasum_apply[wte]",
+}
+
+
+def _wire_bound(nbytes):
+    """Least time: the bytes read once and written once over the memory
+    rate (the kernels' fp32 arithmetic is far below the fp32 peak)."""
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def _timed_pair(kern, plain, iters=20, plain_iters=3):
+    """In turns (plain, kernel, kernel, plain), graph-replayed; the lower
+    of each pair."""
+    p1 = _time_ms(plain, iters=plain_iters, warmup=1)
+    k1 = _time_ms(kern, iters=iters)
+    k2 = _time_ms(kern, iters=iters)
+    p2 = _time_ms(plain, iters=plain_iters, warmup=1)
+    return min(k1, k2), min(p1, p2)
+
+
+def _wire_result(name, shape, err, ms, plain_ms, nbytes, library_ms=None):
+    bound_ms, bound_by = _wire_bound(nbytes)
+    r = {"name": name, "shape": shape, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": library_ms}
+    log(f"kernel wire[{name}]: " + json.dumps(r, sort_keys=True))
+    return r
+
+
+def phase_wire_kernels(gen):
+    """Kernels B1-B4 against their plain versions at the sizes the paths
+    give them: a 64 MiB fusion batch (16 777 216 fp32), GPT-2 medium's
+    largest gradient (wte, 50257 × 1024 fp32), a ragged 1 000 003, bf16
+    input for B1 and B4, B3 at blocks 512 and 1000 and as the fused
+    wire's [4, chunk] rows. B1, B2 and B3 must equal their plain versions
+    bit for bit (values and scales: the same Philox bits, IEEE
+    divisions); B4's dots within 1e-5 relative, its apply within 1e-5 of
+    the output's largest magnitude in fp32 and one rounding in bf16. Then
+    the stochastic contract on the card: the mean of 32 seeds of B3 is
+    unbiased within 4σ, and a tail block of small values keeps its own
+    scale. Returns the rows of the kernels line, by kernel."""
+    import torch
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    dev = torch.device("cuda")
+    rows = {k: [] for k in ("scale_cast", "int8_quantize",
+                            "int8_block_quantize", "adasum_dots",
+                            "adasum_apply")}
+    for label, n in WIRE_N.items():
+        x = torch.randn(n, generator=gen, device=dev)
+        y = torch.randn(n, generator=gen, device=dev)
+        x[: n // 3] *= 1e-3  # regions of other magnitude
+        shape = {"n": n, "dtype": "float32"}
+
+        # B2, per-tensor quantize
+        q, s = ck.int8_quantize(x, seed=3)
+        qp, sp = ck.int8_quantize_plain(x, seed=3)
+        torch.cuda.synchronize()
+        if not (torch.equal(s, sp) and torch.equal(q, qp)):
+            fail(f"int8_quantize {label}: kernel differs from plain "
+                 f"({int((q != qp).sum())} values, scales {float(s)} vs "
+                 f"{float(sp)})")
+        ms, plain_ms = _timed_pair(lambda i: ck.int8_quantize(x, seed=i),
+                                   lambda i: ck.int8_quantize_plain(x, i))
+        rows["int8_quantize"].append(_wire_result(
+            f"int8_quantize[{label}]", shape, 0.0, ms, plain_ms,
+            n * 4 + n + 4))
+
+        # B1 on the dequantize path: int8 values × the scale, to fp32
+        out = ck.scale_cast(q, s, torch.float32)
+        if not torch.equal(out, ck.scale_cast_plain(q, s, torch.float32)):
+            fail(f"scale_cast {label}: kernel differs from plain")
+        dst = torch.empty(n, device=dev)
+        ms, plain_ms = _timed_pair(
+            lambda i: ck.scale_cast(q, s, torch.float32),
+            lambda i: ck.scale_cast_plain(q, s, torch.float32))
+        lib_ms = _time_ms(lambda i: torch.mul(q, s, out=dst))
+        rows["scale_cast"].append(_wire_result(
+            f"scale_cast[{label}, int8 to fp32]", dict(shape, dtype="int8"),
+            0.0, ms, plain_ms, n + n * 4 + 4, lib_ms))
+
+        # B3, flat at blocks 512 and 1000
+        for block in (512, 1000):
+            q, s = ck.int8_block_quantize(x, block, seed=5)
+            qp, sp = ck.int8_block_quantize_plain(x, block, seed=5)
+            torch.cuda.synchronize()
+            if not (torch.equal(s, sp) and torch.equal(q, qp)):
+                fail(f"int8_block_quantize {label} block {block}: kernel "
+                     f"differs from plain ({int((q != qp).sum())} values, "
+                     f"{int((s != sp).sum())} scales)")
+            ms, plain_ms = _timed_pair(
+                lambda i, b=block: ck.int8_block_quantize(x, b, seed=i),
+                lambda i, b=block: ck.int8_block_quantize_plain(x, b, i))
+            rows["int8_block_quantize"].append(_wire_result(
+                f"int8_block_quantize[{label}, block {block}]",
+                dict(shape, block=block), 0.0, ms, plain_ms,
+                n * 4 + n + -(-n // block) * 4))
+
+        # B4, dots then apply
+        d = ck.adasum_dots(x, y)
+        dp = ck.adasum_dots_plain(x, y)
+        again = ck.adasum_dots(x, y)
+        torch.cuda.synchronize()
+        if not torch.equal(d, again):
+            fail(f"adasum_dots {label}: two runs differ")
+        d_err = float(((d - dp).abs() / dp.abs().clamp_min(1e-30)).max())
+        if d_err > 1e-5:
+            fail(f"adasum_dots {label}: {d.tolist()} vs plain "
+                 f"{dp.tolist()}")
+        out = ck.adasum_apply(x, y, d)
+        want = ck.adasum_apply_plain(x, y, d)
+        a_err = float((out - want).abs().max())
+        if a_err > 1e-5 * float(want.abs().max()):
+            fail(f"adasum_apply {label}: max |kernel - plain| {a_err}")
+        ms, plain_ms = _timed_pair(lambda i: ck.adasum_dots(x, y),
+                                   lambda i: ck.adasum_dots_plain(x, y))
+        rows["adasum_dots"].append(_wire_result(
+            f"adasum_dots[{label}]", shape, d_err, ms, plain_ms,
+            2 * n * 4 + 12))
+        ms, plain_ms = _timed_pair(
+            lambda i: ck.adasum_apply(x, y, d),
+            lambda i: ck.adasum_apply_plain(x, y, d))
+        rows["adasum_apply"].append(_wire_result(
+            f"adasum_apply[{label}]", shape, a_err, ms, plain_ms,
+            3 * n * 4 + 12))
+        del x, y, q, qp, out, want, dst
+
+    # the fused wire's [n, chunk] rows: one 64 MiB batch over 4 ranks
+    n = WIRE_N["fusion-64MiB"]
+    chunks = torch.randn((4, n // 4), generator=gen, device=dev)
+    chunks[:, -100:] *= 1e-4
+    q, s = ck.int8_block_quantize(chunks, 512, seed=7, stream=1, rows=True)
+    qp, sp = ck.int8_block_quantize_plain(chunks, 512, seed=7, stream=1,
+                                          rows=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(s, sp) and torch.equal(q, qp)):
+        fail("int8_block_quantize rows: kernel differs from plain")
+    ms, plain_ms = _timed_pair(
+        lambda i: ck.int8_block_quantize(chunks, 512, seed=i, rows=True),
+        lambda i: ck.int8_block_quantize_plain(chunks, 512, i, rows=True))
+    rows["int8_block_quantize"].append(_wire_result(
+        "int8_block_quantize[rows 4 x 4194304, block 512]",
+        {"rows": 4, "cols": n // 4, "block": 512, "dtype": "float32"}, 0.0,
+        ms, plain_ms, n * 5 + s.numel() * 4))
+    del chunks, q, qp
+
+    # bf16 inputs for B1 and B4
+    n = WIRE_N["wte"]
+    xb = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+    yb = torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+    shape = {"n": n, "dtype": "bfloat16"}
+    scale = torch.tensor(0.37, device=dev)
+    out = ck.scale_cast(xb, scale, torch.float32)
+    if not torch.equal(out, ck.scale_cast_plain(xb, scale, torch.float32)):
+        fail("scale_cast bf16: kernel differs from plain")
+    ms, plain_ms = _timed_pair(
+        lambda i: ck.scale_cast(xb, scale, torch.float32),
+        lambda i: ck.scale_cast_plain(xb, scale, torch.float32))
+    dst = torch.empty(n, device=dev)
+    lib_ms = _time_ms(lambda i: torch.mul(xb, scale, out=dst))
+    rows["scale_cast"].append(_wire_result(
+        "scale_cast[wte, bf16 to fp32]", shape, 0.0, ms, plain_ms,
+        n * 2 + n * 4 + 4, lib_ms))
+    d = ck.adasum_dots(xb, yb)
+    dp = ck.adasum_dots_plain(xb, yb)
+    d_err = float(((d - dp).abs() / dp.abs().clamp_min(1e-30)).max())
+    if d_err > 1e-5:
+        fail(f"adasum_dots bf16: {d.tolist()} vs plain {dp.tolist()}")
+    got = ck.adasum_apply(xb, yb, d)
+    want = ck.adasum_apply_plain(xb, yb, d)
+    if got.dtype != torch.bfloat16:
+        fail("adasum_apply bf16: output dtype is not bf16")
+    err = _check_one_rounding("adasum_apply bf16", got, want)
+    ms, plain_ms = _timed_pair(lambda i: ck.adasum_apply(xb, yb, d),
+                               lambda i: ck.adasum_apply_plain(xb, yb, d))
+    rows["adasum_apply"].append(_wire_result(
+        "adasum_apply[wte, bf16]", shape, err, ms, plain_ms,
+        3 * n * 2 + 12))
+    del xb, yb, got, want, dst
+
+    # the stochastic contract on the card: unbiased over 32 seeds, and a
+    # small tail block keeps its own scale
+    n = 1_000_003
+    x = torch.randn(n, generator=gen, device=dev)
+    x[-(n % 512):] *= 1e-3
+    acc = torch.zeros(n, dtype=torch.float64, device=dev)
+    for seed in range(32):
+        q, s = ck.int8_block_quantize(x, 512, seed=seed)
+        acc += ck.int8_block_dequantize(q, s, 512).double()
+    per = s.double().repeat_interleave(512)[:n]
+    xd = x.double()
+    frac = xd / per - torch.floor(xd / per)
+    sigma = float(torch.sqrt((per ** 2 * frac * (1 - frac)).sum() / 32))
+    bias = float((acc / 32 - xd).sum())
+    if abs(bias) > 4 * sigma:
+        fail(f"int8_block_quantize: mean of 32 seeds biased by {bias} "
+             f"(4 sigma = {4 * sigma})")
+    tail = x[-(n % 512):].abs().max().clamp_min(1e-30) * (1.0 / 127.0)
+    if float(s[-1]) != float(tail):
+        fail(f"int8_block_quantize: tail scale {float(s[-1])} is not its "
+             f"own absmax / 127 ({float(tail)})")
+    log(f"wire contract: 32-seed bias {bias:.4g} within 4 sigma "
+        f"{4 * sigma:.4g}; tail block scale {float(s[-1]):.4g} is its own")
+    return rows
+
+
+# ---------------------------------------------- phase 8 int8 training
+
+
+def phase_train_int8(gen, card, fp32_bytes_per_step):
+    """Phase 5's training through ``DistributedOptimizer(compression=
+    Compression.int8_block, error_feedback=True)``: the fused gradient
+    batches go over the int8 wire, each quantized twice on kernel B3
+    (the reduce-scatter stage and the allgather stage; in a world of one
+    the exchanges are local copies, the quantizers run at full size).
+    The counters are zeroed just before the steps. Returns B3's
+    launches."""
+    import dataclasses
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    hvd.init()
+    try:
+        cfg = dataclasses.replace(TransformerConfig.gpt2_medium(), remat=True)
+        model = Transformer(cfg, device="cuda", generator=gen)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+            named_parameters=model.named_parameters(), op=hvd.Average,
+            compression=hvd.Compression.int8_block, error_feedback=True,
+        )
+        tokens, labels = _lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+        fusion = basics.state().fusion
+
+        for k in ck.KERNELS:
+            k.launches = 0
+        fusion.dispatched_batches = fusion.dispatched_bytes = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, per_step = [], [], []
+        for _ in range(TRAIN_STEPS):
+            before = (ck.int8_block_quantize.launches,
+                      fusion.dispatched_batches, fusion.dispatched_bytes)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            opt.zero_grad(set_to_none=True)
+            loss = _loss(model, tokens, labels)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            after = (ck.int8_block_quantize.launches,
+                     fusion.dispatched_batches, fusion.dispatched_bytes)
+            per_step.append([a - b for a, b in zip(after, before)])
+        launches = ck.int8_block_quantize.launches
+        others = {k.__name__: k.launches for k in ck.KERNELS
+                  if k is not ck.int8_block_quantize}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for i, (b3, batches, nbytes) in enumerate(per_step):
+            if batches < 1 or b3 != 2 * batches:
+                fail(f"int8 train step {i}: {b3} B3 launches for "
+                     f"{batches} fused batches (2 a batch expected)")
+            if nbytes > 0.27 * fp32_bytes_per_step:
+                fail(f"int8 train step {i}: {nbytes} wire bytes, over "
+                     f"0.27 x phase 5's {fp32_bytes_per_step}")
+        if fusion.last_wire_format != "int8":
+            fail(f"int8 train: the last batch rode the "
+                 f"{fusion.last_wire_format} wire")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"int8 train: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"int8 train: loss did not fall: {losses}")
+        steady = step_ms[1:]
+        mean_ms = sum(steady) / len(steady)
+        residual_norm = opt.residual_norm()
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            _loss(model, tokens, labels).backward()
+            opt.step()
+
+        prof = _profile_step(step)
+        summary = {
+            "model": "gpt2_medium", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "remat": cfg.remat, "world": hvd.size(),
+            "compression": "int8_block (block 512), error_feedback",
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_mean_after_first": mean_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (mean_ms / 1e3),
+            "peak_memory_gb": peak_gb,
+            "fused_batches_per_step": per_step[-1][1],
+            "wire_bytes_per_step": per_step[-1][2],
+            "fp32_wire_bytes_per_step_phase5": fp32_bytes_per_step,
+            "wire_ratio": per_step[-1][2] / fp32_bytes_per_step,
+            "b3_launches_per_step": per_step[-1][0],
+            "residual_norm_after_last_step": residual_norm,
+            "quant_blocks": fusion.quant_blocks,
+            "other_wire_kernel_launches": others, "card": card,
+        }
+        log("int8 train: " + json.dumps(summary, sort_keys=True))
+        log("int8 train profile: " + json.dumps(prof, sort_keys=True))
+        opt.remove_hooks()
+        del model, opt
+        return launches
+    finally:
+        hvd.shutdown()
+
+
+# ----------------------------------- phase 9 Adasum and the int8 codec
+
+
+def _tree_plain(vals):
+    """The tree of ``adasum._tree_combine`` on B4's plain versions."""
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    vals = list(vals)
+    while len(vals) > 1:
+        nxt = [ck.adasum_pair_plain(vals[i], vals[i + 1])
+               for i in range(0, len(vals) - 1, 2)]
+        if len(vals) % 2:
+            nxt.append(vals[-1])
+        vals = nxt
+    return vals[0]
+
+
+def phase_adasum(gen, card):
+    """(a) GPT-2 medium's gradients from 4 microbatches, standing in for
+    4 ranks, combined tensor by tensor with ``adasum._tree_combine`` (what
+    process-set Adasum runs after its allgather): 3 pairs a tensor, so
+    882 dots and 882 apply launches for the 294 tensors. Every tensor
+    within 1e-5 of its largest magnitude of the plain tree, three against
+    the fp64 host oracle; then one SGD step on the result. (b) In the
+    world of one ``hvd.allreduce(op=hvd.Adasum)`` returns its input,
+    launching nothing. (c) Every parameter through
+    ``Compression.int8.compress`` → ``hvd.broadcast`` → ``decompress``
+    (the codec's manual use): 294 launches each of B2 and B1, the round
+    trip within one quantum. Returns the launches of (a) and (c)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.ops import adasum
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = dataclasses.replace(TransformerConfig.gpt2_medium(), remat=True)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    params = [p for p in model.parameters()]
+    grads = []
+    for micro in range(4):
+        tokens, labels = _lm_batch(cfg.vocab_size, 2, TRAIN_SEQ)
+        tokens = (tokens + 7919 * micro) % cfg.vocab_size
+        labels = (labels + 7919 * micro) % cfg.vocab_size
+        model.zero_grad(set_to_none=True)
+        _loss(model, tokens, labels).backward()
+        grads.append([p.grad.detach().clone() for p in params])
+    model.zero_grad(set_to_none=True)
+
+    for k in ck.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    combined = [adasum._tree_combine([g[i] for g in grads])
+                for i in range(len(params))]
+    torch.cuda.synchronize()
+    tree_ms = (time.monotonic() - t0) * 1e3
+    dots, apply_ = ck.adasum_dots.launches, ck.adasum_apply.launches
+    want_pairs = 3 * len(params)
+    if (dots, apply_) != (want_pairs, want_pairs):
+        fail(f"adasum tree: {dots} dots and {apply_} apply launches, "
+             f"expected {want_pairs} each")
+    worst = 0.0
+    for i, got in enumerate(combined):
+        want = _tree_plain([g[i] for g in grads])
+        scale = float(want.abs().max()) or 1.0
+        err = float((got - want).abs().max()) / scale
+        worst = max(worst, err)
+        if err > 1e-5:
+            fail(f"adasum tree: tensor {i} differs from the plain tree by "
+                 f"{err:.3g} of its largest magnitude")
+    order = sorted(range(len(params)), key=lambda i: params[i].numel())
+    checked = []
+    for i in (order[0], order[len(order) // 2], order[-1]):
+        stack = np.stack([g[i].double().cpu().numpy() for g in grads])
+        want = adasum.adasum_tree_host(stack)
+        got = combined[i].double().cpu().numpy()
+        err = float(np.abs(got - want).max()) / (float(
+            np.abs(want).max()) or 1.0)
+        if err > 1e-5:
+            fail(f"adasum tree: tensor {i} differs from the fp64 host "
+                 f"oracle by {err:.3g}")
+        checked.append({"numel": params[i].numel(), "rel_err": err})
+    sgd = torch.optim.SGD(params, lr=0.01)
+    for p, g in zip(params, combined):
+        p.grad = g
+    sgd.step()
+    if not all(bool(torch.isfinite(p).all()) for p in params):
+        fail("adasum tree: the SGD step made a parameter non-finite")
+    del grads, combined
+
+    hvd.init()
+    try:
+        g = torch.randn(4096, generator=gen, device="cuda")
+        for k in ck.KERNELS:
+            k.launches = 0
+        out = hvd.allreduce(g, op=hvd.Adasum)
+        torch.cuda.synchronize()
+        if not torch.equal(out, g):
+            fail("adasum world of one: the result is not the input")
+        if any(k.launches for k in ck.KERNELS):
+            fail("adasum world of one launched a wire kernel")
+
+        for k in ck.KERNELS:
+            k.launches = 0
+        worst_q = 0.0
+        int8 = hvd.Compression.int8
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for i, p in enumerate(params):
+            vals, ctx = int8.compress(p.detach(), seed=i)
+            vals = hvd.broadcast(vals, root_rank=0, name=f"codec.{i}")
+            back = int8.decompress(vals, ctx)
+            err = float((back - p.detach()).abs().max() / ctx[1])
+            worst_q = max(worst_q, err)
+            if err > 1.0 + 1e-6:
+                fail(f"int8 codec: parameter {i} round trip off by "
+                     f"{err:.3g} quanta")
+        torch.cuda.synchronize()
+        codec_ms = (time.monotonic() - t0) * 1e3
+        b2, b1 = ck.int8_quantize.launches, ck.scale_cast.launches
+        if (b2, b1) != (len(params), len(params)):
+            fail(f"int8 codec: {b2} B2 and {b1} B1 launches for "
+                 f"{len(params)} parameters")
+    finally:
+        hvd.shutdown()
+    log("adasum: " + json.dumps({
+        "tensors": len(params), "pairs": want_pairs, "dots_launches": dots,
+        "apply_launches": apply_, "tree_ms": tree_ms,
+        "worst_rel_err_vs_plain": worst, "host_oracle": checked,
+        "codec_tensors": len(params), "codec_ms": codec_ms,
+        "codec_worst_quanta": worst_q, "card": card,
+    }, sort_keys=True))
+    return {"scale_cast": b1, "int8_quantize": b2, "adasum_dots": dots,
+            "adasum_apply": apply_}
 
 
 # ------------------------------------------------------------------ main
@@ -931,7 +1411,7 @@ def main() -> int:
 
     # phase 5: training, the second slice's main path
     t0 = time.monotonic()
-    train_launches = phase_train(gen, card)
+    train_launches, fused_bytes_per_step = phase_train(gen, card)
     log(f"train phase: {time.monotonic() - t0:.2f} s")
     torch.cuda.empty_cache()
 
@@ -939,6 +1419,25 @@ def main() -> int:
     t0 = time.monotonic()
     phase_train_fp32(gen)
     log(f"fp32 train phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 7: the wire kernels against their plain versions
+    t0 = time.monotonic()
+    wire_rows = phase_wire_kernels(gen)
+    log(f"wire kernel phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 8: training on the int8 wire with error feedback
+    t0 = time.monotonic()
+    wire_launches = {"int8_block_quantize": phase_train_int8(
+        gen, card, fused_bytes_per_step)}
+    log(f"int8 train phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 9: Adasum's tree and the per-tensor codec at full width
+    t0 = time.monotonic()
+    wire_launches.update(phase_adasum(gen, card))
+    log(f"adasum phase: {time.monotonic() - t0:.2f} s")
 
     decode = kernel_results[0]
     entry = {
@@ -968,6 +1467,27 @@ def main() -> int:
             "source": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"horovod_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[fn],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_shape["ms"],
+            "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape["library_ms"],
+            "shape": main_shape["shape"],
+            "shapes": rows,
+        })
+    for fn, line in (("scale_cast", 84), ("int8_quantize", 133),
+                     ("int8_block_quantize", 221), ("adasum_dots", 304),
+                     ("adasum_apply", 315)):
+        rows = wire_rows[fn]
+        main_shape = next(r for r in rows if r["name"] == WIRE_MAIN[fn])
+        entries.append({
+            "name": (fn if not fn.startswith("adasum")
+                     else f"adasum_pair {fn.split('_')[1]}"),
+            "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/cuda_kernels.cu",
+            "replaces": f"horovod_tpu/ops/pallas_kernels.py:{line}",
+            "launches": wire_launches[fn],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],

@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of horovod_tpu, for NVIDIA Hopper cards.
 
 ``import horovod_tpu_torch as hvd`` stands in for ``import
-horovod_tpu.torch as hvd`` for the collectives and the optimizer. Two
+horovod_tpu.torch as hvd`` for the collectives and the optimizer. Three
 slices are ported:
 
 - training: ``hvd.init()`` on ``torch.distributed`` (NCCL on the card,
@@ -10,6 +10,11 @@ slices are ported:
   allreduces in flight during backward. The Transformer trains with
   flash attention, forward and backward, as CUDA kernels written by
   hand for ``sm_90a`` (``ops/flash_attention.py``);
+- compressed and Adasum reduction: ``Compression.int8``/``int8_block``
+  send the fused buffer as block-scaled int8 (``return_residual=`` on
+  the allreduce, ``error_feedback=True`` on the optimizer), and
+  ``op=hvd.Adasum`` combines gradients by VHDD Adasum, all on the wire
+  kernels of ``ops/cuda_kernels.py``;
 - serving: ``serve()`` answers HTTP ``POST /generate`` through a
   continuous batcher and an engine over a paged KV pool, and attention
   reads the pool through a hand-written CUDA kernel
@@ -41,7 +46,13 @@ from .models.transformer import (  # noqa: F401
     TransformerConfig,
     init_cache,
 )
-from .ops.compression import Compression  # noqa: F401
+from .ops.adasum import adasum_allreduce  # noqa: F401
+from .ops.compression import (  # noqa: F401
+    Compression,
+    Compressor,
+    Int8BlockCompressor,
+    Int8Compressor,
+)
 from .ops.eager import (  # noqa: F401
     allgather,
     allgather_async,

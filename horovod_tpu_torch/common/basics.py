@@ -126,7 +126,9 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None, *,
         _state.topology = topology
         _state.process_set_table = table
         _state.intra_group, _state.inter_group = intra, inter
-        _state.fusion = FusionManager(cfg.fusion_threshold_bytes)
+        _state.fusion = FusionManager(cfg.fusion_threshold_bytes,
+                                      wire=cfg.fusion_wire,
+                                      wire_block=cfg.fusion_wire_block)
         _state.owns_group = owns
         _state.initialized = True
 

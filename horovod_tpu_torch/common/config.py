@@ -5,15 +5,17 @@ names, defaults and parsing, so a launch script configures either
 package the same way:
 
 * :class:`TrainConfig`, the training part (fusion threshold and cycle
-  time, the launcher's rank and size variables, the hierarchical
-  switches), snapshotted at ``hvd.init()`` as the JAX package does;
+  time, the fused buffer's wire format and block, the launcher's rank
+  and size variables, the hierarchical switches), snapshotted at
+  ``hvd.init()`` as the JAX package does;
 * :class:`ServeConfig`, the serving part (``HOROVOD_SERVE_*``), read by
   :func:`live_config` when a serving object is built (serving needs no
   init step).
 
-Knobs of planes not ported yet (wire compression of the fused buffer,
-autotune, timeline, KV transfer, the fleet router) come with those
-planes.
+Knobs of planes not ported yet (the hierarchical wire and autotune of
+ROADMAP A3, timeline, KV transfer, the fleet router) come with those
+planes; ``HOROVOD_FUSION_WIRE=auto`` and ``HOROVOD_FUSION_WIRE_HIER``
+raise until then.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ import torch
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 # Batching window of pending collectives, milliseconds (HOROVOD_CYCLE_TIME).
 DEFAULT_CYCLE_TIME_MS = 1.0
+# Wire format of the fused buffer (HOROVOD_FUSION_WIRE) and the int8
+# wire's scale granularity in elements (HOROVOD_FUSION_WIRE_BLOCK).
+DEFAULT_FUSION_WIRE = "fp32"
+DEFAULT_FUSION_WIRE_BLOCK = 512
 
 # Serving plane: decode-slot count (concurrent sequences), admissions per
 # decode step, default per-request token budget/deadline, and the
@@ -101,6 +107,22 @@ def _env_opt_int(name: str) -> Optional[int]:
     return _env_int(name, -1)
 
 
+def _fusion_wire() -> str:
+    wire = _env_choice("HOROVOD_FUSION_WIRE", DEFAULT_FUSION_WIRE,
+                       ("fp32", "bf16", "int8", "auto"))
+    if wire == "auto":
+        raise NotImplementedError(
+            "HOROVOD_FUSION_WIRE=auto needs the wire autotuner, not ported "
+            "yet (ROADMAP A3); use fp32, bf16 or int8"
+        )
+    if _env_bool("HOROVOD_FUSION_WIRE_HIER"):
+        raise NotImplementedError(
+            "HOROVOD_FUSION_WIRE_HIER names the hierarchical route, not "
+            "ported yet (ROADMAP A3)"
+        )
+    return wire
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Snapshot of the training knobs (field names as in the JAX Config)."""
@@ -109,6 +131,9 @@ class TrainConfig:
     # parsed and kept for the negotiated cycle of the multi-card wire
     # (ROADMAP A3): the port's fusion ticks at poll/wait, not by clock
     cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS
+    # the fused buffer's wire when a call names none: fp32, bf16 or int8
+    fusion_wire: str = DEFAULT_FUSION_WIRE
+    fusion_wire_block: int = DEFAULT_FUSION_WIRE_BLOCK
     # parsed and kept for the multi-card wire (ROADMAP A3); the fused
     # batch is flat until then
     hierarchical_allreduce: bool = False
@@ -134,6 +159,10 @@ class TrainConfig:
             ),
             cycle_time_ms=_env_float(
                 "HOROVOD_CYCLE_TIME", DEFAULT_CYCLE_TIME_MS
+            ),
+            fusion_wire=_fusion_wire(),
+            fusion_wire_block=_env_int(
+                "HOROVOD_FUSION_WIRE_BLOCK", DEFAULT_FUSION_WIRE_BLOCK
             ),
             hierarchical_allreduce=_env_bool(
                 "HOROVOD_HIERARCHICAL_ALLREDUCE"

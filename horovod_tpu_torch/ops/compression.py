@@ -1,20 +1,39 @@
-"""Gradient wire compression: ``Compression.none``, ``fp16`` and
-``bf16``, each a (compress, decompress) pair around the allreduce, as in
-``horovod_tpu/ops/compression.py`` and the reference's
-``horovod/torch/compression.py``.
+"""Gradient wire compression, as in ``horovod_tpu/ops/compression.py``
+and the reference's ``horovod/torch/compression.py``: each compressor is
+a (compress, decompress) pair around the allreduce.
 
-The int8 family (``int8``, ``int8_block``, ``hier_int8``) quantizes on
-kernels B1–B3, which a later slice ports (ROADMAP A2, B1–B3): naming
-one raises ``NotImplementedError`` instead of sending full width.
+- ``Compression.none``, ``fp16`` and ``bf16`` cast floating tensors on
+  the wire. ``none`` names the ``fp32`` wire explicitly: passing it opts
+  an allreduce out of a configured int8 wire (``HOROVOD_FUSION_WIRE``).
+- ``Compression.int8`` (one scale per tensor) and ``int8_block`` (one
+  per ``block_size`` elements, 512 by default; ``with_block_size(b)``
+  makes a variant) quantize with stochastic rounding on kernels B2 and
+  B3 (``ops/cuda_kernels.py``), and ``int8.decompress`` dequantizes on
+  B1. Raw int8 must never be summed across ranks (it wraps, and each
+  rank's scale differs), so an allreduce or ``DistributedOptimizer``
+  handed one of these (``quantized_wire``) routes the whole fused
+  buffer through the fusion manager's int8 wire instead of compressing
+  tensor by tensor. ``compress``/``decompress`` serve the manual use:
+  around an allgather or broadcast, where no arithmetic touches the
+  wire values. Integer tensors pass through untouched.
+- ``Compression.hier_int8`` names the hierarchical route (ROADMAP A3),
+  not ported yet: any use raises.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import cuda_kernels
+
 
 class Compressor:
-    """A (compress, decompress) pair. ``compress`` returns (tensor, ctx)."""
+    """A (compress, decompress) pair. ``compress`` returns (tensor, ctx).
+    ``wire_format`` is the fused wire an allreduce handed this
+    compressor uses (None: the manager's configured wire)."""
+
+    wire_format = None
+    quantized_wire = False
 
     @staticmethod
     def compress(tensor):
@@ -26,6 +45,10 @@ class Compressor:
 
 
 class NoneCompressor(Compressor):
+    # "fp32", not None: Compression.none opts out of a configured
+    # quantized wire, so an exactness-sensitive reduction stays exact
+    wire_format = "fp32"
+
     @staticmethod
     def compress(tensor):
         return tensor, None
@@ -39,6 +62,7 @@ class _CastCompressor(Compressor):
     """Cast floating tensors to ``wire_dtype`` on the wire and back to
     their own type after."""
 
+    wire_format = "bf16"
     wire_dtype: torch.dtype
 
     @classmethod
@@ -63,16 +87,79 @@ class BF16Compressor(_CastCompressor):
     wire_dtype = torch.bfloat16
 
 
+class Int8Compressor(Compressor):
+    """int8 values and one fp32 scale per tensor, stochastic rounding
+    (unbiased), on kernel B2; ``decompress`` is kernel B1. Pass a fresh
+    ``seed`` per call (the step counter, say) so the rounding stays
+    unbiased over time and not merely per call."""
+
+    quantized_wire = True
+    wire_format = "int8"
+
+    @staticmethod
+    def compress(tensor, seed=0):
+        ctx = tensor.dtype
+        if tensor.is_floating_point():
+            values, scale = cuda_kernels.int8_quantize(tensor, seed=seed)
+            return values, (ctx, scale)
+        return tensor, (ctx, None)
+
+    @staticmethod
+    def decompress(tensor, ctx):
+        dtype, scale = ctx
+        if scale is None:
+            return tensor
+        return cuda_kernels.int8_dequantize(tensor, scale, out_dtype=dtype)
+
+
+class Int8BlockCompressor(Int8Compressor):
+    """Block-scaled int8: one fp32 scale per ``block_size`` elements, so
+    regions of different magnitude never share a dynamic range, on
+    kernel B3. The fused int8 wire uses this granularity for an
+    allreduce handed this compressor."""
+
+    block_size = 512
+
+    @classmethod
+    def with_block_size(cls, block_size: int) -> type:
+        """A variant of this compressor with another scale granularity;
+        a full Compressor, routed like this one."""
+        block_size = int(block_size)
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        return type(f"{cls.__name__}_b{block_size}", (cls,),
+                    {"block_size": block_size})
+
+    @classmethod
+    def compress(cls, tensor, seed=0):
+        ctx = tensor.dtype
+        if tensor.is_floating_point():
+            values, scales = cuda_kernels.int8_block_quantize(
+                tensor, block_size=cls.block_size, seed=seed
+            )
+            return values, (ctx, scales)
+        return tensor, (ctx, None)
+
+    @classmethod
+    def decompress(cls, tensor, ctx):
+        dtype, scales = ctx
+        if scales is None:
+            return tensor
+        return cuda_kernels.int8_block_dequantize(
+            tensor, scales, block_size=cls.block_size, out_dtype=dtype
+        )
+
+
 class _Unported:
     """A compressor of a later slice: any use raises."""
 
     def __init__(self, name: str):
         self.name = name
 
-    def _raise(self, *_):
+    def _raise(self, *_, **__):
         raise NotImplementedError(
-            f"Compression.{self.name} quantizes on kernels B1-B3, not "
-            "ported yet (ROADMAP A2, B1-B3); use none, fp16 or bf16"
+            f"Compression.{self.name} names the hierarchical wire, not "
+            "ported yet (ROADMAP A3); use int8 or int8_block"
         )
 
     compress = decompress = _raise
@@ -84,8 +171,8 @@ class Compression:
     none = NoneCompressor
     fp16 = FP16Compressor
     bf16 = BF16Compressor
-    int8 = _Unported("int8")
-    int8_block = _Unported("int8_block")
+    int8 = Int8Compressor
+    int8_block = Int8BlockCompressor
     hier_int8 = _Unported("hier_int8")
 
 

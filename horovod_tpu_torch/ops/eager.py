@@ -6,9 +6,17 @@ The counterpart of ``horovod_tpu/ops/eager.py`` with the signatures of
 the collective's result back as a tensor on the same device.
 
 - ``allreduce(_async)`` and the in-place ``allreduce_(_async_)``, with
-  ``op=``, ``prescale_factor``/``postscale_factor`` (the result is
-  ``postscale · reduce(prescale · x)``, divided by the set's size for
-  Average) and ``compression=``;
+  ``op=`` (Adasum included), ``prescale_factor``/``postscale_factor``
+  (the result is ``postscale · reduce(prescale · x)``, divided by the
+  set's size for Average) and ``compression=``. A quantized compressor
+  (``Compression.int8``/``int8_block``) is not applied tensor by tensor
+  (summing raw int8 wraps): it selects the fusion manager's int8 wire
+  for the whole fused buffer, at the compressor's block size.
+  ``Compression.none`` selects the exact wire even when
+  ``HOROVOD_FUSION_WIRE=int8``; no ``compression=`` defers to it.
+  ``return_residual=True`` (the int8 wire, Sum/Average of a floating
+  tensor) makes the result ``(output, residual)``, the error-feedback
+  carry of this tensor in input units;
 - ``grouped_allreduce(_async)``: the list reduces as one unit, in one
   fused collective per dtype;
 - ``allgather(_async)``: concatenation along dim 0, sizes may differ by
@@ -30,9 +38,9 @@ import torch.distributed as dist
 
 from ..common import basics
 from ..common.process_sets import ProcessSet
-from .compression import Compression, check_supported
+from .compression import check_supported
 from .fusion import _Entry
-from .reduction_ops import resolve_op
+from .reduction_ops import Average, Sum, resolve_op
 
 _names = itertools.count()
 
@@ -82,24 +90,66 @@ class GroupedHandle:
         return [h.wait() for h in self._handles]
 
 
+def _wire_of(compression, return_residual: bool) -> Optional[str]:
+    """The fused wire an allreduce asks for: the compressor's
+    ``wire_format`` (None, no compressor: the manager's configured
+    wire). A residual needs the int8 wire."""
+    wire = getattr(compression, "wire_format", None)
+    if return_residual and wire not in (None, "int8"):
+        raise ValueError(
+            "return_residual=True needs the int8 quantized wire "
+            "(Compression.int8 / int8_block, or no compression= with "
+            "HOROVOD_FUSION_WIRE=int8); the error-feedback residual IS "
+            "the quantization error"
+        )
+    return "int8" if return_residual else wire
+
+
+def _check_residual_eligible(op, tensor) -> None:
+    """return_residual's op and dtype limits, checked at enqueue so the
+    caller at fault gets the exception, not a later flush."""
+    if op not in (Average, Sum):
+        raise ValueError(
+            f"return_residual needs the int8 quantized wire, which "
+            f"supports Sum/Average only (got op={op!r})"
+        )
+    if not tensor.is_floating_point():
+        raise ValueError(
+            f"return_residual needs a floating payload (got "
+            f"{tensor.dtype}); integer tensors ride the exact wire, which "
+            "has no quantization residual"
+        )
+
+
 def _allreduce_entry(tensor, name, op, prescale, postscale, process_set,
-                     compression):
+                     compression, return_residual=False):
     check_supported(compression)
-    wire, ctx = compression.compress(tensor.detach())
-    entry = _Entry(kind="allreduce", tensor=wire, name=name, op=op,
+    wire = _wire_of(compression, return_residual)
+    if return_residual:
+        _check_residual_eligible(op, tensor)
+    if compression is None or getattr(compression, "quantized_wire", False):
+        payload, post = tensor.detach(), None
+    else:
+        payload, ctx = compression.compress(tensor.detach())
+        post = lambda out: compression.decompress(out, ctx)  # noqa: E731
+    entry = _Entry(kind="allreduce", tensor=payload, name=name, op=op,
                    prescale=float(prescale), postscale=float(postscale),
-                   process_set=process_set)
-    return entry, (lambda out: compression.decompress(out, ctx))
+                   process_set=process_set, wire=wire,
+                   wire_block=getattr(compression, "block_size", None),
+                   want_residual=bool(return_residual))
+    return entry, post
 
 
 def allreduce_async(tensor, average=None, name=None, op=None,
                     process_set: Optional[ProcessSet] = None,
                     prescale_factor: float = 1.0,
                     postscale_factor: float = 1.0,
-                    compression=Compression.none) -> TorchHandle:
+                    compression=None,
+                    return_residual: bool = False) -> TorchHandle:
     entry, post = _allreduce_entry(
         tensor, _auto_name("allreduce", name), resolve_op(op, average),
         prescale_factor, postscale_factor, process_set, compression,
+        return_residual,
     )
     (handle,) = _fusion().enqueue([entry])
     return TorchHandle(handle, post)
@@ -107,10 +157,10 @@ def allreduce_async(tensor, average=None, name=None, op=None,
 
 def allreduce(tensor, average=None, name=None, op=None, process_set=None,
               prescale_factor=1.0, postscale_factor=1.0,
-              compression=Compression.none) -> torch.Tensor:
+              compression=None, return_residual: bool = False):
     return allreduce_async(
         tensor, average, name, op, process_set, prescale_factor,
-        postscale_factor, compression,
+        postscale_factor, compression, return_residual,
     ).wait()
 
 
@@ -133,14 +183,16 @@ def allreduce_(tensor, average=None, name=None, op=None, process_set=None,
 def grouped_allreduce_async(tensors: Sequence[torch.Tensor], average=None,
                             name=None, op=None, process_set=None,
                             prescale_factor=1.0, postscale_factor=1.0,
-                            compression=Compression.none) -> GroupedHandle:
+                            compression=None,
+                            return_residual: bool = False) -> GroupedHandle:
     """The list as one unit: its members share one fused collective
     (per dtype), whatever the threshold."""
     base = _auto_name("grouped_allreduce", name)
     resolved = resolve_op(op, average)
     pairs = [
         _allreduce_entry(t, f"{base}.{i}", resolved, prescale_factor,
-                         postscale_factor, process_set, compression)
+                         postscale_factor, process_set, compression,
+                         return_residual)
         for i, t in enumerate(tensors)
     ]
     handles = _fusion().enqueue([e for e, _ in pairs])
@@ -150,11 +202,11 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor], average=None,
 
 def grouped_allreduce(tensors, average=None, name=None, op=None,
                       process_set=None, prescale_factor=1.0,
-                      postscale_factor=1.0,
-                      compression=Compression.none) -> List[torch.Tensor]:
+                      postscale_factor=1.0, compression=None,
+                      return_residual: bool = False) -> list:
     return grouped_allreduce_async(
         tensors, average, name, op, process_set, prescale_factor,
-        postscale_factor, compression,
+        postscale_factor, compression, return_residual,
     ).wait()
 
 

@@ -1,10 +1,6 @@
 """Reduction-op constants, as ``horovod_tpu/ops/reduction_ops.py`` has
-them (the reference's ``hvd.Average``, ``hvd.Sum``, ...).
-
-``Adasum`` is named so that scripts import, but the port's Adasum (the
-VHDD combine on kernels B4, ROADMAP A5/B4) is a later slice: resolving
-it raises ``NotImplementedError`` instead of reducing some other way.
-"""
+them (the reference's ``hvd.Average``, ``hvd.Sum``, ``hvd.Adasum``, ...).
+``Adasum`` reduces through ``ops/adasum.py``."""
 
 from __future__ import annotations
 
@@ -38,10 +34,4 @@ def resolve_op(op, average=None) -> ReduceOp:
                 "'op' and deprecated 'average' cannot both be set"
             )
         return Average if average else Sum
-    op = Average if op is None else ReduceOp(op)
-    if op == Adasum:
-        raise NotImplementedError(
-            "op=Adasum is not ported yet (ROADMAP A5, kernels B4); use "
-            "Average or Sum"
-        )
-    return op
+    return Average if op is None else ReduceOp(op)

@@ -16,9 +16,16 @@ package's ``optimizer.py`` is its oracle):
   the last moves the gradient into a buffer of the wrapper, so
   ``zero_grad()`` between passes (``set_to_none`` or not) loses nothing;
   ``step()`` called in the middle of a window does nothing;
-- ``op=`` Average or Sum; ``gradient_predivide_factor`` f splits the
-  average as ``Sum`` of ``x / (n·f)`` times f; ``compression=`` none,
-  fp16 or bf16.
+- ``op=`` Average, Sum or Adasum (each gradient its own Adasum entry,
+  never fused); ``gradient_predivide_factor`` f splits the average as
+  ``Sum`` of ``x / (n·f)`` times f; ``compression=`` none, fp16, bf16,
+  or the quantized ``int8``/``int8_block``, which send the fused
+  gradient buffer over the fusion manager's int8 wire;
+- ``error_feedback=True`` (a quantized compression only) keeps one
+  residual per parameter: the hook enqueues ``grad + residual`` with
+  ``return_residual=True`` and ``synchronize`` stores the new residual,
+  so each step's quantization error joins the next step's gradient
+  (EF-SGD). ``state_dict`` carries the residuals.
 
 Every rank must run the same model, so that the hooks enqueue the same
 gradients in the same order (the fusion manager issues collectives in
@@ -35,7 +42,7 @@ import torch.distributed as dist
 from .common import basics
 from .ops import eager
 from .ops.compression import Compression, check_supported
-from .ops.reduction_ops import Average, Sum, resolve_op
+from .ops.reduction_ops import Adasum, Average, Sum, resolve_op
 
 
 class DistributedOptimizer:
@@ -44,10 +51,22 @@ class DistributedOptimizer:
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters=None, compression=Compression.none,
                  backward_passes_per_step: int = 1, op=None,
-                 gradient_predivide_factor: float = 1.0):
+                 gradient_predivide_factor: float = 1.0,
+                 error_feedback: bool = False):
         basics._require_init()
         op = resolve_op(op)
         check_supported(compression)
+        quantized = getattr(compression, "quantized_wire", False)
+        if error_feedback and not quantized:
+            raise ValueError(
+                "error_feedback=True requires a quantized-wire compression "
+                "(Compression.int8 or int8_block)"
+            )
+        if op == Adasum and quantized:
+            raise ValueError(
+                "op=Adasum does not compose with a quantized-wire "
+                "compression: the int8 wire reduces by Sum/Average only"
+            )
         if gradient_predivide_factor != 1.0 and op != Average:
             raise ValueError(
                 "gradient_predivide_factor requires op=Average"
@@ -57,6 +76,8 @@ class DistributedOptimizer:
             raise ValueError("backward_passes_per_step must be >= 1")
         self._opt = optimizer
         self._compression = compression
+        self._error_feedback = bool(error_feedback)
+        self._residuals: Dict[int, torch.Tensor] = {}
         self._k = k
         if gradient_predivide_factor != 1.0:
             f = float(gradient_predivide_factor)
@@ -109,10 +130,16 @@ class DistributedOptimizer:
         self._enqueue(p)
 
     def _enqueue(self, p: torch.nn.Parameter) -> None:
+        grad = p.grad
+        if self._error_feedback:
+            res = self._residuals.get(id(p))
+            if res is not None:
+                grad = grad + res
         self._handles[id(p)] = eager.allreduce_async(
-            p.grad, name=self._names[id(p)], op=self._op,
+            grad, name=self._names[id(p)], op=self._op,
             prescale_factor=self._pre, postscale_factor=self._post,
             compression=self._compression,
+            return_residual=self._error_feedback,
         )
 
     def synchronize(self) -> None:
@@ -127,7 +154,10 @@ class DistributedOptimizer:
         by_id = {id(p): p for p in self._params}
         with torch.no_grad():
             for key, handle in handles.items():
-                by_id[key].grad.copy_(handle.wait())
+                out = handle.wait()
+                if self._error_feedback:
+                    out, self._residuals[key] = out
+                by_id[key].grad.copy_(out)
 
     def step(self, closure=None):
         """Reduce and step once a window of backward passes is complete;
@@ -141,10 +171,33 @@ class DistributedOptimizer:
         self._opt.zero_grad(set_to_none=set_to_none)
 
     def state_dict(self):
-        return self._opt.state_dict()
+        """The inner optimizer's state; with error feedback, also the
+        residuals (by the parameter's index) under ``"ef_residuals"``."""
+        sd = self._opt.state_dict()
+        if self._error_feedback:
+            index = {id(p): i for i, p in enumerate(self._params)}
+            sd["ef_residuals"] = {index[k]: r.clone()
+                                  for k, r in self._residuals.items()}
+        return sd
 
     def load_state_dict(self, state_dict) -> None:
+        state_dict = dict(state_dict)
+        residuals = state_dict.pop("ef_residuals", None)
         self._opt.load_state_dict(state_dict)
+        if residuals is not None:
+            self._residuals = {
+                id(self._params[i]): r.to(self._params[i].device)
+                for i, r in residuals.items()
+            }
+
+    def residual_norm(self) -> float:
+        """L2 norm of every error-feedback residual together (0 without
+        error feedback or before the first step)."""
+        if not self._residuals:
+            return 0.0
+        return float(torch.linalg.vector_norm(torch.stack([
+            torch.linalg.vector_norm(r.float())
+            for r in self._residuals.values()])))
 
     def remove_hooks(self) -> None:
         """Detach the gradient hooks from the parameters."""

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from horovod_tpu_torch.ops import adasum as port_adasum
+
 REPO = Path(__file__).resolve().parent.parent
 THRESHOLD = 1024  # bytes: HOROVOD_FUSION_THRESHOLD of the fusion cases
 
@@ -118,10 +120,7 @@ def _collectives_worker(rank, n, outdir):
         out["set_sum"] = hvd.allreduce(x, op=hvd.Sum, process_set=ps)
         out["set_avg"] = hvd.allreduce(x, process_set=ps)
     hvd.barrier()
-    try:
-        hvd.allreduce(x, op=hvd.Adasum)
-    except NotImplementedError as e:
-        out["adasum_error"] = str(e)
+    out["adasum"] = hvd.allreduce(x, op=hvd.Adasum)
 
     # fusion: small tensors under the threshold share one batch; over
     # it, a batch closes whenever the next would pass the threshold
@@ -171,7 +170,12 @@ def test_allreduce_closed_forms(world):
         assert torch.equal(o["max"], base + 10 * (n - 1))
         assert torch.equal(o["prod"], torch.full((3,), float(
             np.prod(np.arange(1, n + 1)))))
-        assert "Adasum" in o["adasum_error"]
+        rows = np.stack([(base + 10 * r).numpy().ravel()
+                         for r in range(n)])
+        np.testing.assert_allclose(
+            o["adasum"].numpy().ravel(),
+            port_adasum.adasum_vhdd_host(rows.astype(np.float64)),
+            rtol=1e-5)
 
 
 def test_grouped_allreduce(world):

@@ -25,7 +25,10 @@ def test_import_pulls_in_no_jax():
         "horovod_tpu_torch.ops.paged_attention, "
         "horovod_tpu_torch.optimizer, horovod_tpu_torch.ops.flash_attention, "
         "horovod_tpu_torch.ops.fusion, horovod_tpu_torch.ops.eager, "
-        "horovod_tpu_torch.common.basics\n"
+        "horovod_tpu_torch.common.basics, horovod_tpu_torch.ops.cuda_kernels, "
+        "horovod_tpu_torch.ops.adasum, horovod_tpu_torch.ops._collectives, "
+        "horovod_tpu_torch.ops.compression, "
+        "horovod_tpu_torch.ops.reduction_ops, horovod_tpu_torch.common.config\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"

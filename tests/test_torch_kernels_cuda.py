@@ -180,3 +180,100 @@ def test_flash_function_gradients_on_card(cuda_card):
     want = torch.stack(fa.flash_bwd_plain(q.detach(), k.detach(), v.detach(),
                                           o, lse, do, True, lengths), dim=2)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+
+
+# ----------------------------------------------------------- wire kernels
+
+from horovod_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+
+WIRE_SIZES = [1, 511, 513, 100_003]
+
+
+def _wire_input(device, n, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=n).astype(np.float32)
+    x[: n // 3] *= 1e-3  # mixed magnitudes: blocks keep their own range
+    return torch.from_numpy(x).to(device, dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+@pytest.mark.parametrize("in_dtype", [torch.int8, torch.float32,
+                                      torch.bfloat16])
+def test_scale_cast_bitwise(cuda_card, in_dtype, out_dtype):
+    """B1 against plain: one fp32 product, one rounding, same bits."""
+    x = _wire_input(cuda_card, 100_003) * 50
+    x = x.to(in_dtype)
+    s = torch.tensor([0.0371], device=cuda_card)
+    before = ck.scale_cast.launches
+    got = ck.scale_cast(x, s, out_dtype)
+    torch.cuda.synchronize()
+    assert ck.scale_cast.launches == before + 1
+    assert torch.equal(got, ck.scale_cast_plain(x, s, out_dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", WIRE_SIZES)
+def test_int8_quantize_bitwise(cuda_card, n, dtype):
+    """B2 against plain: the same Philox bits and IEEE divisions give
+    equal values and an equal scale."""
+    x = _wire_input(cuda_card, n, dtype)
+    before = ck.int8_quantize.launches
+    q, s = ck.int8_quantize(x, seed=11, stream=3)
+    torch.cuda.synchronize()
+    assert ck.int8_quantize.launches == before + 1
+    qp, sp = ck.int8_quantize_plain(x, seed=11, stream=3)
+    assert torch.equal(s, sp) and torch.equal(q, qp)
+
+
+@pytest.mark.parametrize("block", [1, 3, 512, 1000])
+@pytest.mark.parametrize("n", WIRE_SIZES)
+def test_int8_block_quantize_bitwise(cuda_card, n, block):
+    """B3 against plain, flat: values and scales bit for bit."""
+    x = _wire_input(cuda_card, n)
+    before = ck.int8_block_quantize.launches
+    q, s = ck.int8_block_quantize(x, block, seed=7)
+    torch.cuda.synchronize()
+    assert ck.int8_block_quantize.launches == before + 1
+    qp, sp = ck.int8_block_quantize_plain(x, block, seed=7)
+    assert torch.equal(s, sp) and torch.equal(q, qp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_int8_block_quantize_rows_bitwise(cuda_card, dtype):
+    """B3 on the fused wire's [n, chunk] rows: blocks stop at each row,
+    a ragged last block per row."""
+    x = _wire_input(cuda_card, 4 * 2501, dtype).reshape(4, 2501)
+    q, s = ck.int8_block_quantize(x, 512, seed=5, stream=9, rows=True)
+    qp, sp = ck.int8_block_quantize_plain(x, 512, seed=5, stream=9,
+                                          rows=True)
+    torch.cuda.synchronize()
+    assert s.shape == (4, 5)
+    assert torch.equal(s, sp) and torch.equal(q, qp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 513, 1_000_003])
+def test_adasum_pair_matches_plain(cuda_card, n, dtype):
+    """B4: the dots within fp32 reassociation, bitwise equal on a rerun
+    (no atomics); the apply within 1e-5 of the largest magnitude in fp32
+    and one rounding in bf16."""
+    a = _wire_input(cuda_card, n, dtype, seed=1)
+    b = _wire_input(cuda_card, n, dtype, seed=2)
+    before = (ck.adasum_dots.launches, ck.adasum_apply.launches)
+    dots = ck.adasum_dots(a, b)
+    again = ck.adasum_dots(a, b)
+    out = ck.adasum_apply(a, b, dots)
+    torch.cuda.synchronize()
+    assert (ck.adasum_dots.launches, ck.adasum_apply.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(dots, again)
+    torch.testing.assert_close(dots, ck.adasum_dots_plain(a, b),
+                               rtol=1e-5, atol=1e-5)
+    want = ck.adasum_apply_plain(a, b, dots)
+    assert out.dtype == dtype
+    scale = float(want.float().abs().max())
+    tol = (dict(atol=1e-5 * scale, rtol=0) if dtype == torch.float32
+           else _tolerance(dtype))
+    torch.testing.assert_close(out, want, **tol)

@@ -9,8 +9,8 @@ agree within 1e-5 (fp32 sums in another order). Also:
 ``backward_passes_per_step=2`` with ``zero_grad`` between the passes
 (the summed micro-gradients equal the full-batch step at twice the
 rate), ``gradient_predivide_factor``, ``broadcast_parameters``,
-``broadcast_optimizer_state`` and ``broadcast_object``, and Adasum and
-the int8 compressors raising."""
+``broadcast_optimizer_state`` and ``broadcast_object``, and the options
+of later slices (the hierarchical int8 wire) and misuse raising."""
 
 from pathlib import Path
 
@@ -196,12 +196,13 @@ def test_unported_options_raise(monkeypatch):
     try:
         model = _MLP(_data()[0])
         sgd = torch.optim.SGD(model.parameters(), lr=LR)
-        with pytest.raises(NotImplementedError, match="Adasum"):
-            hvd.DistributedOptimizer(sgd, op=hvd.Adasum)
-        for comp in (hvd.Compression.int8, hvd.Compression.int8_block,
-                     hvd.Compression.hier_int8):
-            with pytest.raises(NotImplementedError, match="B1-B3"):
-                hvd.DistributedOptimizer(sgd, compression=comp)
+        with pytest.raises(NotImplementedError, match="A3"):
+            hvd.DistributedOptimizer(sgd, compression=hvd.Compression.hier_int8)
+        with pytest.raises(ValueError, match="Adasum"):
+            hvd.DistributedOptimizer(sgd, op=hvd.Adasum,
+                                     compression=hvd.Compression.int8)
+        with pytest.raises(ValueError, match="quantized-wire"):
+            hvd.DistributedOptimizer(sgd, error_feedback=True)
         with pytest.raises(ValueError, match="predivide"):
             hvd.DistributedOptimizer(sgd, op=hvd.Sum,
                                      gradient_predivide_factor=2.0)
