@@ -9,8 +9,9 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    build of every kernel from the repository's sources, timed.
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main paths give them (paged attention: serving; flash
-   attention forward, dQ and dK/dV: training), with the tolerance
-   stated; each
+   attention forward, the backward's delta pass, dQ and dK/dV:
+   training; each backward row names the variant that ran, tensor cores
+   or CUDA cores), with the tolerance stated; each
    timed beside its plain version, a PyTorch library call computing the
    same function (timed only, never used by the port) and its bound.
 3. Main path: ``serve()`` of GPT-2 medium (full width, random weights
@@ -26,12 +27,14 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    on the learnable sequence of examples/transformer_lm.py, with the
    flash-attention launch counters zeroed just before. The loss must
    fall, each step must launch the forward kernel 48 times (24 layers,
-   and 24 again in the remat recompute) and each backward kernel 24
-   times, and the fusion layer must dispatch fused allreduces. One more
+   and 24 again in the remat recompute), the delta pass and each
+   backward kernel 24 times, every dQ and dK/dV launch on the tensor
+   cores, and the fusion layer must dispatch fused allreduces. One more
    step runs under ``torch.profiler``.
 6. The flash kernels inside the whole backward: one fp32 training step
-   at full width through the kernels and through dense attention must
-   give the same loss and gradients.
+   at full width through the kernels (the CUDA-core variants, by the
+   dispatch rule) and through dense attention must give the same loss
+   and gradients.
 7. The wire kernels (scale-cast, the two int8 quantizers, Adasum's dots
    and apply passes) against their plain versions at the sizes the
    paths use: bit for bit for the first three, within 1e-5 (fp32) or one
@@ -316,6 +319,8 @@ FLASH_CASES = [
      [512, 500, 431, 300, 257, 129, 64, 1], None),
     # causal sliding window
     ("window-t1024", 8, 1024, 16, 16, 64, True, None, 256),
+    # a length that is no multiple of the 64-row tile
+    ("ragged-t1000", 8, 1000, 16, 16, 64, True, None, None),
 ]
 
 
@@ -346,20 +351,29 @@ def _flash_bound(kind, c):
     """Least time for one kernel's work: each input read once and each
     output written once over the memory rate, or its multiply-adds (2
     FLOP each) over the bf16 peak. Forward: q, k, v in, o and the fp32
-    lse out, QKᵀ and PV (4·d FLOP a pair). dQ: q, k, v, o, dO and lse
-    in, dq out, S, dP and dS·K (6·d). dK/dV: the same in, dk and dv out,
-    S, dP, Pᵀ·dO and dSᵀ·Q (8·d)."""
+    lse out, QKᵀ and PV (4·d FLOP a pair). Delta: o and dO in, the fp32
+    delta out, d multiply-adds a row. dQ: q, k, v, dO, lse and delta in,
+    dq out, S, dP and dS·K (6·d). dK/dV: the same in, dk and dv out, S,
+    dP, Pᵀ·dO and dSᵀ·Q (8·d). The products count once: the hi/lo
+    halves the tensor-core kernels issue are their own cost."""
     name, b, t, h, kvh, d, causal, lengths, window = c
     q_bytes, kv_bytes = b * t * h * d * 2, b * t * kvh * d * 2
-    lse_bytes = b * h * t * 4 + (b * 4 if lengths else 0)
+    row_bytes = b * h * t * 4  # one fp32 per (batch-head, row)
+    lse_bytes = row_bytes + (b * 4 if lengths else 0)
+    if kind == "delta":
+        nbytes = 2 * q_bytes + row_bytes
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 2 * b * t * h * d / BF16_FLOPS
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                           else "operations")
     if kind == "fwd":
         nbytes = 2 * q_bytes + 2 * kv_bytes + lse_bytes
         flop_per_pair = 4 * d
     elif kind == "dq":
-        nbytes = 4 * q_bytes + 2 * kv_bytes + lse_bytes
+        nbytes = 3 * q_bytes + 2 * kv_bytes + lse_bytes + row_bytes
         flop_per_pair = 6 * d
     else:
-        nbytes = 3 * q_bytes + 4 * kv_bytes + lse_bytes
+        nbytes = 2 * q_bytes + 4 * kv_bytes + lse_bytes + row_bytes
         flop_per_pair = 8 * d
     pairs = h * _flash_pairs(t, causal, lengths, window, b,
                              pad_rows=kind != "fwd")
@@ -386,18 +400,21 @@ def _check_one_rounding(label, got, ref):
 
 
 def phase_flash_kernels(gen):
-    """The three flash-attention kernels against their plain versions at
-    the training path's shapes, each timed beside its plain version, its
-    bound and the PyTorch library call computing the same function
+    """The flash-attention kernels (forward, the backward's delta pass,
+    dQ and dK/dV) against their plain versions at the training path's
+    shapes, each timed beside its plain version, its bound and the
+    PyTorch library call computing the same function
     (``scaled_dot_product_attention``: its forward for the forward
     kernel, its backward for dQ and dK/dV together; timed only, never
-    used by the port)."""
+    used by the port). dQ and dK/dV are timed given delta, as the
+    backward calls them; each of their rows names the variant that ran
+    (``tensor_cores`` or ``cuda_cores``) by the launch counters."""
     import torch
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    results = {"fwd": [], "dq": [], "dkv": []}
+    results = {"fwd": [], "delta": [], "dq": [], "dkv": []}
     dev = torch.device("cuda")
     for c in FLASH_CASES:
         name, b, t, h, kvh, d, causal, lengths, window = c
@@ -412,16 +429,36 @@ def phase_flash_kernels(gen):
         kw = dict(causal=causal, lengths=lens, window=window)
         o, lse = fa.flash_fwd(q, k, v, **kw)
         o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
-        dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, **kw)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do, **kw)
+        delta = fa.flash_bwd_delta(o_ref, do)
+        tc_before = (fa.flash_bwd_dq.tc_launches,
+                     fa.flash_bwd_dkv.tc_launches)
+        dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, delta=delta, **kw)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do, delta=delta,
+                                  **kw)
+        variant = {
+            kind: ("tensor_cores" if fn.tc_launches > before
+                   else "cuda_cores")
+            for kind, fn, before in (("dq", fa.flash_bwd_dq, tc_before[0]),
+                                     ("dkv", fa.flash_bwd_dkv,
+                                      tc_before[1]))
+        }
         dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(q, k, v, o_ref, lse_ref,
                                                     do, **kw)
+        delta_ref = fa.flash_bwd_delta_plain(o_ref, do)
         torch.cuda.synchronize()
         lse_err = float((lse - lse_ref).abs().max())
         if lse_err > 1e-4:  # fp32 sums of up to t terms, lse up to ~10
             fail(f"flash_fwd {name}: lse differs from plain by {lse_err}")
+        # fp32 sums of d products in another order: within 1e-5 of the
+        # row's magnitude (at least 1)
+        delta_err = float(((delta - delta_ref).abs()
+                           / delta_ref.abs().clamp_min(1.0)).max())
+        if not delta_err <= 1e-5:
+            fail(f"flash_bwd_delta {name}: differs from plain by "
+                 f"{delta_err:.3g} relative")
         errs = {
             "fwd": _check_one_rounding(f"flash_fwd {name}", o, o_ref),
+            "delta": float((delta - delta_ref).abs().max()),
             "dq": _check_one_rounding(f"flash_bwd_dq {name}", dq, dq_ref),
             "dkv": max(
                 _check_one_rounding(f"flash_bwd_dkv {name} dk", dk, dk_ref),
@@ -477,16 +514,26 @@ def phase_flash_kernels(gen):
         timed = {
             "fwd": (lambda i: fa.flash_fwd(q, k, v, **kw),
                     lambda i: fa.flash_fwd_plain(q, k, v, **kw)),
+            "delta": (lambda i: fa.flash_bwd_delta(o_ref, do),
+                      lambda i: fa.flash_bwd_delta_plain(o_ref, do)),
             "dq": (lambda i: fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do,
-                                             **kw),
+                                             delta=delta, **kw),
                    lambda i: fa.flash_bwd_plain(q, k, v, o_ref, lse_ref, do,
                                                 **kw)),
             "dkv": (lambda i: fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do,
-                                               **kw),
+                                               delta=delta, **kw),
                     lambda i: fa.flash_bwd_plain(q, k, v, o_ref, lse_ref,
                                                  do, **kw)),
         }
-        library = {"fwd": lib_fwd_ms, "bwd": lib_bwd_ms}
+        # SDPA's backward computes dQ, dK and dV in one call: the same
+        # number stands beside both backward kernels; no one call
+        # computes delta in fp32 from bf16 inputs
+        bwd_call = ("scaled_dot_product_attention backward (dQ, dK and dV "
+                    f"together, {how})")
+        library = {"fwd": (lib_fwd_ms,
+                           "scaled_dot_product_attention forward"),
+                   "delta": (None, None), "dq": (lib_bwd_ms, bwd_call),
+                   "dkv": (lib_bwd_ms, bwd_call)}
         for kind, (kern, plain) in timed.items():
             # in turns: plain, kernel, kernel, plain, all graph-replayed
             p1 = _time_ms(plain, iters=10)
@@ -504,17 +551,17 @@ def phase_flash_kernels(gen):
                 "plain_ms": min(p1, p2),
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
-                # SDPA's backward computes dQ, dK and dV in one call: the
-                # same number stands beside both backward kernels
-                "library_ms": library["fwd" if kind == "fwd" else "bwd"],
-                "library_call": ("scaled_dot_product_attention forward"
-                                 if kind == "fwd" else
-                                 "scaled_dot_product_attention backward "
-                                 f"(dQ, dK and dV together, {how})"),
+                "library_ms": library[kind][0],
+                "library_call": library[kind][1],
             }
+            if kind in variant:
+                r["variant"] = variant[kind]
             log(f"kernel flash_{kind}[{name}]: "
                 + json.dumps(r, sort_keys=True))
             results[kind].append(r)
+        bwd_ms = sum(results[k][-1]["ms"] for k in ("delta", "dq", "dkv"))
+        log(f"flash backward[{name}]: delta + dQ + dK/dV {bwd_ms:.5f} ms, "
+            f"SDPA backward {lib_bwd_ms:.5f} ms ({how})")
         del leaves
     return results
 
@@ -759,32 +806,44 @@ def phase_train(gen, card):
             opt.step()
             return loss
 
-        counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv,
-                    pa.paged_attention)
+        counters = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
+                    fa.flash_bwd_dkv, pa.paged_attention)
+        tc_counters = (fa.flash_bwd_dq, fa.flash_bwd_dkv)
         for c in counters:
             c.launches = 0
+        for c in tc_counters:
+            c.tc_launches = 0
         fusion.dispatched_batches = fusion.dispatched_bytes = 0
         torch.cuda.reset_peak_memory_stats()
+
+        def read():  # fwd, delta, dq, dkv, dq on tensor cores, dkv on
+            # tensor cores, fused batches, fused bytes
+            return ([c.launches for c in counters[:4]]
+                    + [c.tc_launches for c in tc_counters]
+                    + [fusion.dispatched_batches, fusion.dispatched_bytes])
+
         losses, step_ms, per_step = [], [], []
         for _ in range(TRAIN_STEPS):
-            before = [c.launches for c in counters[:3]] + [
-                fusion.dispatched_batches, fusion.dispatched_bytes]
+            before = read()
             torch.cuda.synchronize()
             t0 = time.monotonic()
             loss = step()
             losses.append(float(loss.detach()))  # waits for the step
             step_ms.append((time.monotonic() - t0) * 1e3)
-            after = [c.launches for c in counters[:3]] + [
-                fusion.dispatched_batches, fusion.dispatched_bytes]
-            per_step.append([a - b for a, b in zip(after, before)])
+            per_step.append([a - b for a, b in zip(read(), before)])
         launches = {c.__name__: c.launches for c in counters}
+        tc_launches = {c.__name__: c.tc_launches for c in tc_counters}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        for i, (fwd, dq, dkv, batches, nbytes) in enumerate(per_step):
-            want = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
-            if (fwd, dq, dkv) != want:
-                fail(f"train step {i}: flash launches fwd/dq/dkv "
-                     f"{fwd}/{dq}/{dkv}, expected {want} (remat reruns "
-                     "the forward)")
+        n = cfg.num_layers
+        for i, counts in enumerate(per_step):
+            fwd, delta, dq, dkv, dq_tc, dkv_tc, batches, nbytes = counts
+            want = (2 * n, n, n, n, n, n)
+            if (fwd, delta, dq, dkv, dq_tc, dkv_tc) != want:
+                fail(f"train step {i}: flash launches fwd/delta/dq/dkv "
+                     f"{fwd}/{delta}/{dq}/{dkv}, dq/dkv on the tensor "
+                     f"cores {dq_tc}/{dkv_tc}, expected {want} (remat "
+                     "reruns the forward; bf16 at head_dim 64 takes the "
+                     "tensor-core backward)")
             if batches < 1:
                 fail(f"train step {i}: no fused allreduce was dispatched")
         if not all(math.isfinite(x) for x in losses):
@@ -805,16 +864,18 @@ def phase_train(gen, card):
             "samples_per_s": TRAIN_BATCH / (mean_ms / 1e3),
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (mean_ms / 1e3),
             "peak_memory_gb": peak_gb,
-            "flash_launches_per_step": per_step[-1][:3],
-            "fused_batches_per_step": per_step[-1][3],
-            "fused_bytes_per_step": per_step[-1][4],
-            "launches": launches, "card": card,
+            "flash_launches_per_step": dict(zip(
+                ("fwd", "delta", "dq", "dkv", "dq_tensor_cores",
+                 "dkv_tensor_cores"), per_step[-1][:6])),
+            "fused_batches_per_step": per_step[-1][6],
+            "fused_bytes_per_step": per_step[-1][7],
+            "launches": launches, "tc_launches": tc_launches, "card": card,
         }
         log("train: " + json.dumps(summary, sort_keys=True))
         log("train profile: " + json.dumps(prof, sort_keys=True))
         opt.remove_hooks()
         del model, opt
-        return launches, per_step[-1][4]
+        return launches, tc_launches, per_step[-1][7]
     finally:
         hvd.shutdown()
 
@@ -844,11 +905,17 @@ def phase_train_fp32(gen):
             state = model.state_dict()
         else:
             model.load_state_dict(state)
-        before = fa.flash_fwd.launches
+        before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+                  fa.flash_bwd_dq.tc_launches, fa.flash_bwd_dkv.tc_launches)
         loss = _loss(model, tokens, labels)
         loss.backward()
-        if flash and fa.flash_fwd.launches - before != cfg.num_layers:
-            fail("fp32 train: the flash model did not run the kernels")
+        after = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+                 fa.flash_bwd_dq.tc_launches, fa.flash_bwd_dkv.tc_launches)
+        ran = tuple(a - b for a, b in zip(after, before))
+        if flash and ran != (cfg.num_layers, cfg.num_layers, 0, 0):
+            fail(f"fp32 train: flash fwd/dq/tensor-core launches {ran}, "
+                 f"expected {cfg.num_layers}/{cfg.num_layers}/0/0 (fp32 "
+                 "takes the CUDA-core backward)")
         runs.append((float(loss.detach()), {n: p.grad for n, p
                                    in model.named_parameters()}))
         del model
@@ -1411,7 +1478,8 @@ def main() -> int:
 
     # phase 5: training, the second slice's main path
     t0 = time.monotonic()
-    train_launches, fused_bytes_per_step = phase_train(gen, card)
+    train_launches, train_tc_launches, fused_bytes_per_step = phase_train(
+        gen, card)
     log(f"train phase: {time.monotonic() - t0:.2f} s")
     torch.cuda.empty_cache()
 
@@ -1457,6 +1525,7 @@ def main() -> int:
     }
     entries = [entry]
     for kind, fn, line in (("fwd", "flash_fwd", 513),
+                           ("delta", "flash_bwd_delta", 621),
                            ("dq", "flash_bwd_dq", 621),
                            ("dkv", "flash_bwd_dkv", 633)):
         rows = flash_results[kind]
@@ -1476,6 +1545,9 @@ def main() -> int:
             "shape": main_shape["shape"],
             "shapes": rows,
         })
+        if fn in train_tc_launches:  # the backward's two variants
+            entries[-1]["variant"] = main_shape["variant"]
+            entries[-1]["tensor_core_launches"] = train_tc_launches[fn]
     for fn, line in (("scale_cast", 84), ("int8_quantize", 133),
                      ("int8_block_quantize", 221), ("adasum_dots", 304),
                      ("adasum_apply", 315)):

@@ -4,10 +4,11 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with :mod:`ctypes`. The
 sources include no PyTorch headers, so a build takes seconds. Libraries
 land in ``horovod_tpu_torch/_build/`` (listed in ``.gitignore``) under a
-name keyed by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused. Nothing is built at import:
-the first launch builds, or :func:`build` does it ahead of time, one
-``nvcc`` per source, all started together.
+name keyed by a hash of the source, the headers beside it and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. Nothing is built at import: the first launch builds, or
+:func:`build` does it ahead of time, one ``nvcc`` per source, all
+started together.
 """
 
 from __future__ import annotations
@@ -46,8 +47,12 @@ def nvcc_path() -> Optional[str]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes())
+    """Where ``name``'s library lives: keyed by its source, every header
+    in ``csrc`` (any source may include one) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -1,6 +1,6 @@
-// Flash attention for Hopper (sm_90a): the FlashAttention-2 forward and its
-// two backward kernels, fp32 statistics and accumulators whatever the input
-// type.
+// Flash attention for Hopper (sm_90a): the FlashAttention-2 forward, the
+// backward's delta pass, and the backward's two kernels in two variants,
+// fp32 statistics and accumulators whatever the input type.
 //
 // Replaces the three Pallas kernels of horovod_tpu/ops/flash_attention.py:
 //
@@ -10,11 +10,15 @@
 //   runs in fp32, as there.
 // * hvd_flash_bwd_dq  <- `_dq_kernel`, pallas_call at line 621
 //   (_flash_bwd_impl): P = exp(scale * q k^T - lse) recomputed from the saved
-//   lse, dS = P * (dO v^T - rowsum(dO * O)), dQ = scale * dS k.
+//   lse, dS = P * (dO v^T - delta), dQ = scale * dS k.
 // * hvd_flash_bwd_dkv <- `_dkv_kernel`, pallas_call at line 633: per key tile,
 //   dV += P^T dO and dK += scale * dS^T q over the query tiles of every query
 //   head of the key's GQA group (the group sum happens here; K/V are never
 //   repeated).
+// * hvd_flash_bwd_delta: delta = rowsum(dO * O) per (batch-head, row) in
+//   fp32, once per backward; both backward kernels read it. `_dq_kernel`
+//   computes it inside; here one pass serves dQ and dK/dV alike, where the
+//   dK/dV kernel used to recompute it for every (key tile, query tile).
 //
 // Masks, as the reference's: causal (key <= query), per-sequence `lengths`
 // (keys at or past the length never attended; in the backward, padded query
@@ -25,27 +29,68 @@
 // the same from exp(-1e30 - m) once a row has seen a live key).
 //
 // What bounds them on this card: at GPT-2 medium's training shape (b 8,
-// h 16, t 512, d 64, causal, bf16) each kernel moves ~34-59 MB, about 10-18 us
-// at 3.35 TB/s, against 4.3-8.6 GFLOP, 4-9 us at the bf16 tensor-core peak:
-// bytes bound them. This first version runs its products on the CUDA cores
-// in fp32 (67 TFLOP/s peak), so in practice the multiply-adds bound it; the
-// design keeps them fed from shared memory:
+// h 16, t 512, d 64, causal, bf16) dQ moves 42.5 MB (12.7 us at 3.35
+// TB/s) against 6.4 GFLOP (6.5 us at the bf16 tensor-core peak), dK/dV
+// 50.9 MB (15.2 us) against 8.6 GFLOP (8.7 us), the delta pass 17.0 MB
+// (5.1 us): on paper bytes bound all three. In practice the tensor-core
+// kernels take 2.7x and 3.9x those bounds: each warpgroup walks its tiles
+// as one chain (wait for the tile, first products, P and dS, second
+// products, wait) and two or three warpgroups an SM, all that the
+// registers allow, overlap too little of it (PERF.md).
 //
-// * The grid is Hopper's, not the TPU's sequential one: one block per
-//   (batch-head, query tile) for the forward and dQ, one per (batch-kv-head,
-//   key tile) for dK/dV, all independent, heaviest causal tiles first. The
-//   sequential grid axis of the Pallas kernels becomes the loop inside a block.
-// * A block stages 64x64 tiles (32x32 past head_dim 128) of its operands in
-//   shared memory as fp32, the ones read along head_dim transposed, so that
-//   each of the 16x16 threads reads 4-wide vectors and does 16 multiply-adds
-//   per two shared loads in every product. The softmax state (m, l) and the
-//   output accumulator stay in registers; row reductions are half-warp
-//   shuffles.
-// * Tensors are read through their (batch, seq, head) strides in the model's
-//   [b, t, h, d] layout: q, k and v straight out of the fused qkv projection,
-//   with no transposed copy. head_dim is any multiple of 8 up to 256.
+// Two variants of each backward kernel; the wrapper picks one by a single
+// rule on (dtype, head_dim):
 //
-// wgmma on TMA-staged bf16 tiles is later work (ROADMAP B5/B6).
+// * Tensor cores (`*_tc`, bf16 with head_dim 64 or 128): one warpgroup of
+//   128 threads per block owns 64 rows (dQ: query rows; dK/dV: keys), the
+//   tiles it keeps (dQ: q and dO; dK/dV: k and v) loaded once, the tiles it
+//   walks (dQ: k and v; dK/dV: q, dO and the rows' lse and delta) brought
+//   by 16-byte cp.async into a ring of two stages (hopper_mma.cuh): the
+//   next tile's loads overlap this tile's products. A third stage was
+//   measured and bought nothing; there is no producer warp, so no mbarrier
+//   either. All operands stay bf16 in shared memory in the 128-byte
+//   swizzle, each tile stored once: the same layout is K-major for the
+//   first products (S = q k^T and dP = dO v^T, or their transposes in
+//   dK/dV: wgmma m64n64k16 from shared memory, one batch) and MN-major,
+//   through the descriptor's transpose bit, for the second ones (dQ += dS
+//   k; dV += P^T dO and dK += dS^T q: wgmma m64n{64,128}k16 with A from
+//   registers, the fp32 accumulator of S being laid out as the A
+//   fragment). P and dS never touch shared memory; accumulators, lse,
+//   delta and the masks' bounds stay in registers.
+//   Precision: P and dS are formed in fp32, as the reference does (P =
+//   2^(s scale log2 e - lse log2 e) by one FMA and ex2.approx, about 2^-19
+//   relative), and the second products take them as a bf16 pair hi =
+//   bf16(x), lo = bf16(x - hi), two wgmma into one fp32 accumulator: about
+//   2^-17 relative per term where one bf16 operand gives 2^-9, which would
+//   break the one-bf16-rounding agreement with the plain version on
+//   outputs that are sums of hundreds of cancelling terms
+//   (tests/test_torch_flash_tc.py emulates both). It costs one more
+//   product in dQ (4 in all) and two in dK/dV (6).
+//   Masks: a tile that crosses the causal diagonal, the window's edge, a
+//   sequence's length or t compares each score with its row's attended
+//   range, [first, last], computed once per block; interior tiles take a
+//   copy of the loop with no compare. The step has no branch a score:
+//   a masked score enters the exponent as -inf. (With a branch a score and
+//   expf's slow path, the first version took 1.5 times as long.)
+//   Register budget (ptxas, sm_90a): dQ 167 at d 64 (three blocks an SM),
+//   241 at d 128; dK/dV 215 (two blocks) and 255 at d 128, which spills 80
+//   bytes. Capping registers for a fourth block made dQ slower. Shared
+//   memory: dQ 49 KB (d 64) and 97 KB (d 128), dK/dV 51 and 99 KB.
+// * CUDA cores (fp32, fp16 and other head dims, any multiple of 8 up to
+//   256): a block of 256 threads stages 64x64 tiles (32x32 past head_dim
+//   128) of its operands in shared memory as fp32, the ones read along
+//   head_dim transposed, so that each of the 16x16 threads reads 4-wide
+//   vectors and does 16 multiply-adds per two shared loads in every
+//   product; fp32 FMAs (67 TFLOP/s peak) bound it. The forward is this
+//   kind too (ROADMAP B5).
+//
+// Both: the grid is Hopper's, not the TPU's sequential one: one block per
+// (batch-head, query tile) for the forward and dQ, one per (batch-kv-head,
+// key tile) for dK/dV, all independent, heaviest causal tiles first. The
+// sequential grid axis of the Pallas kernels becomes the loop inside a
+// block. Tensors are read through their (batch, seq, head) strides in the
+// model's [b, t, h, d] layout: q, k and v straight out of the fused qkv
+// projection, with no transposed copy.
 //
 // Plain C interface, loaded with ctypes: every entry point takes the same
 // arguments (an array of tensor pointers, an array of element strides, an
@@ -58,6 +103,9 @@
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -160,6 +208,7 @@ struct Params {
   void* out2;        // dK/dV kernel: dv
   float* lse;        // [b * h, t] fp32
   const int* lengths;  // [b] or null
+  float* delta;      // [b * h, t] fp32 rowsum(dO * O): the backward's input
   // element strides (batch, seq, head) of q, k, v, o, dO, out, out2
   long long sq[3], sk[3], sv[3], so[3], sdo[3], s1[3], s2[3];
   int b, t, h, kvh, d, causal, window;  // window 0 = none
@@ -220,21 +269,6 @@ __device__ __forceinline__ void stage_rows(const T* base, long long st,
     sts<4>(dst + r * DP + c, x);
     sts<4>(dst + r * DP + c + 4, x + 4);
   }
-}
-
-// rowsum(dO * O) of row `row` over this thread's columns tx, tx + 16, ...,
-// summed across the half-warp: every lane of the row group gets the total.
-template <typename T>
-__device__ __forceinline__ float row_delta(const Params& p, const T* ob,
-                                           const T* dob, int row, int tx) {
-  float acc = 0.f;
-  if (row < p.t) {
-    const T* orow = ob + row * p.so[1];
-    const T* drow = dob + row * p.sdo[1];
-    for (int c = tx; c < p.d; c += 16)
-      acc = fmaf(to_f32(drow[c]), to_f32(orow[c]), acc);
-  }
-  return half_sum(acc);
 }
 
 // ---------------------------------------------------------------- forward
@@ -394,7 +428,6 @@ flash_bwd_dq_kernel(const Params p) {
   const T* qb = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[2];
   const T* kb = static_cast<const T*>(p.k) + bi * p.sk[0] + kv * p.sk[2];
   const T* vb = static_cast<const T*>(p.v) + bi * p.sv[0] + kv * p.sv[2];
-  const T* ob = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[2];
   const T* dob =
       static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[2];
 
@@ -411,7 +444,7 @@ flash_bwd_dq_kernel(const Params p) {
   for (int i = 0; i < R; ++i) {
     const int row = q0 + ty * R + i;
     lse[i] = row < p.t ? p.lse[(long long)bh * p.t + row] : 0.f;
-    delta[i] = row_delta(p, ob, dob, row, tx);
+    delta[i] = row < p.t ? p.delta[(long long)bh * p.t + row] : 0.f;
   }
 
   float acc[R][NJ][4];
@@ -502,7 +535,6 @@ template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const Params p) {
   constexpr int B = Tile<NJ>::B, R = Tile<NJ>::R, DP = Tile<NJ>::DP;
-  constexpr int TPR = kThreads / B;  // threads per query row for delta
   extern __shared__ float smem[];
   float* kt = smem;            // [DP][B] k^T (this block's key tile)
   float* vt = kt + DP * B;     // [DP][B] v^T
@@ -548,7 +580,6 @@ flash_bwd_dkv_kernel(const Params p) {
     const int hi = kv * r + gm;
     const int bh = bi * p.h + hi;
     const T* qb = static_cast<const T*>(p.q) + bi * p.sq[0] + hi * p.sq[2];
-    const T* ob = static_cast<const T*>(p.o) + bi * p.so[0] + hi * p.so[2];
     const T* dob =
         static_cast<const T*>(p.dout) + bi * p.sdo[0] + hi * p.sdo[2];
     for (int q0 = q_begin; q0 < q_end; q0 += B) {
@@ -557,24 +588,11 @@ flash_bwd_dkv_kernel(const Params p) {
       stage_t<T, B, DP>(dob, p.sdo[1], q0, p.t, p.d, 1.f, dot);
       stage_rows<T, B, DP>(qb, p.sq[1], q0, p.t, p.d, qs);
       stage_rows<T, B, DP>(dob, p.sdo[1], q0, p.t, p.d, dos);
-      {
-        // delta and lse of the tile's rows: TPR threads per row
-        const int row_l = threadIdx.x / TPR, sub = threadIdx.x % TPR;
-        const int row = q0 + row_l;
-        float acc = 0.f;
-        if (row < p.t) {
-          const T* orow = ob + row * p.so[1];
-          const T* drow = dob + row * p.sdo[1];
-          for (int c = sub; c < p.d; c += TPR)
-            acc = fmaf(to_f32(drow[c]), to_f32(orow[c]), acc);
-        }
-#pragma unroll
-        for (int o = TPR / 2; o > 0; o >>= 1)
-          acc += __shfl_xor_sync(kFullMask, acc, o);
-        if (sub == 0) {
-          delta_s[row_l] = acc;
-          lse_s[row_l] = row < p.t ? p.lse[(long long)bh * p.t + row] : 0.f;
-        }
+      if (threadIdx.x < B) {  // lse and delta of the tile's rows
+        const int row = q0 + threadIdx.x;
+        const long long at = (long long)bh * p.t + row;
+        lse_s[threadIdx.x] = row < p.t ? p.lse[at] : 0.f;
+        delta_s[threadIdx.x] = row < p.t ? p.delta[at] : 0.f;
       }
       __syncthreads();
 
@@ -658,9 +676,452 @@ flash_bwd_dkv_kernel(const Params p) {
   }
 }
 
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// ------------------------------------------------------- backward delta
+
+constexpr int kDeltaLanes = 8;  // threads per row, 8 elements each
+
+// delta[bh, row] = rowsum(dO * O) in fp32; rows walked in memory order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const Params p) {
+  const long long rows = (long long)p.b * p.t * p.h;
+  const long long row =
+      (long long)blockIdx.x * (kThreads / kDeltaLanes) +
+      threadIdx.x / kDeltaLanes;
+  const int sub = threadIdx.x % kDeltaLanes;
+  float acc = 0.f;
+  int bi = 0, ti = 0, hi = 0;
+  if (row < rows) {
+    hi = (int)(row % p.h);
+    ti = (int)((row / p.h) % p.t);
+    bi = (int)(row / ((long long)p.h * p.t));
+    const T* orow = static_cast<const T*>(p.o) + bi * p.so[0] +
+                    ti * p.so[1] + hi * p.so[2];
+    const T* drow = static_cast<const T*>(p.dout) + bi * p.sdo[0] +
+                    ti * p.sdo[1] + hi * p.sdo[2];
+    for (int c = sub * 8; c < p.d; c += kDeltaLanes * 8) {
+      float a[8], b[8];
+      load8(orow + c, a);
+      load8(drow + c, b);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc = fmaf(b[j], a[j], acc);
+    }
+  }
+#pragma unroll
+  for (int o = kDeltaLanes / 2; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(kFullMask, acc, o);
+  if (row < rows && sub == 0)
+    p.delta[((long long)bi * p.h + hi) * p.t + ti] = acc;
+}
+
+// ---------------------------------------- backward on the tensor cores
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kM = 64;       // wgmma's M: query rows (dQ) or keys (dK/dV)
+constexpr int kStages = 2;   // the ring of walked tiles
+constexpr int kThreadsTc = hopper::kWarpgroup;
+
+template <int HD>
+struct Geo {
+  static constexpr int TILE = kM * HD * 2;  // bytes of one [64][HD] tile
+  static constexpr int KSTEPS = HD / 16;    // k-steps over head_dim
+  // dQ: q, dO, then the ring of (k, v)
+  static constexpr int DQ_SMEM =
+      hopper::kAtomBytes + (2 + 2 * kStages) * TILE;
+  // dK/dV: k, v, then the ring of (q, dO, lse and delta of 64 rows)
+  static constexpr int DKV_STAGE = 2 * TILE + hopper::kAtomBytes;
+  static constexpr int DKV_SMEM =
+      hopper::kAtomBytes + 2 * TILE + kStages * DKV_STAGE;
+};
+
+// Rows [row0, row0 + 64) of one (batch, head) slice with seq stride `st`
+// into the swizzled tile at `dst`; rows at or past t are zero-filled.
+// Consecutive threads copy consecutive 16-byte chunks of a row.
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
+                                          long long st, int row0, int t) {
+  constexpr int CPR = HD / 8;  // chunks a row
+#pragma unroll
+  for (int it = 0; it < kM * CPR / kThreadsTc; ++it) {
+    const int i = it * kThreadsTc + threadIdx.x;
+    const int r = i / CPR, c = (i % CPR) * 8;
+    const bool ok = row0 + r < t;
+    const bf16* src = ok ? base + (long long)(row0 + r) * st + c : base;
+    hopper::cp_async16(dst + hopper::sw128(r, c, kM), src, ok);
+  }
+}
+
+// The first products of a tile: S = A B^T and dP = A2 B2^T, each 64 x 64
+// over head_dim, every operand a K-major tile in shared memory, one batch.
+// The first k-step overwrites the accumulators (scale-d 0): zeroing them
+// with ordinary moves would make ptxas wait between the two products.
+template <int HD>
+__device__ __forceinline__ void scores(uint32_t a, uint32_t b, uint32_t a2,
+                                       uint32_t b2, float (&s)[32],
+                                       float (&dp)[32]) {
+  hopper::fence();
+#pragma unroll
+  for (int k = 0; k < Geo<HD>::KSTEPS; ++k)
+    hopper::wgmma_ss<0, 0>(s, hopper::desc_kmajor(a, kM, k),
+                           hopper::desc_kmajor(b, kM, k), k > 0);
+#pragma unroll
+  for (int k = 0; k < Geo<HD>::KSTEPS; ++k)
+    hopper::wgmma_ss<0, 0>(dp, hopper::desc_kmajor(a2, kM, k),
+                           hopper::desc_kmajor(b2, kM, k), k > 0);
+  hopper::commit();
+  hopper::wait<0>();
+  hopper::fence_operands(s);
+  hopper::fence_operands(dp);
+}
+
+// acc += (hi + lo) B over 64 rows of K, B an MN-major [64][HD] tile.
+template <int N>
+__device__ __forceinline__ void issue_hi_lo(float (&acc)[N],
+                                            const uint32_t (&hi)[16],
+                                            const uint32_t (&lo)[16],
+                                            uint32_t b) {
+#pragma unroll
+  for (int k = 0; k < kM / 16; ++k) {
+    const uint64_t desc = hopper::desc_mnmajor(b, kM, k);
+    hopper::wgmma_rs<1>(acc, hi + 4 * k, desc, 1);
+    hopper::wgmma_rs<1>(acc, lo + 4 * k, desc, 1);
+  }
+}
+
+__device__ __forceinline__ uint32_t align_atom(uint32_t a) {
+  return (a + hopper::kAtomBytes - 1) & ~(uint32_t)(hopper::kAtomBytes - 1);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the special-function unit (about 2 ulp; 2^-inf = 0), so that P
+// = 2^(s scale log2(e) - lse log2(e)) takes one FMA and one MUFU a score
+// and no branch.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The keys query row q attends, [first, last] (empty when last < first):
+// `attends` as a range, so that a masked tile compares twice a score.
+__device__ __forceinline__ void key_range(const Params& p, int q, int len,
+                                          bool pad_rows, int& first,
+                                          int& last) {
+  first = p.window ? max(0, q - p.window + 1) : 0;
+  last = len - 1;
+  if (p.causal) last = min(last, q);
+  if (q >= p.t || (pad_rows && q >= len)) last = -1;
+}
+
+// The query rows that attend key k, [first, last].
+__device__ __forceinline__ void query_range(const Params& p, int k, int len,
+                                            bool pad_rows, int& first,
+                                            int& last) {
+  first = p.causal ? k : 0;
+  last = (pad_rows ? len : p.t) - 1;
+  if (p.window) last = min(last, k + p.window - 1);
+  if (k >= len) last = -1;
+}
+
+// Whether a (query tile, key tile) pair has a pair that some mask drops.
+__device__ __forceinline__ bool edge_tile(const Params& p, int q0, int k0,
+                                          int len, bool pad_rows) {
+  return q0 + kM > p.t || k0 + kM > len || (pad_rows && q0 + kM > len) ||
+         (p.causal && k0 + kM - 1 > q0) ||
+         (p.window && q0 + kM - 1 - k0 >= p.window);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+flash_bwd_dq_tc_kernel(const Params p) {
+  using G = Geo<HD>;
+  using Ring = hopper::Ring<kStages>;
+  extern __shared__ uint8_t smem[];
+  const uint32_t sq = align_atom(hopper::smem_u32(smem));
+  const uint32_t sdo = sq + G::TILE;
+  const uint32_t ring = sdo + G::TILE;  // stage s: k, then v
+
+  const int n_tiles = (p.t + kM - 1) / kM;
+  const int q0 = (n_tiles - 1 - (int)blockIdx.y) * kM;  // heavy tiles first
+  const int bh = blockIdx.x;
+  const int bi = bh / p.h, hi = bh % p.h, kv = hi / (p.h / p.kvh);
+  const int len = seq_len(p, bi);
+  const bool pad_rows = p.lengths != nullptr;
+
+  const bf16* qb = static_cast<const bf16*>(p.q) + bi * p.sq[0] +
+                   hi * p.sq[2];
+  const bf16* kb = static_cast<const bf16*>(p.k) + bi * p.sk[0] +
+                   kv * p.sk[2];
+  const bf16* vb = static_cast<const bf16*>(p.v) + bi * p.sv[0] +
+                   kv * p.sv[2];
+  const bf16* dob = static_cast<const bf16*>(p.dout) + bi * p.sdo[0] +
+                    hi * p.sdo[2];
+
+  int k_end = len;
+  if (p.causal) k_end = min(k_end, q0 + kM);
+  if (pad_rows && q0 >= len) k_end = 0;  // every row padded: dq = 0
+  const int k_begin = p.window ? max(0, q0 - p.window + 1) / kM * kM : 0;
+  const int nk = k_end > k_begin ? (k_end - k_begin + kM - 1) / kM : 0;
+
+  auto load_kv = [&](int j) {
+    const uint32_t stage = ring + (j % kStages) * 2 * G::TILE;
+    load_tile<HD>(stage, kb, p.sk[1], k_begin + j * kM, p.t);
+    load_tile<HD>(stage + G::TILE, vb, p.sv[1], k_begin + j * kM, p.t);
+  };
+  load_tile<HD>(sq, qb, p.sq[1], q0, p.t);
+  load_tile<HD>(sdo, dob, p.sdo[1], q0, p.t);
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < nk) load_kv(j);
+    Ring::push();
+  }
+
+  // this thread's two rows, acc_row(0) and acc_row(2): lse log2(e),
+  // delta and the keys each attends
+  float lse2[2], delta[2];
+  int first[2], last[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int row = q0 + hopper::acc_row(2 * h2);
+    const long long at = (long long)bh * p.t + row;
+    lse2[h2] = row < p.t ? p.lse[at] * kLog2e : 0.f;
+    delta[h2] = row < p.t ? p.delta[at] : 0.f;
+    key_range(p, row, len, pad_rows, first[h2], last[h2]);
+  }
+  const float c = p.scale * kLog2e;
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    Ring::pop();
+    if (j + kStages - 1 < nk) load_kv(j + kStages - 1);
+    Ring::push();
+    const int k0 = k_begin + j * kM;
+    const uint32_t sk = ring + (j % kStages) * 2 * G::TILE;
+    const uint32_t sv = sk + G::TILE;
+
+    float s[32], dp[32];
+    scores<HD>(sq, sk, sdo, sv, s, dp);
+    // s becomes dS = P (dP - delta); masks only on tiles some mask cuts
+    if (edge_tile(p, q0, k0, len, pad_rows)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h2 = (i >> 1) & 1, key = k0 + hopper::acc_col(i);
+        const float x = key >= first[h2] && key <= last[h2]
+                            ? fmaf(s[i], c, -lse2[h2]) : -INFINITY;
+        s[i] = exp2_approx(x) * (dp[i] - delta[h2]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h2 = (i >> 1) & 1;
+        s[i] = exp2_approx(fmaf(s[i], c, -lse2[h2])) * (dp[i] - delta[h2]);
+      }
+    }
+    uint32_t ds_hi[16], ds_lo[16];
+    hopper::split_hi_lo(s, ds_hi, ds_lo);
+    hopper::fence();
+    issue_hi_lo(acc, ds_hi, ds_lo, sk);  // dQ += dS k
+    hopper::commit();
+    hopper::wait<0>();
+    hopper::fence_operands(acc);
+    hopper::fence_operands(ds_hi);
+    hopper::fence_operands(ds_lo);
+  }
+  Ring::drain();
+
+  bf16* dqb = static_cast<bf16*>(p.out) + bi * p.s1[0] + hi * p.s1[2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int row = q0 + hopper::acc_row(i);
+    if (row < p.t)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + row * p.s1[1] +
+                                         hopper::acc_col(i)) =
+          __floats2bfloat162_rn(p.scale * acc[i], p.scale * acc[i + 1]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+flash_bwd_dkv_tc_kernel(const Params p) {
+  using G = Geo<HD>;
+  using Ring = hopper::Ring<kStages>;
+  extern __shared__ uint8_t smem[];
+  const uint32_t smem0 = hopper::smem_u32(smem);
+  const uint32_t sk = align_atom(smem0);
+  const uint32_t sv = sk + G::TILE;
+  const uint32_t ring = sv + G::TILE;  // stage s: q, dO, lse, delta
+
+  const int k0 = (int)blockIdx.y * kM;  // early key tiles see most queries
+  const int bkv = blockIdx.x;
+  const int bi = bkv / p.kvh, kv = bkv % p.kvh;
+  const int r = p.h / p.kvh;
+  const int len = seq_len(p, bi);
+  const bool pad_rows = p.lengths != nullptr;
+
+  const bf16* kb = static_cast<const bf16*>(p.k) + bi * p.sk[0] +
+                   kv * p.sk[2];
+  const bf16* vb = static_cast<const bf16*>(p.v) + bi * p.sv[0] +
+                   kv * p.sv[2];
+
+  // query rows that can see a key of this tile
+  int q_begin = p.causal ? k0 : 0;
+  int q_end = pad_rows ? len : p.t;
+  if (p.window) q_end = min(q_end, k0 + kM - 1 + p.window);
+  if (k0 >= len) q_end = q_begin;  // every key padded: dk = dv = 0
+  q_begin = q_begin / kM * kM;
+  const int nq = q_end > q_begin ? (q_end - q_begin + kM - 1) / kM : 0;
+  const int n = r * nq;  // query tiles of the whole GQA group
+
+  auto load_q = [&](int j) {
+    const uint32_t stage = ring + (j % kStages) * G::DKV_STAGE;
+    const int hi = kv * r + j / nq, q0 = q_begin + (j % nq) * kM;
+    const long long bh = (long long)bi * p.h + hi;
+    load_tile<HD>(stage, static_cast<const bf16*>(p.q) + bi * p.sq[0] +
+                             hi * p.sq[2], p.sq[1], q0, p.t);
+    load_tile<HD>(stage + G::TILE, static_cast<const bf16*>(p.dout) +
+                                       bi * p.sdo[0] + hi * p.sdo[2],
+                  p.sdo[1], q0, p.t);
+    // lse (threads 0-63) and delta (64-127) of the 64 rows, 4 bytes each:
+    // a row of [b * h, t] starts 16-byte aligned only when t % 4 == 0
+    const int row = q0 + threadIdx.x % kM;
+    const bool ok = row < p.t;
+    const float* src = (threadIdx.x < kM ? p.lse : p.delta) + bh * p.t +
+                       (ok ? row : 0);
+    hopper::cp_async4(stage + 2 * G::TILE + threadIdx.x * 4, src, ok);
+  };
+  load_tile<HD>(sk, kb, p.sk[1], k0, p.t);
+  load_tile<HD>(sv, vb, p.sv[1], k0, p.t);
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < n) load_q(j);
+    Ring::push();
+  }
+
+  int first[2], last[2];  // the query rows keys acc_row(0), acc_row(2) see
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2)
+    query_range(p, k0 + hopper::acc_row(2 * h2), len, pad_rows, first[h2],
+                last[h2]);
+  const float c = p.scale * kLog2e;
+
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int j = 0; j < n; ++j) {
+    Ring::pop();
+    if (j + kStages - 1 < n) load_q(j + kStages - 1);
+    Ring::push();
+    const int q0 = q_begin + (j % nq) * kM;
+    const uint32_t sq = ring + (j % kStages) * G::DKV_STAGE;
+    const uint32_t sdo = sq + G::TILE;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem + (sq + 2 * G::TILE - smem0));
+    const float* delta_s = lse_s + kM;
+
+    float s[32], dp[32];  // S^T and dP^T: rows keys, columns queries
+    scores<HD>(sk, sq, sv, sdo, s, dp);
+    // lse log2(e) and delta of this thread's 16 query columns, column
+    // acc_col(i) at (i / 4) * 2 + i % 2
+    float lse2[16], delta[16];
+#pragma unroll
+    for (int n8 = 0; n8 < 8; ++n8) {
+      const int col = hopper::acc_col(4 * n8);
+      const float2 l = *reinterpret_cast<const float2*>(lse_s + col);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_s + col);
+      lse2[2 * n8] = l.x * kLog2e;
+      lse2[2 * n8 + 1] = l.y * kLog2e;
+      delta[2 * n8] = dl.x;
+      delta[2 * n8 + 1] = dl.y;
+    }
+    // s becomes P^T, dp dS^T; masks only on tiles some mask cuts
+    if (edge_tile(p, q0, k0, len, pad_rows)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h2 = (i >> 1) & 1, cj = (i >> 2) * 2 + (i & 1);
+        const int query = q0 + hopper::acc_col(i);
+        const float x = query >= first[h2] && query <= last[h2]
+                            ? fmaf(s[i], c, -lse2[cj]) : -INFINITY;
+        s[i] = exp2_approx(x);
+        dp[i] = s[i] * (dp[i] - delta[cj]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int cj = (i >> 2) * 2 + (i & 1);
+        s[i] = exp2_approx(fmaf(s[i], c, -lse2[cj]));
+        dp[i] = s[i] * (dp[i] - delta[cj]);
+      }
+    }
+    uint32_t p_hi[16], p_lo[16], ds_hi[16], ds_lo[16];
+    hopper::split_hi_lo(s, p_hi, p_lo);
+    hopper::split_hi_lo(dp, ds_hi, ds_lo);
+    hopper::fence();
+    issue_hi_lo(dv, p_hi, p_lo, sdo);   // dV += P^T dO
+    issue_hi_lo(dk, ds_hi, ds_lo, sq);  // dK += dS^T q
+    hopper::commit();
+    hopper::wait<0>();
+    hopper::fence_operands(dk);
+    hopper::fence_operands(dv);
+    hopper::fence_operands(p_hi);
+    hopper::fence_operands(p_lo);
+    hopper::fence_operands(ds_hi);
+    hopper::fence_operands(ds_lo);
+  }
+  Ring::drain();
+
+  bf16* dkb = static_cast<bf16*>(p.out) + bi * p.s1[0] + kv * p.s1[2];
+  bf16* dvb = static_cast<bf16*>(p.out2) + bi * p.s2[0] + kv * p.s2[2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int key = k0 + hopper::acc_row(i), c = hopper::acc_col(i);
+    if (key < p.t) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + key * p.s1[1] + c) =
+          __floats2bfloat162_rn(p.scale * dk[i], p.scale * dk[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + key * p.s2[1] + c) =
+          __floats2bfloat162_rn(dv[i], dv[i + 1]);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch(bool dq, const Params& p, cudaStream_t stream) {
+  const int tiles = (p.t + kM - 1) / kM;
+  cudaError_t e;
+  if (dq) {
+    constexpr size_t smem = Geo<HD>::DQ_SMEM;
+    if ((e = allow_smem(flash_bwd_dq_tc_kernel<HD>, smem)) != cudaSuccess)
+      return e;
+    flash_bwd_dq_tc_kernel<HD>
+        <<<dim3(p.b * p.h, tiles), kThreadsTc, smem, stream>>>(p);
+  } else {
+    constexpr size_t smem = Geo<HD>::DKV_SMEM;
+    if ((e = allow_smem(flash_bwd_dkv_tc_kernel<HD>, smem)) != cudaSuccess)
+      return e;
+    flash_bwd_dkv_tc_kernel<HD>
+        <<<dim3(p.b * p.kvh, tiles), kThreadsTc, smem, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 // ---------------------------------------------------------------- launch
 
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Kind { kFwd, kDq, kDkv, kDelta, kDqTc, kDkvTc };
 
 template <int NJ>
 size_t smem_bytes(Kind kind) {
@@ -670,13 +1131,6 @@ size_t smem_bytes(Kind kind) {
     case kDq: return sizeof(float) * (5 * DP * B + B * B);
     default: return sizeof(float) * (6 * DP * B + 2 * B * B + 2 * B);
   }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename T, int NJ>
@@ -695,17 +1149,34 @@ cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
       return e;
     flash_bwd_dq_kernel<T, NJ>
         <<<dim3(tiles, p.b * p.h), kThreads, smem, stream>>>(p);
-  } else {
+  } else if (kind == kDkv) {
     if ((e = allow_smem(flash_bwd_dkv_kernel<T, NJ>, smem)) != cudaSuccess)
       return e;
     flash_bwd_dkv_kernel<T, NJ>
         <<<dim3(tiles, p.b * p.kvh), kThreads, smem, stream>>>(p);
+  } else {
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(Kind kind, const Params& p, cudaStream_t stream) {
+  if (kind == kDelta) {
+    const long long rows = (long long)p.b * p.t * p.h;
+    const int per_block = kThreads / kDeltaLanes;
+    flash_bwd_delta_kernel<T>
+        <<<(unsigned)((rows + per_block - 1) / per_block), kThreads, 0,
+           stream>>>(p);
+    return cudaGetLastError();
+  }
+  if (kind == kDqTc || kind == kDkvTc) {
+    // the tensor-core kernels: bf16, head_dim 64 or 128 (the wrapper's rule)
+    if (!std::is_same<T, __nv_bfloat16>::value) return cudaErrorInvalidValue;
+    if (p.d == 64) return tc::launch<64>(kind == kDqTc, p, stream);
+    if (p.d == 128) return tc::launch<128>(kind == kDqTc, p, stream);
+    return cudaErrorInvalidValue;
+  }
   switch ((p.d + 63) / 64) {
     case 1: return launch<T, 1>(kind, p, stream);
     case 2: return launch<T, 2>(kind, p, stream);
@@ -715,7 +1186,7 @@ cudaError_t dispatch(Kind kind, const Params& p, cudaStream_t stream) {
   }
 }
 
-// tensors: q, k, v, o, dO, out, out2, lse, lengths (null = none)
+// tensors: q, k, v, o, dO, out, out2, lse, lengths (null = none), delta
 // strides: 3 per tensor (batch, seq, head) for q, k, v, o, dO, out, out2
 // dims: b, t, h, kvh, d, causal, window
 int run(Kind kind, void* const* tensors, const long long* strides,
@@ -730,6 +1201,7 @@ int run(Kind kind, void* const* tensors, const long long* strides,
   p.out2 = tensors[6];
   p.lse = static_cast<float*>(tensors[7]);
   p.lengths = static_cast<const int*>(tensors[8]);
+  p.delta = static_cast<float*>(tensors[9]);
   long long* dst[7] = {p.sq, p.sk, p.sv, p.so, p.sdo, p.s1, p.s2};
   for (int i = 0; i < 7; ++i)
     for (int j = 0; j < 3; ++j) dst[i][j] = strides[3 * i + j];
@@ -774,6 +1246,25 @@ extern "C" int hvd_flash_bwd_dkv(void* const* tensors,
                                  const long long* strides, const int* dims,
                                  int dtype, int device, void* stream) {
   return run(kDkv, tensors, strides, dims, dtype, device, stream);
+}
+
+extern "C" int hvd_flash_bwd_delta(void* const* tensors,
+                                   const long long* strides, const int* dims,
+                                   int dtype, int device, void* stream) {
+  return run(kDelta, tensors, strides, dims, dtype, device, stream);
+}
+
+extern "C" int hvd_flash_bwd_dq_tc(void* const* tensors,
+                                   const long long* strides, const int* dims,
+                                   int dtype, int device, void* stream) {
+  return run(kDqTc, tensors, strides, dims, dtype, device, stream);
+}
+
+extern "C" int hvd_flash_bwd_dkv_tc(void* const* tensors,
+                                    const long long* strides,
+                                    const int* dims, int dtype, int device,
+                                    void* stream) {
+  return run(kDkvTc, tensors, strides, dims, dtype, device, stream);
 }
 
 extern "C" const char* hvd_flash_error_string(int code) {

@@ -16,7 +16,15 @@ by hand in CUDA C++ for Hopper, ``csrc/flash_attention.cu``, built with
   ``o`` and the fp32 per-row logsumexp ``lse``;
 * :func:`flash_bwd_dq` (``_dq_kernel``): dQ from the saved ``lse``;
 * :func:`flash_bwd_dkv` (``_dkv_kernel``): dK and dV, summed over each
-  KV head's group of query heads inside the kernel.
+  KV head's group of query heads inside the kernel;
+* :func:`flash_bwd_delta`: ``delta = rowsum(dO ⊙ O)``, the input both
+  backward kernels share, once per backward.
+
+Each backward kernel comes in two variants, chosen by one rule,
+:func:`tensor_core_path`: bf16 with head_dim 64 or 128 runs on the
+tensor cores (``wgmma``, ``csrc/hopper_mma.cuh``), every other dtype and
+head_dim on the CUDA cores. ``launches`` counts both; ``tc_launches``
+the tensor-core ones.
 
 The four JAX custom VJPs (MHA or GQA, with or without lengths) are one
 :class:`FlashAttentionFunction` here. The kernels read q, k, v, o and dO
@@ -24,12 +32,13 @@ through their strides in the ``[b, t, h, d]`` layout, so the slices of
 the fused qkv projection go in without the ``[b·h, t, d]`` copies the
 JAX wrapper makes.
 
-Beside them, :func:`flash_fwd_plain` and :func:`flash_bwd_plain` compute
-the same functions with the same formulas in plain PyTorch: dense fp32
-scores, the explicit ``dS = P ⊙ (dP − rowsum(dO ⊙ O))`` and the GQA
-group sum. Each wrapper takes the plain version only for tensors on the
-CPU; for CUDA tensors it launches its kernel or raises. Every launch
-adds one to the wrapper's ``launches``.
+Beside them, :func:`flash_fwd_plain`, :func:`flash_bwd_plain` and
+:func:`flash_bwd_delta_plain` compute the same functions with the same
+formulas in plain PyTorch: dense fp32 scores, the explicit ``dS = P ⊙
+(dP − rowsum(dO ⊙ O))`` and the GQA group sum. Each wrapper takes the
+plain version only for tensors on the CPU; for CUDA tensors it launches
+its kernel or raises. Every launch adds one to the wrapper's
+``launches``.
 
 Numerics follow the reference: q is scaled before ``QKᵀ`` in the
 forward, the backward scales after; masked scores get probability 0;
@@ -40,7 +49,7 @@ rounded once to the input's type.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -50,9 +59,19 @@ LIBRARY = "flash_attention"
 MAX_HEAD_DIM = 256
 HEAD_DIM_MULTIPLE = 8  # one 16-byte load covers 8 two-byte elements
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+TENSOR_CORE_HEAD_DIMS = (64, 128)
 _NEG_INF = -1e30
-_N_TENSORS = 9  # q, k, v, o, dO, out, out2, lse, lengths
+_N_TENSORS = 10  # q, k, v, o, dO, out, out2, lse, lengths, delta
 _N_STRIDED = 7  # q, k, v, o, dO, out, out2
+
+
+def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
+    """The backward kernels' dispatch rule: bf16 at head_dim 64 or 128
+    runs on the tensor cores (``*_tc`` kernels), anything else on the
+    CUDA cores. fp16 stays on the CUDA cores: the tensor-core kernels
+    split P and dS into bf16 pairs, and an fp16 pair was never held to
+    the card's check."""
+    return dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS
 
 
 def unsupported_reason(head_dim: int) -> Optional[str]:
@@ -189,12 +208,25 @@ def flash_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
     )
 
 
+def flash_bwd_delta_plain(o, do):
+    """``rowsum(dO ⊙ O)`` in fp32 as ``[b·h, t]``: the backward kernels'
+    shared input, in plain PyTorch."""
+    b, t, h, _ = o.shape
+    dt = _acc_dtype(o)
+    delta = (do.to(dt) * o.to(dt)).sum(dim=-1)  # [b, t, h]
+    return delta.transpose(1, 2).reshape(b * h, t)
+
+
 # ------------------------------------------------------------ the kernels
+
+_ENTRIES = ("hvd_flash_fwd", "hvd_flash_bwd_delta", "hvd_flash_bwd_dq",
+            "hvd_flash_bwd_dkv", "hvd_flash_bwd_dq_tc",
+            "hvd_flash_bwd_dkv_tc")
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in ("hvd_flash_fwd", "hvd_flash_bwd_dq", "hvd_flash_bwd_dkv"):
+    for name in _ENTRIES:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, i, i, p]
         fn.restype = i
@@ -232,7 +264,7 @@ def _check_kernel(q, k, v, *more):
         raise ValueError(f"batch × heads = {b * h} exceeds 65535")
 
 
-def _launch(entry: str, q, tensors, strided, causal, window, lengths):
+def _launch(entry: str, q, tensors, strided, causal, window, kv_heads):
     lib = _build.load(LIBRARY, _declare)
     ptrs = (ctypes.c_void_p * _N_TENSORS)(
         *[None if x is None else x.data_ptr() for x in tensors]
@@ -242,8 +274,8 @@ def _launch(entry: str, q, tensors, strided, causal, window, lengths):
         strides += [0, 0, 0] if x is None else list(x.stride()[:3])
     stride_arr = (ctypes.c_longlong * (3 * _N_STRIDED))(*strides)
     b, t, h, d = q.shape
-    dims = (ctypes.c_int * 7)(b, t, h, tensors[1].shape[2], d,
-                              int(bool(causal)), int(window or 0))
+    dims = (ctypes.c_int * 7)(b, t, h, kv_heads, d, int(bool(causal)),
+                              int(window or 0))
     index = q.device.index
     if index is None:
         index = torch.cuda.current_device()
@@ -279,63 +311,131 @@ def flash_fwd(q, k, v, causal: bool = False, lengths=None,
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     lens = _lengths_arg(lengths, q.device)
     _launch("hvd_flash_fwd", q,
-            [q, k, v, None, None, o, None, lse, lens],
-            [q, k, v, None, None, o, None], causal, window, lens)
+            [q, k, v, None, None, o, None, lse, lens, None],
+            [q, k, v, None, None, o, None], causal, window, k.shape[2])
     flash_fwd.launches += 1
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False, lengths=None,
-                 window: Optional[int] = None):
-    """dQ of :func:`flash_fwd` given its ``o``, ``lse`` and the incoming
-    ``do``; CPU tensors take :func:`flash_bwd_plain`."""
-    if q.device.type != "cuda":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal, lengths,
-                               window)[0]
+class _Bwd(NamedTuple):
+    """The backward's inputs, validated and laid out for the kernels."""
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    o: torch.Tensor
+    do: torch.Tensor
+    lse: torch.Tensor
+    lengths: Optional[torch.Tensor]
+    causal: bool
+    window: Optional[int]
+
+
+def _bwd_inputs(q, k, v, o, lse, do, causal, lengths, window) -> _Bwd:
     window = _check(q, k, v, causal, lengths, window)
     _check_kernel(q, k, v, o, do)
     q, k, v, o, do = (_kernel_input(x) for x in (q, k, v, o, do))
-    lse = lse.to(torch.float32).contiguous()
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lens = _lengths_arg(lengths, q.device)
-    _launch("hvd_flash_bwd_dq", q,
-            [q, k, v, o, do, dq, None, lse, lens],
-            [q, k, v, o, do, dq, None], causal, window, lens)
+    return _Bwd(q, k, v, o, do, lse.to(torch.float32).contiguous(),
+                _lengths_arg(lengths, q.device), causal, window)
+
+
+def _delta(o, do) -> torch.Tensor:
+    b, t, h, _ = o.shape
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=o.device)
+    _launch("hvd_flash_bwd_delta", o,
+            [None, None, None, o, do, None, None, None, None, delta],
+            [None, None, None, o, do, None, None], False, None, h)
+    flash_bwd_delta.launches += 1
+    return delta
+
+
+def _dq(a: _Bwd, delta: torch.Tensor) -> torch.Tensor:
+    tc = tensor_core_path(a.q.dtype, a.q.shape[3])
+    dq = torch.empty_like(a.q, memory_format=torch.contiguous_format)
+    _launch("hvd_flash_bwd_dq_tc" if tc else "hvd_flash_bwd_dq", a.q,
+            [a.q, a.k, a.v, None, a.do, dq, None, a.lse, a.lengths, delta],
+            [a.q, a.k, a.v, None, a.do, dq, None], a.causal, a.window,
+            a.k.shape[2])
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.tc_launches += tc
     return dq
 
 
-def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = False, lengths=None,
-                  window: Optional[int] = None):
-    """``(dk, dv)`` of :func:`flash_fwd`, each KV head's sum over its
-    query-head group; CPU tensors take :func:`flash_bwd_plain`."""
-    if q.device.type != "cuda":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal, lengths,
-                               window)[1:]
-    window = _check(q, k, v, causal, lengths, window)
-    _check_kernel(q, k, v, o, do)
-    q, k, v, o, do = (_kernel_input(x) for x in (q, k, v, o, do))
-    lse = lse.to(torch.float32).contiguous()
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    lens = _lengths_arg(lengths, q.device)
-    _launch("hvd_flash_bwd_dkv", q,
-            [q, k, v, o, do, dk, dv, lse, lens],
-            [q, k, v, o, do, dk, dv], causal, window, lens)
+def _dkv(a: _Bwd, delta: torch.Tensor):
+    tc = tensor_core_path(a.q.dtype, a.q.shape[3])
+    dk = torch.empty_like(a.k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(a.v, memory_format=torch.contiguous_format)
+    _launch("hvd_flash_bwd_dkv_tc" if tc else "hvd_flash_bwd_dkv", a.q,
+            [a.q, a.k, a.v, None, a.do, dk, dv, a.lse, a.lengths, delta],
+            [a.q, a.k, a.v, None, a.do, dk, dv], a.causal, a.window,
+            a.k.shape[2])
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.tc_launches += tc
     return dk, dv
 
 
+def _delta_arg(a: _Bwd, delta) -> torch.Tensor:
+    if delta is None:
+        return _delta(a.o, a.do)
+    b, t, h, _ = a.q.shape
+    if (delta.shape != (b * h, t) or delta.dtype != torch.float32
+            or delta.device != a.q.device):
+        raise ValueError(
+            f"delta must be fp32 [b·h, t] = [{b * h}, {t}] on "
+            f"{a.q.device}; got {delta.dtype} {tuple(delta.shape)} on "
+            f"{delta.device}"
+        )
+    return delta.contiguous()
+
+
+def flash_bwd_delta(o, do):
+    """``rowsum(dO ⊙ O)`` of ``[b, t, h, d]`` o and dO as fp32 ``[b·h,
+    t]``; CPU tensors take :func:`flash_bwd_delta_plain`."""
+    if o.device.type != "cuda":
+        return flash_bwd_delta_plain(o, do)
+    if o.shape != do.shape or o.dim() != 4:
+        raise ValueError(
+            f"o {tuple(o.shape)} and dO {tuple(do.shape)} must be one "
+            "[batch, seq, heads, head_dim] shape"
+        )
+    _check_kernel(o, o, o, do)
+    return _delta(_kernel_input(o), _kernel_input(do))
+
+
+def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False, lengths=None,
+                 window: Optional[int] = None, delta=None):
+    """dQ of :func:`flash_fwd` given its ``o``, ``lse`` and the incoming
+    ``do``; ``delta`` (:func:`flash_bwd_delta`) is computed when not
+    given. CPU tensors take :func:`flash_bwd_plain`."""
+    if q.device.type != "cuda":
+        return flash_bwd_plain(q, k, v, o, lse, do, causal, lengths,
+                               window)[0]
+    a = _bwd_inputs(q, k, v, o, lse, do, causal, lengths, window)
+    return _dq(a, _delta_arg(a, delta))
+
+
+def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = False, lengths=None,
+                  window: Optional[int] = None, delta=None):
+    """``(dk, dv)`` of :func:`flash_fwd`, each KV head's sum over its
+    query-head group; ``delta`` is computed when not given. CPU tensors
+    take :func:`flash_bwd_plain`."""
+    if q.device.type != "cuda":
+        return flash_bwd_plain(q, k, v, o, lse, do, causal, lengths,
+                               window)[1:]
+    a = _bwd_inputs(q, k, v, o, lse, do, causal, lengths, window)
+    return _dkv(a, _delta_arg(a, delta))
+
+
 flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+flash_bwd_delta.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """One differentiable attention for every variant (MHA or GQA, with
     or without ``lengths``, with or without ``window``): the forward
-    kernel, then dQ and dK/dV from the saved fp32 ``lse``. On the CPU the
-    plain backward computes all three at once."""
+    kernel, then the delta pass, dQ and dK/dV from the saved fp32
+    ``lse``. On the CPU the plain backward computes all three at once."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, causal, window):
@@ -350,8 +450,10 @@ class FlashAttentionFunction(torch.autograd.Function):
         args = (q, k, v, o, lse, do.contiguous(), ctx.causal, lengths,
                 ctx.window)
         if q.device.type == "cuda":
-            dq = flash_bwd_dq(*args)
-            dk, dv = flash_bwd_dkv(*args)
+            a = _bwd_inputs(*args)  # validated and laid out once
+            delta = _delta(a.o, a.do)
+            dq = _dq(a, delta)
+            dk, dv = _dkv(a, delta)
         else:
             dq, dk, dv = flash_bwd_plain(*args)
         return dq, dk, dv, None, None, None

@@ -169,10 +169,13 @@ def test_cpu_wrappers_count_no_launch():
     """CPU tensors take the plain version: the kernel counters stay."""
     (q, k, v, do), kw, _ = _inputs(**CASES["gqa"])
     q, k, v, do = (torch.from_numpy(x) for x in (q, k, v, do))
-    before = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
-              tfa.flash_bwd_dkv.launches)
+    counters = (tfa.flash_fwd, tfa.flash_bwd_delta, tfa.flash_bwd_dq,
+                tfa.flash_bwd_dkv)
+    before = [c.launches for c in counters] + [
+        tfa.flash_bwd_dq.tc_launches, tfa.flash_bwd_dkv.tc_launches]
     o, lse = tfa.flash_fwd(q, k, v, **kw)
+    tfa.flash_bwd_delta(o, do)
     tfa.flash_bwd_dq(q, k, v, o, lse, do, **kw)
     tfa.flash_bwd_dkv(q, k, v, o, lse, do, **kw)
-    assert (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
-            tfa.flash_bwd_dkv.launches) == before
+    assert [c.launches for c in counters] + [
+        tfa.flash_bwd_dq.tc_launches, tfa.flash_bwd_dkv.tc_launches] == before

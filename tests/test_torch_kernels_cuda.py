@@ -131,15 +131,19 @@ def _flash_inputs(device, dtype, b, t, h, kvh, d, causal, lengths=None,
     return q, k, v, do, dict(causal=causal, lengths=lens, window=window)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain(cuda_card, name, dtype):
-    """Forward (o, lse), dQ and dK/dV against the plain versions. fp32:
-    sums over up to t terms in another order (atol 2e-5, rtol 1e-4);
-    bf16: one rounding of the output."""
+    """Forward (o, lse), dQ and dK/dV against the plain versions, each
+    backward kernel on the variant the dispatch rule names (bf16 at
+    head_dim 64 and 128: the tensor cores). fp32: sums over up to t
+    terms in another order (atol 2e-5, rtol 1e-4); bf16 and fp16: one
+    rounding of the output."""
     q, k, v, do, kw = _flash_inputs(cuda_card, dtype, **FLASH_CASES[name])
     counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
               fa.flash_bwd_dkv.launches)
+    tc = (fa.flash_bwd_dq.tc_launches, fa.flash_bwd_dkv.tc_launches)
     o, lse = fa.flash_fwd(q, k, v, **kw)
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
     dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, **kw)
@@ -149,6 +153,9 @@ def test_flash_kernels_match_plain(cuda_card, name, dtype):
     torch.cuda.synchronize()
     assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
             fa.flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    on_tc = int(fa.tensor_core_path(dtype, q.shape[3]))
+    assert (fa.flash_bwd_dq.tc_launches, fa.flash_bwd_dkv.tc_launches) == (
+        tc[0] + on_tc, tc[1] + on_tc)
     tol = (dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32
            else _tolerance(dtype))
     torch.testing.assert_close(o, o_ref, **tol)
@@ -156,6 +163,45 @@ def test_flash_kernels_match_plain(cuda_card, name, dtype):
     for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         assert got.dtype == dtype and got.shape == want.shape
         torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_delta_matches_plain(cuda_card, dtype):
+    """The delta pass on strided inputs against rowsum(dO ⊙ O) in fp32:
+    sums of d products in another order."""
+    b, t, h, d = 2, 77, 3, 136
+    rng = np.random.default_rng(3)
+    ob = torch.from_numpy(rng.normal(size=(b, t, 2, h, d)).astype(
+        np.float32)).to(cuda_card, dtype)
+    o = ob[:, :, 1]  # a strided slice, as the fused projection's
+    do = torch.from_numpy(rng.normal(size=(b, t, h, d)).astype(
+        np.float32)).to(cuda_card, dtype)
+    before = fa.flash_bwd_delta.launches
+    got = fa.flash_bwd_delta(o, do)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_delta.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b * h, t)
+    torch.testing.assert_close(got, fa.flash_bwd_delta_plain(o, do),
+                               atol=1e-4, rtol=1e-5)
+
+
+def test_flash_given_delta_launches_no_delta_pass(cuda_card):
+    """A backward kernel handed delta reads it and launches nothing
+    else; one handed none computes it first."""
+    q, k, v, do, kw = _flash_inputs(cuda_card, torch.bfloat16,
+                                    **FLASH_CASES["causal-t130"])
+    o, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = fa.flash_bwd_delta(o, do)
+    before = fa.flash_bwd_delta.launches
+    given = fa.flash_bwd_dq(q, k, v, o, lse, do, delta=delta, **kw)
+    assert fa.flash_bwd_delta.launches == before
+    computed = fa.flash_bwd_dq(q, k, v, o, lse, do, **kw)
+    assert fa.flash_bwd_delta.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(given, computed)
+    with pytest.raises(ValueError, match="delta must be fp32"):
+        fa.flash_bwd_dkv(q, k, v, o, lse, do, delta=delta[:1], **kw)
 
 
 def test_flash_function_gradients_on_card(cuda_card):
