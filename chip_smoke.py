@@ -10,16 +10,18 @@ and no network; it imports no JAX. Phases, each printing its own lines:
 2. Kernels against their plain PyTorch versions on the card, at the
    shapes the main paths give them (paged attention: serving; flash
    attention forward, the backward's delta pass, dQ and dK/dV:
-   training; each backward row names the variant that ran, tensor cores
-   or CUDA cores), with the tolerance stated; each
+   training; each paged and flash row names the variant that ran:
+   decode, tensor cores or CUDA cores), with the tolerance stated; each
    timed beside its plain version, a PyTorch library call computing the
    same function (timed only, never used by the port) and its bound.
 3. Main path: ``serve()`` of GPT-2 medium (full width, random weights
    from a seed, bf16) answering HTTP ``POST /generate`` requests; the
    kernel launch counters are zeroed just before and read just after.
+   Decode and chunk launches are reported apart; every chunk launch
+   (more than 4 packed rows a KV head) must take the tensor cores.
 4. Correctness at full width: the same weights in fp32 serve two
    requests whose greedy tokens must equal the uncached full-forward
-   argmax loop.
+   argmax loop; fp32 launches no tensor-core kernel.
 5. Training, the second main path: GPT-2 medium (full width, random
    weights from the seed, bf16 compute on fp32 master weights, remat)
    takes a few steps through ``hvd.init()`` (a world of one on NCCL),
@@ -28,13 +30,13 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    flash-attention launch counters zeroed just before. The loss must
    fall, each step must launch the forward kernel 48 times (24 layers,
    and 24 again in the remat recompute), the delta pass and each
-   backward kernel 24 times, every dQ and dK/dV launch on the tensor
-   cores, and the fusion layer must dispatch fused allreduces. One more
-   step runs under ``torch.profiler``.
+   backward kernel 24 times, every forward, dQ and dK/dV launch on the
+   tensor cores, and the fusion layer must dispatch fused allreduces.
+   One more step runs under ``torch.profiler``.
 6. The flash kernels inside the whole backward: one fp32 training step
    at full width through the kernels (the CUDA-core variants, by the
-   dispatch rule) and through dense attention must give the same loss
-   and gradients.
+   dispatch rule: no tensor-core launch) and through dense attention
+   must give the same loss and gradients.
 7. The wire kernels (scale-cast, the two int8 quantizers, Adasum's dots
    and apply passes) against their plain versions at the sizes the
    paths use: bit for bit for the first three, within 1e-5 (fp32) or one
@@ -72,6 +74,7 @@ import urllib.request
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12         # H100 SXM fp32 peak outside the tensor cores
 SEED = 1234
 
 
@@ -141,7 +144,9 @@ def _paged_case(name, b, t, h, kvh, d, page_tokens, n_logical, starts,
                 sentinel_rows=(), gen=None):
     """Inputs at one shape: bf16 pools with scrambled page tables, several
     pool copies so that timing loops rotate over more than the 50 MB L2
-    (a decode step reads each layer's pool cold)."""
+    (a decode step reads each layer's pool cold). The case's
+    ``variant``: None takes the dispatch rule's kernel, a name forces
+    that variant."""
     import torch
 
     dev = torch.device("cuda")
@@ -172,6 +177,7 @@ def _paged_case(name, b, t, h, kvh, d, page_tokens, n_logical, starts,
     return {
         "name": name, "q": q, "pools": pools, "table": table.to(dev),
         "lengths": torch.tensor(starts, dtype=torch.int32, device=dev),
+        "variant": None, "esize": 2,
         "b": b, "t": t, "h": h, "kvh": kvh, "d": d,
         "page_tokens": page_tokens, "n_logical": n_logical,
         "starts": list(starts),
@@ -181,26 +187,34 @@ def _paged_case(name, b, t, h, kvh, d, page_tokens, n_logical, starts,
 def _bound(c):
     """Least time for the work: the bytes the function must move (q and
     the output once, each slot's live K/V once, table and lengths) over
-    the memory rate, or its multiply-adds over the bf16 peak."""
-    b, t, h, kvh, d = c["b"], c["t"], c["h"], c["kvh"], c["d"]
+    the memory rate, or its multiply-adds over the peak of their type
+    (bf16 and fp16 on the tensor cores, fp32 outside them)."""
+    b, t, h, kvh, d, e = (c["b"], c["t"], c["h"], c["kvh"], c["d"],
+                          c["esize"])
     cap = c["n_logical"] * c["page_tokens"]
     live = sum(min(s + t, cap) for s in c["starts"])
-    nbytes = (2 * b * t * h * d * 2 + 2 * live * kvh * d * 2
+    nbytes = (2 * b * t * h * d * e + 2 * live * kvh * d * e
               + b * c["n_logical"] * 4 + b * 4)
     attended = sum(
         min(s + i + 1, cap) for s in c["starts"] for i in range(t)
     )
     flops = 4 * h * d * attended
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (FP32_FLOPS if e == 4 else BF16_FLOPS)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def phase_kernels(gen):
-    """The paged-attention kernel against its plain version at the main
-    path's shapes. Tolerance: 2 bf16 ulp of the output (floored at
-    2^-6): both paths compute in fp32 and round once to bf16; only the
-    order of the fp32 sums differs."""
+    """The paged-attention kernels against their plain version at the
+    main paths' shapes, each row naming the variant that ran (decode,
+    or the tiled kernel on the tensor cores or CUDA cores).
+    Tolerance in bf16: 2 bf16 ulp of the output (floored at 2^-6): both
+    paths compute in fp32 and round once to bf16; the order of the fp32
+    sums differs, and the tensor-core kernel feeds P to P·V as a bf16
+    pair (about 2^-17 relative a term). In fp32 (phase 4's serve, on the
+    CUDA cores): 1e-5 absolute plus 1e-5 relative, the order of the sums
+    alone."""
     import torch
     import torch.nn.functional as F
 
@@ -225,29 +239,52 @@ def phase_kernels(gen):
         _paged_case("gqa", 4, 3, 32, 8, 128, 16, 64, [0, 17, 100, 500],
                     gen=gen),
     ]
+    # the tiled kernel on the CUDA cores, on prefill256's inputs: phase
+    # 4's fp32 chunk, and the bf16 chunk forced past the rule
+    base = cases[1]
+    cases[3:3] = [
+        dict(base, name="prefill256-fp32", esize=4, q=base["q"].float(),
+             pools=[(k.float(), v.float()) for k, v in base["pools"]]),
+        dict(base, name="prefill256-cuda-cores", variant="cuda_cores"),
+    ]
     results = []
     for c in cases:
         k0, v0 = c["pools"][0]
         args = (c["q"], k0, v0, c["table"], c["lengths"])
-        got = pa.paged_attention(*args)
+        n = len(c["pools"])
+
+        def kern(i, c=c):
+            k, v = c["pools"][i % n]
+            if c["variant"] is None:
+                return pa.paged_attention(c["q"], k, v, c["table"],
+                                          c["lengths"])
+            return pa._launch(c["q"], k, v, c["table"], c["lengths"], True,
+                              c["variant"])
+
+        before = (pa.paged_attention.chunk_launches,
+                  pa.paged_attention.tc_launches)
+        got = kern(0)
+        variant = c["variant"] or (
+            "decode" if pa.paged_attention.chunk_launches == before[0]
+            else "tensor_cores" if pa.paged_attention.tc_launches
+            > before[1] else "cuda_cores")
         ref = pa.paged_attention_plain(*args)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             fail(f"paged_attention {c['name']}: non-finite output")
         diff = (got.float() - ref.float()).abs()
-        tol = 2 * _ulp_bf16(torch.maximum(got.float().abs(),
-                                          ref.float().abs()))
+        if got.dtype == torch.float32:
+            tol, what = 1e-5 + 1e-5 * ref.abs(), "1e-5 + 1e-5 relative"
+        else:
+            tol = 2 * _ulp_bf16(torch.maximum(got.float().abs(),
+                                              ref.float().abs()))
+            what = "2 bf16 ulp"
         max_err = float(diff.max())
         if bool((diff > tol).any()):
             fail(
-                f"paged_attention {c['name']}: max |kernel - plain| "
-                f"{max_err:.3g} exceeds 2 bf16 ulp"
+                f"paged_attention {c['name']} ({variant}): max |kernel - "
+                f"plain| {max_err:.3g} exceeds {what}"
             )
-        n = len(c["pools"])
-
-        def kern(i, c=c):
-            k, v = c["pools"][i % n]
-            pa.paged_attention(c["q"], k, v, c["table"], c["lengths"])
 
         def plain(i, c=c):
             k, v = c["pools"][i % n]
@@ -288,6 +325,7 @@ def phase_kernels(gen):
         bound_ms, bound_by = _bound(c)
         r = {
             "name": c["name"],
+            "variant": variant,
             "shape": {k: c[k] for k in ("b", "t", "h", "kvh", "d",
                                         "page_tokens", "n_logical",
                                         "starts")},
@@ -407,8 +445,9 @@ def phase_flash_kernels(gen):
     (``scaled_dot_product_attention``: its forward for the forward
     kernel, its backward for dQ and dK/dV together; timed only, never
     used by the port). dQ and dK/dV are timed given delta, as the
-    backward calls them; each of their rows names the variant that ran
-    (``tensor_cores`` or ``cuda_cores``) by the launch counters."""
+    backward calls them; each forward, dQ and dK/dV row names the
+    variant that ran (``tensor_cores`` or ``cuda_cores``) by the launch
+    counters."""
     import torch
     import torch.nn.functional as F
 
@@ -427,6 +466,7 @@ def phase_flash_kernels(gen):
         lens = (None if lengths is None else
                 torch.tensor(lengths, dtype=torch.int32, device=dev))
         kw = dict(causal=causal, lengths=lens, window=window)
+        fwd_tc_before = fa.flash_fwd.tc_launches
         o, lse = fa.flash_fwd(q, k, v, **kw)
         o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
         delta = fa.flash_bwd_delta(o_ref, do)
@@ -438,7 +478,8 @@ def phase_flash_kernels(gen):
         variant = {
             kind: ("tensor_cores" if fn.tc_launches > before
                    else "cuda_cores")
-            for kind, fn, before in (("dq", fa.flash_bwd_dq, tc_before[0]),
+            for kind, fn, before in (("fwd", fa.flash_fwd, fwd_tc_before),
+                                     ("dq", fa.flash_bwd_dq, tc_before[0]),
                                      ("dkv", fa.flash_bwd_dkv,
                                       tc_before[1]))
         }
@@ -612,20 +653,42 @@ def _check_burst(phase, results, prompts, max_tokens):
                  f"tokens, expected {max_tokens}")
 
 
+def serve_prompts(vocab_size):
+    """Phase 3's burst, from the seed: 9 prompts of 16-700 tokens, two
+    of them starting with the same full page; and the maker of further
+    prompts from the same stream (phase 4's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+
+    def prompt(n):
+        return rng.integers(0, vocab_size, n).tolist()
+
+    shared = prompt(16)  # one full page both requests below start with
+    prompts = [prompt(n) for n in (16, 33, 64, 129, 250, 400, 700)]
+    prompts += [shared + prompt(24), shared + prompt(41)]
+    return prompts, prompt
+
+
 def phase_serve(model, prompts, max_tokens, card):
     """serve() of the bf16 GPT-2 medium model over HTTP; every request
     must come back ``done`` with ``max_tokens`` tokens, through the
-    kernel and with no fallback."""
+    kernels and with no fallback: decode steps on the decode kernel,
+    every prefill chunk of more than 4 tokens on the tiled kernel's
+    tensor-core variant. Returns the launches of each, apart."""
     from horovod_tpu_torch import serve
     from horovod_tpu_torch.ops import paged_attention as pa
 
-    pa.paged_attention.launches = 0
+    fn = pa.paged_attention
+    fn.launches = fn.chunk_launches = fn.tc_launches = 0
     handle = serve(model, None, port=0, slots=8, prefill_ceiling=256,
                    max_new_tokens=max_tokens, addr="127.0.0.1",
                    handle_sigterm=False, device="cuda")
     try:
         results, wall = _burst(handle.port, prompts, max_tokens)
-        launches = pa.paged_attention.launches
+        launches = {"decode": fn.launches - fn.chunk_launches,
+                    "tiled": fn.chunk_launches,
+                    "tiled_tensor_cores": fn.tc_launches}
         stats = handle.engine.stats()
         mgr = handle.engine.manager.stats()
         slo = handle.batcher.recorder.summaries()
@@ -634,9 +697,14 @@ def phase_serve(model, prompts, max_tokens, card):
     _check_burst("serve", results, prompts, max_tokens)
     if not handle.engine.paged_attn:
         fail("serve: the engine resolved paged_attn off on the card")
-    if launches <= 0 or stats["paged_attn_calls"] <= 0:
+    if (launches["decode"] <= 0 or launches["tiled"] <= 0
+            or stats["paged_attn_calls"] <= 0):
         fail(f"serve: paged attention launches {launches}, engine "
              f"paged_attn_calls {stats['paged_attn_calls']}")
+    if launches["tiled_tensor_cores"] != launches["tiled"]:
+        fail(f"serve: {launches['tiled'] - launches['tiled_tensor_cores']} "
+             f"of {launches['tiled']} bf16 chunk launches (more than 4 "
+             "packed rows a KV head) missed the tensor cores")
     if stats["paged_attn_fallbacks"]:
         fail(f"serve: {stats['paged_attn_fallbacks']} paged-attention "
              "fallbacks")
@@ -682,9 +750,12 @@ def _full_forward_greedy(model, prompt, n):
 
 def phase_fp32(model32, prompts, max_tokens):
     """The same weights in fp32 served over HTTP: greedy tokens must
-    equal the uncached full-forward argmax loop."""
+    equal the uncached full-forward argmax loop, on the CUDA-core
+    kernels (fp32 takes no tensor-core variant)."""
     from horovod_tpu_torch import serve
+    from horovod_tpu_torch.ops import paged_attention as pa
 
+    tc_before = pa.paged_attention.tc_launches
     handle = serve(model32, None, port=0, slots=2, prefill_ceiling=256,
                    max_new_tokens=max_tokens, addr="127.0.0.1",
                    handle_sigterm=False, device="cuda")
@@ -695,6 +766,8 @@ def phase_fp32(model32, prompts, max_tokens):
     finally:
         handle.stop()
     _check_burst("fp32", results, prompts, max_tokens)
+    if pa.paged_attention.tc_launches != tc_before:
+        fail("fp32: a paged launch took the tensor-core kernel")
     for prompt, (_, body) in zip(prompts, results):
         want = _full_forward_greedy(model32, prompt, max_tokens)
         if body["tokens"] != want:
@@ -808,7 +881,7 @@ def phase_train(gen, card):
 
         counters = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
                     fa.flash_bwd_dkv, pa.paged_attention)
-        tc_counters = (fa.flash_bwd_dq, fa.flash_bwd_dkv)
+        tc_counters = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
         for c in counters:
             c.launches = 0
         for c in tc_counters:
@@ -816,8 +889,8 @@ def phase_train(gen, card):
         fusion.dispatched_batches = fusion.dispatched_bytes = 0
         torch.cuda.reset_peak_memory_stats()
 
-        def read():  # fwd, delta, dq, dkv, dq on tensor cores, dkv on
-            # tensor cores, fused batches, fused bytes
+        def read():  # fwd, delta, dq, dkv, fwd, dq and dkv on tensor
+            # cores, fused batches, fused bytes
             return ([c.launches for c in counters[:4]]
                     + [c.tc_launches for c in tc_counters]
                     + [fusion.dispatched_batches, fusion.dispatched_bytes])
@@ -836,14 +909,15 @@ def phase_train(gen, card):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         n = cfg.num_layers
         for i, counts in enumerate(per_step):
-            fwd, delta, dq, dkv, dq_tc, dkv_tc, batches, nbytes = counts
-            want = (2 * n, n, n, n, n, n)
-            if (fwd, delta, dq, dkv, dq_tc, dkv_tc) != want:
+            (fwd, delta, dq, dkv, fwd_tc, dq_tc, dkv_tc, batches,
+             nbytes) = counts
+            want = (2 * n, n, n, n, 2 * n, n, n)
+            if (fwd, delta, dq, dkv, fwd_tc, dq_tc, dkv_tc) != want:
                 fail(f"train step {i}: flash launches fwd/delta/dq/dkv "
-                     f"{fwd}/{delta}/{dq}/{dkv}, dq/dkv on the tensor "
-                     f"cores {dq_tc}/{dkv_tc}, expected {want} (remat "
-                     "reruns the forward; bf16 at head_dim 64 takes the "
-                     "tensor-core backward)")
+                     f"{fwd}/{delta}/{dq}/{dkv}, fwd/dq/dkv on the tensor "
+                     f"cores {fwd_tc}/{dq_tc}/{dkv_tc}, expected {want} "
+                     "(remat reruns the forward; bf16 at head_dim 64 "
+                     "takes the tensor-core kernels)")
             if batches < 1:
                 fail(f"train step {i}: no fused allreduce was dispatched")
         if not all(math.isfinite(x) for x in losses):
@@ -865,17 +939,17 @@ def phase_train(gen, card):
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (mean_ms / 1e3),
             "peak_memory_gb": peak_gb,
             "flash_launches_per_step": dict(zip(
-                ("fwd", "delta", "dq", "dkv", "dq_tensor_cores",
-                 "dkv_tensor_cores"), per_step[-1][:6])),
-            "fused_batches_per_step": per_step[-1][6],
-            "fused_bytes_per_step": per_step[-1][7],
+                ("fwd", "delta", "dq", "dkv", "fwd_tensor_cores",
+                 "dq_tensor_cores", "dkv_tensor_cores"), per_step[-1][:7])),
+            "fused_batches_per_step": per_step[-1][7],
+            "fused_bytes_per_step": per_step[-1][8],
             "launches": launches, "tc_launches": tc_launches, "card": card,
         }
         log("train: " + json.dumps(summary, sort_keys=True))
         log("train profile: " + json.dumps(prof, sort_keys=True))
         opt.remove_hooks()
         del model, opt
-        return launches, tc_launches, per_step[-1][7]
+        return launches, tc_launches, per_step[-1][8]
     finally:
         hvd.shutdown()
 
@@ -898,6 +972,12 @@ def phase_train_fp32(gen):
     tokens, labels = _lm_batch(cfg.vocab_size, 2, 256)
     runs = []
     state = None
+
+    def count():  # fwd, dq; fwd, dq and dkv on the tensor cores
+        return (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+                fa.flash_fwd.tc_launches, fa.flash_bwd_dq.tc_launches,
+                fa.flash_bwd_dkv.tc_launches)
+
     for flash in (True, False):
         model = Transformer(dataclasses.replace(cfg, flash_attention=flash),
                             device="cuda", generator=gen)
@@ -905,17 +985,14 @@ def phase_train_fp32(gen):
             state = model.state_dict()
         else:
             model.load_state_dict(state)
-        before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-                  fa.flash_bwd_dq.tc_launches, fa.flash_bwd_dkv.tc_launches)
+        before = count()
         loss = _loss(model, tokens, labels)
         loss.backward()
-        after = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-                 fa.flash_bwd_dq.tc_launches, fa.flash_bwd_dkv.tc_launches)
-        ran = tuple(a - b for a, b in zip(after, before))
-        if flash and ran != (cfg.num_layers, cfg.num_layers, 0, 0):
+        ran = tuple(a - b for a, b in zip(count(), before))
+        if flash and ran != (cfg.num_layers, cfg.num_layers, 0, 0, 0):
             fail(f"fp32 train: flash fwd/dq/tensor-core launches {ran}, "
-                 f"expected {cfg.num_layers}/{cfg.num_layers}/0/0 (fp32 "
-                 "takes the CUDA-core backward)")
+                 f"expected {cfg.num_layers}/{cfg.num_layers}/0/0/0 (fp32 "
+                 "takes the CUDA-core kernels)")
         runs.append((float(loss.detach()), {n: p.grad for n, p
                                    in model.named_parameters()}))
         del model
@@ -1448,8 +1525,6 @@ def main() -> int:
     # stores its matmul weights in bf16)
     import dataclasses
 
-    import numpy as np
-
     from horovod_tpu_torch import Transformer, TransformerConfig
 
     cfg = TransformerConfig.gpt2_medium()
@@ -1457,16 +1532,9 @@ def main() -> int:
     model32 = Transformer(dataclasses.replace(cfg, dtype=torch.float32),
                           device="cuda")
     model32.load_state_dict(model.state_dict())
-    rng = np.random.default_rng(SEED)
-
-    def prompt(n):
-        return rng.integers(0, cfg.vocab_size, n).tolist()
-
-    shared = prompt(16)  # one full page both requests below start with
-    prompts = [prompt(n) for n in (16, 33, 64, 129, 250, 400, 700)]
-    prompts += [shared + prompt(24), shared + prompt(41)]
+    prompts, prompt = serve_prompts(cfg.vocab_size)
     t0 = time.monotonic()
-    launches = phase_serve(model, prompts, 32, card)
+    paged_launches = phase_serve(model, prompts, 32, card)
     log(f"serve phase: {time.monotonic() - t0:.2f} s")
 
     # phase 4: correctness at full width in fp32
@@ -1507,23 +1575,38 @@ def main() -> int:
     wire_launches.update(phase_adasum(gen, card))
     log(f"adasum phase: {time.monotonic() - t0:.2f} s")
 
-    decode = kernel_results[0]
-    entry = {
-        "name": "paged_attention",
-        "route": "cuda",
-        "source": "horovod_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "horovod_tpu/ops/paged_attention.py:308",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_results),
-        "ms": decode["ms"],
-        "plain_ms": decode["plain_ms"],
-        "bound_ms": decode["bound_ms"],
-        "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"],
-        "shape": decode["shape"],
-        "shapes": kernel_results,
-    }
-    entries = [entry]
+    # paged attention: the decode kernel (main shape: the decode step;
+    # its entry keeps the name it had before the tiled kernel was
+    # listed apart) and the tiled kernel (main shape: the serving path's
+    # 256-row prefill chunk, on the tensor cores; its rows include the
+    # CUDA-core variant, fp32 and bf16), each with its own launches
+    entries = []
+    for kernel, main_name, variants in (
+            ("paged_attention", "decode", ("decode",)),
+            ("paged_attention tiled", "prefill256",
+             ("tensor_cores", "cuda_cores"))):
+        rows = [r for r in kernel_results if r["variant"] in variants]
+        main_shape = next(r for r in rows if r["name"] == main_name)
+        entries.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": "horovod_tpu_torch/ops/csrc/paged_attention.cu",
+            "replaces": "horovod_tpu/ops/paged_attention.py:308",
+            "launches": (paged_launches["decode"] if main_name == "decode"
+                         else paged_launches["tiled"]),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_shape["ms"],
+            "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape["library_ms"],
+            "variant": main_shape["variant"],
+            "shape": main_shape["shape"],
+            "shapes": rows,
+        })
+        if main_name != "decode":
+            entries[-1]["tensor_core_launches"] = paged_launches[
+                "tiled_tensor_cores"]
     for kind, fn, line in (("fwd", "flash_fwd", 513),
                            ("delta", "flash_bwd_delta", 621),
                            ("dq", "flash_bwd_dq", 621),
@@ -1545,7 +1628,7 @@ def main() -> int:
             "shape": main_shape["shape"],
             "shapes": rows,
         })
-        if fn in train_tc_launches:  # the backward's two variants
+        if fn in train_tc_launches:  # the kernels with two variants
             entries[-1]["variant"] = main_shape["variant"]
             entries[-1]["tensor_core_launches"] = train_tc_launches[fn]
     for fn, line in (("scale_cast", 84), ("int8_quantize", 133),

@@ -1,13 +1,15 @@
-// Flash attention for Hopper (sm_90a): the FlashAttention-2 forward, the
-// backward's delta pass, and the backward's two kernels in two variants,
-// fp32 statistics and accumulators whatever the input type.
+// Flash attention for Hopper (sm_90a): the forward, the backward's delta
+// pass and the backward's two kernels, the forward and both backward
+// kernels in two variants, fp32 statistics and accumulators whatever the
+// input type.
 //
 // Replaces the three Pallas kernels of horovod_tpu/ops/flash_attention.py:
 //
-// * hvd_flash_fwd     <- `_fwd_kernel`, pallas_call at line 513 (_flash_fwd):
-//   o = softmax(scale * q k^T) v with the online softmax, and the per-row
-//   lse = m + log(max(l, 1e-30)). q is scaled before the product and P V
-//   runs in fp32, as there.
+// * hvd_flash_fwd(_tc) <- `_fwd_kernel`, pallas_call at line 513
+//   (_flash_fwd): o = softmax(scale * q k^T) v with the online softmax,
+//   and the per-row lse = m + log(max(l, 1e-30)). The CUDA-core kernel
+//   scales q before the product and runs P V in fp32, as there; the
+//   tensor-core one scales after and carries P as a bf16 pair (below).
 // * hvd_flash_bwd_dq  <- `_dq_kernel`, pallas_call at line 621
 //   (_flash_bwd_impl): P = exp(scale * q k^T - lse) recomputed from the saved
 //   lse, dS = P * (dO v^T - delta), dQ = scale * dS k.
@@ -29,34 +31,40 @@
 // the same from exp(-1e30 - m) once a row has seen a live key).
 //
 // What bounds them on this card: at GPT-2 medium's training shape (b 8,
-// h 16, t 512, d 64, causal, bf16) dQ moves 42.5 MB (12.7 us at 3.35
-// TB/s) against 6.4 GFLOP (6.5 us at the bf16 tensor-core peak), dK/dV
-// 50.9 MB (15.2 us) against 8.6 GFLOP (8.7 us), the delta pass 17.0 MB
-// (5.1 us): on paper bytes bound all three. In practice the tensor-core
-// kernels take 2.7x and 3.9x those bounds: each warpgroup walks its tiles
-// as one chain (wait for the tile, first products, P and dS, second
-// products, wait) and two or three warpgroups an SM, all that the
+// h 16, t 512, d 64, causal, bf16) the forward moves 33.8 MB (10.1 us at
+// 3.35 TB/s) against 4.3 GFLOP (4.4 us at the bf16 tensor-core peak), dQ
+// 42.5 MB (12.7 us) against 6.4 GFLOP (6.5 us), dK/dV 50.9 MB (15.2 us)
+// against 8.6 GFLOP (8.7 us), the delta pass 17.0 MB (5.1 us): on paper
+// bytes bound all four. In practice the tensor-core kernels take 2.7x to
+// 3.9x those bounds (the forward 3.4x): each warpgroup walks its tiles as
+// one chain (wait for the tile, first products, softmax or P and dS,
+// second products, wait) and two or three warpgroups an SM, all that the
 // registers allow, overlap too little of it (PERF.md).
 //
-// Two variants of each backward kernel; the wrapper picks one by a single
-// rule on (dtype, head_dim):
+// Two variants of the forward and of each backward kernel; the wrapper
+// picks one by a single rule on (dtype, head_dim):
 //
 // * Tensor cores (`*_tc`, bf16 with head_dim 64 or 128): one warpgroup of
-//   128 threads per block owns 64 rows (dQ: query rows; dK/dV: keys), the
-//   tiles it keeps (dQ: q and dO; dK/dV: k and v) loaded once, the tiles it
-//   walks (dQ: k and v; dK/dV: q, dO and the rows' lse and delta) brought
-//   by 16-byte cp.async into a ring of two stages (hopper_mma.cuh): the
-//   next tile's loads overlap this tile's products. A third stage was
-//   measured and bought nothing; there is no producer warp, so no mbarrier
-//   either. All operands stay bf16 in shared memory in the 128-byte
-//   swizzle, each tile stored once: the same layout is K-major for the
-//   first products (S = q k^T and dP = dO v^T, or their transposes in
-//   dK/dV: wgmma m64n64k16 from shared memory, one batch) and MN-major,
-//   through the descriptor's transpose bit, for the second ones (dQ += dS
-//   k; dV += P^T dO and dK += dS^T q: wgmma m64n{64,128}k16 with A from
-//   registers, the fp32 accumulator of S being laid out as the A
-//   fragment). P and dS never touch shared memory; accumulators, lse,
-//   delta and the masks' bounds stay in registers.
+//   128 threads per block owns 64 rows (forward, dQ: query rows; dK/dV:
+//   keys), the tiles it keeps (forward: q; dQ: q and dO; dK/dV: k and v)
+//   loaded once, the tiles it walks (forward, dQ: k and v; dK/dV: q, dO
+//   and the rows' lse and delta) brought by 16-byte cp.async into a ring
+//   of two stages (hopper_mma.cuh; the forward's attn::attend keeps three
+//   and overlaps one tile's S with the previous tile's P V): the next
+//   tile's loads overlap this tile's products. A third stage in the
+//   backward was measured and bought nothing; there is no producer warp,
+//   so no mbarrier either. All operands stay bf16 in
+//   shared memory in the 128-byte swizzle, each tile stored once: the same
+//   layout is K-major for the first products (S = q k^T and dP = dO v^T,
+//   or their transposes in dK/dV: wgmma m64n64k16 from shared memory, one
+//   batch) and MN-major, through the descriptor's transpose bit, for the
+//   second ones (o += P v; dQ += dS k; dV += P^T dO and dK += dS^T q:
+//   wgmma m64n{64,128}k16 with A from registers, the fp32 accumulator of S
+//   being laid out as the A fragment). P and dS never touch shared memory;
+//   accumulators, the softmax state, lse, delta and the masks' bounds stay
+//   in registers. The forward is the tile step of attention_tc.cuh (the
+//   online softmax in base 2 from a finite floor, so a row with no live
+//   key yet forms no -inf - (-inf)), which the paged kernel shares.
 //   Precision: P and dS are formed in fp32, as the reference does (P =
 //   2^(s scale log2 e - lse log2 e) by one FMA and ex2.approx, about 2^-19
 //   relative), and the second products take them as a bf16 pair hi =
@@ -64,25 +72,26 @@
 //   2^-17 relative per term where one bf16 operand gives 2^-9, which would
 //   break the one-bf16-rounding agreement with the plain version on
 //   outputs that are sums of hundreds of cancelling terms
-//   (tests/test_torch_flash_tc.py emulates both). It costs one more
-//   product in dQ (4 in all) and two in dK/dV (6).
+//   (tests/test_torch_flash_tc.py and test_torch_attention_fwd_tc.py
+//   emulate both). It costs one more product in the forward (3 in all)
+//   and dQ (4), and two in dK/dV (6).
 //   Masks: a tile that crosses the causal diagonal, the window's edge, a
 //   sequence's length or t compares each score with its row's attended
 //   range, [first, last], computed once per block; interior tiles take a
 //   copy of the loop with no compare. The step has no branch a score:
 //   a masked score enters the exponent as -inf. (With a branch a score and
 //   expf's slow path, the first version took 1.5 times as long.)
-//   Register budget (ptxas, sm_90a): dQ 167 at d 64 (three blocks an SM),
-//   241 at d 128; dK/dV 215 (two blocks) and 255 at d 128, which spills 80
-//   bytes. Capping registers for a fourth block made dQ slower. Shared
-//   memory: dQ 49 KB (d 64) and 97 KB (d 128), dK/dV 51 and 99 KB.
+//   Register budget (ptxas, sm_90a): the forward 163 at d 64 (three blocks
+//   an SM), 240 at d 128; dQ 167 and 241; dK/dV 215 (two blocks) and 255
+//   at d 128, which spills 80 bytes. Capping registers for a fourth block
+//   made dQ slower. Shared memory: the forward 57 KB (d 64) and 113 KB
+//   (d 128), dQ 49 and 97 KB, dK/dV 51 and 99 KB.
 // * CUDA cores (fp32, fp16 and other head dims, any multiple of 8 up to
 //   256): a block of 256 threads stages 64x64 tiles (32x32 past head_dim
 //   128) of its operands in shared memory as fp32, the ones read along
 //   head_dim transposed, so that each of the 16x16 threads reads 4-wide
 //   vectors and does 16 multiply-adds per two shared loads in every
-//   product; fp32 FMAs (67 TFLOP/s peak) bound it. The forward is this
-//   kind too (ROADMAP B5).
+//   product; fp32 FMAs (67 TFLOP/s peak) bound it.
 //
 // Both: the grid is Hopper's, not the TPU's sequential one: one block per
 // (batch-head, query tile) for the forward and dQ, one per (batch-kv-head,
@@ -105,6 +114,7 @@
 #include <cmath>
 #include <type_traits>
 
+#include "attention_tc.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
@@ -721,12 +731,18 @@ flash_bwd_delta_kernel(const Params p) {
     p.delta[((long long)bi * p.h + hi) * p.t + ti] = acc;
 }
 
-// ---------------------------------------- backward on the tensor cores
+// ------------------------------- forward and backward on the tensor cores
+
+enum Kind { kFwd, kDq, kDkv, kDelta, kFwdTc, kDqTc, kDkvTc };
 
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int kM = 64;       // wgmma's M: query rows (dQ) or keys (dK/dV)
+using attn::exp2_approx;
+using attn::issue_hi_lo;
+using attn::kLog2e;
+constexpr int kM = attn::kM;  // wgmma's M: query rows (forward, dQ) or
+                              // keys (dK/dV)
 constexpr int kStages = 2;   // the ring of walked tiles
 constexpr int kThreadsTc = hopper::kWarpgroup;
 
@@ -734,6 +750,9 @@ template <int HD>
 struct Geo {
   static constexpr int TILE = kM * HD * 2;  // bytes of one [64][HD] tile
   static constexpr int KSTEPS = HD / 16;    // k-steps over head_dim
+  // forward: q, then attn::attend's ring of (k, v)
+  static constexpr int FWD_SMEM =
+      hopper::kAtomBytes + (1 + 2 * attn::kStages) * TILE;
   // dQ: q, dO, then the ring of (k, v)
   static constexpr int DQ_SMEM =
       hopper::kAtomBytes + (2 + 2 * kStages) * TILE;
@@ -745,19 +764,15 @@ struct Geo {
 
 // Rows [row0, row0 + 64) of one (batch, head) slice with seq stride `st`
 // into the swizzled tile at `dst`; rows at or past t are zero-filled.
-// Consecutive threads copy consecutive 16-byte chunks of a row.
 template <int HD>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* base,
                                           long long st, int row0, int t) {
-  constexpr int CPR = HD / 8;  // chunks a row
-#pragma unroll
-  for (int it = 0; it < kM * CPR / kThreadsTc; ++it) {
-    const int i = it * kThreadsTc + threadIdx.x;
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool ok = row0 + r < t;
-    const bf16* src = ok ? base + (long long)(row0 + r) * st + c : base;
-    hopper::cp_async16(dst + hopper::sw128(r, c, kM), src, ok);
-  }
+  const uint32_t dsts[1] = {dst};
+  const bf16* const bases[1] = {base};
+  attn::load_rows<HD>(dsts, bases, [&](int r, long long& off) {
+    off = (long long)(row0 + r) * st;
+    return row0 + r < t;
+  });
 }
 
 // The first products of a tile: S = A B^T and dP = A2 B2^T, each 64 x 64
@@ -783,33 +798,8 @@ __device__ __forceinline__ void scores(uint32_t a, uint32_t b, uint32_t a2,
   hopper::fence_operands(dp);
 }
 
-// acc += (hi + lo) B over 64 rows of K, B an MN-major [64][HD] tile.
-template <int N>
-__device__ __forceinline__ void issue_hi_lo(float (&acc)[N],
-                                            const uint32_t (&hi)[16],
-                                            const uint32_t (&lo)[16],
-                                            uint32_t b) {
-#pragma unroll
-  for (int k = 0; k < kM / 16; ++k) {
-    const uint64_t desc = hopper::desc_mnmajor(b, kM, k);
-    hopper::wgmma_rs<1>(acc, hi + 4 * k, desc, 1);
-    hopper::wgmma_rs<1>(acc, lo + 4 * k, desc, 1);
-  }
-}
-
 __device__ __forceinline__ uint32_t align_atom(uint32_t a) {
   return (a + hopper::kAtomBytes - 1) & ~(uint32_t)(hopper::kAtomBytes - 1);
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x by the special-function unit (about 2 ulp; 2^-inf = 0), so that P
-// = 2^(s scale log2(e) - lse log2(e)) takes one FMA and one MUFU a score
-// and no branch.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The keys query row q attends, [first, last] (empty when last < first):
@@ -1097,11 +1087,85 @@ flash_bwd_dkv_tc_kernel(const Params p) {
   }
 }
 
+// The forward on the tensor cores: one warpgroup a (batch-head, 64-row
+// query tile), the query tile loaded once, the (k, v) tiles walked by
+// attn::attend (attention_tc.cuh) over the bounds dQ walks (causal,
+// lengths, window, the ragged last tile). Padded query rows attend as in
+// the reference's forward (pad_rows false).
 template <int HD>
-cudaError_t launch(bool dq, const Params& p, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreadsTc, 1)
+flash_fwd_tc_kernel(const Params p) {
+  using G = Geo<HD>;
+  extern __shared__ uint8_t smem[];
+  const uint32_t sq = align_atom(hopper::smem_u32(smem));
+  const uint32_t ring = sq + G::TILE;
+
+  const int n_tiles = (p.t + kM - 1) / kM;
+  const int q0 = (n_tiles - 1 - (int)blockIdx.y) * kM;  // heavy tiles first
+  const int bh = blockIdx.x;
+  const int bi = bh / p.h, hi = bh % p.h, kv = hi / (p.h / p.kvh);
+  const int len = seq_len(p, bi);
+
+  const bf16* qb = static_cast<const bf16*>(p.q) + bi * p.sq[0] +
+                   hi * p.sq[2];
+  const bf16* kb = static_cast<const bf16*>(p.k) + bi * p.sk[0] +
+                   kv * p.sk[2];
+  const bf16* vb = static_cast<const bf16*>(p.v) + bi * p.sv[0] +
+                   kv * p.sv[2];
+
+  int k_end = len;
+  if (p.causal) k_end = min(k_end, q0 + kM);
+  const int k_begin = p.window ? max(0, q0 - p.window + 1) / kM * kM : 0;
+  const int nk = k_end > k_begin ? (k_end - k_begin + kM - 1) / kM : 0;
+
+  int first[2], last[2];  // the keys rows acc_row(0), acc_row(2) attend
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2)
+    key_range(p, q0 + hopper::acc_row(2 * h2), len, false, first[h2],
+              last[h2]);
+
+  attn::Rows st;
+  st.init();
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  load_tile<HD>(sq, qb, p.sq[1], q0, p.t);
+  attn::attend<HD>(
+      sq, ring, nk, k_begin,
+      [&](int j, uint32_t stage) {
+        load_tile<HD>(stage, kb, p.sk[1], k_begin + j * kM, p.t);
+        load_tile<HD>(stage + G::TILE, vb, p.sv[1], k_begin + j * kM, p.t);
+      },
+      [&](int k0) { return edge_tile(p, q0, k0, len, false); }, first, last,
+      p.scale * kLog2e, st, acc);
+  st.finish();
+
+  bf16* ob = static_cast<bf16*>(p.out) + bi * p.s1[0] + hi * p.s1[2];
+  attn::store_out<HD>(acc, st, [&](int r, bf16*& dst) {
+    dst = ob + (q0 + r) * p.s1[1];
+    return q0 + r < p.t;
+  });
+  if (threadIdx.x % 4 == 0) {  // one thread of the quad writes lse
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int row = q0 + hopper::acc_row(2 * h2);
+      if (row < p.t) p.lse[(long long)bh * p.t + row] = st.lse(h2);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch(Kind kind, const Params& p, cudaStream_t stream) {
   const int tiles = (p.t + kM - 1) / kM;
   cudaError_t e;
-  if (dq) {
+  if (kind == kFwdTc) {
+    constexpr size_t smem = Geo<HD>::FWD_SMEM;
+    if ((e = allow_smem(flash_fwd_tc_kernel<HD>, smem)) != cudaSuccess)
+      return e;
+    flash_fwd_tc_kernel<HD>
+        <<<dim3(p.b * p.h, tiles), kThreadsTc, smem, stream>>>(p);
+  } else if (kind == kDqTc) {
     constexpr size_t smem = Geo<HD>::DQ_SMEM;
     if ((e = allow_smem(flash_bwd_dq_tc_kernel<HD>, smem)) != cudaSuccess)
       return e;
@@ -1120,8 +1184,6 @@ cudaError_t launch(bool dq, const Params& p, cudaStream_t stream) {
 }  // namespace tc
 
 // ---------------------------------------------------------------- launch
-
-enum Kind { kFwd, kDq, kDkv, kDelta, kDqTc, kDkvTc };
 
 template <int NJ>
 size_t smem_bytes(Kind kind) {
@@ -1170,11 +1232,11 @@ cudaError_t dispatch(Kind kind, const Params& p, cudaStream_t stream) {
            stream>>>(p);
     return cudaGetLastError();
   }
-  if (kind == kDqTc || kind == kDkvTc) {
+  if (kind == kFwdTc || kind == kDqTc || kind == kDkvTc) {
     // the tensor-core kernels: bf16, head_dim 64 or 128 (the wrapper's rule)
     if (!std::is_same<T, __nv_bfloat16>::value) return cudaErrorInvalidValue;
-    if (p.d == 64) return tc::launch<64>(kind == kDqTc, p, stream);
-    if (p.d == 128) return tc::launch<128>(kind == kDqTc, p, stream);
+    if (p.d == 64) return tc::launch<64>(kind, p, stream);
+    if (p.d == 128) return tc::launch<128>(kind, p, stream);
     return cudaErrorInvalidValue;
   }
   switch ((p.d + 63) / 64) {
@@ -1234,6 +1296,12 @@ extern "C" int hvd_flash_fwd(void* const* tensors, const long long* strides,
                              const int* dims, int dtype, int device,
                              void* stream) {
   return run(kFwd, tensors, strides, dims, dtype, device, stream);
+}
+
+extern "C" int hvd_flash_fwd_tc(void* const* tensors, const long long* strides,
+                                const int* dims, int dtype, int device,
+                                void* stream) {
+  return run(kFwdTc, tensors, strides, dims, dtype, device, stream);
 }
 
 extern "C" int hvd_flash_bwd_dq(void* const* tensors,

@@ -13,28 +13,46 @@
 // What bounds it: device-memory bytes. At decode (t = 1) one block per
 // (slot, KV head) reads that slot's live K/V bytes once, so the floor is
 // the live K/V bytes over 3.35 TB/s. The TPU kernel's sequential page grid
-// with its state in VMEM scratch does not carry over; there are two
-// kernels here, both reading each page index from the table in global
-// memory and keeping m, l and the output accumulator in registers:
+// with its state in VMEM scratch does not carry over; there are three
+// kernels here, all reading each page index from the table in global
+// memory and keeping m, l and the output accumulator in registers. The
+// wrapper picks one by a single rule (kernel_variant in
+// ops/paged_attention.py) on the packed rows of a (slot, KV head), rows =
+// t * r, and the type:
 //
-// * paged_decode_kernel, when a (slot, KV head) has at most 4 query rows
-//   (t * r <= 4: every decode step of an MHA model). One block per (KV
-//   head, slot); its 16 warps take the same rows and split the slot's
-//   keys, warp w walking 32-key chunks w, w + 16, ... A lane scores its
-//   own key straight from device memory, and the PV product reads V rows
-//   coalesced across the lanes, eight rows' loads issued before any is
-//   used. The loop has no block barrier, so sixteen chains of loads are in
-//   flight per block. The warps' partial softmax states are merged through
-//   shared memory at the end.
-// * paged_attention_kernel, for wider query tiles (prefill chunks, GQA
-//   groups): one block per (tile of 16 query rows, KV head, slot) walks
-//   the slot's live keys 32 per step, staging K and V in shared memory as
-//   fp32 for its four warps of four rows. Tiling the query rows lets a
-//   1024-row prefill chunk run, which the TPU's VMEM budget refused.
+// * paged_decode_kernel, rows <= 4 (every decode step of an MHA model).
+//   One block per (KV head, slot); its 16 warps take the same rows and
+//   split the slot's keys, warp w walking 32-key chunks w, w + 16, ... A
+//   lane scores its own key straight from device memory, and the PV
+//   product reads V rows coalesced across the lanes, eight rows' loads
+//   issued before any is used. The loop has no block barrier, so sixteen
+//   chains of loads are in flight per block. The warps' partial softmax
+//   states are merged through shared memory at the end.
+// * paged_attention_tc_kernel, rows > 4 in bf16 at head_dim 64 or 128
+//   (prefill chunks, wide GQA groups): one warpgroup per (tile of 64
+//   packed rows, KV head, slot) on the tensor cores, the tile step of
+//   attention_tc.cuh that the flash forward shares (S by wgmma, the online
+//   softmax in registers, P as a bf16 hi/lo pair into O += P V, one
+//   tile's S overlapped with the previous tile's P V). Its K/V rows come
+//   through the page table into a three-stage cp.async ring of swizzled
+//   tiles, 64 keys a tile (4 pages of 16 tokens; any page size runs),
+//   zero-filled past the block's last key, so the loads of the next tile
+//   overlap this tile's products. What bounded the CUDA-core kernel
+//   below was re-reading every page once per 16 rows (16 times for a
+//   256-row chunk) and the products on the CUDA cores; this one reads each
+//   page once per 64 rows. At a 256-row GPT-2 medium chunk it is ~19x its
+//   byte bound all the same: 64 blocks (4 row tiles x 16 KV heads) leave
+//   half of the 132 SMs idle, and the time is one block's chain of up to
+//   9 key tiles (PERF.md); splitting the keys over blocks is the next
+//   step.
+// * paged_attention_kernel, rows > 4 otherwise (the fp32 serve, fp16,
+//   other head dims): one block per (tile of 16 query rows, KV head, slot)
+//   walks the slot's live keys 32 per step, staging K and V in shared
+//   memory as fp32 for its four warps of four rows, on the CUDA cores.
 //
-// Keys past the slot's frontier, and under the causal mask past a tile's
-// last query row, are never read. The products run on the CUDA cores;
-// wgmma, TMA and split-K over pages across blocks come later.
+// Tiling the query rows lets a 1024-row prefill chunk run, which the
+// TPU's VMEM budget refused. Keys past the slot's frontier, and under the
+// causal mask past a tile's last query row, are never read.
 //
 // Plain C interface, loaded with ctypes: the caller passes device pointers,
 // the device index and its current stream, and gets cudaGetLastError()
@@ -44,6 +62,11 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "attention_tc.cuh"
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -433,6 +456,12 @@ struct Args {
   int b, t, h, kvh, d, num_pages, page_tokens, n_logical, causal;
 };
 
+// The kernel a call takes (the wrapper's rule, kernel_variant in
+// ops/paged_attention.py): the decode kernel for at most kRowsPerWarp
+// packed rows a (slot, KV head), the tiled kernel for more, on the
+// tensor cores for bf16 at head_dim 64 or 128.
+enum Variant { kDecode = 0, kTiled = 1, kTiledTc = 2 };
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -440,11 +469,147 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, int NC>
+// ------------------------------------------------ tiled, on the tensor cores
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kM = attn::kM;  // packed query rows a block, keys a tile
+
+template <int HD>
+struct Geo {
+  static constexpr int TILE = kM * HD * 2;  // bytes of one [64][HD] tile
+  // q, then attn::attend's ring of (k, v)
+  static constexpr int SMEM =
+      hopper::kAtomBytes + (1 + 2 * attn::kStages) * TILE;
+};
+
+// One block per (tile of 64 packed rows, KV head, slot), heaviest causal
+// tiles first: packed row g is query g / r of head kv r + g % r, at
+// position start + g / r. The block's queries are loaded once; its keys
+// come 64 a tile through the page table into attn::attend's cp.async
+// ring (attention_tc.cuh; 16-byte chunks into the 128-byte swizzle,
+// zero-filled past the block's last key). A page of any size: key j of a
+// tile is pool row (clamp(table[slot][j / pt]) pt + j % pt) kvh + kv.
+template <int HD>
+__global__ void __launch_bounds__(hopper::kWarpgroup, 1)
+paged_attention_tc_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k_pool,
+                          const bf16* __restrict__ v_pool,
+                          const int32_t* __restrict__ page_table,
+                          const int32_t* __restrict__ lengths,
+                          bf16* __restrict__ out, int t, int h, int kvh,
+                          int num_pages, int page_tokens, int n_logical,
+                          int causal) {
+  using G = Geo<HD>;
+  extern __shared__ uint8_t smem[];
+  const uint32_t sq = (hopper::smem_u32(smem) + hopper::kAtomBytes - 1) &
+                      ~(uint32_t)(hopper::kAtomBytes - 1);
+  const uint32_t ring = sq + G::TILE;
+
+  const int r = h / kvh;
+  const int rows = t * r;
+  const int slot = blockIdx.z, kv = blockIdx.y;
+  const int tile = causal ? (int)(gridDim.x - 1 - blockIdx.x)
+                          : (int)blockIdx.x;
+  const int row0 = tile * kM;
+  const int start = lengths[slot];
+  const int frontier = min(start + t, n_logical * page_tokens);
+  int n_keys = frontier;  // keys any row of the block attends
+  if (causal) {
+    const int last_row = min(row0 + kM, rows) - 1;
+    n_keys = min(n_keys, start + last_row / r + 1);
+  }
+  const int nk = n_keys > 0 ? (n_keys + kM - 1) / kM : 0;
+  const int32_t* table_row = page_table + (size_t)slot * n_logical;
+
+  // the keys rows acc_row(0), acc_row(2) attend; packed rows past `rows`
+  // attend none
+  int first[2] = {0, 0}, last[2];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int g = row0 + hopper::acc_row(2 * h2);
+    last[h2] = frontier - 1;
+    if (causal) last[h2] = min(last[h2], start + g / r);
+    if (g >= rows) last[h2] = -1;
+  }
+  const int first_pos = start + row0 / r;  // the block's earliest query
+
+  attn::Rows st;
+  st.init();
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  // the block's queries; rows past the packed rows zero-filled. Packed
+  // row g lies at element ((slot t + g / r) h + kv r + g % r) HD.
+  auto q_row = [&](int g) {
+    const int ti = g / r;
+    return (((long long)slot * t + ti) * h + kv * r + (g - ti * r)) * HD;
+  };
+  {
+    const uint32_t dst[1] = {sq};
+    const bf16* const src[1] = {q};
+    attn::load_rows<HD>(dst, src, [&](int rr, long long& off) {
+      const bool ok = row0 + rr < rows;
+      if (ok) off = q_row(row0 + rr);
+      return ok;
+    });
+  }
+  attn::attend<HD>(
+      sq, ring, nk, 0,
+      [&](int j, uint32_t stage) {
+        const uint32_t dst[2] = {stage, stage + G::TILE};
+        const bf16* const src[2] = {k_pool, v_pool};
+        attn::load_rows<HD>(dst, src, [&](int rr, long long& off) {
+          const int key = j * kM + rr;
+          const bool ok = key < n_keys;
+          if (ok) {
+            const int lp = key / page_tokens;
+            const int page = min(max(table_row[lp], 0), num_pages - 1);
+            off = (((long long)page * page_tokens + (key - lp * page_tokens)) *
+                       kvh + kv) * HD;
+          }
+          return ok;
+        });
+      },
+      [&](int k0) {
+        return k0 + kM > n_keys || (causal && k0 + kM - 1 > first_pos);
+      },
+      first, last,
+      // scores divided by sqrt(head_dim) after the product, as the
+      // reference
+      attn::kLog2e / sqrtf((float)HD), st, acc);
+  st.finish();
+  attn::store_out<HD>(acc, st, [&](int rr, bf16*& dst) {
+    const bool ok = row0 + rr < rows;
+    if (ok) dst = out + q_row(row0 + rr);
+    return ok;
+  });
+}
+
+template <int HD>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = Geo<HD>::SMEM;
+  cudaError_t e = allow_smem(paged_attention_tc_kernel<HD>, smem);
+  if (e != cudaSuccess) return e;
   const int rows = a.t * (a.h / a.kvh);
+  paged_attention_tc_kernel<HD>
+      <<<dim3((rows + kM - 1) / kM, a.kvh, a.b), hopper::kWarpgroup, smem,
+         stream>>>(static_cast<const bf16*>(a.q),
+                   static_cast<const bf16*>(a.k_pool),
+                   static_cast<const bf16*>(a.v_pool), a.page_table,
+                   a.lengths, static_cast<bf16*>(a.out), a.t, a.h, a.kvh,
+                   a.num_pages, a.page_tokens, a.n_logical, a.causal);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+template <typename T, int NC>
+cudaError_t launch(const Args& a, Variant variant, cudaStream_t stream) {
   cudaError_t e;
-  if (rows <= kRowsPerWarp) {
+  if (variant == kDecode) {
     const size_t smem =
         sizeof(float) * ((size_t)kRowsPerWarp * a.d +
                          2 * kDecodeWarps * kRowsPerWarp +
@@ -459,6 +624,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
             a.page_tokens, a.n_logical, a.causal);
     return cudaGetLastError();
   }
+  const int rows = a.t * (a.h / a.kvh);
   const dim3 grid((rows + kRows - 1) / kRows, a.kvh, a.b);
   const size_t smem =
       sizeof(float) * ((size_t)kRows * a.d + (size_t)kKeys * (a.d + 1) +
@@ -474,24 +640,32 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t dispatch(const Args& a, cudaStream_t stream) {
+cudaError_t dispatch(const Args& a, Variant variant, cudaStream_t stream) {
+  if (variant == kTiledTc) {
+    if (!std::is_same<T, __nv_bfloat16>::value) return cudaErrorInvalidValue;
+    if (a.d == 64) return tc::launch<64>(a, stream);
+    if (a.d == 128) return tc::launch<128>(a, stream);
+    return cudaErrorInvalidValue;
+  }
   switch ((a.d + 31) / 32) {
-    case 1: return launch<T, 1>(a, stream);
-    case 2: return launch<T, 2>(a, stream);
-    case 3: return launch<T, 3>(a, stream);
-    case 4: return launch<T, 4>(a, stream);
-    case 5: return launch<T, 5>(a, stream);
-    case 6: return launch<T, 6>(a, stream);
-    case 7: return launch<T, 7>(a, stream);
-    case 8: return launch<T, 8>(a, stream);
+    case 1: return launch<T, 1>(a, variant, stream);
+    case 2: return launch<T, 2>(a, variant, stream);
+    case 3: return launch<T, 3>(a, variant, stream);
+    case 4: return launch<T, 4>(a, variant, stream);
+    case 5: return launch<T, 5>(a, variant, stream);
+    case 6: return launch<T, 6>(a, variant, stream);
+    case 7: return launch<T, 7>(a, variant, stream);
+    case 8: return launch<T, 8>(a, variant, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Every tensor contiguous;
-// q and out [b, t, h, d], pools [num_pages, page_tokens, kvh, d],
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; variant: a Variant,
+// which the call must suit (decode: at most 4 packed rows a KV head;
+// tensor cores: bf16 at head_dim 64 or 128). Every tensor contiguous; q
+// and out [b, t, h, d], pools [num_pages, page_tokens, kvh, d],
 // page_table [b, n_logical] int32, lengths [b] int32. Returns a
 // cudaError_t code (0 = launched).
 extern "C" int hvd_paged_attention(const void* q, const void* k_pool,
@@ -499,12 +673,13 @@ extern "C" int hvd_paged_attention(const void* q, const void* k_pool,
                                    const void* lengths, void* out, int b,
                                    int t, int h, int kvh, int d,
                                    int num_pages, int page_tokens,
-                                   int n_logical, int causal, int dtype,
-                                   int device, void* stream) {
+                                   int n_logical, int causal, int variant,
+                                   int dtype, int device, void* stream) {
   if (b <= 0 || t <= 0) return cudaSuccess;
   if (kvh <= 0 || h % kvh || d <= 0 || d % 8 || d > kMaxHeadDim ||
       num_pages <= 0 || page_tokens <= 0 || n_logical <= 0 ||
-      kvh > 65535 || b > 65535)
+      kvh > 65535 || b > 65535 || variant < kDecode || variant > kTiledTc ||
+      (variant == kDecode && t * (h / kvh) > kRowsPerWarp))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
@@ -513,10 +688,11 @@ extern "C" int hvd_paged_attention(const void* q, const void* k_pool,
                static_cast<const int32_t*>(lengths), out, b, t, h, kvh, d,
                num_pages, page_tokens, n_logical, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Variant v = static_cast<Variant>(variant);
   switch (dtype) {
-    case 0: return dispatch<float>(a, s);
-    case 1: return dispatch<__nv_bfloat16>(a, s);
-    case 2: return dispatch<__half>(a, s);
+    case 0: return dispatch<float>(a, v, s);
+    case 1: return dispatch<__nv_bfloat16>(a, v, s);
+    case 2: return dispatch<__half>(a, v, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -20,11 +20,14 @@ by hand in CUDA C++ for Hopper, ``csrc/flash_attention.cu``, built with
 * :func:`flash_bwd_delta`: ``delta = rowsum(dO ⊙ O)``, the input both
   backward kernels share, once per backward.
 
-Each backward kernel comes in two variants, chosen by one rule,
-:func:`tensor_core_path`: bf16 with head_dim 64 or 128 runs on the
-tensor cores (``wgmma``, ``csrc/hopper_mma.cuh``), every other dtype and
-head_dim on the CUDA cores. ``launches`` counts both; ``tc_launches``
-the tensor-core ones.
+The forward and each backward kernel come in two variants, chosen by
+one rule, :func:`tensor_core_path`: bf16 with head_dim 64 or 128 runs on
+the tensor cores (``wgmma``, ``csrc/hopper_mma.cuh``; the forward on the
+tile step of ``csrc/attention_tc.cuh`` it shares with the paged
+kernel), every other dtype and head_dim (fp32, fp16) on the CUDA cores.
+``launches`` counts both; ``tc_launches`` the tensor-core ones. A call
+whose kernel fails to build or launch raises: it never takes the other
+variant or the plain version.
 
 The four JAX custom VJPs (MHA or GQA, with or without lengths) are one
 :class:`FlashAttentionFunction` here. The kernels read q, k, v, o and dO
@@ -43,7 +46,10 @@ its kernel or raises. Every launch adds one to the wrapper's
 Numerics follow the reference: q is scaled before ``QKᵀ`` in the
 forward, the backward scales after; masked scores get probability 0;
 ``lse = m + log(max(l, 1e-30))``; ``P V`` runs in fp32; outputs are
-rounded once to the input's type.
+rounded once to the input's type. The tensor-core kernels scale after
+the product and feed P (and dS) to their second products as bf16 pairs
+``hi + lo`` (about 2^-17 relative a term), within one bf16 rounding of
+the plain versions.
 """
 
 from __future__ import annotations
@@ -66,11 +72,11 @@ _N_STRIDED = 7  # q, k, v, o, dO, out, out2
 
 
 def tensor_core_path(dtype: torch.dtype, head_dim: int) -> bool:
-    """The backward kernels' dispatch rule: bf16 at head_dim 64 or 128
-    runs on the tensor cores (``*_tc`` kernels), anything else on the
-    CUDA cores. fp16 stays on the CUDA cores: the tensor-core kernels
-    split P and dS into bf16 pairs, and an fp16 pair was never held to
-    the card's check."""
+    """The kernels' dispatch rule, forward and backward: bf16 at
+    head_dim 64 or 128 runs on the tensor cores (``*_tc`` kernels),
+    anything else on the CUDA cores. fp16 stays on the CUDA cores: the
+    tensor-core kernels split P and dS into bf16 pairs, and an fp16 pair
+    was never held to the card's check."""
     return dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS
 
 
@@ -219,8 +225,8 @@ def flash_bwd_delta_plain(o, do):
 
 # ------------------------------------------------------------ the kernels
 
-_ENTRIES = ("hvd_flash_fwd", "hvd_flash_bwd_delta", "hvd_flash_bwd_dq",
-            "hvd_flash_bwd_dkv", "hvd_flash_bwd_dq_tc",
+_ENTRIES = ("hvd_flash_fwd", "hvd_flash_fwd_tc", "hvd_flash_bwd_delta",
+            "hvd_flash_bwd_dq", "hvd_flash_bwd_dkv", "hvd_flash_bwd_dq_tc",
             "hvd_flash_bwd_dkv_tc")
 
 
@@ -300,20 +306,23 @@ def flash_fwd(q, k, v, causal: bool = False, lengths=None,
               window: Optional[int] = None):
     """``(o, lse)`` of attention over ``[b, t, h, d]`` q and ``[b, t,
     kv_heads, d]`` k/v: o in q's type, lse ``[b·h, t]`` fp32. CPU tensors
-    take :func:`flash_fwd_plain`; CUDA tensors launch the kernel."""
+    take :func:`flash_fwd_plain`; CUDA tensors launch the kernel
+    :func:`tensor_core_path` picks."""
     if q.device.type != "cuda":
         return flash_fwd_plain(q, k, v, causal, lengths, window)
     window = _check(q, k, v, causal, lengths, window)
     _check_kernel(q, k, v)
     q, k, v = (_kernel_input(x) for x in (q, k, v))
-    b, t, h, _ = q.shape
+    b, t, h, d = q.shape
+    tc = tensor_core_path(q.dtype, d)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     lens = _lengths_arg(lengths, q.device)
-    _launch("hvd_flash_fwd", q,
+    _launch("hvd_flash_fwd_tc" if tc else "hvd_flash_fwd", q,
             [q, k, v, None, None, o, None, lse, lens, None],
             [q, k, v, None, None, o, None], causal, window, k.shape[2])
     flash_fwd.launches += 1
+    flash_fwd.tc_launches += tc
     return o, lse
 
 
@@ -425,7 +434,7 @@ def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = False, lengths=None,
     return _dkv(a, _delta_arg(a, delta))
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = flash_fwd.tc_launches = 0
 flash_bwd_delta.launches = 0
 flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
 flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0

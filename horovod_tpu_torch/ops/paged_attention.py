@@ -20,10 +20,27 @@ takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises. Every launch adds one to
 ``paged_attention.launches``.
 
+The kernel comes in three variants, chosen by one rule,
+:func:`kernel_variant`, on the packed query rows of one (slot, KV head),
+``t · h / kv_heads``: at most 4 (every decode step of an MHA model) take
+the decode kernel, whose warps split the slot's keys; more (prefill
+chunks, wide GQA groups) take the tiled kernel: on the tensor cores
+(``wgmma``, the tile step of ``csrc/attention_tc.cuh``, 64 packed rows
+a block, so each K/V page is read once for 64 rows) for bf16 at
+head_dim 64 or 128, on the CUDA cores (16 rows a block) for fp32, fp16
+and other head dims.
+``paged_attention.chunk_launches`` counts the tiled kernel's launches of
+either kind and ``paged_attention.tc_launches`` those on the tensor
+cores. A call whose kernel fails to build or launch raises; it never
+takes another variant or the plain version.
+
 Numerics follow the reference: fp32 scores divided by ``sqrt(head_dim)``
 after the product, the causal and length masks at −1e30, online softmax
 in fp32 with the denominator floored at 1e-30, output in q's dtype. The
-kernel and the plain version differ only in the order of fp32 sums.
+CUDA-core kernels and the plain version differ only in the order of
+fp32 sums; the tensor-core kernel also feeds P to P·V as a bf16 pair
+``hi + lo`` (about 2^-17 relative a term), within two bf16 ulp of the
+plain output.
 """
 
 from __future__ import annotations
@@ -35,12 +52,31 @@ from typing import Optional
 import torch
 
 from . import _build
+from .flash_attention import tensor_core_path
 
 LIBRARY = "paged_attention"
 MAX_HEAD_DIM = 256
 HEAD_DIM_MULTIPLE = 8  # one 16-byte load covers 8 two-byte elements
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DECODE_MAX_ROWS = 4  # packed rows a (slot, KV head) the decode kernel takes
+# the kernel variants, as csrc/paged_attention.cu's Variant numbers them
+VARIANT_CODES = {"decode": 0, "cuda_cores": 1, "tensor_cores": 2}
 _NEG_INF = -1e30
+
+
+def kernel_variant(dtype: torch.dtype, head_dim: int, rows: int) -> str:
+    """The dispatch rule, by the packed query rows of one (slot, KV
+    head), ``rows = t · h / kv_heads``: at most 4 take the decode kernel
+    (``"decode"``); more take the tiled kernel, on the tensor cores where
+    the flash kernels take them, by the same rule
+    (:func:`~.flash_attention.tensor_core_path`: bf16 at head_dim 64 or
+    128; ``"tensor_cores"``), and on the CUDA cores otherwise
+    (``"cuda_cores"``: fp32, fp16, other head dims)."""
+    if rows <= DECODE_MAX_ROWS:
+        return "decode"
+    if tensor_core_path(dtype, head_dim):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def unsupported_reason(
@@ -77,7 +113,7 @@ def unsupported_reason(
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hvd_paged_attention.argtypes = [p] * 6 + [i] * 11 + [p]
+    lib.hvd_paged_attention.argtypes = [p] * 6 + [i] * 12 + [p]
     lib.hvd_paged_attention.restype = i
     lib.hvd_cuda_error_string.argtypes = [i]
     lib.hvd_cuda_error_string.restype = ctypes.c_char_p
@@ -160,13 +196,27 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
       causal: query row ``lengths + i`` attends keys ``<= lengths + i``.
 
     Returns ``[batch, t, num_heads, head_dim]`` in q's dtype. CPU tensors
-    take :func:`paged_attention_plain`; CUDA tensors launch the kernel.
+    take :func:`paged_attention_plain`; CUDA tensors launch the kernel
+    :func:`kernel_variant` names.
     """
     if not _on_cuda(q):
         return paged_attention_plain(
             q, k_pool, v_pool, page_table, lengths, causal=causal
         )
     _check(q, k_pool, v_pool, page_table, lengths)
+    _, t, h, d = q.shape
+    variant = kernel_variant(q.dtype, d, t * (h // k_pool.shape[2]))
+    out = _launch(q, k_pool, v_pool, page_table, lengths, causal, variant)
+    paged_attention.launches += 1
+    if variant != "decode":
+        paged_attention.chunk_launches += 1
+        paged_attention.tc_launches += variant == "tensor_cores"
+    return out
+
+
+def _launch(q, k_pool, v_pool, page_table, lengths, causal, variant):
+    """One launch of the kernel ``variant`` (a key of VARIANT_CODES);
+    raises on what the kernels do not take."""
     b, t, h, d = q.shape
     num_pages, page_tokens, kvh, _ = k_pool.shape
     if q.dtype not in DTYPE_CODES or k_pool.dtype != q.dtype or (
@@ -200,16 +250,20 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         table.data_ptr(), lens.data_ptr(), out.data_ptr(),
         b, t, h, kvh, d, num_pages, page_tokens, table.shape[1],
-        int(bool(causal)), DTYPE_CODES[q.dtype], index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(bool(causal)), VARIANT_CODES[variant], DTYPE_CODES[q.dtype],
+        index, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(
-            "paged_attention kernel launch failed: "
+            f"paged_attention kernel ({variant}) launch failed: "
             + lib.hvd_cuda_error_string(err).decode()
         )
-    paged_attention.launches += 1
     return out
 
 
+# every launch; the tiled kernel's (more than 4 packed rows: prefill
+# chunks, wide GQA groups), so decode's are launches - chunk_launches;
+# the tiled kernel's on the tensor cores
 paged_attention.launches = 0
+paged_attention.chunk_launches = 0
+paged_attention.tc_launches = 0

@@ -1,0 +1,304 @@
+#!/usr/bin/env python3
+"""The attention kernels' two variants against each other, in turns, in
+one process on one card: the forwards by default, the flash backward
+with ``--backward``.
+
+The dispatch rules send bf16 at head_dim 64 or 128 to the tensor cores:
+the flash forward to ``hvd_flash_fwd_tc`` (else ``hvd_flash_fwd``), and
+a paged call with more than 4 packed rows a KV head to the tiled kernel
+on the tensor cores (else the tiled kernel on the CUDA cores). The
+CUDA-core kernels run bf16 all the same. This script launches both
+variants of each on the same bf16 inputs at ``chip_smoke.py``'s phase-2
+shapes (the flash cases gpt2-t512, gpt2-t1024 and gqa-t1024; the paged
+chunks prefill256, prefill512 and gqa) and times each by CUDA events
+over graph-replayed launches in the order CUDA cores, tensor cores,
+tensor cores, CUDA cores (the lower of each pair), beside
+``scaled_dot_product_attention`` on the same inputs (the paged chunks:
+on the gathered view; timed only, never used by the port) and the
+bound ``chip_smoke.py`` computes. Both variants are held to the plain
+version first, by ``chip_smoke.py``'s checks.
+
+With ``--backward`` it does the same for the flash backward's dQ and
+dK/dV (``hvd_flash_bwd_dq``/``_dkv`` against their ``_tc`` kernels),
+given the same delta, at the flash shapes, beside the delta pass, the
+whole backward as ``FlashAttentionFunction`` runs it and SDPA's
+backward. With ``--train`` it runs ``chip_smoke.py``'s phase 5 instead (GPT-2
+medium's training steps, their peak memory and one profiled step: the
+device time a step), with ``--serve`` its phase 3 (the burst of 9
+requests to ``serve()``: TTFT, TPOT, tokens/s), and ``--root DIR``
+takes ``chip_smoke.py`` and the package from another checkout: run it
+on an unpacked parent commit and on this one in turns to compare the
+two in one call.
+
+Run from the repository root on a machine with a CUDA card:
+``python3 scripts/compare_attention_fwd.py [--backward | --train |
+--serve] [--root DIR]``. It prints one JSON line per shape (the phase's
+own lines with ``--train`` or ``--serve``) and, as its last line, the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+FLASH_SHAPES = ("gpt2-t512", "gpt2-t1024", "gqa-t1024")
+
+
+def _in_turns(cs, slow, fast):
+    """CUDA cores, tensor cores, tensor cores, CUDA cores; the lower of
+    each pair."""
+    c1 = cs._time_ms(slow, iters=20)
+    t1 = cs._time_ms(fast, iters=20)
+    t2 = cs._time_ms(fast, iters=20)
+    c2 = cs._time_ms(slow, iters=20)
+    return min(c1, c2), min(t1, t2)
+
+
+def flash_rows(cs, gen, card):
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    for case in cs.FLASH_CASES:
+        name, b, t, h, kvh, d, causal, lengths, window = case
+        if name not in FLASH_SHAPES:
+            continue
+        q, k, v = (torch.randn((b, t, n, d), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for n in (h, kvh, kvh))
+        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
+
+        def run(entry):
+            o = torch.empty_like(q)
+            lse = torch.empty((b * h, t), dtype=torch.float32,
+                              device=q.device)
+            fa._launch(entry, q, [q, k, v, None, None, o, None, lse, None,
+                                  None],
+                       [q, k, v, None, None, o, None], causal, window, kvh)
+            return o, lse
+
+        for entry in ("hvd_flash_fwd", "hvd_flash_fwd_tc"):
+            o, lse = run(entry)
+            torch.cuda.synchronize()
+            cs._check_one_rounding(f"{name} {entry}", o, o_ref)
+            if float((lse - lse_ref).abs().max()) > 1e-4:
+                cs.fail(f"{name} {entry}: lse differs from plain")
+        cuda_ms, tc_ms = _in_turns(cs, lambda i: run("hvd_flash_fwd"),
+                                   lambda i: run("hvd_flash_fwd_tc"))
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa_ms = cs._time_ms(lambda i: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal, enable_gqa=h != kvh))
+        bound_ms, bound_by = cs._flash_bound("fwd", case)
+        print(json.dumps({
+            "kernel": "flash_fwd", "name": name, "cuda_cores_ms": cuda_ms,
+            "tensor_cores_ms": tc_ms, "speedup": cuda_ms / tc_ms,
+            "sdpa_forward_ms": sdpa_ms, "tensor_cores_over_sdpa":
+            tc_ms / sdpa_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "tensor_cores_over_bound": tc_ms / bound_ms, "card": card,
+        }, sort_keys=True), flush=True)
+
+
+def paged_rows(cs, gen, card):
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import paged_attention as pa
+
+    cases = [  # chip_smoke.py's phase-2 chunks
+        cs._paged_case("prefill256", 1, 256, 16, 16, 64, 16, 64, [293],
+                       gen=gen),
+        cs._paged_case("prefill512", 1, 512, 16, 16, 64, 16, 64, [37],
+                       gen=gen),
+        cs._paged_case("gqa", 4, 3, 32, 8, 128, 16, 64, [0, 17, 100, 500],
+                       gen=gen),
+    ]
+    for c in cases:
+        n = len(c["pools"])
+        ref = pa.paged_attention_plain(c["q"], *c["pools"][0], c["table"],
+                                       c["lengths"])
+
+        def run(variant, i, c=c):
+            k, v = c["pools"][i % n]
+            return pa._launch(c["q"], k, v, c["table"], c["lengths"], True,
+                              variant)
+
+        for variant in ("cuda_cores", "tensor_cores"):
+            got = run(variant, 0)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            tol = 2 * cs._ulp_bf16(torch.maximum(got.float().abs(),
+                                                 ref.float().abs()))
+            if bool((diff > tol).any()):
+                cs.fail(f"paged {c['name']} {variant}: beyond 2 bf16 ulp")
+        cuda_ms, tc_ms = _in_turns(cs, lambda i: run("cuda_cores", i),
+                                   lambda i: run("tensor_cores", i))
+        b, t, h, kvh, d = c["b"], c["t"], c["h"], c["kvh"], c["d"]
+        tbl = c["table"].long().clamp(0, c["pools"][0][0].shape[0] - 1)
+        seq = c["n_logical"] * c["page_tokens"]
+        gathered = [
+            tuple(x[tbl].reshape(b, seq, kvh, d).repeat_interleave(
+                h // kvh, dim=2).transpose(1, 2).contiguous()
+                for x in pool)
+            for pool in c["pools"]
+        ]
+        start = c["lengths"].long()
+        key_pos = torch.arange(seq, device=start.device)
+        q_pos = start[:, None] + torch.arange(t, device=start.device)
+        mask = (key_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+        qh = c["q"].transpose(1, 2).contiguous()
+        sdpa_ms = cs._time_ms(lambda i: F.scaled_dot_product_attention(
+            qh, *gathered[i % n], attn_mask=mask))
+        bound_ms, bound_by = cs._bound(c)
+        print(json.dumps({
+            "kernel": "paged_attention tiled", "name": c["name"],
+            "rows_per_kv_head": t * h // kvh, "cuda_cores_ms": cuda_ms,
+            "tensor_cores_ms": tc_ms, "speedup": cuda_ms / tc_ms,
+            "sdpa_gathered_ms": sdpa_ms,
+            "tensor_cores_over_sdpa": tc_ms / sdpa_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "tensor_cores_over_bound": tc_ms / bound_ms, "card": card,
+        }, sort_keys=True), flush=True)
+
+
+def backward_rows(cs, gen, card):
+    """The flash backward's variants (``hvd_flash_bwd_dq``/``_dkv`` on the
+    CUDA cores, ``_tc`` on the tensor cores) given the same delta, beside
+    the delta pass, the whole backward as ``FlashAttentionFunction`` runs
+    it (delta, dQ, dK/dV) and SDPA's backward (forward and backward
+    replayed together, less the forward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    for case in cs.FLASH_CASES:
+        name, b, t, h, kvh, d, causal, lengths, window = case
+        if name not in FLASH_SHAPES:
+            continue
+        q, k, v, do = (
+            torch.randn((b, t, n, d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+            for n in (h, kvh, kvh, h)
+        )
+        o, lse = fa.flash_fwd_plain(q, k, v, causal)
+        a = fa._bwd_inputs(q, k, v, o, lse, do, causal, None, window)
+        delta = fa._delta(a.o, a.do)
+        dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(q, k, v, o, lse, do,
+                                                    causal)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+
+        def cuda_cores(entry, out, out2):
+            fa._launch(entry, a.q,
+                       [a.q, a.k, a.v, None, a.do, out, out2, a.lse, None,
+                        delta],
+                       [a.q, a.k, a.v, None, a.do, out, out2], causal,
+                       window, kvh)
+
+        arms = {
+            "dq": (lambda i: cuda_cores("hvd_flash_bwd_dq", dq, None),
+                   lambda i: fa._dq(a, delta)),
+            "dkv": (lambda i: cuda_cores("hvd_flash_bwd_dkv", dk, dv),
+                    lambda i: fa._dkv(a, delta)),
+        }
+        arms["dq"][0](0)
+        arms["dkv"][0](0)
+        got = (dq, dk, dv, fa._dq(a, delta), *fa._dkv(a, delta))
+        torch.cuda.synchronize()
+        for label, g, want in zip(
+                ("dq cuda cores", "dk cuda cores", "dv cuda cores",
+                 "dq tensor cores", "dk tensor cores", "dv tensor cores"),
+                got, (dq_ref, dk_ref, dv_ref) * 2):
+            cs._check_one_rounding(f"{name} {label}", g, want)
+        row = {"kernel": "flash_bwd", "name": name, "card": card}
+        for kind, (slow, fast) in arms.items():
+            c1 = cs._time_ms(slow, iters=10)
+            t1 = cs._time_ms(fast, iters=20)
+            t2 = cs._time_ms(fast, iters=20)
+            c2 = cs._time_ms(slow, iters=10)
+            row[f"{kind}_cuda_cores_ms"] = min(c1, c2)
+            row[f"{kind}_tensor_cores_ms"] = min(t1, t2)
+            row[f"{kind}_speedup"] = min(c1, c2) / min(t1, t2)
+        row["delta_ms"] = cs._time_ms(lambda i: fa._delta(a.o, a.do))
+
+        def backward(i):
+            dl = fa._delta(a.o, a.do)
+            fa._dq(a, dl)
+            fa._dkv(a, dl)
+
+        row["backward_ms"] = cs._time_ms(backward)
+        qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+        kw = dict(is_causal=causal, enable_gqa=h != kvh)
+
+        def fwd_bwd(i):
+            out = F.scaled_dot_product_attention(*leaves, **kw)
+            torch.autograd.grad(out, leaves, doh)
+
+        fwd_ms = cs._time_ms(
+            lambda i: F.scaled_dot_product_attention(qh, kh, vh, **kw))
+        row["sdpa_backward_ms"] = cs._time_ms(fwd_bwd) - fwd_ms
+        row["backward_over_sdpa"] = (row["backward_ms"]
+                                     / row["sdpa_backward_ms"])
+        print(json.dumps(row, sort_keys=True), flush=True)
+
+
+def serve_burst(cs, gen, card):
+    """``chip_smoke.py``'s phase 3: GPT-2 medium in bf16, random weights
+    from the seed, and the same 9 prompts."""
+    from horovod_tpu_torch import Transformer, TransformerConfig
+
+    cfg = TransformerConfig.gpt2_medium()
+    model = Transformer(cfg, device="cuda", generator=gen)
+    prompts, _ = cs.serve_prompts(cfg.vocab_size)
+    cs.phase_serve(model, prompts, 32, card)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--backward", action="store_true",
+                      help="time the flash backward's variants instead")
+    mode.add_argument("--train", action="store_true",
+                      help="run chip_smoke.py's phase 5 instead")
+    mode.add_argument("--serve", action="store_true",
+                      help="run chip_smoke.py's phase 3 instead")
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), help="checkout to import from")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import torch
+
+    import chip_smoke as cs
+
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is false: this script needs a "
+                "CUDA device")
+    card = cs.card_line()
+    from horovod_tpu_torch.ops import _build
+
+    # every kernel built before anything is timed (a build inside the
+    # burst would land in its TTFT)
+    _build.build(sorted(p.stem for p in _build.CSRC.glob("*.cu")))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED)
+    if args.train:
+        cs.phase_train(gen, card)
+    elif args.serve:
+        serve_burst(cs, gen, card)
+    elif args.backward:
+        backward_rows(cs, gen, card)
+    else:
+        flash_rows(cs, gen, card)
+        paged_rows(cs, gen, card)
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -138,8 +138,9 @@ def test_single_bf16_operands_break_the_card_check(name):
                                    torch.float16])
 @pytest.mark.parametrize("head_dim", [8, 24, 32, 64, 96, 128, 256])
 def test_dispatch_rule(dtype, head_dim):
-    """bf16 at head_dim 64 or 128 takes the tensor-core kernels; every
-    other (dtype, head_dim) the CUDA-core ones."""
+    """bf16 at head_dim 64 or 128 takes the tensor-core kernels (the
+    forward's and the backward's); every other (dtype, head_dim) the
+    CUDA-core ones."""
     want = dtype == torch.bfloat16 and head_dim in (64, 128)
     assert tfa.tensor_core_path(dtype, head_dim) is want
 

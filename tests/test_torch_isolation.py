@@ -10,6 +10,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "horovod_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "horovod_tpu")
@@ -61,3 +63,25 @@ def test_sources_import_no_jax():
             assert not any(_forbidden(a.name) for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             assert not _forbidden(node.module or "")
+
+
+# the scripts that drive the port on the card, which has no JAX
+CARD_SCRIPTS = ("scripts/compare_attention_fwd.py",
+                "scripts/compare_torch_wire_step.py",
+                "scripts/profile_torch_decode.py")
+
+
+@pytest.mark.parametrize("script", CARD_SCRIPTS)
+def test_card_scripts_import_no_jax(script):
+    tree = ast.parse((REPO / script).read_text())
+    offenders = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        offenders += [f"{script}:{node.lineno} {n}" for n in names
+                      if _forbidden(n)]
+    assert not offenders, offenders

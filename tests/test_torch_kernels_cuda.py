@@ -70,6 +70,12 @@ CASES = {
                       lengths=[17, 60]),
     "chunk-t40": dict(b=2, t=40, h=2, kvh=2, d=64, pt=16, n_logical=16,
                       lengths=[0, 77]),
+    # more than one 64-row tile: causal tiles of unequal weight
+    "chunk-t130": dict(b=1, t=130, h=4, kvh=4, d=64, pt=16, n_logical=16,
+                       lengths=[100]),
+    # a page size that divides no tile: a 64-key tile spans 13-14 pages
+    "chunk-gqa4-pt5": dict(b=2, t=70, h=8, kvh=2, d=128, pt=5,
+                           n_logical=40, lengths=[3, 61]),
 }
 
 
@@ -87,13 +93,79 @@ def test_kernel_matches_plain(cuda_card, name, dtype):
     q, k, v, table, lengths = _case(**CASES[name])
     args = [torch.from_numpy(x).to(cuda_card, dtype) for x in (q, k, v)]
     args += [torch.from_numpy(x).to(cuda_card) for x in (table, lengths)]
-    before = pa.paged_attention.launches
+    before = _paged_counts()
     got = pa.paged_attention(*args)
     torch.cuda.synchronize()
-    assert pa.paged_attention.launches == before + 1
+    b, t, h, d = q.shape
+    variant = pa.kernel_variant(dtype, d, t * h // k.shape[2])
+    assert _paged_counts() == (before[0] + 1,
+                               before[1] + (variant != "decode"),
+                               before[2] + (variant == "tensor_cores"))
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got, pa.paged_attention_plain(*args),
                                **_tolerance(dtype))
+
+
+def _paged_counts():
+    return (pa.paged_attention.launches, pa.paged_attention.chunk_launches,
+            pa.paged_attention.tc_launches)
+
+
+def _ulp_bf16(x):
+    """One bf16 ulp at |x|, floored at 2^-6 (as chip_smoke.py)."""
+    mag = x.abs().clamp_min(2.0 ** -6)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _assert_within_ulps(got, want, ulps):
+    """chip_smoke.py's check: |got − want| within ``ulps`` bf16 ulp of
+    the larger magnitude."""
+    diff = (got.float() - want.float()).abs()
+    tol = ulps * _ulp_bf16(torch.maximum(got.float().abs(),
+                                         want.float().abs()))
+    assert torch.isfinite(got.float()).all()
+    assert not bool((diff > tol).any()), float((diff / tol).max())
+
+
+# chip_smoke.py's phase-2 shapes that take the tiled kernel: the serving
+# path's 256-row prefill chunk, a 512-row one, a GQA 3-token chunk
+PAGED_PHASE2 = {
+    "prefill256": dict(b=1, t=256, h=16, kvh=16, d=64, pt=16, n_logical=64,
+                       lengths=[293]),
+    "prefill512": dict(b=1, t=512, h=16, kvh=16, d=64, pt=16, n_logical=64,
+                       lengths=[37]),
+    "gqa": dict(b=4, t=3, h=32, kvh=8, d=128, pt=16, n_logical=64,
+                lengths=[0, 17, 100, 500]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAGED_PHASE2))
+def test_paged_tensor_cores_match_plain_at_phase2_shapes(cuda_card, name):
+    """The tensor-core tiled kernel, bf16, within 2 bf16 ulp of the plain
+    version (chip_smoke.py's check), its launch counted as a tensor-core
+    chunk launch."""
+    q, k, v, table, lengths = _case(**PAGED_PHASE2[name])
+    args = [torch.from_numpy(x).to(cuda_card, torch.bfloat16)
+            for x in (q, k, v)]
+    args += [torch.from_numpy(x).to(cuda_card) for x in (table, lengths)]
+    before = _paged_counts()
+    got = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert _paged_counts() == tuple(c + 1 for c in before)
+    _assert_within_ulps(got, pa.paged_attention_plain(*args), 2)
+
+
+def test_paged_tensor_cores_not_causal(cuda_card):
+    q, k, v, table, lengths = _case(**CASES["chunk-gqa4-pt5"])
+    args = [torch.from_numpy(x).to(cuda_card, torch.bfloat16)
+            for x in (q, k, v)]
+    args += [torch.from_numpy(x).to(cuda_card) for x in (table, lengths)]
+    before = pa.paged_attention.tc_launches
+    got = pa.paged_attention(*args, causal=False)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.tc_launches == before + 1
+    _assert_within_ulps(got, pa.paged_attention_plain(*args, causal=False),
+                        2)
 
 
 # ------------------------------------------------------ flash attention
@@ -143,7 +215,8 @@ def test_flash_kernels_match_plain(cuda_card, name, dtype):
     q, k, v, do, kw = _flash_inputs(cuda_card, dtype, **FLASH_CASES[name])
     counts = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
               fa.flash_bwd_dkv.launches)
-    tc = (fa.flash_bwd_dq.tc_launches, fa.flash_bwd_dkv.tc_launches)
+    tc = (fa.flash_fwd.tc_launches, fa.flash_bwd_dq.tc_launches,
+          fa.flash_bwd_dkv.tc_launches)
     o, lse = fa.flash_fwd(q, k, v, **kw)
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
     dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, **kw)
@@ -154,8 +227,8 @@ def test_flash_kernels_match_plain(cuda_card, name, dtype):
     assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
             fa.flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
     on_tc = int(fa.tensor_core_path(dtype, q.shape[3]))
-    assert (fa.flash_bwd_dq.tc_launches, fa.flash_bwd_dkv.tc_launches) == (
-        tc[0] + on_tc, tc[1] + on_tc)
+    assert (fa.flash_fwd.tc_launches, fa.flash_bwd_dq.tc_launches,
+            fa.flash_bwd_dkv.tc_launches) == tuple(c + on_tc for c in tc)
     tol = (dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32
            else _tolerance(dtype))
     torch.testing.assert_close(o, o_ref, **tol)
@@ -163,6 +236,56 @@ def test_flash_kernels_match_plain(cuda_card, name, dtype):
     for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         assert got.dtype == dtype and got.shape == want.shape
         torch.testing.assert_close(got, want, **tol)
+
+
+# chip_smoke.py's FLASH_CASES: (b, t, h, kvh, d, causal, lengths, window)
+FLASH_PHASE2 = {
+    "gpt2-t512": (8, 512, 16, 16, 64, True, None, None),
+    "gpt2-t1024": (8, 1024, 16, 16, 64, True, None, None),
+    "bert-full-t512": (8, 512, 16, 16, 64, False, None, None),
+    "gqa-t1024": (4, 1024, 32, 8, 128, True, None, None),
+    "lengths-t512": (8, 512, 16, 16, 64, True,
+                     [512, 500, 431, 300, 257, 129, 64, 1], None),
+    "window-t1024": (8, 1024, 16, 16, 64, True, None, 256),
+    "ragged-t1000": (8, 1000, 16, 16, 64, True, None, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_PHASE2))
+def test_flash_fwd_tensor_cores_match_plain_at_phase2_shapes(cuda_card,
+                                                              name):
+    """The tensor-core forward, bf16: o within one bf16 rounding of the
+    plain version and lse within 1e-4 (chip_smoke.py's checks)."""
+    b, t, h, kvh, d, causal, lengths, window = FLASH_PHASE2[name]
+    q, k, v, _, kw = _flash_inputs(cuda_card, torch.bfloat16, b, t, h, kvh,
+                                   d, causal, lengths, window)
+    before = (fa.flash_fwd.launches, fa.flash_fwd.tc_launches)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_fwd.tc_launches) == (
+        before[0] + 1, before[1] + 1)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
+    _assert_within_ulps(o, o_ref, 1)
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_fp32_and_fp16_launch_no_tensor_core_kernel(cuda_card, dtype):
+    """fp32 and fp16 keep the CUDA-core forward and tiled kernel at the
+    head_dims the tensor cores take in bf16."""
+    q, k, v, _, kw = _flash_inputs(cuda_card, dtype, 1, 130, 2, 2, 64, True)
+    pq, pk, pv, table, lengths = _case(**CASES["chunk-t40"])
+    args = [torch.from_numpy(x).to(cuda_card, dtype) for x in (pq, pk, pv)]
+    args += [torch.from_numpy(x).to(cuda_card) for x in (table, lengths)]
+    before = (fa.flash_fwd.launches, fa.flash_fwd.tc_launches,
+              _paged_counts())
+    fa.flash_fwd(q, k, v, **kw)
+    pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    launches, chunks, tcs = before[2]
+    assert (fa.flash_fwd.launches, fa.flash_fwd.tc_launches,
+            _paged_counts()) == (before[0] + 1, before[1],
+                                 (launches + 1, chunks + 1, tcs))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
