@@ -8,7 +8,9 @@ and no network; it imports no JAX. Phases, each printing its own lines:
 1. Device: the card's name and power limit (``nvidia-smi``), then the
    build of every kernel from the repository's sources, timed.
 2. Kernels against their plain PyTorch versions on the card, at the
-   shapes the main paths give them (paged attention: serving; flash
+   shapes the main paths give them (paged attention: serving, and the
+   decode kernel at the edges of its 64-key splits in bf16, fp32 and
+   fp16; flash
    attention forward, the backward's delta pass, dQ and dK/dV:
    training; each paged and flash row names the variant that ran:
    decode, tensor cores or CUDA cores), with the tolerance stated; each
@@ -21,7 +23,8 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    (more than 4 packed rows a KV head) must take the tensor cores.
 4. Correctness at full width: the same weights in fp32 serve two
    requests whose greedy tokens must equal the uncached full-forward
-   argmax loop; fp32 launches no tensor-core kernel.
+   argmax loop; fp32 launches no tensor-core kernel, and its decode
+   steps launch the decode kernel.
 5. Training, the second main path: GPT-2 medium (full width, random
    weights from the seed, bf16 compute on fp32 master weights, remat)
    takes a few steps through ``hvd.init()`` (a world of one on NCCL),
@@ -39,7 +42,8 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    must give the same loss and gradients.
 7. The wire kernels (scale-cast, the two int8 quantizers, Adasum's dots
    and apply passes) against their plain versions at the sizes the
-   paths use: bit for bit for the first three, within 1e-5 (fp32) or one
+   paths use: bit for bit for the first three (the per-tensor quantizer
+   in fp32 and bf16), within 1e-5 (fp32) or one
    rounding (bf16) for Adasum; the stochastic contract on the card.
 8. Training on the int8 wire: phase 5 again through
    ``DistributedOptimizer(compression=Compression.int8_block,
@@ -246,6 +250,22 @@ def phase_kernels(gen):
         dict(base, name="prefill256-fp32", esize=4, q=base["q"].float(),
              pools=[(k.float(), v.float()) for k, v in base["pools"]]),
         dict(base, name="prefill256-cuda-cores", variant="cuda_cores"),
+    ]
+    # the decode kernel at its split edges (64-key splits of a 64-page
+    # table): lengths 0, one below a split, exactly one, one above, two
+    # splits, the full table; in bf16, and in fp32 (phase 4's serve) and
+    # fp16
+    edges = _paged_case("decode-edges", 7, 1, 16, 16, 64, 16, 64,
+                        [0, 62, 63, 64, 65, 127, 64 * 16 - 1], gen=gen)
+    cases += [
+        edges,
+        dict(edges, name="decode-edges-fp32", esize=4,
+             q=edges["q"].float(),
+             pools=[(k.float(), v.float()) for k, v in edges["pools"]]),
+        dict(edges, name="decode-edges-fp16", q=edges["q"].half(),
+             pools=[(k.half(), v.half()) for k, v in edges["pools"]]),
+        _paged_case("gqa-decode-edges", 7, 1, 32, 8, 128, 16, 64,
+                    [0, 62, 63, 64, 65, 127, 64 * 16 - 1], gen=gen),
     ]
     results = []
     for c in cases:
@@ -755,7 +775,8 @@ def phase_fp32(model32, prompts, max_tokens):
     from horovod_tpu_torch import serve
     from horovod_tpu_torch.ops import paged_attention as pa
 
-    tc_before = pa.paged_attention.tc_launches
+    fn = pa.paged_attention
+    before = (fn.tc_launches, fn.launches - fn.chunk_launches)
     handle = serve(model32, None, port=0, slots=2, prefill_ceiling=256,
                    max_new_tokens=max_tokens, addr="127.0.0.1",
                    handle_sigterm=False, device="cuda")
@@ -766,8 +787,11 @@ def phase_fp32(model32, prompts, max_tokens):
     finally:
         handle.stop()
     _check_burst("fp32", results, prompts, max_tokens)
-    if pa.paged_attention.tc_launches != tc_before:
+    if fn.tc_launches != before[0]:
         fail("fp32: a paged launch took the tensor-core kernel")
+    decode = fn.launches - fn.chunk_launches - before[1]
+    if decode <= 0:
+        fail("fp32: no decode step launched the decode kernel")
     for prompt, (_, body) in zip(prompts, results):
         want = _full_forward_greedy(model32, prompt, max_tokens)
         if body["tokens"] != want:
@@ -775,7 +799,7 @@ def phase_fp32(model32, prompts, max_tokens):
                  f"full-forward argmax loop {want}")
     log(f"fp32: {len(prompts)} requests of {[len(p) for p in prompts]} "
         f"prompt tokens match the full-forward argmax loop "
-        f"({max_tokens} tokens each)")
+        f"({max_tokens} tokens each; {decode} decode-kernel launches)")
 
 
 # ------------------------------------------------------- phase 5 training
@@ -1056,7 +1080,7 @@ def phase_wire_kernels(gen):
     """Kernels B1-B4 against their plain versions at the sizes the paths
     give them: a 64 MiB fusion batch (16 777 216 fp32), GPT-2 medium's
     largest gradient (wte, 50257 × 1024 fp32), a ragged 1 000 003, bf16
-    input for B1 and B4, B3 at blocks 512 and 1000 and as the fused
+    input for B1, B2 and B4, B3 at blocks 512 and 1000 and as the fused
     wire's [4, chunk] rows. B1, B2 and B3 must equal their plain versions
     bit for bit (values and scales: the same Philox bits, IEEE
     divisions); B4's dots within 1e-5 relative, its apply within 1e-5 of
@@ -1078,19 +1102,30 @@ def phase_wire_kernels(gen):
         x[: n // 3] *= 1e-3  # regions of other magnitude
         shape = {"n": n, "dtype": "float32"}
 
-        # B2, per-tensor quantize
-        q, s = ck.int8_quantize(x, seed=3)
-        qp, sp = ck.int8_quantize_plain(x, seed=3)
-        torch.cuda.synchronize()
-        if not (torch.equal(s, sp) and torch.equal(q, qp)):
-            fail(f"int8_quantize {label}: kernel differs from plain "
-                 f"({int((q != qp).sum())} values, scales {float(s)} vs "
-                 f"{float(sp)})")
-        ms, plain_ms = _timed_pair(lambda i: ck.int8_quantize(x, seed=i),
-                                   lambda i: ck.int8_quantize_plain(x, i))
-        rows["int8_quantize"].append(_wire_result(
-            f"int8_quantize[{label}]", shape, 0.0, ms, plain_ms,
-            n * 4 + n + 4))
+        # B2, per-tensor quantize, fp32 then bf16: timed over copies of
+        # x that together exceed L2 (the codec quantizes each tensor
+        # once, cold)
+        for xd in (x.to(torch.bfloat16), x):
+            tag = "" if xd.dtype == torch.float32 else ", bf16"
+            q, s = ck.int8_quantize(xd, seed=3)
+            qp, sp = ck.int8_quantize_plain(xd, seed=3)
+            torch.cuda.synchronize()
+            if not (torch.equal(s, sp) and torch.equal(q, qp)):
+                fail(f"int8_quantize {label}{tag}: kernel differs from "
+                     f"plain ({int((q != qp).sum())} values, scales "
+                     f"{float(s)} vs {float(sp)})")
+            esize = xd.element_size()
+            xs = [xd] + [xd.clone() for _ in range(
+                max(1, min(31, -(-120_000_000 // (n * esize)) - 1)))]
+            ms, plain_ms = _timed_pair(
+                lambda i: ck.int8_quantize(xs[i % len(xs)], seed=i),
+                lambda i: ck.int8_quantize_plain(xs[i % len(xs)], i),
+                iters=max(20, 2 * len(xs)))
+            rows["int8_quantize"].append(_wire_result(
+                f"int8_quantize[{label}{tag}]",
+                dict(shape, dtype=str(xd.dtype).split(".")[1]), 0.0, ms,
+                plain_ms, n * esize + n + 4))
+            del xs
 
         # B1 on the dequantize path: int8 values × the scale, to fp32
         out = ck.scale_cast(q, s, torch.float32)

@@ -13,8 +13,9 @@
 //   fp32(1/127) that XLA makes of the JAX wrapper's division), then each value
 //   rounded stochastically to floor(x / scale) + (u < frac), clipped to
 //   [-128, 127]. Two launches, no host sync between them: an absmax
-//   reduction into a device word (max is order-free, so it is exact), and
-//   the rounding pass, which reads that word.
+//   pass writing one maximum a block (max is order-free, so it is exact),
+//   and the rounding pass, which folds those into the scale. Both move
+//   16 bytes a thread a load.
 // * int8_block_quantize (line 221, the same body): one scale per `block`
 //   elements of each row of a [rows, cols] view, blocks never crossing a
 //   row, the short tail block of a row zero-padded for the absmax only.
@@ -44,8 +45,11 @@
 //
 // What bounds them: device-memory bytes. Each reads its inputs once and
 // writes its outputs once, with a few dozen integer operations per element
-// for Philox (computed once per four elements). The loads are plain
-// element loads, coalesced across a warp; vector loads come later.
+// for Philox (computed once per four elements); the per-tensor quantizer
+// reads x twice, and its rounding pass is bound by that arithmetic (one
+// Philox call a quad, an IEEE division an element), not by its bytes.
+// The per-tensor quantizer loads 16 bytes a thread; the others load one
+// element a thread, coalesced across a warp.
 //
 // Plain C interface, loaded with ctypes: device pointers, the device index
 // and the caller's current stream in; cudaGetLastError() back.
@@ -203,65 +207,175 @@ cudaError_t scale_cast_out(const void* x, const float* s, void* out,
 }
 
 // --------------------------------------------------- per-tensor quantize
+//
+// Two passes over x, both in 16-byte accesses (4 fp32 or 8 two-byte
+// values a thread a load; the int8 values of a load stored as one 4- or
+// 8-byte word). The absmax pass writes one maximum a block into a
+// partials buffer (max is order-free, so no atomics and no memset); the
+// rounding pass's blocks each fold those partials into the scale. The
+// absmax pass runs near the memory rate; the rounding pass is bound by
+// its arithmetic, one Philox4x32-10 call a quad and an IEEE division an
+// element, not by its bytes: walking it backwards, so that it starts on
+// what the absmax pass left in L2, and one cooperative launch keeping
+// part of x in shared memory across a grid-wide sync were both no
+// faster in turns on the card (PERF.md).
+
+constexpr int kQuantThreads = 256;
+constexpr int kQuantMaxGrid = 1024;  // the partials buffer: this many floats
+constexpr int kUnroll = 4;  // 16-byte loads a thread in flight
+
+// 16 bytes of T as fp32 values: 4 for fp32, 8 for the two-byte types.
+template <typename T>
+struct Vec16 {
+  static constexpr int N = 16 / sizeof(T);
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-absmax_kernel(const T* __restrict__ x, int64_t n,
-              unsigned* __restrict__ absmax_bits) {
-  __shared__ float part[kThreads / 32];
-  float m = 0.0f;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += step)
-    m = fmaxf(m, fabsf(to_f32(x[i])));
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out) {
+  if constexpr (sizeof(T) == 4) {
+    out[0] = __uint_as_float(raw.x);
+    out[1] = __uint_as_float(raw.y);
+    out[2] = __uint_as_float(raw.z);
+    out[3] = __uint_as_float(raw.w);
+  } else {
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = to_f32(e[j]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float absmax16(const uint4& raw, float m) {
+  float f[Vec16<T>::N];
+  unpack16<T>(raw, f);
+#pragma unroll
+  for (int j = 0; j < Vec16<T>::N; ++j) m = fmaxf(m, fabsf(f[j]));
+  return m;
+}
+
+// Round the 16 bytes of vector v (elements N v ..) and store their int8
+// values as one word: one Philox call a quad, as element i takes word
+// i % 4 of quad i / 4.
+template <typename T>
+__device__ __forceinline__ void round16(const uint4& raw, int64_t v,
+                                        float scale, int8_t* q,
+                                        uint32_t seed, uint32_t stream) {
+  constexpr int N = Vec16<T>::N;
+  float f[N];
+  unpack16<T>(raw, f);
+  uint32_t packed[N / 4];
+#pragma unroll
+  for (int g = 0; g < N / 4; ++g) {
+    uint32_t w[4];
+    quad_words(v * (N / 4) + g, seed, stream, w);
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      word |= static_cast<uint32_t>(static_cast<uint8_t>(
+                  stochastic_round(f[4 * g + j], scale, w[j])))
+              << (8 * j);
+    packed[g] = word;
+  }
+  if constexpr (N == 4) {
+    reinterpret_cast<uint32_t*>(q)[v] = packed[0];
+  } else {
+    reinterpret_cast<uint2*>(q)[v] = make_uint2(packed[0], packed[1]);
+  }
+}
+
+// The elements past the last whole vector, one a thread, scalar.
+template <typename T>
+__device__ __forceinline__ void round_tail(const T* x, int64_t n,
+                                           float scale, int8_t* q,
+                                           uint32_t seed, uint32_t stream) {
+  const int64_t i = n / Vec16<T>::N * Vec16<T>::N + threadIdx.x;
+  if (i < n) {
+    uint32_t w[4];
+    quad_words(i >> 2, seed, stream, w);
+    q[i] = stochastic_round(to_f32(x[i]), scale, w[i & 3]);
+  }
+}
+
+__device__ __forceinline__ float block_max(float m, float* part) {
   m = warp_max(m);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, part[w]);
-    // non-negative floats order as their bit patterns do
-    atomicMax(absmax_bits, __float_as_uint(m));
-  }
+  m = 0.0f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, part[w]);
+  __syncthreads();  // part may be reused
+  return m;
 }
 
+// Pass 1: block b's maximum |x| into partials[b].
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kQuantThreads)
+absmax_kernel(const T* __restrict__ x, int64_t n,
+              float* __restrict__ partials) {
+  __shared__ float part[kQuantThreads / 32];
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const int64_t nv = n / Vec16<T>::N;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  float m = 0.0f;
+  int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; v + (kUnroll - 1) * step < nv; v += kUnroll * step) {
+    uint4 raw[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) raw[u] = __ldg(xv + v + u * step);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) m = absmax16<T>(raw[u], m);
+  }
+  for (; v < nv; v += step) m = absmax16<T>(__ldg(xv + v), m);
+  if (blockIdx.x == 0) {
+    const int64_t i = nv * Vec16<T>::N + threadIdx.x;
+    if (i < n) m = fmaxf(m, fabsf(to_f32(x[i])));
+  }
+  m = block_max(m, part);
+  if (threadIdx.x == 0) partials[blockIdx.x] = m;
+}
+
+// Pass 2: the scale from the partials, then the values.
+template <typename T>
+__global__ void __launch_bounds__(kQuantThreads)
 quantize_kernel(const T* __restrict__ x, int64_t n,
-                const unsigned* __restrict__ absmax_bits,
+                const float* __restrict__ partials, int n_partials,
                 float* __restrict__ scale_out, int8_t* __restrict__ q,
                 uint32_t seed, uint32_t stream) {
-  const float scale = scale_of(__uint_as_float(*absmax_bits));
+  __shared__ float part[kQuantThreads / 32];
+  float m = 0.0f;
+  for (int i = threadIdx.x; i < n_partials; i += blockDim.x)
+    m = fmaxf(m, partials[i]);
+  const float scale = scale_of(block_max(m, part));
   if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = scale;
-  const int64_t nq = (n + 3) >> 2;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const int64_t nv = n / Vec16<T>::N;
   const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t qi = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-       qi < nq; qi += step) {
-    uint32_t w[4];
-    quad_words(qi, seed, stream, w);
+  int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (; g + (kUnroll - 1) * step < nv; g += kUnroll * step) {
+    uint4 raw[kUnroll];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t i = 4 * qi + j;
-      if (i < n) q[i] = stochastic_round(to_f32(x[i]), scale, w[j]);
-    }
+    for (int u = 0; u < kUnroll; ++u)
+      raw[u] = __ldg(xv + g + u * step);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      round16<T>(raw[u], g + u * step, scale, q, seed, stream);
   }
+  for (; g < nv; g += step)
+    round16<T>(__ldg(xv + g), g, scale, q, seed, stream);
+  if (blockIdx.x == gridDim.x - 1) round_tail<T>(x, n, scale, q, seed, stream);
 }
 
 template <typename T>
-cudaError_t quantize(const void* x, int64_t n, unsigned* absmax_bits,
+cudaError_t quantize(const void* x, int64_t n, float* partials,
                      float* scale, int8_t* q, uint32_t seed, uint32_t stream,
                      cudaStream_t st) {
-  cudaError_t e = cudaMemsetAsync(absmax_bits, 0, sizeof(unsigned), st);
-  if (e != cudaSuccess) return e;
   const T* xt = static_cast<const T*>(x);
-  absmax_kernel<T><<<grid_for(n, kThreads, kMaxGrid), kThreads, 0, st>>>(
-      xt, n, absmax_bits);
-  e = cudaGetLastError();
+  const int64_t nv = n / Vec16<T>::N;
+  const int grid = grid_for(nv > 0 ? nv : 1, kQuantThreads, kQuantMaxGrid);
+  absmax_kernel<T><<<grid, kQuantThreads, 0, st>>>(xt, n, partials);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  quantize_kernel<T>
-      <<<grid_for((n + 3) >> 2, kThreads, kMaxGrid), kThreads, 0, st>>>(
-          xt, n, absmax_bits, scale, q, seed, stream);
+  quantize_kernel<T><<<grid, kQuantThreads, 0, st>>>(
+      xt, n, partials, grid, scale, q, seed, stream);
   return cudaGetLastError();
 }
 
@@ -467,24 +581,27 @@ extern "C" int hvd_scale_cast(const void* x, int in_dtype, const void* scale,
   }
 }
 
+// x 16-byte aligned, q 8-byte aligned; `partials` holds kQuantMaxGrid
+// floats of scratch.
 extern "C" int hvd_int8_quantize(const void* x, int dtype, long long n,
-                                 void* absmax_bits, void* scale, void* q,
+                                 void* partials, void* scale, void* q,
                                  unsigned seed, unsigned stream_id,
                                  int device, void* stream) {
   if (n <= 0) return cudaSuccess;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned* bits = static_cast<unsigned*>(absmax_bits);
+  float* part = static_cast<float*>(partials);
   float* sc = static_cast<float*>(scale);
   int8_t* qv = static_cast<int8_t*>(q);
   switch (dtype) {
     case kF32:
-      return quantize<float>(x, n, bits, sc, qv, seed, stream_id, st);
+      return quantize<float>(x, n, part, sc, qv, seed, stream_id, st);
     case kBF16:
-      return quantize<__nv_bfloat16>(x, n, bits, sc, qv, seed, stream_id, st);
+      return quantize<__nv_bfloat16>(x, n, part, sc, qv, seed, stream_id,
+                                     st);
     case kF16:
-      return quantize<__half>(x, n, bits, sc, qv, seed, stream_id, st);
+      return quantize<__half>(x, n, part, sc, qv, seed, stream_id, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,8 +10,8 @@
 // fp32 with the denominator floored at 1e-30. Scores are the fp32 product
 // divided by sqrt(head_dim), masked with -1e30, as in the reference.
 //
-// What bounds it: device-memory bytes. At decode (t = 1) one block per
-// (slot, KV head) reads that slot's live K/V bytes once, so the floor is
+// What bounds it: device-memory bytes. At decode (t = 1) the blocks of
+// a (slot, KV head) read that slot's live K/V bytes once, so the floor is
 // the live K/V bytes over 3.35 TB/s. The TPU kernel's sequential page grid
 // with its state in VMEM scratch does not carry over; there are three
 // kernels here, all reading each page index from the table in global
@@ -20,14 +20,24 @@
 // ops/paged_attention.py) on the packed rows of a (slot, KV head), rows =
 // t * r, and the type:
 //
-// * paged_decode_kernel, rows <= 4 (every decode step of an MHA model).
-//   One block per (KV head, slot); its 16 warps take the same rows and
-//   split the slot's keys, warp w walking 32-key chunks w, w + 16, ... A
-//   lane scores its own key straight from device memory, and the PV
-//   product reads V rows coalesced across the lanes, eight rows' loads
-//   issued before any is used. The loop has no block barrier, so sixteen
-//   chains of loads are in flight per block. The warps' partial softmax
-//   states are merged through shared memory at the end.
+// * paged_decode_kernel, rows <= 4 (every decode step of an MHA model),
+//   split over keys: one block of four warps per (split, KV head, slot),
+//   a split being a fixed run of table pages (64 keys at 16-token
+//   pages), so the grid comes from the table's width and the host never
+//   reads the lengths. A split past its slot's live keys exits at once;
+//   the `decode` case of chip_smoke.py keeps 608 of 2048 blocks live
+//   where one block a (KV head, slot) gave 128. In a block, G
+//   neighbouring lanes share a key row, each loading 16 bytes of it, so
+//   a warp reads 32 / G whole rows at once, and two such rounds of K and
+//   V are in flight before any is used (more rounds a thread cost more
+//   registers than the extra bytes in flight gained, and wider splits
+//   fewer blocks: PERF.md, measured in turns). The rows'
+//   products stay on the CUDA cores (a few FLOPs a byte). Each lane
+//   group keeps an online softmax state, the block merges its groups in
+//   shared memory, and each live split writes m, l and its fp32
+//   accumulator to a workspace; the last live split of a (slot, KV
+//   head), found by an atomic ticket, merges them, weighing each by
+//   exp(m_i - M). A slot with one live split writes its output directly.
 // * paged_attention_tc_kernel, rows > 4 in bf16 at head_dim 64 or 128
 //   (prefill chunks, wide GQA groups): one warpgroup per (tile of 64
 //   packed rows, KV head, slot) on the tensor cores, the tile step of
@@ -74,7 +84,6 @@ constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 4;
 constexpr int kRows = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKeys = 32;                      // keys per step, one per lane
-constexpr int kDecodeWarps = 16;               // key-splitting warps
 constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -279,172 +288,376 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-// At most kRowsPerWarp packed rows per (slot, KV head); grid (1, kvh, b).
-// Masked keys get p = 0 outright: a warp's chunk can lie wholly past a
-// row's causal bound, and its state must then stay empty (m = -1e30,
-// l = 0) so the merge weighs it by exp(-1e30 - M) = 0.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
+// ------------------------------------------------- decode, split over keys
+
+namespace dec {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxRows = 4;  // packed rows a (slot, KV head)
+
+// The decode kernel's layout, the same for every instantiation:
+// G lanes share a key row, each taking 16-byte chunks gl, gl + G, ...
+// (CPL of them) of it, so a warp reads 32 / G key rows at once, each
+// as whole 16-byte pieces on neighbouring lanes; U such rounds of the
+// block's four warps are loaded before any is used. Shape holds the
+// call's sizes.
+struct Shape {
+  int b, t, h, kvh, d, num_pages, page_tokens, n_logical, split_pages,
+      n_splits, causal;
+};
+
+// The workspace of one call: for each (slot, KV head, split, row) the
+// split's softmax state, m and l, then its unnormalised fp32
+// accumulator of d values. Only splits that hold live keys write it.
+__device__ __forceinline__ size_t state_index(const Shape& s, int slot,
+                                              int kv, int split) {
+  return ((size_t)slot * s.kvh + kv) * s.n_splits + split;
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out) {
+  if constexpr (sizeof(T) == 4) {
+    out[0] = __uint_as_float(raw.x);
+    out[1] = __uint_as_float(raw.y);
+    out[2] = __uint_as_float(raw.z);
+    out[3] = __uint_as_float(raw.w);
+  } else {
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = to_f32(e[j]);
+  }
+}
+
+// out = sum_s acc_s exp(m_s - M) / max(sum_s l_s exp(m_s - M), 1e-30)
+// over the slot's live splits, M their largest m, cast once to T: an
+// online merge, kMergeLoads splits' states loaded at once by each
+// thread (one L2 latency for up to that many splits). Run by the last
+// live split's block; reads the workspace through L2 (other blocks
+// wrote it).
+constexpr int kMergeLoads = 8;
+
+template <typename T>
+__device__ void merge_splits(const Shape& s, const float* ws, T* out,
+                             int slot, int kv, int live_splits, int rows) {
+  const int r = s.h / s.kvh;
+  const size_t acc0 = (size_t)s.b * s.kvh * s.n_splits * 2 * kMaxRows;
+  const size_t base = state_index(s, slot, kv, 0);
+  for (int idx = threadIdx.x; idx < rows * s.d; idx += kThreads) {
+    const int rr = idx / s.d;
+    const int col = idx - rr * s.d;
+    float big = kNegInf, den = 0.f, num = 0.f;
+    for (int sp0 = 0; sp0 < live_splits; sp0 += kMergeLoads) {
+      float mv[kMergeLoads], lv[kMergeLoads], av[kMergeLoads];
+#pragma unroll
+      for (int j = 0; j < kMergeLoads; ++j) {
+        const size_t si = base + sp0 + j;
+        const bool live = sp0 + j < live_splits;
+        mv[j] = live ? __ldcg(ws + si * 2 * kMaxRows + 2 * rr) : kNegInf;
+        lv[j] = live ? __ldcg(ws + si * 2 * kMaxRows + 2 * rr + 1) : 0.f;
+        av[j] = live ? __ldcg(ws + acc0 + (si * kMaxRows + rr) * s.d + col)
+                     : 0.f;
+      }
+      float nb = big;
+#pragma unroll
+      for (int j = 0; j < kMergeLoads; ++j) nb = fmaxf(nb, mv[j]);
+      const float alpha = expf(big - nb);
+      den *= alpha;
+      num *= alpha;
+#pragma unroll
+      for (int j = 0; j < kMergeLoads; ++j) {
+        const float w = expf(mv[j] - nb);
+        den += lv[j] * w;
+        num += av[j] * w;
+      }
+      big = nb;
+    }
+    const int ti = rr / r;
+    const int head = kv * r + (rr - ti * r);
+    out[((size_t)(slot * s.t + ti) * s.h + head) * s.d + col] =
+        from_f32<T>(num / fmaxf(den, 1e-30f));
+  }
+}
+
+// One block per (split, KV head, slot): the split's keys, split_pages
+// pages of the slot's table, for the slot's <= 4 packed rows. A split
+// past the slot's live keys exits at once. A slot with one live split
+// writes its output directly; otherwise every live split writes its
+// state to the workspace, and the last of them, found by an atomic
+// ticket a (slot, KV head) that the block taking it resets, merges
+// them (one launch: in turns on the card it beat a second merge
+// launch, PERF.md).
+template <typename T, int G, int CPL, int R>
+__global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                     const T* __restrict__ v_pool,
                     const int32_t* __restrict__ page_table,
                     const int32_t* __restrict__ lengths,
-                    T* __restrict__ out, int t, int h, int kvh, int d,
-                    int num_pages, int page_tokens, int n_logical,
-                    int causal) {
-  extern __shared__ float smem[];
-  const int r = h / kvh;
-  const int rows = t * r;
-  const int slot = blockIdx.z;
-  const int kv = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int start = lengths[slot];
-  const int n_keys = min(start + t, n_logical * page_tokens);
+                    T* __restrict__ out, float* __restrict__ ws,
+                    unsigned* __restrict__ tickets, const Shape s) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int KPI = 32 / G;           // key rows a warp reads at once
+  constexpr int ROUND = kWarps * KPI;   // key rows the block reads at once
+  constexpr int U = 2;                  // rounds loaded at once
+  constexpr int P = ROUND;              // partial states a block merges
+  constexpr int DMAX = G * CPL * VEC;   // widest row this layout takes
+  __shared__ float sm_ml[P][R][2];
+  __shared__ float sm_acc[P][R][DMAX];
+  __shared__ int last;
 
-  float* qs = smem;                                   // [4][d]
-  float* merge_m = qs + kRowsPerWarp * d;             // [warps][4]
-  float* merge_l = merge_m + kDecodeWarps * kRowsPerWarp;
-  float* merge_acc = merge_l + kDecodeWarps * kRowsPerWarp;  // [warps][4][d]
+  const int split = blockIdx.x, kv = blockIdx.y, slot = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gl = lane % G, gi = lane / G;
+  const int pid = warp * KPI + gi;
+  const int r = s.h / s.kvh, rows = s.t * r;
+  const int C = s.d / VEC;  // 16-byte chunks in a row
+  const int split_keys = s.split_pages * s.page_tokens;
+  const int key0 = split * split_keys;
+  const int32_t* table_row = page_table + (size_t)slot * s.n_logical;
 
-  for (int i = threadIdx.x; i < kRowsPerWarp * d; i += blockDim.x) {
-    const int g = i / d;
-    const int c = i - g * d;
-    float x = 0.f;
-    if (g < rows) {
-      const int ti = g / r;
-      const int head = kv * r + (g - ti * r);
-      x = to_f32(q[((size_t)(slot * t + ti) * h + head) * d + c]);
-    }
-    qs[i] = x;
-  }
-  __syncthreads();
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][NC];
+  // the first round's page-table entries and the length load together
+  int page_raw[U];
+  auto fetch_pages = [&](int j0) {
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    for (int u = 0; u < U; ++u) {
+      const int key = key0 + j0 + u * ROUND + pid;
+      page_raw[u] =
+          table_row[min(key / s.page_tokens, s.n_logical - 1)];
+    }
+  };
+  fetch_pages(0);
+  const int start = lengths[slot];
+  const int n_keys = min(start + s.t, s.n_logical * s.page_tokens);
+  if (key0 >= n_keys) return;  // past the slot's live keys: no state
+  const int live_splits = (n_keys + split_keys - 1) / split_keys;
+  const int key_end = min(key0 + split_keys, n_keys);
+
+  // this lane's chunks of the rows' queries, in fp32
+  float qf[R][CPL][VEC];
+#pragma unroll
+  for (int rr = 0; rr < R; ++rr) {
+    const int ti = rr / r;
+    const T* q_row =
+        q + ((size_t)(slot * s.t + ti) * s.h + kv * r + (rr - ti * r)) * s.d;
+#pragma unroll
+    for (int ci = 0; ci < CPL; ++ci) {
+      const int c = gl + G * ci;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        qf[rr][ci][e] =
+            (rr < rows && c < C) ? to_f32(q_row[c * VEC + e]) : 0.f;
+    }
+  }
+
+  float m[R], l[R], acc[R][CPL][VEC];
+#pragma unroll
+  for (int rr = 0; rr < R; ++rr) {
     m[rr] = kNegInf;
     l[rr] = 0.f;
 #pragma unroll
-    for (int i = 0; i < NC; ++i) acc[rr][i] = 0.f;
+    for (int ci = 0; ci < CPL; ++ci)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[rr][ci][e] = 0.f;
   }
-  const float sqrt_d = sqrtf((float)d);
-  const int32_t* table_row = page_table + (size_t)slot * n_logical;
+  const float sqrt_d = sqrtf((float)s.d);
 
-  for (int k0 = warp * kKeys; k0 < n_keys; k0 += kDecodeWarps * kKeys) {
-    const int key = k0 + lane;
-    const bool live = key < n_keys;
-    long long off = 0;  // element offset of this lane's key row
-    float s[kRowsPerWarp];
+  for (int j0 = 0; key0 + j0 < key_end; j0 += U * ROUND) {
+    if (j0) fetch_pages(j0);
+    // U rounds of K and V rows in flight before any is used
+    uint4 kr[U][CPL], vr[U][CPL];
+    bool ok[U];
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) s[rr] = 0.f;
-    if (live) {
-      const int lp = key / page_tokens;
-      const int page = min(max(table_row[lp], 0), num_pages - 1);
-      off = (((long long)page * page_tokens + (key - lp * page_tokens)) *
-                 kvh + kv) * d;
-      const T* k_row = k_pool + off;
-#pragma unroll 4
-      for (int c = 0; c < d; c += 8) {
-        float kf[8];
-        load8(k_row + c, kf);
+    for (int u = 0; u < U; ++u) {
+      const int key = key0 + j0 + u * ROUND + pid;
+      ok[u] = key < key_end;
+      const int lp = key / s.page_tokens;
+      const int page = min(max(page_raw[u], 0), s.num_pages - 1);
+      const size_t off =
+          (((size_t)page * s.page_tokens + (key - lp * s.page_tokens)) *
+               s.kvh + kv) * s.d;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int rr = 0; rr < kRowsPerWarp; ++rr)
-            s[rr] = fmaf(qs[rr * d + c + j], kf[j], s[rr]);
-      }
-    }
-    float p[kRowsPerWarp];
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      p[rr] = 0.f;
-      if (rr < rows) {  // uniform across the warp
-        const bool ok = live && (!causal || key <= start + rr / r);
-        const float sc = ok ? s[rr] / sqrt_d : kNegInf;
-        const float m_new = fmaxf(m[rr], warp_max(sc));
-        p[rr] = ok ? expf(sc - m_new) : 0.f;
-        const float alpha = expf(m[rr] - m_new);
-        l[rr] = l[rr] * alpha + warp_sum(p[rr]);
-#pragma unroll
-        for (int i = 0; i < NC; ++i) acc[rr][i] *= alpha;
-        m[rr] = m_new;
-      }
-    }
-    // PV: VB keys' V rows are loaded before any is used, so VB loads
-    // are in flight at once instead of one latency per key
-    constexpr int VB = NC <= 4 ? 8 : 4;
-    const int n_live = min(kKeys, n_keys - k0);
-    for (int j0 = 0; j0 < n_live; j0 += VB) {
-      float vv[VB][NC];
-#pragma unroll
-      for (int jj = 0; jj < VB; ++jj) {
-        const long long off_j = __shfl_sync(kFullMask, off, j0 + jj);
-#pragma unroll
-        for (int i = 0; i < NC; ++i) {
-          const int c = lane + 32 * i;
-          vv[jj][i] = (j0 + jj < n_live && c < d)
-                          ? to_f32(v_pool[off_j + c]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        if (rr >= rows) break;  // uniform across the warp
-#pragma unroll
-        for (int jj = 0; jj < VB; ++jj) {
-          const float pj = __shfl_sync(kFullMask, p[rr], j0 + jj);
-#pragma unroll
-          for (int i = 0; i < NC; ++i)
-            acc[rr][i] = fmaf(pj, vv[jj][i], acc[rr][i]);
+      for (int ci = 0; ci < CPL; ++ci) {
+        const int c = gl + G * ci;
+        if (ok[u] && c < C) {
+          kr[u][ci] = __ldg(reinterpret_cast<const uint4*>(
+              k_pool + off + (size_t)c * VEC));
+          vr[u][ci] = __ldg(reinterpret_cast<const uint4*>(
+              v_pool + off + (size_t)c * VEC));
+        } else {
+          kr[u][ci] = make_uint4(0u, 0u, 0u, 0u);
+          vr[u][ci] = make_uint4(0u, 0u, 0u, 0u);
         }
       }
     }
+    // scores: the lane's part of each dot product, summed over the G
+    // lanes of the key row (every lane ends with the same sum)
+    float sc[U][R];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) sc[u][rr] = 0.f;
+#pragma unroll
+      for (int ci = 0; ci < CPL; ++ci) {
+        float kf[VEC];
+        unpack16<T>(kr[u][ci], kf);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+#pragma unroll
+          for (int rr = 0; rr < R; ++rr)
+            sc[u][rr] = fmaf(qf[rr][ci][e], kf[e], sc[u][rr]);
+      }
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+        for (int o = G / 2; o > 0; o >>= 1)
+          sc[u][rr] += __shfl_xor_sync(kFullMask, sc[u][rr], o);
+    }
+    // online softmax over the U keys, row by row; a masked key adds
+    // p = 0 outright, so a row that sees none keeps an empty state
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      if (rr >= rows) break;  // uniform across the block
+      const int bound = s.causal ? start + rr / r : key_end;
+      float big = m[rr];
+      bool valid[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int key = key0 + j0 + u * ROUND + pid;
+        valid[u] = ok[u] && key <= bound;
+        sc[u][rr] = valid[u] ? sc[u][rr] / sqrt_d : kNegInf;
+        big = fmaxf(big, sc[u][rr]);
+      }
+      const float alpha = expf(m[rr] - big);
+      l[rr] *= alpha;
+#pragma unroll
+      for (int ci = 0; ci < CPL; ++ci)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[rr][ci][e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = valid[u] ? expf(sc[u][rr] - big) : 0.f;
+        l[rr] += p;
+#pragma unroll
+        for (int ci = 0; ci < CPL; ++ci) {
+          float vf[VEC];
+          unpack16<T>(vr[u][ci], vf);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[rr][ci][e] = fmaf(p, vf[e], acc[rr][ci][e]);
+        }
+      }
+      m[rr] = big;
+    }
   }
 
-  // merge the warps' partial states: warp rr finishes row rr
-  if (lane == 0) {
+  // merge the block's P partial states (one per key-row group)
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      merge_m[warp * kRowsPerWarp + rr] = m[rr];
-      merge_l[warp * kRowsPerWarp + rr] = l[rr];
+  for (int rr = 0; rr < R; ++rr) {
+    if (gl == 0) {
+      sm_ml[pid][rr][0] = m[rr];
+      sm_ml[pid][rr][1] = l[rr];
     }
+#pragma unroll
+    for (int ci = 0; ci < CPL; ++ci)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        sm_acc[pid][rr][(gl + G * ci) * VEC + e] = acc[rr][ci][e];
   }
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr)
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = lane + 32 * i;
-      if (c < d) merge_acc[(warp * kRowsPerWarp + rr) * d + c] = acc[rr][i];
-    }
   __syncthreads();
-  if (warp >= rows) return;
-  const int rr = warp;
-  float m_all = kNegInf;
-  for (int w = 0; w < kDecodeWarps; ++w)
-    m_all = fmaxf(m_all, merge_m[w * kRowsPerWarp + rr]);
-  float l_all = 0.f;
-  float o[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) o[i] = 0.f;
-  for (int w = 0; w < kDecodeWarps; ++w) {
-    const float scale = expf(merge_m[w * kRowsPerWarp + rr] - m_all);
-    l_all += merge_l[w * kRowsPerWarp + rr] * scale;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const int c = lane + 32 * i;
-      if (c < d) o[i] += merge_acc[(w * kRowsPerWarp + rr) * d + c] * scale;
+  const size_t acc0 = (size_t)s.b * s.kvh * s.n_splits * 2 * kMaxRows;
+  const size_t si = state_index(s, slot, kv, split);
+  for (int idx = threadIdx.x; idx < rows * s.d; idx += kThreads) {
+    const int rr = idx / s.d;
+    const int col = idx - rr * s.d;
+    float big = kNegInf;
+#pragma unroll 4
+    for (int p = 0; p < P; ++p) big = fmaxf(big, sm_ml[p][rr][0]);
+    float den = 0.f, num = 0.f;
+#pragma unroll 4
+    for (int p = 0; p < P; ++p) {
+      const float w = expf(sm_ml[p][rr][0] - big);
+      den += sm_ml[p][rr][1] * w;
+      num += sm_acc[p][rr][col] * w;
+    }
+    if (live_splits == 1) {
+      const int ti = rr / r;
+      const int head = kv * r + (rr - ti * r);
+      out[((size_t)(slot * s.t + ti) * s.h + head) * s.d + col] =
+          from_f32<T>(num / fmaxf(den, 1e-30f));
+    } else {
+      ws[acc0 + (si * kMaxRows + rr) * s.d + col] = num;
+      if (col == 0) {
+        ws[si * 2 * kMaxRows + 2 * rr] = big;
+        ws[si * 2 * kMaxRows + 2 * rr + 1] = den;
+      }
     }
   }
-  const int ti = rr / r;
-  const int head = kv * r + (rr - ti * r);
-  const float l_safe = fmaxf(l_all, 1e-30f);
-  T* dst = out + ((size_t)(slot * t + ti) * h + head) * d;
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int c = lane + 32 * i;
-    if (c < d) dst[c] = from_f32<T>(o[i] / l_safe);
+  if (live_splits == 1) return;
+  __threadfence();  // this split's state, visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* tk = tickets + (size_t)slot * s.kvh + kv;
+    last = atomicAdd(tk, 1u) == (unsigned)(live_splits - 1);
+    if (last) *tk = 0u;  // every other live split has taken its ticket
   }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  merge_splits<T>(s, ws, out, slot, kv, live_splits, rows);
 }
+
+template <typename T, int G, int CPL, int R>
+cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const int32_t* table, const int32_t* lengths, void* out,
+                   float* ws, unsigned* tickets, const Shape& s,
+                   cudaStream_t stream) {
+  paged_decode_kernel<T, G, CPL, R>
+      <<<dim3(s.n_splits, s.kvh, s.b), kThreads, 0, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k_pool),
+          static_cast<const T*>(v_pool), table, lengths,
+          static_cast<T*>(out), ws, tickets, s);
+  return cudaGetLastError();
+}
+
+// G = 16-byte chunks of a row rounded up to a power of two, at most 32;
+// CPL = chunks a lane then takes (2 only for fp32 rows over 128 wide);
+// R = 1 for one packed row, else 4.
+template <typename T, int G, int CPL>
+cudaError_t by_rows(int rows, const void* q, const void* k, const void* v,
+                    const int32_t* table, const int32_t* lengths, void* out,
+                    float* ws, unsigned* tickets, const Shape& s,
+                    cudaStream_t st) {
+  if (rows == 1)
+    return launch<T, G, CPL, 1>(q, k, v, table, lengths, out, ws, tickets,
+                                s, st);
+  return launch<T, G, CPL, 4>(q, k, v, table, lengths, out, ws, tickets, s,
+                              st);
+}
+
+template <typename T>
+cudaError_t dispatch(int rows, const void* q, const void* k, const void* v,
+                     const int32_t* table, const int32_t* lengths, void* out,
+                     float* ws, unsigned* tickets, const Shape& s,
+                     cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int chunks = s.d / VEC;
+#define HVD_DECODE(G, CPL)                                                   \
+  return by_rows<T, G, CPL>(rows, q, k, v, table, lengths, out, ws, tickets, \
+                            s, st)
+  if (chunks <= 1) HVD_DECODE(1, 1);
+  if (chunks <= 2) HVD_DECODE(2, 1);
+  if (chunks <= 4) HVD_DECODE(4, 1);
+  if (chunks <= 8) HVD_DECODE(8, 1);
+  if (chunks <= 16) HVD_DECODE(16, 1);
+  if (chunks <= 32) HVD_DECODE(32, 1);
+  if constexpr (sizeof(T) == 4) {
+    if (chunks <= 64) HVD_DECODE(32, 2);
+  }
+#undef HVD_DECODE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace dec
 
 struct Args {
   const void* q;
@@ -456,11 +669,11 @@ struct Args {
   int b, t, h, kvh, d, num_pages, page_tokens, n_logical, causal;
 };
 
-// The kernel a call takes (the wrapper's rule, kernel_variant in
-// ops/paged_attention.py): the decode kernel for at most kRowsPerWarp
-// packed rows a (slot, KV head), the tiled kernel for more, on the
-// tensor cores for bf16 at head_dim 64 or 128.
-enum Variant { kDecode = 0, kTiled = 1, kTiledTc = 2 };
+// The tiled kernel a call takes (the wrapper's rule, kernel_variant in
+// ops/paged_attention.py, for more than kRowsPerWarp packed rows a
+// (slot, KV head); at most that many take hvd_paged_decode): on the
+// tensor cores for bf16 at head_dim 64 or 128, else on the CUDA cores.
+enum Variant { kTiled = 1, kTiledTc = 2 };
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
@@ -607,23 +820,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }  // namespace tc
 
 template <typename T, int NC>
-cudaError_t launch(const Args& a, Variant variant, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   cudaError_t e;
-  if (variant == kDecode) {
-    const size_t smem =
-        sizeof(float) * ((size_t)kRowsPerWarp * a.d +
-                         2 * kDecodeWarps * kRowsPerWarp +
-                         (size_t)kDecodeWarps * kRowsPerWarp * a.d);
-    if ((e = allow_smem(paged_decode_kernel<T, NC>, smem)) != cudaSuccess)
-      return e;
-    paged_decode_kernel<T, NC>
-        <<<dim3(1, a.kvh, a.b), kDecodeWarps * 32, smem, stream>>>(
-            static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
-            static_cast<const T*>(a.v_pool), a.page_table, a.lengths,
-            static_cast<T*>(a.out), a.t, a.h, a.kvh, a.d, a.num_pages,
-            a.page_tokens, a.n_logical, a.causal);
-    return cudaGetLastError();
-  }
   const int rows = a.t * (a.h / a.kvh);
   const dim3 grid((rows + kRows - 1) / kRows, a.kvh, a.b);
   const size_t smem =
@@ -648,14 +846,14 @@ cudaError_t dispatch(const Args& a, Variant variant, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   }
   switch ((a.d + 31) / 32) {
-    case 1: return launch<T, 1>(a, variant, stream);
-    case 2: return launch<T, 2>(a, variant, stream);
-    case 3: return launch<T, 3>(a, variant, stream);
-    case 4: return launch<T, 4>(a, variant, stream);
-    case 5: return launch<T, 5>(a, variant, stream);
-    case 6: return launch<T, 6>(a, variant, stream);
-    case 7: return launch<T, 7>(a, variant, stream);
-    case 8: return launch<T, 8>(a, variant, stream);
+    case 1: return launch<T, 1>(a, stream);
+    case 2: return launch<T, 2>(a, stream);
+    case 3: return launch<T, 3>(a, stream);
+    case 4: return launch<T, 4>(a, stream);
+    case 5: return launch<T, 5>(a, stream);
+    case 6: return launch<T, 6>(a, stream);
+    case 7: return launch<T, 7>(a, stream);
+    case 8: return launch<T, 8>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -663,8 +861,8 @@ cudaError_t dispatch(const Args& a, Variant variant, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16; variant: a Variant,
-// which the call must suit (decode: at most 4 packed rows a KV head;
-// tensor cores: bf16 at head_dim 64 or 128). Every tensor contiguous; q
+// which the call must suit (tensor cores: bf16 at head_dim 64 or 128).
+// Every tensor contiguous; q
 // and out [b, t, h, d], pools [num_pages, page_tokens, kvh, d],
 // page_table [b, n_logical] int32, lengths [b] int32. Returns a
 // cudaError_t code (0 = launched).
@@ -678,8 +876,7 @@ extern "C" int hvd_paged_attention(const void* q, const void* k_pool,
   if (b <= 0 || t <= 0) return cudaSuccess;
   if (kvh <= 0 || h % kvh || d <= 0 || d % 8 || d > kMaxHeadDim ||
       num_pages <= 0 || page_tokens <= 0 || n_logical <= 0 ||
-      kvh > 65535 || b > 65535 || variant < kDecode || variant > kTiledTc ||
-      (variant == kDecode && t * (h / kvh) > kRowsPerWarp))
+      kvh > 65535 || b > 65535 || variant < kTiled || variant > kTiledTc)
     return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
@@ -694,6 +891,53 @@ extern "C" int hvd_paged_attention(const void* q, const void* k_pool,
     case 1: return dispatch<__nv_bfloat16>(a, v, s);
     case 2: return dispatch<__half>(a, v, s);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// The decode kernel, for at most 4 packed rows t * h / kvh a (slot, KV
+// head). Tensors as hvd_paged_attention's, plus `ws`, an fp32 workspace
+// of b * kvh * n_splits * (8 + 4 d) values that the call overwrites, and
+// `tickets`, b * kvh zeroed words that the call leaves zeroed. `params`,
+// on the host: b, t, h, kvh, d, num_pages, page_tokens, n_logical,
+// split_pages, n_splits (= ceil(n_logical / split_pages)), causal,
+// dtype, device.
+extern "C" int hvd_paged_decode(const void* q, const void* k_pool,
+                                const void* v_pool, const void* page_table,
+                                const void* lengths, void* out, void* ws,
+                                void* tickets, const int* params,
+                                void* stream) {
+  const dec::Shape s{params[0], params[1], params[2], params[3],
+                     params[4], params[5], params[6], params[7],
+                     params[8], params[9], params[10]};
+  const int dtype = params[11], device = params[12];
+  if (s.b <= 0 || s.t <= 0) return cudaSuccess;
+  if (s.kvh <= 0 || s.h % s.kvh || s.d <= 0 || s.d % 8 ||
+      s.d > kMaxHeadDim || s.num_pages <= 0 || s.page_tokens <= 0 ||
+      s.n_logical <= 0 || s.kvh > 65535 || s.b > 65535 ||
+      s.split_pages <= 0 ||
+      s.n_splits != (s.n_logical + s.split_pages - 1) / s.split_pages ||
+      s.t * (s.h / s.kvh) > dec::kMaxRows)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const int rows = s.t * (s.h / s.kvh);
+  const int32_t* table = static_cast<const int32_t*>(page_table);
+  const int32_t* lens = static_cast<const int32_t*>(lengths);
+  float* w = static_cast<float*>(ws);
+  unsigned* tk = static_cast<unsigned*>(tickets);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return dec::dispatch<float>(rows, q, k_pool, v_pool, table, lens, out,
+                                  w, tk, s, st);
+    case 1:
+      return dec::dispatch<__nv_bfloat16>(rows, q, k_pool, v_pool, table,
+                                          lens, out, w, tk, s, st);
+    case 2:
+      return dec::dispatch<__half>(rows, q, k_pool, v_pool, table, lens,
+                                   out, w, tk, s, st);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 

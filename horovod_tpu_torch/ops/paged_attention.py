@@ -23,7 +23,11 @@ launches the kernel or raises. Every launch adds one to
 The kernel comes in three variants, chosen by one rule,
 :func:`kernel_variant`, on the packed query rows of one (slot, KV head),
 ``t · h / kv_heads``: at most 4 (every decode step of an MHA model) take
-the decode kernel, whose warps split the slot's keys; more (prefill
+the decode kernel, which splits each slot's keys over blocks
+(:func:`split_plan`: 64 keys a block, the number of splits from the
+table's width, so the wrapper never reads ``lengths`` on the host),
+each block writing its split's softmax state to a workspace and the
+last live split of a (slot, KV head) merging them; more (prefill
 chunks, wide GQA groups) take the tiled kernel: on the tensor cores
 (``wgmma``, the tile step of ``csrc/attention_tc.cuh``, 64 packed rows
 a block, so each K/V page is read once for 64 rows) for bf16 at
@@ -59,7 +63,9 @@ MAX_HEAD_DIM = 256
 HEAD_DIM_MULTIPLE = 8  # one 16-byte load covers 8 two-byte elements
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DECODE_MAX_ROWS = 4  # packed rows a (slot, KV head) the decode kernel takes
-# the kernel variants, as csrc/paged_attention.cu's Variant numbers them
+SPLIT_KEYS = 64  # keys a block of the decode kernel takes (split_plan)
+# the kernel variants; the tiled ones as csrc/paged_attention.cu's Variant
+# numbers them (the decode kernel has its own entry, hvd_paged_decode)
 VARIANT_CODES = {"decode": 0, "cuda_cores": 1, "tensor_cores": 2}
 _NEG_INF = -1e30
 
@@ -115,6 +121,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hvd_paged_attention.argtypes = [p] * 6 + [i] * 12 + [p]
     lib.hvd_paged_attention.restype = i
+    lib.hvd_paged_decode.argtypes = [p] * 8 + [ctypes.POINTER(i), p]
+    lib.hvd_paged_decode.restype = i
     lib.hvd_cuda_error_string.argtypes = [i]
     lib.hvd_cuda_error_string.restype = ctypes.c_char_p
 
@@ -179,6 +187,17 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, lengths, *,
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
 
 
+def split_plan(n_logical: int, page_tokens: int):
+    """The decode kernel's split of a slot's keys over blocks, from the
+    table's width alone (never from ``lengths``, which lie on the card):
+    ``(split_pages, n_splits)``, a split being ``split_pages`` pages of
+    the table (``SPLIT_KEYS`` keys, or one page where a page holds more),
+    ``n_splits = ceil(n_logical / split_pages)`` of them a (slot, KV
+    head). A split past a slot's live keys exits at once."""
+    split_pages = max(1, SPLIT_KEYS // page_tokens)
+    return split_pages, -(-n_logical // split_pages)
+
+
 def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
                     causal: bool = True):
     """Attention of ``q`` against paged KV, read straight from the pool.
@@ -197,69 +216,141 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
 
     Returns ``[batch, t, num_heads, head_dim]`` in q's dtype. CPU tensors
     take :func:`paged_attention_plain`; CUDA tensors launch the kernel
-    :func:`kernel_variant` names.
+    :func:`kernel_variant` names. The checks run once a geometry (the
+    shapes, dtypes, device and ``causal``), then the call is a launch.
     """
     if not _on_cuda(q):
         return paged_attention_plain(
             q, k_pool, v_pool, page_table, lengths, causal=causal
         )
-    _check(q, k_pool, v_pool, page_table, lengths)
-    _, t, h, d = q.shape
-    variant = kernel_variant(q.dtype, d, t * (h // k_pool.shape[2]))
-    out = _launch(q, k_pool, v_pool, page_table, lengths, causal, variant)
+    key = (q.shape, k_pool.shape, v_pool.shape, page_table.shape,
+           lengths.shape, q.dtype, k_pool.dtype, v_pool.dtype, q.device,
+           causal)
+    plan = _plans.get(key)
+    if plan is None:
+        _check(q, k_pool, v_pool, page_table, lengths)
+        _, t, h, d = q.shape
+        variant = kernel_variant(q.dtype, d, t * (h // k_pool.shape[2]))
+        plan = _plans[key] = _Plan(q, k_pool, v_pool, page_table, causal,
+                                   variant)
+    out = plan.launch(q, k_pool, v_pool, page_table, lengths)
     paged_attention.launches += 1
-    if variant != "decode":
+    if plan.variant != "decode":
         paged_attention.chunk_launches += 1
-        paged_attention.tc_launches += variant == "tensor_cores"
+        paged_attention.tc_launches += plan.variant == "tensor_cores"
     return out
 
 
 def _launch(q, k_pool, v_pool, page_table, lengths, causal, variant):
-    """One launch of the kernel ``variant`` (a key of VARIANT_CODES);
-    raises on what the kernels do not take."""
-    b, t, h, d = q.shape
-    num_pages, page_tokens, kvh, _ = k_pool.shape
-    if q.dtype not in DTYPE_CODES or k_pool.dtype != q.dtype or (
-        v_pool.dtype != q.dtype
-    ):
-        raise ValueError(
-            f"paged_attention takes q and pools of one dtype among "
-            f"{sorted(map(str, DTYPE_CODES))}; got {q.dtype}, "
-            f"{k_pool.dtype}, {v_pool.dtype}"
-        )
-    if d % HEAD_DIM_MULTIPLE or d > MAX_HEAD_DIM:
-        raise ValueError(
-            f"head_dim {d} must be a multiple of 8 and at most "
-            f"{MAX_HEAD_DIM}"
-        )
-    for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if not pool.is_contiguous() or pool.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if b > 65535 or kvh > 65535:
-        raise ValueError(f"batch {b} or kv_heads {kvh} exceeds 65535")
-    lib = _build.load(LIBRARY, _declare)
-    q = q.contiguous()
-    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
-    lens = lengths.to(device=q.device, dtype=torch.int32).reshape(b)
-    lens = lens.contiguous()
-    out = torch.empty_like(q)
-    index = q.device.index
-    if index is None:
-        index = torch.cuda.current_device()
-    err = lib.hvd_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        table.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        b, t, h, kvh, d, num_pages, page_tokens, table.shape[1],
-        int(bool(causal)), VARIANT_CODES[variant], DTYPE_CODES[q.dtype],
-        index, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(
-            f"paged_attention kernel ({variant}) launch failed: "
-            + lib.hvd_cuda_error_string(err).decode()
-        )
-    return out
+    """One launch of the kernel ``variant`` (a key of VARIANT_CODES),
+    past the dispatch rule and the launch counters. Raises on what the
+    kernels do not take."""
+    _check(q, k_pool, v_pool, page_table, lengths)
+    plan = _Plan(q, k_pool, v_pool, page_table, causal, variant)
+    return plan.launch(q, k_pool, v_pool, page_table, lengths)
 
+
+class _Plan:
+    """One geometry's launch: checked, its library loaded and its
+    integer arguments packed once, so a call costs the launch."""
+
+    def __init__(self, q, k_pool, v_pool, page_table, causal, variant):
+        b, t, h, d = q.shape
+        num_pages, page_tokens, kvh, _ = k_pool.shape
+        if q.dtype not in DTYPE_CODES or k_pool.dtype != q.dtype or (
+            v_pool.dtype != q.dtype
+        ):
+            raise ValueError(
+                f"paged_attention takes q and pools of one dtype among "
+                f"{sorted(map(str, DTYPE_CODES))}; got {q.dtype}, "
+                f"{k_pool.dtype}, {v_pool.dtype}"
+            )
+        if d % HEAD_DIM_MULTIPLE or d > MAX_HEAD_DIM:
+            raise ValueError(
+                f"head_dim {d} must be a multiple of 8 and at most "
+                f"{MAX_HEAD_DIM}"
+            )
+        if b > 65535 or kvh > 65535:
+            raise ValueError(f"batch {b} or kv_heads {kvh} exceeds 65535")
+        if variant == "decode" and t * (h // kvh) > DECODE_MAX_ROWS:
+            raise ValueError(
+                f"the decode kernel takes at most {DECODE_MAX_ROWS} packed "
+                f"rows a KV head; got {t * (h // kvh)}"
+            )
+        self.lib = _build.load(LIBRARY, _declare)
+        self.variant = variant
+        self.device = q.device
+        n_logical = page_table.shape[1]
+        if variant == "decode":
+            split_pages, n_splits = split_plan(n_logical, page_tokens)
+            self.ws_numel = b * kvh * n_splits * (8 + 4 * d)
+            self.tickets_numel = b * kvh
+            self.params = (ctypes.c_int * 13)(
+                b, t, h, kvh, d, num_pages, page_tokens, n_logical,
+                split_pages, n_splits, int(bool(causal)),
+                DTYPE_CODES[q.dtype], self.device.index or 0)
+        else:
+            self.args = (b, t, h, kvh, d, num_pages, page_tokens, n_logical,
+                         int(bool(causal)), VARIANT_CODES[variant],
+                         DTYPE_CODES[q.dtype], self.device.index or 0)
+
+    def launch(self, q, k_pool, v_pool, page_table, lengths):
+        k_ptr, v_ptr = k_pool.data_ptr(), v_pool.data_ptr()
+        if (k_ptr | v_ptr) % 16 or not (k_pool.is_contiguous()
+                                        and v_pool.is_contiguous()):
+            raise ValueError(
+                "k_pool and v_pool must be contiguous and 16-byte aligned")
+        q = q.contiguous()
+        if (page_table.dtype != torch.int32 or not page_table.is_contiguous()
+                or page_table.device != q.device):
+            page_table = page_table.to(device=q.device, dtype=torch.int32)
+            page_table = page_table.contiguous()
+        if (lengths.dtype != torch.int32 or not lengths.is_contiguous()
+                or lengths.device != q.device):
+            lengths = lengths.to(device=q.device, dtype=torch.int32)
+            lengths = lengths.contiguous()
+        out = torch.empty_like(q)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        if self.variant == "decode":
+            ws = torch.empty(self.ws_numel, dtype=torch.float32,
+                             device=q.device)
+            err = self.lib.hvd_paged_decode(
+                q.data_ptr(), k_ptr, v_ptr,
+                page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), _tickets(self.device, self.tickets_numel),
+                self.params, stream)
+        else:
+            err = self.lib.hvd_paged_attention(
+                q.data_ptr(), k_ptr, v_ptr,
+                page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                *self.args, stream)
+        if err:
+            raise RuntimeError(
+                f"paged_attention kernel ({self.variant}) launch failed: "
+                + self.lib.hvd_cuda_error_string(err).decode()
+            )
+        return out
+
+
+def _tickets(device: torch.device, numel: int) -> int:
+    """The decode merge's ticket words on ``device``: zeroed once, left
+    zeroed by every launch (the block that takes a (slot, KV head)'s
+    last ticket resets it), so a call adds no memset. Calls on one
+    device share them, so they must not overlap in time on two streams.
+    Grows outside a CUDA graph capture only."""
+    buf = _ticket_words.get(device)
+    if buf is None or buf.numel() < numel:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "paged_attention's decode kernel needs more ticket words "
+                "than it holds; run the call once before capturing it")
+        buf = _ticket_words[device] = torch.zeros(
+            numel, dtype=torch.int32, device=device)
+    return buf.data_ptr()
+
+
+_plans = {}
+_ticket_words = {}
 
 # every launch; the tiled kernel's (more than 4 packed rows: prefill
 # chunks, wide GQA groups), so decode's are launches - chunk_launches;

@@ -12,10 +12,16 @@ package's ``optimizer.py`` is its oracle):
 - ``step()`` waits on the handles, writes the reduced gradients back
   and steps the inner optimizer;
 - ``backward_passes_per_step=k`` accumulates k backward passes locally
-  and reduces their sum once (the reference's default). Each pass but
-  the last moves the gradient into a buffer of the wrapper, so
-  ``zero_grad()`` between passes (``set_to_none`` or not) loses nothing;
-  ``step()`` called in the middle of a window does nothing;
+  and reduces their sum once (the reference's default). The contract is
+  the reference's: call ``step()`` after every backward pass. The window
+  is counted once, by ``step()`` calls. On each pass but the window's
+  last the hook moves the gradient into a buffer of the wrapper, so
+  ``zero_grad()`` between passes (``set_to_none`` or not) loses
+  nothing, and ``step()`` returns None without stepping. On the last
+  pass the hook adds the buffer and enqueues; at the window's end
+  ``step()`` also enqueues, in parameter order, every buffer whose
+  parameter had no gradient on that pass, then drops every buffer, so a
+  parameter that stops receiving gradients is never reduced with zeros;
 - ``op=`` Average, Sum or Adasum (each gradient its own Adasum entry,
   never fused); ``gradient_predivide_factor`` f splits the average as
   ``Sum`` of ``x / (n·f)`` times f; ``compression=`` none, fp16, bf16,
@@ -34,7 +40,7 @@ that order).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Set
 
 import torch
 import torch.distributed as dist
@@ -95,7 +101,8 @@ class DistributedOptimizer:
             id(p): names.get(id(p), f"grad.{i}")
             for i, p in enumerate(self._params)
         }
-        self._passes: Dict[int, int] = {}  # backward passes this window
+        self._micro = 0  # step() calls so far in this window
+        self._seen: Set[int] = set()  # parameters hooked since step()
         self._accum: Dict[int, torch.Tensor] = {}  # earlier passes' sum
         self._handles: Dict[int, eager.TorchHandle] = {}
         self._hooks = [p.register_post_accumulate_grad_hook(self._hook)
@@ -106,27 +113,24 @@ class DistributedOptimizer:
 
     def _hook(self, p: torch.nn.Parameter) -> None:
         key = id(p)
-        if key in self._handles:
+        if key in self._seen:
             raise RuntimeError(
                 f"gradient of {self._names[key]} produced again before "
-                f"step(): call step() after each {self._k} backward "
-                "pass(es)"
+                "step(): call step() after every backward pass"
             )
-        passes = self._passes.get(key, 0) + 1
+        self._seen.add(key)
         with torch.no_grad():
-            if passes < self._k:
+            if self._micro < self._k - 1:
                 buf = self._accum.get(key)
                 if buf is None:
                     self._accum[key] = p.grad.clone()
                 else:
                     buf.add_(p.grad)
                 p.grad.zero_()
-                self._passes[key] = passes
                 return
             buf = self._accum.pop(key, None)
             if buf is not None:
                 p.grad.add_(buf)
-        self._passes.pop(key, None)
         self._enqueue(p)
 
     def _enqueue(self, p: torch.nn.Parameter) -> None:
@@ -160,10 +164,23 @@ class DistributedOptimizer:
                 by_id[key].grad.copy_(out)
 
     def step(self, closure=None):
-        """Reduce and step once a window of backward passes is complete;
-        in the middle of a window, do nothing and return None."""
-        if self._passes and not self._handles:
+        """Count one backward pass. In the middle of a window, return
+        None; at its end, reduce the window's gradients and step."""
+        self._seen.clear()
+        self._micro += 1
+        if self._micro < self._k:
             return None
+        self._micro = 0
+        with torch.no_grad():
+            for p in self._params:  # the same order on every rank
+                buf = self._accum.pop(id(p), None)
+                if buf is None:
+                    continue
+                if p.grad is None:
+                    p.grad = buf
+                else:
+                    p.grad.add_(buf)
+                self._enqueue(p)
         self.synchronize()
         return self._opt.step(closure)
 

@@ -25,14 +25,19 @@ whole backward as ``FlashAttentionFunction`` runs it and SDPA's
 backward. With ``--train`` it runs ``chip_smoke.py``'s phase 5 instead (GPT-2
 medium's training steps, their peak memory and one profiled step: the
 device time a step), with ``--serve`` its phase 3 (the burst of 9
-requests to ``serve()``: TTFT, TPOT, tokens/s), and ``--root DIR``
+requests to ``serve()``: TTFT, TPOT, tokens/s). ``--decode`` times
+the decode kernel at the decode shapes (each merge and split width the
+checkout has, the host time of 24 eager calls, SDPA and the bound),
+``--quantize`` the per-tensor int8 quantizer at phase 7's sizes in fp32
+and bf16 (each variant the checkout has, rotating over copies of x
+that exceed L2). ``--root DIR``
 takes ``chip_smoke.py`` and the package from another checkout: run it
 on an unpacked parent commit and on this one in turns to compare the
 two in one call.
 
 Run from the repository root on a machine with a CUDA card:
 ``python3 scripts/compare_attention_fwd.py [--backward | --train |
---serve] [--root DIR]``. It prints one JSON line per shape (the phase's
+--serve | --decode | --quantize] [--root DIR]``. It prints one JSON line per shape (the phase's
 own lines with ``--train`` or ``--serve``) and, as its last line, the
 card's name and power limit.
 """
@@ -104,7 +109,6 @@ def flash_rows(cs, gen, card):
 
 def paged_rows(cs, gen, card):
     import torch
-    import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import paged_attention as pa
 
@@ -136,32 +140,173 @@ def paged_rows(cs, gen, card):
                 cs.fail(f"paged {c['name']} {variant}: beyond 2 bf16 ulp")
         cuda_ms, tc_ms = _in_turns(cs, lambda i: run("cuda_cores", i),
                                    lambda i: run("tensor_cores", i))
-        b, t, h, kvh, d = c["b"], c["t"], c["h"], c["kvh"], c["d"]
-        tbl = c["table"].long().clamp(0, c["pools"][0][0].shape[0] - 1)
-        seq = c["n_logical"] * c["page_tokens"]
-        gathered = [
-            tuple(x[tbl].reshape(b, seq, kvh, d).repeat_interleave(
-                h // kvh, dim=2).transpose(1, 2).contiguous()
-                for x in pool)
-            for pool in c["pools"]
-        ]
-        start = c["lengths"].long()
-        key_pos = torch.arange(seq, device=start.device)
-        q_pos = start[:, None] + torch.arange(t, device=start.device)
-        mask = (key_pos[None, None, :] <= q_pos[:, :, None])[:, None]
-        qh = c["q"].transpose(1, 2).contiguous()
-        sdpa_ms = cs._time_ms(lambda i: F.scaled_dot_product_attention(
-            qh, *gathered[i % n], attn_mask=mask))
+        sdpa_ms = _sdpa_gathered(cs, c)
         bound_ms, bound_by = cs._bound(c)
         print(json.dumps({
             "kernel": "paged_attention tiled", "name": c["name"],
-            "rows_per_kv_head": t * h // kvh, "cuda_cores_ms": cuda_ms,
+            "rows_per_kv_head": c["t"] * c["h"] // c["kvh"],
+            "cuda_cores_ms": cuda_ms,
             "tensor_cores_ms": tc_ms, "speedup": cuda_ms / tc_ms,
             "sdpa_gathered_ms": sdpa_ms,
             "tensor_cores_over_sdpa": tc_ms / sdpa_ms, "bound_ms": bound_ms,
             "bound_by": bound_by,
             "tensor_cores_over_bound": tc_ms / bound_ms, "card": card,
         }, sort_keys=True), flush=True)
+
+
+def _sdpa_gathered(cs, c):
+    """SDPA over each pool copy's gathered view (gathered outside the
+    timed call), timed as chip_smoke.py's phase 2 times it."""
+    import torch
+    import torch.nn.functional as F
+
+    b, t, h, kvh, d = c["b"], c["t"], c["h"], c["kvh"], c["d"]
+    tbl = c["table"].long().clamp(0, c["pools"][0][0].shape[0] - 1)
+    seq = c["n_logical"] * c["page_tokens"]
+    gathered = [
+        tuple(x[tbl].reshape(b, seq, kvh, d).repeat_interleave(
+            h // kvh, dim=2).transpose(1, 2).contiguous() for x in pool)
+        for pool in c["pools"]
+    ]
+    start = c["lengths"].long()
+    key_pos = torch.arange(seq, device=start.device)
+    q_pos = start[:, None] + torch.arange(t, device=start.device)
+    mask = (key_pos[None, None, :] <= q_pos[:, :, None])[:, None]
+    qh = c["q"].transpose(1, 2).contiguous()
+    n = len(gathered)
+    return cs._time_ms(lambda i: F.scaled_dot_product_attention(
+        qh, *gathered[i % n], attn_mask=mask))
+
+
+def _host_ms(fn, calls=24, reps=15):
+    """Median host time of ``calls`` eager calls (the wrapper's Python
+    and the launch, not the card's time), synchronised between reps."""
+    import time
+
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2]
+
+
+def decode_rows(cs, gen, card):
+    """The decode kernel through the public wrapper at chip_smoke.py's
+    decode shapes: graph-replayed device time, the host time of 24 eager
+    calls (a decode step's 24 layers), SDPA on the gathered view and the
+    bound. Where the checkout's decode kernel splits the keys
+    (``SPLIT_KEYS``), at split widths of 32, 64, 128 and 256 keys, timed in
+    that order and back (the lower of each pair); the host time at the
+    checkout's own width."""
+    import torch
+
+    from horovod_tpu_torch.ops import paged_attention as pa
+
+    cases = [  # chip_smoke.py's phase-2 decode shapes
+        cs._paged_case("decode", 8, 1, 16, 16, 64, 16, 64,
+                       [15, 40, 118, 250, 431, 600, 731, 0],
+                       sentinel_rows=(7,), gen=gen),
+        cs._paged_case("gqa-decode", 8, 1, 32, 8, 128, 16, 64,
+                       [5, 64, 200, 333, 0, 512, 900, 1000], gen=gen),
+    ]
+    chosen = getattr(pa, "SPLIT_KEYS", None)
+    variants = [None] if chosen is None else [32, 64, 128, 256]
+
+    def use(width):
+        if width is not None:
+            pa.SPLIT_KEYS = width
+            pa._plans.clear()
+
+    for c in cases:
+        n = len(c["pools"])
+        ref = pa.paged_attention_plain(c["q"], *c["pools"][0], c["table"],
+                                       c["lengths"])
+
+        def run(i, c=c):
+            k, v = c["pools"][i % n]
+            return pa.paged_attention(c["q"], k, v, c["table"],
+                                      c["lengths"])
+
+        ms = {}
+        for variant in variants + variants[::-1]:
+            use(variant)
+            got = run(0)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            tol = 2 * cs._ulp_bf16(torch.maximum(got.float().abs(),
+                                                 ref.float().abs()))
+            if bool((diff > tol).any()):
+                cs.fail(f"decode {c['name']} {variant}: beyond 2 bf16 ulp")
+            t = cs._time_ms(run)
+            ms[variant] = min(ms.get(variant, t), t)
+        use(chosen)
+        host_ms = _host_ms(run)
+        sdpa_ms = _sdpa_gathered(cs, c)
+        bound_ms, bound_by = cs._bound(c)
+        print(json.dumps({
+            "kernel": "paged_attention decode", "name": c["name"],
+            "ms": {str(w): t for w, t in ms.items()},
+            "split_keys": chosen,
+            "host_ms_24_calls": host_ms, "sdpa_gathered_ms": sdpa_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "card": card,
+        }, sort_keys=True), flush=True)
+
+
+def quantize_rows(cs, gen, card):
+    """The per-tensor quantizer (B2) at chip_smoke.py's phase-7 sizes in
+    fp32 and bf16, held bitwise to plain, then graph-replayed while
+    rotating over copies of x that together exceed the 50 MB L2 (a
+    caller quantizes each tensor once, cold), twice (the lower). Beside:
+    the one-read bound, the two-read floor, and each of the kernel's
+    launches' device time from ``torch.profiler`` (where it reports
+    any)."""
+    import torch
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    for label, n in cs.WIRE_N.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            esize = torch.finfo(dtype).bits // 8
+            copies = max(2, min(32, -(-120_000_000 // (n * esize))))
+            xs = []
+            for _ in range(copies):
+                x = torch.randn(n, generator=gen, device="cuda")
+                x[: n // 3] *= 1e-3
+                xs.append(x.to(dtype))
+            q, s = ck.int8_quantize(xs[0], seed=3)
+            qp, sp = ck.int8_quantize_plain(xs[0], 3)
+            torch.cuda.synchronize()
+            if not (torch.equal(q, qp) and torch.equal(s, sp)):
+                cs.fail(f"int8_quantize {label} {dtype}: differs from "
+                        "plain")
+            ms = min(cs._time_ms(lambda i: ck.int8_quantize(
+                xs[i % copies], seed=i), iters=2 * copies)
+                for _ in range(2))
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for i in range(copies):
+                    ck.int8_quantize(xs[i], seed=i)
+                torch.cuda.synchronize()
+            per_kernel = {
+                e.key[:60]: e.self_device_time_total / max(e.count, 1) / 1e3
+                for e in prof.key_averages()
+                if "quantize" in e.key or "absmax" in e.key}
+            print(json.dumps({
+                "kernel": "int8_quantize", "name": f"{label}",
+                "dtype": str(dtype).split(".")[1], "n": n,
+                "copies": copies, "ms": ms, "per_kernel_ms": per_kernel,
+                "bound_ms": (n * esize + n + 4) / cs.HBM_BYTES_PER_S * 1e3,
+                "two_read_floor_ms":
+                (2 * n * esize + n + 4) / cs.HBM_BYTES_PER_S * 1e3,
+                "card": card,
+            }, sort_keys=True), flush=True)
+            del xs
 
 
 def backward_rows(cs, gen, card):
@@ -267,6 +412,10 @@ def main() -> int:
                       help="run chip_smoke.py's phase 5 instead")
     mode.add_argument("--serve", action="store_true",
                       help="run chip_smoke.py's phase 3 instead")
+    mode.add_argument("--decode", action="store_true",
+                      help="time the decode kernel instead")
+    mode.add_argument("--quantize", action="store_true",
+                      help="time the per-tensor int8 quantizer instead")
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout to import from")
     args = ap.parse_args()
@@ -293,6 +442,10 @@ def main() -> int:
         serve_burst(cs, gen, card)
     elif args.backward:
         backward_rows(cs, gen, card)
+    elif args.decode:
+        decode_rows(cs, gen, card)
+    elif args.quantize:
+        quantize_rows(cs, gen, card)
     else:
         flash_rows(cs, gen, card)
         paged_rows(cs, gen, card)

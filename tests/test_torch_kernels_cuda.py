@@ -106,6 +106,32 @@ def test_kernel_matches_plain(cuda_card, name, dtype):
                                **_tolerance(dtype))
 
 
+# the decode kernel at its split edges: 64-key splits (4 pages of 16),
+# live keys at 1, 63, 64, 65, 66, 128 and the whole 64-page table, a
+# sentinel slot, at head_dim 64, 128 and 40 (an odd multiple of 8)
+DECODE_EDGES = [0, 62, 63, 64, 65, 127, 64 * 16 - 1, 300]
+
+
+@pytest.mark.parametrize("d", [64, 128, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_decode_split_edges_match_plain(cuda_card, dtype, d):
+    for t, h, kvh in ((1, 4, 4), (1, 8, 2), (2, 4, 2)):
+        q, k, v, table, lengths = _case(
+            b=len(DECODE_EDGES), t=t, h=h, kvh=kvh, d=d, pt=16,
+            n_logical=64, lengths=DECODE_EDGES, sentinel_rows=(7,))
+        args = [torch.from_numpy(x).to(cuda_card, dtype) for x in (q, k, v)]
+        args += [torch.from_numpy(x).to(cuda_card)
+                 for x in (table, lengths)]
+        got = pa._launch(*args, True, "decode")
+        again = pa._launch(*args, True, "decode")
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)  # the ticket words were left zero
+        torch.testing.assert_close(got, pa.paged_attention_plain(*args),
+                                   **_tolerance(dtype))
+    assert not pa._ticket_words[got.device].any()
+
+
 def _paged_counts():
     return (pa.paged_attention.launches, pa.paged_attention.chunk_launches,
             pa.paged_attention.tc_launches)
@@ -381,11 +407,16 @@ def test_scale_cast_bitwise(cuda_card, in_dtype, out_dtype):
     assert torch.equal(got, ck.scale_cast_plain(x, s, out_dtype))
 
 
+# B2's sizes: none a multiple of 8 but 512, smaller than one block's
+# slice, and splitting unevenly over the grid
+B2_SIZES = WIRE_SIZES + [7, 1_000_003, 3_000_017]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", WIRE_SIZES)
+@pytest.mark.parametrize("n", B2_SIZES)
 def test_int8_quantize_bitwise(cuda_card, n, dtype):
     """B2 against plain: the same Philox bits and IEEE divisions give
-    equal values and an equal scale."""
+    equal values and an equal scale, in any traversal order."""
     x = _wire_input(cuda_card, n, dtype)
     before = ck.int8_quantize.launches
     q, s = ck.int8_quantize(x, seed=11, stream=3)
@@ -393,6 +424,44 @@ def test_int8_quantize_bitwise(cuda_card, n, dtype):
     assert ck.int8_quantize.launches == before + 1
     qp, sp = ck.int8_quantize_plain(x, seed=11, stream=3)
     assert torch.equal(s, sp) and torch.equal(q, qp)
+
+
+def test_int8_quantize_zero_and_clip(cuda_card):
+    """An all-zero tensor's scale is 1e-30 · fp32(1/127) and its values
+    0; values at ± absmax reach the clip at ±127 (and -128 never)."""
+    zero = torch.zeros(1001, device=cuda_card)
+    q, s = ck.int8_quantize(zero)
+    qp, sp = ck.int8_quantize_plain(zero)
+    assert torch.equal(s, sp) and torch.equal(q, qp)
+    want = torch.tensor(1e-30, dtype=torch.float32) * torch.tensor(
+        1.0 / 127.0, dtype=torch.float32)
+    assert float(s) == float(want) and not q.any()
+    x = _wire_input(cuda_card, 4099) * 0.5
+    x[::7] = 3.0
+    x[3::7] = -3.0
+    q, s = ck.int8_quantize(x, seed=5)
+    qp, sp = ck.int8_quantize_plain(x, seed=5)
+    assert torch.equal(s, sp) and torch.equal(q, qp)
+    assert int(q.max()) == 127 and int(q.min()) == -127
+
+
+def test_int8_quantize_graph_replay_matches_eager(cuda_card):
+    """Captured in a CUDA graph and replayed, the kernel gives the bits
+    it gives eagerly."""
+    x = _wire_input(cuda_card, 1_000_003, torch.bfloat16)
+    eager_q, eager_s = ck.int8_quantize(x, seed=9, stream=2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ck.int8_quantize(x, seed=9, stream=2)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        q, s = ck.int8_quantize(x, seed=9, stream=2)
+    q.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(q, eager_q) and torch.equal(s, eager_s)
 
 
 @pytest.mark.parametrize("block", [1, 3, 512, 1000])
