@@ -43,13 +43,17 @@ and no network; it imports no JAX. Phases, each printing its own lines:
 7. The wire kernels (scale-cast, the two int8 quantizers, Adasum's dots
    and apply passes) against their plain versions at the sizes the
    paths use: bit for bit for the first three (the per-tensor quantizer
-   in fp32 and bf16), within 1e-5 (fp32) or one
-   rounding (bf16) for Adasum; the stochastic contract on the card.
+   in fp32 and bf16; the block quantizer in each of its variants, in
+   fp32, bf16 and fp16, flat, as rows and on a misaligned view), within
+   1e-5 (fp32) or one rounding (bf16) for Adasum; the stochastic
+   contract on the card.
 8. Training on the int8 wire: phase 5 again through
    ``DistributedOptimizer(compression=Compression.int8_block,
    error_feedback=True)``; the loss must fall, each fused batch must run
    the block quantizer twice, and the wire bytes a step must stay under
-   0.27 × phase 5's. One more step runs under ``torch.profiler``.
+   0.27 × phase 5's. One more step runs under ``torch.profiler``, its
+   device time split by class: B3, the exchanges, and the wire's
+   plain-PyTorch pack, dequantize-sum, residual and unpack passes.
 9. Adasum and the codec: GPT-2 medium's gradients of 4 microbatches
    combined tensor by tensor with Adasum's tree (882 launches each of
    the dots and apply kernels), held against the plain tree and the
@@ -829,10 +833,47 @@ def _loss(model, tokens, labels):
                            labels.reshape(-1))
 
 
-def _profile_step(step):
+def _wire_split(prof, busy_ms):
+    """The int8 wire's device time in a profiled step, by class: B3 and
+    the NCCL kernels by kernel name, the plain-PyTorch passes by the
+    fusion layer's ranges (``fusion.WIRE_RANGES``): the kernels that the
+    ops under each range launched (the range's own span on the device,
+    which the profiler also records, is not counted). The exchanges are
+    the larger of their range and the NCCL kernels."""
+    from horovod_tpu_torch.ops.fusion import WIRE_RANGES
+
+    names = {v: k for k, v in WIRE_RANGES.items()}
+
+    def kernels_ms(e):
+        own = sum(k.duration for k in e.kernels if k.name not in names)
+        return own / 1e3 + sum(kernels_ms(c) for c in e.cpu_children)
+
+    by_range = {k: 0.0 for k in WIRE_RANGES}
+    for e in prof.events():
+        if e.name in names and e.device_type.name == "CPU":
+            by_range[names[e.name]] += kernels_ms(e)
+    b3 = nccl = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            if "block_quantize" in e.key:
+                b3 += e.self_device_time_total / 1e3
+            elif "nccl" in e.key.lower():
+                nccl += e.self_device_time_total / 1e3
+    split = {"b3_ms": b3, "nccl_kernels_ms": nccl,
+             "exchange_ms": max(by_range.pop("exchange"), nccl)}
+    split.update({f"{k}_ms": v for k, v in by_range.items()})
+    split["wire_ms"] = sum(v for k, v in split.items()
+                           if k != "nccl_kernels_ms")
+    split["rest_of_step_ms"] = busy_ms - split["wire_ms"]
+    split["device_busy_ms"] = busy_ms
+    return split
+
+
+def _profile_step(step, wire_split=False):
     """One step under torch.profiler: the device-busy share (the sum of
     kernel time over the step's wall time; streams that overlap would
-    count twice) and the kernels by device time."""
+    count twice) and the kernels by device time; with ``wire_split``,
+    the int8 wire's share by class (:func:`_wire_split`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -843,10 +884,14 @@ def _profile_step(step):
         step()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    from horovod_tpu_torch.ops.fusion import WIRE_RANGES
+
     kernels, host = [], []
     for e in prof.key_averages():
         if e.device_type.name == "CUDA":
-            if e.self_device_time_total > 0:
+            # a range's span on the device is no kernel of its own
+            if e.self_device_time_total > 0 and (
+                    e.key not in WIRE_RANGES.values()):
                 kernels.append((e.key, e.self_device_time_total / 1e3,
                                 e.count))
         elif e.self_cpu_time_total > 0:
@@ -854,7 +899,8 @@ def _profile_step(step):
     kernels.sort(key=lambda k: -k[1])
     host.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    return {
+    extra = {"wire_split": _wire_split(prof, busy_ms)} if wire_split else {}
+    return {**extra,
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
@@ -1076,12 +1122,84 @@ def _wire_result(name, shape, err, ms, plain_ms, nbytes, library_ms=None):
     return r
 
 
+def _b3_row(label, x, block, rows=False, seed=5, stream=1, timed=True):
+    """B3 on x against its plain version, bit for bit (values and
+    scales), then timed in turns with it; the row names the variant that
+    ran."""
+    import torch
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    q, s = ck.int8_block_quantize(x, block, seed=seed, stream=stream,
+                                  rows=rows)
+    qp, sp = ck.int8_block_quantize_plain(x, block, seed=seed,
+                                          stream=stream, rows=rows)
+    torch.cuda.synchronize()
+    if not (torch.equal(s, sp) and torch.equal(q, qp)):
+        fail(f"int8_block_quantize[{label}]: kernel differs from plain "
+             f"({int((q != qp).sum())} values, {int((s != sp).sum())} "
+             "scales)")
+    if not timed:
+        return None
+    shape = ({"rows": x.shape[0], "cols": x.shape[1]} if rows
+             else {"n": x.numel()})
+    shape.update(block=block, dtype=str(x.dtype).split(".")[1],
+                 aligned=x.data_ptr() % 16 == 0)
+    ms, plain_ms = _timed_pair(
+        lambda i: ck.int8_block_quantize(x, block, seed=i, rows=rows),
+        lambda i: ck.int8_block_quantize_plain(x, block, i, rows=rows))
+    r = _wire_result(f"int8_block_quantize[{label}]", shape, 0.0, ms,
+                     plain_ms,
+                     x.numel() * (x.element_size() + 1) + s.numel() * 4)
+    r["variant"] = ck.block_quantize_variant(block)
+    return r
+
+
+def _b3_new_rows():
+    """B3's further rows, from a generator of their own (the draws
+    of the later phases stay as they were): bf16 at 64 MiB; rows of 4 ×
+    4 194 303, so every block of rows 1-3 starts and ends inside a
+    16-byte vector; a view ``x[3:]`` whose base is not 16-byte aligned
+    (the scalar loads); then, untimed, block sizes on each side of every
+    variant limit at 1 000 003 elements, fp32, bf16 and fp16."""
+    import torch
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    n = WIRE_N["fusion-64MiB"]
+    x = torch.randn(n, generator=gen, device="cuda")
+    x[: n // 3] *= 1e-3
+    out = [_b3_row("fusion-64MiB, bf16, block 512", x.to(torch.bfloat16),
+                   512),
+           _b3_row("rows 4 x 4194303, block 512", x[: n - 4].view(4, -1),
+                   512, rows=True),
+           _b3_row("misaligned x[3:], rows 1 x 16777213, block 512",
+                   x[3:].view(1, -1), 512, rows=True)]
+    ragged = x[: WIRE_N["ragged"]]
+    blocks = (1, 3, 31, 32, 33, ck.WARP_MAX_BLOCK, ck.WARP_MAX_BLOCK + 1,
+              4096, ck.CTA_STAGE_MAX + 1)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        xd = ragged.to(dtype)
+        for block in blocks:
+            _b3_row(f"ragged, {dtype}, block {block}", xd, block,
+                    timed=False)
+    log(f"int8_block_quantize: bitwise at blocks {list(blocks)} "
+        "(variants " + ", ".join(sorted({ck.block_quantize_variant(b)
+                                         for b in blocks})) + ") in fp32, "
+        "bf16 and fp16")
+    return out
+
+
 def phase_wire_kernels(gen):
     """Kernels B1-B4 against their plain versions at the sizes the paths
     give them: a 64 MiB fusion batch (16 777 216 fp32), GPT-2 medium's
     largest gradient (wte, 50257 × 1024 fp32), a ragged 1 000 003, bf16
-    input for B1, B2 and B4, B3 at blocks 512 and 1000 and as the fused
-    wire's [4, chunk] rows. B1, B2 and B3 must equal their plain versions
+    input for B1, B2 and B4, B3 at blocks 512 and 1000, as the fused
+    wire's [4, chunk] rows, in bf16, on rows whose blocks start inside a
+    16-byte vector, on a misaligned view and at block sizes on each side
+    of its variant limits. B1, B2 and B3 must equal their plain versions
     bit for bit (values and scales: the same Philox bits, IEEE
     divisions); B4's dots within 1e-5 relative, its apply within 1e-5 of
     the output's largest magnitude in fp32 and one rounding in bf16. Then
@@ -1142,20 +1260,8 @@ def phase_wire_kernels(gen):
 
         # B3, flat at blocks 512 and 1000
         for block in (512, 1000):
-            q, s = ck.int8_block_quantize(x, block, seed=5)
-            qp, sp = ck.int8_block_quantize_plain(x, block, seed=5)
-            torch.cuda.synchronize()
-            if not (torch.equal(s, sp) and torch.equal(q, qp)):
-                fail(f"int8_block_quantize {label} block {block}: kernel "
-                     f"differs from plain ({int((q != qp).sum())} values, "
-                     f"{int((s != sp).sum())} scales)")
-            ms, plain_ms = _timed_pair(
-                lambda i, b=block: ck.int8_block_quantize(x, b, seed=i),
-                lambda i, b=block: ck.int8_block_quantize_plain(x, b, i))
-            rows["int8_block_quantize"].append(_wire_result(
-                f"int8_block_quantize[{label}, block {block}]",
-                dict(shape, block=block), 0.0, ms, plain_ms,
-                n * 4 + n + -(-n // block) * 4))
+            rows["int8_block_quantize"].append(_b3_row(
+                f"{label}, block {block}", x, block))
 
         # B4, dots then apply
         d = ck.adasum_dots(x, y)
@@ -1190,20 +1296,10 @@ def phase_wire_kernels(gen):
     n = WIRE_N["fusion-64MiB"]
     chunks = torch.randn((4, n // 4), generator=gen, device=dev)
     chunks[:, -100:] *= 1e-4
-    q, s = ck.int8_block_quantize(chunks, 512, seed=7, stream=1, rows=True)
-    qp, sp = ck.int8_block_quantize_plain(chunks, 512, seed=7, stream=1,
-                                          rows=True)
-    torch.cuda.synchronize()
-    if not (torch.equal(s, sp) and torch.equal(q, qp)):
-        fail("int8_block_quantize rows: kernel differs from plain")
-    ms, plain_ms = _timed_pair(
-        lambda i: ck.int8_block_quantize(chunks, 512, seed=i, rows=True),
-        lambda i: ck.int8_block_quantize_plain(chunks, 512, i, rows=True))
-    rows["int8_block_quantize"].append(_wire_result(
-        "int8_block_quantize[rows 4 x 4194304, block 512]",
-        {"rows": 4, "cols": n // 4, "block": 512, "dtype": "float32"}, 0.0,
-        ms, plain_ms, n * 5 + s.numel() * 4))
-    del chunks, q, qp
+    rows["int8_block_quantize"].append(_b3_row(
+        "rows 4 x 4194304, block 512", chunks, 512, rows=True))
+    del chunks
+    rows["int8_block_quantize"] += _b3_new_rows()
 
     # bf16 inputs for B1 and B4
     n = WIRE_N["wte"]
@@ -1344,7 +1440,8 @@ def phase_train_int8(gen, card, fp32_bytes_per_step):
             _loss(model, tokens, labels).backward()
             opt.step()
 
-        prof = _profile_step(step)
+        prof = _profile_step(step, wire_split=True)
+        split = prof.pop("wire_split")
         summary = {
             "model": "gpt2_medium", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "remat": cfg.remat, "world": hvd.size(),
@@ -1364,6 +1461,9 @@ def phase_train_int8(gen, card, fp32_bytes_per_step):
         }
         log("int8 train: " + json.dumps(summary, sort_keys=True))
         log("int8 train profile: " + json.dumps(prof, sort_keys=True))
+        log("int8 train wire split: " + json.dumps(split, sort_keys=True))
+        if split["b3_ms"] <= 0:
+            fail("int8 train: the profiled step shows no B3 device time")
         opt.remove_hooks()
         del model, opt
         return launches
@@ -1687,6 +1787,8 @@ def main() -> int:
             "shape": main_shape["shape"],
             "shapes": rows,
         })
+        if "variant" in main_shape:  # B3
+            entries[-1]["variant"] = main_shape["variant"]
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({

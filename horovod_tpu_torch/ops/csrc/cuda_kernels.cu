@@ -19,12 +19,10 @@
 // * int8_block_quantize (line 221, the same body): one scale per `block`
 //   elements of each row of a [rows, cols] view, blocks never crossing a
 //   row, the short tail block of a row zero-padded for the absmax only.
-//   One pass: a group of G threads owns a block, finds its absmax by
-//   shuffles (and shared memory past a warp), then rounds the block,
-//   whose bytes it has just read (L1/L2 hits, one HBM pass). G is the
-//   block size rounded up to a power of two, at most 128, so a block of 1
-//   or 3 takes one or four threads and a CTA of 128 threads holds 128/G
-//   blocks; a block wider than 128 is walked in a loop.
+//   One pass that reads x from device memory once: at the blocks the
+//   paths use (512), a warp owns a block and keeps it in registers from
+//   its absmax to its rounding; smaller and larger blocks take the
+//   variants described at the kernels below.
 // * adasum_pair (lines 304 and 315: `_adasum_dots_kernel`,
 //   `_adasum_apply_kernel`): [a.b, a.a, b.b] with fp32 accumulation, then
 //   ca * a + cb * b. The TPU kernel carries the three sums across its
@@ -47,9 +45,10 @@
 // writes its outputs once, with a few dozen integer operations per element
 // for Philox (computed once per four elements); the per-tensor quantizer
 // reads x twice, and its rounding pass is bound by that arithmetic (one
-// Philox call a quad, an IEEE division an element), not by its bytes.
-// The per-tensor quantizer loads 16 bytes a thread; the others load one
-// element a thread, coalesced across a warp.
+// Philox call a quad, an IEEE division an element), not by its bytes;
+// the block quantizer does the same arithmetic on one read.
+// The quantizers load 16 bytes a thread; the others load one element a
+// thread, coalesced across a warp.
 //
 // Plain C interface, loaded with ctypes: device pointers, the device index
 // and the caller's current stream in; cudaGetLastError() back.
@@ -62,7 +61,6 @@
 namespace {
 
 constexpr int kThreads = 256;       // grid-stride kernels
-constexpr int kBlockThreads = 128;  // block quantizer CTA
 constexpr int kMaxGrid = 4096;
 constexpr int kDotsMaxGrid = 1024;  // partials buffer: 3 x 1024 floats
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -253,21 +251,16 @@ __device__ __forceinline__ float absmax16(const uint4& raw, float m) {
   return m;
 }
 
-// Round the 16 bytes of vector v (elements N v ..) and store their int8
-// values as one word: one Philox call a quad, as element i takes word
-// i % 4 of quad i / 4.
-template <typename T>
-__device__ __forceinline__ void round16(const uint4& raw, int64_t v,
-                                        float scale, int8_t* q,
-                                        uint32_t seed, uint32_t stream) {
-  constexpr int N = Vec16<T>::N;
-  float f[N];
-  unpack16<T>(raw, f);
-  uint32_t packed[N / 4];
+// The int8 values of N rounded values f of one vector whose first quad is
+// quad0, packed four to a word: one Philox call a quad.
+template <int N>
+__device__ __forceinline__ void pack_vec(const float* f, int64_t quad0,
+                                         float scale, uint32_t seed,
+                                         uint32_t stream, uint32_t* packed) {
 #pragma unroll
   for (int g = 0; g < N / 4; ++g) {
     uint32_t w[4];
-    quad_words(v * (N / 4) + g, seed, stream, w);
+    quad_words(quad0 + g, seed, stream, w);
     uint32_t word = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -276,6 +269,18 @@ __device__ __forceinline__ void round16(const uint4& raw, int64_t v,
               << (8 * j);
     packed[g] = word;
   }
+}
+
+// Round the 16 bytes of vector v (elements N v ..) of x.
+template <typename T>
+__device__ __forceinline__ void round16(const uint4& raw, int64_t v,
+                                        float scale, int8_t* q,
+                                        uint32_t seed, uint32_t stream) {
+  constexpr int N = Vec16<T>::N;
+  float f[N];
+  unpack16<T>(raw, f);
+  uint32_t packed[N / 4];
+  pack_vec<N>(f, v * (N / 4), scale, seed, stream, packed);
   if constexpr (N == 4) {
     reinterpret_cast<uint32_t*>(q)[v] = packed[0];
   } else {
@@ -380,48 +385,226 @@ cudaError_t quantize(const void* x, int64_t n, float* partials,
 }
 
 // ------------------------------------------------------- block quantize
+//
+// One scale per `block` elements of each row of a [rows, cols] view
+// (rows = 1 for the flat form). Four variants; the wrapper picks one from
+// the block size alone (`block_quantize_variant` in ops/cuda_kernels.py)
+// and the entry below refuses a variant that cannot take the block:
+//
+// * warp (32 <= block <= 2048), the main path's (block 512): a warp owns
+//   a block and keeps it in registers from its absmax to its rounding, so
+//   every byte of x is read from device memory once. Lane l takes the
+//   block's 16-byte vectors l, l + 32, l + 64, ..., so each warp
+//   instruction reads 512 contiguous bytes, and issues all of them before
+//   the first use; the absmax is a lane maximum and five xor shuffles (no
+//   shared memory); lane 0 writes the scale. A CTA holds 8 warps, each its
+//   own block, on a grid sized from the number of blocks. K, the vector
+//   slots a lane has, is a template parameter: at most 17 (2048 fp32
+//   values a warp, 68 registers of data a lane).
+// * lanes (block < 32): G = the block size rounded up to a power of two
+//   threads a block, 32 / G blocks a warp, the absmax by shuffles within
+//   each G-lane segment; x is read again for the rounding (from L1).
+// * cta (2048 < block <= 8192): a CTA of 256 threads a block, the block
+//   staged in 32 KB of shared memory as fp32 between the absmax and the
+//   rounding: one read.
+// * cta_reread (block > 8192): as cta, but the rounding reads the block
+//   again (from L2) instead of from shared memory.
+//
+// Element i of the flat [rows * cols] index lies in vector i / N (N = 16 /
+// sizeof(T)) and takes word i % 4 of Philox quad i / 4, so a vector holds
+// whole quads and, when x's base is 16-byte aligned, is one 16-byte load
+// wherever a block starts. Only a block's first and last vector can be
+// partial (a row length or block size that is not a multiple of N): those
+// take predicated scalar loads, zero elsewhere (the absmax ignores zeros),
+// and byte stores of the block's own elements; a vector two blocks share
+// is loaded by both, and each writes only its own. Interior vectors do no
+// per-element test and store their int8 values as one word. A base that
+// is not 16-byte aligned (`aligned` false, the wrapper's rule) takes
+// scalar loads for every vector. Offsets inside a block are 32-bit in the
+// warp variant.
+//
+// What bounds it: one Philox4x32-10 call a quad and an IEEE division an
+// element, as in the per-tensor quantizer's rounding pass, near the byte
+// bound of one read of x and one write of the values and scales.
 
-// G threads per block of `block` elements; kBlockThreads / G blocks per CTA.
+constexpr int kLanesThreads = 128;  // lanes variant CTA
+constexpr int kWarpCtaThreads = 256;  // warp variant CTA: 8 blocks
+constexpr int kCtaThreads = 256;  // cta variants: one block a CTA
+constexpr int kWarpMaxBlock = 2048;
+constexpr int kStageMax = 8192;  // fp32 values staged by the cta variant
+
+enum BlockVariant { kLanes = 0, kWarp = 1, kCta = 2, kCtaReread = 3 };
+
+// Where block `blk` lies: its first vector v0, the elements of v0 before
+// it (head), head plus its length (span), and the vectors it touches.
+struct BlockSpan {
+  int64_t v0, head, span, nv;
+};
+
+// Row and block-in-row of flat block `blk`: none for one row, a 32-bit
+// division while the count fits.
+__device__ __forceinline__ void row_of(int64_t blk, int64_t nb,
+                                       int64_t nblocks, int64_t* row,
+                                       int64_t* jb) {
+  *row = 0;
+  if (nb != nblocks)
+    *row = nblocks <= 0xffffffffLL
+               ? static_cast<uint32_t>(blk) / static_cast<uint32_t>(nb)
+               : blk / nb;
+  *jb = blk - *row * nb;
+}
+
+template <int N>
+__device__ __forceinline__ BlockSpan block_span(int64_t blk, int64_t cols,
+                                                int64_t block, int64_t nb,
+                                                int64_t nblocks) {
+  int64_t row, jb;
+  row_of(blk, nb, nblocks, &row, &jb);
+  const int64_t c0 = jb * block;
+  const int64_t len = c0 + block < cols ? block : cols - c0;
+  const int64_t s = row * cols + c0;
+  BlockSpan b;
+  b.v0 = s / N;
+  b.head = s - b.v0 * N;
+  b.span = b.head + len;
+  b.nv = (b.span + N - 1) / N;
+  return b;
+}
+
+// Elements lo .. lo + N - 1 of xb that lie in [head, span), one scalar
+// load each; zero bits (+0 in every type) elsewhere.
+template <typename T>
+__device__ __forceinline__ uint4 load_part(const T* xb, int64_t lo,
+                                           int64_t head, int64_t span) {
+  constexpr int N = Vec16<T>::N;
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int64_t i = lo + j;
+    if (i >= head && i < span) {
+      if constexpr (sizeof(T) == 4) {
+        w[j] = __ldg(reinterpret_cast<const unsigned int*>(xb) + i);
+      } else {
+        w[j / 2] |= static_cast<uint32_t>(__ldg(
+                        reinterpret_cast<const unsigned short*>(xb) + i))
+                    << (16 * (j & 1));
+      }
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Store a vector's packed values at qv (local offset lo from the block's
+// first vector): one word for a whole vector, else a byte for each of its
+// elements in [head, span) (a block's first and last vector, which the
+// neighbouring block may share).
+template <int N>
+__device__ __forceinline__ void store_vec(const uint32_t* packed, int8_t* qv,
+                                          int64_t lo, int64_t head,
+                                          int64_t span) {
+  if (lo >= head && lo + N <= span) {
+    if constexpr (N == 4)
+      *reinterpret_cast<uint32_t*>(qv) = packed[0];
+    else
+      *reinterpret_cast<uint2*>(qv) = make_uint2(packed[0], packed[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (lo + j >= head && lo + j < span)
+        qv[j] = static_cast<int8_t>(packed[j / 4] >> (8 * (j % 4)));
+  }
+}
+
+// warp variant: a warp a block in registers. K - 1 slots a lane hold an
+// aligned whole block, and their values are rounded unconditionally (a
+// slot past the block rounds zeros and stores nothing), so that their
+// Philox chains interleave. A block that starts inside a vector touches
+// one vector more (129 of 512 fp32), which lane 0 holds in slot K - 1 and
+// rounds in a round of its own. (Handing those vectors to one round of
+// the CTA's first warp, through shared memory and a barrier, was slower
+// on the card: PERF.md.)
+template <typename T, int K, bool VEC>
+__global__ void __launch_bounds__(kWarpCtaThreads)
+block_quantize_warp_kernel(const T* __restrict__ x, int64_t cols,
+                           int64_t block, int64_t nb, int64_t nblocks,
+                           int8_t* __restrict__ q,
+                           float* __restrict__ scales, uint32_t seed,
+                           uint32_t stream) {
+  constexpr int N = Vec16<T>::N;
+  const int64_t blk = static_cast<int64_t>(blockIdx.x) *
+                          (kWarpCtaThreads / 32) +
+                      (threadIdx.x >> 5);
+  if (blk >= nblocks) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const BlockSpan b = block_span<N>(blk, cols, block, nb, nblocks);
+  const int head = static_cast<int>(b.head);
+  const int span = static_cast<int>(b.span);
+  const int nv = static_cast<int>(b.nv);
+  const T* xb = x + b.v0 * N;
+  int8_t* qb = q + b.v0 * N;
+  const int64_t quad0 = b.v0 * (N / 4);
+  uint4 raw[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int v = lane + 32 * k;
+    const int lo = v * N;
+    if (VEC && lo >= head && lo + N <= span)
+      raw[k] = __ldg(reinterpret_cast<const uint4*>(xb) + v);
+    else if (v < nv)
+      raw[k] = load_part<T>(xb, lo, head, span);
+    else
+      raw[k] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  float m = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) m = absmax16<T>(raw[k], m);
+  const float scale = scale_of(warp_max(m));
+  if (lane == 0) scales[blk] = scale;
+  uint32_t packed[K][N / 4];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k == K - 1 && 32 * k >= nv) break;  // warp-uniform
+    float f[N];
+    unpack16<T>(raw[k], f);
+    pack_vec<N>(f, quad0 + (lane + 32 * k) * (N / 4), scale, seed, stream,
+                packed[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int v = lane + 32 * k;
+    if (v < nv) store_vec<N>(packed[k], qb + v * N, v * N, head, span);
+  }
+}
+
+// lanes variant: G threads a block, kLanesThreads / G blocks a CTA.
 template <typename T, int G>
-__global__ void __launch_bounds__(kBlockThreads)
-block_quantize_kernel(const T* __restrict__ x, int64_t rows, int64_t cols,
-                      int64_t block, int64_t nb, int8_t* __restrict__ q,
-                      float* __restrict__ scales, uint32_t seed,
-                      uint32_t stream) {
-  constexpr int kPer = kBlockThreads / G;
-  __shared__ float part[kBlockThreads / 32];
-  const int g = threadIdx.x / G;
+__global__ void __launch_bounds__(kLanesThreads)
+block_quantize_lanes_kernel(const T* __restrict__ x, int64_t cols,
+                            int64_t block, int64_t nb, int64_t nblocks,
+                            int8_t* __restrict__ q,
+                            float* __restrict__ scales, uint32_t seed,
+                            uint32_t stream) {
+  constexpr int kPer = kLanesThreads / G;
   const int lane = threadIdx.x % G;
-  const int64_t blk = static_cast<int64_t>(blockIdx.x) * kPer + g;
-  const bool live = blk < rows * nb;
+  const int64_t blk =
+      static_cast<int64_t>(blockIdx.x) * kPer + threadIdx.x / G;
+  const bool live = blk < nblocks;
   int64_t s = 0, e = 0;
   if (live) {
-    const int64_t row = blk / nb;
-    const int64_t jb = blk - row * nb;
+    int64_t row, jb;
+    row_of(blk, nb, nblocks, &row, &jb);
     const int64_t c0 = jb * block;
-    const int64_t c1 = c0 + block < cols ? c0 + block : cols;
     s = row * cols + c0;
-    e = row * cols + c1;
+    e = row * cols + (c0 + block < cols ? c0 + block : cols);
   }
-  // absmax of the block; the tail's zero padding never raises it
   float m = 0.0f;
   for (int64_t i = s + lane; i < e; i += G) m = fmaxf(m, fabsf(to_f32(x[i])));
-  if (G <= 32) {
 #pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(kFullMask, m, o));
-  } else {
-    m = warp_max(m);
-    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
-    __syncthreads();
-    const int w0 = (g * G) >> 5;
-#pragma unroll
-    for (int w = 0; w < G / 32; ++w) m = fmaxf(m, part[w0 + w]);
-  }
+  for (int o = G / 2; o > 0; o >>= 1)  // within each G-lane segment
+    m = fmaxf(m, __shfl_xor_sync(kFullMask, m, o));
   const float scale = scale_of(m);
   if (!live) return;
   if (lane == 0) scales[blk] = scale;
-  // round, by quads of the flat index so each Philox call serves 4 values
   const int64_t q1 = (e + 3) >> 2;
   for (int64_t qi = (s >> 2) + lane; qi < q1; qi += G) {
     uint32_t w[4];
@@ -434,38 +617,158 @@ block_quantize_kernel(const T* __restrict__ x, int64_t rows, int64_t cols,
   }
 }
 
-template <typename T, int G>
-cudaError_t block_quantize_g(const void* x, int64_t rows, int64_t cols,
-                             int64_t block, int8_t* q, float* scales,
-                             uint32_t seed, uint32_t stream,
-                             cudaStream_t st) {
-  const int64_t nb = (cols + block - 1) / block;
-  const int64_t ctas = (rows * nb + kBlockThreads / G - 1) /
-                       (kBlockThreads / G);
+// cta variants: a CTA a block; STAGED keeps it in shared memory as fp32.
+template <typename T, bool STAGED, bool VEC>
+__global__ void __launch_bounds__(kCtaThreads)
+block_quantize_cta_kernel(const T* __restrict__ x, int64_t cols,
+                          int64_t block, int64_t nb, int64_t nblocks,
+                          int8_t* __restrict__ q, float* __restrict__ scales,
+                          uint32_t seed, uint32_t stream) {
+  constexpr int N = Vec16<T>::N;
+  __shared__ float part[kCtaThreads / 32];
+  __shared__ __align__(16) float stage[STAGED ? kStageMax + 2 * N : 4];
+  const int64_t blk = blockIdx.x;
+  const BlockSpan b = block_span<N>(blk, cols, block, nb, nblocks);
+  const T* xb = x + b.v0 * N;
+  int8_t* qb = q + b.v0 * N;
+  const int64_t quad0 = b.v0 * (N / 4);
+  float m = 0.0f;
+  for (int64_t v = threadIdx.x; v < b.nv; v += kCtaThreads) {
+    const int64_t lo = v * N;
+    const uint4 raw = VEC && lo >= b.head && lo + N <= b.span
+                          ? __ldg(reinterpret_cast<const uint4*>(xb) + v)
+                          : load_part<T>(xb, lo, b.head, b.span);
+    m = absmax16<T>(raw, m);
+    if constexpr (STAGED) {
+      float f[N];
+      unpack16<T>(raw, f);
+#pragma unroll
+      for (int j = 0; j < N; j += 4)
+        *reinterpret_cast<float4*>(stage + lo + j) =
+            make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
+    }
+  }
+  const float scale = scale_of(block_max(m, part));  // orders the stage
+  if (threadIdx.x == 0) scales[blk] = scale;
+  for (int64_t v = threadIdx.x; v < b.nv; v += kCtaThreads) {
+    const int64_t lo = v * N;
+    float f[N];
+    if constexpr (STAGED) {
+#pragma unroll
+      for (int j = 0; j < N; j += 4) {
+        const float4 s4 = *reinterpret_cast<const float4*>(stage + lo + j);
+        f[j] = s4.x;
+        f[j + 1] = s4.y;
+        f[j + 2] = s4.z;
+        f[j + 3] = s4.w;
+      }
+    } else {
+      unpack16<T>(VEC && lo >= b.head && lo + N <= b.span
+                      ? __ldg(reinterpret_cast<const uint4*>(xb) + v)
+                      : load_part<T>(xb, lo, b.head, b.span),
+                  f);
+    }
+    uint32_t packed[N / 4];
+    pack_vec<N>(f, quad0 + v * (N / 4), scale, seed, stream, packed);
+    store_vec<N>(packed, qb + lo, lo, b.head, b.span);
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_warp(const T* x, int64_t cols, int64_t block,
+                        int64_t nb, int64_t nblocks, bool aligned,
+                        int8_t* q, float* scales, uint32_t seed,
+                        uint32_t stream, cudaStream_t st) {
+  const int64_t ctas = (nblocks + kWarpCtaThreads / 32 - 1) /
+                       (kWarpCtaThreads / 32);
   if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
-  block_quantize_kernel<T, G><<<static_cast<unsigned>(ctas), kBlockThreads,
-                                0, st>>>(static_cast<const T*>(x), rows,
-                                         cols, block, nb, q, scales, seed,
-                                         stream);
+  const unsigned grid = static_cast<unsigned>(ctas);
+  if (aligned)
+    block_quantize_warp_kernel<T, K, true><<<grid, kWarpCtaThreads, 0, st>>>(
+        x, cols, block, nb, nblocks, q, scales, seed, stream);
+  else
+    block_quantize_warp_kernel<T, K, false><<<grid, kWarpCtaThreads, 0,
+                                              st>>>(
+        x, cols, block, nb, nblocks, q, scales, seed, stream);
+  return cudaGetLastError();
+}
+
+template <typename T, int G>
+cudaError_t launch_lanes(const T* x, int64_t cols, int64_t block,
+                         int64_t nb, int64_t nblocks, int8_t* q,
+                         float* scales, uint32_t seed, uint32_t stream,
+                         cudaStream_t st) {
+  const int64_t ctas = (nblocks + kLanesThreads / G - 1) /
+                       (kLanesThreads / G);
+  if (ctas > 0x7fffffff) return cudaErrorInvalidValue;
+  block_quantize_lanes_kernel<T, G><<<static_cast<unsigned>(ctas),
+                                      kLanesThreads, 0, st>>>(
+      x, cols, block, nb, nblocks, q, scales, seed, stream);
+  return cudaGetLastError();
+}
+
+template <typename T, bool STAGED>
+cudaError_t launch_cta(const T* x, int64_t cols, int64_t block, int64_t nb,
+                       int64_t nblocks, bool aligned, int8_t* q,
+                       float* scales, uint32_t seed, uint32_t stream,
+                       cudaStream_t st) {
+  if (nblocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(nblocks);
+  if (aligned)
+    block_quantize_cta_kernel<T, STAGED, true><<<grid, kCtaThreads, 0, st>>>(
+        x, cols, block, nb, nblocks, q, scales, seed, stream);
+  else
+    block_quantize_cta_kernel<T, STAGED, false><<<grid, kCtaThreads, 0,
+                                                  st>>>(
+        x, cols, block, nb, nblocks, q, scales, seed, stream);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t block_quantize(const void* x, int64_t rows, int64_t cols,
-                           int64_t block, int8_t* q, float* scales,
-                           uint32_t seed, uint32_t stream, cudaStream_t st) {
-#define HVD_BQ(G)                                                         \
-  return block_quantize_g<T, G>(x, rows, cols, block, q, scales, seed,    \
-                                stream, st)
-  if (block <= 1) HVD_BQ(1);
-  if (block <= 2) HVD_BQ(2);
-  if (block <= 4) HVD_BQ(4);
-  if (block <= 8) HVD_BQ(8);
-  if (block <= 16) HVD_BQ(16);
-  if (block <= 32) HVD_BQ(32);
-  if (block <= 64) HVD_BQ(64);
-  HVD_BQ(128);
-#undef HVD_BQ
+cudaError_t block_quantize(const void* xv, int64_t rows, int64_t cols,
+                           int64_t block, int variant, bool aligned,
+                           int8_t* q, float* scales, uint32_t seed,
+                           uint32_t stream, cudaStream_t st) {
+  constexpr int N = Vec16<T>::N;
+  const T* x = static_cast<const T*>(xv);
+  const int64_t nb = (cols + block - 1) / block;
+  const int64_t nblocks = rows * nb;
+  switch (variant) {
+    case kLanes:
+#define HVD_LANES(G) \
+  return launch_lanes<T, G>(x, cols, block, nb, nblocks, q, scales, seed, \
+                            stream, st)
+      if (block <= 1) HVD_LANES(1);
+      if (block <= 2) HVD_LANES(2);
+      if (block <= 4) HVD_LANES(4);
+      if (block <= 8) HVD_LANES(8);
+      if (block <= 16) HVD_LANES(16);
+      HVD_LANES(32);
+#undef HVD_LANES
+    case kWarp: {
+      if (block > kWarpMaxBlock) return cudaErrorInvalidValue;
+      // K - 1 slots a lane hold an aligned whole block's vectors
+      const int64_t k = ((block + N - 1) / N + 31) / 32 + 1;
+#define HVD_WARP(K)                                                        \
+  return launch_warp<T, K>(x, cols, block, nb, nblocks, aligned, q, scales, \
+                           seed, stream, st)
+      if (k <= 2) HVD_WARP(2);
+      if (k <= 3) HVD_WARP(3);
+      if (k <= 5) HVD_WARP(5);
+      if (k <= 9) HVD_WARP(9);
+      HVD_WARP(17);
+#undef HVD_WARP
+    }
+    case kCta:
+      if (block > kStageMax) return cudaErrorInvalidValue;
+      return launch_cta<T, true>(x, cols, block, nb, nblocks, aligned, q,
+                                 scales, seed, stream, st);
+    case kCtaReread:
+      return launch_cta<T, false>(x, cols, block, nb, nblocks, aligned, q,
+                                  scales, seed, stream, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------- adasum
@@ -606,12 +909,14 @@ extern "C" int hvd_int8_quantize(const void* x, int dtype, long long n,
   }
 }
 
+// `variant` is a BlockVariant, picked by the wrapper from the block size;
+// `aligned` says x's base is 16-byte aligned (q is always).
 extern "C" int hvd_int8_block_quantize(const void* x, int dtype,
                                        long long rows, long long cols,
-                                       long long block, void* q,
-                                       void* scales, unsigned seed,
-                                       unsigned stream_id, int device,
-                                       void* stream) {
+                                       long long block, int variant,
+                                       int aligned, void* q, void* scales,
+                                       unsigned seed, unsigned stream_id,
+                                       int device, void* stream) {
   if (block < 1) return cudaErrorInvalidValue;
   if (rows <= 0 || cols <= 0) return cudaSuccess;
   cudaError_t e = cudaSetDevice(device);
@@ -621,14 +926,17 @@ extern "C" int hvd_int8_block_quantize(const void* x, int dtype,
   float* sc = static_cast<float*>(scales);
   switch (dtype) {
     case kF32:
-      return block_quantize<float>(x, rows, cols, block, qv, sc, seed,
-                                   stream_id, st);
+      return block_quantize<float>(x, rows, cols, block, variant,
+                                   aligned != 0, qv, sc, seed, stream_id,
+                                   st);
     case kBF16:
-      return block_quantize<__nv_bfloat16>(x, rows, cols, block, qv, sc,
-                                           seed, stream_id, st);
+      return block_quantize<__nv_bfloat16>(x, rows, cols, block, variant,
+                                           aligned != 0, qv, sc, seed,
+                                           stream_id, st);
     case kF16:
-      return block_quantize<__half>(x, rows, cols, block, qv, sc, seed,
-                                    stream_id, st);
+      return block_quantize<__half>(x, rows, cols, block, variant,
+                                    aligned != 0, qv, sc, seed, stream_id,
+                                    st);
     default: return cudaErrorInvalidValue;
   }
 }

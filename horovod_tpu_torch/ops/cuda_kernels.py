@@ -16,8 +16,10 @@ docstring gives for its own model, the reference's
   to int8 (two launches, absmax then rounding, 16 bytes a thread a
   load);
 * :func:`int8_block_quantize` — one scale per ``block_size`` elements,
-  stochastic rounding, in one pass; with ``rows=True`` a 2-D tensor's
-  blocks follow its rows (the fused wire's per-peer chunks);
+  stochastic rounding, in one pass that reads x once (at the paths'
+  blocks a warp holds a block in registers; the variant comes from the
+  block size alone, :func:`block_quantize_variant`); with ``rows=True`` a
+  2-D tensor's blocks follow its rows (the fused wire's per-peer chunks);
 * :func:`adasum_dots` and :func:`adasum_apply` — ``[a·b, a·a, b·b]``
   with fp32 accumulation (a deterministic two-stage reduction), then
   ``ca·a + cb·b`` with the coefficients computed on the device from
@@ -68,8 +70,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                    ctypes.c_uint)
     lib.hvd_scale_cast.argtypes = [p, i, p, p, i, ll, i, p]
     lib.hvd_int8_quantize.argtypes = [p, i, ll, p, p, p, u, u, i, p]
-    lib.hvd_int8_block_quantize.argtypes = [p, i, ll, ll, ll, p, p, u, u,
-                                            i, p]
+    lib.hvd_int8_block_quantize.argtypes = [p, i, ll, ll, ll, i, i, p, p,
+                                            u, u, i, p]
     lib.hvd_adasum_dots.argtypes = [p, p, i, ll, p, p, i, p]
     lib.hvd_adasum_apply.argtypes = [p, p, p, p, i, ll, i, p]
     for fn in (lib.hvd_scale_cast, lib.hvd_int8_quantize,
@@ -78,6 +80,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     lib.hvd_wire_error_string.argtypes = [i]
     lib.hvd_wire_error_string.restype = ctypes.c_char_p
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
 
 
 def _device_args(t: torch.Tensor):
@@ -180,7 +186,7 @@ def scale_cast(x: torch.Tensor, scale, out_dtype=None) -> torch.Tensor:
     """``(float32(x) * scale).astype(out_dtype)`` (out_dtype defaults to
     x's). ``scale`` is a float or a one-element fp32 tensor; on the card
     it is read from device memory, never from the host."""
-    if x.device.type != "cuda":
+    if not _on_cuda(x):
         return scale_cast_plain(x, scale, out_dtype)
     out_dtype = out_dtype or x.dtype
     _check_dtype(x, DTYPE_CODES, "scale_cast")
@@ -225,7 +231,7 @@ def int8_quantize(x: torch.Tensor, seed=0, stream=0):
     """Quantize to int8 with one fp32 scale for the tensor and
     stochastic rounding. Returns ``(values_int8, scale_f32)`` with
     ``x ≈ values * scale``; ``scale`` is a 0-dim tensor on x's device."""
-    if x.device.type != "cuda":
+    if not _on_cuda(x):
         return int8_quantize_plain(x, seed, stream)
     _check_dtype(x, FLOAT_CODES, "int8_quantize")
     xf = _flat(x)
@@ -279,6 +285,29 @@ def int8_block_quantize_plain(x, block_size=512, seed=0, stream=0,
     return vals, (scales if rows else scales.reshape(nb))
 
 
+# B3's variants, by block size alone (the kernels' comment in
+# csrc/cuda_kernels.cu describes each)
+BLOCK_VARIANTS = ("lanes", "warp", "cta", "cta_reread")
+WARP_MIN_BLOCK = 32     # a warp a block from here
+WARP_MAX_BLOCK = 2048   # the register window: 2048 fp32 values a warp
+CTA_STAGE_MAX = 8192    # a CTA a block, staged as fp32 in 32 KB of smem
+
+
+def block_quantize_variant(block_size: int) -> str:
+    """The block quantizer's variant for ``block_size``: ``lanes`` below
+    a warp (several blocks a warp), ``warp`` up to the register window
+    (a warp a block, held in registers), ``cta`` up to what 32 KB of
+    shared memory stages (a CTA a block), ``cta_reread`` above (a CTA a
+    block, read again for the rounding)."""
+    if block_size < WARP_MIN_BLOCK:
+        return "lanes"
+    if block_size <= WARP_MAX_BLOCK:
+        return "warp"
+    if block_size <= CTA_STAGE_MAX:
+        return "cta"
+    return "cta_reread"
+
+
 def int8_block_quantize(x: torch.Tensor, block_size: int = 512, seed=0,
                         stream=0, rows: bool = False):
     """Block-scaled int8: one fp32 scale per ``block_size`` elements,
@@ -288,8 +317,12 @@ def int8_block_quantize(x: torch.Tensor, block_size: int = 512, seed=0,
     a ``[rows, cols]`` tensor is quantized row by row, blocks never
     crossing a row, and ``scales`` is ``[rows, ceil(cols /
     block_size)]``. A short tail block is zero-padded for the absmax
-    only: padding never sets a scale and never writes a value."""
-    if x.device.type != "cuda":
+    only: padding never sets a scale and never writes a value.
+
+    On the card the variant is :func:`block_quantize_variant`'s, and a
+    base address that is not 16-byte aligned (a view such as ``x[1:]``)
+    takes scalar loads instead of 16-byte ones."""
+    if not _on_cuda(x):
         return int8_block_quantize_plain(x, block_size, seed, stream, rows)
     if block_size < 1:
         raise ValueError(f"block_size must be >= 1, got {block_size}")
@@ -299,10 +332,12 @@ def int8_block_quantize(x: torch.Tensor, block_size: int = 512, seed=0,
     xf = _flat(x)
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty((r, nb), dtype=torch.float32, device=x.device)
+    variant = BLOCK_VARIANTS.index(block_quantize_variant(block_size))
+    aligned = int(xf.data_ptr() % 16 == 0)
     lib = _build.load(LIBRARY, _declare)
     err = lib.hvd_int8_block_quantize(
-        xf.data_ptr(), DTYPE_CODES[x.dtype], r, c, int(block_size),
-        q.data_ptr(), scales.data_ptr(), _u32(seed), _u32(stream),
+        xf.data_ptr(), DTYPE_CODES[x.dtype], r, c, int(block_size), variant,
+        aligned, q.data_ptr(), scales.data_ptr(), _u32(seed), _u32(stream),
         *_device_args(x),
     )
     _raise_on(err, lib, "int8_block_quantize")
@@ -352,7 +387,7 @@ def adasum_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     over a grid that depends on the size alone, summed in a fixed order
     by one CTA, so equal inputs give equal bits."""
     _check_pair(a, b, "adasum_dots")
-    if a.device.type != "cuda":
+    if not _on_cuda(a):
         return adasum_dots_plain(a, b)
     _check_dtype(a, FLOAT_CODES, "adasum_dots")
     af, bf = _flat(a), _flat(b)
@@ -393,7 +428,7 @@ def adasum_apply(a: torch.Tensor, b: torch.Tensor,
     """``ca·a + cb·b`` in a's dtype, the coefficients computed on the
     device from ``dots = [a·b, ‖a‖², ‖b‖²]`` (fp32 ``[3]``)."""
     _check_pair(a, b, "adasum_apply")
-    if a.device.type != "cuda":
+    if not _on_cuda(a):
         return adasum_apply_plain(a, b, dots)
     _check_dtype(a, FLOAT_CODES, "adasum_apply")
     if dots.dtype != torch.float32 or dots.numel() != 3 or (

@@ -31,7 +31,11 @@ The core of ``horovod_tpu/ops/fusion.py`` on ``torch.distributed``:
   and allgathers it; the prescale folds into the stage-1 wire scales.
   Sum and Average of floating payloads only: Min, Max, Product and
   integers ride the exact wire. With ``return_residual`` the batch also
-  yields the error-feedback residual in input units, per entry.
+  yields the error-feedback residual in input units, per entry. Its
+  plain-PyTorch passes run inside ``torch.profiler`` ranges named
+  ``hvd.int8_wire.{pack,exchange,dequantize_sum,residual,unpack}``
+  (``WIRE_RANGES``), so a profiled step splits the wire's device time by
+  pass.
 - ``dispatched_batches``/``dispatched_bytes`` count the collectives
   issued and the bytes they carried, by the JAX package's payload-width
   model (``_hop_bytes``: an int8 batch of ``elems`` elements over ``n``
@@ -57,6 +61,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from ..common.process_sets import ProcessSet
 from . import cuda_kernels
@@ -218,6 +223,9 @@ class Handle:
 
 
 WIRES = ("fp32", "bf16", "int8")
+# the int8 wire's profiler ranges, by pass (B3's launches lie outside them)
+WIRE_RANGES = {k: f"hvd.int8_wire.{k}" for k in (
+    "pack", "exchange", "dequantize_sum", "residual", "unpack")}
 
 
 class FusionManager:
@@ -399,55 +407,62 @@ class FusionManager:
         n, me = _set_size(ps), _rank_in(ps)
         block = e0.wire_block
         dtype = e0.tensor.dtype
-        row = _pack(entries).to(torch.float32)
-        m = row.numel()
-        chunk = -(-m // n)
-        chunks = torch.nn.functional.pad(row, (0, chunk * n - m)).view(
-            n, chunk)
+        with record_function(WIRE_RANGES["pack"]):
+            row = _pack(entries).to(torch.float32)
+            m = row.numel()
+            chunk = -(-m // n)
+            chunks = torch.nn.functional.pad(row, (0, chunk * n - m)).view(
+                n, chunk)
         seed = self._seed_counter
         self._seed_counter += 1
         rank = dist.get_rank()
         q, scales = cuda_kernels.int8_block_quantize(
             chunks, block, seed=seed, stream=2 * rank, rows=True)
         wire_scales = scales * e0.prescale if e0.prescale != 1.0 else scales
-        recv_q, recv_s = torch.empty_like(q), torch.empty_like(wire_scales)
-        dist.all_to_all_single(recv_q, q, group=group)
-        dist.all_to_all_single(recv_s, wire_scales, group=group)
-        shard = cuda_kernels.int8_block_dequantize(recv_q, recv_s,
-                                                   block).sum(0)
-        if e0.op == Average:
-            shard = shard / n
+        with record_function(WIRE_RANGES["exchange"]):
+            recv_q = torch.empty_like(q)
+            recv_s = torch.empty_like(wire_scales)
+            dist.all_to_all_single(recv_q, q, group=group)
+            dist.all_to_all_single(recv_s, wire_scales, group=group)
+        with record_function(WIRE_RANGES["dequantize_sum"]):
+            shard = cuda_kernels.int8_block_dequantize(recv_q, recv_s,
+                                                       block).sum(0)
+            if e0.op == Average:
+                shard = shard / n
         q2, s2 = cuda_kernels.int8_block_quantize(
             shard[None], block, seed=seed, stream=2 * rank + 1, rows=True)
-        all_q = q.new_empty((n, chunk))
-        all_s = s2.new_empty((n, s2.shape[1]))
-        work = _Works(gather_into(all_q, q2[0], group, True),
-                      gather_into(all_s, s2[0], group, True))
+        with record_function(WIRE_RANGES["exchange"]):
+            all_q = q.new_empty((n, chunk))
+            all_s = s2.new_empty((n, s2.shape[1]))
+            work = _Works(gather_into(all_q, q2[0], group, True),
+                          gather_into(all_s, s2[0], group, True))
         res = None
         if e0.want_residual:
-            if e0.prescale == 0.0:
-                res = row.new_zeros(m, dtype=dtype)
-            else:
-                res1 = chunks - cuda_kernels.int8_block_dequantize(
-                    q, scales, block)
-                e2 = shard - cuda_kernels.int8_block_dequantize(
-                    q2, s2, block)[0]
-                if e0.op == Average:
-                    e2 = e2 * n
-                if e0.prescale != 1.0:
-                    e2 = e2 / e0.prescale
-                res1[me] += e2
-                res = res1.reshape(-1)[:m].to(dtype)
+            with record_function(WIRE_RANGES["residual"]):
+                if e0.prescale == 0.0:
+                    res = row.new_zeros(m, dtype=dtype)
+                else:
+                    res1 = chunks - cuda_kernels.int8_block_dequantize(
+                        q, scales, block)
+                    e2 = shard - cuda_kernels.int8_block_dequantize(
+                        q2, s2, block)[0]
+                    if e0.op == Average:
+                        e2 = e2 * n
+                    if e0.prescale != 1.0:
+                        e2 = e2 / e0.prescale
+                    res1[me] += e2
+                    res = res1.reshape(-1)[:m].to(dtype)
 
         def finish():
-            out = cuda_kernels.int8_block_dequantize(all_q, all_s, block)
-            out = out.reshape(-1)[:m]
-            if e0.postscale != 1.0:
-                out = out * e0.postscale
-            outs = _unpack(out.to(dtype), entries)
-            if res is None:
-                return outs
-            return list(zip(outs, _unpack(res, entries)))
+            with record_function(WIRE_RANGES["unpack"]):
+                out = cuda_kernels.int8_block_dequantize(all_q, all_s, block)
+                out = out.reshape(-1)[:m]
+                if e0.postscale != 1.0:
+                    out = out * e0.postscale
+                outs = _unpack(out.to(dtype), entries)
+                if res is None:
+                    return outs
+                return list(zip(outs, _unpack(res, entries)))
 
         nbytes = self._account(m, "int8", e0.tensor.element_size(), n, block)
         return work, finish, nbytes

@@ -30,14 +30,21 @@ the decode kernel at the decode shapes (each merge and split width the
 checkout has, the host time of 24 eager calls, SDPA and the bound),
 ``--quantize`` the per-tensor int8 quantizer at phase 7's sizes in fp32
 and bf16 (each variant the checkout has, rotating over copies of x
-that exceed L2). ``--root DIR``
+that exceed L2). ``--block-quantize`` times the block quantizer (B3) at
+each of phase 7's B3 cases as ``chip_smoke.py`` times them, held bitwise
+to plain first, then runs phase 8 (GPT-2 medium on the int8 wire, its
+profiled step's device time). ``--root DIR``
 takes ``chip_smoke.py`` and the package from another checkout: run it
 on an unpacked parent commit and on this one in turns to compare the
 two in one call.
 
 Run from the repository root on a machine with a CUDA card:
 ``python3 scripts/compare_attention_fwd.py [--backward | --train |
---serve | --decode | --quantize] [--root DIR]``. It prints one JSON line per shape (the phase's
+--serve | --decode | --quantize | --block-quantize] [--root DIR]``. To
+compare a parent commit with this one, unpack it into a git-ignored
+directory and run in turns, parent, change, change, parent:
+``for r in P . . P; do python3 scripts/compare_attention_fwd.py
+--block-quantize --root $r; done``. It prints one JSON line per shape (the phase's
 own lines with ``--train`` or ``--serve``) and, as its last line, the
 card's name and power limit.
 """
@@ -309,6 +316,76 @@ def quantize_rows(cs, gen, card):
             del xs
 
 
+def _b3_cases(cs):
+    """Phase 7's B3 cases: (label, x, block, rows), from a generator of
+    their own; x as phase 7 makes it (a third of it 1e-3 smaller)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED + 7)
+
+    def draw(m):
+        x = torch.randn(m, generator=gen, device="cuda")
+        x[: m // 3] *= 1e-3
+        return x
+
+    for label, m in cs.WIRE_N.items():
+        x = draw(m)
+        for block in (512, 1000):
+            yield f"{label}, block {block}", x, block, False
+    n = cs.WIRE_N["fusion-64MiB"]
+    x = draw(n)
+    yield "rows 4 x 4194304, block 512", x.view(4, -1), 512, True
+    yield "fusion-64MiB, bf16, block 512", x.to(torch.bfloat16), 512, False
+    yield "rows 4 x 4194303, block 512", x[: n - 4].view(4, -1), 512, True
+    yield ("misaligned x[3:], rows 1 x 16777213, block 512",
+           x[3:].view(1, -1), 512, True)
+
+
+def block_quantize_rows(cs, gen, card):
+    """B3 at phase 7's cases: bitwise against plain, then graph-replayed
+    on the same x as ``chip_smoke.py`` times it, twice (the lower),
+    beside the one-read bound; the variant where the checkout names
+    one."""
+    import torch
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    variant = getattr(ck, "block_quantize_variant", lambda b: "parent")
+    for label, x, block, rows in _b3_cases(cs):
+        q, s = ck.int8_block_quantize(x, block, seed=5, rows=rows)
+        qp, sp = ck.int8_block_quantize_plain(x, block, 5, rows=rows)
+        torch.cuda.synchronize()
+        if not (torch.equal(q, qp) and torch.equal(s, sp)):
+            cs.fail(f"int8_block_quantize[{label}]: differs from plain")
+        ms = [cs._time_ms(lambda i: ck.int8_block_quantize(
+            x, block, seed=i, rows=rows), iters=20) for _ in range(2)]
+        nbytes = x.numel() * (x.element_size() + 1) + s.numel() * 4
+        print(json.dumps({
+            "kernel": "int8_block_quantize", "name": label, "ms": min(ms),
+            "ms_both": ms, "variant": variant(block),
+            "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3, "card": card,
+        }, sort_keys=True), flush=True)
+        del q, qp
+
+
+def wire_step(cs, gen, card):
+    """``chip_smoke.py``'s phase 8: GPT-2 medium trained on the int8 wire;
+    its lines carry the profiled step's device time (and, where the
+    checkout has it, the split by class). The 0.27 wire-byte check runs
+    against the fp32 parameter bytes, which phase 5's fp32 wire carries
+    a step."""
+    import torch
+
+    from horovod_tpu_torch import Transformer, TransformerConfig
+
+    meta = Transformer(TransformerConfig.gpt2_medium(),
+                       device=torch.device("meta"))
+    fp32_bytes = sum(p.numel() * 4 for p in meta.parameters())
+    del meta
+    cs.phase_train_int8(gen, card, fp32_bytes)
+
+
 def backward_rows(cs, gen, card):
     """The flash backward's variants (``hvd_flash_bwd_dq``/``_dkv`` on the
     CUDA cores, ``_tc`` on the tensor cores) given the same delta, beside
@@ -416,6 +493,9 @@ def main() -> int:
                       help="time the decode kernel instead")
     mode.add_argument("--quantize", action="store_true",
                       help="time the per-tensor int8 quantizer instead")
+    mode.add_argument("--block-quantize", action="store_true",
+                      help="time the block int8 quantizer and run phase 8 "
+                      "instead")
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout to import from")
     args = ap.parse_args()
@@ -446,6 +526,9 @@ def main() -> int:
         decode_rows(cs, gen, card)
     elif args.quantize:
         quantize_rows(cs, gen, card)
+    elif args.block_quantize:
+        block_quantize_rows(cs, gen, card)
+        wire_step(cs, gen, card)
     else:
         flash_rows(cs, gen, card)
         paged_rows(cs, gen, card)

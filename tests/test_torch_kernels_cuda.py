@@ -464,31 +464,84 @@ def test_int8_quantize_graph_replay_matches_eager(cuda_card):
     assert torch.equal(q, eager_q) and torch.equal(s, eager_s)
 
 
-@pytest.mark.parametrize("block", [1, 3, 512, 1000])
-@pytest.mark.parametrize("n", WIRE_SIZES)
-def test_int8_block_quantize_bitwise(cuda_card, n, block):
-    """B3 against plain, flat: values and scales bit for bit."""
-    x = _wire_input(cuda_card, n)
+# B3's block sizes: each side of every variant limit (lanes below 32,
+# warp to 2048, cta to 8192, cta_reread above), the paths' 512 and 1000
+B3_BLOCKS = [1, 3, 31, 32, 33, 512, 1000, ck.WARP_MAX_BLOCK,
+             ck.WARP_MAX_BLOCK + 1, 4096, ck.CTA_STAGE_MAX + 1]
+WIRE_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _assert_block_bitwise(x, block, rows=False, seed=7, stream=0):
     before = ck.int8_block_quantize.launches
-    q, s = ck.int8_block_quantize(x, block, seed=7)
+    q, s = ck.int8_block_quantize(x, block, seed=seed, stream=stream,
+                                  rows=rows)
     torch.cuda.synchronize()
     assert ck.int8_block_quantize.launches == before + 1
-    qp, sp = ck.int8_block_quantize_plain(x, block, seed=7)
+    qp, sp = ck.int8_block_quantize_plain(x, block, seed=seed,
+                                          stream=stream, rows=rows)
     assert torch.equal(s, sp) and torch.equal(q, qp)
+    return q, s
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-def test_int8_block_quantize_rows_bitwise(cuda_card, dtype):
+@pytest.mark.parametrize("dtype", WIRE_DTYPES)
+@pytest.mark.parametrize("block", B3_BLOCKS)
+@pytest.mark.parametrize("n", WIRE_SIZES)
+def test_int8_block_quantize_bitwise(cuda_card, n, block, dtype):
+    """B3 against plain, flat: values and scales bit for bit, in every
+    variant."""
+    _assert_block_bitwise(_wire_input(cuda_card, n, dtype), block)
+
+
+@pytest.mark.parametrize("block", [33, 512, 1000, 4096])
+@pytest.mark.parametrize("dtype", WIRE_DTYPES)
+@pytest.mark.parametrize("cols", [2501, 2502, 2503, 2504])
+def test_int8_block_quantize_rows_bitwise(cuda_card, dtype, cols, block):
     """B3 on the fused wire's [n, chunk] rows: blocks stop at each row,
-    a ragged last block per row."""
-    x = _wire_input(cuda_card, 4 * 2501, dtype).reshape(4, 2501)
-    q, s = ck.int8_block_quantize(x, 512, seed=5, stream=9, rows=True)
-    qp, sp = ck.int8_block_quantize_plain(x, 512, seed=5, stream=9,
-                                          rows=True)
+    a ragged last block per row, and rows of length 1, 2, 3 and 0 (mod
+    4), so blocks start inside a 16-byte vector and share it with their
+    neighbour."""
+    x = _wire_input(cuda_card, 4 * cols, dtype).reshape(4, cols)
+    _, s = _assert_block_bitwise(x, block, rows=True, seed=5, stream=9)
+    assert s.shape == (4, -(-cols // block))
+
+
+@pytest.mark.parametrize("dtype", WIRE_DTYPES)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_int8_block_quantize_misaligned_view_bitwise(cuda_card, dtype,
+                                                     offset):
+    """A view whose base is not 16-byte aligned takes the scalar loads:
+    the same bits as plain, flat and as rows, and at every variant."""
+    base = _wire_input(cuda_card, 4 * 2503 + offset, dtype)
+    view = base[offset:]
+    assert view.data_ptr() % 16
+    for block in (3, 512, 4096):
+        _assert_block_bitwise(view, block)
+        _assert_block_bitwise(view.view(4, 2503), block, rows=True)
+
+
+@pytest.mark.parametrize("dtype", WIRE_DTYPES)
+def test_int8_block_quantize_graph_replay_matches_eager(cuda_card, dtype):
+    """Captured in a CUDA graph and replayed, B3 gives the bits it gives
+    eagerly (no host sync, no allocation beyond its outputs)."""
+    x = _wire_input(cuda_card, 4 * 250_001, dtype).reshape(4, 250_001)
+    eager_q, eager_s = ck.int8_block_quantize(x, 512, seed=3, stream=1,
+                                              rows=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ck.int8_block_quantize(x, 512, seed=3, stream=1, rows=True)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        q, s = ck.int8_block_quantize(x, 512, seed=3, stream=1, rows=True)
+    q.zero_()
+    s.zero_()
+    g.replay()
     torch.cuda.synchronize()
-    assert s.shape == (4, 5)
-    assert torch.equal(s, sp) and torch.equal(q, qp)
+    assert torch.equal(q, eager_q) and torch.equal(s, eager_s)
+    qp, sp = ck.int8_block_quantize_plain(x, 512, seed=3, stream=1,
+                                          rows=True)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
