@@ -60,6 +60,31 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    fp64 host oracle, then an SGD step; ``hvd.allreduce(op=hvd.Adasum)``
    in the world of one returns its input; every parameter through
    ``Compression.int8`` compress → ``hvd.broadcast`` → decompress.
+10. ViT-B/16 at full width (bf16 on fp32 masters): 197 tokens
+   right-padded to 200 with lengths 197 (``flash_pad="auto"``), 64
+   images of 224² from the seed, a few steps through ``hvd.init`` and
+   ``DistributedOptimizer``. The loss must fall; each step must launch
+   the flash forward, delta, dQ and dK/dV kernels 12 times each (12
+   layers), all on the tensor cores. Phase 2 holds the kernels against their plain versions at
+   this shape (``vit-b16-t200``).
+11. ResNet-50 at full width, 64 images of 224², its batch statistics
+   synced through the port's ``SyncBatchNorm`` reductions in the world
+   of one: the loss must fall and the running statistics move; one step
+   synced must equal it with local batch norm (the loss in fp32; the
+   gradients and running statistics in fp64). Then one step each
+   of the MNIST ConvNet, VGG-16 (32 at 224²) and Inception V3 (32 at
+   299²), each with a finite falling loss.
+12. GPT-2 medium with ``fused_linear_cross_entropy`` on the
+   Transformer's ``return_hidden``: the loss and its gradients (hidden
+   states, kernel, bias) within one bf16 rounding of the dense loss's on
+   the same hidden states; the whole model's gradients no farther from
+   the dense loss's than 1.25 times what one bf16 rounding of the
+   hidden states' gradient moves them (measured in the run, beside a
+   planted fault the check must see); the peak memory of
+   training steps each way beside phase 5's; ``flush()`` after 6
+   passes at ``backward_passes_per_step=4``; a guarded step with an
+   injected NaN, which must skip. The flash counts of phases 5, 10 and
+   12 add up in the ``kernels`` line.
 
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -383,6 +408,9 @@ FLASH_CASES = [
     ("window-t1024", 8, 1024, 16, 16, 64, True, None, 256),
     # a length that is no multiple of the 64-row tile
     ("ragged-t1000", 8, 1000, 16, 16, 64, True, None, None),
+    # ViT-B/16 (phase 10): bidirectional, 197 tokens right-padded to 200
+    # (the last 64-key tile partial), lengths 197 in every row
+    ("vit-b16-t200", 64, 200, 12, 12, 64, False, [197] * 64, None),
 ]
 
 
@@ -1019,7 +1047,7 @@ def phase_train(gen, card):
         log("train profile: " + json.dumps(prof, sort_keys=True))
         opt.remove_hooks()
         del model, opt
-        return launches, tc_launches, per_step[-1][8]
+        return launches, tc_launches, per_step[-1][8], peak_gb
     finally:
         hvd.shutdown()
 
@@ -1611,6 +1639,647 @@ def phase_adasum(gen, card):
             "adasum_apply": apply_}
 
 
+# ------------------------------------------------------ phase 10 ViT-B/16
+
+IMAGE_BATCH, IMAGE_STEPS = 64, 4
+
+
+def _image_batch(n, side, classes, channels=3):
+    """Images of N(0, 1) pixels and uniform labels, from the seed, on
+    the card."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    x = torch.randn((n, channels, side, side), generator=g, device="cuda")
+    y = torch.randint(0, classes, (n,), generator=g, device="cuda")
+    return x, y
+
+
+def _flash_counters():
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    return (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
+            fa.flash_bwd_dkv)
+
+
+def _zero_flash():
+    for c in _flash_counters():
+        c.launches = 0
+        if hasattr(c, "tc_launches"):
+            c.tc_launches = 0
+
+
+def _read_flash():
+    """Launches and tensor-core launches of the flash kernels by name."""
+    cs = _flash_counters()
+    return ({c.__name__: c.launches for c in cs},
+            {c.__name__: c.tc_launches for c in cs
+             if hasattr(c, "tc_launches")})
+
+
+def _step(opt, loss_fn):
+    """One training step through ``opt``; returns the loss."""
+    opt.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    loss.backward()
+    opt.step()
+    return loss
+
+
+def _train_steps(label, opt, loss_fn, steps, after_step=None):
+    """``steps`` training steps through ``opt``; the losses and the
+    host-clock ms of each (``after_step()`` runs after each, outside the
+    clock). Fails unless the losses are finite and the last is below the
+    first."""
+    import torch
+
+    losses, step_ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = _step(opt, loss_fn)
+        losses.append(float(loss.detach()))
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        if after_step is not None:
+            after_step()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: loss did not fall: {losses}")
+    return losses, step_ms
+
+
+def phase_vit(card):
+    """ViT-B/16 at full width (bf16 compute on fp32 masters, the
+    tokens padded 197 → 200 with lengths 197, ``flash_pad="auto"``)
+    trained on 64 images of 224² from the seed through ``hvd.init`` (a
+    world of one on NCCL) and ``DistributedOptimizer(SGD momentum)``,
+    the flash counters zeroed just before the steps. Each step must
+    launch the forward, delta, dQ and dK/dV kernels 12 times each (one a
+    layer), every forward, dQ and dK/dV launch on the tensor cores; the
+    loss must fall. Returns the flash launches and tensor-core
+    launches."""
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import ViT, ViTConfig
+
+    hvd.init()
+    try:
+        cfg = ViTConfig.b16()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        model = ViT(cfg, device="cuda", generator=gen)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+            named_parameters=model.named_parameters(), op=hvd.Average)
+        images, labels = _image_batch(IMAGE_BATCH, cfg.image_size,
+                                      cfg.num_classes)
+        if not cfg.pads(images.device):
+            fail("vit: flash_pad='auto' does not pad on the card")
+        loss_fn = lambda: F.cross_entropy(model(images), labels)  # noqa
+        per_step, seen = [], [{}, {}]
+
+        def count():  # this step's launches, all and on the tensor cores
+            now = _read_flash()
+            step = {k: v - seen[0].get(k, 0) for k, v in now[0].items()}
+            step.update({f"{k}_tensor_cores": v - seen[1].get(k, 0)
+                         for k, v in now[1].items()})
+            per_step.append(step)
+            seen[:] = now
+
+        _zero_flash()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = _train_steps("vit", opt, loss_fn,
+                                       IMAGE_STEPS, count)
+        launches, tc_launches = _read_flash()
+        n = cfg.num_layers
+        want = {"flash_fwd": n, "flash_bwd_delta": n, "flash_bwd_dq": n,
+                "flash_bwd_dkv": n, "flash_fwd_tensor_cores": n,
+                "flash_bwd_dq_tensor_cores": n,
+                "flash_bwd_dkv_tensor_cores": n}
+        for i, counts in enumerate(per_step):
+            if counts != want:
+                fail(f"vit step {i}: flash launches {counts}, expected "
+                     f"{want} (t 200 with lengths 197, bf16, head_dim 64)")
+        mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
+        summary = {
+            "model": "vit_b16", "layers": n, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "tokens": cfg.tokens,
+            "padded_tokens": -(-cfg.tokens // 8) * 8,
+            "batch": IMAGE_BATCH, "image": cfg.image_size,
+            "dtype": "bfloat16 compute, fp32 master weights",
+            "world": hvd.size(), "losses": losses, "step_ms": step_ms,
+            "step_ms_mean_after_first": mean_ms,
+            "images_per_s": IMAGE_BATCH / (mean_ms / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "flash_launches_per_step": per_step[-1], "card": card,
+        }
+        log("vit: " + json.dumps(summary, sort_keys=True))
+        log("vit profile: " + json.dumps(
+            _profile_step(lambda: _step(opt, loss_fn)), sort_keys=True))
+        opt.remove_hooks()
+        del model, opt
+        return launches, tc_launches
+    finally:
+        hvd.shutdown()
+
+
+# ---------------------------------------------- phase 11 the CNN zoo
+
+
+def _bn_layers(model):
+    from horovod_tpu_torch.models.layers import BatchNorm
+
+    return [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+
+def _sync_step(dtype, sync, state):
+    """One ResNet-50 step in ``dtype`` on 8 images of 224² from
+    ``state`` (None: weights from the seed): the loss, the gradients and
+    the buffers after it, and the starting state."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch import ResNet50
+
+    images, labels = _image_batch(8, 224, 1000)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    model = ResNet50(dtype=dtype, sync=sync, device="cuda",
+                     generator=gen).to(dtype)
+    if state is not None:
+        model.load_state_dict(state)
+    # copies: the forward moves the running statistics
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    loss = F.cross_entropy(model(images.to(dtype)), labels)
+    loss.backward()
+    return (float(loss.detach()),
+            {n: p.grad.double() for n, p in model.named_parameters()},
+            {n: b.double() for n, b in model.named_buffers()}, start)
+
+
+def _worst_rel(got, want):
+    """The largest |got − want| over each tensor's largest |want|."""
+    return max(float((got[n] - w).abs().max()) / max(float(w.abs().max()),
+                                                     1e-300)
+               for n, w in want.items())
+
+
+def _sync_check(card):
+    """One ResNet-50 step on 8 images of 224² with the statistics synced
+    (one fused allreduce a batch norm each way, in the world of one) and
+    local, from the same weights. In fp32 the loss must agree within
+    1e-5 relative. The gradients are held in fp64, within 1e-9 of each
+    one's largest magnitude, with the running statistics: in fp32 the
+    reference's ``E[x²] − E[x]²`` statistics leave the late layers'
+    gradients far from exact either way (reported beside: synced
+    against local, and local against its own fp64 step)."""
+    import torch
+
+    l32_sync, g32_sync, _, start = _sync_step(torch.float32, True, None)
+    l32, g32, _, _ = _sync_step(torch.float32, False, start)
+    if abs(l32_sync - l32) > 1e-5 * abs(l32):
+        fail(f"resnet fp32: loss {l32_sync} (synced) vs {l32} (local)")
+    start64 = {k: v.double() if v.is_floating_point() else v
+               for k, v in start.items()}
+    l64_sync, g64_sync, b64_sync, _ = _sync_step(torch.float64, True,
+                                                 start64)
+    l64, g64, b64, _ = _sync_step(torch.float64, False, start64)
+    grad_rel = _worst_rel(g64_sync, g64)
+    stats_rel = _worst_rel(b64_sync, b64)
+    if abs(l64_sync - l64) > 1e-12 * abs(l64) or grad_rel > 1e-9 \
+            or stats_rel > 1e-9:
+        fail(f"resnet fp64: synced vs local: loss {l64_sync} vs {l64}, "
+             f"gradients {grad_rel:.3g}, running statistics "
+             f"{stats_rel:.3g} of their largest magnitudes")
+    return {"fp32_loss_synced": l32_sync, "fp32_loss_local": l32,
+            "fp64_loss_synced": l64_sync, "fp64_loss_local": l64,
+            "fp64_worst_gradient_rel_diff": grad_rel,
+            "fp64_worst_running_stat_rel_diff": stats_rel,
+            "fp32_worst_gradient_rel_diff": _worst_rel(g32_sync, g32),
+            "fp32_local_vs_fp64_worst_gradient_rel_diff": _worst_rel(
+                g32, g64), "card": card}
+
+
+def _one_step(label, model, images, labels, lr, rng=None):
+    """One SGD step through ``DistributedOptimizer``: the loss before
+    and after it on the same batch (the dropout masks drawn again from
+    the same seed), which must be finite and fall."""
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=lr),
+        named_parameters=model.named_parameters(), op=hvd.Average)
+    kw = {}
+
+    def loss_fn():
+        if rng is not None:
+            rng.manual_seed(SEED)
+            kw["rng"] = rng
+        return F.cross_entropy(model(images, **kw), labels)
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    opt.zero_grad(set_to_none=True)
+    before = loss_fn()
+    before.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t0) * 1e3
+    with torch.no_grad():
+        after = float(loss_fn())
+    before = float(before.detach())
+    opt.remove_hooks()
+    if not (math.isfinite(before) and math.isfinite(after)
+            and after < before):
+        fail(f"{label}: one step took the loss {before} -> {after}")
+    return {"loss_before": before, "loss_after": after, "step_ms": ms,
+            "batch": int(images.shape[0]), "image": int(images.shape[-1])}
+
+
+def phase_cnn(card):
+    """ResNet-50 at full width (bf16 compute on fp32 masters and
+    statistics, the statistics synced through the port's
+    ``SyncBatchNorm`` reductions in the world of one on NCCL) trained on
+    64 images of 224² through ``DistributedOptimizer(SGD momentum)``:
+    the loss must fall and the running statistics move. One step synced
+    must equal it with local batch norm (:func:`_sync_check`). Then one
+    step each of
+    the MNIST ConvNet (64 at 28²), VGG-16 (32 at 224²) and Inception V3
+    (32 at 299²), each with a finite falling loss."""
+    import torch
+    import torch.nn.functional as F
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import VGG16, InceptionV3, MNISTConvNet, ResNet50
+
+    hvd.init()
+    try:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        model = ResNet50(sync=True, device="cuda", generator=gen)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+            named_parameters=model.named_parameters(), op=hvd.Average)
+        images, labels = _image_batch(IMAGE_BATCH, 224, 1000)
+        stats0 = torch.cat([b.running_var for b in _bn_layers(model)])
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = _train_steps(
+            "resnet50", opt,
+            lambda: F.cross_entropy(model(images), labels), IMAGE_STEPS)
+        moved = float((torch.cat([b.running_var for b in _bn_layers(model)])
+                       - stats0).abs().max())
+        if not moved > 0:
+            fail("resnet50: the running statistics did not move")
+        mean_ms = sum(step_ms[1:]) / len(step_ms[1:])
+        summary = {
+            "model": "resnet50", "batch": IMAGE_BATCH, "image": 224,
+            "sync_batch_norm": True, "batch_norms": len(_bn_layers(model)),
+            "dtype": "bfloat16 compute, fp32 master weights and statistics",
+            "world": hvd.size(), "losses": losses, "step_ms": step_ms,
+            "step_ms_mean_after_first": mean_ms,
+            "images_per_s": IMAGE_BATCH / (mean_ms / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "running_var_max_change": moved, "card": card,
+        }
+        log("resnet50: " + json.dumps(summary, sort_keys=True))
+        log("resnet50 profile: " + json.dumps(_profile_step(
+            lambda: _step(opt, lambda: F.cross_entropy(model(images),
+                                                       labels))),
+            sort_keys=True))
+        opt.remove_hooks()
+        del model, opt
+        torch.cuda.empty_cache()
+        log("resnet50 synced vs local: "
+            + json.dumps(_sync_check(card), sort_keys=True))
+        torch.cuda.empty_cache()
+        rng = torch.Generator(device="cuda")
+        for label, make, side, lr, drop in (
+                ("mnist", lambda g: MNISTConvNet(device="cuda", generator=g),
+                 28, 0.05, True),
+                ("vgg16", lambda g: VGG16(device="cuda", generator=g),
+                 224, 0.01, True),
+                ("inception_v3", lambda g: InceptionV3(
+                    sync=True, device="cuda", generator=g), 299, 0.02,
+                 True)):
+            gen.manual_seed(SEED)
+            model = make(gen)
+            channels = 1 if label == "mnist" else 3
+            n = 64 if label == "mnist" else 32
+            classes = 10 if label == "mnist" else 1000
+            images, labels = _image_batch(n, side, classes, channels)
+            r = _one_step(label, model, images, labels, lr,
+                          rng if drop else None)
+            log(f"{label}: " + json.dumps(r | {"card": card},
+                                          sort_keys=True))
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        hvd.shutdown()
+
+
+# ------------------------------------- phase 12 the fused LM loss
+
+def _fused_loss(model, tokens, labels):
+    from horovod_tpu_torch import fused_linear_cross_entropy
+
+    h = model(tokens, return_hidden=True)
+    head, cfg = model.lm_head, model.cfg
+    return fused_linear_cross_entropy(
+        h.reshape(-1, h.shape[-1]), head.kernel, head.bias,
+        labels.reshape(-1),
+        compute_dtype=cfg.dtype if cfg.head_mixed_precision else None).mean()
+
+
+def _loss_grads_on_h(model, tokens, labels):
+    """The dense loss (the LM head's product, then ``cross_entropy``)
+    and the fused loss on the same hidden states: both losses, the
+    largest difference of their gradients (hidden states, kernel, bias),
+    each over its largest magnitude, and the largest absolute difference
+    of the hidden states' gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch import fused_linear_cross_entropy
+    from horovod_tpu_torch.ops.fused_xent import mixed_linear
+
+    cfg, head = model.cfg, model.lm_head
+    dtype = cfg.dtype if cfg.head_mixed_precision else None
+    with torch.no_grad():
+        h = model(tokens, return_hidden=True).reshape(-1, cfg.d_model)
+    leaves = [h.requires_grad_(), head.kernel, head.bias]
+    logits = mixed_linear(h, head.kernel, head.bias, dtype)
+    dense = F.cross_entropy(logits, labels.reshape(-1))
+    g_d = torch.autograd.grad(dense, leaves)
+    del logits
+    fused = fused_linear_cross_entropy(h, head.kernel, head.bias,
+                                       labels.reshape(-1),
+                                       compute_dtype=dtype).mean()
+    g_f = torch.autograd.grad(fused, leaves)
+    rel = {name: float((f - d).abs().max()) / max(float(d.abs().max()),
+                                                  1e-30)
+           for name, d, f in zip(("hidden", "kernel", "bias"), g_d, g_f)}
+    dh_abs = float((g_f[0] - g_d[0]).abs().max())
+    return float(dense), float(fused), rel, dh_abs
+
+
+# a planted fault in the fused loss's input gradient, which the whole
+# model's check must see
+PLANTED_DH_SCALE = 1.0 + 2.0 ** -6
+# the whole model's gradients under the fused loss may sit this many
+# times as far from the dense loss's as one bf16 rounding of the hidden
+# states' gradient (or noise at the fused loss's own difference there)
+# moves them; the two readings differ by about a tenth
+READING_MARGIN = 1.25
+
+
+def _model_grads(model, loss_fn, dh=None):
+    """The model's gradients of ``loss_fn(model)``; ``dh`` (None, or a
+    function of the gradient) rewrites the gradient of the hidden states
+    the LM loss takes (the final LayerNorm's output: the LM head's input,
+    or ``return_hidden``'s) before it flows into the model."""
+    model.zero_grad(set_to_none=True)
+    hooks = []
+    if dh is not None:
+        def on_hidden(_module, _args, out):
+            out.register_hook(dh)
+        hooks.append(model.ln_f.register_forward_hook(on_hidden))
+    try:
+        loss_fn(model).backward()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    out = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def _spread(got, want):
+    """Per parameter, the difference of two gradient sets by two
+    measures: its largest element over the largest magnitude of
+    ``want``, and its norm over ``want``'s norm. Returns the worst
+    parameter of each and the five worst by the first."""
+    mx, nrm = {}, {}
+    for n, w in want.items():
+        d = (got[n] - w).float()
+        mx[n] = float(d.abs().max()) / max(float(w.abs().max()), 1e-30)
+        nrm[n] = float(d.norm()) / max(float(w.float().norm()), 1e-30)
+    top = sorted(mx.items(), key=lambda kv: -kv[1])[:5]
+    return {"max_rel": max(mx.values()), "norm_rel": max(nrm.values()),
+            "top5_max_rel": top}
+
+
+def _gradient_readings(model, tokens, labels, dh_abs):
+    """The fused loss's whole-model gradients against the dense loss's,
+    beside readings that say what a difference of that size means: the
+    dense loss run again (the run-to-run floor); the dense loss with the
+    hidden states' gradient perturbed by ``dh_abs`` (the fused loss's
+    own largest difference there) on every element, signs from the
+    seed; the dense loss with that gradient rounded once to bf16; the
+    fused loss with that gradient scaled by ``PLANTED_DH_SCALE`` (a
+    planted fault). Each reading is a ``_spread`` against the dense
+    loss's gradients; the fused loss's gradients are returned too."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+
+    def noise(g):
+        sign = torch.randint(0, 2, g.shape, generator=gen,
+                             device=g.device) * 2 - 1
+        return g + dh_abs * sign.to(g.dtype)
+
+    dense_fn = lambda m: _loss(m, tokens, labels)  # noqa: E731
+    fused_fn = lambda m: _fused_loss(m, tokens, labels)  # noqa: E731
+    g_d = _model_grads(model, dense_fn)
+    readings = {}
+    for name, fn, dh in (
+            ("dense_again", dense_fn, None),
+            ("dense_dh_noise", dense_fn, noise),
+            ("dense_dh_bf16", dense_fn,
+             lambda g: g.to(torch.bfloat16).to(g.dtype)),
+            ("fused_planted", fused_fn, lambda g: g * PLANTED_DH_SCALE),
+            ("fused", fused_fn, None)):
+        g = _model_grads(model, fn, dh)
+        readings[name] = _spread(g, g_d)
+        if name == "fused":
+            g_f = g
+        del g
+    return readings, g_f
+
+
+def phase_fused_xent(card, phase5_peak_gb):
+    """GPT-2 medium (phase 5's configuration, weights from the seed)
+    with ``fused_linear_cross_entropy`` on ``return_hidden``: its loss
+    and its gradients (hidden states, kernel, bias) against the dense
+    loss's on the same hidden states within one bf16 rounding (2^-8
+    relative; the gradients of each one's largest magnitude); the whole
+    model's gradients within ``READING_MARGIN`` times what one bf16
+    rounding of the hidden states' gradient moves the dense loss's (by
+    the largest element and by the norm, each of a parameter over the
+    dense loss's; ``_gradient_readings``), a limit that a planted fault
+    (that gradient scaled by ``PLANTED_DH_SCALE``) must exceed; the peak
+    memory of one forward and backward each
+    way, and of two training steps each way (then one profiled step each
+    way: its device time) through
+    ``DistributedOptimizer`` with the peak memory of each beside phase
+    5's; then ``flush()`` after 6 passes at ``backward_passes_per_step=
+    4`` (the inner optimizer steps at pass 4 and at the flush), and a
+    guarded step with a NaN injected into one gradient, which must skip
+    (every parameter bitwise unchanged, the skip counted), followed by a
+    guarded good step that applies. Returns the flash launches."""
+    import dataclasses
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+
+    hvd.init()
+    try:
+        cfg = dataclasses.replace(TransformerConfig.gpt2_medium(), remat=True)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        model = Transformer(cfg, device="cuda", generator=gen)
+        tokens, labels = _lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+        _zero_flash()
+        l_d, l_f, head_rel, dh_abs = _loss_grads_on_h(model, tokens, labels)
+        rounding = 2.0 ** -8
+        if abs(l_f - l_d) > rounding * abs(l_d) or max(head_rel.values()) \
+                > rounding:
+            fail(f"fused xent: loss {l_f} vs dense {l_d}, gradients "
+                 f"{head_rel} of their largest magnitudes (one bf16 "
+                 f"rounding {rounding:.3g})")
+        # the peak of one forward and backward alone
+        fwd_bwd_peak = {}
+        for name, fn in (("dense", _loss), ("fused", _fused_loss)):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fn(model, tokens, labels).backward()
+            torch.cuda.synchronize()
+            fwd_bwd_peak[name] = torch.cuda.max_memory_allocated() / 1e9
+        readings, g_f = _gradient_readings(model, tokens, labels, dh_abs)
+        fused = readings["fused"]
+        worst, top5 = fused["max_rel"], fused["top5_max_rel"]
+        if not all(torch.isfinite(g).all() for g in g_f.values()):
+            fail("fused xent: a non-finite gradient of the model")
+        del g_f
+        limits = {m: READING_MARGIN * max(readings["dense_dh_bf16"][m],
+                                          readings["dense_dh_noise"][m])
+                  for m in ("max_rel", "norm_rel")}
+        for m, limit in limits.items():
+            if fused[m] > limit:
+                fail(f"fused xent: the model's gradients differ from the "
+                     f"dense loss's by {fused[m]:.4g} ({m}; worst {top5}), "
+                     f"over {limit:.4g}, {READING_MARGIN} times what one "
+                     f"bf16 rounding of the hidden states' gradient moves "
+                     f"them (readings {readings})")
+            if readings["fused_planted"][m] <= limit:
+                fail(f"fused xent: the check cannot see a planted fault "
+                     f"(the hidden states' gradient scaled by "
+                     f"{PLANTED_DH_SCALE}): {m} "
+                     f"{readings['fused_planted'][m]:.4g} within {limit:.4g}")
+        model.zero_grad(set_to_none=True)
+        peaks = {}
+        for name, fn in (("dense", _loss), ("fused", _fused_loss)):
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+                named_parameters=model.named_parameters(), op=hvd.Average)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms = _train_steps(f"fused xent {name} steps", opt,
+                                      lambda: fn(model, tokens, labels), 2)
+            peaks[name] = {"peak_memory_gb":
+                           torch.cuda.max_memory_allocated() / 1e9,
+                           "losses": losses, "step_ms": ms}
+            prof = _profile_step(
+                lambda: _step(opt, lambda: fn(model, tokens, labels)))
+            peaks[name]["device_busy_ms"] = prof["device_busy_ms"]
+            peaks[name]["profiled_wall_ms"] = prof["wall_ms"]
+            opt.remove_hooks()
+            del opt
+            model.zero_grad(set_to_none=True)
+        # flush: 6 passes at k = 4
+        inner = torch.optim.SGD(model.parameters(), lr=0.01)
+        steps = [0]
+        inner_step = inner.step
+
+        def counted(closure=None):
+            steps[0] += 1
+            return inner_step(closure)
+
+        inner.step = counted
+        opt = hvd.DistributedOptimizer(
+            inner, named_parameters=model.named_parameters(),
+            backward_passes_per_step=4)
+        for _ in range(6):
+            opt.zero_grad(set_to_none=True)
+            _fused_loss(model, tokens, labels).backward()
+            opt.step()
+        w_before = model.lm_head.bias.detach().clone()
+        opt.flush()
+        flushed = not torch.equal(model.lm_head.bias, w_before)
+        if steps[0] != 2 or not flushed or opt.flush() is not None:
+            fail(f"flush: {steps[0]} inner steps after 6 passes at k=4 "
+                 f"and a flush (2 expected), parameters moved: {flushed}")
+        opt.remove_hooks()
+        # the guard: a NaN in one gradient skips the step on every rank
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+            named_parameters=model.named_parameters(), grad_guard=True)
+        skips0 = hvd.guard_status()["nonfinite_steps"]
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        opt.zero_grad(set_to_none=True)
+        loss = _fused_loss(model, tokens, labels)
+        (loss + model.lm_head.bias[0] * float("nan")).backward()
+        opt.step()
+        unchanged = all(torch.equal(p, before[n])
+                        for n, p in model.named_parameters())
+        skipped = hvd.guard_status()["nonfinite_steps"] - skips0
+        opt.zero_grad(set_to_none=True)
+        _fused_loss(model, tokens, labels).backward()
+        opt.step()
+        applied = not torch.equal(model.lm_head.bias, before["lm_head.bias"])
+        if not unchanged or skipped != 1 or not applied:
+            fail(f"guard: NaN step left the parameters unchanged: "
+                 f"{unchanged}, skips counted {skipped} (1 expected), the "
+                 f"next good step applied: {applied}")
+        opt.remove_hooks()
+        launches, tc_launches = _read_flash()
+        summary = {
+            "model": "gpt2_medium", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "vocab": cfg.vocab_size, "chunk": 8192,
+            "compute_dtype": "bfloat16 operands, fp32 results",
+            "loss_dense": l_d, "loss_fused": l_f,
+            "loss_gradient_rel_diff": head_rel,
+            "model_worst_gradient_rel_diff": worst,
+            "model_top5_gradient_rel_diff": top5,
+            "model_gradient_readings": readings,
+            "model_gradient_limits": limits,
+            "planted_dh_scale": PLANTED_DH_SCALE, "steps": peaks,
+            "forward_backward_peak_memory_gb": fwd_bwd_peak,
+            "phase5_peak_memory_gb": phase5_peak_gb,
+            "flush_inner_steps": steps[0], "guard_skipped": skipped,
+            "flash_launches": launches, "card": card,
+        }
+        log("fused xent: " + json.dumps(summary, sort_keys=True))
+        del model
+        return launches, tc_launches
+    finally:
+        hvd.shutdown()
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1681,8 +2350,8 @@ def main() -> int:
 
     # phase 5: training, the second slice's main path
     t0 = time.monotonic()
-    train_launches, train_tc_launches, fused_bytes_per_step = phase_train(
-        gen, card)
+    (train_launches, train_tc_launches, fused_bytes_per_step,
+     train_peak_gb) = phase_train(gen, card)
     log(f"train phase: {time.monotonic() - t0:.2f} s")
     torch.cuda.empty_cache()
 
@@ -1709,6 +2378,30 @@ def main() -> int:
     t0 = time.monotonic()
     wire_launches.update(phase_adasum(gen, card))
     log(f"adasum phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 10: ViT-B/16 through the flash kernels, bidirectional and
+    # padded; its launches join phase 5's in the kernels line
+    t0 = time.monotonic()
+    flash_runs = [(train_launches, train_tc_launches), phase_vit(card)]
+    log(f"vit phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 11: ResNet-50 with SyncBatchNorm, then MNIST, VGG-16 and
+    # Inception V3 one step each
+    t0 = time.monotonic()
+    phase_cnn(card)
+    log(f"cnn phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 12: GPT-2 medium with the fused LM loss, flush() and the guard
+    t0 = time.monotonic()
+    flash_runs.append(phase_fused_xent(card, train_peak_gb))
+    log(f"fused xent phase: {time.monotonic() - t0:.2f} s")
+    flash_launches = {k: sum(r[0][k] for r in flash_runs)
+                      for k in flash_runs[1][0]}
+    flash_tc_launches = {k: sum(r[1][k] for r in flash_runs)
+                         for k in flash_runs[1][1]}
 
     # paged attention: the decode kernel (main shape: the decode step;
     # its entry keeps the name it had before the tiled kernel was
@@ -1753,7 +2446,7 @@ def main() -> int:
             "route": "cuda",
             "source": "horovod_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"horovod_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[fn],
+            "launches": flash_launches[fn],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
@@ -1765,7 +2458,7 @@ def main() -> int:
         })
         if fn in train_tc_launches:  # the kernels with two variants
             entries[-1]["variant"] = main_shape["variant"]
-            entries[-1]["tensor_core_launches"] = train_tc_launches[fn]
+            entries[-1]["tensor_core_launches"] = flash_tc_launches[fn]
     for fn, line in (("scale_cast", 84), ("int8_quantize", 133),
                      ("int8_block_quantize", 221), ("adasum_dots", 304),
                      ("adasum_apply", 315)):

@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of horovod_tpu, for NVIDIA Hopper cards.
 
 ``import horovod_tpu_torch as hvd`` stands in for ``import
-horovod_tpu.torch as hvd`` for the collectives and the optimizer. Three
+horovod_tpu.torch as hvd`` for the collectives and the optimizer. These
 slices are ported:
 
 - training: ``hvd.init()`` on ``torch.distributed`` (NCCL on the card,
@@ -9,7 +9,15 @@ slices are ported:
   and ``DistributedOptimizer``, whose gradient hooks put fused
   allreduces in flight during backward. The Transformer trains with
   flash attention, forward and backward, as CUDA kernels written by
-  hand for ``sm_90a`` (``ops/flash_attention.py``);
+  hand for ``sm_90a`` (``ops/flash_attention.py``).
+  ``DistributedOptimizer`` takes the reference's options:
+  ``backward_passes_per_step`` with ``flush()``, ``average``,
+  pre/postscale factors, ``process_set`` and the grad guard's skip step
+  (``grad_guard``, ``guard_check()``, ``guard_status()``);
+- the model zoo (``models/``): ViT-B/16 through the flash kernels on
+  the padded bidirectional path, ResNet-50/101, VGG-16, Inception V3
+  and the MNIST ConvNet, with ``SyncBatchNorm``; and the chunked LM
+  loss ``fused_linear_cross_entropy``;
 - compressed and Adasum reduction: ``Compression.int8``/``int8_block``
   send the fused buffer as block-scaled int8 (``return_residual=`` on
   the allreduce, ``error_feedback=True`` on the optimizer), and
@@ -24,6 +32,7 @@ It imports ``torch``, numpy and the standard library only.
 """
 
 from .common.basics import (  # noqa: F401
+    HorovodInternalError,
     NotInitializedError,
     add_process_set,
     cross_rank,
@@ -39,13 +48,22 @@ from .common.basics import (  # noqa: F401
     shutdown,
     size,
 )
+from .common.guard import check as guard_check  # noqa: F401
+from .common.guard import status as guard_status  # noqa: F401
 from .common.process_sets import ProcessSet  # noqa: F401
-from .models.convert import params_from_flax  # noqa: F401
-from .models.transformer import (  # noqa: F401
+from .models import (  # noqa: F401
+    VGG16,
+    InceptionV3,
+    MNISTConvNet,
+    ResNet50,
+    ResNet101,
     Transformer,
     TransformerConfig,
+    ViT,
+    ViTConfig,
     init_cache,
 )
+from .models.convert import params_from_flax  # noqa: F401
 from .ops.adasum import adasum_allreduce  # noqa: F401
 from .ops.compression import (  # noqa: F401
     Compression,
@@ -71,6 +89,7 @@ from .ops.eager import (  # noqa: F401
     synchronize,
 )
 from .ops.flash_attention import flash_attention  # noqa: F401
+from .ops.fused_xent import fused_linear_cross_entropy  # noqa: F401
 from .ops.reduction_ops import (  # noqa: F401
     Adasum,
     Average,
@@ -100,3 +119,4 @@ from .serving import (  # noqa: F401
     create_kv_manager,
     serve,
 )
+from .sync_batch_norm import SyncBatchNorm  # noqa: F401

@@ -46,6 +46,11 @@ class NotInitializedError(RuntimeError):
         )
 
 
+class HorovodInternalError(RuntimeError):
+    """A collective or the training state failed in a way the elastic
+    contract restores from (the grad guard's escalation raises it)."""
+
+
 class _GlobalState:
     def __init__(self):
         self.lock = threading.Lock()

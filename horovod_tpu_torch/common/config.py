@@ -35,6 +35,8 @@ DEFAULT_CYCLE_TIME_MS = 1.0
 # wire's scale granularity in elements (HOROVOD_FUSION_WIRE_BLOCK).
 DEFAULT_FUSION_WIRE = "fp32"
 DEFAULT_FUSION_WIRE_BLOCK = 512
+# consecutive non-finite steps the grad guard skips before it escalates
+DEFAULT_GUARD_MAX_SKIPS = 3
 
 # Serving plane: decode-slot count (concurrent sequences), admissions per
 # decode step, default per-request token budget/deadline, and the

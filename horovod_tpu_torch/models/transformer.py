@@ -7,8 +7,9 @@ the Flax shapes, so :mod:`.convert` carries a JAX checkpoint across by
 name) and the same numerics: parameters in fp32, cast to ``cfg.dtype``
 at use; LayerNorm in fp32 with eps 1e-6; tanh GELU; attention scores as
 an fp32 product divided by ``sqrt(head_dim)``, masked with −1e30; the LM
-head multiplies ``cfg.dtype`` operands with fp32 accumulation and adds
-an fp32 bias.
+head multiplies ``cfg.dtype`` operands into an fp32 result and adds an
+fp32 bias (``return_hidden=True`` hands the final LayerNorm's output to
+:func:`~..ops.fused_xent.fused_linear_cross_entropy` instead).
 
 Two forwards share the parameters:
 
@@ -61,6 +62,7 @@ from torch import nn
 
 from ..common.config import resolve_device
 from ..ops import flash_attention as _fa
+from ..ops.fused_xent import mixed_linear
 from ..ops import paged_attention as _pa
 
 _NEG_INF = -1e30
@@ -476,11 +478,11 @@ def _dropout(x: torch.Tensor, rate: float,
 
 
 class LMHead(nn.Module):
-    """Vocabulary projection: ``cfg.dtype`` operands with fp32
-    accumulation (``head_mixed_precision``, the default) or all fp32,
-    fp32 logits plus an fp32 bias. The mixed product runs as an fp32
-    product of the rounded operands: a product of two bf16 values is
-    exact in fp32, so this is the bf16 product accumulated in fp32."""
+    """Vocabulary projection: ``cfg.dtype`` operands with an fp32
+    result (``head_mixed_precision``, the default) or all fp32, plus an
+    fp32 bias. The product is :func:`~..ops.fused_xent.mixed_mm`, the
+    one the fused loss takes: on CUDA a bf16 tensor-core product with
+    fp32 output; on the CPU the fp32 product of the rounded operands."""
 
     def __init__(self, cfg: TransformerConfig, device=None, generator=None):
         super().__init__()
@@ -493,11 +495,8 @@ class LMHead(nn.Module):
 
     def forward(self, x):
         cfg = self.cfg
-        w = self.kernel
-        if cfg.head_mixed_precision:
-            x = x.to(cfg.dtype)
-            w = w.to(cfg.dtype)
-        return x.float() @ w.float() + self.bias
+        dtype = cfg.dtype if cfg.head_mixed_precision else None
+        return mixed_linear(x, self.kernel, self.bias, dtype)
 
 
 class Transformer(nn.Module):

@@ -16,7 +16,9 @@ the collective's result back as a tensor on the same device.
   ``HOROVOD_FUSION_WIRE=int8``; no ``compression=`` defers to it.
   ``return_residual=True`` (the int8 wire, Sum/Average of a floating
   tensor) makes the result ``(output, residual)``, the error-feedback
-  carry of this tensor in input units;
+  carry of this tensor in input units. ``guard=True`` (the optimizer's
+  ``grad_guard``) makes the handle's ``finite()`` return the fused
+  batch's non-finite sentinel;
 - ``grouped_allreduce(_async)``: the list reduces as one unit, in one
   fused collective per dtype;
 - ``allgather(_async)``: concatenation along dim 0, sizes may differ by
@@ -65,6 +67,10 @@ class TorchHandle:
 
     def poll(self) -> bool:
         return self._inner.poll()
+
+    def finite(self) -> Optional[torch.Tensor]:
+        """The fused batch's non-finite sentinel (``guard=True``)."""
+        return self._inner.finite()
 
     def wait(self) -> torch.Tensor:
         out = self._inner.wait()
@@ -122,7 +128,7 @@ def _check_residual_eligible(op, tensor) -> None:
 
 
 def _allreduce_entry(tensor, name, op, prescale, postscale, process_set,
-                     compression, return_residual=False):
+                     compression, return_residual=False, guard=False):
     check_supported(compression)
     wire = _wire_of(compression, return_residual)
     if return_residual:
@@ -136,7 +142,7 @@ def _allreduce_entry(tensor, name, op, prescale, postscale, process_set,
                    prescale=float(prescale), postscale=float(postscale),
                    process_set=process_set, wire=wire,
                    wire_block=getattr(compression, "block_size", None),
-                   want_residual=bool(return_residual))
+                   want_residual=bool(return_residual), guard=bool(guard))
     return entry, post
 
 
@@ -145,11 +151,12 @@ def allreduce_async(tensor, average=None, name=None, op=None,
                     prescale_factor: float = 1.0,
                     postscale_factor: float = 1.0,
                     compression=None,
-                    return_residual: bool = False) -> TorchHandle:
+                    return_residual: bool = False, *,
+                    guard: bool = False) -> TorchHandle:
     entry, post = _allreduce_entry(
         tensor, _auto_name("allreduce", name), resolve_op(op, average),
         prescale_factor, postscale_factor, process_set, compression,
-        return_residual,
+        return_residual, guard,
     )
     (handle,) = _fusion().enqueue([entry])
     return TorchHandle(handle, post)

@@ -36,6 +36,12 @@ The core of ``horovod_tpu/ops/fusion.py`` on ``torch.distributed``:
   ``hvd.int8_wire.{pack,exchange,dequantize_sum,residual,unpack}``
   (``WIRE_RANGES``), so a profiled step splits the wire's device time by
   pass.
+- An allreduce entry may ask for the grad guard's sentinel
+  (``guard=True``, the optimizer's ``grad_guard``): its floating batch
+  then also yields one ``all(isfinite)`` flag over the reduced flat
+  buffer (``horovod_tpu/ops/fusion.py:1168``), a device tensor that
+  :meth:`Handle.finite` returns without a host read. Integer batches
+  have no flag.
 - ``dispatched_batches``/``dispatched_bytes`` count the collectives
   issued and the bytes they carried, by the JAX package's payload-width
   model (``_hop_bytes``: an int8 batch of ``elems`` elements over ``n``
@@ -95,6 +101,7 @@ class _Entry:
     wire: Optional[str] = None
     wire_block: Optional[int] = None
     want_residual: bool = False
+    guard: bool = False  # the batch yields a non-finite sentinel
 
     @property
     def nbytes(self) -> int:
@@ -105,7 +112,7 @@ class _Entry:
         return (self.kind, self.tensor.dtype, self.tensor.device, int(self.op),
                 self.prescale, self.postscale, self.root_rank,
                 None if ps is None else ps.process_set_id, self.wire,
-                self.wire_block, self.want_residual)
+                self.wire_block, self.want_residual, self.guard)
 
 
 def _group(ps: Optional[ProcessSet]):
@@ -145,6 +152,14 @@ def hop_bytes(elems: int, wire: str, itemsize: int, n: int, block: int):
     return elems * itemsize, 0
 
 
+def _finite(e0: _Entry, flat: torch.Tensor) -> Optional[torch.Tensor]:
+    """The guard's sentinel of a reduced batch: one device bool, or None
+    when the batch asked for none or carries integers."""
+    if not e0.guard or not flat.is_floating_point():
+        return None
+    return torch.isfinite(flat).all()
+
+
 def _unpack(flat: torch.Tensor, entries: List[_Entry]) -> List[torch.Tensor]:
     """Views of the flat buffer in each entry's shape."""
     out, off = [], 0
@@ -175,8 +190,10 @@ class _Batch:
 
     def __init__(self, work, finish):
         self.work = work
-        self._finish = finish  # () -> list of outputs, after work.wait()
+        # () -> (list of outputs, sentinel or None), after work.wait()
+        self._finish = finish
         self._outputs: Optional[List[torch.Tensor]] = None
+        self.finite: Optional[torch.Tensor] = None
         self._lock = threading.Lock()
 
     def done(self) -> bool:
@@ -192,7 +209,7 @@ class _Batch:
         with self._lock:
             if self._outputs is None:
                 self.work.wait()
-                self._outputs = self._finish()
+                self._outputs, self.finite = self._finish()
                 self.work = self._finish = None
         return self._outputs[index]
 
@@ -220,6 +237,13 @@ class Handle:
         if self._batch is None:
             self._fusion.flush()
         return self._batch.output(self._index)
+
+    def finite(self) -> Optional[torch.Tensor]:
+        """The batch's non-finite sentinel (a device bool, True when
+        every reduced value is finite) after :meth:`wait`; None unless
+        the entry asked for it."""
+        self.wait()
+        return self._batch.finite
 
 
 WIRES = ("fp32", "bf16", "int8")
@@ -335,7 +359,7 @@ class FusionManager:
             buf = e0.tensor.detach().clone()
             work = dist.broadcast(buf, src=e0.root_rank, group=group,
                                   async_op=True)
-            finish, nbytes = (lambda: [buf]), e0.nbytes
+            finish, nbytes = (lambda: ([buf], None)), e0.nbytes
         else:
             raise ValueError(f"unknown collective {e0.kind!r}")
         batch = _Batch(work, finish)
@@ -382,7 +406,7 @@ class FusionManager:
                     flat.mul_(post)
                 else:
                     flat.copy_(torch.trunc(flat.double() * post))
-            return _unpack(flat, entries)
+            return _unpack(flat, entries), _finite(e0, flat)
 
         nbytes = self._account(flat.numel(), e0.wire, flat.element_size(),
                                _set_size(ps), self.wire_block)
@@ -459,10 +483,11 @@ class FusionManager:
                 out = out.reshape(-1)[:m]
                 if e0.postscale != 1.0:
                     out = out * e0.postscale
-                outs = _unpack(out.to(dtype), entries)
-                if res is None:
-                    return outs
-                return list(zip(outs, _unpack(res, entries)))
+                out = out.to(dtype)
+                outs = _unpack(out, entries)
+                if res is not None:
+                    outs = list(zip(outs, _unpack(res, entries)))
+                return outs, _finite(e0, out)
 
         nbytes = self._account(m, "int8", e0.tensor.element_size(), n, block)
         return work, finish, nbytes
@@ -478,7 +503,7 @@ class FusionManager:
         if e0.postscale != 1.0:
             out = out * e0.postscale
         self.last_wire_format = "fp32"
-        return _Works(), (lambda: [out]), e0.nbytes
+        return _Works(), (lambda: ([out], _finite(e0, out))), e0.nbytes
 
     def _allgather(self, e0, group, ps):
         """Allgather-v along dim 0: sizes first, then one gather of
@@ -500,6 +525,6 @@ class FusionManager:
         work = dist.all_gather(parts, rows, group=group, async_op=True)
 
         def finish():
-            return [torch.cat([p[:s] for p, s in zip(parts, sizes)])]
+            return [torch.cat([p[:s] for p, s in zip(parts, sizes)])], None
 
         return work, finish, rows.numel() * rows.element_size() * n

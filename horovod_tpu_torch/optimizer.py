@@ -31,7 +31,27 @@ package's ``optimizer.py`` is its oracle):
   residual per parameter: the hook enqueues ``grad + residual`` with
   ``return_residual=True`` and ``synchronize`` stores the new residual,
   so each step's quantization error joins the next step's gradient
-  (EF-SGD). ``state_dict`` carries the residuals.
+  (EF-SGD). ``state_dict`` carries the residuals;
+- ``flush()`` reduces and steps a partial window now (a step count
+  that k does not divide would otherwise lose the tail window), and
+  does nothing when the window is empty;
+- ``average`` (True: Average, False: Sum; it conflicts with ``op=``),
+  ``prescale_factor``/``postscale_factor`` (the fused batch's
+  pre/postscale; the int8 wire folds the prescale into its scales; a
+  predivide factor replaces both, as in the reference), ``process_set``
+  (the reduction's ranks) and ``average_aggregated_gradients`` (the
+  window's sum divided by its passes, k for a whole window);
+- ``grad_guard=True`` (None: ``HOROVOD_GUARD``): every floating fused
+  batch yields one ``all(isfinite)`` over its reduced values, read once
+  a step after the reduction. A tripped flag skips the inner step:
+  parameters, optimizer state and the error-feedback residuals of the
+  last applied step stay as they were, the window resets, and
+  ``common/guard.py`` counts the skip; ``guard_max_skips`` consecutive
+  skips (None: ``HOROVOD_GUARD_MAX_SKIPS``) latch an escalation that
+  ``hvd.guard_check()`` raises as ``HorovodInternalError``.
+
+The bucketed overlap (``overlap_buckets``, ``overlap_min_bytes``: ROADMAP
+A8) and local SGD (``local_sgd_*``: A11) are not ported yet and raise.
 
 Every rank must run the same model, so that the hooks enqueue the same
 gradients in the same order (the fusion manager issues collectives in
@@ -46,6 +66,8 @@ import torch
 import torch.distributed as dist
 
 from .common import basics
+from .common import guard as _guard
+from .common.process_sets import ProcessSet
 from .ops import eager
 from .ops.compression import Compression, check_supported
 from .ops.reduction_ops import Adasum, Average, Sum, resolve_op
@@ -58,9 +80,23 @@ class DistributedOptimizer:
                  named_parameters=None, compression=Compression.none,
                  backward_passes_per_step: int = 1, op=None,
                  gradient_predivide_factor: float = 1.0,
-                 error_feedback: bool = False):
+                 average: Optional[bool] = None,
+                 prescale_factor: Optional[float] = None,
+                 postscale_factor: Optional[float] = None,
+                 process_set: Optional[ProcessSet] = None,
+                 average_aggregated_gradients: bool = False,
+                 error_feedback: bool = False,
+                 overlap_buckets: Optional[int] = None,
+                 overlap_min_bytes: Optional[int] = None,
+                 grad_guard: Optional[bool] = None,
+                 guard_max_skips: Optional[int] = None,
+                 local_sgd_steps: Optional[int] = None,
+                 local_sgd_inter_wire: Optional[str] = None,
+                 local_sgd_intra: Optional[int] = None):
         basics._require_init()
-        op = resolve_op(op)
+        _check_unported(overlap_buckets, overlap_min_bytes, local_sgd_steps,
+                        local_sgd_inter_wire, local_sgd_intra)
+        op = resolve_op(op, average)
         check_supported(compression)
         quantized = getattr(compression, "quantized_wire", False)
         if error_feedback and not quantized:
@@ -85,13 +121,24 @@ class DistributedOptimizer:
         self._error_feedback = bool(error_feedback)
         self._residuals: Dict[int, torch.Tensor] = {}
         self._k = k
+        self._process_set = process_set
+        self._average_window = bool(average_aggregated_gradients)
+        # the reference's factors (horovod_tpu/optimizer.py:378-384): the
+        # predivide split takes the place of pre/postscale
+        pre = 1.0 if prescale_factor is None else float(prescale_factor)
+        post = 1.0 if postscale_factor is None else float(postscale_factor)
         if gradient_predivide_factor != 1.0:
             f = float(gradient_predivide_factor)
-            self._op, self._pre, self._post = (
-                Sum, 1.0 / (basics.size() * f), f
-            )
-        else:
-            self._op, self._pre, self._post = op, 1.0, 1.0
+            n = (basics.size() if process_set is None
+                 or process_set.process_set_id == 0 else process_set.size)
+            op, pre, post = Sum, 1.0 / (n * f), f
+        self._op, self._pre, self._post = op, pre, post
+        self._guard = (_guard.default_enabled() if grad_guard is None
+                       else bool(grad_guard))
+        self._max_skips = (_guard.default_max_skips() if guard_max_skips
+                           is None else int(guard_max_skips))
+        self._updates = 0  # window ends, applied or skipped
+        self._streak = 0  # consecutive skipped updates
         self._params: List[torch.nn.Parameter] = [
             p for group in optimizer.param_groups for p in group["params"]
             if p.requires_grad
@@ -131,37 +178,51 @@ class DistributedOptimizer:
             buf = self._accum.pop(key, None)
             if buf is not None:
                 p.grad.add_(buf)
-        self._enqueue(p)
+        self._enqueue(p, self._k)
 
-    def _enqueue(self, p: torch.nn.Parameter) -> None:
+    def _enqueue(self, p: torch.nn.Parameter, passes: int = 1) -> None:
+        """Put ``p.grad``, the sum of a window of ``passes`` backward
+        passes, in flight."""
         grad = p.grad
         if self._error_feedback:
             res = self._residuals.get(id(p))
             if res is not None:
                 grad = grad + res
+        pre = self._pre / passes if self._average_window else self._pre
         self._handles[id(p)] = eager.allreduce_async(
             grad, name=self._names[id(p)], op=self._op,
-            prescale_factor=self._pre, postscale_factor=self._post,
-            compression=self._compression,
-            return_residual=self._error_feedback,
+            process_set=self._process_set, prescale_factor=pre,
+            postscale_factor=self._post, compression=self._compression,
+            return_residual=self._error_feedback, guard=self._guard,
         )
 
-    def synchronize(self) -> None:
+    def synchronize(self) -> bool:
         """Wait for every enqueued gradient and write it back. With
         ``backward_passes_per_step=1``, a gradient that no hook saw (one
-        set by hand) is reduced here."""
+        set by hand) is reduced here. Returns False when the grad guard
+        found a non-finite reduced value (one host read of the batches'
+        flags); the error-feedback residuals then stay those of the last
+        applied step."""
         if self._k == 1:
             for p in self._params:
                 if p.grad is not None and id(p) not in self._handles:
                     self._enqueue(p)
         handles, self._handles = self._handles, {}
         by_id = {id(p): p for p in self._params}
+        residuals, flags = {}, {}
         with torch.no_grad():
             for key, handle in handles.items():
                 out = handle.wait()
                 if self._error_feedback:
-                    out, self._residuals[key] = out
+                    out, residuals[key] = out
                 by_id[key].grad.copy_(out)
+                flag = handle.finite() if self._guard else None
+                if flag is not None:  # one a fused batch
+                    flags[id(flag)] = flag
+        finite = not flags or bool(torch.stack(list(flags.values())).all())
+        if finite:
+            self._residuals.update(residuals)
+        return finite
 
     def step(self, closure=None):
         """Count one backward pass. In the middle of a window, return
@@ -170,7 +231,23 @@ class DistributedOptimizer:
         self._micro += 1
         if self._micro < self._k:
             return None
-        self._micro = 0
+        return self._end_window(closure)
+
+    def flush(self, closure=None):
+        """Reduce and step a partial window now, as if it had ended (an
+        epoch whose step count k does not divide would otherwise lose
+        its last passes); None, and nothing done, when the window is
+        empty."""
+        if self._micro == 0:
+            return None
+        self._seen.clear()
+        return self._end_window(closure)
+
+    def _end_window(self, closure):
+        """Enqueue, in parameter order, the buffers the last pass's
+        hooks left, reduce, and step the inner optimizer unless the grad
+        guard trips."""
+        passes, self._micro = self._micro, 0
         with torch.no_grad():
             for p in self._params:  # the same order on every rank
                 buf = self._accum.pop(id(p), None)
@@ -180,9 +257,15 @@ class DistributedOptimizer:
                     p.grad = buf
                 else:
                     p.grad.add_(buf)
-                self._enqueue(p)
-        self.synchronize()
-        return self._opt.step(closure)
+                self._enqueue(p, passes)
+        finite = self.synchronize()
+        self._updates += 1
+        if finite:
+            self._streak = 0
+            return self._opt.step(closure)
+        self._streak += 1
+        _guard.record_skip(self._streak, self._updates, self._max_skips)
+        return None
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self._opt.zero_grad(set_to_none=set_to_none)
@@ -221,6 +304,21 @@ class DistributedOptimizer:
         for h in self._hooks:
             h.remove()
         self._hooks = []
+
+
+def _check_unported(overlap_buckets, overlap_min_bytes, local_sgd_steps,
+                    local_sgd_inter_wire, local_sgd_intra) -> None:
+    """The reference's options of later slices raise, naming their
+    ROADMAP item (0 buckets and one local step are the plain path)."""
+    if overlap_buckets or overlap_min_bytes is not None:
+        raise NotImplementedError(
+            "overlap_buckets/overlap_min_bytes (the bucketed overlap) are "
+            "not ported yet (ROADMAP A8)")
+    if (local_sgd_steps not in (None, 1) or local_sgd_inter_wire is not None
+            or local_sgd_intra is not None):
+        raise NotImplementedError(
+            "local_sgd_steps/local_sgd_inter_wire/local_sgd_intra (local "
+            "SGD) are not ported yet (ROADMAP A11)")
 
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:

@@ -33,14 +33,25 @@ and bf16 (each variant the checkout has, rotating over copies of x
 that exceed L2). ``--block-quantize`` times the block quantizer (B3) at
 each of phase 7's B3 cases as ``chip_smoke.py`` times them, held bitwise
 to plain first, then runs phase 8 (GPT-2 medium on the int8 wire, its
-profiled step's device time). ``--root DIR``
+profiled step's device time). ``--train-host`` runs phase 5's model,
+batch and optimizer for ``--steps`` steps after two warm-up steps and
+prints what a process's host clock depends on: the median host-clock
+step and CUDA-event span, the same fixed pure-CPU workload timed before
+and after the steps (the process's host speed), the process's CPU time
+over its wall time, its threads, and the caching allocator's
+``torch.cuda.memory_stats()`` (cudaMalloc calls, retries, peaks);
+``--head fp32`` puts back the LM head's earlier product (the fp32
+product of the bf16-rounded operands) and ``--import MOD`` imports
+extra modules first, so that the arms of a bisection between two
+commits run as processes in turns. ``--root DIR``
 takes ``chip_smoke.py`` and the package from another checkout: run it
 on an unpacked parent commit and on this one in turns to compare the
 two in one call.
 
 Run from the repository root on a machine with a CUDA card:
 ``python3 scripts/compare_attention_fwd.py [--backward | --train |
---serve | --decode | --quantize | --block-quantize] [--root DIR]``. To
+--train-host [--steps N] [--head fp32] [--import MOD ...] | --serve |
+--decode | --quantize | --block-quantize] [--root DIR]``. To
 compare a parent commit with this one, unpack it into a git-ignored
 directory and run in turns, parent, change, change, parent:
 ``for r in P . . P; do python3 scripts/compare_attention_fwd.py
@@ -386,6 +397,125 @@ def wire_step(cs, gen, card):
     cs.phase_train_int8(gen, card, fp32_bytes)
 
 
+def _fp32_head(self, x):
+    """The LM head's product before it took bf16 operands with an fp32
+    result: the fp32 product of the rounded operands, through autograd
+    (a bisection arm; the package never runs it)."""
+    w = self.kernel
+    if self.cfg.head_mixed_precision:
+        x = x.to(self.cfg.dtype)
+        w = w.to(self.cfg.dtype)
+    return x.float() @ w.float() + self.bias
+
+
+def _cpu_probe_ms(reps=5, calls=20000):
+    """The median of ``reps`` timings of one fixed pure-CPU workload
+    (small CPU tensor ops and views, as a step's host side makes)."""
+    import time
+
+    import torch
+
+    t = torch.zeros(16)
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            t.view(4, 4).add_(1.0).view(-1)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)[len(out) // 2]
+
+
+def train_host(cs, card, steps, head, imports):
+    """Phase 5's model, batch and optimizer (GPT-2 medium, 8 × 512
+    tokens, bf16 on fp32 masters, remat, ``DistributedOptimizer(SGD
+    momentum)`` in a world of one): ``steps`` host-clock steps after two
+    warm-up steps, with what the host clock depends on (see the module's
+    docstring)."""
+    import dataclasses
+    import importlib
+    import resource
+    import time
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.models import transformer as tmod
+
+    for mod in imports:
+        importlib.import_module(mod)
+    if head == "fp32":
+        tmod.LMHead.forward = _fp32_head
+    probe_before = _cpu_probe_ms()
+    hvd.init()
+    try:
+        cfg = dataclasses.replace(TransformerConfig.gpt2_medium(), remat=True)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(cs.SEED)
+        model = Transformer(cfg, device="cuda", generator=g)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+            named_parameters=model.named_parameters(), op=hvd.Average)
+        tokens, labels = cs._lm_batch(cfg.vocab_size, cs.TRAIN_BATCH,
+                                      cs.TRAIN_SEQ)
+        fusion = basics.state().fusion
+        host, span, losses = [], [], []
+        cpu0, wall0 = None, None
+        for i in range(2 + steps):
+            if i == 2:
+                fusion.dispatched_batches = 0
+                torch.cuda.reset_peak_memory_stats()
+                ru = resource.getrusage(resource.RUSAGE_SELF)
+                cpu0, wall0 = ru.ru_utime + ru.ru_stime, time.monotonic()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            start.record()
+            opt.zero_grad(set_to_none=True)
+            loss = cs._loss(model, tokens, labels)
+            loss.backward()
+            opt.step()
+            end.record()
+            losses.append(float(loss.detach()))
+            ms = (time.monotonic() - t0) * 1e3
+            torch.cuda.synchronize()
+            if i >= 2:
+                host.append(ms)
+                span.append(start.elapsed_time(end))
+        ru = resource.getrusage(resource.RUSAGE_SELF)
+        cpu_share = (ru.ru_utime + ru.ru_stime - cpu0) / (
+            time.monotonic() - wall0)
+        batches = fusion.dispatched_batches / steps
+        opt.remove_hooks()
+        stats = torch.cuda.memory_stats()
+    finally:
+        hvd.shutdown()
+    with open("/proc/self/status") as f:
+        threads = int(next(line for line in f
+                           if line.startswith("Threads:")).split()[1])
+
+    def med(v):
+        return sorted(v)[len(v) // 2]
+
+    keys = ("num_alloc_retries", "num_device_alloc", "num_device_free",
+            "num_ooms", "allocated_bytes.all.peak",
+            "reserved_bytes.all.peak", "allocation.all.allocated")
+    print(json.dumps({
+        "root": os.path.abspath(cs.HERE), "head": head,
+        "imports": list(imports), "steps": steps,
+        "host_step_ms_median": med(host), "host_step_ms": host,
+        "event_span_ms_median": med(span), "losses": losses,
+        "cpu_probe_ms_before": probe_before,
+        "cpu_probe_ms_after": _cpu_probe_ms(),
+        "process_cpu_over_wall": cpu_share, "threads": threads,
+        "fused_batches_per_step": batches,
+        "torch_threads": torch.get_num_threads(),
+        "memory_stats": {k: stats.get(k) for k in keys}, "card": card,
+    }, sort_keys=True))
+
+
 def backward_rows(cs, gen, card):
     """The flash backward's variants (``hvd_flash_bwd_dq``/``_dkv`` on the
     CUDA cores, ``_tc`` on the tensor cores) given the same delta, beside
@@ -487,6 +617,9 @@ def main() -> int:
                       help="time the flash backward's variants instead")
     mode.add_argument("--train", action="store_true",
                       help="run chip_smoke.py's phase 5 instead")
+    mode.add_argument("--train-host", action="store_true",
+                      help="phase 5's steps with what the host clock "
+                      "depends on")
     mode.add_argument("--serve", action="store_true",
                       help="run chip_smoke.py's phase 3 instead")
     mode.add_argument("--decode", action="store_true",
@@ -496,6 +629,13 @@ def main() -> int:
     mode.add_argument("--block-quantize", action="store_true",
                       help="time the block int8 quantizer and run phase 8 "
                       "instead")
+    ap.add_argument("--steps", type=int, default=16,
+                    help="--train-host: timed steps")
+    ap.add_argument("--head", choices=("mixed", "fp32"), default="mixed",
+                    help="--train-host: fp32 puts back the LM head's "
+                    "earlier product")
+    ap.add_argument("--import", dest="imports", action="append", default=[],
+                    help="--train-host: a module to import first")
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), help="checkout to import from")
     args = ap.parse_args()
@@ -518,6 +658,8 @@ def main() -> int:
     gen.manual_seed(cs.SEED)
     if args.train:
         cs.phase_train(gen, card)
+    elif args.train_host:
+        train_host(cs, card, args.steps, args.head, args.imports)
     elif args.serve:
         serve_burst(cs, gen, card)
     elif args.backward:

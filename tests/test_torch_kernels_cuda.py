@@ -209,6 +209,10 @@ FLASH_CASES = {
     # head_dim 24 and 256: the narrowest tile group and the widest
     "d24": dict(b=1, t=40, h=2, kvh=1, d=24, causal=True, lengths=[29]),
     "d256": dict(b=1, t=70, h=2, kvh=2, d=256, causal=True, window=20),
+    # ViT's padded bidirectional rows: the last 64-key tile partial,
+    # keys past each row's length unseen, padded query rows zero
+    "vit-lengths-full-t200": dict(b=2, t=200, h=4, kvh=4, d=64,
+                                  causal=False, lengths=[197, 120]),
 }
 
 
@@ -274,6 +278,7 @@ FLASH_PHASE2 = {
                      [512, 500, 431, 300, 257, 129, 64, 1], None),
     "window-t1024": (8, 1024, 16, 16, 64, True, None, 256),
     "ragged-t1000": (8, 1000, 16, 16, 64, True, None, None),
+    "vit-b16-t200": (64, 200, 12, 12, 64, False, [197] * 64, None),
 }
 
 
@@ -568,3 +573,38 @@ def test_adasum_pair_matches_plain(cuda_card, n, dtype):
     tol = (dict(atol=1e-5 * scale, rtol=0) if dtype == torch.float32
            else _tolerance(dtype))
     torch.testing.assert_close(out, want, **tol)
+
+
+def test_mixed_product_on_card(cuda_card):
+    """The LM head's product (``ops/fused_xent.mixed_mm``): bf16 operands
+    on the tensor cores with an fp32 result, against the fp32 product of
+    the same rounded operands within fp32 sums in another order; and the
+    fused loss's gradients against the dense bf16 head's within one bf16
+    rounding of each largest magnitude."""
+    from horovod_tpu_torch.ops import fused_xent as fx
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(96, 64)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(64, 1000)) * 0.1)
+                         .astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=1000) * 0.1).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 1000, 96))
+    x, w, b, labels = (t.to(cuda_card) for t in (x, w, b, labels))
+    got = fx.mixed_mm(x, w, torch.bfloat16)
+    want = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    grads = []
+    for fused in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        if fused:
+            loss = fx.fused_linear_cross_entropy(*leaves, labels, chunk=256)
+        else:
+            loss = torch.nn.functional.cross_entropy(
+                fx.mixed_linear(*leaves, torch.bfloat16), labels,
+                reduction="none")
+        loss.mean().backward()
+        grads.append([t.grad for t in leaves])
+    for g_dense, g_fused in zip(*grads):
+        scale = float(g_dense.abs().max())
+        assert float((g_fused - g_dense).abs().max()) <= 2.0 ** -8 * scale
