@@ -83,8 +83,25 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    planted fault the check must see); the peak memory of
    training steps each way beside phase 5's; ``flush()`` after 6
    passes at ``backward_passes_per_step=4``; a guarded step with an
-   injected NaN, which must skip. The flash counts of phases 5, 10 and
-   12 add up in the ``kernels`` line.
+   injected NaN, which must skip.
+13. The two-level route: 4 processes on the one card in a gloo world
+   (NCCL refuses two ranks on one device) that each makes and
+   ``hvd.init`` adopts, ``HOROVOD_INTRA_SIZE=2`` and
+   ``HOROVOD_HIERARCHICAL=on`` (2 nodes of 2). On integer-valued fp32
+   the two-level allreduce equals the flat route and the exact sum bit
+   for bit, as do reducescatter (even, uneven), alltoall (equal, with
+   splits), the grouped ops and a join-masked Average;
+   ``Compression.hier_int8`` on a 64 MiB batch stays within its
+   two-stage quantum budget; hierarchical Adasum within 2.0e-7 of the
+   fp64 host oracle in fp32 and within 6 quanta on the int8 inter wire;
+   GPT-2 medium at full width trains 3 steps through
+   ``DistributedOptimizer(compression=Compression.hier_int8,
+   error_feedback=True)``, the mean loss falling and every rank's
+   parameters bitwise equal after every step. It prints the step time,
+   the bytes a step by hop beside the model and phase 5's, and each
+   rank's peak memory. B3, B4 and the flash kernels must launch. The
+   flash counts of phases 5, 10, 12 and 13, and the wire counts of
+   phases 8, 9 and 13, add up in the ``kernels`` line.
 
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -2280,6 +2297,461 @@ def phase_fused_xent(card, phase5_peak_gb):
         hvd.shutdown()
 
 
+# ------------------------------------------ phase 13 the two-level route
+
+HIER_WORLD, HIER_INTRA = 4, 2
+HIER_STEPS = 3
+HIER_BATCH_ELEMS = 64 * 1024 * 1024 // 4  # one 64 MiB fp32 fused batch
+HIER_ADASUM_ELEMS = 1 << 20
+HIER_TIMEOUT_S = 360
+ADASUM_REL_BOUND = 2.0e-7  # phase 9's reading of the tree against plain
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _digest(*tensors) -> str:
+    """One hash of the tensors' bits, to compare ranks bit for bit."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(
+            torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rank_inputs(n, m, seed, lo=None, hi=None):
+    """Every rank's input on the card, from ``seed + r``: integers in
+    [lo, hi] as fp32, or N(0, 1) without bounds."""
+    import torch
+
+    rows = []
+    for r in range(n):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed + r)
+        if lo is None:
+            rows.append(torch.randn(m, generator=g, device="cuda"))
+        else:
+            rows.append(torch.randint(lo, hi + 1, (m,), generator=g,
+                                      device="cuda").float())
+    return rows
+
+
+def _hier_kernels_vs_plain(n):
+    """B3 at the inter hop's rows of a 64 MiB batch and B4 at
+    hierarchical Adasum's shard halves, against their plain versions
+    (B3 bit for bit, B4 within 1e-5 of the largest magnitude)."""
+    import torch
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    L, H = HIER_INTRA, n // HIER_INTRA
+    chunks = _rank_inputs(1, HIER_BATCH_ELEMS // L, 41)[0].view(H, -1)
+    q, s = ck.int8_block_quantize(chunks, 512, seed=3, stream=5, rows=True)
+    qp, sp = ck.int8_block_quantize_plain(chunks, 512, seed=3, stream=5,
+                                          rows=True)
+    b3 = torch.equal(q, qp) and torch.equal(s, sp)
+    a, b = (x.view(-1) for x in _rank_inputs(2, HIER_ADASUM_ELEMS // (
+        2 * L), 43))
+    dots = ck.adasum_dots(a, b)
+    out = ck.adasum_apply(a, b, dots)
+    want = ck.adasum_apply_plain(a, b, ck.adasum_dots_plain(a, b))
+    b4 = float((out - want).abs().max() / want.abs().max())
+    return {"b3_rows": list(chunks.shape), "b3_bitwise": b3,
+            "b4_numel": a.numel(), "b4_rel_err": b4}
+
+
+def _handed_bounds(P, batches, L, H, block):
+    """Bounds on the bytes a step of ``batches`` two-level hier_int8
+    batches with a residual, ``P`` elements in all, hands each hop's
+    collectives: a batch of m elements pads to m_pad (below m + L) and
+    hands the intra hops ``2 m_pad`` (the bf16 reduce-scatter), ``2 m_pad
+    / L`` (the allgather) and ``4 m_pad / L`` (the fp32 residual shard),
+    and the inter hop ``(H + 1) (chunk + 4 nb)``, chunk = ceil(m_pad / L /
+    H) int8 values and nb = ceil(chunk / block) fp32 scales."""
+    per = (2 * L + 6) / L
+    intra = (P * per, (P + batches * (L - 1)) * per)
+    shards = P / (L * H)
+    inter = ((H + 1) * shards * (1 + 4 / block),
+             (H + 1) * ((shards + 2 * batches) * (1 + 4 / block)
+                        + 4 * batches))
+    return intra, inter
+
+
+def _staged_step(opt, loss_fn):
+    """:func:`_step`, reading the allocator after each stage: returns the
+    loss and GB allocated after the stage (``state``: once the gradients
+    are let go) and at its peak."""
+    import torch
+
+    mem = {}
+
+    def read(stage):
+        mem[stage] = torch.cuda.memory_allocated() / 1e9
+        mem[stage + "_peak"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.reset_peak_memory_stats()
+    mem["state"] = torch.cuda.memory_allocated() / 1e9
+    loss = loss_fn()
+    read("forward")
+    loss.backward()
+    read("backward")
+    opt.step()
+    read("step")
+    return loss, mem
+
+
+def _hier_rank(rank, n, port, results):
+    """One rank of phase 13: its own process on the one card, in a gloo
+    world that it makes and ``hvd.init`` adopts. Puts ``(rank, readings)``
+    on ``results``; any failed check is a reading the parent fails on,
+    and an exception ends the process non-zero."""
+    os.environ.update(HOROVOD_INTRA_SIZE=str(HIER_INTRA),
+                      HOROVOD_HIERARCHICAL="on", HOROVOD_RANK=str(rank),
+                      HOROVOD_SIZE=str(n))
+    sys.path.insert(0, HERE)
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=n)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import adasum
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.ops.fusion import hop_bytes
+
+    hvd.init(device="cuda")
+    st = basics.state()
+    fusion = st.fusion
+    L, H = hvd.local_size(), hvd.cross_size()
+    out = {"rank": rank, "adopted": not st.owns_group, "L": L, "H": H}
+    if rank == 0:
+        out["kernels_vs_plain"] = _hier_kernels_vs_plain(n)
+    for k in ck.KERNELS:
+        k.launches = 0
+    _zero_flash()
+    dev = torch.device("cuda")
+    checks = {}
+
+    # (a) integer-valued fp32: the two-level route against the flat
+    # route (an empty join mask keeps a batch flat) and the exact sum
+    xs = _rank_inputs(n, 1 << 20, 100, -1000, 1000)
+    exact = torch.stack(xs).sum(0)
+    h0 = fusion.hier_dispatches
+    two = [hvd.allreduce(xs[rank], op=op) for op in (hvd.Sum, hvd.Average)]
+    checks["allreduce_took_two_level"] = fusion.hier_dispatches - h0 == 2
+    with hvd.join_ranks([]):
+        flat = [hvd.allreduce(xs[rank], op=op)
+                for op in (hvd.Sum, hvd.Average)]
+    checks["allreduce_sum_equals_flat_and_exact"] = (
+        torch.equal(two[0], flat[0]) and torch.equal(two[0], exact))
+    checks["allreduce_avg_equals_flat"] = (
+        torch.equal(two[1], flat[1]) and torch.equal(two[1], exact / n))
+    panes = _rank_inputs(n, 2 * n * 1000, 200, -1000, 1000)
+    got = hvd.reducescatter(panes[rank].view(2 * n, 1000), op=hvd.Sum)
+    want = torch.stack(panes).sum(0).view(2 * n, 1000)[2 * rank:2 * rank + 2]
+    checks["reducescatter_even"] = torch.equal(got, want)
+    uneven = _rank_inputs(n, (n + 1) * 1000, 300, -1000, 1000)
+    got = hvd.reducescatter(uneven[rank].view(n + 1, 1000), op=hvd.Average)
+    rows = slice(0, 2) if rank == 0 else slice(rank + 1, rank + 2)
+    want = (torch.stack(uneven).sum(0).view(n + 1, 1000) / n)[rows]
+    checks["reducescatter_uneven"] = torch.equal(got, want)
+    base = torch.arange(2 * n * 7, device=dev, dtype=torch.float32).view(
+        2 * n, 7)
+    got = hvd.alltoall(base + 1000 * rank)
+    want = torch.cat([(base + 1000 * s)[2 * rank:2 * rank + 2]
+                      for s in range(n)])
+    checks["alltoall_equal"] = torch.equal(got, want)
+    sends = torch.full((sum(range(1, n + 1)), 3), float(rank), device=dev)
+    got, splits = hvd.alltoall(sends, splits=list(range(1, n + 1)))
+    want = torch.cat([torch.full((rank + 1, 3), float(s), device=dev)
+                      for s in range(n)])
+    checks["alltoall_splits"] = (torch.equal(got, want)
+                                 and splits.tolist() == [rank + 1] * n)
+    gathered = hvd.grouped_allgather([xs[rank][:5], panes[rank][:3]])
+    checks["grouped_allgather"] = (
+        torch.equal(gathered[0], torch.cat([x[:5] for x in xs]))
+        and torch.equal(gathered[1], torch.cat([p[:3] for p in panes])))
+    grouped = hvd.grouped_reducescatter(
+        [panes[rank].view(2 * n, 1000), uneven[rank].view(n + 1, 1000)],
+        op=hvd.Sum)
+    checks["grouped_reducescatter"] = (
+        torch.equal(grouped[0], torch.stack(panes).sum(0).view(
+            2 * n, 1000)[2 * rank:2 * rank + 2])
+        and torch.equal(grouped[1], torch.stack(uneven).sum(0).view(
+            n + 1, 1000)[rows]))
+    with hvd.join_ranks([n - 1]):
+        got = hvd.allreduce(xs[rank], op=hvd.Average)
+    checks["join_masked_average"] = torch.equal(
+        got, torch.stack(xs[:n - 1]).sum(0) / (n - 1))
+
+    # (b) hier_int8 on one 64 MiB fused batch: integers bf16 carries
+    # exactly, so the intra hops are exact and the error is the inter
+    # hop's two stages plus the last bf16 rounding
+    xs = _rank_inputs(n, HIER_BATCH_ELEMS, 400, -64, 64)
+    exact = torch.stack(xs).sum(0)
+    nodes = [torch.stack(xs[h * L:(h + 1) * L]).sum(0) for h in range(H)]
+    counters = ("wire_bytes_intra", "wire_bytes_inter", "handed_bytes_intra",
+                "handed_bytes_inter")
+    before = [getattr(fusion, c) for c in counters]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    got = hvd.allreduce(xs[rank], op=hvd.Sum,
+                        compression=hvd.Compression.hier_int8)
+    torch.cuda.synchronize()
+    moved = [getattr(fusion, c) - b for c, b in zip(counters, before)]
+    chunk = -(-HIER_BATCH_ELEMS // (L * H))
+    shaped = [2 * HIER_BATCH_ELEMS + 2 * HIER_BATCH_ELEMS // L,
+              (H + 1) * (chunk + 4 * -(-chunk // 512))]
+    big = float(exact.abs().max())
+    budget = (sum(float(s.abs().max()) for s in nodes) + 1.01 * big) / 127 \
+        + big * 2.0 ** -8
+    out["hier_int8"] = {
+        "elems": HIER_BATCH_ELEMS, "ms": (time.monotonic() - t0) * 1e3,
+        "max_abs_err": float((got - exact).abs().max()), "budget": budget,
+        "digest": _digest(got),
+        "intra_bytes": moved[0], "inter_bytes": moved[1],
+        "handed_intra_bytes": moved[2], "handed_inter_bytes": moved[3],
+        "shape_handed_bytes": shaped,
+        "model_intra_bytes": hop_bytes(HIER_BATCH_ELEMS, "bf16", 4, L,
+                                       512)[0],
+        "model_inter_bytes": hop_bytes(-(-HIER_BATCH_ELEMS // L), "int8", 4,
+                                       H, 512)[0]}
+    checks["hier_int8_within_budget"] = (
+        out["hier_int8"]["max_abs_err"] <= budget)
+    # counted at the collectives' calls, against the batch's shapes
+    checks["hier_int8_handed_bytes"] = moved[2:] == shaped
+    del xs, exact, nodes, got
+
+    # (c) hierarchical Adasum: fp32 against the fp64 host oracle over the
+    # per-node sums, int8 within its quanta; every rank bitwise equal
+    xs = _rank_inputs(n, HIER_ADASUM_ELEMS, 500)
+    fp32 = hvd.adasum_allreduce(xs[rank], hierarchical=True)
+    int8 = hvd.adasum_allreduce(xs[rank], hierarchical=True,
+                                inter_wire="int8", seed=11)
+    want = adasum.adasum_vhdd_host([
+        torch.stack(xs[h * L:(h + 1) * L]).double().sum(0).cpu().numpy()
+        for h in range(H)])
+    scale = float(np.abs(want).max())
+    rel = float(np.abs(fp32.double().cpu().numpy() - want).max()) / scale
+    quanta = float(np.abs(int8.double().cpu().numpy() - want).max()) / (
+        scale / 127)
+    out["adasum"] = {"elems": HIER_ADASUM_ELEMS, "fp32_rel_err": rel,
+                     "int8_err_quanta": quanta,
+                     "fp32_digest": _digest(fp32),
+                     "int8_digest": _digest(int8)}
+    checks["adasum_fp32_within_bound"] = rel <= ADASUM_REL_BOUND
+    checks["adasum_int8_within_quanta"] = quanta <= 6.0
+    del xs
+
+    # (d) GPT-2 medium at full width through DistributedOptimizer on
+    # hier_int8 with error feedback: each rank a quarter of phase 5's batch
+    cfg = dataclasses.replace(TransformerConfig.gpt2_medium(), remat=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        named_parameters=model.named_parameters(), op=hvd.Average,
+        compression=hvd.Compression.hier_int8, error_feedback=True)
+    tokens, labels = _lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    per = TRAIN_BATCH // n
+    mine = slice(rank * per, (rank + 1) * per)
+    params = list(model.parameters())
+    counters = {"intra_bytes": "wire_bytes_intra",
+                "inter_bytes": "wire_bytes_inter",
+                "hier_batches": "hier_dispatches",
+                "handed_intra_bytes": "handed_bytes_intra",
+                "handed_inter_bytes": "handed_bytes_inter"}
+    train = {"losses": [], "step_ms": [], "param_digests": [],
+             "memory_gb": [], **{key: [] for key in counters}}
+    for _ in range(HIER_STEPS):
+        before = {key: getattr(fusion, c) for key, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss, mem = _staged_step(
+            opt, lambda: _loss(model, tokens[mine], labels[mine]))
+        train["losses"].append(float(loss.detach()))
+        train["step_ms"].append((time.monotonic() - t0) * 1e3)
+        train["param_digests"].append(_digest(*params))
+        train["memory_gb"].append(mem)
+        for key, c in counters.items():
+            train[key].append(getattr(fusion, c) - before[key])
+    numel = sum(p.numel() for p in params)
+    handed_ok = True
+    for step in range(HIER_STEPS):
+        bounds = _handed_bounds(numel, train["hier_batches"][step], L, H, 512)
+        for (lo, hi), key in zip(bounds, ("handed_intra_bytes",
+                                          "handed_inter_bytes")):
+            handed_ok &= lo <= train[key][step] <= hi
+    checks["train_handed_bytes_within_shapes"] = handed_ok
+    train.update(
+        params=numel, handed_bounds=_handed_bounds(
+            numel, train["hier_batches"][-1], L, H, 512),
+        peak_memory_gb=max(v for m in train["memory_gb"]
+                           for k, v in m.items() if k.endswith("_peak")),
+        residual_norm=opt.residual_norm(),
+        model_intra_bytes=hop_bytes(numel, "bf16", 4, L, 512)[0],
+        model_inter_bytes=hop_bytes(-(-numel // L), "int8", 4, H, 512)[0])
+    out["train"] = train
+    out["launches"] = {k.__name__: k.launches for k in ck.KERNELS}
+    out["flash"] = _read_flash()
+    out["checks"] = checks
+    opt.remove_hooks()
+    hvd.shutdown()
+    dist.destroy_process_group()
+    results.put((rank, out))
+
+
+def phase_hier(card, fp32_bytes_per_step):
+    """Phase 13: the two-level route in a world of 4 processes, all on
+    the one card, over gloo (NCCL refuses two ranks on one device), with
+    ``HOROVOD_INTRA_SIZE=2`` and ``HOROVOD_HIERARCHICAL=on``: 2 nodes of
+    2 ranks. Each rank (:func:`_hier_rank`, started fresh, its counters
+    at 0) holds B3 and B4 against their plain versions at this phase's
+    shapes (rank 0), then on integer-valued fp32 compares the two-level
+    allreduce with the flat route and the exact sum, reducescatter even
+    and uneven, alltoall equal and with splits, the grouped allgather
+    and reducescatter and a join-masked Average, bit for bit; runs
+    ``Compression.hier_int8`` on a 64 MiB batch within the two-stage
+    quantum budget, the bytes it handed each hop's collectives equal to
+    its shapes'; hierarchical Adasum in fp32 (within 2.0e-7 of the
+    fp64 host oracle over the node sums) and with the int8 inter wire
+    (within 6 quanta); and trains GPT-2 medium at full width 3 steps
+    through ``DistributedOptimizer(compression=Compression.hier_int8,
+    error_feedback=True)``, each rank a quarter of phase 5's batch, the
+    bytes handed each hop within :func:`_handed_bounds` and the
+    allocator read after each stage of a step. Every rank must give the
+    same bits, and the parameters must agree after
+    every step. Returns the launches of B3, B4 and the flash kernels,
+    summed over the ranks."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    n = HIER_WORLD
+    procs = [ctx.Process(target=_hier_rank, args=(r, n, port, results),
+                         daemon=True) for r in range(n)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    got = {}
+    while len(got) < n:
+        waited = time.monotonic() - t0
+        dead = [r for r, p in enumerate(procs)
+                if p.exitcode not in (None, 0)]
+        if dead or waited > HIER_TIMEOUT_S:
+            for p in procs:
+                p.kill()
+            fail(f"hier: ranks {dead} ended with "
+                 f"{[procs[r].exitcode for r in dead]}" if dead else
+                 f"hier: the world did not finish in {HIER_TIMEOUT_S} s")
+        try:
+            rank, out = results.get(timeout=5)
+        except queue.Empty:
+            continue
+        got[rank] = out
+    for p in procs:
+        p.join(timeout=60)
+        if p.exitcode != 0:
+            p.kill()
+            fail(f"hier: a rank exited with {p.exitcode}")
+    wall_s = time.monotonic() - t0
+    outs = [got[r] for r in range(n)]
+    for o in outs:
+        bad = [k for k, ok in o["checks"].items() if not ok]
+        if bad:
+            fail(f"hier rank {o['rank']}: failed {bad}")
+        if not o["adopted"] or (o["L"], o["H"]) != (HIER_INTRA,
+                                                    n // HIER_INTRA):
+            fail(f"hier rank {o['rank']}: world {o['L']} x {o['H']}, "
+                 f"adopted {o['adopted']}")
+    kvp = outs[0]["kernels_vs_plain"]
+    if not kvp["b3_bitwise"] or kvp["b4_rel_err"] > 1e-5:
+        fail(f"hier: kernels against plain {kvp}")
+    for key in (("hier_int8", "digest"), ("adasum", "fp32_digest"),
+                ("adasum", "int8_digest")):
+        if len({o[key[0]][key[1]] for o in outs}) != 1:
+            fail(f"hier: the ranks' {'/'.join(key)} differ")
+    for step in range(HIER_STEPS):
+        if len({o["train"]["param_digests"][step] for o in outs}) != 1:
+            fail(f"hier train step {step}: the ranks' parameters differ")
+    losses = [sum(o["train"]["losses"][s] for o in outs) / n
+              for s in range(HIER_STEPS)]
+    step_ms = [max(o["train"]["step_ms"][s] for o in outs)
+               for s in range(HIER_STEPS)]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < \
+            losses[0]:
+        fail(f"hier train: the mean loss did not fall: {losses}")
+    if max(step_ms) > 60e3:
+        fail(f"hier train: a step took {max(step_ms):.0f} ms (over 60 s)")
+    t = outs[0]["train"]
+    if any(b < 1 for b in t["hier_batches"]) or any(
+            b != t["model_intra_bytes"] for b in t["intra_bytes"]):
+        fail(f"hier train: two-level batches {t['hier_batches']}, intra "
+             f"bytes {t['intra_bytes']} (model {t['model_intra_bytes']})")
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name in outs[0]["launches"]}
+    flash = ({k: sum(o["flash"][0][k] for o in outs)
+              for k in outs[0]["flash"][0]},
+             {k: sum(o["flash"][1][k] for o in outs)
+              for k in outs[0]["flash"][1]})
+    for name in ("int8_block_quantize", "adasum_dots", "adasum_apply"):
+        if launches[name] < 1:
+            fail(f"hier: {name} never launched in the phase")
+    if min(flash[1].values()) < 1:
+        fail(f"hier: a flash kernel took no tensor-core launch {flash[1]}")
+    log("hier: " + json.dumps({
+        "world": n, "intra": HIER_INTRA, "backend": "gloo, one card",
+        "wall_s": wall_s, "mean_losses": losses, "step_ms_max_rank":
+        step_ms, "step_ms_by_rank": [o["train"]["step_ms"] for o in outs],
+        "bytes_per_step": {
+            "intra": t["intra_bytes"], "inter": t["inter_bytes"],
+            "model_intra": t["model_intra_bytes"],
+            "model_inter": t["model_inter_bytes"],
+            "handed_intra": t["handed_intra_bytes"],
+            "handed_inter": t["handed_inter_bytes"],
+            "handed_bounds_last_step": t["handed_bounds"],
+            "phase5_fp32": fp32_bytes_per_step,
+            "intra_over_phase5": t["intra_bytes"][-1] / fp32_bytes_per_step,
+            "inter_over_phase5": t["inter_bytes"][-1] / fp32_bytes_per_step},
+        "two_level_batches_per_step": t["hier_batches"],
+        "params": t["params"],
+        "peak_memory_gb_by_rank": [o["train"]["peak_memory_gb"]
+                                   for o in outs],
+        "memory_gb_by_stage_rank0": t["memory_gb"],
+        "residual_norm": t["residual_norm"],
+        "hier_int8": {k: v for k, v in outs[0]["hier_int8"].items()
+                      if k != "digest"},
+        "adasum": {k: v for k, v in outs[0]["adasum"].items()
+                   if "digest" not in k},
+        "kernels_vs_plain": kvp, "launches": launches,
+        "flash_launches": flash[0], "flash_tensor_core_launches": flash[1],
+        "card": card,
+    }, sort_keys=True))
+    return launches, flash
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2398,6 +2870,15 @@ def main() -> int:
     t0 = time.monotonic()
     flash_runs.append(phase_fused_xent(card, train_peak_gb))
     log(f"fused xent phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 13: the two-level route in a gloo world of 4 on the card
+    t0 = time.monotonic()
+    hier_launches, hier_flash = phase_hier(card, fused_bytes_per_step)
+    flash_runs.append(hier_flash)
+    for name in ("int8_block_quantize", "adasum_dots", "adasum_apply"):
+        wire_launches[name] += hier_launches[name]
+    log(f"hier phase: {time.monotonic() - t0:.2f} s")
     flash_launches = {k: sum(r[0][k] for r in flash_runs)
                       for k in flash_runs[1][0]}
     flash_tc_launches = {k: sum(r[1][k] for r in flash_runs)

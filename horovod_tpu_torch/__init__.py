@@ -23,6 +23,14 @@ slices are ported:
   the allreduce, ``error_feedback=True`` on the optimizer), and
   ``op=hvd.Adasum`` combines gradients by VHDD Adasum, all on the wire
   kernels of ``ops/cuda_kernels.py``;
+- the two-level route (``HOROVOD_HIERARCHICAL``, ``HOROVOD_INTRA_SIZE``):
+  fused allreduces, reducescatter and allgather reduce within each node,
+  then across nodes; ``Compression.hier_int8`` puts bf16 on the intra
+  hops and int8 on the inter hop; ``adasum_allreduce(hierarchical=True)``
+  sums within each node and runs Adasum across nodes;
+- the rest of Horovod's collectives: ``alltoall``, ``reducescatter``,
+  the grouped allgather and reducescatter, ``flush`` and ``join``
+  (``join_ranks``) with their handles;
 - serving: ``serve()`` answers HTTP ``POST /generate`` through a
   continuous batcher and an engine over a paged KV pool, and attention
   reads the pool through a hand-written CUDA kernel
@@ -33,20 +41,36 @@ It imports ``torch``, numpy and the standard library only.
 
 from .common.basics import (  # noqa: F401
     HorovodInternalError,
+    HostsUpdatedInterrupt,
     NotInitializedError,
     add_process_set,
+    ccl_built,
     cross_rank,
     cross_size,
+    cuda_built,
+    ddl_built,
+    get_config,
+    get_process_set,
+    get_process_set_ids,
     global_process_set,
+    gloo_built,
+    gloo_enabled,
     init,
+    is_homogeneous,
     is_initialized,
     local_rank,
     local_size,
+    mpi_built,
+    mpi_enabled,
     mpi_threads_supported,
+    nccl_built,
     rank,
     remove_process_set,
+    rocm_built,
     shutdown,
     size,
+    topology,
+    xla_built,
 )
 from .common.guard import check as guard_check  # noqa: F401
 from .common.guard import status as guard_status  # noqa: F401
@@ -68,6 +92,7 @@ from .ops.adasum import adasum_allreduce  # noqa: F401
 from .ops.compression import (  # noqa: F401
     Compression,
     Compressor,
+    HierarchicalInt8Compressor,
     Int8BlockCompressor,
     Int8Compressor,
 )
@@ -78,14 +103,26 @@ from .ops.eager import (  # noqa: F401
     allreduce_,
     allreduce_async,
     allreduce_async_,
+    alltoall,
+    alltoall_async,
     barrier,
     broadcast,
     broadcast_,
     broadcast_async,
     broadcast_async_,
+    current_join_mask,
+    flush,
+    grouped_allgather,
+    grouped_allgather_async,
     grouped_allreduce,
     grouped_allreduce_async,
+    grouped_reducescatter,
+    grouped_reducescatter_async,
+    join,
+    join_ranks,
     poll,
+    reducescatter,
+    reducescatter_async,
     synchronize,
 )
 from .ops.flash_attention import flash_attention  # noqa: F401

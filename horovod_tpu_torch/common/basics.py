@@ -51,6 +51,11 @@ class HorovodInternalError(RuntimeError):
     contract restores from (the grad guard's escalation raises it)."""
 
 
+class HostsUpdatedInterrupt(Exception):
+    """The world's membership changed and the current state is still
+    good (the elastic contract, ``horovod/common/elastic.py``)."""
+
+
 class _GlobalState:
     def __init__(self):
         self.lock = threading.Lock()
@@ -133,7 +138,8 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None, *,
         _state.intra_group, _state.inter_group = intra, inter
         _state.fusion = FusionManager(cfg.fusion_threshold_bytes,
                                       wire=cfg.fusion_wire,
-                                      wire_block=cfg.fusion_wire_block)
+                                      wire_block=cfg.fusion_wire_block,
+                                      wire_hier=cfg.fusion_wire_hier)
         _state.owns_group = owns
         _state.initialized = True
 
@@ -187,8 +193,68 @@ def cross_rank() -> int:
     return _require_init().topology.cross_rank
 
 
+def topology() -> topo_mod.Topology:
+    return _require_init().topology
+
+
+def get_config() -> TrainConfig:
+    """The ``HOROVOD_*`` snapshot taken at ``init()``."""
+    return _require_init().config
+
+
+def is_homogeneous() -> bool:
+    """True when every node holds the same number of ranks (the port
+    lays ranks out node by node, ``local_size`` a node)."""
+    topo = _require_init().topology
+    return topo.size == topo.cross_size * topo.local_size
+
+
+# What this build runs on: NCCL on the card and gloo on the CPU, both
+# from ``torch.distributed``; no MPI, DDL, oneCCL, ROCm or XLA.
+
+
 def mpi_threads_supported() -> bool:
     """The port runs no MPI."""
+    return False
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def gloo_built() -> bool:
+    return True
+
+
+def gloo_enabled() -> bool:
+    return True
+
+
+def nccl_built() -> bool:
+    return True
+
+
+def cuda_built() -> bool:
+    return True
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def rocm_built() -> bool:
+    return False
+
+
+def xla_built() -> bool:
     return False
 
 
@@ -204,3 +270,11 @@ def remove_process_set(ps: ProcessSet) -> None:
 
 def global_process_set() -> ProcessSet:
     return _require_init().process_set_table.global_set
+
+
+def get_process_set_ids() -> Sequence[int]:
+    return _require_init().process_set_table.ids()
+
+
+def get_process_set(process_set_id: int) -> ProcessSet:
+    return _require_init().process_set_table.get(process_set_id)

@@ -6,16 +6,20 @@ package the same way:
 
 * :class:`TrainConfig`, the training part (fusion threshold and cycle
   time, the fused buffer's wire format and block, the launcher's rank
-  and size variables, the hierarchical switches), snapshotted at
-  ``hvd.init()`` as the JAX package does;
+  and size variables, the two-level switches ``HOROVOD_HIERARCHICAL``,
+  ``HOROVOD_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER``,
+  ``HOROVOD_FUSION_WIRE_HIER`` and ``HOROVOD_INTRA_SIZE``), snapshotted
+  at ``hvd.init()`` as the JAX package does;
 * :class:`ServeConfig`, the serving part (``HOROVOD_SERVE_*``), read by
   :func:`live_config` when a serving object is built (serving needs no
   init step).
 
-Knobs of planes not ported yet (the hierarchical wire and autotune of
-ROADMAP A3, timeline, KV transfer, the fleet router) come with those
-planes; ``HOROVOD_FUSION_WIRE=auto`` and ``HOROVOD_FUSION_WIRE_HIER``
-raise until then.
+Knobs of planes not ported yet (timeline, KV transfer, the fleet
+router) come with those planes. ``HOROVOD_FUSION_WIRE=auto`` raises: it
+needs the wire tuner of ROADMAP A12. ``HOROVOD_CYCLE_TIME`` is parsed
+and kept, not acted on: with one process a rank, a flush driven by the
+clock would let ranks cut different batches, which needs the
+coordinator's negotiation of ready tensors (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -35,6 +39,9 @@ DEFAULT_CYCLE_TIME_MS = 1.0
 # wire's scale granularity in elements (HOROVOD_FUSION_WIRE_BLOCK).
 DEFAULT_FUSION_WIRE = "fp32"
 DEFAULT_FUSION_WIRE_BLOCK = 512
+# Two-level routing (HOROVOD_HIERARCHICAL): auto engages it only on
+# positive evidence of a second level (common/topology.py).
+DEFAULT_HIERARCHICAL = "auto"
 # consecutive non-finite steps the grad guard skips before it escalates
 DEFAULT_GUARD_MAX_SKIPS = 3
 
@@ -114,13 +121,8 @@ def _fusion_wire() -> str:
                        ("fp32", "bf16", "int8", "auto"))
     if wire == "auto":
         raise NotImplementedError(
-            "HOROVOD_FUSION_WIRE=auto needs the wire autotuner, not ported "
-            "yet (ROADMAP A3); use fp32, bf16 or int8"
-        )
-    if _env_bool("HOROVOD_FUSION_WIRE_HIER"):
-        raise NotImplementedError(
-            "HOROVOD_FUSION_WIRE_HIER names the hierarchical route, not "
-            "ported yet (ROADMAP A3)"
+            "HOROVOD_FUSION_WIRE=auto needs the wire tuner, not ported "
+            "yet (ROADMAP A12's autotune); use fp32, bf16 or int8"
         )
     return wire
 
@@ -130,15 +132,23 @@ class TrainConfig:
     """Snapshot of the training knobs (field names as in the JAX Config)."""
 
     fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD
-    # parsed and kept for the negotiated cycle of the multi-card wire
-    # (ROADMAP A3): the port's fusion ticks at poll/wait, not by clock
+    # parsed and kept, not acted on: the port's fusion ticks at
+    # poll/wait/step, which every rank reaches after the same enqueues;
+    # a clock would need the negotiation of ready tensors (ROADMAP A3)
     cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS
     # the fused buffer's wire when a call names none: fp32, bf16 or int8
     fusion_wire: str = DEFAULT_FUSION_WIRE
     fusion_wire_block: int = DEFAULT_FUSION_WIRE_BLOCK
-    # parsed and kept for the multi-card wire (ROADMAP A3); the fused
-    # batch is flat until then
+    # an int8 wire places bf16 on the intra hops and int8 on the inter
+    # hop whenever a two-level split resolves (Compression.hier_int8's
+    # placement for every int8 batch)
+    fusion_wire_hier: bool = False
+    # the legacy switches, read as HOROVOD_HIERARCHICAL=on
     hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    # two-level routing of the fused batch, reducescatter and allgather
+    # (common/topology.py hierarchy_stages): auto, on or off
+    hierarchical: str = DEFAULT_HIERARCHICAL
     # ranks per node for the two-level split (HOROVOD_INTRA_SIZE); a
     # value that does not divide the world degrades to gcd(intra, world)
     intra_size: Optional[int] = None
@@ -166,8 +176,16 @@ class TrainConfig:
             fusion_wire_block=_env_int(
                 "HOROVOD_FUSION_WIRE_BLOCK", DEFAULT_FUSION_WIRE_BLOCK
             ),
+            fusion_wire_hier=_env_bool("HOROVOD_FUSION_WIRE_HIER"),
             hierarchical_allreduce=_env_bool(
                 "HOROVOD_HIERARCHICAL_ALLREDUCE"
+            ),
+            hierarchical_allgather=_env_bool(
+                "HOROVOD_HIERARCHICAL_ALLGATHER"
+            ),
+            hierarchical=_env_choice(
+                "HOROVOD_HIERARCHICAL", DEFAULT_HIERARCHICAL,
+                ("auto", "on", "off"),
             ),
             intra_size=_env_opt_int("HOROVOD_INTRA_SIZE"),
             rank=_env_opt_int("HOROVOD_RANK"),

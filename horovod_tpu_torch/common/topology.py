@@ -17,9 +17,10 @@ reads the world from ``torch.distributed`` and the launcher's
   local_size``, ``cross_size = size // local_size``: ranks are laid out
   node by node.
 
-:func:`stage_groups` builds the two-level groups of the later
-hierarchical wire: one intra group per node, one inter group per
-node-local slot.
+:func:`stage_groups` builds the two-level groups, once, at
+``hvd.init()``: one intra group per node, one inter group per
+node-local slot. :func:`hierarchy_stages` is the one routing decision
+(``HOROVOD_HIERARCHICAL``) every two-level wire consults.
 """
 
 from __future__ import annotations
@@ -94,6 +95,57 @@ def discover(rank: int, size: int,
             + "; ".join(mismatches)
         )
     return topo
+
+
+def hierarchy_stages(world: Optional[int] = None,
+                     mode: Optional[str] = None,
+                     intra: Optional[int] = None):
+    """The two-level split's rank lists ``(intra, inter)``
+    (:func:`stage_ranks`), or None when the wire stays flat; the JAX
+    package's ``hierarchy_stages``. ``mode`` defaults to
+    ``HOROVOD_HIERARCHICAL``, and the legacy
+    ``HOROVOD_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER`` read as ``on``:
+
+    * ``off``: always None;
+    * ``on``: the split whenever one resolves (an explicit
+      ``HOROVOD_INTRA_SIZE`` works on one host);
+    * ``auto``: the split only on positive evidence of a second level:
+      an explicit intra size, or a launcher whose ``HOROVOD_LOCAL_SIZE``
+      and ``HOROVOD_CROSS_SIZE`` are both above 1.
+
+    ``world`` defaults to the initialized world's size (1 before
+    ``init``); ``intra`` to the intra size, the launcher's local size,
+    or the initialized topology's. An intra size that does not divide
+    the world degrades to the gcd; a split of one node or of one rank
+    a node is no split."""
+    from . import basics
+
+    st = basics.state()
+    cfg = st.config if st.initialized else TrainConfig.from_env()
+    topo = st.topology if st.initialized else None
+    if mode is None:
+        mode = cfg.hierarchical
+        if (cfg.hierarchical_allreduce or cfg.hierarchical_allgather) \
+                and mode != "off":
+            mode = "on"
+    if mode == "off":
+        return None
+    if world is None:
+        world = topo.size if topo is not None else 1
+    if intra is None:
+        launcher = (cfg.local_size or 0) > 1 and (cfg.cross_size or 0) > 1
+        if mode == "auto" and cfg.intra_size is None and not launcher:
+            return None
+        if cfg.intra_size is not None:
+            intra = cfg.intra_size
+        elif cfg.local_size is not None:
+            intra = cfg.local_size
+        else:
+            intra = topo.local_size if topo is not None else world
+    local = gcd_degrade(int(intra), int(world))
+    if local <= 1 or local >= world:
+        return None
+    return stage_ranks(int(world), local)
 
 
 def stage_ranks(size: int, local: int) -> Tuple[List[List[int]],

@@ -18,12 +18,21 @@ change when either input is rescaled.
   input dtype restored at the end. A process set gathers its members'
   tensors and runs the tree; non-members get their input back. A world
   of one returns the input.
+- ``hierarchical=True`` is the reference's hierarchical Adasum (Sum
+  within the node, Adasum across nodes; ``horovod_tpu/ops/adasum.py``
+  ``_hier_adasum``) on the groups ``hvd.init()`` built: an intra
+  reduce-scatter leaves each rank 1/L of its node's sum, VHDD runs over
+  the inter group on those shards with every combine's three dots
+  completed by an allreduce over the intra group (so the coefficients
+  are the full vectors'), and an intra allgather reassembles the
+  result. ``inter_wire`` (fp32, bf16 or int8) carries the VHDD's
+  half-exchanges of both sweeps; int8 quantizes them on kernel B3, and
+  a rank consumes its own dequantized piece wherever a peer consumes
+  the received one, so every replica stays bitwise equal. Process sets
+  raise, as in the reference.
 - :func:`vhdd_wire_bytes` and the host oracles
   (:func:`adasum_pair_host`, :func:`adasum_vhdd_host`,
   :func:`adasum_tree_host`) are numpy copies of the JAX package's.
-
-The hierarchical variant and the int8/bf16 VHDD wires belong to the
-hierarchical route (ROADMAP A3/A5): ``hierarchical=True`` raises.
 """
 
 from __future__ import annotations
@@ -34,8 +43,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..common import basics
 from . import cuda_kernels
-from ._collectives import gather_into
+from ._collectives import exchange, gather_into, scatter_reduce_into
 
 
 def adasum_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -66,29 +76,22 @@ def _tree_combine(stack: Sequence[torch.Tensor]) -> torch.Tensor:
     return vals[0]
 
 
-def _exchange(send: Optional[torch.Tensor], recv: Optional[torch.Tensor],
-              peer: int) -> None:
-    """Send ``send`` to and/or receive ``recv`` from ``peer`` as one
-    batched point-to-point call."""
-    ops = []
-    if send is not None:
-        ops.append(dist.P2POp(dist.isend, send, peer))
-    if recv is not None:
-        ops.append(dist.P2POp(dist.irecv, recv, peer))
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-
-
 def adasum_allreduce(tensor: torch.Tensor, process_set=None,
-                     hierarchical: bool = False) -> torch.Tensor:
+                     hierarchical: bool = False, inter_wire: str = "fp32",
+                     seed: int = 0) -> torch.Tensor:
     """Adasum across the world (VHDD) or across ``process_set`` (an
-    allgather over the set, then the tree). Every rank of the world, or
-    of the set, calls it with a tensor of the same shape and dtype."""
+    allgather over the set, then the tree); with ``hierarchical=True``,
+    Sum within each node and VHDD Adasum across nodes, ``inter_wire``
+    on the inter hop and ``seed`` keying its int8 rounding. Every rank
+    of the world, or of the set, calls it with a tensor of the same
+    shape and dtype."""
     if hierarchical:
-        raise NotImplementedError(
-            "hierarchical Adasum needs the hierarchical route, not ported "
-            "yet (ROADMAP A3/A5)"
-        )
+        if process_set is not None:
+            raise NotImplementedError(
+                "hierarchical Adasum composes with the whole two-level "
+                "world only, not with a process set"
+            )
+        return _hier_adasum(tensor, inter_wire, seed)
     n, r = dist.get_world_size(), dist.get_rank()
     if process_set is not None and process_set.process_set_id != 0 and (
         process_set.size != n
@@ -105,6 +108,39 @@ def adasum_allreduce(tensor: torch.Tensor, process_set=None,
     return _vhdd_allreduce(tensor, n, r)
 
 
+def _hier_adasum(tensor: torch.Tensor, inter_wire: str,
+                 seed: int) -> torch.Tensor:
+    """Intra Sum by reduce-scatter, VHDD Adasum across the inter group
+    on the 1/L shards (dots completed over the intra group), intra
+    allgather; L ranks a node as the topology gives them."""
+    if inter_wire not in ("fp32", "bf16", "int8"):
+        raise ValueError(f"unknown inter_wire {inter_wire!r}")
+    st = basics._require_init()
+    topo = st.topology
+    if topo.size == 1:
+        return tensor
+    L, H = topo.local_size, topo.cross_size
+    shape, dtype = tensor.shape, tensor.dtype
+    x = tensor.detach().to(torch.float32).reshape(-1)
+    m = x.numel()
+    x = torch.nn.functional.pad(x, (0, (-m) % L))
+    shard = x
+    if L > 1:
+        shard = x.new_empty(x.numel() // L)
+        scatter_reduce_into(shard, x, st.intra_group)
+    if H > 1:
+        shard = _vhdd_allreduce(
+            shard, H, topo.cross_rank, group=st.inter_group,
+            ranks=[h * L + topo.local_rank for h in range(H)],
+            dot_group=st.intra_group if L > 1 else None, wire=inter_wire,
+            seed=seed, lane=topo.local_rank)
+    out = shard
+    if L > 1:
+        out = shard.new_empty(shard.numel() * L)
+        gather_into(out, shard, st.intra_group)
+    return out[:m].reshape(shape).to(dtype)
+
+
 def _block_rows(n: int, p: int, d: int) -> np.ndarray:
     """The 0/1 matrix whose row r selects the ranks of r's 2d-block
     (blocks of 2d among the first p ranks; each rank past p alone)."""
@@ -119,10 +155,52 @@ def _block_rows(n: int, p: int, d: int) -> np.ndarray:
 _SWAP = [0, 2, 1]  # [dot, ‖a‖², ‖b‖²] <-> [dot, ‖b‖², ‖a‖²]
 
 
-def _vhdd_allreduce(tensor: torch.Tensor, n: int, r: int) -> torch.Tensor:
-    """Vector-halving distance-doubling Adasum over the world (the
-    reference's adasum.h FusedAllreduce; ``_vhdd_allreduce`` of the JAX
-    package, its fp32 wire).
+def _wire_exchange(send: Optional[torch.Tensor], peer: Optional[int],
+                   group, wire: str, seed: int = 0, stream: int = 0,
+                   like: Optional[torch.Tensor] = None):
+    """One VHDD half-exchange at ``wire``: returns ``(recv, self_wire)``,
+    ``self_wire`` being what the peer reconstructs from ``send``, which
+    an owner that keeps the piece must consume instead of ``send`` so a
+    lossy wire cannot fork the replicas. A rank with no partner this
+    round passes ``send=None`` and takes part in the exchange idle."""
+    if send is None:
+        empty = like.new_empty(0)
+        for dtype in {"int8": (torch.int8, torch.float32),
+                      "bf16": (torch.bfloat16,)}.get(wire, (torch.float32,)):
+            exchange(None, None, None, group, like=empty.to(dtype))
+        return None, None
+    if wire == "int8":
+        block = min(512, max(send.numel(), 1))
+        q, s = cuda_kernels.int8_block_quantize(send, block, seed=seed,
+                                                stream=stream)
+        rq, rs = torch.empty_like(q), torch.empty_like(s)
+        exchange(q, rq, peer, group)
+        exchange(s, rs, peer, group)
+        return (cuda_kernels.int8_block_dequantize(rq, rs, block),
+                cuda_kernels.int8_block_dequantize(q, s, block))
+    w = send.to(torch.bfloat16) if wire == "bf16" else send
+    recv = torch.empty_like(w)
+    exchange(w, recv, peer, group)
+    return recv.to(torch.float32), w.to(torch.float32)
+
+
+def _combine(a: torch.Tensor, b: torch.Tensor, dot_group) -> torch.Tensor:
+    """The Adasum combine of ``a`` and ``b`` on kernel B4, the dots
+    completed over ``dot_group`` when the vectors are shards of it."""
+    dots = cuda_kernels.adasum_dots(a, b)
+    if dot_group is not None:
+        dist.all_reduce(dots, group=dot_group)
+    return cuda_kernels.adasum_apply(a, b, dots)
+
+
+def _vhdd_allreduce(tensor: torch.Tensor, n: int, r: int, group=None,
+                    ranks: Optional[Sequence[int]] = None, dot_group=None,
+                    wire: str = "fp32", seed: int = 0,
+                    lane: int = 0) -> torch.Tensor:
+    """Vector-halving distance-doubling Adasum over ``group`` (the
+    world by default) of ``n`` ranks, this one at position ``r``,
+    ``ranks`` the members' global ranks (the reference's adasum.h
+    FusedAllreduce; ``_vhdd_allreduce`` of the JAX package).
 
     Ranks ``[p, n)`` past the largest power of two ``p`` first fold
     their vector into rank ``r − p`` and sit out. Stage k pairs rank r
@@ -133,9 +211,16 @@ def _vhdd_allreduce(tensor: torch.Tensor, n: int, r: int) -> torch.Tensor:
     are completed over the 2^(k+1)-rank block that jointly holds both
     vectors by an allgather of every rank's ``[3]`` and a fixed 0/1 row
     of block membership, on the device, with no host sync and no new
-    process group. B4's apply pass combines the halves. A
-    distance-halving exchange reassembles the vector, and ranks past p
-    get it back from their partner."""
+    process group; with ``dot_group`` (the hierarchical extension: the
+    vectors are 1/L shards) an allreduce over that group completes them
+    further. B4's apply pass combines the halves. A distance-halving
+    exchange reassembles the vector, and ranks past p get it back from
+    their partner. ``wire`` carries both sweeps' half-exchanges (the
+    pre/post hops stay fp32); the int8 rounding is keyed by ``seed``,
+    the stage, ``lane`` (the rank's intra position) and, on the way up,
+    the class of ranks that hold the same piece. Every rank of the group
+    takes part in every exchange (``_collectives.exchange``)."""
+    ranks = list(range(n)) if ranks is None else list(ranks)
     p = 1 << (n.bit_length() - 1)
     excess = n - p
     shape, dtype, dev = tensor.shape, tensor.dtype, tensor.device
@@ -144,48 +229,62 @@ def _vhdd_allreduce(tensor: torch.Tensor, n: int, r: int) -> torch.Tensor:
     pad = (-payload) % p  # every halving stage splits evenly
     x = torch.cat([x, x.new_zeros(pad)]) if pad else x.clone()
 
+    def stream(tag: int, key: int) -> int:
+        return (tag << 20) | (lane << 10) | key
+
     if excess:
         if r >= p:
-            _exchange(x, None, r - p)
+            exchange(x, None, ranks[r - p], group)
         elif r < excess:
             recv = torch.empty_like(x)
-            _exchange(None, recv, r + p)
-            x = cuda_kernels.adasum_pair(x, recv)
+            exchange(None, recv, ranks[r + p], group)
+            x = _combine(x, recv, dot_group)
+        else:
+            exchange(None, None, None, group, like=x)
 
     stages = p.bit_length() - 1
     piece = x
     for k in range(stages):
         d = 1 << k
         gathered = torch.empty((n, 3), dtype=torch.float32, device=dev)
-        if r >= p:  # sitting out: a singleton block of zeros
-            gather_into(gathered, torch.zeros(3, device=dev))
+        if r >= p:  # sitting out: idle, a singleton block of zeros
+            _wire_exchange(None, None, group, wire, like=x)
+            gather_into(gathered, torch.zeros(3, device=dev), group)
             continue
         h = piece.numel() // 2
         bit = bool(r & d)
         keep, send = (piece[h:], piece[:h]) if bit else (piece[:h],
                                                          piece[h:])
-        recv = torch.empty_like(keep)
-        _exchange(send, recv, r ^ d)
+        recv, _ = _wire_exchange(send, ranks[r ^ d], group, wire, seed,
+                                 stream(100 + k, r))
         local = cuda_kernels.adasum_dots(keep, recv)
-        gather_into(gathered, local[_SWAP] if bit else local)
+        gather_into(gathered, local[_SWAP] if bit else local, group)
         row = torch.from_numpy(_block_rows(n, p, d)[r]).to(dev)
         tot = row @ gathered  # [a·b, ‖a‖², ‖b‖²] over the block
+        if dot_group is not None:
+            dist.all_reduce(tot, group=dot_group)
         piece = cuda_kernels.adasum_apply(keep, recv,
                                           tot[_SWAP] if bit else tot)
 
-    if r < p:
-        for k in reversed(range(stages)):
-            d = 1 << k
-            recv = torch.empty_like(piece)
-            _exchange(piece, recv, r ^ d)
-            piece = torch.cat([recv, piece] if r & d else [piece, recv])
+    for k in reversed(range(stages)):
+        d = 1 << k
+        if r >= p:
+            _wire_exchange(None, None, group, wire, like=x)
+            continue
+        # ranks equal modulo 2d hold the same piece here: they key its
+        # rounding alike, so every receiver of it reconstructs one value
+        recv, own = _wire_exchange(piece, ranks[r ^ d], group, wire, seed,
+                                   stream(200 + k, r & (2 * d - 1)))
+        piece = torch.cat([recv, own] if r & d else [own, recv])
 
     if excess:
         if r < excess:
-            _exchange(piece, None, r + p)
+            exchange(piece, None, ranks[r + p], group)
         elif r >= p:
             piece = torch.empty_like(x)
-            _exchange(None, piece, r - p)
+            exchange(None, piece, ranks[r - p], group)
+        else:
+            exchange(None, None, None, group, like=x)
     return piece[:payload].reshape(shape).to(dtype)
 
 

@@ -16,8 +16,13 @@ a (compress, decompress) pair around the allreduce.
   tensor by tensor. ``compress``/``decompress`` serve the manual use:
   around an allgather or broadcast, where no arithmetic touches the
   wire values. Integer tensors pass through untouched.
-- ``Compression.hier_int8`` names the hierarchical route (ROADMAP A3),
-  not ported yet: any use raises.
+- ``Compression.hier_int8`` is ``int8_block`` with the two-level
+  placement: an allreduce or ``DistributedOptimizer`` handed it sends
+  the fused buffer in bf16 within each node and as block-scaled int8
+  across nodes whenever a two-level split resolves
+  (``common/topology.py hierarchy_stages``; ``HOROVOD_INTRA_SIZE``
+  works on one host), and over the flat int8 wire when the hierarchy
+  degenerates.
 """
 
 from __future__ import annotations
@@ -150,19 +155,13 @@ class Int8BlockCompressor(Int8Compressor):
         )
 
 
-class _Unported:
-    """A compressor of a later slice: any use raises."""
+class HierarchicalInt8Compressor(Int8BlockCompressor):
+    """bf16 on the intra-node hops, block-scaled int8 on the inter-node
+    hop only (EQuARX's placement): the fused wire's two-level route
+    (``ops/fusion.py``) whenever a split resolves, the flat int8 wire
+    otherwise. ``compress``/``decompress`` are ``int8_block``'s."""
 
-    def __init__(self, name: str):
-        self.name = name
-
-    def _raise(self, *_, **__):
-        raise NotImplementedError(
-            f"Compression.{self.name} names the hierarchical wire, not "
-            "ported yet (ROADMAP A3); use int8 or int8_block"
-        )
-
-    compress = decompress = _raise
+    wire_format = "int8_hier"
 
 
 class Compression:
@@ -173,10 +172,4 @@ class Compression:
     bf16 = BF16Compressor
     int8 = Int8Compressor
     int8_block = Int8BlockCompressor
-    hier_int8 = _Unported("hier_int8")
-
-
-def check_supported(compression) -> None:
-    """Raise now, at construction, for a compressor of a later slice."""
-    if isinstance(compression, _Unported):
-        compression.compress(None)
+    hier_int8 = HierarchicalInt8Compressor

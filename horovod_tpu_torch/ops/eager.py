@@ -25,9 +25,25 @@ the collective's result back as a tensor on the same device.
   rank;
 - ``broadcast(_async)`` and ``broadcast_(_async_)`` from a global
   ``root_rank``;
-- ``synchronize``, ``poll`` and ``barrier``.
+- ``reducescatter(_async)`` along dim 0, Sum or Average with pre/post
+  scale factors (an uneven dim 0 gives the earlier ranks one extra
+  row), and ``grouped_reducescatter(_async)``, whose members share one
+  collective;
+- ``alltoall(_async)``: equal slices of dim 0, or ``splits=`` (the rows
+  this rank sends to each rank), which returns ``(output,
+  received_splits)``;
+- ``grouped_allgather(_async)``;
+- ``join_ranks(ranks)``, a context in which every allreduce takes the
+  join mask: the joined ranks contribute nothing (they still call the
+  collective and get its result) and Average divides by the active
+  count; ``current_join_mask()``; ``join(joined_ranks=None)`` flushes and
+  returns the last joined rank, or -1;
+- ``synchronize``, ``poll``, ``flush`` (dispatch everything pending
+  now) and ``barrier``.
 
-Alltoall, reducescatter and join come with ROADMAP A2.
+Under ``HOROVOD_HIERARCHICAL`` (``common/topology.py
+hierarchy_stages``) the allreduce batches, reducescatter and allgather
+over the world take the two-level route (``ops/fusion.py``).
 """
 
 from __future__ import annotations
@@ -35,12 +51,12 @@ from __future__ import annotations
 import itertools
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..common import basics
 from ..common.process_sets import ProcessSet
-from .compression import check_supported
 from .fusion import _Entry
 from .reduction_ops import Average, Sum, resolve_op
 
@@ -101,14 +117,16 @@ def _wire_of(compression, return_residual: bool) -> Optional[str]:
     ``wire_format`` (None, no compressor: the manager's configured
     wire). A residual needs the int8 wire."""
     wire = getattr(compression, "wire_format", None)
-    if return_residual and wire not in (None, "int8"):
+    if return_residual and wire not in (None, "int8", "int8_hier"):
         raise ValueError(
             "return_residual=True needs the int8 quantized wire "
-            "(Compression.int8 / int8_block, or no compression= with "
-            "HOROVOD_FUSION_WIRE=int8); the error-feedback residual IS "
-            "the quantization error"
+            "(Compression.int8 / int8_block / hier_int8, or no "
+            "compression= with HOROVOD_FUSION_WIRE=int8); the "
+            "error-feedback residual IS the quantization error"
         )
-    return "int8" if return_residual else wire
+    if return_residual and wire is None:
+        return "int8"
+    return wire
 
 
 def _check_residual_eligible(op, tensor) -> None:
@@ -128,8 +146,12 @@ def _check_residual_eligible(op, tensor) -> None:
 
 
 def _allreduce_entry(tensor, name, op, prescale, postscale, process_set,
-                     compression, return_residual=False, guard=False):
-    check_supported(compression)
+                     compression, return_residual=False, guard=False,
+                     two_level=False):
+    """One allreduce entry. ``two_level`` is ``DistributedOptimizer``'s
+    alone: its ``Compression.hier_int8`` residual batch may take the
+    two-level route, where the eager rule keeps a residual on the flat
+    int8 wire."""
     wire = _wire_of(compression, return_residual)
     if return_residual:
         _check_residual_eligible(op, tensor)
@@ -142,8 +164,15 @@ def _allreduce_entry(tensor, name, op, prescale, postscale, process_set,
                    prescale=float(prescale), postscale=float(postscale),
                    process_set=process_set, wire=wire,
                    wire_block=getattr(compression, "block_size", None),
-                   want_residual=bool(return_residual), guard=bool(guard))
+                   want_residual=bool(return_residual), guard=bool(guard),
+                   mask=_mask_key(), two_level=bool(two_level))
     return entry, post
+
+
+def _submit(entry: _Entry, post) -> TorchHandle:
+    """Enqueue one allreduce entry alone and wrap its handle."""
+    (handle,) = _fusion().enqueue([entry])
+    return TorchHandle(handle, post)
 
 
 def allreduce_async(tensor, average=None, name=None, op=None,
@@ -153,13 +182,13 @@ def allreduce_async(tensor, average=None, name=None, op=None,
                     compression=None,
                     return_residual: bool = False, *,
                     guard: bool = False) -> TorchHandle:
-    entry, post = _allreduce_entry(
+    """``guard`` serves ``DistributedOptimizer``: the batch's non-finite
+    sentinel."""
+    return _submit(*_allreduce_entry(
         tensor, _auto_name("allreduce", name), resolve_op(op, average),
         prescale_factor, postscale_factor, process_set, compression,
         return_residual, guard,
-    )
-    (handle,) = _fusion().enqueue([entry])
-    return TorchHandle(handle, post)
+    ))
 
 
 def allreduce(tensor, average=None, name=None, op=None, process_set=None,
@@ -257,12 +286,176 @@ def broadcast_(tensor, root_rank: int, name=None,
     return broadcast_async_(tensor, root_rank, name, process_set).wait()
 
 
+def grouped_allgather_async(tensors: Sequence[torch.Tensor], name=None,
+                            process_set: Optional[ProcessSet] = None
+                            ) -> GroupedHandle:
+    """An allgather of each tensor, enqueued together."""
+    base = _auto_name("grouped_allgather", name)
+    entries = [_Entry(kind="allgather", tensor=t.detach(),
+                      name=f"{base}.{i}", process_set=process_set)
+               for i, t in enumerate(tensors)]
+    return GroupedHandle([TorchHandle(h)
+                          for h in _fusion().enqueue(entries)])
+
+
+def grouped_allgather(tensors, name=None, process_set=None) -> list:
+    return grouped_allgather_async(tensors, name, process_set).wait()
+
+
+def _reducescatter_entry(tensor, name, op, prescale, postscale,
+                         process_set) -> _Entry:
+    if op not in (Sum, Average):
+        raise ValueError(f"reducescatter supports Sum and Average, got "
+                         f"op={op!r}")
+    if tensor.dim() == 0:
+        raise ValueError("reducescatter needs a tensor with a dim 0 to "
+                         "scatter")
+    return _Entry(kind="reducescatter", tensor=tensor.detach(), name=name,
+                  op=op, prescale=float(prescale),
+                  postscale=float(postscale), process_set=process_set)
+
+
+def reducescatter_async(tensor, op=None, name=None,
+                        prescale_factor: float = 1.0,
+                        postscale_factor: float = 1.0,
+                        process_set: Optional[ProcessSet] = None
+                        ) -> TorchHandle:
+    """Reduce every rank's ``tensor`` and scatter dim 0: rank j gets its
+    rows of the reduction (``ceil`` rows for the first ``dim0 % n``
+    ranks, ``floor`` for the rest)."""
+    entry = _reducescatter_entry(
+        tensor, _auto_name("reducescatter", name), resolve_op(op),
+        prescale_factor, postscale_factor, process_set)
+    (handle,) = _fusion().enqueue([entry])
+    return TorchHandle(handle)
+
+
+def reducescatter(tensor, op=None, name=None, prescale_factor=1.0,
+                  postscale_factor=1.0, process_set=None) -> torch.Tensor:
+    return reducescatter_async(tensor, op, name, prescale_factor,
+                               postscale_factor, process_set).wait()
+
+
+def grouped_reducescatter_async(tensors: Sequence[torch.Tensor], op=None,
+                                name=None, prescale_factor: float = 1.0,
+                                postscale_factor: float = 1.0,
+                                process_set: Optional[ProcessSet] = None
+                                ) -> GroupedHandle:
+    """The list as one unit: one collective over every member's
+    per-rank panes."""
+    base = _auto_name("grouped_reducescatter", name)
+    resolved = resolve_op(op)
+    entries = [_reducescatter_entry(t, f"{base}.{i}", resolved,
+                                    prescale_factor, postscale_factor,
+                                    process_set)
+               for i, t in enumerate(tensors)]
+    return GroupedHandle([TorchHandle(h)
+                          for h in _fusion().enqueue(entries)])
+
+
+def grouped_reducescatter(tensors, op=None, name=None, prescale_factor=1.0,
+                          postscale_factor=1.0, process_set=None) -> list:
+    return grouped_reducescatter_async(
+        tensors, op, name, prescale_factor, postscale_factor,
+        process_set).wait()
+
+
+def alltoall_async(tensor, splits=None, name=None,
+                   process_set: Optional[ProcessSet] = None) -> TorchHandle:
+    """Scatter dim 0 of ``tensor`` over the ranks and gather what every
+    rank sent this one, in rank order. ``splits`` (one count a rank of
+    the set, summing to dim 0) are the rows this rank sends to each;
+    without it dim 0 splits evenly. With ``splits`` the result is
+    ``(output, received_splits)``."""
+    n = basics.size() if process_set is None else process_set.size
+    if tensor.dim() == 0:
+        raise ValueError("alltoall needs a tensor with a dim 0 to split")
+    if splits is None:
+        if tensor.shape[0] % n:
+            raise ValueError(
+                f"alltoall without splits needs dim 0 ({tensor.shape[0]}) "
+                f"divisible by the {n} ranks")
+    else:
+        splits = [int(s) for s in (splits.tolist() if torch.is_tensor(
+            splits) else splits)]
+        if len(splits) != n or min(splits) < 0 or sum(splits) != (
+                tensor.shape[0]):
+            raise ValueError(
+                f"alltoall splits {splits} must be {n} non-negative counts "
+                f"summing to dim 0 ({tensor.shape[0]})")
+    entry = _Entry(kind="alltoall", tensor=tensor.detach(),
+                   name=_auto_name("alltoall", name),
+                   process_set=process_set, splits=splits)
+    (handle,) = _fusion().enqueue([entry])
+    return TorchHandle(handle)
+
+
+def alltoall(tensor, splits=None, name=None, process_set=None):
+    return alltoall_async(tensor, splits, name, process_set).wait()
+
+
 def synchronize(handle):
     return handle.wait()
 
 
 def poll(handle) -> bool:
     return handle.poll()
+
+
+def flush() -> None:
+    """Dispatch every pending collective now."""
+    _fusion().flush()
+
+
+class JoinContext:
+    """Masked participation for uneven data (the reference's
+    ``hvd.join``): inside the context every allreduce takes the mask,
+    so a rank that ran out of data contributes nothing while it still
+    calls the collective, and Average divides by the active count.
+    Every rank enters the same context around the same allreduces."""
+
+    _active_mask: Optional[np.ndarray] = None
+
+    def __init__(self, joined_ranks: Sequence[int]):
+        mask = np.ones(basics.size(), dtype=bool)
+        for r in joined_ranks:
+            mask[int(r)] = False
+        self._mask = mask
+        self._prev = None
+
+    def __enter__(self):
+        self._prev = JoinContext._active_mask
+        JoinContext._active_mask = self._mask
+        return self
+
+    def __exit__(self, *exc):
+        JoinContext._active_mask = self._prev
+        return False
+
+
+def _mask_key() -> Optional[tuple]:
+    mask = JoinContext._active_mask
+    return None if mask is None else tuple(bool(b) for b in mask)
+
+
+def join_ranks(joined: Sequence[int]) -> JoinContext:
+    return JoinContext(joined)
+
+
+def current_join_mask() -> Optional[np.ndarray]:
+    """The active join mask over the world's ranks (True: contributes),
+    or None outside ``join_ranks``."""
+    mask = JoinContext._active_mask
+    return None if mask is None else mask.copy()
+
+
+def join(joined_ranks: Optional[Sequence[int]] = None) -> int:
+    """Flush what is pending; the last joined rank (the largest of
+    ``joined_ranks``), or -1 when none is named."""
+    _fusion().flush()
+    if joined_ranks:
+        return max(int(r) for r in joined_ranks)
+    return -1
 
 
 def barrier(process_set: Optional[ProcessSet] = None) -> None:

@@ -3,39 +3,68 @@
 The core of ``horovod_tpu/ops/fusion.py`` on ``torch.distributed``:
 
 - Allreduce entries of one fusion key (dtype, device, op, pre/postscale
-  factors, process set) are packed (``_pack``) into one flat buffer up
-  to ``threshold_bytes``, as ``_batches_by_threshold`` cuts a group: a
-  batch closes when the next unit would push it past the threshold, an
-  entry over the threshold goes alone, and a grouped allreduce is one
-  indivisible unit. Batches are cut as entries arrive, so the gradient
-  hooks of a backward pass put collectives in flight while the pass
-  runs.
+  factors, process set, wire, join mask) are packed (``_pack``) into one
+  flat buffer up to ``threshold_bytes``, as ``_batches_by_threshold``
+  cuts a group: a batch closes when the next unit would push it past the
+  threshold, an entry over the threshold goes alone, and a grouped
+  allreduce is one indivisible unit. Batches are cut as entries arrive,
+  so the gradient hooks of a backward pass put collectives in flight
+  while the pass runs.
 - One collective runs per batch with ``async_op=True``. For CUDA
   tensors NCCL runs it on its own stream, ordered after the pack on the
   current stream; for CPU tensors gloo runs it on its own thread.
 - ``Handle.wait`` waits on the batch's work (the current stream waits
   on NCCL's for CUDA tensors, without a host sync) and unpacks
-  (``_unpack``) the batch into every entry's output, applying the
-  postscale (and 1/n for Average) once over the flat buffer.
-- Allgather and broadcast go one collective per entry. Adasum entries
-  go one per entry too, never fused (``fusion.py:628-637``): Adasum's
-  coefficients are per tensor. Each runs ``ops/adasum.py``.
+  (``_unpack``) the batch into every entry's output, applying Average's
+  division by the set's size and the postscale once over the flat
+  buffer.
+- Allgather, broadcast and alltoall go one collective per entry; a
+  grouped reducescatter is one collective over its members' per-rank
+  panes. Adasum entries go one per entry too, never fused
+  (``fusion.py:628-637``): Adasum's coefficients are per tensor. Each
+  runs ``ops/adasum.py``.
 - The wire of an allreduce batch is ``fp32`` (the payload's own width),
   ``bf16`` (fp32 payloads cast for the collective) or ``int8``: the
   entry's compressor names it, else the manager's ``HOROVOD_FUSION_WIRE``.
   The int8 wire (:meth:`FusionManager._allreduce_q`, the JAX package's
-  ``_core_allreduce_q`` without its mask, hierarchy and local groups)
-  block-quantizes the batch's per-peer chunks on kernel B3, exchanges
-  int8 values and fp32 scales with ``all_to_all_single``, sums the
-  dequantized chunks in fp32, quantizes the reduced shard on B3 again
-  and allgathers it; the prescale folds into the stage-1 wire scales.
-  Sum and Average of floating payloads only: Min, Max, Product and
-  integers ride the exact wire. With ``return_residual`` the batch also
-  yields the error-feedback residual in input units, per entry. Its
-  plain-PyTorch passes run inside ``torch.profiler`` ranges named
+  ``_core_allreduce_q``) block-quantizes the batch's per-peer chunks on
+  kernel B3, exchanges int8 values and fp32 scales with
+  ``all_to_all_single``, sums the dequantized chunks in fp32, quantizes
+  the reduced shard on B3 again and allgathers it; the prescale folds
+  into the stage-1 wire scales. Sum and Average of floating payloads
+  only: Min, Max, Product and integers ride the exact wire. With
+  ``return_residual`` the batch also yields the error-feedback residual
+  in input units, per entry. Its plain-PyTorch passes run inside
+  ``torch.profiler`` ranges named
   ``hvd.int8_wire.{pack,exchange,dequantize_sum,residual,unpack}``
   (``WIRE_RANGES``), so a profiled step splits the wire's device time by
   pass.
+- **The two-level route** (:meth:`FusionManager._allreduce_hier`, the
+  JAX package's ``hierarchical_allreduce_groups``): a Sum or Average
+  batch of floating payloads over the whole world, with no join mask,
+  reduce-scatters within its node (the intra group), reduces its 1/L
+  shard across nodes (the inter group) and allgathers within its node.
+  ``intra_wire`` names both intra hops and ``wire`` the inter hop. The
+  routing decision is :func:`~..common.topology.hierarchy_stages`'s:
+  ``HOROVOD_HIERARCHICAL`` for every such batch, or an explicit request
+  (``Compression.hier_int8``, ``HOROVOD_FUSION_WIRE_HIER`` with the int8
+  wire) whenever a split resolves. An explicit int8 request takes bf16
+  on the intra hops and B3's two-stage int8 recipe over the inter group
+  (``traced.py:_quantized_sum_groups``); its residual is the inter
+  stage's, allgathered over the node and divided by L, in input units.
+  A batch that asks for a residual from the eager API rides the flat
+  int8 wire, as the JAX package routes it; ``DistributedOptimizer``'s
+  error feedback on ``Compression.hier_int8`` (``two_level``) takes the
+  two-level route, as the JAX optimizer does. A process set or a join
+  mask keeps the batch flat.
+- **Join** (``join_mask``): a masked allreduce batch zeroes the joined
+  ranks' contributions (the identity of Min, Max and Product), on the
+  exact and the int8 wire, and Average divides by the active count.
+- Reducescatter and allgather take the two-level recipes too
+  (``traced.py:1216-1315``) when ``hierarchy_stages`` resolves for the
+  world: an intra reduce-scatter of the panes that share this rank's
+  node-local slot, then an inter one; an inter allgather, then an intra
+  one, reordered to rank order.
 - An allreduce entry may ask for the grad guard's sentinel
   (``guard=True``, the optimizer's ``grad_guard``): its floating batch
   then also yields one ``all(isfinite)`` flag over the reduced flat
@@ -48,20 +77,31 @@ The core of ``horovod_tpu/ops/fusion.py`` on ``torch.distributed``:
   ranks carries ``elems + nb·(n+1)·4`` bytes, ``nb`` blocks a chunk);
   ``wire_bytes_saved`` and ``quant_blocks`` add up what the int8 and
   bf16 wires saved against the payload width, ``last_wire_format`` names
-  the last batch's wire. The port counts this rank's bytes; the JAX
-  package, one controller for all ranks, counts every rank's row.
+  the last batch's wire (the inter hop's on the two-level route). A
+  two-level batch also splits the model by hop (``_account_wire``): the
+  intra hop carries the whole buffer at ``intra_wire``, the inter hop
+  the 1/L shard at ``wire``, in ``wire_bytes_intra``/``_inter``,
+  ``wire_bytes_saved_intra``/``_inter`` and
+  ``last_wire_format_intra``/``_inter``; ``hier_dispatches`` counts
+  them. The port counts this rank's bytes; the JAX package, one
+  controller for all ranks, counts every rank's row. Beside the model,
+  ``handed_bytes_intra``/``_inter`` count what a two-level batch hands
+  each hop's collectives (the numel × itemsize of every input): the
+  intra hops get the padded buffer, its 1/L shard and, with a
+  residual, the fp32 residual shard; the int8 inter hop both stages'
+  values and scales.
 
 Collectives are issued in enqueue order, so every rank must enqueue the
 same entries in the same order (the gradient hooks of identical models
 do). The int8 wire's rounding seed is a per-dispatch counter, equal on
 every rank for the same reason, folded with the rank. Left for ROADMAP
-A3: the exact and bucket executor tiers, the hierarchical route and
-autotune.
+A3: the exact and bucket executor tiers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -69,9 +109,11 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from ..common import basics
+from ..common import topology as topo_mod
 from ..common.process_sets import ProcessSet
 from . import cuda_kernels
-from ._collectives import gather_into
+from ._collectives import gather_into, scatter_reduce_into
 from .adasum import adasum_allreduce
 from .reduction_ops import Adasum, Average, Max, Min, Product, ReduceOp, Sum
 
@@ -88,7 +130,8 @@ _DIST_OPS = {
 class _Entry:
     """One pending collective (the reference's TensorTableEntry)."""
 
-    kind: str  # "allreduce" | "allgather" | "broadcast"
+    # "allreduce" | "allgather" | "broadcast" | "reducescatter" | "alltoall"
+    kind: str
     tensor: torch.Tensor
     name: str
     op: ReduceOp = Average
@@ -98,10 +141,19 @@ class _Entry:
     process_set: Optional[ProcessSet] = None
     handle: Optional["Handle"] = None
     # allreduce wire: None defers to the manager's; resolved at enqueue
+    # ("int8_hier" asks for the two-level placement explicitly)
     wire: Optional[str] = None
     wire_block: Optional[int] = None
     want_residual: bool = False
     guard: bool = False  # the batch yields a non-finite sentinel
+    # the join mask over the world's ranks (True: contributes)
+    mask: Optional[Tuple[bool, ...]] = None
+    # DistributedOptimizer's hier_int8 residual batch: two-level route
+    two_level: bool = False
+    # resolved at enqueue: the two-level route and its intra hops' wire
+    hier: bool = False
+    intra_wire: Optional[str] = None
+    splits: Optional[List[int]] = None  # alltoall: rows sent to each rank
 
     @property
     def nbytes(self) -> int:
@@ -112,17 +164,20 @@ class _Entry:
         return (self.kind, self.tensor.dtype, self.tensor.device, int(self.op),
                 self.prescale, self.postscale, self.root_rank,
                 None if ps is None else ps.process_set_id, self.wire,
-                self.wire_block, self.want_residual, self.guard)
+                self.wire_block, self.want_residual, self.guard, self.mask,
+                self.hier, self.intra_wire)
+
+
+def _is_world(ps: Optional[ProcessSet]) -> bool:
+    return ps is None or ps.process_set_id == 0
 
 
 def _group(ps: Optional[ProcessSet]):
-    return None if ps is None or ps.process_set_id == 0 else ps.group
+    return None if _is_world(ps) else ps.group
 
 
 def _set_size(ps: Optional[ProcessSet]) -> int:
-    if ps is None or ps.process_set_id == 0:
-        return dist.get_world_size()
-    return ps.size
+    return dist.get_world_size() if _is_world(ps) else ps.size
 
 
 def _pack(entries: List[_Entry]) -> torch.Tensor:
@@ -133,9 +188,54 @@ def _pack(entries: List[_Entry]) -> torch.Tensor:
 
 def _rank_in(ps: Optional[ProcessSet]) -> int:
     r = dist.get_rank()
-    if ps is None or ps.process_set_id == 0:
-        return r
-    return ps.rank_in_set(r)
+    return r if _is_world(ps) else ps.rank_in_set(r)
+
+
+def _active(e0: _Entry) -> Tuple[bool, int]:
+    """(whether this rank contributes, how many ranks of the batch's set
+    contribute) under the batch's join mask."""
+    ps = e0.process_set
+    members = range(dist.get_world_size()) if _is_world(ps) else ps.ranks
+    if e0.mask is None:
+        return True, len(members)
+    return (e0.mask[dist.get_rank()],
+            max(sum(1 for r in members if e0.mask[r]), 1))
+
+
+def _identity(flat: torch.Tensor, op: ReduceOp) -> torch.Tensor:
+    """``flat`` filled with the identity of ``op`` (a joined rank's
+    contribution)."""
+    if op == Product:
+        return flat.fill_(1)
+    if op in (Min, Max):
+        info = (torch.finfo if flat.is_floating_point() else torch.iinfo)(
+            flat.dtype)
+        return flat.fill_(info.max if op == Min else info.min)
+    return flat.zero_()
+
+
+def _stage(x: torch.Tensor, wire: str) -> torch.Tensor:
+    """``x`` on one hop's wire: bf16 narrows fp32 payloads."""
+    return x.to(torch.bfloat16) if (
+        wire == "bf16" and x.dtype == torch.float32) else x
+
+
+def _scale_out(flat: torch.Tensor, count: int, op: ReduceOp,
+               postscale: float, masked: bool = False) -> torch.Tensor:
+    """Average's division by ``count``, then the postscale, in place, in
+    the JAX package's arithmetic: XLA turns its division by the static
+    set size into one multiply by ``postscale / count``, while a join
+    mask's live count is a true division."""
+    if masked and op == Average and flat.is_floating_point():
+        flat.div_(count)
+        op = Sum
+    post = postscale / count if op == Average else postscale
+    if post != 1.0:
+        if flat.is_floating_point():
+            flat.mul_(post)
+        else:
+            flat.copy_(torch.trunc(flat.double() * post))
+    return flat
 
 
 def hop_bytes(elems: int, wire: str, itemsize: int, n: int, block: int):
@@ -150,6 +250,10 @@ def hop_bytes(elems: int, wire: str, itemsize: int, n: int, block: int):
         nb = -(-chunk // block)
         return elems + nb * (n + 1) * 4, nb * (n + 1)
     return elems * itemsize, 0
+
+
+def _nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _finite(e0: _Entry, flat: torch.Tensor) -> Optional[torch.Tensor]:
@@ -168,6 +272,13 @@ def _unpack(flat: torch.Tensor, entries: List[_Entry]) -> List[torch.Tensor]:
         out.append(flat[off:off + n].view(e.tensor.shape))
         off += n
     return out
+
+
+def _rows(n_rows: int, n: int, j: int) -> Tuple[int, int]:
+    """(offset, count) of rank j's rows when ``n_rows`` rows scatter over
+    n ranks, the earlier ranks taking one extra row."""
+    base, rem = divmod(n_rows, n)
+    return j * base + min(j, rem), base + (j < rem)
 
 
 class _Works:
@@ -236,7 +347,9 @@ class Handle:
     def wait(self) -> torch.Tensor:
         if self._batch is None:
             self._fusion.flush()
-        return self._batch.output(self._index)
+        out = self._batch.output(self._index)
+        self._fusion._forget(self._batch)
+        return out
 
     def finite(self) -> Optional[torch.Tensor]:
         """The batch's non-finite sentinel (a device bool, True when
@@ -252,11 +365,23 @@ WIRE_RANGES = {k: f"hvd.int8_wire.{k}" for k in (
     "pack", "exchange", "dequantize_sum", "residual", "unpack")}
 
 
+@dataclasses.dataclass(frozen=True)
+class _Split:
+    """This rank's view of the two-level split: L ranks a node, H nodes,
+    the groups built at ``init`` and its position in the inter group."""
+
+    L: int
+    H: int
+    intra: object
+    inter: object
+    pos: int
+
+
 class FusionManager:
     """Pending entries by fusion key, cut into batches by bytes."""
 
     def __init__(self, threshold_bytes: int, wire: str = "fp32",
-                 wire_block: int = 512):
+                 wire_block: int = 512, wire_hier: bool = False):
         if wire not in WIRES:
             raise ValueError(f"fusion wire must be one of {WIRES}, got "
                              f"{wire!r}")
@@ -265,42 +390,86 @@ class FusionManager:
         self.threshold_bytes = int(threshold_bytes)
         self.wire = wire
         self.wire_block = int(wire_block)
+        self.wire_hier = bool(wire_hier)
         self._lock = threading.RLock()
         self._pending: Dict[Tuple, List[List[_Entry]]] = {}
         self._pending_bytes: Dict[Tuple, int] = {}
         self._inflight: List[_Batch] = []
+        self._splits: Dict[bool, Optional[_Split]] = {}
         self.dispatched_batches = 0
         self.dispatched_bytes = 0
         self.wire_bytes_saved = 0
         self.quant_blocks = 0
         self.last_wire_format = "fp32"
+        self.hier_dispatches = 0
+        self.wire_bytes_intra = 0
+        self.wire_bytes_inter = 0
+        self.wire_bytes_saved_intra = 0
+        self.wire_bytes_saved_inter = 0
+        self.last_wire_format_intra = "fp32"
+        self.last_wire_format_inter = "fp32"
+        self.handed_bytes_intra = 0
+        self.handed_bytes_inter = 0
         self._seed_counter = 0  # the int8 wire's per-dispatch seed
 
+    def _split(self, explicit: bool = False) -> Optional["_Split"]:
+        """The two-level split a batch takes: ``hierarchy_stages`` in
+        ``HOROVOD_HIERARCHICAL``'s mode, or in mode ``on`` for an
+        explicit request; None when the wire stays flat. The groups are
+        the ones ``init`` built from the same topology (its
+        ``local_size`` is the split's L)."""
+        if explicit not in self._splits:
+            stages = topo_mod.hierarchy_stages(
+                world=dist.get_world_size(),
+                mode="on" if explicit else None)
+            st = basics.state()
+            self._splits[explicit] = None if stages is None else _Split(
+                len(stages[0][0]), len(stages[1][0]), st.intra_group,
+                st.inter_group, st.topology.cross_rank)
+        return self._splits[explicit]
+
     def _resolve_wire(self, e: _Entry) -> None:
-        """Fix the entry's wire and block: the int8 wire takes Sum and
-        Average of floating payloads; anything else rides the exact
-        wire, as the JAX package routes it (callers asking for a
-        residual were checked at enqueue)."""
+        """Fix the entry's wire, block and route: the int8 wire takes
+        Sum and Average of floating payloads; anything else rides the
+        exact wire, as the JAX package routes it (callers asking for a
+        residual were checked at enqueue). A floating Sum or Average
+        over the world with no join mask takes the two-level route when
+        :meth:`_split` resolves (an explicit request: ``int8_hier``, or
+        the int8 wire under ``HOROVOD_FUSION_WIRE_HIER``); a residual
+        asked for from the eager API keeps the flat int8 wire."""
         wire = self.wire if e.wire is None else e.wire
-        exact = e.op not in (Sum, Average) or not e.tensor.is_floating_point()
-        if wire == "int8" and exact and not e.want_residual:
+        explicit = wire == "int8_hier" or (wire == "int8" and self.wire_hier)
+        if wire == "int8_hier":
+            wire = "int8"
+        eligible = e.op in (Sum, Average) and e.tensor.is_floating_point()
+        if wire == "int8" and not eligible and not e.want_residual:
             wire = "fp32"
         if wire == "bf16" and (not e.tensor.is_floating_point()
                                or e.tensor.element_size() > 4):
             wire = "fp32"  # fp32 payloads narrow; 2-byte ones already are
+        e.hier = (eligible and e.mask is None and _is_world(e.process_set)
+                  and (not e.want_residual or e.two_level)
+                  and self._split(explicit) is not None)
         e.wire = wire
+        e.intra_wire = ("bf16" if wire == "int8" else wire) if e.hier \
+            else None
         e.wire_block = (e.wire_block or self.wire_block) if wire == "int8" \
             else None
 
     def enqueue(self, entries: List[_Entry]) -> List[Handle]:
         """Queue ``entries`` as one unit (a grouped allreduce's members
-        share one batch) and dispatch every batch the unit closes."""
+        share one batch, a grouped reducescatter's one collective) and
+        dispatch every batch the unit closes."""
         handles = []
         with self._lock:
             for e in entries:
                 e.handle = Handle(self)
                 handles.append(e.handle)
-            if entries[0].kind != "allreduce" or entries[0].op == Adasum:
+            kind = entries[0].kind
+            if kind == "reducescatter":
+                self._dispatch(entries)
+                return handles
+            if kind != "allreduce" or entries[0].op == Adasum:
                 for e in entries:
                     self._dispatch([e])
                 return handles
@@ -332,6 +501,14 @@ class FusionManager:
         for b in batches:
             b.wait()
 
+    def _forget(self, batch: _Batch) -> None:
+        """Take a batch whose outputs are made off the in-flight list:
+        its handles hold them now, and the list would keep them until
+        the next dispatch (past the optimizer's step)."""
+        with self._lock:
+            if batch in self._inflight:
+                self._inflight.remove(batch)
+
     def _dispatch_key(self, key) -> None:
         units = self._pending.pop(key, [])
         self._pending_bytes.pop(key, None)
@@ -349,12 +526,18 @@ class FusionManager:
         group = _group(ps)
         if e0.kind == "allreduce" and e0.op == Adasum:
             work, finish, nbytes = self._adasum(e0, ps)
+        elif e0.kind == "allreduce" and e0.hier:
+            work, finish, nbytes = self._allreduce_hier(entries)
         elif e0.kind == "allreduce" and e0.wire == "int8":
             work, finish, nbytes = self._allreduce_q(entries, group, ps)
         elif e0.kind == "allreduce":
             work, finish, nbytes = self._allreduce(entries, group, ps)
         elif e0.kind == "allgather":
             work, finish, nbytes = self._allgather(e0, group, ps)
+        elif e0.kind == "reducescatter":
+            work, finish, nbytes = self._reducescatter(entries, group, ps)
+        elif e0.kind == "alltoall":
+            work, finish, nbytes = self._alltoall(e0, group)
         elif e0.kind == "broadcast":
             buf = e0.tensor.detach().clone()
             work = dist.broadcast(buf, src=e0.root_rank, group=group,
@@ -369,6 +552,12 @@ class FusionManager:
         for i, e in enumerate(entries):
             e.handle._batch, e.handle._index = batch, i
             e.handle = None
+            if e.kind == "allreduce":
+                # and of its payload, which the batch packed: a payload
+                # made for the call (the optimizer's gradient plus its
+                # residual) would otherwise live until the wait; the
+                # unpack needs only its shape, dtype and device
+                e.tensor = e.tensor.new_empty(()).expand(e.tensor.shape)
         self._inflight = [b for b in self._inflight if not b.done()]
         self._inflight.append(batch)
         self.dispatched_batches += 1
@@ -376,7 +565,7 @@ class FusionManager:
 
     def _account(self, elems: int, wire: str, itemsize: int, n: int,
                  block: int) -> int:
-        """Count one allreduce batch's wire bytes and what its wire
+        """Count one flat allreduce batch's wire bytes and what its wire
         saved against the payload width; returns the wire bytes."""
         nbytes, blocks = hop_bytes(elems, wire, itemsize, n, block)
         self.wire_bytes_saved += max(elems * itemsize - nbytes, 0)
@@ -384,33 +573,166 @@ class FusionManager:
         self.last_wire_format = wire
         return nbytes
 
+    def _account_wire(self, elems: int, itemsize: int, e0: _Entry,
+                      plan: _Split) -> int:
+        """Count one two-level batch by hop (``fusion.py:1404-1460``):
+        the intra hop carries the whole buffer at ``intra_wire``, the
+        inter hop the 1/L shard at ``wire``; returns both hops' bytes."""
+        block = e0.wire_block or self.wire_block
+        full = elems * itemsize
+        intra, _ = hop_bytes(elems, e0.intra_wire, itemsize, plan.L, block)
+        inter, blocks = hop_bytes(-(-elems // plan.L), e0.wire, itemsize,
+                                  plan.H, block)
+        self.quant_blocks += blocks
+        self.wire_bytes_intra += intra
+        self.wire_bytes_inter += inter
+        self.wire_bytes_saved_intra += max(full - intra, 0)
+        self.wire_bytes_saved_inter += max(full - inter, 0)
+        self.wire_bytes_saved += max(full - intra - inter, 0)
+        self.last_wire_format_intra = e0.intra_wire
+        self.last_wire_format_inter = self.last_wire_format = e0.wire
+        self.hier_dispatches += 1
+        return intra + inter
+
     def _allreduce(self, entries, group, ps):
         e0 = entries[0]
         flat = _pack(entries)
-        if e0.prescale != 1.0:
+        active, count = _active(e0)
+        if not active:
+            _identity(flat, e0.op)
+        elif e0.prescale != 1.0:
             flat.mul_(e0.prescale)
-        wire_buf = (flat.to(torch.bfloat16)
-                    if e0.wire == "bf16" and flat.dtype == torch.float32
-                    else flat)
+        wire_buf = _stage(flat, e0.wire)
         work = dist.all_reduce(wire_buf, op=_DIST_OPS[e0.op], group=group,
                                async_op=True)
-        post = e0.postscale
-        if e0.op == Average:
-            post /= _set_size(ps)
 
         def finish():
             if wire_buf is not flat:
                 flat.copy_(wire_buf)
-            if post != 1.0:
-                if flat.is_floating_point():
-                    flat.mul_(post)
-                else:
-                    flat.copy_(torch.trunc(flat.double() * post))
+            _scale_out(flat, count, e0.op, e0.postscale,
+                       e0.mask is not None)
             return _unpack(flat, entries), _finite(e0, flat)
 
         nbytes = self._account(flat.numel(), e0.wire, flat.element_size(),
                                _set_size(ps), self.wire_block)
         return work, finish, nbytes
+
+    def _allreduce_hier(self, entries):
+        """The two-level route (``hierarchical_allreduce_groups``): pack,
+        pad to a multiple of L, prescale; reduce-scatter within the node
+        at ``intra_wire``; reduce the 1/L shard across nodes, at
+        ``wire`` (an exact allreduce, or :meth:`_quantized_sum` on the
+        int8 wire); allgather within the node at ``intra_wire``, the one
+        collective in flight when this returns; Average divides by n
+        after the gather. Exact on integer-valued fp32: the same sums as
+        the flat route in another order."""
+        e0 = entries[0]
+        # resolved at enqueue, so a split exists; mode "on" finds the
+        # split any other mode that resolves finds
+        plan = self._split(True)
+        dtype = e0.tensor.dtype
+        quantized = e0.wire == "int8"
+        with record_function(WIRE_RANGES["pack"]):
+            flat = _pack(entries)
+            if quantized:
+                flat = flat.to(torch.float32)
+            m = flat.numel()
+            flat = torch.nn.functional.pad(flat, (0, (-m) % plan.L))
+            if e0.prescale != 1.0:
+                flat.mul_(e0.prescale)
+        acc = flat.dtype  # the hops' arithmetic: fp32 on the int8 wire
+        wire_in = _stage(flat, e0.intra_wire)
+        shard = wire_in.new_empty(wire_in.numel() // plan.L)
+        scatter_reduce_into(shard, wire_in, plan.intra)
+        self.handed_bytes_intra += _nbytes(wire_in)
+        del flat, wire_in  # the batch's outputs must not keep them alive
+        shard = shard.to(acc)
+        res = res_all = None
+        if quantized:
+            red, res = self._quantized_sum(shard, plan, e0.wire_block,
+                                           e0.want_residual)
+        else:
+            red = _stage(shard, e0.wire)
+            dist.all_reduce(red, group=plan.inter)
+            self.handed_bytes_inter += _nbytes(red)
+            red = red.to(acc)
+        red = _stage(red, e0.intra_wire)
+        gathered = red.new_empty(red.numel() * plan.L)
+        works = [gather_into(gathered, red, plan.intra, True)]
+        self.handed_bytes_intra += _nbytes(red)
+        if res is not None:
+            with record_function(WIRE_RANGES["residual"]):
+                if e0.prescale == 0.0:
+                    res.zero_()  # nothing was sent: no carry, not 0/0
+                elif e0.prescale != 1.0:
+                    res.div_(e0.prescale)
+                res.div_(plan.L)
+                res_all = res.new_empty(res.numel() * plan.L)
+            works.append(gather_into(res_all, res, plan.intra, True))
+            self.handed_bytes_intra += _nbytes(res)
+
+        def finish():
+            with record_function(WIRE_RANGES["unpack"]):
+                out = gathered.to(acc)[:m]
+                _scale_out(out, plan.L * plan.H, e0.op, e0.postscale)
+                out = out.to(dtype)
+                outs = _unpack(out, entries)
+                if res_all is not None:
+                    outs = list(zip(outs, _unpack(res_all[:m].to(dtype),
+                                                  entries)))
+                return outs, _finite(e0, out)
+
+        nbytes = self._account_wire(m, e0.tensor.element_size(), e0, plan)
+        return _Works(*works), finish, nbytes
+
+    def _quantized_sum(self, shard, plan: _Split, block: int,
+                       want_residual: bool):
+        """B3's two-stage int8 recipe over the inter group, with Sum
+        semantics (``traced.py:_quantized_sum_groups``): chunk the shard
+        over the H nodes, quantize, exchange values and scales, sum the
+        dequantized chunks, quantize the summed chunk, allgather it.
+        Returns the reduced shard and, when asked for, the residual of
+        both stages on the shard (the owned chunk, by the position in
+        the inter group, carries the second stage's error unscaled: the
+        caller divides after the gather, so the error and a correction
+        added to the next input pass the same division)."""
+        H, m = plan.H, shard.numel()
+        chunk = -(-m // H)
+        chunks = torch.nn.functional.pad(shard, (0, chunk * H - m)).view(
+            H, chunk)
+        seed = self._seed_counter
+        self._seed_counter += 1
+        rank = dist.get_rank()
+        q, scales = cuda_kernels.int8_block_quantize(
+            chunks, block, seed=seed, stream=2 * rank, rows=True)
+        with record_function(WIRE_RANGES["exchange"]):
+            recv_q = torch.empty_like(q)
+            recv_s = torch.empty_like(scales)
+            dist.all_to_all_single(recv_q, q, group=plan.inter)
+            dist.all_to_all_single(recv_s, scales, group=plan.inter)
+        with record_function(WIRE_RANGES["dequantize_sum"]):
+            summed = cuda_kernels.int8_block_dequantize(
+                recv_q, recv_s, block).sum(0)
+        q2, s2 = cuda_kernels.int8_block_quantize(
+            summed[None], block, seed=seed, stream=2 * rank + 1, rows=True)
+        with record_function(WIRE_RANGES["exchange"]):
+            all_q = q.new_empty((H, chunk))
+            all_s = s2.new_empty((H, s2.shape[1]))
+            gather_into(all_q, q2[0], plan.inter)
+            gather_into(all_s, s2[0], plan.inter)
+        self.handed_bytes_inter += _nbytes(q, scales, q2, s2)
+        with record_function(WIRE_RANGES["unpack"]):
+            red = cuda_kernels.int8_block_dequantize(
+                all_q, all_s, block).reshape(-1)[:m]
+        res = None
+        if want_residual:
+            with record_function(WIRE_RANGES["residual"]):
+                res = chunks - cuda_kernels.int8_block_dequantize(
+                    q, scales, block)
+                res[plan.pos] += summed - cuda_kernels.int8_block_dequantize(
+                    q2, s2, block)[0]
+                res = res.reshape(-1)[:m].contiguous()
+        return red, res
 
     def _allreduce_q(self, entries, group, ps):
         """The int8 fused wire (``_core_allreduce_q``): pack; split into
@@ -420,7 +742,8 @@ class FusionManager:
         fp32 (÷n for Average); block-quantize this rank's reduced shard
         on B3; allgather values and scales; dequantize into the unpack
         and apply the postscale. Only the final allgather is in flight
-        when this returns.
+        when this returns. A joined rank (the join mask) sends zeros,
+        and Average divides by the active count.
 
         The residual (``want_residual``) follows the JAX contract
         (``fusion.py:1993-2025``): the stage-1 error against the
@@ -429,10 +752,13 @@ class FusionManager:
         a zero prescale gives a zero carry; input units, per entry."""
         e0 = entries[0]
         n, me = _set_size(ps), _rank_in(ps)
+        active, count = _active(e0)
         block = e0.wire_block
         dtype = e0.tensor.dtype
         with record_function(WIRE_RANGES["pack"]):
             row = _pack(entries).to(torch.float32)
+            if not active:
+                row.zero_()
             m = row.numel()
             chunk = -(-m // n)
             chunks = torch.nn.functional.pad(row, (0, chunk * n - m)).view(
@@ -452,7 +778,7 @@ class FusionManager:
             shard = cuda_kernels.int8_block_dequantize(recv_q, recv_s,
                                                        block).sum(0)
             if e0.op == Average:
-                shard = shard / n
+                shard = shard / count
         q2, s2 = cuda_kernels.int8_block_quantize(
             shard[None], block, seed=seed, stream=2 * rank + 1, rows=True)
         with record_function(WIRE_RANGES["exchange"]):
@@ -471,7 +797,7 @@ class FusionManager:
                     e2 = shard - cuda_kernels.int8_block_dequantize(
                         q2, s2, block)[0]
                     if e0.op == Average:
-                        e2 = e2 * n
+                        e2 = e2 * count
                     if e0.prescale != 1.0:
                         e2 = e2 / e0.prescale
                     res1[me] += e2
@@ -494,9 +820,12 @@ class FusionManager:
 
     def _adasum(self, e0, ps):
         """One Adasum entry through ``ops/adasum.py``, computed now; the
-        returned work is already complete."""
+        returned work is already complete. A joined rank contributes
+        zeros, Adasum's identity."""
         x = e0.tensor
-        if e0.prescale != 1.0:
+        if not _active(e0)[0]:
+            x = torch.zeros_like(x)
+        elif e0.prescale != 1.0:
             x = x * e0.prescale
         out = adasum_allreduce(x, process_set=ps)
         out = out.clone() if out is e0.tensor else out
@@ -507,7 +836,10 @@ class FusionManager:
 
     def _allgather(self, e0, group, ps):
         """Allgather-v along dim 0: sizes first, then one gather of
-        equal-length padded rows, trimmed and concatenated."""
+        equal-length padded rows, trimmed and concatenated. Over the
+        world with a two-level split, an inter gather among the ranks of
+        this node-local slot, then an intra gather, reordered to rank
+        order (``traced.hierarchical_allgather``)."""
         x = e0.tensor.detach()
         n = _set_size(ps)
         dim0 = torch.tensor([x.shape[0] if x.dim() else 1],
@@ -521,10 +853,91 @@ class FusionManager:
             pad = rows.new_zeros((longest - rows.shape[0],) + rows.shape[1:])
             rows = torch.cat([rows, pad])
         rows = rows.contiguous()
-        parts = [torch.empty_like(rows) for _ in range(n)]
-        work = dist.all_gather(parts, rows, group=group, async_op=True)
+        plan = self._split() if _is_world(ps) else None
+        if plan is not None:
+            inter = rows.new_empty((plan.H,) + rows.shape)
+            gather_into(inter, rows, plan.inter)
+            both = rows.new_empty((plan.L, plan.H) + rows.shape)
+            work = gather_into(both, inter, plan.intra, True)
+            parts = None
+        else:
+            parts = torch.empty((n,) + rows.shape, dtype=rows.dtype,
+                                device=rows.device)
+            work = gather_into(parts, rows, group, True)
 
         def finish():
-            return [torch.cat([p[:s] for p, s in zip(parts, sizes)])], None
+            got = parts if parts is not None else both.transpose(
+                0, 1).reshape((n,) + rows.shape)
+            return [torch.cat([p[:s] for p, s in zip(got, sizes)])], None
 
         return work, finish, rows.numel() * rows.element_size() * n
+
+    def _reducescatter(self, entries, group, ps):
+        """Reduce-scatter along dim 0, Sum or Average, of a unit of
+        entries in one collective: rank j of the set gets its rows of
+        every entry (the earlier ranks one extra when dim 0 does not
+        divide), summed over the set. Each entry's rows for rank j,
+        zero-padded to the longest count, make one pane; the panes of
+        every entry for rank j make row j of the ``[n, P]`` buffer. Over
+        the world with a two-level split, an intra reduce-scatter of the
+        panes bound for this node-local slot, then an inter one
+        (``traced.hierarchical_reducescatter``)."""
+        e0 = entries[0]
+        n, me = _set_size(ps), _rank_in(ps)
+        layout, panes = [], []
+        for e in entries:
+            x = e.tensor.detach()
+            width = math.prod(x.shape[1:])
+            longest = -(-x.shape[0] // n)
+            rows = x.reshape(x.shape[0], width)
+            if x.shape[0] % n == 0:
+                pane = rows.reshape(n, longest * width)
+            else:
+                pane = rows.new_zeros((n, longest, width))
+                for j in range(n):
+                    off, cnt = _rows(x.shape[0], n, j)
+                    pane[j, :cnt] = rows[off:off + cnt]
+            panes.append(pane.reshape(n, -1))
+            layout.append((longest * width, _rows(x.shape[0], n, me)[1]))
+        buf = torch.cat(panes, dim=1)  # a fresh buffer, even for one entry
+        if e0.prescale != 1.0:
+            buf.mul_(e0.prescale)
+        out = buf.new_empty(buf.shape[1])
+        plan = self._split() if _is_world(ps) else None
+        if plan is not None:
+            by_slot = buf.view(plan.H, plan.L, -1).transpose(0, 1).contiguous()
+            node = buf.new_empty((plan.H, buf.shape[1]))
+            scatter_reduce_into(node, by_slot, plan.intra)
+            work = scatter_reduce_into(out, node, plan.inter, True)
+        else:
+            work = scatter_reduce_into(out, buf, group, True)
+
+        def finish():
+            _scale_out(out, n, e0.op, e0.postscale)
+            outs, off = [], 0
+            for e, (size, cnt) in zip(entries, layout):
+                mine = out[off:off + size].view(-1, *e.tensor.shape[1:])
+                outs.append(mine[:cnt])
+                off += size
+            return outs, None
+
+        return work, finish, buf.numel() * buf.element_size()
+
+    def _alltoall(self, e0, group):
+        """All-to-all along dim 0: equal slices, or ``splits`` rows to
+        each rank of the set, whose counts are exchanged first; with
+        splits the output is ``(tensor, received_splits)``."""
+        x = e0.tensor.detach().contiguous()
+        if e0.splits is None:
+            out = torch.empty_like(x)
+            work = dist.all_to_all_single(out, x, group=group, async_op=True)
+            return work, (lambda: ([out], None)), e0.nbytes
+        send = torch.tensor(e0.splits, dtype=torch.int64, device=x.device)
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        got = [int(v) for v in recv.tolist()]
+        out = x.new_empty((sum(got),) + x.shape[1:])
+        work = dist.all_to_all_single(out, x, got, list(e0.splits),
+                                      group=group, async_op=True)
+        counts = torch.tensor(got, dtype=torch.int32)
+        return work, (lambda: ([(out, counts)], None)), e0.nbytes

@@ -31,7 +31,11 @@ package's ``optimizer.py`` is its oracle):
   residual per parameter: the hook enqueues ``grad + residual`` with
   ``return_residual=True`` and ``synchronize`` stores the new residual,
   so each step's quantization error joins the next step's gradient
-  (EF-SGD). ``state_dict`` carries the residuals;
+  (EF-SGD). On the two-level route the residual is the inter hop's,
+  the same on every rank of a node and divided by L, so the next
+  step's intra reduce-scatter adds one copy of it at the shard's
+  owner (``horovod_tpu/optimizer.py:74-125``). ``state_dict`` carries
+  the residuals;
 - ``flush()`` reduces and steps a partial window now (a step count
   that k does not divide would otherwise lose the tail window), and
   does nothing when the window is empty;
@@ -69,7 +73,7 @@ from .common import basics
 from .common import guard as _guard
 from .common.process_sets import ProcessSet
 from .ops import eager
-from .ops.compression import Compression, check_supported
+from .ops.compression import Compression
 from .ops.reduction_ops import Adasum, Average, Sum, resolve_op
 
 
@@ -97,12 +101,11 @@ class DistributedOptimizer:
         _check_unported(overlap_buckets, overlap_min_bytes, local_sgd_steps,
                         local_sgd_inter_wire, local_sgd_intra)
         op = resolve_op(op, average)
-        check_supported(compression)
         quantized = getattr(compression, "quantized_wire", False)
         if error_feedback and not quantized:
             raise ValueError(
                 "error_feedback=True requires a quantized-wire compression "
-                "(Compression.int8 or int8_block)"
+                "(Compression.int8, int8_block or hier_int8)"
             )
         if op == Adasum and quantized:
             raise ValueError(
@@ -119,6 +122,11 @@ class DistributedOptimizer:
         self._opt = optimizer
         self._compression = compression
         self._error_feedback = bool(error_feedback)
+        # only hier_int8's residual batch takes the two-level route
+        # (``horovod_tpu/optimizer.py:80-90``); int8 and int8_block stay
+        # on the flat wire, whose residual holds the whole error
+        self._two_level = getattr(compression, "wire_format",
+                                  None) == "int8_hier"
         self._residuals: Dict[int, torch.Tensor] = {}
         self._k = k
         self._process_set = process_set
@@ -189,12 +197,12 @@ class DistributedOptimizer:
             if res is not None:
                 grad = grad + res
         pre = self._pre / passes if self._average_window else self._pre
-        self._handles[id(p)] = eager.allreduce_async(
-            grad, name=self._names[id(p)], op=self._op,
-            process_set=self._process_set, prescale_factor=pre,
-            postscale_factor=self._post, compression=self._compression,
+        self._handles[id(p)] = eager._submit(*eager._allreduce_entry(
+            grad, self._names[id(p)], self._op, pre, self._post,
+            self._process_set, self._compression,
             return_residual=self._error_feedback, guard=self._guard,
-        )
+            two_level=self._two_level,
+        ))
 
     def synchronize(self) -> bool:
         """Wait for every enqueued gradient and write it back. With
@@ -211,7 +219,8 @@ class DistributedOptimizer:
         by_id = {id(p): p for p in self._params}
         residuals, flags = {}, {}
         with torch.no_grad():
-            for key, handle in handles.items():
+            while handles:  # a batch's outputs go with its last handle
+                key, handle = handles.popitem()
                 out = handle.wait()
                 if self._error_feedback:
                     out, residuals[key] = out

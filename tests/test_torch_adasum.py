@@ -158,8 +158,18 @@ def test_vhdd_wire_bytes_match_jax(n):
 
 
 def test_hierarchical_raises():
-    with pytest.raises(NotImplementedError, match="A3"):
-        port_adasum.adasum_allreduce(torch.ones(3), hierarchical=True)
+    """Hierarchical Adasum composes with the whole two-level world only:
+    a process set raises, as in the reference, and so does an unknown
+    inter wire (its two-level worlds run in
+    tests/test_torch_hier_route.py)."""
+    from horovod_tpu_torch.common.process_sets import ProcessSet
+
+    with pytest.raises(NotImplementedError, match="process set"):
+        port_adasum.adasum_allreduce(torch.ones(3), hierarchical=True,
+                                     process_set=ProcessSet([0]))
+    with pytest.raises(ValueError, match="inter_wire"):
+        port_adasum.adasum_allreduce(torch.ones(3), hierarchical=True,
+                                     inter_wire="fp16")
 
 
 def test_tree_combine_matches_jax_tree():

@@ -100,5 +100,17 @@ def test_with_block_size():
 
 
 def test_hier_int8_raises():
-    with pytest.raises(NotImplementedError, match="A3"):
-        Compression.hier_int8.compress(torch.ones(3))
+    """``Compression.hier_int8`` no longer raises: it is ``int8_block``
+    with the two-level placement (its wire runs in
+    tests/test_torch_hier_route.py), so its codec is int8_block's, bit
+    for bit, and it names the JAX compressor's wire format."""
+    comp = Compression.hier_int8
+    assert comp.wire_format == JaxCompression.hier_int8.wire_format
+    assert comp.quantized_wire and comp.block_size == 512
+    assert issubclass(comp, Compression.int8_block)
+    x = torch.from_numpy(_x((1500,)))
+    vals, ctx = comp.compress(x, seed=3)
+    want_vals, want_ctx = Compression.int8_block.compress(x, seed=3)
+    assert torch.equal(vals, want_vals) and torch.equal(ctx[1], want_ctx[1])
+    assert torch.equal(comp.decompress(vals, ctx),
+                       Compression.int8_block.decompress(vals, ctx))

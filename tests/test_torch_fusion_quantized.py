@@ -334,10 +334,18 @@ def test_wire_env_knobs(monkeypatch):
         assert torch.equal(out, torch.ones(1000))  # all-equal blocks
     finally:
         hvd.shutdown()
-    for env, value in (("HOROVOD_FUSION_WIRE", "auto"),
-                       ("HOROVOD_FUSION_WIRE_HIER", "1")):
-        monkeypatch.setenv("HOROVOD_FUSION_WIRE", "fp32")
-        monkeypatch.setenv(env, value)
-        with pytest.raises(NotImplementedError, match="A3"):
-            hvd.init(device="cpu")
-        monkeypatch.delenv("HOROVOD_FUSION_WIRE_HIER", raising=False)
+    monkeypatch.setenv("HOROVOD_FUSION_WIRE", "auto")
+    with pytest.raises(NotImplementedError, match="A12"):
+        hvd.init(device="cpu")
+    # the two-level placement of the int8 wire is a switch now
+    monkeypatch.setenv("HOROVOD_FUSION_WIRE", "int8")
+    monkeypatch.setenv("HOROVOD_FUSION_WIRE_HIER", "1")
+    hvd.init(device="cpu")
+    try:
+        assert basics.state().fusion.wire_hier
+        assert torch.equal(hvd.allreduce(torch.ones(64), op=hvd.Sum),
+                           torch.ones(64))  # a world of one: flat
+        assert basics.state().fusion.hier_dispatches == 0
+    finally:
+        hvd.shutdown()
+    monkeypatch.delenv("HOROVOD_FUSION_WIRE_HIER", raising=False)

@@ -31,6 +31,8 @@ def test_import_pulls_in_no_jax():
         "horovod_tpu_torch.ops.adasum, horovod_tpu_torch.ops._collectives, "
         "horovod_tpu_torch.ops.compression, "
         "horovod_tpu_torch.ops.reduction_ops, horovod_tpu_torch.common.config, "
+        "horovod_tpu_torch.common.topology, "
+        "horovod_tpu_torch.common.process_sets, "
         "horovod_tpu_torch.common.guard, horovod_tpu_torch.ops.fused_xent, "
         "horovod_tpu_torch.sync_batch_norm, horovod_tpu_torch.models, "
         "horovod_tpu_torch.models.convert\n"

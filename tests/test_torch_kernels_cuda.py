@@ -575,6 +575,35 @@ def test_adasum_pair_matches_plain(cuda_card, n, dtype):
     torch.testing.assert_close(out, want, **tol)
 
 
+@pytest.mark.parametrize("n", [513, 1_000_003])
+def test_hier_adasum_split_dots_match_whole(cuda_card, n):
+    """Hierarchical Adasum's combine on the card (``ops/adasum.py``
+    ``_combine``): at L = 1, with no group, B4's dots then apply against
+    ``adasum_pair_plain`` on the full vector (B4's apply tolerance,
+    1e-5 of the largest magnitude); with the vector split in two halves,
+    each half's dots summed (what the intra allreduce completes) and
+    each half applied with them, equal to B4 on the whole vector within
+    2.0e-7 of its largest magnitude."""
+    from horovod_tpu_torch.ops import adasum
+
+    a = _wire_input(cuda_card, n, torch.float32, seed=3)
+    b = _wire_input(cuda_card, n, torch.float32, seed=4)
+    before = (ck.adasum_dots.launches, ck.adasum_apply.launches)
+    got = adasum._combine(a, b, None)
+    assert (ck.adasum_dots.launches, ck.adasum_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = ck.adasum_pair_plain(a, b)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=0)
+    h = n // 2
+    dots = ck.adasum_dots(a[:h], b[:h]) + ck.adasum_dots(a[h:], b[h:])
+    split = torch.cat([ck.adasum_apply(a[:h], b[:h], dots),
+                       ck.adasum_apply(a[h:], b[h:], dots)])
+    whole = ck.adasum_pair(a, b)
+    torch.cuda.synchronize()
+    assert float((split - whole).abs().max()) <= 2.0e-7 * scale
+
+
 def test_mixed_product_on_card(cuda_card):
     """The LM head's product (``ops/fused_xent.mixed_mm``): bf16 operands
     on the tensor cores with an fp32 result, against the fp32 product of

@@ -10,7 +10,7 @@ agree within 1e-5 (fp32 sums in another order). Also:
 (the summed micro-gradients equal the full-batch step at twice the
 rate), ``gradient_predivide_factor``, ``broadcast_parameters``,
 ``broadcast_optimizer_state`` and ``broadcast_object``, and the options
-of later slices (the hierarchical int8 wire) and misuse raising."""
+of later slices (the bucketed overlap) and misuse raising."""
 
 from pathlib import Path
 
@@ -196,8 +196,8 @@ def test_unported_options_raise(monkeypatch):
     try:
         model = _MLP(_data()[0])
         sgd = torch.optim.SGD(model.parameters(), lr=LR)
-        with pytest.raises(NotImplementedError, match="A3"):
-            hvd.DistributedOptimizer(sgd, compression=hvd.Compression.hier_int8)
+        with pytest.raises(NotImplementedError, match="A8"):
+            hvd.DistributedOptimizer(sgd, overlap_buckets=2)
         with pytest.raises(ValueError, match="Adasum"):
             hvd.DistributedOptimizer(sgd, op=hvd.Adasum,
                                      compression=hvd.Compression.int8)
