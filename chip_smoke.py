@@ -99,9 +99,31 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    error_feedback=True)``, the mean loss falling and every rank's
    parameters bitwise equal after every step. It prints the step time,
    the bytes a step by hop beside the model and phase 5's, and each
-   rank's peak memory. B3, B4 and the flash kernels must launch. The
-   flash counts of phases 5, 10, 12 and 13, and the wire counts of
-   phases 8, 9 and 13, add up in the ``kernels`` line.
+   rank's peak memory. B3, B4 and the flash kernels must launch.
+14. The bucketed overlap and the in-step collectives (``hvd.traced``).
+   (a) Phase 5's GPT-2 medium through
+   ``DistributedOptimizer(overlap_buckets=4)`` and with overlap off, on
+   the same state and 3 batches, in turns: the parameters bitwise equal
+   after every step, one collective a bucket a step and no fused batch,
+   bucket 0's collective issued before backward's last kernel ends (CUDA
+   events on the compute stream), one step profiled with a range a
+   bucket; the host-clock step, busy share and peak printed beside
+   phase 5's. (b) The parameters through ``overlap_boundary``: the
+   gradients bitwise (a)'s reduced ones. (c) ``torch.compile(fullgraph=
+   True)`` (Inductor, without fma contraction) of ``traced.allreduce``,
+   ``traced.quantized_allreduce`` (per-row and block 512) and
+   ``bucketed_allreduce(compression=Compression.int8_block,
+   residuals=)`` on a 64 MiB batch: bitwise the eager call, B2 and B3
+   launched inside the compiled call, within the two-stage budget; both
+   timed. (d) A gloo world of 4 on the card as phase 13's: ``traced``'s
+   allreduce, reducescatter, allgather and alltoall and the two-level
+   recipe at fp32 bit for bit on integers, the quantized wires within
+   their budgets, and 2 steps of GPT-2 medium through
+   ``DistributedOptimizer(overlap_buckets=4,
+   compression=Compression.hier_int8, error_feedback=True)``, every
+   rank's parameters equal after each step.
+   The flash counts of phases 5, 10, 12, 13 and 14, and the wire counts
+   of phases 8, 9, 13 and 14, add up in the ``kernels`` line.
 
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -856,13 +878,13 @@ def phase_fp32(model32, prompts, max_tokens):
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
 
 
-def _lm_batch(vocab, batch, seq):
+def _lm_batch(vocab, batch, seq, seed=SEED):
     """The learnable sequence of examples/transformer_lm.py: next token
     = (token + 1) mod vocab, from the seed."""
     import numpy as np
     import torch
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     base = rng.integers(0, vocab - 1, size=(batch, 1))
     rows = (base + np.arange(seq + 1)[None, :]) % vocab
     dev = torch.device("cuda")
@@ -914,11 +936,13 @@ def _wire_split(prof, busy_ms):
     return split
 
 
-def _profile_step(step, wire_split=False):
+def _profile_step(step, wire_split=False, range_prefix=None):
     """One step under torch.profiler: the device-busy share (the sum of
     kernel time over the step's wall time; streams that overlap would
     count twice) and the kernels by device time; with ``wire_split``,
-    the int8 wire's share by class (:func:`_wire_split`)."""
+    the int8 wire's share by class (:func:`_wire_split`); with
+    ``range_prefix``, each host range of that prefix: its start from the
+    step's first host event and its length, in ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -945,6 +969,13 @@ def _profile_step(step, wire_split=False):
     host.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     extra = {"wire_split": _wire_split(prof, busy_ms)} if wire_split else {}
+    if range_prefix is not None:
+        cpu = [e for e in prof.events() if e.device_type.name == "CPU"]
+        t0 = min(e.time_range.start for e in cpu)
+        extra["ranges"] = sorted(
+            (e.name, (e.time_range.start - t0) / 1e3,
+             (e.time_range.end - e.time_range.start) / 1e3)
+            for e in cpu if e.name.startswith(range_prefix))
     return {**extra,
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
@@ -963,8 +994,10 @@ def phase_train(gen, card):
     remat) trained through ``hvd.init`` (a world of one on NCCL),
     ``broadcast_parameters`` and ``DistributedOptimizer(SGD momentum,
     op=Average)``, with the flash launch counters and the fusion counters
-    zeroed just before the steps. Returns the launch counts and the
-    fused bytes of the last step."""
+    zeroed just before the steps. Returns the launch counts, the fused
+    bytes of the last step, the peak memory and the step's readings
+    (host-clock ms, device-busy share, peak) that phase 14 prints beside
+    its own."""
     import dataclasses
 
     import torch
@@ -1064,7 +1097,10 @@ def phase_train(gen, card):
         log("train profile: " + json.dumps(prof, sort_keys=True))
         opt.remove_hooks()
         del model, opt
-        return launches, tc_launches, per_step[-1][8], peak_gb
+        readings = {"step_ms_mean_after_first": mean_ms,
+                    "device_busy_share": prof["device_busy_share"],
+                    "peak_memory_gb": peak_gb}
+        return launches, tc_launches, per_step[-1][8], peak_gb, readings
     finally:
         hvd.shutdown()
 
@@ -2752,6 +2788,503 @@ def phase_hier(card, fp32_bytes_per_step):
     return launches, flash
 
 
+# ----------------------- phase 14 the bucketed overlap and in-step collectives
+
+OVERLAP_BUCKETS = 4
+OVERLAP_STEPS = 3
+OVERLAP_WORLD = 4
+OVERLAP_RANK_STEPS = 2
+COMPILED_ELEMS = 64 * 1024 * 1024 // 4  # one 64 MiB fp32 batch
+COMPILED_LEAVES = 8
+OVERLAP_TIMEOUT_S = 240
+
+
+def _overlap_opt(hvd, model, buckets, **kw):
+    import torch
+
+    return hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        named_parameters=model.named_parameters(), op=hvd.Average,
+        overlap_buckets=buckets, **kw)
+
+
+def _timed_dispatch(opt, events):
+    """Wrap ``opt``'s bucket dispatch so that bucket 0 records a CUDA
+    event on the compute stream when it is issued and one on the side
+    stream once its exchange is enqueued there (done when it is done)."""
+    import torch
+
+    inner = opt._overlap.dispatch
+
+    def dispatch(b, passes):
+        if b == 0:
+            events["issued"] = torch.cuda.Event(enable_timing=True)
+            events["issued"].record()
+        inner(b, passes)
+        if b == 0:
+            events["done"] = torch.cuda.Event(enable_timing=True)
+            events["done"].record(opt._overlap.stream)
+
+    opt._overlap.dispatch = dispatch
+
+
+def _overlap_step(opt, model, tokens, labels, events=None):
+    """One step of ``opt``; with ``events``, the end of backward on the
+    compute stream is recorded as ``events["backward_end"]``."""
+    import torch
+
+    opt.zero_grad(set_to_none=True)
+    loss = _loss(model, tokens, labels)
+    loss.backward()
+    if events is not None:
+        events["backward_end"] = torch.cuda.Event(enable_timing=True)
+        events["backward_end"].record()
+    opt.step()
+    return loss
+
+
+def _compiled_exchange(x, tree, zeros):
+    """Phase 14 (c)'s function: the exact allreduce, the per-row and
+    block-512 int8 wires, and the bucketed int8_block exchange with
+    error feedback."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import traced
+
+    exact = traced.allreduce(x, op=hvd.Sum)
+    rows = traced.quantized_allreduce(x, op=hvd.Sum, seed=3)
+    blocks = traced.quantized_allreduce(x, op=hvd.Sum, seed=3, block_size=512,
+                                        return_residual=True)
+    red, res = hvd.bucketed_allreduce(
+        tree, op=hvd.Sum, n_buckets=OVERLAP_BUCKETS,
+        compression=hvd.Compression.int8_block, residuals=zeros, seed=5,
+        min_bucket_bytes=0, hier_stages=None)
+    return exact, rows, blocks, red, res
+
+
+def _compiled_phase(gen):
+    """Phase 14 (c): the eager call, then ``torch.compile(fullgraph=True)``
+    of the same function, on one 64 MiB batch; bitwise equal under the
+    same seed, B2 and B3 launched inside the compiled call, every output
+    within the two-stage budget of the fp64 input."""
+    import torch
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    x = torch.randn(COMPILED_ELEMS, generator=gen, device="cuda")
+    tree = {f"g{i}": torch.randn(COMPILED_ELEMS // COMPILED_LEAVES,
+                                 generator=gen, device="cuda")
+            for i in range(COMPILED_LEAVES)}
+    zeros = {k: torch.zeros_like(v) for k, v in tree.items()}
+    counters = (ck.int8_quantize, ck.int8_block_quantize)
+    launches = [0, 0]
+
+    def timed(fn):
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn(x, tree, zeros)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3
+        got = [c.launches - b for c, b in zip(counters, before)]
+        for i, g in enumerate(got):
+            launches[i] += g
+        return out, ms, got
+
+    eager, _, _ = timed(_compiled_exchange)
+    eager, eager_ms, eager_launches = timed(_compiled_exchange)
+    # eager's arithmetic: no contraction of a product and a sum into one
+    # fma (the residual's x − q·s would round once instead of twice)
+    os.environ["TRITON_DEFAULT_FP_FUSION"] = "0"
+    from torch._inductor import config as inductor_config
+
+    with inductor_config.patch(emulate_precision_casts=True):
+        compiled_fn = torch.compile(_compiled_exchange, fullgraph=True)
+        compiled, compile_ms, _ = timed(compiled_fn)
+    compiled, compiled_ms, compiled_launches = timed(compiled_fn)
+    names = ["exact", "rows", "block512", "block512_residual"] + [
+        f"bucketed.{k}" for k in tree] + [f"bucketed_residual.{k}"
+                                          for k in tree]
+    flat = lambda out: [out[0], out[1], out[2][0], out[2][1],  # noqa
+                        *out[3].values(), *out[4].values()]
+    unequal = [n for n, a, b in zip(names, flat(eager), flat(compiled))
+               if not torch.equal(a, b)]
+    bitwise = not unequal
+    big = float(x.abs().max())
+    budget = 2.02 * big / 127
+    errs = {"exact": float((compiled[0] - x).abs().max()),
+            "rows": float((compiled[1].double() - x.double()).abs().max()),
+            "block512": float((compiled[2][0].double()
+                               - x.double()).abs().max()),
+            "bucketed": max(float((compiled[3][k].double()
+                                   - v.double()).abs().max())
+                            for k, v in tree.items())}
+    leaf_big = max(float(v.abs().max()) for v in tree.values())
+    checks = {"compiled_equals_eager_bitwise": bitwise,
+              "exact_is_input": errs["exact"] == 0.0,
+              "b2_in_compiled_call": compiled_launches[0] >= 1,
+              "b3_in_compiled_call": compiled_launches[1] >= 1,
+              "rows_within_budget": errs["rows"] <= budget,
+              "block512_within_budget": errs["block512"] <= budget,
+              "bucketed_within_budget":
+                  errs["bucketed"] <= 2.02 * leaf_big / 127}
+    return {"elems": COMPILED_ELEMS, "leaves": COMPILED_LEAVES,
+            "eager_ms": eager_ms, "compiled_ms": compiled_ms,
+            "first_compiled_call_ms": compile_ms,
+            "eager_launches_b2_b3": eager_launches,
+            "unequal_outputs": unequal,
+            "compiled_launches_b2_b3": compiled_launches,
+            "max_abs_err": errs, "budget": budget,
+            "backend": "inductor"}, checks, launches
+
+
+def _overlap_rank(rank, n, port, results):
+    """One rank of phase 14 (d): its own process on the one card in a
+    gloo world of 2 nodes of 2, as phase 13's. Puts ``(rank, readings)``
+    on ``results``."""
+    os.environ.update(HOROVOD_INTRA_SIZE=str(HIER_INTRA),
+                      HOROVOD_HIERARCHICAL="on", HOROVOD_RANK=str(rank),
+                      HOROVOD_SIZE=str(n))
+    sys.path.insert(0, HERE)
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=n)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.common import topology
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.ops import traced
+
+    hvd.init(device="cuda")
+    for k in ck.KERNELS:
+        k.launches = 0
+    _zero_flash()
+    checks, out = {}, {"rank": rank}
+    stages = topology.hierarchy_stages()
+    # integer-valued fp32: the in-step collectives against the exact sums
+    # and the two-level recipe against the flat one, bit for bit
+    xs = _rank_inputs(n, 1 << 20, 600, -1000, 1000)
+    exact = torch.stack(xs).sum(0)
+    flat = traced.allreduce(xs[rank], op=hvd.Sum)
+    checks["allreduce"] = torch.equal(flat, exact)
+    checks["allreduce_avg"] = torch.equal(traced.allreduce(xs[rank]),
+                                          exact / n)
+    hier = traced.hierarchical_allreduce_groups(xs[rank], op=hvd.Sum,
+                                                stages=stages)
+    checks["two_level_equals_flat"] = torch.equal(hier, flat)
+    panes = _rank_inputs(n, 2 * n * 1000, 700, -1000, 1000)
+    got = traced.reducescatter(panes[rank].view(2 * n, 1000), op=hvd.Sum)
+    want = torch.stack(panes).sum(0).view(2 * n, 1000)[2 * rank:2 * rank + 2]
+    checks["reducescatter"] = torch.equal(got, want)
+    got = traced.allgather(xs[rank][:1000].view(10, 100))
+    checks["allgather"] = torch.equal(
+        got, torch.cat([x[:1000].view(10, 100) for x in xs]))
+    got = traced.alltoall(panes[rank].view(2 * n, 1000))
+    checks["alltoall"] = torch.equal(got, torch.cat(
+        [p.view(2 * n, 1000)[2 * rank:2 * rank + 2] for p in panes]))
+    # the quantized wires within their two-stage budgets
+    ys = _rank_inputs(n, 1 << 20, 800)
+    yexact = torch.stack(ys).double().sum(0)
+    nodes = [torch.stack(ys[h * HIER_INTRA:(h + 1) * HIER_INTRA]).sum(0)
+             for h in range(n // HIER_INTRA)]
+    flat_budget = 1.01 * (sum(float(y.abs().max()) for y in ys)
+                          + float(yexact.abs().max())) / 127
+    hier_budget = 1.01 * (sum(float(v.abs().max()) for v in nodes)
+                          + float(yexact.abs().max())) / 127
+    q = traced.quantized_allreduce(ys[rank], op=hvd.Sum, seed=3,
+                                   block_size=512)
+    qrows = traced.quantized_allreduce(ys[rank], op=hvd.Sum, seed=3)
+    hq = traced.hierarchical_quantized_allreduce(ys[rank], op=hvd.Sum,
+                                                 seed=3)
+    errs = {"block512": float((q.double() - yexact).abs().max()),
+            "rows": float((qrows.double() - yexact).abs().max()),
+            "hierarchical": float((hq.double() - yexact).abs().max())}
+    checks["quantized_within_budget"] = max(errs["block512"],
+                                            errs["rows"]) <= flat_budget
+    checks["hierarchical_quantized_within_budget"] = (
+        errs["hierarchical"] <= hier_budget)
+    out["quantized"] = {"errs": errs, "flat_budget": flat_budget,
+                        "hier_budget": hier_budget,
+                        "digest": _digest(q, qrows, hq)}
+    del xs, exact, panes, ys, nodes
+    # GPT-2 medium: overlapped buckets on hier_int8 with error feedback
+    cfg = dataclasses.replace(TransformerConfig.gpt2_medium(), remat=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = _overlap_opt(hvd, model, OVERLAP_BUCKETS,
+                       compression=hvd.Compression.hier_int8,
+                       error_feedback=True)
+    tokens, labels = _lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    per = TRAIN_BATCH // n
+    mine = slice(rank * per, (rank + 1) * per)
+    params = list(model.parameters())
+    train = {"losses": [], "step_ms": [], "param_digests": [],
+             "dispatched": []}
+    for _ in range(OVERLAP_RANK_STEPS):
+        before = opt._overlap.dispatched
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = _overlap_step(opt, model, tokens[mine], labels[mine])
+        train["losses"].append(float(loss.detach()))
+        train["step_ms"].append((time.monotonic() - t0) * 1e3)
+        train["param_digests"].append(_digest(*params))
+        train["dispatched"].append(opt._overlap.dispatched - before)
+    checks["one_collective_a_bucket"] = all(
+        d == opt._overlap.schedule.n_buckets for d in train["dispatched"])
+    train["residual_norm"] = opt.residual_norm()
+    train["buckets"] = list(opt._overlap.schedule.bucket_bytes)
+    out["train"] = train
+    out["launches"] = {k.__name__: k.launches for k in ck.KERNELS}
+    out["flash"] = _read_flash()
+    out["checks"] = checks
+    opt.remove_hooks()
+    hvd.shutdown()
+    dist.destroy_process_group()
+    results.put((rank, out))
+
+
+def _overlap_world():
+    """Phase 14 (d): :func:`_overlap_rank` in 4 processes; returns every
+    rank's readings, in rank order."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    n = OVERLAP_WORLD
+    procs = [ctx.Process(target=_overlap_rank, args=(r, n, port, results),
+                         daemon=True) for r in range(n)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    got = {}
+    while len(got) < n:
+        dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+        if dead or time.monotonic() - t0 > OVERLAP_TIMEOUT_S:
+            for p in procs:
+                p.kill()
+            fail(f"overlap world: ranks {dead} ended with "
+                 f"{[procs[r].exitcode for r in dead]}" if dead else
+                 f"overlap world: not done in {OVERLAP_TIMEOUT_S} s")
+        try:
+            rank, out = results.get(timeout=5)
+        except queue.Empty:
+            continue
+        got[rank] = out
+    for p in procs:
+        p.join(timeout=60)
+        if p.exitcode != 0:
+            p.kill()
+            fail(f"overlap world: a rank exited with {p.exitcode}")
+    return [got[r] for r in range(n)], time.monotonic() - t0
+
+
+def phase_overlap(gen, card, phase5):
+    """Phase 14: (a) GPT-2 medium at full width (phase 5's configuration,
+    a world of one on NCCL) through ``DistributedOptimizer(overlap_buckets
+    =4)`` and with overlap off, on the same state and 3 batches, in turns:
+    the parameters bitwise equal after every step, one collective a bucket
+    a step and no fused batch, bucket 0's collective issued before
+    backward's last kernel ends (CUDA events), one step profiled with a
+    range a bucket; the host-clock step, busy share and peak beside phase
+    5's (``phase5``), as readings. (b) The parameters through
+    ``overlap_boundary`` (kept over backward, which remat recomputes):
+    the gradients bitwise (a)'s reduced ones. (c) :func:`_compiled_phase`.
+    (d) :func:`_overlap_world`. Returns the launches of B2, B3 and the
+    flash kernels, the ranks' summed."""
+    import dataclasses
+
+    import torch
+    from torch.nn.utils import stateless
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import overlap
+
+    t_phase = time.monotonic()
+    hvd.init()
+    try:
+        cfg = dataclasses.replace(TransformerConfig.gpt2_medium(), remat=True)
+        on_model = Transformer(cfg, device="cuda", generator=gen)
+        off_model = Transformer(cfg, device="cuda")
+        off_model.load_state_dict(on_model.state_dict())
+        overlap.reset_schedule_cache()
+        on = _overlap_opt(hvd, on_model, OVERLAP_BUCKETS)
+        off = _overlap_opt(hvd, off_model, 0)
+        sched = on._overlap.schedule
+        batches = [_lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                             SEED + i) for i in range(OVERLAP_STEPS)]
+        fusion = basics.state().fusion
+        _zero_flash()
+        torch.cuda.reset_peak_memory_stats()
+        events = {}
+        _timed_dispatch(on, events)
+        readings = {"on": {"step_ms": [], "losses": []},
+                    "off": {"step_ms": [], "losses": []},
+                    "bucket0_issued_before_backward_end_ms": [],
+                    "bucket0_done_before_backward_end_ms": [],
+                    "dispatched": [], "fused_batches_on": []}
+        bitwise = []
+        for i, (tokens, labels) in enumerate(batches):
+            order = (("on", on_model, on), ("off", off_model, off))
+            for name, model, opt in (order if i % 2 == 0 else order[::-1]):
+                d0, f0 = on._overlap.dispatched, fusion.dispatched_batches
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                loss = _overlap_step(opt, model, tokens, labels,
+                                     events if name == "on" else None)
+                readings[name]["losses"].append(float(loss.detach()))
+                readings[name]["step_ms"].append(
+                    (time.monotonic() - t0) * 1e3)
+                if name == "on":
+                    readings["dispatched"].append(on._overlap.dispatched - d0)
+                    readings["fused_batches_on"].append(
+                        fusion.dispatched_batches - f0)
+                    readings["bucket0_issued_before_backward_end_ms"].append(
+                        events["issued"].elapsed_time(events["backward_end"]))
+                    readings["bucket0_done_before_backward_end_ms"].append(
+                        events["done"].elapsed_time(events["backward_end"]))
+            bitwise.append(all(torch.equal(a, b) for a, b in zip(
+                on_model.parameters(), off_model.parameters())))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not all(bitwise):
+            fail(f"overlap: parameters with overlap on and off differ after "
+                 f"steps {[i for i, b in enumerate(bitwise) if not b]}")
+        if any(d != sched.n_buckets for d in readings["dispatched"]) or any(
+                readings["fused_batches_on"]):
+            fail(f"overlap: bucket collectives a step "
+                 f"{readings['dispatched']} (schedule {sched.n_buckets}), "
+                 f"fused batches {readings['fused_batches_on']}")
+        if not min(readings["bucket0_issued_before_backward_end_ms"]) > 0:
+            fail("overlap: bucket 0's collective was not issued before "
+                 "backward's last kernel ended: "
+                 f"{readings['bucket0_issued_before_backward_end_ms']}")
+        losses = readings["on"]["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"overlap: non-finite loss {losses}")
+        tokens, labels = batches[0]
+        prof = _profile_step(
+            lambda: _overlap_step(on, on_model, tokens, labels),
+            range_prefix="hvd.overlap.bucket")
+        if len(prof["ranges"]) != sched.n_buckets:
+            fail(f"overlap: profiled bucket ranges {prof['ranges']}")
+
+        # (b) the boundary's gradients against (a)'s reduced gradients
+        on.zero_grad(set_to_none=True)
+        _loss(on_model, tokens, labels).backward()
+        on.synchronize()
+        reduced = [p.grad.clone() for p in on_model.parameters()]
+        on.remove_hooks()
+        off.remove_hooks()
+        off_model.load_state_dict(on_model.state_dict())
+        off_model.zero_grad(set_to_none=True)
+        params = dict(off_model.named_parameters())
+        through = hvd.overlap_boundary(params, n_buckets=OVERLAP_BUCKETS)
+        with stateless._reparametrize_module(off_model, through):
+            _loss(off_model, tokens, labels).backward()
+        boundary = [p.grad for p in off_model.parameters()]
+        if not all(g is not None and torch.equal(g, r)
+                   for g, r in zip(boundary, reduced)):
+            fail("overlap: the boundary's gradients differ from the "
+                 "optimizer's reduced gradients")
+        flash = _read_flash()
+        del on_model, off_model, on, off, reduced, boundary, through, params
+        torch.cuda.empty_cache()
+
+        # (c) the compiled exchange
+        t0 = time.monotonic()
+        compiled, checks, wire = _compiled_phase(gen)
+        compiled["s"] = time.monotonic() - t0
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"overlap compiled exchange: failed {bad}: "
+                 f"{json.dumps(compiled, sort_keys=True)}")
+    finally:
+        hvd.shutdown()
+    torch.cuda.empty_cache()
+
+    # (d) the gloo world of 4
+    outs, wall_s = _overlap_world()
+    for o in outs:
+        bad = [k for k, ok in o["checks"].items() if not ok]
+        if bad:
+            fail(f"overlap rank {o['rank']}: failed {bad}: "
+                 f"{json.dumps(o['quantized'], sort_keys=True)}")
+    if len({o["quantized"]["digest"] for o in outs}) != 1:
+        fail("overlap world: the ranks' quantized outputs differ")
+    for step in range(OVERLAP_RANK_STEPS):
+        if len({o["train"]["param_digests"][step] for o in outs}) != 1:
+            fail(f"overlap world step {step}: the ranks' parameters differ")
+    rank_losses = [sum(o["train"]["losses"][s] for o in outs) / len(outs)
+                   for s in range(OVERLAP_RANK_STEPS)]
+    if not all(math.isfinite(x) for x in rank_losses):
+        fail(f"overlap world: non-finite loss {rank_losses}")
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name in outs[0]["launches"]}
+    launches["int8_quantize"] += wire[0]
+    launches["int8_block_quantize"] += wire[1]
+    for name in ("int8_quantize", "int8_block_quantize"):
+        if launches[name] < 1:
+            fail(f"overlap: {name} never launched in the phase")
+    flash = ({k: flash[0][k] + sum(o["flash"][0][k] for o in outs)
+              for k in flash[0]},
+             {k: flash[1][k] + sum(o["flash"][1][k] for o in outs)
+              for k in flash[1]})
+    on_ms = readings["on"]["step_ms"][1:]
+    off_ms = readings["off"]["step_ms"][1:]
+    log("overlap: " + json.dumps({
+        "model": "gpt2_medium", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "world": 1, "buckets": sched.n_buckets,
+        "bucket_bytes": list(sched.bucket_bytes),
+        "bucket_members": [len(b) for b in sched.buckets],
+        "schedule_cache": overlap.schedule_cache_stats(),
+        "params_bitwise_equal_each_step": bitwise,
+        "collectives_per_step": readings["dispatched"],
+        "bucket0_issued_before_backward_end_ms":
+            readings["bucket0_issued_before_backward_end_ms"],
+        "bucket0_done_before_backward_end_ms":
+            readings["bucket0_done_before_backward_end_ms"],
+        "step_ms_on": readings["on"]["step_ms"],
+        "step_ms_off": readings["off"]["step_ms"],
+        "step_ms_mean_after_first": {"on": sum(on_ms) / len(on_ms),
+                                     "off": sum(off_ms) / len(off_ms),
+                                     "phase5": phase5[
+                                         "step_ms_mean_after_first"]},
+        "device_busy_share": {"on": prof["device_busy_share"],
+                              "phase5": phase5["device_busy_share"]},
+        "peak_memory_gb": {"on_and_off_models": peak_gb,
+                           "phase5": phase5["peak_memory_gb"]},
+        "profiled_bucket_ranges_ms": prof["ranges"],
+        "profiled_wall_ms": prof["wall_ms"],
+        "profiled_device_busy_ms": prof["device_busy_ms"],
+        "losses_on": readings["on"]["losses"],
+        "boundary_gradients_bitwise": True,
+        "compiled": compiled,
+        "gloo_world": {
+            "world": OVERLAP_WORLD, "intra": HIER_INTRA, "wall_s": wall_s,
+            "mean_losses": rank_losses,
+            "step_ms_by_rank": [o["train"]["step_ms"] for o in outs],
+            "collectives_per_step": outs[0]["train"]["dispatched"],
+            "bucket_bytes": outs[0]["train"]["buckets"],
+            "residual_norm": outs[0]["train"]["residual_norm"],
+            "quantized": {k: v for k, v in outs[0]["quantized"].items()
+                          if k != "digest"}},
+        "launches": launches, "flash_launches": flash[0],
+        "flash_tensor_core_launches": flash[1],
+        "phase_s": time.monotonic() - t_phase, "card": card,
+    }, sort_keys=True))
+    return launches, flash
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2823,7 +3356,7 @@ def main() -> int:
     # phase 5: training, the second slice's main path
     t0 = time.monotonic()
     (train_launches, train_tc_launches, fused_bytes_per_step,
-     train_peak_gb) = phase_train(gen, card)
+     train_peak_gb, train_readings) = phase_train(gen, card)
     log(f"train phase: {time.monotonic() - t0:.2f} s")
     torch.cuda.empty_cache()
 
@@ -2879,6 +3412,17 @@ def main() -> int:
     for name in ("int8_block_quantize", "adasum_dots", "adasum_apply"):
         wire_launches[name] += hier_launches[name]
     log(f"hier phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 14: the bucketed overlap, the boundary, the compiled exchange
+    # and the in-step collectives in a gloo world of 4
+    t0 = time.monotonic()
+    overlap_launches, overlap_flash = phase_overlap(gen, card,
+                                                    train_readings)
+    flash_runs.append(overlap_flash)
+    for name in ("int8_quantize", "int8_block_quantize"):
+        wire_launches[name] += overlap_launches[name]
+    log(f"overlap phase: {time.monotonic() - t0:.2f} s")
     flash_launches = {k: sum(r[0][k] for r in flash_runs)
                       for k in flash_runs[1][0]}
     flash_tc_launches = {k: sum(r[1][k] for r in flash_runs)

@@ -31,6 +31,15 @@ slices are ported:
 - the rest of Horovod's collectives: ``alltoall``, ``reducescatter``,
   the grouped allgather and reducescatter, ``flush`` and ``join``
   (``join_ranks``) with their handles;
+- the in-step collectives ``hvd.traced`` (plain functions on tensors,
+  built from functional collectives, that ``torch.compile(fullgraph=True)``
+  traces: the exact collectives with ``op``, pre/postscale, process sets,
+  the join ``mask`` and ``groups=``; the quantized wires on kernels B2
+  and B3, which a compiled step reaches as custom operators; the
+  two-level recipes) and the bucketed overlap ``hvd.overlap``
+  (``bucketed_allreduce``, ``build_bucket_schedule``,
+  ``overlap_boundary``, and ``DistributedOptimizer(overlap_buckets=)``,
+  whose bucket collectives run beside backward);
 - serving: ``serve()`` answers HTTP ``POST /generate`` through a
   continuous batcher and an engine over a paged KV pool, and attention
   reads the pool through a hand-written CUDA kernel
@@ -125,8 +134,14 @@ from .ops.eager import (  # noqa: F401
     reducescatter_async,
     synchronize,
 )
+from .ops import overlap, traced  # noqa: F401
 from .ops.flash_attention import flash_attention  # noqa: F401
 from .ops.fused_xent import fused_linear_cross_entropy  # noqa: F401
+from .ops.overlap import (  # noqa: F401
+    bucketed_allreduce,
+    build_bucket_schedule,
+    overlap_boundary,
+)
 from .ops.reduction_ops import (  # noqa: F401
     Adasum,
     Average,

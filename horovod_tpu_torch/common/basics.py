@@ -67,6 +67,10 @@ class _GlobalState:
         self.inter_group = None
         self.fusion = None  # ops.fusion.FusionManager
         self.owns_group = False  # init() made the process group
+        self.device: Optional[torch.device] = None  # where this rank computes
+        # ops/traced.py's process groups by rank lists: (group, position,
+        # size), made eagerly on first use, in the same order on every rank
+        self.traced_groups: dict = {}
 
 
 _state = _GlobalState()
@@ -141,6 +145,8 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None, *,
                                       wire_block=cfg.fusion_wire_block,
                                       wire_hier=cfg.fusion_wire_hier)
         _state.owns_group = owns
+        _state.device = dev
+        _state.traced_groups = {}
         _state.initialized = True
 
 
@@ -163,6 +169,8 @@ def shutdown() -> None:
             _state.intra_group = _state.inter_group = None
             _state.fusion = None
             _state.owns_group = False
+            _state.device = None
+            _state.traced_groups = {}
 
 
 def is_initialized() -> bool:

@@ -8,8 +8,10 @@ package the same way:
   time, the fused buffer's wire format and block, the launcher's rank
   and size variables, the two-level switches ``HOROVOD_HIERARCHICAL``,
   ``HOROVOD_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER``,
-  ``HOROVOD_FUSION_WIRE_HIER`` and ``HOROVOD_INTRA_SIZE``), snapshotted
-  at ``hvd.init()`` as the JAX package does;
+  ``HOROVOD_FUSION_WIRE_HIER`` and ``HOROVOD_INTRA_SIZE``, and the
+  bucketed overlap's ``HOROVOD_OVERLAP``, ``HOROVOD_OVERLAP_BUCKETS`` and
+  ``HOROVOD_OVERLAP_MIN_BYTES``), snapshotted at ``hvd.init()`` as the
+  JAX package does;
 * :class:`ServeConfig`, the serving part (``HOROVOD_SERVE_*``), read by
   :func:`live_config` when a serving object is built (serving needs no
   init step).
@@ -42,6 +44,10 @@ DEFAULT_FUSION_WIRE_BLOCK = 512
 # Two-level routing (HOROVOD_HIERARCHICAL): auto engages it only on
 # positive evidence of a second level (common/topology.py).
 DEFAULT_HIERARCHICAL = "auto"
+# Bucketed overlap (ops/overlap.py): off by default; the bucket count and
+# the byte floor under which a bucket merges into its neighbour.
+DEFAULT_OVERLAP_BUCKETS = 4
+DEFAULT_OVERLAP_MIN_BYTES = 1 << 20
 # consecutive non-finite steps the grad guard skips before it escalates
 DEFAULT_GUARD_MAX_SKIPS = 3
 
@@ -152,6 +158,13 @@ class TrainConfig:
     # ranks per node for the two-level split (HOROVOD_INTRA_SIZE); a
     # value that does not divide the world degrades to gcd(intra, world)
     intra_size: Optional[int] = None
+    # the bucketed overlap (ops/overlap.py): when on, DistributedOptimizer
+    # exchanges its gradients in ``overlap_buckets`` buckets unless the
+    # caller passes overlap_buckets=; buckets under ``overlap_min_bytes``
+    # merge forward (a collective's launch outweighs its overlap there)
+    overlap: bool = False
+    overlap_buckets: int = DEFAULT_OVERLAP_BUCKETS
+    overlap_min_bytes: int = DEFAULT_OVERLAP_MIN_BYTES
     # the launcher's view of this process (None outside a launcher)
     rank: Optional[int] = None
     size: Optional[int] = None
@@ -188,6 +201,11 @@ class TrainConfig:
                 ("auto", "on", "off"),
             ),
             intra_size=_env_opt_int("HOROVOD_INTRA_SIZE"),
+            overlap=_env_bool("HOROVOD_OVERLAP"),
+            overlap_buckets=_env_int("HOROVOD_OVERLAP_BUCKETS",
+                                     DEFAULT_OVERLAP_BUCKETS),
+            overlap_min_bytes=_env_int("HOROVOD_OVERLAP_MIN_BYTES",
+                                       DEFAULT_OVERLAP_MIN_BYTES),
             rank=_env_opt_int("HOROVOD_RANK"),
             size=_env_opt_int("HOROVOD_SIZE"),
             local_rank=_env_opt_int("HOROVOD_LOCAL_RANK"),

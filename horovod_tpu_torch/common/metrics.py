@@ -1,14 +1,15 @@
 """Process-wide metrics registry: named counters and gauges.
 
-The serving plane publishes into it (``serve.*``) and the frontend's
-``/metrics`` route renders a snapshot as Prometheus text
+The serving plane publishes into it (``serve.*``), the bucketed
+overlap its schedule (``overlap.*``, :func:`publish_overlap`), and the
+frontend's ``/metrics`` route renders a snapshot as Prometheus text
 (``common/telemetry.py``). Thread-safe; values are floats.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 
 class MetricsRegistry:
@@ -36,3 +37,19 @@ class MetricsRegistry:
 
 
 registry = MetricsRegistry()
+
+
+def publish_overlap(n_buckets: int, bucket_bytes: Iterable[int],
+                    total_bytes: Optional[int] = None) -> None:
+    """Publish the bucketed gradient exchange's schedule
+    (``ops/overlap.py``) as the ``overlap.*`` gauges: ``buckets`` and
+    ``bucket_bytes_{total,max,min}``. Host integers only, no device
+    read."""
+    bucket_bytes = list(bucket_bytes)
+    registry.update("overlap", {
+        "buckets": n_buckets,
+        "bucket_bytes_total": (sum(bucket_bytes) if total_bytes is None
+                               else total_bytes),
+        "bucket_bytes_max": max(bucket_bytes, default=0),
+        "bucket_bytes_min": min(bucket_bytes, default=0),
+    })

@@ -31,6 +31,16 @@ CPU; a CUDA tensor launches the kernel or raises. Every launch adds one
 to the wrapper's ``launches``. :func:`int8_block_dequantize` is plain
 PyTorch on every device, as the JAX function is plain jnp.
 
+A ctypes call is opaque to ``torch.compile``, so each kernel is also a
+``torch.library`` custom operator in the port's namespace ``hvd_torch``
+(:data:`OPS`, e.g. ``OPS.int8_block_quantize``): its CUDA implementation
+is the wrapper, so the launch counter advances inside a compiled call
+too; its CPU implementation is the plain version; a fake implementation
+states the outputs' shapes and dtypes for tracing. The in-step
+collectives (``ops/traced.py``) call the operators; the eager paths
+(fusion, Adasum's tree, the codecs) call the wrappers, which skip the
+dispatcher.
+
 The stochastic rounding's uniform ``u`` is a pure function of (seed,
 stream, element index): element ``i`` takes word ``i % 4`` of
 Philox4x32-10 at counter ``(i // 4, 0, 0)`` under key ``(seed,
@@ -461,3 +471,92 @@ def adasum_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 KERNELS = (scale_cast, int8_quantize, int8_block_quantize, adasum_dots,
            adasum_apply)
+
+
+# ------------------------------------------------------- custom operators
+
+
+@torch.library.custom_op("hvd_torch::scale_cast", mutates_args=(),
+                         device_types="cuda")
+def _scale_cast_op(x: torch.Tensor, scale: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    return scale_cast(x, scale, out_dtype)
+
+
+_scale_cast_op.register_kernel("cpu")(
+    lambda x, scale, out_dtype: scale_cast_plain(x, scale, out_dtype))
+
+
+@_scale_cast_op.register_fake
+def _(x, scale, out_dtype):
+    return x.new_empty(x.shape, dtype=out_dtype)
+
+
+@torch.library.custom_op("hvd_torch::int8_quantize", mutates_args=(),
+                         device_types="cuda")
+def _int8_quantize_op(x: torch.Tensor, seed: int,
+                      stream: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return int8_quantize(x, seed, stream)
+
+
+_int8_quantize_op.register_kernel("cpu")(
+    lambda x, seed, stream: int8_quantize_plain(x, seed, stream))
+
+
+@_int8_quantize_op.register_fake
+def _(x, seed, stream):
+    return (x.new_empty(x.shape, dtype=torch.int8),
+            x.new_empty((), dtype=torch.float32))
+
+
+@torch.library.custom_op("hvd_torch::int8_block_quantize", mutates_args=(),
+                         device_types="cuda")
+def _int8_block_quantize_op(
+        x: torch.Tensor, block_size: int, seed: int, stream: int,
+        rows: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return int8_block_quantize(x, block_size, seed, stream, rows)
+
+
+_int8_block_quantize_op.register_kernel("cpu")(
+    lambda x, block_size, seed, stream, rows: int8_block_quantize_plain(
+        x, block_size, seed, stream, rows))
+
+
+@_int8_block_quantize_op.register_fake
+def _(x, block_size, seed, stream, rows):
+    r, c = (x.shape[0], x.shape[1]) if rows else (1, x.numel())
+    nb = -(-c // block_size)
+    scales = x.new_empty((r, nb) if rows else (nb,), dtype=torch.float32)
+    return x.new_empty(x.shape, dtype=torch.int8), scales
+
+
+@torch.library.custom_op("hvd_torch::adasum_dots", mutates_args=(),
+                         device_types="cuda")
+def _adasum_dots_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return adasum_dots(a, b)
+
+
+_adasum_dots_op.register_kernel("cpu")(adasum_dots_plain)
+
+
+@_adasum_dots_op.register_fake
+def _(a, b):
+    return a.new_empty((3,), dtype=torch.float32)
+
+
+@torch.library.custom_op("hvd_torch::adasum_apply", mutates_args=(),
+                         device_types="cuda")
+def _adasum_apply_op(a: torch.Tensor, b: torch.Tensor,
+                     dots: torch.Tensor) -> torch.Tensor:
+    return adasum_apply(a, b, dots)
+
+
+_adasum_apply_op.register_kernel("cpu")(adasum_apply_plain)
+
+
+@_adasum_apply_op.register_fake
+def _(a, b, dots):
+    return torch.empty_like(a, memory_format=torch.contiguous_format)
+
+
+OPS = torch.ops.hvd_torch

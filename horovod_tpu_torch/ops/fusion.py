@@ -112,9 +112,11 @@ from torch.profiler import record_function
 from ..common import basics
 from ..common import topology as topo_mod
 from ..common.process_sets import ProcessSet
-from . import cuda_kernels
+from . import int8_wire
 from ._collectives import gather_into, scatter_reduce_into
 from .adasum import adasum_allreduce
+from .int8_wire import WIRE_RANGES
+from .traced import _exchange
 from .reduction_ops import Adasum, Average, Max, Min, Product, ReduceOp, Sum
 
 _DIST_OPS = {
@@ -360,9 +362,6 @@ class Handle:
 
 
 WIRES = ("fp32", "bf16", "int8")
-# the int8 wire's profiler ranges, by pass (B3's launches lie outside them)
-WIRE_RANGES = {k: f"hvd.int8_wire.{k}" for k in (
-    "pack", "exchange", "dequantize_sum", "residual", "unpack")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -687,15 +686,15 @@ class FusionManager:
 
     def _quantized_sum(self, shard, plan: _Split, block: int,
                        want_residual: bool):
-        """B3's two-stage int8 recipe over the inter group, with Sum
-        semantics (``traced.py:_quantized_sum_groups``): chunk the shard
-        over the H nodes, quantize, exchange values and scales, sum the
-        dequantized chunks, quantize the summed chunk, allgather it.
-        Returns the reduced shard and, when asked for, the residual of
-        both stages on the shard (the owned chunk, by the position in
-        the inter group, carries the second stage's error unscaled: the
-        caller divides after the gather, so the error and a correction
-        added to the next input pass the same division)."""
+        """B3's two-stage int8 recipe (``ops/int8_wire.py``) over the
+        inter group, with Sum semantics (``traced.py:_quantized_sum_groups``):
+        chunk the shard over the H nodes, quantize, exchange values and
+        scales, sum the dequantized chunks, quantize the summed chunk,
+        allgather it. Returns the reduced shard and, when asked for, the
+        residual of both stages on the shard (the owned chunk, by the
+        position in the inter group, carries the second stage's error
+        unscaled: the caller divides after the gather, so the error and a
+        correction added to the next input pass the same division)."""
         H, m = plan.H, shard.numel()
         chunk = -(-m // H)
         chunks = torch.nn.functional.pad(shard, (0, chunk * H - m)).view(
@@ -703,44 +702,33 @@ class FusionManager:
         seed = self._seed_counter
         self._seed_counter += 1
         rank = dist.get_rank()
-        q, scales = cuda_kernels.int8_block_quantize(
-            chunks, block, seed=seed, stream=2 * rank, rows=True)
-        with record_function(WIRE_RANGES["exchange"]):
-            recv_q = torch.empty_like(q)
-            recv_s = torch.empty_like(scales)
-            dist.all_to_all_single(recv_q, q, group=plan.inter)
-            dist.all_to_all_single(recv_s, scales, group=plan.inter)
-        with record_function(WIRE_RANGES["dequantize_sum"]):
-            summed = cuda_kernels.int8_block_dequantize(
-                recv_q, recv_s, block).sum(0)
-        q2, s2 = cuda_kernels.int8_block_quantize(
-            summed[None], block, seed=seed, stream=2 * rank + 1, rows=True)
-        with record_function(WIRE_RANGES["exchange"]):
-            all_q = q.new_empty((H, chunk))
-            all_s = s2.new_empty((H, s2.shape[1]))
-            gather_into(all_q, q2[0], plan.inter)
-            gather_into(all_s, s2[0], plan.inter)
-        self.handed_bytes_inter += _nbytes(q, scales, q2, s2)
-        with record_function(WIRE_RANGES["unpack"]):
-            red = cuda_kernels.int8_block_dequantize(
-                all_q, all_s, block).reshape(-1)[:m]
+
+        def gather(q2, s2):
+            all_q = q2.new_empty((H,) + q2.shape)
+            all_s = s2.new_empty((H,) + s2.shape)
+            gather_into(all_q, q2, plan.inter)
+            gather_into(all_s, s2, plan.inter)
+            return all_q, all_s
+
+        st = int8_wire.quantized_sum(
+            chunks, block, seed, (2 * rank, 2 * rank + 1),
+            _exchange(plan.inter), gather)
+        self.handed_bytes_inter += _nbytes(st.q, st.scales, st.q2, st.s2)
+        red = int8_wire.unpack(st.all_q, st.all_s, block, m)
         res = None
         if want_residual:
-            with record_function(WIRE_RANGES["residual"]):
-                res = chunks - cuda_kernels.int8_block_dequantize(
-                    q, scales, block)
-                res[plan.pos] += summed - cuda_kernels.int8_block_dequantize(
-                    q2, s2, block)[0]
-                res = res.reshape(-1)[:m].contiguous()
+            res = int8_wire.residual(chunks, st, block, plan.pos,
+                                     m).contiguous()
         return red, res
 
     def _allreduce_q(self, entries, group, ps):
         """The int8 fused wire (``_core_allreduce_q``): pack; split into
-        one chunk per rank; block-quantize the chunk rows on B3 with the
-        prescale folded into the wire scales; ``all_to_all_single`` of
-        values and of scales; dequantize and sum the received chunks in
-        fp32 (÷n for Average); block-quantize this rank's reduced shard
-        on B3; allgather values and scales; dequantize into the unpack
+        one chunk per rank; run the two-stage recipe of
+        ``ops/int8_wire.py`` on B3 (block-quantize the chunk rows with
+        the prescale folded into the wire scales; ``all_to_all_single``
+        of values and of scales; dequantize and sum the received chunks
+        in fp32, ÷n for Average; block-quantize this rank's reduced
+        shard; allgather values and scales); dequantize into the unpack
         and apply the postscale. Only the final allgather is in flight
         when this returns. A joined rank (the join mask) sends zeros,
         and Average divides by the active count.
@@ -766,47 +754,33 @@ class FusionManager:
         seed = self._seed_counter
         self._seed_counter += 1
         rank = dist.get_rank()
-        q, scales = cuda_kernels.int8_block_quantize(
-            chunks, block, seed=seed, stream=2 * rank, rows=True)
-        wire_scales = scales * e0.prescale if e0.prescale != 1.0 else scales
-        with record_function(WIRE_RANGES["exchange"]):
-            recv_q = torch.empty_like(q)
-            recv_s = torch.empty_like(wire_scales)
-            dist.all_to_all_single(recv_q, q, group=group)
-            dist.all_to_all_single(recv_s, wire_scales, group=group)
-        with record_function(WIRE_RANGES["dequantize_sum"]):
-            shard = cuda_kernels.int8_block_dequantize(recv_q, recv_s,
-                                                       block).sum(0)
-            if e0.op == Average:
-                shard = shard / count
-        q2, s2 = cuda_kernels.int8_block_quantize(
-            shard[None], block, seed=seed, stream=2 * rank + 1, rows=True)
-        with record_function(WIRE_RANGES["exchange"]):
-            all_q = q.new_empty((n, chunk))
-            all_s = s2.new_empty((n, s2.shape[1]))
-            work = _Works(gather_into(all_q, q2[0], group, True),
-                          gather_into(all_s, s2[0], group, True))
+        works = []
+
+        def gather(q2, s2):
+            all_q = q2.new_empty((n,) + q2.shape)
+            all_s = s2.new_empty((n,) + s2.shape)
+            works.extend([gather_into(all_q, q2, group, True),
+                          gather_into(all_s, s2, group, True)])
+            return all_q, all_s
+
+        average = e0.op == Average
+        st = int8_wire.quantized_sum(
+            chunks, block, seed, (2 * rank, 2 * rank + 1), _exchange(group),
+            gather, prescale=e0.prescale, divisor=count if average else None)
         res = None
         if e0.want_residual:
-            with record_function(WIRE_RANGES["residual"]):
-                if e0.prescale == 0.0:
-                    res = row.new_zeros(m, dtype=dtype)
-                else:
-                    res1 = chunks - cuda_kernels.int8_block_dequantize(
-                        q, scales, block)
-                    e2 = shard - cuda_kernels.int8_block_dequantize(
-                        q2, s2, block)[0]
-                    if e0.op == Average:
-                        e2 = e2 * count
-                    if e0.prescale != 1.0:
-                        e2 = e2 / e0.prescale
-                    res1[me] += e2
-                    res = res1.reshape(-1)[:m].to(dtype)
+            if e0.prescale == 0.0:
+                res = row.new_zeros(m, dtype=dtype)
+            else:
+                res = int8_wire.residual(
+                    chunks, st, block, me, m,
+                    e2_mul=count if average else None,
+                    e2_div=e0.prescale if e0.prescale != 1.0 else None,
+                ).to(dtype)
 
         def finish():
+            out = int8_wire.unpack(st.all_q, st.all_s, block, m)
             with record_function(WIRE_RANGES["unpack"]):
-                out = cuda_kernels.int8_block_dequantize(all_q, all_s, block)
-                out = out.reshape(-1)[:m]
                 if e0.postscale != 1.0:
                     out = out * e0.postscale
                 out = out.to(dtype)
@@ -816,7 +790,7 @@ class FusionManager:
                 return outs, _finite(e0, out)
 
         nbytes = self._account(m, "int8", e0.tensor.element_size(), n, block)
-        return work, finish, nbytes
+        return _Works(*works), finish, nbytes
 
     def _adasum(self, e0, ps):
         """One Adasum entry through ``ops/adasum.py``, computed now; the

@@ -54,8 +54,25 @@ package's ``optimizer.py`` is its oracle):
   skips (None: ``HOROVOD_GUARD_MAX_SKIPS``) latch an escalation that
   ``hvd.guard_check()`` raises as ``HorovodInternalError``.
 
-The bucketed overlap (``overlap_buckets``, ``overlap_min_bytes``: ROADMAP
-A8) and local SGD (``local_sgd_*``: A11) are not ported yet and raise.
+- ``overlap_buckets=N`` (None: ``HOROVOD_OVERLAP_BUCKETS`` when
+  ``HOROVOD_OVERLAP`` is on, else 0) exchanges the gradients in N
+  buckets of ``ops/overlap.py``'s schedule, built once over the
+  parameters in reverse registration order (the JAX reverse flatten
+  order), ``overlap_min_bytes`` its merge floor. At the window's last
+  pass the hooks fill the buckets, and each bucket's collective
+  (``overlap.exchange_bucket``: the exact allreduce, the int8 wire with
+  a per-bucket seed, or the two-level route) is issued the moment its
+  last member's gradient arrives, on a side stream of the card, so
+  backward keeps running while it is in flight; ``step()`` waits on
+  them. At the window's end a bucket still open goes out with zeros for
+  its members that have no gradient, as the JAX gradient would carry
+  them. Error feedback is per bucket, and the guard ANDs the buckets'
+  flags. With Sum on fp32 the result is bitwise the fused path's. An
+  explicit ``overlap_buckets`` with Adasum, Min, Max or Product raises
+  ``ValueError``; the environment's default falls back to the fused
+  path.
+
+Local SGD (``local_sgd_*``: ROADMAP A11) is not ported yet and raises.
 
 Every rank must run the same model, so that the hooks enqueue the same
 gradients in the same order (the fusion manager issues collectives in
@@ -64,15 +81,17 @@ that order).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Set
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from .common import basics
 from .common import guard as _guard
 from .common.process_sets import ProcessSet
-from .ops import eager
+from .ops import eager, overlap, traced
 from .ops.compression import Compression
 from .ops.reduction_ops import Adasum, Average, Sum, resolve_op
 
@@ -98,10 +117,20 @@ class DistributedOptimizer:
                  local_sgd_inter_wire: Optional[str] = None,
                  local_sgd_intra: Optional[int] = None):
         basics._require_init()
-        _check_unported(overlap_buckets, overlap_min_bytes, local_sgd_steps,
-                        local_sgd_inter_wire, local_sgd_intra)
+        _check_unported(local_sgd_steps, local_sgd_inter_wire,
+                        local_sgd_intra)
         op = resolve_op(op, average)
         quantized = getattr(compression, "quantized_wire", False)
+        buckets = (overlap.default_buckets() if overlap_buckets is None
+                   else int(overlap_buckets))
+        if buckets < 0:
+            raise ValueError(f"overlap_buckets must be >= 0, got {buckets}")
+        if buckets and op not in (Sum, Average):
+            if overlap_buckets is not None:
+                raise ValueError(
+                    "overlap_buckets requires op=Sum/Average (Adasum/min/"
+                    "max/product do not commute with bucket concatenation)")
+            buckets = 0  # HOROVOD_OVERLAP is a fleet default: keep fusion
         if error_feedback and not quantized:
             raise ValueError(
                 "error_feedback=True requires a quantized-wire compression "
@@ -160,6 +189,9 @@ class DistributedOptimizer:
         self._seen: Set[int] = set()  # parameters hooked since step()
         self._accum: Dict[int, torch.Tensor] = {}  # earlier passes' sum
         self._handles: Dict[int, eager.TorchHandle] = {}
+        self._overlap = None
+        if buckets:
+            self._overlap = _Buckets(self, buckets, overlap_min_bytes)
         self._hooks = [p.register_post_accumulate_grad_hook(self._hook)
                        for p in self._params]
 
@@ -190,7 +222,10 @@ class DistributedOptimizer:
 
     def _enqueue(self, p: torch.nn.Parameter, passes: int = 1) -> None:
         """Put ``p.grad``, the sum of a window of ``passes`` backward
-        passes, in flight."""
+        passes, in flight (with overlap on, into its bucket)."""
+        if self._overlap is not None:
+            self._overlap.arrive(p, passes)
+            return
         grad = p.grad
         if self._error_feedback:
             res = self._residuals.get(id(p))
@@ -211,6 +246,8 @@ class DistributedOptimizer:
         found a non-finite reduced value (one host read of the batches'
         flags); the error-feedback residuals then stay those of the last
         applied step."""
+        if self._overlap is not None:
+            return self._overlap.synchronize(max(self._micro, 1))
         if self._k == 1:
             for p in self._params:
                 if p.grad is not None and id(p) not in self._handles:
@@ -267,7 +304,8 @@ class DistributedOptimizer:
                 else:
                     p.grad.add_(buf)
                 self._enqueue(p, passes)
-        finite = self.synchronize()
+        finite = (self.synchronize() if self._overlap is None
+                  else self._overlap.synchronize(passes))
         self._updates += 1
         if finite:
             self._streak = 0
@@ -315,14 +353,111 @@ class DistributedOptimizer:
         self._hooks = []
 
 
-def _check_unported(overlap_buckets, overlap_min_bytes, local_sgd_steps,
-                    local_sgd_inter_wire, local_sgd_intra) -> None:
-    """The reference's options of later slices raise, naming their
-    ROADMAP item (0 buckets and one local step are the plain path)."""
-    if overlap_buckets or overlap_min_bytes is not None:
-        raise NotImplementedError(
-            "overlap_buckets/overlap_min_bytes (the bucketed overlap) are "
-            "not ported yet (ROADMAP A8)")
+class _Buckets:
+    """``DistributedOptimizer``'s bucketed overlap: the schedule over
+    its parameters, the buckets' arrivals in the current window, and the
+    exchanges in flight."""
+
+    def __init__(self, opt: "DistributedOptimizer", n: int,
+                 min_bytes: Optional[int]):
+        params = opt._params
+        if min_bytes is None:
+            min_bytes = overlap.default_min_bytes()
+        self.opt = opt
+        self.schedule = overlap.schedule_for(
+            params, f"DistributedOptimizer[{len(params)}]", n, int(min_bytes))
+        overlap._publish(self.schedule)
+        self.index = {id(p): i for i, p in enumerate(params)}
+        self.bucket_of = {i: b for b, idxs in enumerate(self.schedule.buckets)
+                          for i in idxs}
+        # checks the route once; the prescale is set at each dispatch
+        self.wire = overlap.make_wire(
+            opt._op, opt._compression, opt._pre, opt._post,
+            opt._process_set, residuals=opt._error_feedback)
+        self.arrived: List[Set[int]] = [set() for _ in self.schedule.buckets]
+        self.flight: Dict[int, tuple] = {}  # bucket -> its exchange's outputs
+        dev = params[0].device if params else torch.device("cpu")
+        # the exchanges run beside backward on the card; on the CPU, in line
+        self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self.dispatched = 0  # bucket collectives issued, all windows
+
+    def arrive(self, p: torch.nn.Parameter, passes: int) -> None:
+        i = self.index[id(p)]
+        b = self.bucket_of[i]
+        self.arrived[b].add(i)
+        if len(self.arrived[b]) == len(self.schedule.buckets[b]):
+            self.dispatch(b, passes)
+
+    def dispatch(self, b: int, passes: int) -> None:
+        """Issue bucket ``b``'s exchange of the window's gradients: an
+        arrived member's, one set by hand (one pass a window), else
+        zeros."""
+        opt = self.opt
+        members = [opt._params[i] for i in self.schedule.buckets[b]]
+        side = self.stream
+        if side is not None:
+            side.wait_stream(torch.cuda.current_stream(side.device))
+        with record_function(f"hvd.overlap.bucket{b}"), torch.no_grad(), (
+                torch.cuda.stream(side) if side is not None
+                else contextlib.nullcontext()):
+            parts = []
+            for i, p in zip(self.schedule.buckets[b], members):
+                took = i in self.arrived[b] or (opt._k == 1
+                                                and p.grad is not None)
+                parts.append(p.grad if took else torch.zeros_like(p))
+            flat = overlap._concat(parts)
+            res = None
+            if opt._error_feedback:
+                carried = [opt._residuals.get(id(p)) for p in members]
+                res = overlap._concat([
+                    torch.zeros_like(p) if r is None else r
+                    for p, r in zip(members, carried)])
+            pre = opt._pre / passes if opt._average_window else opt._pre
+            wire = self.wire._replace(prescale=pre)
+            seed = opt._updates * self.schedule.n_buckets + b
+            out, new_r = overlap.exchange_bucket(wire, flat, seed, res)
+            finite = traced.finite_scalar(out) if opt._guard else None
+        self.flight[b] = (members, out, new_r, finite)
+        self.dispatched += 1
+
+    def synchronize(self, passes: int) -> bool:
+        """Issue what is still open (the window's end, of ``passes``
+        backward passes), wait, and write the reduced gradients back;
+        False when a bucket's values are not finite (the residuals then
+        stay those of the last applied step)."""
+        for b in range(self.schedule.n_buckets):
+            if b not in self.flight:
+                self.dispatch(b, passes)
+        if self.stream is not None:
+            torch.cuda.current_stream(self.stream.device).wait_stream(
+                self.stream)
+        flight, self.flight = self.flight, {}
+        self.arrived = [set() for _ in self.schedule.buckets]
+        flags, residuals = [], {}
+        with torch.no_grad():
+            for b in sorted(flight):
+                members, out, new_r, finite = flight[b]
+                for p, piece in zip(members, overlap._split(out, members)):
+                    if p.grad is None:
+                        p.grad = piece.clone()
+                    else:
+                        p.grad.copy_(piece)
+                if new_r is not None:
+                    residuals.update(
+                        (id(p), r) for p, r in
+                        zip(members, overlap._split(new_r, members)))
+                if finite is not None:
+                    flags.append(finite)
+        finite = not flags or bool(torch.stack(flags).all())
+        if finite:
+            self.opt._residuals.update(residuals)
+        return finite
+
+
+def _check_unported(local_sgd_steps, local_sgd_inter_wire,
+                    local_sgd_intra) -> None:
+    """Local SGD, a later slice's option, raises naming its ROADMAP
+    item (one local step is the plain path)."""
     if (local_sgd_steps not in (None, 1) or local_sgd_inter_wire is not None
             or local_sgd_intra is not None):
         raise NotImplementedError(

@@ -637,3 +637,62 @@ def test_mixed_product_on_card(cuda_card):
     for g_dense, g_fused in zip(*grads):
         scale = float(g_dense.abs().max())
         assert float((g_fused - g_dense).abs().max()) <= 2.0 ** -8 * scale
+
+
+# ------------------------------------------- the wire kernels' operators
+
+
+def _op_cases(device):
+    x = _wire_input(device, 100_003)
+    rows = _wire_input(device, 4 * 2501, seed=1).view(4, 2501)
+    q, s = ck.int8_quantize(x, seed=3, stream=1)
+    b = _wire_input(device, 100_003, seed=2)
+    dots = ck.adasum_dots(x, b)
+    return {
+        "scale_cast": ((q, s, torch.bfloat16),
+                       lambda: ck.scale_cast(q, s, torch.bfloat16)),
+        "int8_quantize": ((x, 3, 1), lambda: ck.int8_quantize(x, 3, 1)),
+        "int8_block_quantize": ((rows, 512, 5, 2, True),
+                                lambda: ck.int8_block_quantize(
+                                    rows, 512, 5, 2, True)),
+        "int8_block_quantize_flat": ((x, 64, 5, 2, False),
+                                     lambda: ck.int8_block_quantize(
+                                         x, 64, 5, 2, False)),
+        "adasum_dots": ((x, b), lambda: ck.adasum_dots(x, b)),
+        "adasum_apply": ((x, b, dots), lambda: ck.adasum_apply(x, b, dots)),
+    }
+
+
+@pytest.mark.parametrize("name", ["scale_cast", "int8_quantize",
+                                  "int8_block_quantize",
+                                  "int8_block_quantize_flat", "adasum_dots",
+                                  "adasum_apply"])
+def test_custom_op_equals_wrapper_and_fake(cuda_card, name):
+    """Each wire kernel's ``torch.library`` operator (the form a compiled
+    step reaches) launches the kernel: bitwise its direct wrapper's
+    output, one launch of the wrapper's counter a call; its fake gives the
+    real output's shapes and dtypes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    args, direct = _op_cases(cuda_card)[name]
+    op = getattr(ck.OPS, name.replace("_flat", ""))
+    counter = {"scale_cast": ck.scale_cast, "int8_quantize": ck.int8_quantize,
+               "adasum_dots": ck.adasum_dots,
+               "adasum_apply": ck.adasum_apply}.get(
+                   name.replace("_flat", ""), ck.int8_block_quantize)
+    before = counter.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = direct()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g, w)
+    with FakeTensorMode() as mode:
+        fake = op(*[mode.from_tensor(a) if torch.is_tensor(a) else a
+                    for a in args])
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    for f, g in zip(fake, got):
+        assert f.shape == g.shape and f.dtype == g.dtype

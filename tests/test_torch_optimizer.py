@@ -196,8 +196,12 @@ def test_unported_options_raise(monkeypatch):
     try:
         model = _MLP(_data()[0])
         sgd = torch.optim.SGD(model.parameters(), lr=LR)
-        with pytest.raises(NotImplementedError, match="A8"):
-            hvd.DistributedOptimizer(sgd, overlap_buckets=2)
+        # the bucketed overlap (ROADMAP A8) is ported: accepted for
+        # Sum/Average, refused for an op that does not commute with the
+        # buckets' concatenation
+        hvd.DistributedOptimizer(sgd, overlap_buckets=2).remove_hooks()
+        with pytest.raises(ValueError, match="overlap_buckets"):
+            hvd.DistributedOptimizer(sgd, op=hvd.Adasum, overlap_buckets=2)
         with pytest.raises(ValueError, match="Adasum"):
             hvd.DistributedOptimizer(sgd, op=hvd.Adasum,
                                      compression=hvd.Compression.int8)

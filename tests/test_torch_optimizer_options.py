@@ -457,13 +457,17 @@ def test_options_raise(monkeypatch):
         p = [torch.nn.Parameter(torch.zeros(N))]
         with pytest.raises(ValueError, match="cannot both be set"):
             _opt(p, average=True, op=hvd.Sum)
-        for kw, item in ((dict(overlap_buckets=2), "A8"),
-                         (dict(overlap_min_bytes=1024), "A8"),
-                         (dict(local_sgd_steps=4), "A11"),
+        for kw, item in ((dict(local_sgd_steps=4), "A11"),
                          (dict(local_sgd_inter_wire="int8"), "A11"),
                          (dict(local_sgd_intra=2), "A11")):
             with pytest.raises(NotImplementedError, match=item):
                 _opt(p, **kw)
+        # the bucketed overlap (ROADMAP A8) is ported: its options are
+        # accepted, and an explicit bucket count refuses Adasum
+        _opt(p, overlap_buckets=2).remove_hooks()
+        _opt(p, overlap_min_bytes=1024).remove_hooks()
+        with pytest.raises(ValueError, match="overlap_buckets"):
+            _opt(p, op=hvd.Adasum, overlap_buckets=2)
         # the plain path's spellings of those options are accepted
         _opt(p, overlap_buckets=0, local_sgd_steps=1).remove_hooks()
         monkeypatch.setenv("HOROVOD_GUARD", "1")
