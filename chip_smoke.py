@@ -122,8 +122,24 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    ``DistributedOptimizer(overlap_buckets=4,
    compression=Compression.hier_int8, error_feedback=True)``, every
    rank's parameters equal after each step.
-   The flash counts of phases 5, 10, 12, 13 and 14, and the wire counts
-   of phases 8, 9, 13 and 14, add up in the ``kernels`` line.
+15. ZeRO (``ShardedDistributedOptimizer``, AdamW lr 1e-4, 4 buckets).
+   (a) Phase 5's GPT-2 medium in the world of one on NCCL, stages 1, 2
+   and 3 on the fp32 wire, each beside ``DistributedOptimizer(AdamW)``
+   on the same state and 3 batches, in turns: the parameters bitwise
+   equal after every step, one reduce-scatter and one all-gather a
+   bucket a step (counted), the flash kernels on the tensor cores; the
+   host-clock step each way, and each stage's bytes resident between
+   steps and peak of a step. (b) A gloo world of 4 processes on the card
+   (as phase 13's), a quarter of the batch a rank, 3 steps each of
+   stages 1, 2, 3 on fp32 and stage 2 on ``wire="int8"`` with error
+   feedback: every rank's parameters bitwise equal after every step,
+   stages 2 and 3 bitwise stage 1, the int8 arm's loss falling with B3
+   launched, stage 3's live parameter-and-gradient bytes at least 1.8×
+   below stage 1's a rank (``bench_zero.py:20-31``'s count) and stage
+   2's peak below stage 1's, beside the allocator's readings.
+   The flash counts of phases 5, 10, 12, 13, 14 and 15, and the wire
+   counts of phases 8, 9, 13, 14 and 15, add up in the ``kernels``
+   line.
 
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -3285,6 +3301,397 @@ def phase_overlap(gen, card, phase5):
     return launches, flash
 
 
+# ------------------------------------------------------------ phase 15 ZeRO
+
+ZERO_BUCKETS = 4
+ZERO_STEPS = 3
+ZERO_WORLD = 4
+ZERO_RANK_STEPS = 3
+ZERO_LR = 1e-4  # bench_zero.py's inner transform is AdamW
+ZERO_GATE = 1.8  # bench_zero.py's gate: stage 3's live bytes below stage 1's
+ZERO_TIMEOUT_S = 420
+
+
+def _zero_opt(hvd, model, stage, **kw):
+    """AdamW through ``ShardedDistributedOptimizer(zero_stage=stage)``,
+    or through ``DistributedOptimizer`` at stage 0."""
+    import torch
+
+    inner = torch.optim.AdamW(model.parameters(), lr=ZERO_LR)
+    if stage == 0:
+        return hvd.DistributedOptimizer(
+            inner, named_parameters=model.named_parameters(), op=hvd.Average)
+    return hvd.ShardedDistributedOptimizer(
+        inner, named_parameters=model.named_parameters(), op=hvd.Average,
+        zero_stage=stage, overlap_buckets=ZERO_BUCKETS, **kw)
+
+
+def _zero_step(opt, model, stage, tokens, labels):
+    """One step: ``backward()`` and ``step()`` at stages 0–2, the
+    sharded tape at stage 3."""
+    opt.zero_grad(set_to_none=True)
+    if stage == 3:
+        loss, _ = opt.value_and_grad(
+            lambda: _loss(model, tokens, labels), model)()
+    else:
+        loss = _loss(model, tokens, labels)
+        loss.backward()
+    opt.step()
+    return loss
+
+
+def _zero_params(opt, model, stage):
+    """The model's full parameters in order (gathered at stage 3)."""
+    if stage == 3:
+        full = opt.gather_params(model)
+        return [full[name] for name, _ in model.named_parameters()]
+    return [p.detach() for p in model.parameters()]
+
+
+def _device_digest(tensors) -> str:
+    """A fingerprint of the tensors' bits taken on the card (the sum of
+    each 32-bit word and of each word times its position, in wrapping
+    int64), hashed on the host: equal bits give equal digests."""
+    import hashlib
+
+    import torch
+
+    sums = []
+    for t in tensors:
+        v = t.detach().contiguous().view(-1).view(torch.int32).to(torch.int64)
+        pos = torch.arange(1, v.numel() + 1, device=v.device,
+                           dtype=torch.int64)
+        sums += [int(v.sum()), int((v * pos).sum())]
+        del v, pos
+    return hashlib.sha256(repr(sums).encode()).hexdigest()
+
+
+def _zero_live_bytes(opt, stage):
+    """``bench_zero.py:20-31``'s live parameter-and-gradient bytes of one
+    rank, counted from what the optimizer holds: the resident parameters
+    (the model's parameter storage, none at stage 3, plus the flat
+    shards), the gradient storage (the shards' reduced gradients, the
+    shards' geometry) and the largest in-step exchange buffer (stage 1:
+    the full gradient tree plus a bucket's panes; stage 2: a bucket's
+    panes; stage 3: a bucket's gathered panes and its cotangent's)."""
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    n, params = opt._n, opt._params
+    resident = (sum(p.untyped_storage().nbytes() for p in params)
+                + sum(nbytes(s) for s in opt._shards))
+    grads = sum(nbytes(s) for s in opt._shards)
+    pane = max(sum(n * -(-params[i].numel() // n) * params[i].element_size()
+                   for i in ids) for ids in opt._members)
+    transient = {1: sum(nbytes(p) for p in params) + pane, 2: pane,
+                 3: 2 * pane}[stage]
+    return {"resident_params_bytes": resident, "grad_storage_bytes": grads,
+            "transient_exchange_bytes": transient,
+            "live_params_grads_bytes": resident + grads + transient}
+
+
+ZERO_ARMS = (("z1", 1, {}), ("z2", 2, {}), ("z3", 3, {}),
+             ("z2_int8", 2, {"wire": "int8", "error_feedback": True}))
+
+
+def _zero_rank(rank, n, port, results):
+    """One rank of phase 15 (b): its own process on the one card in a
+    flat gloo world. Puts ``(rank, readings)`` on ``results``."""
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n))
+    sys.path.insert(0, HERE)
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=n)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    hvd.init(device="cuda")
+    for k in ck.KERNELS:
+        k.launches = 0
+    _zero_flash()
+    cfg = dataclasses.replace(TransformerConfig.gpt2_medium(), remat=True)
+    tokens, labels = _lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    per = TRAIN_BATCH // n
+    mine = slice(rank * per, (rank + 1) * per)
+    out = {"rank": rank, "arms": {}}
+    for key, stage, kw in ZERO_ARMS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        model = Transformer(cfg, device="cuda", generator=gen)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = _zero_opt(hvd, model, stage, hierarchical=False, **kw)
+        b3 = ck.int8_block_quantize.launches
+        arm = {"losses": [], "step_ms": [], "digests": [], "resident_gb": [],
+               "peak_gb": []}
+        for _ in range(ZERO_RANK_STEPS):
+            opt.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            arm["resident_gb"].append(torch.cuda.memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            loss = _zero_step(opt, model, stage, tokens[mine], labels[mine])
+            torch.cuda.synchronize()
+            arm["step_ms"].append((time.monotonic() - t0) * 1e3)
+            arm["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+            arm["losses"].append(float(loss.detach()))
+            arm["digests"].append(_device_digest(
+                _zero_params(opt, model, stage)))
+        arm["live"] = _zero_live_bytes(opt, stage)
+        arm["b3_launches"] = ck.int8_block_quantize.launches - b3
+        if kw.get("error_feedback"):
+            res = opt.state_dict()["wire"]
+            arm["residual_norm"] = {k: float(torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(r) for r in
+                             res[k].values()]))) for k in ("rs", "ag")}
+        arm["buckets"] = list(opt.schedule.bucket_bytes)
+        out["arms"][key] = arm
+        opt.remove_hooks()
+        del opt, model, gen, loss
+        gc.collect()  # the model's reference cycles hold its tensors
+        torch.cuda.empty_cache()
+    out["launches"] = {k.__name__: k.launches for k in ck.KERNELS}
+    out["flash"] = _read_flash()
+    hvd.shutdown()
+    dist.destroy_process_group()
+    results.put((rank, out))
+
+
+def _zero_world():
+    """Phase 15 (b): :func:`_zero_rank` in 4 processes; every rank's
+    readings in rank order, and the wall time."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    n = ZERO_WORLD
+    procs = [ctx.Process(target=_zero_rank, args=(r, n, port, results),
+                         daemon=True) for r in range(n)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    got = {}
+    while len(got) < n:
+        dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+        if dead or time.monotonic() - t0 > ZERO_TIMEOUT_S:
+            for p in procs:
+                p.kill()
+            fail(f"zero world: ranks {dead} ended with "
+                 f"{[procs[r].exitcode for r in dead]}" if dead else
+                 f"zero world: not done in {ZERO_TIMEOUT_S} s")
+        try:
+            rank, out = results.get(timeout=5)
+        except queue.Empty:
+            continue
+        got[rank] = out
+    for p in procs:
+        p.join(timeout=60)
+        if p.exitcode != 0:
+            p.kill()
+            fail(f"zero world: a rank exited with {p.exitcode}")
+    return [got[r] for r in range(n)], time.monotonic() - t0
+
+
+def phase_zero(gen, card, phase5):
+    """Phase 15: (a) GPT-2 medium at full width (phase 5's configuration,
+    a world of one on NCCL) through ``ShardedDistributedOptimizer(AdamW,
+    zero_stage=1, 2, 3)`` on the fp32 wire with 4 buckets, each beside
+    ``DistributedOptimizer(AdamW)`` on the same state and 3 batches, in
+    turns: the parameters bitwise equal after every step (a world of one
+    reduces nothing), one reduce-scatter and one all-gather a bucket a
+    step, the flash kernels on the tensor cores; each stage's host-clock
+    step beside the plain optimizer's, and alone its bytes resident
+    between steps and peak of a step. (b) :func:`_zero_world`'s arms
+    and their checks. Returns the launches of B3 and of the flash
+    kernels, the ranks' summed."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.ops import overlap
+
+    t_phase = time.monotonic()
+    failed = []
+
+    def release():
+        gc.collect()  # the models' reference cycles hold their tensors
+        torch.cuda.empty_cache()
+    hvd.init()
+    try:
+        cfg = dataclasses.replace(TransformerConfig.gpt2_medium(), remat=True)
+        base = Transformer(cfg, device="cuda", generator=gen)
+        init = {k: v.detach().clone() for k, v in base.state_dict().items()}
+        del base
+        batches = [_lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                             SEED + 20 + i) for i in range(ZERO_STEPS)]
+        release()
+        floor_gb = torch.cuda.memory_allocated() / 1e9
+        overlap.reset_schedule_cache()
+        _zero_flash()
+
+        def alone(opt, model, stage, r):
+            """The arm's own memory: resident between steps, and the
+            peak of one more step, above the phase's floor."""
+            opt.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            r["resident_gb"] = torch.cuda.memory_allocated() / 1e9 - floor_gb
+            torch.cuda.reset_peak_memory_stats()
+            _zero_step(opt, model, stage, *batches[0])
+            torch.cuda.synchronize()
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 - floor_gb
+
+        def fresh():
+            model = Transformer(cfg, device="cuda")
+            model.load_state_dict(init)
+            return model
+
+        plain_model = fresh()
+        plain = _zero_opt(hvd, plain_model, 0)
+        arms = {"plain": {}}
+        for tokens, labels in batches[:2]:
+            _zero_step(plain, plain_model, 0, tokens, labels)
+        alone(plain, plain_model, 0, arms["plain"])
+        plain.remove_hooks()
+        del plain, plain_model
+        release()
+        for stage in (1, 2, 3):
+            plain_model, zero_model = fresh(), fresh()
+            plain = _zero_opt(hvd, plain_model, 0)
+            zero = _zero_opt(hvd, zero_model, stage)
+            r = {"step_ms": [], "plain_step_ms": [], "losses": [],
+                 "plain_losses": [], "bitwise": [], "legs": []}
+            for i, (tokens, labels) in enumerate(batches):
+                order = (("zero", zero_model, zero, stage),
+                         ("plain", plain_model, plain, 0))
+                for name, model, opt, s in (order if i % 2 == 0
+                                            else order[::-1]):
+                    legs = overlap.leg_stats()
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    loss = _zero_step(opt, model, s, tokens, labels)
+                    torch.cuda.synchronize()
+                    ms = (time.monotonic() - t0) * 1e3
+                    prefix = "" if name == "zero" else "plain_"
+                    r[prefix + "step_ms"].append(ms)
+                    r[prefix + "losses"].append(float(loss.detach()))
+                    if name == "zero":
+                        r["legs"].append({k: v - legs[k] for k, v in
+                                          overlap.leg_stats().items()})
+                r["bitwise"].append(all(torch.equal(a, b) for a, b in zip(
+                    _zero_params(zero, zero_model, stage),
+                    plain_model.parameters())))
+            plain.remove_hooks()
+            del plain, plain_model, loss, order, model, opt
+            release()
+            alone(zero, zero_model, stage, r)
+            r["live"] = _zero_live_bytes(zero, stage)
+            r["buckets"] = list(zero.schedule.bucket_bytes)
+            nb = zero.schedule.n_buckets
+            if not all(r["bitwise"]):
+                failed.append(f"(a) stage {stage}: parameters differ from "
+                              f"DistributedOptimizer's after steps "
+                              f"{[i for i, b in enumerate(r['bitwise']) if not b]}")
+            if any(lg != {"reduce_scatter": nb, "all_gather": nb}
+                   for lg in r["legs"]):
+                failed.append(f"(a) stage {stage}: legs a step {r['legs']}, "
+                              f"{nb} buckets")
+            zero.remove_hooks()
+            del zero, zero_model
+            release()
+            arms[f"z{stage}"] = r
+        flash = _read_flash()
+        if not flash[0]["flash_fwd"] or any(
+                flash[1][k] != flash[0][k] for k in flash[1]):
+            failed.append(f"(a) flash launches {flash}")
+        del init, batches
+    finally:
+        hvd.shutdown()
+    torch.cuda.empty_cache()
+    log("zero world of one: " + json.dumps({
+        "model": "gpt2_medium", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "inner": f"AdamW(lr={ZERO_LR})", "buckets": ZERO_BUCKETS,
+        "bucket_bytes": arms["z1"]["buckets"],
+        "arms": {k: {kk: v for kk, v in r.items() if kk != "legs"}
+                 for k, r in arms.items()},
+        "legs_per_step": {k: arms[k]["legs"] for k in ("z1", "z2", "z3")},
+        "phase5_step_ms_mean_after_first": phase5[
+            "step_ms_mean_after_first"],
+        "flash_launches": flash[0], "flash_tensor_core_launches": flash[1],
+        "failed": failed, "s": time.monotonic() - t_phase, "card": card,
+    }, sort_keys=True))
+
+    # (b) the gloo world of 4
+    outs, wall_s = _zero_world()
+    steps = range(ZERO_RANK_STEPS)
+    for key, _, _ in ZERO_ARMS:
+        for s in steps:
+            if len({o["arms"][key]["digests"][s] for o in outs}) != 1:
+                failed.append(f"(b) {key} step {s}: the ranks' parameters "
+                              "differ")
+    for key in ("z2", "z3"):
+        if any(o["arms"][key]["digests"] != o["arms"]["z1"]["digests"]
+               for o in outs):
+            failed.append(f"(b) {key}: parameters differ from stage 1's")
+    mean_loss = {key: [sum(o["arms"][key]["losses"][s] for o in outs)
+                       / len(outs) for s in steps] for key, _, _ in ZERO_ARMS}
+    if not mean_loss["z2_int8"][-1] < mean_loss["z2_int8"][0]:
+        failed.append(f"(b) int8: loss did not fall {mean_loss['z2_int8']}")
+    if not all(math.isfinite(x) for v in mean_loss.values() for x in v):
+        failed.append(f"(b) non-finite loss {mean_loss}")
+    ratios = [o["arms"]["z1"]["live"]["live_params_grads_bytes"]
+              / o["arms"]["z3"]["live"]["live_params_grads_bytes"]
+              for o in outs]
+    if min(ratios) < ZERO_GATE:
+        failed.append(f"(b) stage 3's live bytes only {min(ratios):.3f}x "
+                      f"below stage 1's (gate {ZERO_GATE})")
+    peaks = {key: [max(o["arms"][key]["peak_gb"]) for o in outs]
+             for key, _, _ in ZERO_ARMS}
+    if not all(a < b for a, b in zip(peaks["z2"], peaks["z1"])):
+        failed.append(f"(b) stage 2's peak not below stage 1's: {peaks}")
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name in outs[0]["launches"]}
+    b3 = sum(o["arms"]["z2_int8"]["b3_launches"] for o in outs)
+    if b3 < 1:
+        failed.append("(b) B3 never launched on the int8 arm")
+    flash = ({k: flash[0][k] + sum(o["flash"][0][k] for o in outs)
+              for k in flash[0]},
+             {k: flash[1][k] + sum(o["flash"][1][k] for o in outs)
+              for k in flash[1]})
+    world = {key: {
+        "mean_losses": mean_loss[key],
+        "step_ms_by_rank": [o["arms"][key]["step_ms"] for o in outs],
+        "resident_gb_by_rank": [o["arms"][key]["resident_gb"] for o in outs],
+        "peak_gb_by_rank": [o["arms"][key]["peak_gb"] for o in outs],
+        "live_bytes_rank0": outs[0]["arms"][key]["live"],
+        "b3_launches": sum(o["arms"][key]["b3_launches"] for o in outs),
+        **({"residual_norm_rank0": outs[0]["arms"][key]["residual_norm"]}
+           if "residual_norm" in outs[0]["arms"][key] else {}),
+    } for key, _, _ in ZERO_ARMS}
+    log("zero gloo world: " + json.dumps({
+        "world": ZERO_WORLD, "wall_s": wall_s,
+        "live_ratio_z1_over_z3": ratios, "arms": world,
+        "launches": {"int8_block_quantize": b3}, "flash_launches": flash[0],
+        "flash_tensor_core_launches": flash[1],
+        "phase_s": time.monotonic() - t_phase, "card": card,
+    }, sort_keys=True))
+    if failed:
+        fail("zero: " + "; ".join(failed))
+    launches["int8_block_quantize"] = b3
+    return launches, flash
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3423,6 +3830,15 @@ def main() -> int:
     for name in ("int8_quantize", "int8_block_quantize"):
         wire_launches[name] += overlap_launches[name]
     log(f"overlap phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 15: ZeRO stages 1-3 in the world of one and a gloo world of 4
+    t0 = time.monotonic()
+    zero_launches, zero_flash = phase_zero(gen, card, train_readings)
+    flash_runs.append(zero_flash)
+    wire_launches["int8_block_quantize"] += zero_launches[
+        "int8_block_quantize"]
+    log(f"zero phase: {time.monotonic() - t0:.2f} s")
     flash_launches = {k: sum(r[0][k] for r in flash_runs)
                       for k in flash_runs[1][0]}
     flash_tc_launches = {k: sum(r[1][k] for r in flash_runs)

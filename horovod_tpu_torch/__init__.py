@@ -40,6 +40,10 @@ slices are ported:
   (``bucketed_allreduce``, ``build_bucket_schedule``,
   ``overlap_boundary``, and ``DistributedOptimizer(overlap_buckets=)``,
   whose bucket collectives run beside backward);
+- ZeRO: ``ShardedDistributedOptimizer`` (stages 1–3: optimizer state,
+  gradients and parameters sharded over the world in the flat layout of
+  ``parallel/fsdp.py``) on the sharded bucket legs
+  ``bucketed_reduce_scatter`` and ``bucketed_shard_all_gather``;
 - serving: ``serve()`` answers HTTP ``POST /generate`` through a
   continuous batcher and an engine over a paged KV pool, and attention
   reads the pool through a hand-written CUDA kernel
@@ -139,6 +143,8 @@ from .ops.flash_attention import flash_attention  # noqa: F401
 from .ops.fused_xent import fused_linear_cross_entropy  # noqa: F401
 from .ops.overlap import (  # noqa: F401
     bucketed_allreduce,
+    bucketed_reduce_scatter,
+    bucketed_shard_all_gather,
     build_bucket_schedule,
     overlap_boundary,
 )
@@ -158,6 +164,7 @@ from .optimizer import (  # noqa: F401
     broadcast_optimizer_state,
     broadcast_parameters,
 )
+from .sharded_optimizer import ShardedDistributedOptimizer  # noqa: F401
 from .serving import (  # noqa: F401
     ContinuousBatcher,
     InferenceEngine,

@@ -10,8 +10,9 @@ package the same way:
   ``HOROVOD_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER``,
   ``HOROVOD_FUSION_WIRE_HIER`` and ``HOROVOD_INTRA_SIZE``, and the
   bucketed overlap's ``HOROVOD_OVERLAP``, ``HOROVOD_OVERLAP_BUCKETS`` and
-  ``HOROVOD_OVERLAP_MIN_BYTES``), snapshotted at ``hvd.init()`` as the
-  JAX package does;
+  ``HOROVOD_OVERLAP_MIN_BYTES``, and ZeRO's ``HOROVOD_ZERO_STAGE`` and
+  ``HOROVOD_ZERO_WIRE``), snapshotted at ``hvd.init()`` as the JAX
+  package does;
 * :class:`ServeConfig`, the serving part (``HOROVOD_SERVE_*``), read by
   :func:`live_config` when a serving object is built (serving needs no
   init step).
@@ -48,6 +49,11 @@ DEFAULT_HIERARCHICAL = "auto"
 # the byte floor under which a bucket merges into its neighbour.
 DEFAULT_OVERLAP_BUCKETS = 4
 DEFAULT_OVERLAP_MIN_BYTES = 1 << 20
+# ShardedDistributedOptimizer(zero_stage=None, wire=None): the sharding
+# stage and the wire of its exchange legs (fp32, bf16, int8; auto needs
+# the wire tuner of ROADMAP A12)
+DEFAULT_ZERO_STAGE = 1
+DEFAULT_ZERO_WIRE = "fp32"
 # consecutive non-finite steps the grad guard skips before it escalates
 DEFAULT_GUARD_MAX_SKIPS = 3
 
@@ -165,6 +171,13 @@ class TrainConfig:
     overlap: bool = False
     overlap_buckets: int = DEFAULT_OVERLAP_BUCKETS
     overlap_min_bytes: int = DEFAULT_OVERLAP_MIN_BYTES
+    # ZeRO (sharded_optimizer.py): the stage when the optimizer passes
+    # zero_stage=None, and its legs' wire when it passes wire=None. The
+    # wire is its own knob: HOROVOD_FUSION_WIRE governs the fused
+    # allreduce, and inheriting it would change the sharded optimizer's
+    # numerics and state layout for deployments that set it before ZeRO
+    zero_stage: int = DEFAULT_ZERO_STAGE
+    zero_wire: str = DEFAULT_ZERO_WIRE
     # the launcher's view of this process (None outside a launcher)
     rank: Optional[int] = None
     size: Optional[int] = None
@@ -206,6 +219,11 @@ class TrainConfig:
                                      DEFAULT_OVERLAP_BUCKETS),
             overlap_min_bytes=_env_int("HOROVOD_OVERLAP_MIN_BYTES",
                                        DEFAULT_OVERLAP_MIN_BYTES),
+            zero_stage=int(_env_choice("HOROVOD_ZERO_STAGE",
+                                       str(DEFAULT_ZERO_STAGE),
+                                       ("1", "2", "3"))),
+            zero_wire=_env_choice("HOROVOD_ZERO_WIRE", DEFAULT_ZERO_WIRE,
+                                  ("fp32", "bf16", "int8", "auto")),
             rank=_env_opt_int("HOROVOD_RANK"),
             size=_env_opt_int("HOROVOD_SIZE"),
             local_rank=_env_opt_int("HOROVOD_LOCAL_RANK"),

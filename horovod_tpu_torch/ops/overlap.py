@@ -38,8 +38,22 @@ while earlier layers are still differentiating:
   ``overlap_buckets`` (``optimizer.py``) issues each bucket on a side
   stream and waits at ``step()``.
 
-Not here yet: the schedule's sidecar on disk (ROADMAP A16), the wire
-tuner (A12) and the sharded bucket legs (A10).
+- :func:`bucketed_reduce_scatter` and :func:`bucketed_shard_all_gather`
+  are ZeRO's legs (``overlap.py:691-1062``): each bucket's members are
+  flattened, zero-padded and cut into ``[n, cols]`` panes
+  (``parallel/fsdp.py``), concatenated column-wise, and ONE
+  reduce-scatter (or all-gather) a bucket moves them, so this rank's
+  output slice of a bucket IS the members' shard slices. A 0-d tensor is
+  allreduced whole. Each leg rides fp32, a bf16 cast or the block-scaled
+  int8 wire (``traced.quantized_reducescatter``/``_allgather``, B3),
+  with error-feedback residuals, ``groups=`` and, when ``hier_stages``
+  resolves, the two-level ``traced.hierarchical_reducescatter``/
+  ``_allgather`` (int8 on the inter hop only); a leg with residuals
+  always rides the flat wire. A matched pair shares one cached
+  schedule. :func:`leg_stats` counts their collectives.
+
+Not here yet: the schedule's sidecar on disk (ROADMAP A16) and the wire
+tuner (A12: ``wire="auto"`` raises).
 """
 
 from __future__ import annotations
@@ -56,6 +70,7 @@ from ..common import metrics
 from ..common import topology as topo_mod
 from ..common.config import TrainConfig
 from ..common.process_sets import ProcessSet
+from ..parallel.fsdp import pad_to
 from . import traced
 from .compression import Compression, Compressor
 from .reduction_ops import Average, Sum, resolve_op
@@ -454,3 +469,272 @@ def overlap_boundary(tree, op=Average, average: Optional[bool] = None,
         for i, t in zip(idxs, got):
             out[i] = t
     return pytree.tree_unflatten(out, treedef)
+
+
+# ------------------------------------------- the sharded (ZeRO) legs
+
+_LEGS = {"reduce_scatter": 0, "all_gather": 0}
+
+
+def leg_stats() -> dict:
+    """Collectives the sharded legs issued (one a bucket, one a leaf on
+    a per-leaf fallback), since the last :func:`reset_leg_stats`."""
+    return dict(_LEGS)
+
+
+def reset_leg_stats() -> None:
+    for k in _LEGS:
+        _LEGS[k] = 0
+
+
+def resolve_wire(wire) -> str:
+    """A leg's wire format: fp32, bf16 or int8 (``overlap.py:641``);
+    ``auto`` needs the wire tuner."""
+    if wire in (None, "fp32"):
+        return "fp32"
+    if wire in ("bf16", "int8"):
+        return wire
+    if wire == "auto":
+        raise NotImplementedError(
+            "wire='auto' needs the wire tuner, not ported yet (ROADMAP "
+            "A12's WireTuner); use fp32, bf16 or int8")
+    raise ValueError(f"unknown wire format {wire!r}")
+
+
+def _leaf_panes(leaf: torch.Tensor, n: int) -> torch.Tensor:
+    """One tensor's rank-major panes: flatten, zero-pad, ``[n, cols]``."""
+    return pad_to(leaf.reshape(-1), n).view(n, -(-leaf.numel() // n))
+
+
+def _leg_route(groups, hier_stages, residuals):
+    """(process group, its size, the two-level stages or None) of a
+    sharded leg: ``groups`` keeps each collective within its group and
+    has no inter hop; a leg with residuals rides the flat wire, whose
+    quantization its carry is defined against."""
+    if groups is not None:
+        group, _, n = traced._mine(groups)
+        return group, n, None
+    n = dist.get_world_size()
+    stages = None if residuals is not None else _auto_stages(hier_stages, n)
+    return dist.group.WORLD, n, stages
+
+
+def _bucket_schedule(leaves, treedef, n_buckets, min_bucket_bytes):
+    if n_buckets is None:
+        n_buckets = default_buckets() or 1
+    if min_bucket_bytes is None:
+        min_bucket_bytes = default_min_bytes()
+    return schedule_for(leaves, treedef, n_buckets, min_bucket_bytes)
+
+
+def _rs_bucket(members, residuals, n: int, group, stages, bw: str, op,
+               seed: int, block: Optional[int], groups=None):
+    """One bucket of the reduce-scatter leg: the members' ``[n, cols]``
+    panes concatenated column-wise (plus their residuals', in input
+    units), one collective, and this rank's ``[cols]`` slice of each
+    member; returns ``(shards, new residuals or None)``, the residuals in
+    the members' geometry."""
+    buf = torch.cat([_leaf_panes(m, n) for m in members], dim=1)
+    if residuals is not None:
+        buf = buf + torch.cat([_leaf_panes(r.to(buf.dtype), n)
+                               for r in residuals], dim=1)
+    new_r = None
+    if stages is not None:
+        red = traced.hierarchical_reducescatter(
+            buf, op=op, stages=stages,
+            intra_wire="bf16" if bw == "bf16" else "fp32", inter_wire=bw,
+            seed=seed, block_size=block)
+    elif bw == "int8":
+        got = traced.quantized_reducescatter(
+            buf, op=Sum, seed=seed, block_size=block,
+            return_residual=residuals is not None, groups=groups)
+        red, new_r = got if residuals is not None else (got, None)
+        red = traced._scale_static(red, n, op, 1.0)
+    else:
+        sent = buf.to(torch.bfloat16) if bw == "bf16" else buf
+        red = traced._reduce_scatter(sent, 0, group).reshape(-1).to(
+            buf.dtype)
+        red = traced._scale_static(red, n, op, 1.0)
+        if residuals is not None:
+            # the exact wire sends everything; bf16 carries its cast
+            new_r = (buf - sent.to(buf.dtype) if bw == "bf16"
+                     else torch.zeros_like(buf))
+    _LEGS["reduce_scatter"] += 1
+    shards, res_out, off = [], [], 0
+    for i, m in enumerate(members):
+        c = -(-m.numel() // n)
+        shards.append(red[off:off + c].to(m.dtype))
+        if new_r is not None:
+            res_out.append(new_r[:, off:off + c].reshape(-1)[
+                :m.numel()].view(m.shape).to(residuals[i].dtype))
+        off += c
+    return shards, (res_out if new_r is not None else None)
+
+
+def _ag_bucket(shards, residuals, like, n: int, group, stages, bw: str,
+               seed: int, block: Optional[int], groups=None):
+    """One bucket of the all-gather leg: the members' shards
+    concatenated (plus their residuals), one collective, and each
+    member's full tensor (``like``'s shape, the shard's dtype); returns
+    ``(full tensors, new residuals or None)``, the residuals in shard
+    geometry."""
+    buf = _concat(shards)
+    if residuals is not None:
+        buf = buf + _concat([r.to(buf.dtype) for r in residuals])
+    new_r = None
+    if stages is not None:
+        full = traced.hierarchical_allgather(
+            buf, stages=stages,
+            intra_wire="bf16" if bw == "bf16" else "fp32", inter_wire=bw,
+            seed=seed, block_size=block)
+    elif bw == "int8":
+        got = traced.quantized_allgather(
+            buf, seed=seed, block_size=block,
+            return_residual=residuals is not None, groups=groups)
+        full, new_r = got if residuals is not None else (got, None)
+    else:
+        sent = buf.to(torch.bfloat16) if bw == "bf16" else buf
+        full = traced._all_gather(sent, group).view(n, -1).to(buf.dtype)
+        if residuals is not None:
+            new_r = (buf - sent.to(buf.dtype) if bw == "bf16"
+                     else torch.zeros_like(buf))
+    _LEGS["all_gather"] += 1
+    out, res_out, off = [], [], 0
+    for i, (sh, lk) in enumerate(zip(shards, like)):
+        c = sh.shape[0]
+        piece = full[:, off:off + c].reshape(-1)[:lk.numel()].view(lk.shape)
+        if piece.storage_offset():
+            # one rank's slice is a view into the bucket: a tensor of its
+            # own, aligned as the model's would be (a kernel may take
+            # another path, and round otherwise, on a misaligned base)
+            piece = piece.clone()
+        out.append(piece.to(sh.dtype))
+        if new_r is not None:
+            res_out.append(new_r[off:off + c].to(residuals[i].dtype))
+        off += c
+    return out, (res_out if new_r is not None else None)
+
+
+def bucketed_reduce_scatter(grads, op=None, average: Optional[bool] = None,
+                            n_buckets: Optional[int] = None,
+                            wire: str = "fp32",
+                            wire_block: Optional[int] = None, seed: int = 0,
+                            residuals=None,
+                            min_bucket_bytes: Optional[int] = None,
+                            schedule: Optional[BucketSchedule] = None,
+                            hier_stages="auto", groups=None):
+    """Reduce-scatter a gradient tree as one collective a bucket
+    (``overlap.py:698``), returning each tensor's SHARD: its ``[cols]``
+    slice, ``cols = ceil(size / n)``, of the reduced flat tensor (a 0-d
+    tensor reduced whole; None passes through). Elementwise the same
+    sums as a per-tensor reduce-scatter, so on the fp32 wire the shards
+    are those bits.
+
+    ``groups`` keeps every collective within its group: panes are ``[L,
+    cols]``, rank r receives the shard of its position in its group, and
+    Average divides by L. ``wire`` bf16 casts the pane buffer; int8
+    rides :func:`traced.quantized_reducescatter` with ``wire_block``
+    scales and a seed a bucket. ``residuals`` (a tree like ``grads``, in
+    input units) joins each pane buffer before the wire; the new carry
+    comes back in the tensors' geometry, after the shards (zero on the
+    exact wire). ``hier_stages`` (``"auto"``: ``HOROVOD_HIERARCHICAL``)
+    routes each bucket through :func:`traced.hierarchical_reducescatter`,
+    int8 on the inter hop only."""
+    op = resolve_op(op, average)
+    if op not in (Sum, Average):
+        raise ValueError("bucketed_reduce_scatter supports op=Sum/Average "
+                         "only")
+    bw = resolve_wire(wire)
+    group, n, stages = _leg_route(groups, hier_stages, residuals)
+    leaves, treedef = _flatten(grads)
+    nonscalar = [i for i, g in enumerate(leaves)
+                 if g is not None and g.dim() > 0]
+    if schedule is None:
+        schedule = _bucket_schedule([leaves[i] for i in nonscalar], treedef,
+                                    n_buckets, min_bucket_bytes)
+    _publish(schedule)
+    r_leaves = None
+    if residuals is not None:
+        r_leaves, r_def = _flatten(residuals)
+        if r_def != treedef:
+            raise ValueError("residuals must have the gradients' structure")
+    out = list(leaves)
+    res_out = list(r_leaves) if r_leaves is not None else None
+    for i, g in enumerate(leaves):
+        if g is not None and g.dim() == 0 and g.is_floating_point():
+            out[i] = traced.allreduce(g, op=op, groups=groups)
+    for b, idxs in enumerate(schedule.buckets):
+        ids = [nonscalar[j] for j in idxs]
+        got, new_r = _rs_bucket(
+            [leaves[i] for i in ids],
+            None if r_leaves is None else [r_leaves[i] for i in ids],
+            n, group, stages, bw, op, seed * schedule.n_buckets + b,
+            wire_block, groups)
+        for k, i in enumerate(ids):
+            out[i] = got[k]
+            if new_r is not None:
+                res_out[i] = new_r[k]
+    shards = pytree.tree_unflatten(out, treedef)
+    if residuals is None:
+        return shards
+    return shards, pytree.tree_unflatten(res_out, treedef)
+
+
+def bucketed_shard_all_gather(shards, like,
+                              n_buckets: Optional[int] = None,
+                              wire: str = "fp32",
+                              wire_block: Optional[int] = None,
+                              seed: int = 0, residuals=None,
+                              min_bucket_bytes: Optional[int] = None,
+                              schedule: Optional[BucketSchedule] = None,
+                              hier_stages="auto", groups=None):
+    """The dual of :func:`bucketed_reduce_scatter` (``overlap.py:891``):
+    each tensor's ``[cols]`` shard → the full tensor of ``like``'s shape
+    (only shapes and dtypes are read from ``like``), one all-gather a
+    bucket. The schedule is keyed on ``like``'s full geometry, so a
+    matched pair of legs shares one cached schedule. ``residuals`` (a
+    tree in SHARD geometry) joins each bucket's shards before a lossy
+    wire and the new carry comes back after the full tree. A bucket whose
+    shards have more than one dtype gathers them one by one, exactly.
+    The int8 wire hands every rank, the owner too, the dequantized
+    values, so the replicas stay bitwise equal."""
+    bw = resolve_wire(wire)
+    group, n, stages = _leg_route(groups, hier_stages, residuals)
+    s_leaves, s_def = _flatten(shards)
+    l_leaves, l_def = _flatten(like)
+    if l_def != s_def:
+        raise ValueError("like must have the shards' structure")
+    nonscalar = [i for i, leaf in enumerate(l_leaves)
+                 if leaf is not None and leaf.dim() > 0
+                 and s_leaves[i] is not None]
+    if schedule is None:
+        schedule = _bucket_schedule([l_leaves[i] for i in nonscalar], s_def,
+                                    n_buckets, min_bucket_bytes)
+    r_leaves = None
+    if residuals is not None:
+        r_leaves, r_def = _flatten(residuals)
+        if r_def != s_def:
+            raise ValueError("residuals must have the shards' structure")
+    out = list(s_leaves)
+    res_out = list(r_leaves) if r_leaves is not None else None
+    for b, idxs in enumerate(schedule.buckets):
+        ids = [nonscalar[j] for j in idxs]
+        if len({s_leaves[i].dtype for i in ids}) > 1:
+            for i in ids:
+                full = traced._all_gather(s_leaves[i], group)
+                out[i] = full[:l_leaves[i].numel()].view(l_leaves[i].shape)
+                _LEGS["all_gather"] += 1
+            continue
+        got, new_r = _ag_bucket(
+            [s_leaves[i] for i in ids],
+            None if r_leaves is None else [r_leaves[i] for i in ids],
+            [l_leaves[i] for i in ids], n, group, stages, bw,
+            seed * schedule.n_buckets + b, wire_block, groups)
+        for k, i in enumerate(ids):
+            out[i] = got[k]
+            if new_r is not None:
+                res_out[i] = new_r[k]
+    gathered = pytree.tree_unflatten(out, s_def)
+    if residuals is None:
+        return gathered
+    return gathered, pytree.tree_unflatten(res_out, s_def)

@@ -65,9 +65,15 @@ package's ``optimizer.py`` is its oracle):
   last member's gradient arrives, on a side stream of the card, so
   backward keeps running while it is in flight; ``step()`` waits on
   them. At the window's end a bucket still open goes out with zeros for
-  its members that have no gradient, as the JAX gradient would carry
-  them. Error feedback is per bucket, and the guard ANDs the buckets'
-  flags. With Sum on fp32 the result is bitwise the fused path's. An
+  its members that have no gradient in the window, so that every rank's
+  buckets keep their shapes; such a member sends no residual, keeps its
+  carried one, and its ``.grad`` stays None, so the inner optimizer
+  leaves it alone, as the fused path does (a parameter that stops
+  receiving gradients is not stepped by momentum or weight decay). The
+  choice is each rank's own, as on the fused path: a parameter used on
+  some ranks and not on others is outside the contract of both paths
+  (the fused path would enqueue mismatched collectives). Error feedback
+  is per bucket, and the guard ANDs the buckets' flags. With Sum on fp32 the result is bitwise the fused path's. An
   explicit ``overlap_buckets`` with Adasum, Min, Max or Product raises
   ``ValueError``; the environment's default falls back to the fused
   path.
@@ -400,15 +406,15 @@ class _Buckets:
         with record_function(f"hvd.overlap.bucket{b}"), torch.no_grad(), (
                 torch.cuda.stream(side) if side is not None
                 else contextlib.nullcontext()):
-            parts = []
-            for i, p in zip(self.schedule.buckets[b], members):
-                took = i in self.arrived[b] or (opt._k == 1
-                                                and p.grad is not None)
-                parts.append(p.grad if took else torch.zeros_like(p))
-            flat = overlap._concat(parts)
+            took = [i in self.arrived[b] or (opt._k == 1
+                                             and p.grad is not None)
+                    for i, p in zip(self.schedule.buckets[b], members)]
+            flat = overlap._concat([p.grad if t else torch.zeros_like(p)
+                                    for p, t in zip(members, took)])
             res = None
             if opt._error_feedback:
-                carried = [opt._residuals.get(id(p)) for p in members]
+                carried = [opt._residuals.get(id(p)) if t else None
+                           for p, t in zip(members, took)]
                 res = overlap._concat([
                     torch.zeros_like(p) if r is None else r
                     for p, r in zip(members, carried)])
@@ -417,7 +423,8 @@ class _Buckets:
             seed = opt._updates * self.schedule.n_buckets + b
             out, new_r = overlap.exchange_bucket(wire, flat, seed, res)
             finite = traced.finite_scalar(out) if opt._guard else None
-        self.flight[b] = (members, out, new_r, finite)
+        self.flight[b] = ([p for p, t in zip(members, took) if t],
+                          members, out, new_r, finite)
         self.dispatched += 1
 
     def synchronize(self, passes: int) -> bool:
@@ -436,8 +443,11 @@ class _Buckets:
         flags, residuals = [], {}
         with torch.no_grad():
             for b in sorted(flight):
-                members, out, new_r, finite = flight[b]
+                took, members, out, new_r, finite = flight[b]
+                took = set(map(id, took))
                 for p, piece in zip(members, overlap._split(out, members)):
+                    if id(p) not in took:
+                        continue  # no gradient this window: not stepped
                     if p.grad is None:
                         p.grad = piece.clone()
                     else:
@@ -445,7 +455,8 @@ class _Buckets:
                 if new_r is not None:
                     residuals.update(
                         (id(p), r) for p, r in
-                        zip(members, overlap._split(new_r, members)))
+                        zip(members, overlap._split(new_r, members))
+                        if id(p) in took)
                 if finite is not None:
                     flags.append(finite)
         finite = not flags or bool(torch.stack(flags).all())

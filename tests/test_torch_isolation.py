@@ -37,7 +37,8 @@ def test_import_pulls_in_no_jax():
         "horovod_tpu_torch.sync_batch_norm, horovod_tpu_torch.models, "
         "horovod_tpu_torch.models.convert, horovod_tpu_torch.ops.traced, "
         "horovod_tpu_torch.ops.overlap, horovod_tpu_torch.ops.int8_wire, "
-        "horovod_tpu_torch.common.metrics\n"
+        "horovod_tpu_torch.common.metrics, horovod_tpu_torch.parallel.fsdp, "
+        "horovod_tpu_torch.sharded_optimizer\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"

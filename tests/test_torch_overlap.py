@@ -18,8 +18,10 @@
   mask; ``overlap_boundary``'s gradients are bitwise the bucketed
   exchange of the local gradients; and the optimizer with overlap on is
   bitwise the optimizer with overlap off, with one and two backward
-  passes a step, a parameter that never has a gradient and one that has
-  it on some passes only. Stochastic rounding cannot match JAX's bits
+  passes a step, a parameter that never has a gradient, one that has
+  it on some passes only, and one that stops receiving gradients after
+  the first pass (neither path steps it again, nor changes its carried
+  residual under error feedback). Stochastic rounding cannot match JAX's bits
   (Philox against ``jax.random``), so the quantized cases hold the
   contract, not JAX's values.
 - The environment's defaults (``HOROVOD_OVERLAP*``) and the raise for
@@ -70,10 +72,37 @@ class _Net(torch.nn.Module):
         return h @ self.w2
 
 
-def _train(hvd, rank, buckets, k, steps=3, **kw):
-    net = _Net()
+class _LateNet(_Net):
+    """:class:`_Net` with a parameter used on the first backward pass of
+    the run only, which then stops receiving gradients."""
+
+    def __init__(self):
+        super().__init__()
+        g = torch.Generator().manual_seed(1)
+        self.late = torch.nn.Parameter(torch.randn(3, generator=g))
+        self.passes = 0
+
+    def forward(self, x, first):
+        out = super().forward(x, first)
+        if self.passes == 0:
+            out = out * self.late
+        self.passes += 1
+        return out
+
+
+INNER = {
+    "sgd": lambda ps: torch.optim.SGD(ps, lr=0.05, momentum=0.9),
+    "sgd_wd": lambda ps: torch.optim.SGD(ps, lr=0.05, momentum=0.9,
+                                         weight_decay=0.1),
+    "adamw": lambda ps: torch.optim.AdamW(ps, lr=0.05),
+}
+
+
+def _train(hvd, rank, buckets, k, steps=3, net_cls=_Net, inner="sgd",
+           **kw):
+    net = net_cls()
     opt = hvd.DistributedOptimizer(
-        torch.optim.SGD(net.parameters(), lr=0.05, momentum=0.9),
+        INNER[inner](net.parameters()),
         named_parameters=net.named_parameters(), op=kw.pop("op", hvd.Sum),
         backward_passes_per_step=k, overlap_buckets=buckets,
         overlap_min_bytes=0, **kw)
@@ -86,6 +115,8 @@ def _train(hvd, rank, buckets, k, steps=3, **kw):
         opt.step()
         opt.zero_grad()
         seen.append([p.detach().clone() for p in net.parameters()])
+        if kw.get("error_feedback"):  # the carried residuals, by index
+            seen[-1].append(dict(opt.state_dict()["ef_residuals"]))
     dispatched = opt._overlap.dispatched if opt._overlap else 0
     opt.remove_hooks()
     return seen, dispatched
@@ -166,6 +197,18 @@ def _overlap_worker(rank, n, outdir):
         on, out[f"dispatched_k{k}"] = _train(hvd, rank, 3, k)
         off, _ = _train(hvd, rank, 0, k)
         out[f"opt_on_k{k}"], out[f"opt_off_k{k}"] = on, off
+    # a parameter that stops receiving gradients after the first pass,
+    # under optimizers whose state or decay would move it (C2)
+    for k in (1, 2):
+        for inner in ("sgd_wd", "adamw"):
+            on, _ = _train(hvd, rank, 3, k, net_cls=_LateNet, inner=inner)
+            off, _ = _train(hvd, rank, 0, k, net_cls=_LateNet, inner=inner)
+            out[f"late_{inner}_k{k}"] = (on, off)
+            on, _ = _train(hvd, rank, 3, k, net_cls=_LateNet, inner=inner,
+                           compression=blocks, error_feedback=True)
+            off, _ = _train(hvd, rank, 0, k, net_cls=_LateNet, inner=inner,
+                            compression=blocks, error_feedback=True)
+            out[f"late_ef_{inner}_k{k}"] = (on, off)
     avg_on, _ = _train(hvd, rank, 2, 1, op=hvd.Average)
     avg_off, _ = _train(hvd, rank, 0, 1, op=hvd.Average)
     out["opt_avg"] = (avg_on, avg_off)
@@ -384,7 +427,11 @@ def test_optimizer_overlap_bitwise_equal_to_fused(world, k):
     """Sum on fp32: overlap on and off give the same bits after every
     pass, with a parameter that never has a gradient (zeros reduce to
     zeros and leave it where it was) and one that has it on the first
-    pass of a window only; one collective a bucket a window."""
+    pass of a window only; one collective a bucket a window. A parameter
+    used on the run's first pass only is then left alone (its ``.grad``
+    stays None) under SGD with momentum and weight decay and under
+    AdamW, with and without the int8_block wire's error feedback, whose
+    carried residual it keeps."""
     for o in world:
         on, off = o[f"opt_on_k{k}"], o[f"opt_off_k{k}"]
         assert len(on) == len(off) == 3 * k
@@ -395,6 +442,24 @@ def test_optimizer_overlap_bitwise_equal_to_fused(world, k):
         assert o[f"dispatched_k{k}"] == 3 * 3  # 3 buckets, 3 windows
     for a, b in zip(world[0][f"opt_on_k{k}"][-1], world[1][f"opt_on_k{k}"][-1]):
         assert torch.equal(a, b)
+    # a parameter used on the first pass only is stepped once, then left
+    # alone by SGD with momentum and weight decay and by AdamW, on both
+    # paths, bitwise; under int8_block with error feedback the buckets'
+    # and the fused batches' roundings differ by construction (blocks
+    # and seeds), so there the parameter's freeze and its carried
+    # residual are held bitwise on each path
+    late = 5  # _LateNet's parameter order: w1, b1, sometimes, unused, w2
+    for o in world:
+        for inner in ("sgd_wd", "adamw"):
+            on, off = o[f"late_{inner}_k{k}"]
+            for step, (a, b) in enumerate(zip(on, off)):
+                for i, (x, y) in enumerate(zip(a, b)):
+                    assert torch.equal(x, y), (inner, step, i)
+            for path in o[f"late_ef_{inner}_k{k}"]:
+                first = path[k - 1]  # the end of the first window
+                for later in path[k:]:
+                    assert torch.equal(later[late], first[late]), inner
+                    assert torch.equal(later[-1][late], first[-1][late])
 
 
 def test_optimizer_overlap_average_and_error_feedback(world):
@@ -403,12 +468,13 @@ def test_optimizer_overlap_average_and_error_feedback(world):
         for a, b in zip(on[-1], off[-1]):
             assert torch.equal(a, b)
         ef, exact = o["opt_ef"]
-        for a, b in zip(ef[-1], exact[-1]):
+        for a, b in zip(ef[-1][:-1], exact[-1]):
             # two SGD-momentum steps on int8 gradients stay near the
             # exact ones (the wire's error is a few quanta of gradients
             # of order one, times the learning rate)
             assert (a - b).abs().max() < 0.05
-    for a, b in zip(world[0]["opt_ef"][0][-1], world[1]["opt_ef"][0][-1]):
+    for a, b in zip(world[0]["opt_ef"][0][-1][:-1],
+                    world[1]["opt_ef"][0][-1][:-1]):
         assert torch.equal(a, b)
     assert world[0]["schedule_stats"]["misses"] >= 1
 
