@@ -137,9 +137,30 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    launched, stage 3's live parameter-and-gradient bytes at least 1.8×
    below stage 1's a rank (``bench_zero.py:20-31``'s count) and stage
    2's peak below stage 1's, beside the allocator's readings.
-   The flash counts of phases 5, 10, 12, 13, 14 and 15, and the wire
-   counts of phases 8, 9, 13, 14 and 15, add up in the ``kernels``
-   line.
+16. Local SGD (``local_sgd_steps=2``): a flat gloo world of 4 processes
+   on the card (as phase 13's), 2 slices of 2 (``local_sgd_intra=2``), a
+   quarter of phase 5's batch a rank. (a) GPT-2 medium through
+   ``DistributedOptimizer(SGD momentum, op=Average,
+   local_sgd_inter_wire="int8")`` and (b) through
+   ``ShardedDistributedOptimizer(AdamW, zero_stage=2)``, 4 steps each
+   driven by ``local_sgd.maybe_sync``: after a local step each slice's
+   ranks bitwise equal and the slices apart, after each round all four
+   equal; every collective of a local step inside its slice (counted at
+   the calls by ``horovod_tpu_torch.testing.recorder``); B3 and B4
+   launched in every round; the ``local_sgd.*`` counters, and
+   ``inter_bytes`` equal to ``round_inter_bytes`` beside the bytes handed
+   to the inter group's calls; the residual bitwise the remainder of
+   B3's plain pre-quantization; the mean loss falling; each rank's
+   resident and peak memory. (c) One 1 M-element vector a slice through
+   the grouped Adasum: fp32 within rtol 1e-5, atol 1e-6 of the fp64
+   host oracle, int8 within 2 quanta of fp32, every rank the same bits.
+   (d) On (a)'s optimizer after one more local step,
+   ``local_sgd.sync@1:reset;local_sgd.sync@2:reset`` on rank 0 with 2
+   attempts: the round defers on every rank, leaving the parameters,
+   and the next one reconciles them; the world runs under a time limit.
+   The flash counts of phases 5, 10, 12, 13, 14, 15 and 16, and the
+   wire counts of phases 8, 9, 13, 14, 15 and 16, add up in the
+   ``kernels`` line.
 
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -3692,6 +3713,520 @@ def phase_zero(gen, card, phase5):
     return launches, flash
 
 
+# ------------------------------------------------------ phase 16 local SGD
+
+LOCAL_WORLD, LOCAL_INTRA, LOCAL_K = 4, 2, 2
+LOCAL_STEPS = 4
+LOCAL_LR = 0.01  # phase 13's SGD; ZeRO's arm takes phase 15's AdamW
+LOCAL_ORACLE_ELEMS = 1 << 20
+LOCAL_RTOL, LOCAL_ATOL = 1e-5, 1e-6  # tests/test_local_sgd.py's bound
+LOCAL_INT8_QUANTA = 2.0  # one rounding on each sweep of the VHDD
+LOCAL_TIMEOUT_S = 300
+LOCAL_DRILL = "local_sgd.sync@1:reset;local_sgd.sync@2:reset"
+
+
+def _local_chunk(sizes, part, pos, L, H, device):
+    """Elements ``[pos·c, (pos + 1)·c)`` of the concatenation of the flat
+    fp32 tensors ``part(i)`` (``sizes[i]`` elements each; zeros past the
+    end), ``c`` a round's chunk, built a part at a time."""
+    import torch
+
+    m = sum(sizes)
+    chunk = (m + (-m) % (L * (1 << (H.bit_length() - 1)))) // L
+    lo, hi = min(pos * chunk, m), min((pos + 1) * chunk, m)
+    out = torch.zeros(chunk, device=device)
+    off = 0
+    for i, k in enumerate(sizes):
+        s, e = max(lo, off), min(hi, off + k)
+        if s < e:
+            out[s - lo:e - lo] = part(i)[s - off:e - off]
+        off += k
+    return out
+
+
+def _local_prequant_input(opt, sharded, pos, L):
+    """What a round of ``opt`` pre-quantizes on this rank, as
+    ``local_sgd`` builds it: the intra-position chunk of the slice's delta
+    plus the carried residual, fp32, with the round's seed and rounding
+    stream."""
+    import torch
+
+    from horovod_tpu_torch.ops import adasum
+    from horovod_tpu_torch.parallel import fsdp
+
+    with torch.no_grad():
+        if sharded:
+            segs, res = [], []
+            for p, a, r in zip(opt._params, opt._anchor, opt._local_res):
+                if p.dim() == 0:
+                    keep = 1.0 if pos == 0 else 0.0
+                    segs.append((p - a).float().reshape(1) * keep)
+                    res.append(r.float().reshape(1) * keep)
+                else:
+                    segs.append(fsdp.dyn_shard(p.detach(), L, pos).float()
+                                - a.float())
+                    res.append(r.float())
+            x = torch.cat(segs) + torch.cat(res)
+            return x, opt._round, (adasum._PREQUANT << 20) | opt._r
+        ps, anchor = opt._params, opt._anchor
+        sizes, H, dev = [p.numel() for p in ps], len(opt.local_stages[1][0]), \
+            ps[0].device
+        x = _local_chunk(sizes, lambda i: (ps[i].detach().reshape(-1) - anchor[
+            i].reshape(-1).to(ps[i].dtype)).float(), pos, L, H, dev)
+        x += _local_residual_chunk(opt, False, pos, L)
+        return x, opt._updates, (adasum._PREQUANT << 20) | pos
+
+
+def _local_residual_chunk(opt, sharded, pos, L):
+    """This rank's chunk of the carry the round left."""
+    import torch
+
+    res = opt._local_res
+    if sharded:
+        return torch.cat([r.float().reshape(-1) for r in res])
+    return _local_chunk([r.numel() for r in res],
+                        lambda i: res[i].reshape(-1).float(), pos, L,
+                        len(opt.local_stages[1][0]), res[0].device)
+
+
+def _local_conservation(x, res, seed, stream):
+    """Error feedback at the pre-quantization point: the carry against
+    ``x − dequant(quant(x))`` recomputed with B3's plain version (bit for
+    bit), and how many elements ``quantized + carry`` gives back exactly
+    (the rest within the subtraction's rounding)."""
+    import torch
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    block = min(512, x.numel())
+    q, s = ck.int8_block_quantize_plain(x, block, seed=seed, stream=stream)
+    q_x = ck.int8_block_dequantize(q, s, block)
+    del q, s
+    bitwise = bool(torch.equal(res, x - q_x))
+    back = q_x + res
+    del q_x
+    exact = float((back == x).float().mean())
+    slack = float((torch.abs(back - x) - 0.5 * (_ulp(res) + _ulp(x))).max())
+    return {"residual_bitwise": bitwise, "exact_fraction": exact,
+            "within_rounding": slack <= 0, "elems": x.numel(),
+            "residual_norm": float(res.norm())}
+
+
+def _ulp(t):
+    import torch
+
+    return torch.nextafter(t.abs(), torch.full_like(t, float("inf"))) - \
+        t.abs()
+
+
+def _local_train(hvd, opt, model, tokens, labels, sharded, rank, L, stages,
+                 checks, tag):
+    """``LOCAL_STEPS`` steps of ``opt`` driven by ``local_sgd.maybe_sync``:
+    each step's collectives recorded (every one inside the slice), each
+    round's B3/B4 launches, the bytes handed to the inter group's calls,
+    the pre-quantization check on rank 0, digests, losses, times and the
+    allocator's readings."""
+    import torch
+
+    from horovod_tpu_torch import local_sgd
+    from horovod_tpu_torch.common.metrics import registry
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.testing.recorder import record_collectives
+
+    slice_ranks = set(next(g for g in stages[0] if rank in g))
+    inter = tuple(next(g for g in stages[1] if rank in g))
+    sync = opt.sync_round if sharded else opt.sync
+    pos = rank % L
+    base = registry.snapshot()
+    r = {"losses": [], "step_ms": [], "round_ms": [], "digests": [],
+         "synced": [], "calls_per_step": [], "round_launches": [],
+         "inter_handed_bytes": [], "resident_gb": [], "peak_gb": [],
+         "conservation": []}
+    for step in range(LOCAL_STEPS):
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        r["resident_gb"].append(torch.cuda.memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        with record_collectives() as calls:
+            loss = _loss(model, tokens, labels)
+            loss.backward()
+            opt.step()
+        torch.cuda.synchronize()
+        r["step_ms"].append((time.monotonic() - t0) * 1e3)
+        r["losses"].append(float(loss.detach()))
+        r["calls_per_step"].append(len(calls))
+        checks[f"{tag}_step{step}_within_slice"] = bool(calls) and all(
+            set(c.ranks) <= slice_ranks for c in calls)
+        r["digests"].append(_device_digest(model.parameters()))
+        opt.zero_grad(set_to_none=True)  # the round needs no gradients
+        pre = None
+        if local_sgd.due(step, LOCAL_K) and rank == 0:
+            pre = _local_prequant_input(opt, sharded, pos, L)
+        before = {k.__name__: k.launches for k in ck.KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with record_collectives() as calls:
+            _, synced = local_sgd.maybe_sync(
+                sync, step=step, k=LOCAL_K,
+                payload_bytes=opt.local_payload_bytes, stages=stages)
+        torch.cuda.synchronize()
+        r["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+        r["synced"].append(synced)
+        if synced:
+            r["round_ms"].append((time.monotonic() - t0) * 1e3)
+            r["round_launches"].append({
+                k.__name__: k.launches - before[k.__name__]
+                for k in ck.KERNELS if k.launches > before[k.__name__]})
+            r["inter_handed_bytes"].append(sum(
+                c.nbytes for c in calls if c.ranks == inter))
+            r["digests"][-1] = _device_digest(model.parameters())
+        if pre is not None:
+            x, seed, stream = pre
+            res = _local_residual_chunk(opt, sharded, pos, L)
+            r["conservation"].append(_local_conservation(x, res, seed,
+                                                         stream))
+            del x, res, pre
+    snap = registry.snapshot()
+    r["counters"] = {k: snap.get(k, 0) - base.get(k, 0) for k in (
+        "local_sgd.local_steps", "local_sgd.sync_rounds",
+        "local_sgd.rounds_deferred", "local_sgd.inter_bytes")}
+    r["round_inter_bytes"] = local_sgd.round_inter_bytes(
+        opt.local_payload_bytes, stages)
+    rounds = [s for s, ok in enumerate(r["synced"]) if ok]
+    checks[f"{tag}_rounds_on_cadence"] = rounds == [
+        s for s in range(LOCAL_STEPS) if local_sgd.due(s, LOCAL_K)]
+    checks[f"{tag}_counters"] = (
+        r["counters"]["local_sgd.local_steps"] == LOCAL_STEPS
+        and r["counters"]["local_sgd.sync_rounds"] == len(rounds)
+        and r["counters"]["local_sgd.inter_bytes"]
+        == len(rounds) * r["round_inter_bytes"])
+    checks[f"{tag}_b3_b4_in_every_round"] = all(
+        rl.get("int8_block_quantize", 0) > 0 and rl.get("adasum_dots", 0) > 0
+        and rl.get("adasum_apply", 0) > 0 for rl in r["round_launches"])
+    if rank == 0:
+        checks[f"{tag}_ef_residual_bitwise"] = all(
+            c["residual_bitwise"] and c["within_rounding"]
+            for c in r["conservation"])
+    return r
+
+
+def _local_oracle(rank, L, H):
+    """(c): the grouped Adasum of one 1 M-element vector a slice (the
+    same on the slice's ranks) on the fp32 and the int8 wire."""
+    import torch
+
+    from horovod_tpu_torch.common import topology
+    from horovod_tpu_torch.ops import adasum
+
+    stages = topology.hierarchical_stage_groups(L * H, L)
+    vals = _rank_inputs(H, LOCAL_ORACLE_ELEMS, 900)
+    mine = vals[rank // L]
+    fp32 = adasum.adasum_allreduce_groups(mine, stages, "fp32")
+    int8 = adasum.adasum_allreduce_groups(mine, stages, "int8", seed=17)
+    want = adasum.adasum_vhdd_host([v.double().cpu().numpy() for v in vals])
+    got = fp32.double().cpu().numpy()
+    import numpy as np
+
+    scale = float(np.abs(want).max())
+    quantum = float(fp32.abs().max()) / 127
+    return {"elems": LOCAL_ORACLE_ELEMS,
+            "fp32_max_abs_err": float(np.abs(got - want).max()),
+            "fp32_within": bool(np.all(np.abs(got - want)
+                                       <= LOCAL_ATOL + LOCAL_RTOL
+                                       * np.abs(want))),
+            "fp32_rel_err": float(np.abs(got - want).max()) / scale,
+            "int8_err_quanta": float((int8 - fp32).abs().max()) / quantum,
+            "fp32_digest": _device_digest([fp32]),
+            "int8_digest": _device_digest([int8])}
+
+
+def _local_kernels_vs_plain(L, P):
+    """B3 at a round's chunk (P/L fp32 values, block 512) and B4 at its
+    halves, against their plain versions (B3 bit for bit, B4 within 1e-5
+    of the largest magnitude)."""
+    import torch
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    x = _rank_inputs(1, -(-P // L), 61)[0]
+    q, s = ck.int8_block_quantize(x, 512, seed=7, stream=9)
+    qp, sp = ck.int8_block_quantize_plain(x, 512, seed=7, stream=9)
+    b3 = bool(torch.equal(q, qp) and torch.equal(s, sp))
+    del x, q, s, qp, sp
+    a, b = _rank_inputs(2, -(-P // (2 * L)), 63)
+    out = ck.adasum_apply(a, b, ck.adasum_dots(a, b))
+    want = ck.adasum_apply_plain(a, b, ck.adasum_dots_plain(a, b))
+    b4 = float((out - want).abs().max() / want.abs().max())
+    return {"b3_elems": -(-P // L), "b3_bitwise": b3,
+            "b4_elems": a.numel(), "b4_rel_err": b4}
+
+
+def _local_rank(rank, n, port, results):
+    """One rank of phase 16: its own process on the one card in a flat
+    gloo world (the local split's groups are its own, made by the
+    optimizers). Puts ``(rank, readings)`` on ``results``."""
+    # four ranks share the card: segments that grow keep the allocator's
+    # reserve near what each rank holds
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
+                      PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    sys.path.insert(0, HERE)
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=n)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig, local_sgd
+    from horovod_tpu_torch.common.metrics import registry
+    from horovod_tpu_torch.common.retry import RetryPolicy
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.testing import chaos
+
+    hvd.init(device="cuda")
+    L, H = LOCAL_INTRA, n // LOCAL_INTRA
+    out = {"rank": rank}
+    checks = {}
+    for k in ck.KERNELS:
+        k.launches = 0
+    _zero_flash()
+
+    # (c) the merge against the fp64 oracle
+    out["oracle"] = _local_oracle(rank, L, H)
+    checks["oracle_fp32_within_bound"] = out["oracle"]["fp32_within"]
+    checks["oracle_int8_within_quanta"] = (
+        out["oracle"]["int8_err_quanta"] <= LOCAL_INT8_QUANTA)
+
+    cfg = dataclasses.replace(TransformerConfig.gpt2_medium(), remat=True)
+    tokens, labels = _lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    per = TRAIN_BATCH // n
+    mine = slice(rank * per, (rank + 1) * per)
+    tokens, labels = tokens[mine], labels[mine]
+
+    def model_of():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        model = Transformer(cfg, device="cuda", generator=gen)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        return model
+
+    # (a) the replicated optimizer, then (d) the fault drill on it
+    model = model_of()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=LOCAL_LR, momentum=0.9),
+        named_parameters=model.named_parameters(), op=hvd.Average,
+        local_sgd_steps=LOCAL_K, local_sgd_intra=L,
+        local_sgd_inter_wire="int8")
+    stages = opt.local_stages
+    P = sum(p.numel() for p in model.parameters())
+    out["replicated"] = _local_train(hvd, opt, model, tokens, labels, False,
+                                     rank, L, stages, checks, "a")
+    base = registry.snapshot()
+    opt.zero_grad(set_to_none=True)
+    _loss(model, tokens, labels).backward()
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    diverged = _device_digest(model.parameters())
+    policy = RetryPolicy.from_env("local_sgd.sync", attempts=2,
+                                  backoff_ms=1.0, circuit_threshold=0)
+    if rank == 0:
+        chaos.configure(LOCAL_DRILL)
+    try:
+        _, first = local_sgd.run_round(opt.sync, policy=policy)
+        kept = _device_digest(model.parameters())
+        _, second = local_sgd.run_round(opt.sync, policy=policy)
+    finally:
+        chaos.reset()
+    snap = registry.snapshot()
+    out["drill"] = {
+        "first_synced": first, "second_synced": second,
+        "deferred_left_params": kept == diverged,
+        "diverged": diverged, "after": _device_digest(model.parameters()),
+        "counters": {k: snap.get(k, 0) - base.get(k, 0) for k in (
+            "local_sgd.rounds_deferred", "local_sgd.sync_rounds",
+            "faults_injected", "retry.local_sgd.sync.attempts")}}
+    c = out["drill"]["counters"]
+    checks["drill_defers_then_completes"] = (
+        not first and second and kept == diverged
+        and c["local_sgd.rounds_deferred"] == 1
+        and c["local_sgd.sync_rounds"] == 1
+        and c["faults_injected"] == (2 if rank == 0 else 0))
+    opt.remove_hooks()
+    del opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) ZeRO stage 2 in local mode
+    model = model_of()
+    opt = hvd.ShardedDistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=ZERO_LR),
+        named_parameters=model.named_parameters(), op=hvd.Average,
+        zero_stage=2, overlap_buckets=ZERO_BUCKETS, local_sgd_steps=LOCAL_K,
+        local_sgd_intra=L, local_sgd_inter_wire="int8")
+    out["zero"] = _local_train(hvd, opt, model, tokens, labels, True, rank,
+                               L, stages, checks, "b")
+    out["zero"]["anchor_gb"] = sum(
+        a.numel() * a.element_size() for a in opt._anchor) / 1e9
+    opt.remove_hooks()
+    del opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["launches"] = {k.__name__: k.launches for k in ck.KERNELS}
+    out["flash"] = _read_flash()
+    if rank == 0:  # after the main path's counts are read
+        out["kernels_vs_plain"] = _local_kernels_vs_plain(L, P)
+    out["checks"] = checks
+    hvd.shutdown()
+    dist.destroy_process_group()
+    results.put((rank, out))
+
+
+def _local_world():
+    """Phase 16's world: :func:`_local_rank` in 4 processes under a time
+    limit (a hang fails the phase); every rank's readings in rank order,
+    and the wall time."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    n = LOCAL_WORLD
+    procs = [ctx.Process(target=_local_rank, args=(r, n, port, results),
+                         daemon=True) for r in range(n)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    got = {}
+    while len(got) < n:
+        dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+        if dead or time.monotonic() - t0 > LOCAL_TIMEOUT_S:
+            for p in procs:
+                p.kill()
+            fail(f"local world: ranks {dead} ended with "
+                 f"{[procs[r].exitcode for r in dead]}" if dead else
+                 f"local world: not done in {LOCAL_TIMEOUT_S} s")
+        try:
+            rank, out = results.get(timeout=5)
+        except queue.Empty:
+            continue
+        got[rank] = out
+    for p in procs:
+        p.join(timeout=60)
+        if p.exitcode != 0:
+            p.kill()
+            fail(f"local world: a rank exited with {p.exitcode}")
+    return [got[r] for r in range(n)], time.monotonic() - t0
+
+
+def phase_local(card):
+    """Phase 16: local SGD in a gloo world of 4 processes on the one card,
+    2 slices of 2 (``local_sgd_intra=2``), a quarter of phase 5's batch a
+    rank, GPT-2 medium at full width (bf16 on fp32 masters, remat): (a)
+    ``DistributedOptimizer(SGD momentum, op=Average, local_sgd_steps=2,
+    local_sgd_inter_wire="int8")`` 4 steps through
+    ``local_sgd.maybe_sync``; (b) ``ShardedDistributedOptimizer(AdamW,
+    zero_stage=2, local_sgd_steps=2)`` the same; (c) one 1 M-element
+    vector a slice through the grouped Adasum, fp32 against the fp64
+    host oracle and int8 against fp32; (d) on (a)'s optimizer after one
+    more local step, ``local_sgd.sync@1:reset;local_sgd.sync@2:reset``
+    on rank 0 with 2 attempts: the round defers on every rank, leaving
+    the parameters, and the next one completes. Checks: a slice's ranks
+    bitwise equal and the slices apart after the local steps, all four
+    equal after each round; every collective of a local step inside the
+    slice (the recorder); B3 and B4 launched in every round; the
+    counters; ``inter_bytes`` equal to ``round_inter_bytes`` beside the
+    bytes handed to the inter group's calls; the carry bitwise the
+    plain pre-quantization's remainder; the mean loss finite and
+    falling. Returns the launches of the wire and flash kernels."""
+    t_phase = time.monotonic()
+    outs, wall_s = _local_world()
+    failed = []
+    for o in outs:
+        bad = [k for k, ok in o["checks"].items() if not ok]
+        if bad:
+            failed.append(f"rank {o['rank']}: {bad}")
+    n, L = LOCAL_WORLD, LOCAL_INTRA
+    for key in ("fp32_digest", "int8_digest"):
+        if len({o["oracle"][key] for o in outs}) != 1:
+            failed.append(f"(c) the ranks' {key} differ")
+    summary = {}
+    for arm, tag in (("replicated", "a"), ("zero", "b")):
+        rs = [o[arm] for o in outs]
+        for s in range(LOCAL_STEPS):
+            digests = [r["digests"][s] for r in rs]
+            if rs[0]["synced"][s]:
+                if len(set(digests)) != 1:
+                    failed.append(f"({tag}) step {s}: ranks differ after "
+                                  "the round")
+            elif (len({digests[h * L + i] for h in range(n // L)
+                       for i in range(L)}) != n // L
+                  or any(len(set(digests[h * L:(h + 1) * L])) != 1
+                         for h in range(n // L))):
+                failed.append(f"({tag}) step {s}: a slice's replicas "
+                              "differ or the slices agree")
+        losses = [sum(r["losses"][s] for r in rs) / n
+                  for s in range(LOCAL_STEPS)]
+        if not all(math.isfinite(x) for x in losses) or not \
+                losses[-1] < losses[0]:
+            failed.append(f"({tag}) the mean loss did not fall: {losses}")
+        summary[arm] = {
+            "mean_losses": losses,
+            "step_ms_by_rank": [r["step_ms"] for r in rs],
+            "round_ms_by_rank": [r["round_ms"] for r in rs],
+            "round_launches_rank0": rs[0]["round_launches"],
+            "calls_per_step_rank0": rs[0]["calls_per_step"],
+            "counters_rank0": rs[0]["counters"],
+            "round_inter_bytes": rs[0]["round_inter_bytes"],
+            "inter_handed_bytes_by_rank": [r["inter_handed_bytes"]
+                                           for r in rs],
+            "resident_gb_by_rank": [r["resident_gb"] for r in rs],
+            "peak_gb_by_rank": [r["peak_gb"] for r in rs],
+            "conservation_rank0": rs[0]["conservation"]}
+    summary["zero"]["anchor_gb_rank0"] = outs[0]["zero"]["anchor_gb"]
+    drills = [o["drill"] for o in outs]
+    if len({d["after"] for d in drills}) != 1:
+        failed.append("(d) the ranks differ after the completed round")
+    kvp = outs[0]["kernels_vs_plain"]
+    if not kvp["b3_bitwise"] or kvp["b4_rel_err"] > 1e-5:
+        failed.append(f"kernels against plain {kvp}")
+    launches = {name: sum(o["launches"][name] for o in outs)
+                for name in outs[0]["launches"]}
+    flash = ({k: sum(o["flash"][0][k] for o in outs)
+              for k in outs[0]["flash"][0]},
+             {k: sum(o["flash"][1][k] for o in outs)
+              for k in outs[0]["flash"][1]})
+    for name in ("int8_block_quantize", "adasum_dots", "adasum_apply"):
+        if launches[name] < 1:
+            failed.append(f"{name} never launched in the phase")
+    log("local sgd: " + json.dumps({
+        "world": n, "intra": L, "k": LOCAL_K, "steps": LOCAL_STEPS,
+        "backend": "gloo, one card", "model": "gpt2_medium",
+        "batch_per_rank": TRAIN_BATCH // n, "seq": TRAIN_SEQ,
+        "wall_s": wall_s, "arms": summary,
+        "oracle": {k: v for k, v in outs[0]["oracle"].items()
+                   if "digest" not in k},
+        "drill": {"plan_on_rank0": LOCAL_DRILL,
+                  "by_rank": [{k: v for k, v in d.items()
+                               if k not in ("diverged", "after")}
+                              for d in drills]},
+        "kernels_vs_plain": kvp, "launches": {
+            k: launches[k] for k in ("int8_block_quantize", "adasum_dots",
+                                     "adasum_apply")},
+        "flash_launches": flash[0], "flash_tensor_core_launches": flash[1],
+        "phase_s": time.monotonic() - t_phase, "card": card,
+    }, sort_keys=True))
+    if failed:
+        fail("local sgd: " + "; ".join(failed))
+    return launches, flash
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3839,6 +4374,15 @@ def main() -> int:
     wire_launches["int8_block_quantize"] += zero_launches[
         "int8_block_quantize"]
     log(f"zero phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 16: local SGD in a gloo world of 4, 2 slices of 2
+    t0 = time.monotonic()
+    local_launches, local_flash = phase_local(card)
+    flash_runs.append(local_flash)
+    for name in ("int8_block_quantize", "adasum_dots", "adasum_apply"):
+        wire_launches[name] += local_launches[name]
+    log(f"local sgd phase: {time.monotonic() - t0:.2f} s")
     flash_launches = {k: sum(r[0][k] for r in flash_runs)
                       for k in flash_runs[1][0]}
     flash_tc_launches = {k: sum(r[1][k] for r in flash_runs)

@@ -44,6 +44,10 @@ slices are ported:
   gradients and parameters sharded over the world in the flat layout of
   ``parallel/fsdp.py``) on the sharded bucket legs
   ``bucketed_reduce_scatter`` and ``bucketed_shard_all_gather``;
+- local SGD: ``hvd.local_sgd`` (slices train on their own for K steps,
+  then merge their deltas by hierarchical Adasum) through either
+  optimizer's ``local_sgd_steps``; ``hvd.testing`` holds the seeded
+  fault injection (``testing.chaos``) and a recorder of collectives;
 - serving: ``serve()`` answers HTTP ``POST /generate`` through a
   continuous batcher and an engine over a paged KV pool, and attention
   reads the pool through a hand-written CUDA kernel
@@ -165,6 +169,7 @@ from .optimizer import (  # noqa: F401
     broadcast_parameters,
 )
 from .sharded_optimizer import ShardedDistributedOptimizer  # noqa: F401
+from . import local_sgd, testing  # noqa: F401
 from .serving import (  # noqa: F401
     ContinuousBatcher,
     InferenceEngine,

@@ -11,8 +11,8 @@ package the same way:
   ``HOROVOD_FUSION_WIRE_HIER`` and ``HOROVOD_INTRA_SIZE``, and the
   bucketed overlap's ``HOROVOD_OVERLAP``, ``HOROVOD_OVERLAP_BUCKETS`` and
   ``HOROVOD_OVERLAP_MIN_BYTES``, and ZeRO's ``HOROVOD_ZERO_STAGE`` and
-  ``HOROVOD_ZERO_WIRE``), snapshotted at ``hvd.init()`` as the JAX
-  package does;
+  ``HOROVOD_ZERO_WIRE``, and local SGD's ``HOROVOD_LOCAL_SGD_STEPS``),
+  snapshotted at ``hvd.init()`` as the JAX package does;
 * :class:`ServeConfig`, the serving part (``HOROVOD_SERVE_*``), read by
   :func:`live_config` when a serving object is built (serving needs no
   init step).
@@ -56,6 +56,15 @@ DEFAULT_ZERO_STAGE = 1
 DEFAULT_ZERO_WIRE = "fp32"
 # consecutive non-finite steps the grad guard skips before it escalates
 DEFAULT_GUARD_MAX_SKIPS = 3
+# The retry ladder of common/retry.py (HOROVOD_RETRY_*), the JAX
+# package's defaults
+DEFAULT_RETRY_ATTEMPTS = 3
+DEFAULT_RETRY_BACKOFF_MS = 100.0
+DEFAULT_RETRY_BACKOFF_MAX_MS = 2000.0
+DEFAULT_RETRY_DEADLINE_S = 60.0
+DEFAULT_RETRY_ATTEMPT_TIMEOUT_S = 30.0
+DEFAULT_RETRY_CIRCUIT_THRESHOLD = 3
+DEFAULT_RETRY_CIRCUIT_COOLDOWN_S = 30.0
 
 # Serving plane: decode-slot count (concurrent sequences), admissions per
 # decode step, default per-request token budget/deadline, and the
@@ -178,6 +187,10 @@ class TrainConfig:
     # numerics and state layout for deployments that set it before ZeRO
     zero_stage: int = DEFAULT_ZERO_STAGE
     zero_wire: str = DEFAULT_ZERO_WIRE
+    # local SGD (local_sgd.py): the optimizers' local_sgd_steps when they
+    # pass None; 1 is the every-step path, K > 1 trains K steps within
+    # each slice between sync rounds
+    local_sgd_steps: int = 1
     # the launcher's view of this process (None outside a launcher)
     rank: Optional[int] = None
     size: Optional[int] = None
@@ -224,6 +237,7 @@ class TrainConfig:
                                        ("1", "2", "3"))),
             zero_wire=_env_choice("HOROVOD_ZERO_WIRE", DEFAULT_ZERO_WIRE,
                                   ("fp32", "bf16", "int8", "auto")),
+            local_sgd_steps=_env_int("HOROVOD_LOCAL_SGD_STEPS", 1),
             rank=_env_opt_int("HOROVOD_RANK"),
             size=_env_opt_int("HOROVOD_SIZE"),
             local_rank=_env_opt_int("HOROVOD_LOCAL_RANK"),

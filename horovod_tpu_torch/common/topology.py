@@ -20,7 +20,10 @@ reads the world from ``torch.distributed`` and the launcher's
 :func:`stage_groups` builds the two-level groups, once, at
 ``hvd.init()``: one intra group per node, one inter group per
 node-local slot. :func:`hierarchy_stages` is the one routing decision
-(``HOROVOD_HIERARCHICAL``) every two-level wire consults.
+(``HOROVOD_HIERARCHICAL``) every two-level wire consults;
+:func:`hierarchical_stage_groups` and :func:`stage_positions` are the
+JAX package's helpers of the same names (local SGD's split and each
+rank's place in its group).
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Callable, List, Optional, Tuple
+
+import numpy as np
 
 from .config import TrainConfig
 
@@ -173,3 +178,24 @@ def stage_groups(topo: Topology, new_group: Callable):
             if topo.rank in ranks:
                 mine[kind] = group
     return mine["intra"], mine["inter"]
+
+
+def hierarchical_stage_groups(world: int, local: int):
+    """The two-level rank lists ``(intra, inter)`` for ``local`` ranks a
+    slice, or None when the split degenerates (one slice, slices of one
+    rank, or a ``local`` that does not divide ``world``); the JAX
+    package's ``hierarchical_stage_groups``."""
+    if local <= 1 or world <= local or world % local:
+        return None
+    return stage_ranks(int(world), int(local))
+
+
+def stage_positions(groups) -> np.ndarray:
+    """``[world]`` int32: each rank's index within its group of
+    ``groups`` (position-j members of every group exchange chunk j)."""
+    world = sum(len(g) for g in groups)
+    pos = np.zeros(world, dtype=np.int32)
+    for g in groups:
+        for j, r in enumerate(g):
+            pos[r] = j
+    return pos

@@ -30,6 +30,19 @@ change when either input is rescaled.
   a rank consumes its own dequantized piece wherever a peer consumes
   the received one, so every replica stays bitwise equal. Process sets
   raise, as in the reference.
+- :func:`adasum_allreduce_groups` and :func:`adasum_sync_shard` are
+  local SGD's merge (``horovod_tpu/ops/adasum.py:373,474``): the value
+  is each slice's parameter delta, replicated within the slice (or, for
+  the shard form, this rank's intra-position chunk of it). Each rank
+  takes its chunk with no collective; on the int8 wire with error
+  feedback the chunk plus its carried residual is pre-quantized on B3
+  (keyed by the intra position for the replicated form, so a slice's
+  replicas quantize alike) and the carry becomes what the wire could
+  not send; VHDD runs over this rank's inter group with every combine's
+  dots completed over its intra group, as ``_hier_adasum`` does; an
+  intra allgather reassembles the merged value and the residual. Both
+  take ``stages``, the ``(intra, inter)`` rank lists, and make their
+  process groups through ``traced.prepare_groups``'s cache.
 - :func:`vhdd_wire_bytes` and the host oracles
   (:func:`adasum_pair_host`, :func:`adasum_vhdd_host`,
   :func:`adasum_tree_host`) are numpy copies of the JAX package's.
@@ -44,8 +57,12 @@ import torch
 import torch.distributed as dist
 
 from ..common import basics
-from . import cuda_kernels
+from . import cuda_kernels, traced
 from ._collectives import exchange, gather_into, scatter_reduce_into
+
+# the stream tag of the error-feedback pre-quantization's rounding (the
+# VHDD's half-exchanges take 100 + k and 200 + k)
+_PREQUANT = 300
 
 
 def adasum_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -139,6 +156,135 @@ def _hier_adasum(tensor: torch.Tensor, inter_wire: str,
         out = shard.new_empty(shard.numel() * L)
         gather_into(out, shard, st.intra_group)
     return out[:m].reshape(shape).to(dtype)
+
+
+def _check_sync(stages, inter_wire: str, return_residual: bool) -> None:
+    if stages is None:
+        raise ValueError("stages is required (topology.hierarchy_stages)")
+    if inter_wire not in ("fp32", "bf16", "int8"):
+        raise ValueError(f"unknown inter_wire {inter_wire!r}")
+    if return_residual and inter_wire != "int8":
+        raise ValueError(
+            "return_residual needs inter_wire='int8' (exact wires "
+            "transmit everything; there is no residual to carry)")
+
+
+def _intra_gather(piece: torch.Tensor, group, L: int) -> torch.Tensor:
+    out = piece.new_empty(piece.numel() * L)
+    gather_into(out, piece.contiguous(), group)
+    return out
+
+
+def adasum_allreduce_groups(tensor: torch.Tensor, stages,
+                            inter_wire: str = "fp32", seed: int = 0,
+                            residual: Optional[torch.Tensor] = None,
+                            return_residual: bool = False):
+    """Hierarchical Adasum of the slices' values on the two-level split
+    ``stages`` (rank ``h·L + i`` is slice h, intra position i): every
+    rank passes its slice's value, the same on the slice's L ranks (the
+    local phase keeps it so). Each rank takes its intra-position chunk,
+    the H slice values combine by VHDD over the inter groups with the
+    dots completed over the intra groups, and an intra allgather
+    reassembles the result, the same bits on every rank of the world.
+
+    With ``inter_wire="int8"`` and ``return_residual=True`` the carry
+    ``residual`` joins the chunk before B3's pre-quantization, and the
+    new residual (``x_eff − dequant(quant(x_eff))``, allgathered over the
+    intra group, so a slice's ranks hold the same carry) comes back
+    beside the result."""
+    _check_sync(stages, inter_wire, return_residual)
+    shape, dtype = tensor.shape, tensor.dtype
+    flat = tensor.detach().reshape(-1)
+    res = None if residual is None else residual.detach().reshape(-1)
+    merged, new_res = merge_groups(
+        lambda lo, hi, out: out.copy_(flat[lo:hi]), flat.numel(),
+        flat.device, stages, inter_wire, seed,
+        None if res is None else lambda lo, hi, out: out.copy_(res[lo:hi]),
+        return_residual)
+    out = merged.reshape(shape).to(dtype)
+    return (out, new_res.reshape(shape).to(dtype)) if return_residual \
+        else out
+
+
+def merge_groups(fill, m: int, device, stages, inter_wire: str, seed: int,
+                 fill_residual=None, return_residual: bool = False):
+    """:func:`adasum_allreduce_groups` on a vector of ``m`` elements that
+    need not exist whole: ``fill(lo, hi, out)`` writes elements ``[lo,
+    hi)`` into the fp32 tensor ``out``, and only this rank's chunk is
+    asked for (``local_sgd.sync_tree`` builds the deltas of a model that
+    way, chunk-sized). Returns the merged fp32 vector and, with
+    ``return_residual``, the new fp32 residual."""
+    _check_sync(stages, inter_wire, return_residual)
+    intra, inter = stages
+    group, pos, L = traced._mine(intra)
+    H = len(inter[0])
+    p = 1 << (H.bit_length() - 1)
+    # every rank's chunk splits at every halving; its tail past m is 0
+    chunk = (m + (-m) % (L * p)) // L
+    lo, hi = min(pos * chunk, m), min((pos + 1) * chunk, m)
+
+    def take(f):
+        buf = torch.zeros(chunk, dtype=torch.float32, device=device)
+        if hi > lo:
+            f(lo, hi, buf[:hi - lo])
+        return buf
+
+    piece = take(fill)
+    r_piece = None if fill_residual is None else take(fill_residual)
+    # the intra position keys the pre-quantization: a slice's replicas
+    # hold the same chunk and must quantize it alike
+    out = adasum_sync_shard(piece, stages, inter_wire, seed, r_piece,
+                            return_residual, key_index=pos)
+    del piece, r_piece
+    new_res = None
+    if return_residual:
+        out, res_piece = out
+        new_res = _intra_gather(res_piece, group, L)[:m]
+        del res_piece
+    return _intra_gather(out, group, L)[:m], new_res
+
+
+def adasum_sync_shard(shard: torch.Tensor, stages, inter_wire: str = "int8",
+                      seed: int = 0, residual: Optional[torch.Tensor] = None,
+                      return_residual: bool = False,
+                      key_index: Optional[int] = None):
+    """Merge one intra-position chunk across slices: ``shard`` is this
+    rank's ``[cols]`` chunk of its slice's value, which the slice's L
+    ranks hold jointly; the merged chunk comes back in the same
+    geometry (and with ``return_residual`` the new carry beside it).
+    ``key_index`` keys the pre-quantization's rounding (default: the
+    global rank)."""
+    _check_sync(stages, inter_wire, return_residual)
+    intra, inter = stages
+    intra_group, pos, L = traced._mine(intra)
+    inter_group, h, H = traced._mine(inter)
+    me = dist.get_rank()
+    c = shard.numel()
+    x = shard.detach().to(torch.float32).reshape(-1)
+    new_res = None
+    if inter_wire == "int8" and (residual is not None or return_residual):
+        if residual is not None:
+            x = x + residual.detach().to(torch.float32).reshape(-1)
+        key = me if key_index is None else int(key_index)
+        block = min(512, max(c, 1))
+        q, s = cuda_kernels.int8_block_quantize(
+            x, block, seed=seed, stream=(_PREQUANT << 20) | key)
+        q_x = cuda_kernels.int8_block_dequantize(q, s, block)
+        del q, s
+        if return_residual:
+            new_res = (x - q_x).to(shard.dtype)
+        x = q_x
+    if H > 1:
+        x = _vhdd_allreduce(
+            x, H, h, group=inter_group,
+            ranks=next(g for g in inter if me in g),
+            dot_group=intra_group if L > 1 else None, wire=inter_wire,
+            seed=seed, lane=pos)
+    out = x.to(shard.dtype).reshape(shard.shape)
+    if not return_residual:
+        return out
+    return out, (torch.zeros_like(shard) if new_res is None
+                 else new_res.reshape(shard.shape))
 
 
 def _block_rows(n: int, p: int, d: int) -> np.ndarray:

@@ -147,11 +147,12 @@ def _check_residual_eligible(op, tensor) -> None:
 
 def _allreduce_entry(tensor, name, op, prescale, postscale, process_set,
                      compression, return_residual=False, guard=False,
-                     two_level=False):
-    """One allreduce entry. ``two_level`` is ``DistributedOptimizer``'s
-    alone: its ``Compression.hier_int8`` residual batch may take the
-    two-level route, where the eager rule keeps a residual on the flat
-    int8 wire."""
+                     two_level=False, local=None):
+    """One allreduce entry. ``two_level`` and ``local`` are
+    ``DistributedOptimizer``'s alone: its ``Compression.hier_int8``
+    residual batch may take the two-level route, where the eager rule
+    keeps a residual on the flat int8 wire; ``local`` (intra rank lists)
+    keeps the batch within this rank's group under local SGD."""
     wire = _wire_of(compression, return_residual)
     if return_residual:
         _check_residual_eligible(op, tensor)
@@ -165,7 +166,9 @@ def _allreduce_entry(tensor, name, op, prescale, postscale, process_set,
                    process_set=process_set, wire=wire,
                    wire_block=getattr(compression, "block_size", None),
                    want_residual=bool(return_residual), guard=bool(guard),
-                   mask=_mask_key(), two_level=bool(two_level))
+                   mask=_mask_key(), two_level=bool(two_level),
+                   local=None if local is None else tuple(
+                       tuple(int(r) for r in g) for g in local))
     return entry, post
 
 

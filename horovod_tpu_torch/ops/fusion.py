@@ -57,6 +57,18 @@ The core of ``horovod_tpu/ops/fusion.py`` on ``torch.distributed``:
   error feedback on ``Compression.hier_int8`` (``two_level``) takes the
   two-level route, as the JAX optimizer does. A process set or a join
   mask keeps the batch flat.
+- **Local SGD** (``local_sgd.py``, ``horovod_tpu/ops/fusion.py:993-1030``):
+  while a local phase is active (``local_sgd.local_phase``), a Sum or
+  Average allreduce with no join mask and no process set reduces within
+  its intra group only, Average dividing by the group's size: the
+  two-level route is off, and an ``int8_hier`` request, whose int8 was
+  for the inter hop, rides bf16 (``DistributedOptimizer``'s own
+  ``hier_int8`` entries keep int8 within the group, as the JAX
+  optimizer's grouped wire does). The optimizer in local mode names its
+  intra groups on every entry itself. The groups are resolved at
+  enqueue and are part of the fusion key, so a batch never mixes
+  entries of either side of a phase switch; ``local_dispatches`` counts
+  such batches.
 - **Join** (``join_mask``): a masked allreduce batch zeroes the joined
   ranks' contributions (the identity of Min, Max and Product), on the
   exact and the int8 wire, and Average divides by the active count.
@@ -116,7 +128,7 @@ from . import int8_wire
 from ._collectives import gather_into, scatter_reduce_into
 from .adasum import adasum_allreduce
 from .int8_wire import WIRE_RANGES
-from .traced import _exchange
+from .traced import _exchange, _mine
 from .reduction_ops import Adasum, Average, Max, Min, Product, ReduceOp, Sum
 
 _DIST_OPS = {
@@ -152,6 +164,9 @@ class _Entry:
     mask: Optional[Tuple[bool, ...]] = None
     # DistributedOptimizer's hier_int8 residual batch: two-level route
     two_level: bool = False
+    # local SGD: the intra groups the batch reduces within (the
+    # optimizer's, or the active phase's, resolved at enqueue)
+    local: Optional[Tuple[Tuple[int, ...], ...]] = None
     # resolved at enqueue: the two-level route and its intra hops' wire
     hier: bool = False
     intra_wire: Optional[str] = None
@@ -167,7 +182,7 @@ class _Entry:
                 self.prescale, self.postscale, self.root_rank,
                 None if ps is None else ps.process_set_id, self.wire,
                 self.wire_block, self.want_residual, self.guard, self.mask,
-                self.hier, self.intra_wire)
+                self.local, self.hier, self.intra_wire)
 
 
 def _is_world(ps: Optional[ProcessSet]) -> bool:
@@ -193,9 +208,20 @@ def _rank_in(ps: Optional[ProcessSet]) -> int:
     return r if _is_world(ps) else ps.rank_in_set(r)
 
 
+def _scope(e0: _Entry) -> Tuple[int, int]:
+    """(the size of the ranks the batch reduces over, this rank's place
+    among them): its intra group under local SGD, else its set."""
+    if e0.local is not None:
+        _, me, n = _mine(e0.local)
+        return n, me
+    return _set_size(e0.process_set), _rank_in(e0.process_set)
+
+
 def _active(e0: _Entry) -> Tuple[bool, int]:
     """(whether this rank contributes, how many ranks of the batch's set
     contribute) under the batch's join mask."""
+    if e0.local is not None:
+        return True, len(e0.local[0])
     ps = e0.process_set
     members = range(dist.get_world_size()) if _is_world(ps) else ps.ranks
     if e0.mask is None:
@@ -409,6 +435,7 @@ class FusionManager:
         self.last_wire_format_inter = "fp32"
         self.handed_bytes_intra = 0
         self.handed_bytes_inter = 0
+        self.local_dispatches = 0
         self._seed_counter = 0  # the int8 wire's per-dispatch seed
 
     def _split(self, explicit: bool = False) -> Optional["_Split"]:
@@ -435,11 +462,18 @@ class FusionManager:
         over the world with no join mask takes the two-level route when
         :meth:`_split` resolves (an explicit request: ``int8_hier``, or
         the int8 wire under ``HOROVOD_FUSION_WIRE_HIER``); a residual
-        asked for from the eager API keeps the flat int8 wire."""
+        asked for from the eager API keeps the flat int8 wire. Under local
+        SGD (the entry's groups, else the active phase's) the batch stays
+        within its intra group (module docstring)."""
         wire = self.wire if e.wire is None else e.wire
+        if (e.local is None and e.op in (Sum, Average) and e.mask is None
+                and _is_world(e.process_set)):
+            from .. import local_sgd
+
+            e.local = local_sgd.active_intra_groups()
         explicit = wire == "int8_hier" or (wire == "int8" and self.wire_hier)
         if wire == "int8_hier":
-            wire = "int8"
+            wire = "int8" if e.local is None or e.two_level else "bf16"
         eligible = e.op in (Sum, Average) and e.tensor.is_floating_point()
         if wire == "int8" and not eligible and not e.want_residual:
             wire = "fp32"
@@ -447,6 +481,7 @@ class FusionManager:
                                or e.tensor.element_size() > 4):
             wire = "fp32"  # fp32 payloads narrow; 2-byte ones already are
         e.hier = (eligible and e.mask is None and _is_world(e.process_set)
+                  and e.local is None
                   and (not e.want_residual or e.two_level)
                   and self._split(explicit) is not None)
         e.wire = wire
@@ -523,6 +558,9 @@ class FusionManager:
                 f"member of {ps}"
             )
         group = _group(ps)
+        if e0.kind == "allreduce" and e0.local is not None:
+            group = _mine(e0.local)[0]
+            self.local_dispatches += 1
         if e0.kind == "allreduce" and e0.op == Adasum:
             work, finish, nbytes = self._adasum(e0, ps)
         elif e0.kind == "allreduce" and e0.hier:
@@ -613,7 +651,7 @@ class FusionManager:
             return _unpack(flat, entries), _finite(e0, flat)
 
         nbytes = self._account(flat.numel(), e0.wire, flat.element_size(),
-                               _set_size(ps), self.wire_block)
+                               _scope(e0)[0], self.wire_block)
         return work, finish, nbytes
 
     def _allreduce_hier(self, entries):
@@ -739,7 +777,7 @@ class FusionManager:
         stage-2 error times n for Average and divided by the prescale;
         a zero prescale gives a zero carry; input units, per entry."""
         e0 = entries[0]
-        n, me = _set_size(ps), _rank_in(ps)
+        n, me = _scope(e0)
         active, count = _active(e0)
         block = e0.wire_block
         dtype = e0.tensor.dtype

@@ -78,7 +78,22 @@ package's ``optimizer.py`` is its oracle):
   ``ValueError``; the environment's default falls back to the fused
   path.
 
-Local SGD (``local_sgd_*``: ROADMAP A11) is not ported yet and raises.
+- ``local_sgd_steps=K`` (None: ``HOROVOD_LOCAL_SGD_STEPS``, with one
+  warning) with K > 1 switches to local SGD (``local_sgd.py``,
+  ``horovod_tpu/optimizer.py:311-337,606-625``): every exchange of the
+  fused and the overlapped path stays within this rank's slice (the
+  intra groups of ``local_sgd.resolve_stages(size, local_sgd_intra)``,
+  made at construction), Average and the predivide factor count the
+  slice's L ranks, and the guard's flag, read on the reduced values,
+  is the slice's. ``opt.sync()`` runs the sync round: each slice's delta
+  since the last round (``sync_tree``) merges across slices by
+  hierarchical Adasum on ``local_sgd_inter_wire`` (int8, bf16 or
+  fp32), the parameters land on the anchor plus the merge, and the
+  anchor (the parameters at the last round) and the int8 wire's
+  residual roll on; both are in ``state_dict`` under ``"local_sgd"``.
+  Drive the cadence with ``local_sgd.maybe_sync(opt.sync, step=i,
+  k=opt.local_sgd_steps)``. Sum and Average only, no process set. K = 1
+  is the plain path.
 
 Every rank must run the same model, so that the hooks enqueue the same
 gradients in the same order (the fusion manager issues collectives in
@@ -94,6 +109,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from . import local_sgd
 from .common import basics
 from .common import guard as _guard
 from .common.process_sets import ProcessSet
@@ -120,12 +136,23 @@ class DistributedOptimizer:
                  grad_guard: Optional[bool] = None,
                  guard_max_skips: Optional[int] = None,
                  local_sgd_steps: Optional[int] = None,
-                 local_sgd_inter_wire: Optional[str] = None,
+                 local_sgd_inter_wire: str = "int8",
                  local_sgd_intra: Optional[int] = None):
         basics._require_init()
-        _check_unported(local_sgd_steps, local_sgd_inter_wire,
-                        local_sgd_intra)
         op = resolve_op(op, average)
+        local_k = local_sgd.engaged_steps(local_sgd_steps)
+        stages = None
+        if local_k > 1:  # horovod_tpu/optimizer.py:311-337's checks
+            if op not in (Sum, Average):
+                raise ValueError(
+                    "local_sgd_steps > 1 requires op=Sum/Average for the "
+                    "local phase (Adasum is the ROUND combiner, not the "
+                    "per-step gradient op)")
+            if process_set is not None and process_set.process_set_id != 0:
+                raise NotImplementedError(
+                    "local_sgd_steps does not compose with process sets")
+            stages = local_sgd.prepare_split(basics.size(), local_sgd_intra,
+                                             local_sgd_inter_wire)
         quantized = getattr(compression, "quantized_wire", False)
         buckets = (overlap.default_buckets() if overlap_buckets is None
                    else int(overlap_buckets))
@@ -174,6 +201,8 @@ class DistributedOptimizer:
             f = float(gradient_predivide_factor)
             n = (basics.size() if process_set is None
                  or process_set.process_set_id == 0 else process_set.size)
+            if stages is not None:
+                n = len(stages[0][0])
             op, pre, post = Sum, 1.0 / (n * f), f
         self._op, self._pre, self._post = op, pre, post
         self._guard = (_guard.default_enabled() if grad_guard is None
@@ -191,6 +220,19 @@ class DistributedOptimizer:
             id(p): names.get(id(p), f"grad.{i}")
             for i, p in enumerate(self._params)
         }
+        # local SGD: the split, the intra groups every exchange names,
+        # the inter wire, the anchor and the int8 wire's residual
+        self.local_sgd_steps = max(local_k, 1)
+        self._stages = stages
+        self._local = None if stages is None else stages[0]
+        self._local_wire = local_sgd_inter_wire
+        self._anchor: List[torch.Tensor] = []
+        self._local_res: Optional[List[torch.Tensor]] = None
+        if stages is not None:
+            self._anchor = [p.detach().clone() for p in self._params]
+            if self._local_wire == "int8":
+                self._local_res = [torch.zeros_like(p)
+                                   for p in self._params]
         self._micro = 0  # step() calls so far in this window
         self._seen: Set[int] = set()  # parameters hooked since step()
         self._accum: Dict[int, torch.Tensor] = {}  # earlier passes' sum
@@ -242,7 +284,7 @@ class DistributedOptimizer:
             grad, self._names[id(p)], self._op, pre, self._post,
             self._process_set, self._compression,
             return_residual=self._error_feedback, guard=self._guard,
-            two_level=self._two_level,
+            two_level=self._two_level, local=self._local,
         ))
 
     def synchronize(self) -> bool:
@@ -323,20 +365,75 @@ class DistributedOptimizer:
     def zero_grad(self, set_to_none: bool = True) -> None:
         self._opt.zero_grad(set_to_none=set_to_none)
 
+    @property
+    def local_stages(self):
+        """Local SGD's ``(intra, inter)`` split (None at K = 1)."""
+        return self._stages
+
+    @property
+    def local_payload_bytes(self) -> int:
+        """The fp32 bytes of one round's deltas (``maybe_sync``'s
+        ``payload_bytes``)."""
+        return 4 * sum(p.numel() for p in self._params)
+
+    def sync(self) -> None:
+        """Local SGD's sync round (K > 1; every rank calls it after a
+        ``step()``): the parameters become the anchor plus the Adasum
+        merge of the slices' deltas since the last round, the same bits
+        on every rank, and the anchor and the residual roll on. The
+        round is computed into fresh tensors and committed only at its
+        end, so an attempt that fails changes nothing and a retry
+        (``local_sgd.run_round``) applies it once."""
+        if self._stages is None:
+            raise ValueError("sync requires local_sgd_steps > 1")
+        with torch.no_grad():
+            new_p, new_r = local_sgd.sync_tree(
+                self._params, self._anchor, self._local_res,
+                stages=self._stages, inter_wire=self._local_wire,
+                seed=self._updates,
+                return_residual=self._local_wire == "int8")
+            for p, v in zip(self._params, new_p):
+                p.copy_(v)
+        self._anchor = new_p
+        if new_r is not None:
+            self._local_res = new_r
+
     def state_dict(self):
         """The inner optimizer's state; with error feedback, also the
-        residuals (by the parameter's index) under ``"ef_residuals"``."""
+        residuals (by the parameter's index) under ``"ef_residuals"``;
+        under local SGD the anchor and the inter wire's residual (by
+        index) under ``"local_sgd"``."""
         sd = self._opt.state_dict()
         if self._error_feedback:
             index = {id(p): i for i, p in enumerate(self._params)}
             sd["ef_residuals"] = {index[k]: r.clone()
                                   for k, r in self._residuals.items()}
+        if self._stages is not None:
+            sd["local_sgd"] = {"anchor": {i: a.clone() for i, a in
+                                          enumerate(self._anchor)}}
+            if self._local_res is not None:
+                sd["local_sgd"]["residual"] = {
+                    i: r.clone() for i, r in enumerate(self._local_res)}
         return sd
 
     def load_state_dict(self, state_dict) -> None:
         state_dict = dict(state_dict)
         residuals = state_dict.pop("ef_residuals", None)
+        local = state_dict.pop("local_sgd", None)
+        if (local is None) != (self._stages is None):
+            raise ValueError(
+                "the state's \"local_sgd\" entry does not match "
+                f"local_sgd_steps={self.local_sgd_steps}: a local-SGD "
+                "state carries the anchor, a plain one does not")
         self._opt.load_state_dict(state_dict)
+        if local is not None:
+            n = len(self._params)
+            self._anchor = [local["anchor"][i].to(self._params[i].device)
+                            for i in range(n)]
+            if self._local_res is not None:
+                self._local_res = [
+                    local["residual"][i].to(self._params[i].device)
+                    for i in range(n)]
         if residuals is not None:
             self._residuals = {
                 id(self._params[i]): r.to(self._params[i].device)
@@ -379,7 +476,8 @@ class _Buckets:
         # checks the route once; the prescale is set at each dispatch
         self.wire = overlap.make_wire(
             opt._op, opt._compression, opt._pre, opt._post,
-            opt._process_set, residuals=opt._error_feedback)
+            opt._process_set, groups=opt._local,
+            residuals=opt._error_feedback)
         self.arrived: List[Set[int]] = [set() for _ in self.schedule.buckets]
         self.flight: Dict[int, tuple] = {}  # bucket -> its exchange's outputs
         dev = params[0].device if params else torch.device("cpu")
@@ -463,17 +561,6 @@ class _Buckets:
         if finite:
             self.opt._residuals.update(residuals)
         return finite
-
-
-def _check_unported(local_sgd_steps, local_sgd_inter_wire,
-                    local_sgd_intra) -> None:
-    """Local SGD, a later slice's option, raises naming its ROADMAP
-    item (one local step is the plain path)."""
-    if (local_sgd_steps not in (None, 1) or local_sgd_inter_wire is not None
-            or local_sgd_intra is not None):
-        raise NotImplementedError(
-            "local_sgd_steps/local_sgd_inter_wire/local_sgd_intra (local "
-            "SGD) are not ported yet (ROADMAP A11)")
 
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:

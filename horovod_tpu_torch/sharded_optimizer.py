@@ -66,7 +66,22 @@ flat; False pins the flat wire), ``grad_guard``/``guard_max_skips``
 (None: ``HOROVOD_GUARD*``: one scalar all-reduce a step agrees the skip,
 since a NaN lands in one rank's shard only; a skipped step leaves the
 parameters, the inner state and the residuals bitwise as they were).
-``local_sgd_*`` raise naming ROADMAP A11.
+
+Local SGD (``local_sgd_steps=K > 1``, None: ``HOROVOD_LOCAL_SGD_STEPS``;
+``horovod_tpu/sharded_optimizer.py:349-379,442-456,996-1110``), stages 1–2
+only (stage 3 shards the parameters over the world, so a slice could not
+hold its own model): the split is ``local_sgd.resolve_stages(size,
+local_sgd_intra)`` and the shard width is the slice's L ranks, rank r
+holding chunk ``r % L``, so each slice's ranks hold one copy of its
+moments. Every leg, the 0-d allreduce and the guard's agreement run
+within the intra group. ``sync_round()`` merges each slice's delta since
+the last round across slices: the intra-position chunk of the
+parameters minus the anchor chunk (a 0-d parameter rides at position 0
+only), through ``local_sgd.adasum_sync_shard`` on
+``local_sgd_inter_wire``, then the new anchor chunks are allgathered
+within the slice into the parameters. The ``"local"`` state family holds
+the anchor chunks, the int8 wire's residual, the round count and the
+width L.
 
 A parameter with no gradient in a step is sent as zeros (the buckets'
 shapes must match across ranks), sends no residual and keeps its
@@ -82,11 +97,15 @@ optimizer's class and defaults: three steps on a fixed three-leaf tree
 raises. ``HOROVOD_SHARDED_OPT_PROBE=0`` skips it.
 
 State: ``state_dict()`` is this rank's shard of the inner state, the
-residuals, the wire seed and the guard counters; ``reshard_state(states,
-new_world)`` takes every rank's state of one world to a new world, and
-``reshard_params(shards, new_world)`` does the same for stage 3's
-``param_shards()``, through ``parallel.fsdp.reshard_rows`` (every value
-bit for bit; the ``rs`` residuals keep their total, on rank 0).
+residuals, the wire seed, the guard counters and the ``"local"`` family;
+``reshard_state(states, new_world)`` takes every rank's state of one
+world to a new world, and ``reshard_params(shards, new_world)`` does the
+same for stage 3's ``param_shards()``, through
+``parallel.fsdp.reshard_rows`` (every value bit for bit; the ``rs``
+residuals keep their total, on rank 0). Where a local-SGD split is on
+either side, the rows are re-cut from slice 0's chunks at the new
+width, as the JAX package does (the slices' moments diverged; the new
+slices start from slice 0's).
 """
 
 from __future__ import annotations
@@ -102,11 +121,12 @@ import torch
 from torch.nn.utils import stateless
 from torch.profiler import record_function
 
+from . import local_sgd
 from .common import basics
 from .common import guard as _guard
 from .ops import overlap, traced
+from .ops._collectives import gather_into
 from .ops.reduction_ops import Average, Sum, resolve_op
-from .optimizer import _check_unported
 from .parallel import fsdp
 
 _WIRE_FORMATS = ("fp32", "bf16", "int8", "auto")
@@ -220,11 +240,9 @@ class ShardedDistributedOptimizer:
                  grad_guard: Optional[bool] = None,
                  guard_max_skips: Optional[int] = None,
                  local_sgd_steps: Optional[int] = None,
-                 local_sgd_inter_wire: Optional[str] = None,
+                 local_sgd_inter_wire: str = "int8",
                  local_sgd_intra: Optional[int] = None):
         st = basics._require_init()
-        _check_unported(local_sgd_steps, local_sgd_inter_wire,
-                        local_sgd_intra)
         self._op = resolve_op(op, average)
         if self._op not in (Sum, Average):
             raise NotImplementedError(
@@ -244,6 +262,25 @@ class ShardedDistributedOptimizer:
         self._block = int(cfg.fusion_wire_block if wire_block is None
                           else wire_block)
         self._hier = None if hierarchical is False else "auto"
+        k = local_sgd.engaged_steps(local_sgd_steps)
+        self.local_sgd_steps = max(k, 1)
+        self._local_wire = local_sgd_inter_wire
+        self._local_intra = local_sgd_intra
+        self._local_stages = None
+        if k > 1:
+            if self._stage >= 3:
+                raise NotImplementedError(
+                    "local_sgd_steps composes with zero_stage<=2 only: "
+                    "stage-3 parameters shard over the WORLD axis, so "
+                    "a slice cannot hold its own model during an "
+                    "independent local phase — run stage 1/2, or keep "
+                    "every-step sync at stage 3")
+            self._local_stages = local_sgd.prepare_split(
+                basics.size(), local_sgd_intra, local_sgd_inter_wire)
+            self._hier = None  # the local phase has no inter hop
+        # the intra groups every exchange names under local SGD
+        self._local = (None if self._local_stages is None
+                       else self._local_stages[0])
         self._ef = bool(error_feedback)
         if self._ef and self._wire != "int8":
             raise ValueError(
@@ -285,11 +322,15 @@ class ShardedDistributedOptimizer:
                        for i, p in enumerate(self._params)]
         self._index = {id(p): i for i, p in enumerate(self._params)}
         self._n, self._r = basics.size(), basics.rank()
-        n, r = self._n, self._r
+        # the shard geometry: the world, or the slice under local SGD
+        self._w, self._pos = self._n, self._r
+        if self._local is not None:
+            _, self._pos, self._w = traced._mine(self._local)
+        w, pos = self._w, self._pos
         with torch.no_grad():
             self._shards = [
                 (p.detach().clone() if p.dim() == 0
-                 else fsdp.host_shard(p.detach(), n, r).clone()
+                 else fsdp.host_shard(p.detach(), w, pos).clone()
                  ).requires_grad_(True)
                 for p in self._params]
         self._inner = _build(type(optimizer), self._shards, {
@@ -313,7 +354,7 @@ class ShardedDistributedOptimizer:
                            for i in ids}
         # every leg of this optimizer takes one route: residuals pin flat
         self._group, _, self._stages = overlap._leg_route(
-            None, self._hier, True if self._ef else None)
+            self._local, self._hier, True if self._ef else None)
         dev = self._params[0].device if self._params else torch.device("cpu")
         self._device = dev
         self._stream = torch.cuda.Stream(dev) if (
@@ -328,6 +369,16 @@ class ShardedDistributedOptimizer:
                             for i, p in enumerate(self._params)}
             self._ag_res = {i: torch.zeros_like(s)
                             for i, s in enumerate(self._shards)}
+        # local SGD's round state: the anchor chunks (the parameters at
+        # the last round, in shard geometry), the int8 wire's residual,
+        # the round count (the round's seed)
+        self._anchor: List[torch.Tensor] = []
+        self._local_res: Optional[List[torch.Tensor]] = None
+        self._round = 0
+        if self._local is not None:
+            self._anchor = [s.detach().clone() for s in self._shards]
+            if self._local_wire == "int8":
+                self._local_res = [torch.zeros_like(a) for a in self._anchor]
         self._arrived = [set() for _ in self._members]
         self._flight: Dict[int, tuple] = {}
         self._pending_rs: Dict[int, torch.Tensor] = {}
@@ -359,14 +410,14 @@ class ShardedDistributedOptimizer:
 
     def _rs(self, grads, residuals, seed: int):
         return overlap._rs_bucket(
-            grads, residuals, self._n, self._group, self._stages,
-            self._wire, self._op, seed, self._block)
+            grads, residuals, self._w, self._group, self._stages,
+            self._wire, self._op, seed, self._block, self._local)
 
     def _ag(self, b: int, shards, residuals, seed: int):
         return overlap._ag_bucket(
             shards, residuals, [self._params[i] for i in self._members[b]],
-            self._n, self._group, self._stages, self._wire, seed,
-            self._block)
+            self._w, self._group, self._stages, self._wire, seed,
+            self._block, self._local)
 
     def _gather_bucket(self, b: int, shards, step: int):
         with torch.no_grad(), record_function(f"hvd.zero.gather{b}"):
@@ -451,18 +502,20 @@ class ShardedDistributedOptimizer:
 
     def _finite(self) -> bool:
         """One scalar all-reduce agrees the skip: the shards differ by
-        rank, and a NaN lands in one rank's only."""
+        rank, and a NaN lands in one rank's only. Under local SGD the
+        slice agrees alone: a slice skips its own step."""
         flags = [traced.finite_scalar(s.grad) for s in self._shards
                  if s.grad is not None]
         ok = (torch.stack(flags).all() if flags
               else torch.ones((), dtype=torch.bool, device=self._device))
         bad = (~ok).to(torch.float32).reshape(1)
-        return float(traced.allreduce(bad, op=Sum)[0]) == 0.0
+        return float(traced.allreduce(bad, op=Sum,
+                                      groups=self._local)[0]) == 0.0
 
     def _gather_into_params(self, old) -> None:
         """Stages 1–2: all-gather the new shards (fp32) or the update,
         new minus old (bf16, int8), into the model's parameters."""
-        n, r = self._n, self._r
+        n, r = self._w, self._pos
         for b, ids in enumerate(self._members):
             stepped = [self._shards[i].grad is not None for i in ids]
             if self._wire == "fp32":
@@ -505,12 +558,13 @@ class ShardedDistributedOptimizer:
             if self._stage < 3:
                 for i in self._nonscalar:  # the masters are the params
                     self._shards[i].copy_(fsdp.dyn_shard(
-                        self._params[i].detach(), self._n, self._r))
+                        self._params[i].detach(), self._w, self._pos))
                 self._reduce()
             for i in self._scalars:
                 g = self._shards[i].grad
                 if g is not None:
-                    self._shards[i].grad = traced.allreduce(g, op=self._op)
+                    self._shards[i].grad = traced.allreduce(
+                        g, op=self._op, groups=self._local)
             finite = self._finite() if self._guard else True
             self._updates += 1
             if finite:
@@ -647,6 +701,82 @@ class ShardedDistributedOptimizer:
                         "reshard_params() first")
                 s.copy_(t)
 
+    # ------------------------------------------------ the local-SGD round
+
+    def sync_round(self) -> None:
+        """Local SGD's sync round (K > 1; every rank calls it after a
+        ``step()``): this rank's intra-position chunk of each slice's
+        delta since the last round (the parameters' chunk minus the
+        anchor chunk, in fp32; a 0-d parameter at position 0 only, so
+        that each scalar enters the dots once) merges across slices
+        through ``local_sgd.adasum_sync_shard``, the new anchor chunks
+        (anchor plus merge) are allgathered within the slice into the
+        parameters, and the residual and round roll on. Computed into
+        fresh tensors and committed only at its end, so a failed attempt
+        changes nothing."""
+        if self._local_stages is None:
+            raise ValueError("sync_round requires local_sgd_steps > 1")
+        L, pos = self._w, self._pos
+        with torch.no_grad():
+            segs, a_segs = [], []
+            for p, a in zip(self._params, self._anchor):
+                if p.dim() == 0:
+                    d = (p.detach() - a).to(torch.float32).reshape(1)
+                    segs.append(d if pos == 0 else torch.zeros_like(d))
+                    a_segs.append(a.to(torch.float32).reshape(1))
+                else:
+                    a_segs.append(a.to(torch.float32))
+                    segs.append(fsdp.dyn_shard(p.detach(), L, pos).to(
+                        torch.float32) - a_segs[-1])
+            flat, a_flat = torch.cat(segs), torch.cat(a_segs)
+            r_flat = None
+            if self._local_res is not None:
+                r_flat = torch.cat([
+                    r.to(torch.float32).reshape(-1) if p.dim() or pos == 0
+                    else torch.zeros(1, device=r.device)
+                    for p, r in zip(self._params, self._local_res)])
+            want = self._local_wire == "int8"
+            got = local_sgd.adasum_sync_shard(
+                flat, self._local_stages, self._local_wire, seed=self._round,
+                residual=r_flat, return_residual=want)
+            merged, new_r = got if want else (got, None)
+            new_a_flat = a_flat + merged
+            gathered = new_a_flat.new_empty((L, new_a_flat.numel()))
+            gather_into(gathered, new_a_flat, self._group)
+            new_p, new_a, new_res, off = [], [], [], 0
+            for p, a in zip(self._params, self._anchor):
+                cols = a.numel()
+                seg = gathered[:, off:off + cols]
+                if p.dim() == 0:
+                    val = seg[0, 0]  # position 0 holds the scalar
+                    new_p.append(val.to(p.dtype))
+                    new_a.append(val.to(a.dtype))
+                else:
+                    new_p.append(seg.reshape(-1)[:p.numel()].view(
+                        p.shape).to(p.dtype))
+                    new_a.append(new_a_flat[off:off + cols].to(a.dtype))
+                if new_r is not None:
+                    new_res.append(new_r[off:off + cols].reshape(
+                        a.shape).to(a.dtype))
+                off += cols
+            for p, v in zip(self._params, new_p):
+                p.copy_(v)
+        self._anchor = new_a
+        if new_r is not None:
+            self._local_res = new_res
+        self._round += 1
+
+    @property
+    def local_stages(self):
+        """Local SGD's ``(intra, inter)`` split (None at K = 1)."""
+        return self._local_stages
+
+    @property
+    def local_payload_bytes(self) -> int:
+        """The fp32 bytes of one round's deltas (``maybe_sync``'s
+        ``payload_bytes``)."""
+        return 4 * sum(p.numel() for p in self._params)
+
     # ----------------------------------------------------------- state
 
     def _wants_wire_rows(self) -> bool:
@@ -655,12 +785,20 @@ class ShardedDistributedOptimizer:
         whose state is none."""
         return self._stage <= 2 and (self._ef or self._wire == "int8")
 
+    def _local_family(self, anchor, residual, rnd: int, width: int) -> dict:
+        fam = {"anchor": dict(enumerate(anchor)), "round": int(rnd),
+               "intra": int(width)}
+        if self._local_wire == "int8":
+            fam["residual"] = dict(enumerate(residual))
+        return fam
+
     def state_dict(self) -> dict:
         """A copy of this rank's state: ``state`` (the inner optimizer's over the
         shards), ``world`` and ``rank``, ``guard`` (skips, streak, step)
-        with the guard on, and ``wire`` (the seed step; with error
-        feedback ``rs`` and ``ag``, by parameter index) on a quantized
-        wire."""
+        with the guard on, ``wire`` (the seed step; with error feedback
+        ``rs`` and ``ag``, by parameter index) on a quantized wire, and
+        under local SGD ``local`` (the anchor chunks, the residual, the
+        round and the width L)."""
         sd = {"state": copy.deepcopy(self._inner.state_dict()),
               "world": self._n, "rank": self._r}
         if self._guard:
@@ -673,6 +811,11 @@ class ShardedDistributedOptimizer:
                                     for i, r in self._rs_res.items()}
                 sd["wire"]["ag"] = {i: r.clone()
                                     for i, r in self._ag_res.items()}
+        if self._local is not None:
+            sd["local"] = self._local_family(
+                [a.clone() for a in self._anchor],
+                [r.clone() for r in self._local_res or ()],
+                self._round, self._w)
         return sd
 
     def load_state_dict(self, sd: dict) -> None:
@@ -681,7 +824,7 @@ class ShardedDistributedOptimizer:
                 f"world changed between the state ({sd['world']}) and this "
                 f"optimizer ({self._n}): call reshard_state(states, "
                 f"{self._n}) first, which carries the moments over")
-        guard, wire = sd.get("guard"), sd.get("wire")
+        guard, wire, local = sd.get("guard"), sd.get("wire"), sd.get("local")
         if self._guard != (guard is not None):
             raise ValueError(
                 "the state's guard counters do not match grad_guard="
@@ -691,6 +834,26 @@ class ShardedDistributedOptimizer:
             raise ValueError(
                 "the state's wire rows do not match this optimizer's wire "
                 "and error_feedback: migrate it once with reshard_state()")
+        if self._local is not None and local is None:
+            raise ValueError(
+                "local_sgd_steps > 1 but the optimizer state has no "
+                '"local" layout family (anchor/residual/round rows): it '
+                "was created without local-SGD mode. Migrate it once with "
+                "reshard_state(states, world), which seeds the anchor "
+                "from this optimizer's parameters")
+        if self._local is None and local is not None:
+            raise ValueError(
+                'the optimizer state carries a "local" layout family '
+                "but local_sgd_steps <= 1: it was checkpointed by a "
+                "local-SGD run. Re-enable local_sgd_steps, or downgrade "
+                "the state once with reshard_state(states, world), which "
+                "strips the family and re-cuts the moments to the flat "
+                "world split")
+        if local is not None and int(local["intra"]) != self._w:
+            raise ValueError(
+                f"the state's shards are cut {local['intra']} ways and "
+                f"this optimizer's slice has {self._w} ranks: "
+                "reshard_state() first")
         self._inner.load_state_dict(sd["state"])
         if guard is not None:
             self._skips, self._streak, self._updates = (
@@ -704,21 +867,59 @@ class ShardedDistributedOptimizer:
                                 for i, r in wire["rs"].items()}
                 self._ag_res = {int(i): r.to(dev)
                                 for i, r in wire["ag"].items()}
+        if local is not None:
+            n = len(self._params)
+            self._anchor = [local["anchor"][i].to(self._device)
+                            for i in range(n)]
+            if self._local_res is not None:
+                self._local_res = [local["residual"][i].to(self._device)
+                                   for i in range(n)]
+            self._round = int(local["round"])
+
+    def _width(self, world: int) -> int:
+        """How many ways the shards split in a world of ``world`` ranks:
+        the world, or the slice's L under local SGD."""
+        if self._local is None:
+            return int(world)
+        return len(local_sgd.resolve_stages(
+            world, intra=self._local_intra)[0][0])
+
+    @staticmethod
+    def _recut(rows, size: int, new_world: int, old_width: int,
+               new_width: int) -> List[torch.Tensor]:
+        """One tensor's shard rows (every rank's, in rank order) re-split
+        for ``new_world``: flat to flat, every rank's rows
+        (``fsdp.reshard_rows``); with a local-SGD split on either side,
+        slice 0's rows (the first ``old_width``) re-cut at the new width
+        and tiled over the new slices (rank r takes chunk ``r %
+        new_width``). Every value bit for bit; only padding moves."""
+        if old_width == rows.shape[0] and new_width == new_world:
+            new = fsdp.reshard_rows(rows, size, new_world)
+            return [new[r].clone() for r in range(new_world)]
+        new = fsdp.reshard_rows(rows[:old_width], size, new_width)
+        return [new[r % new_width].clone() for r in range(new_world)]
 
     def reshard_state(self, states, new_world: int) -> List[dict]:
         """Every rank's :meth:`state_dict` of one world (in rank order)
         → one state a rank of ``new_world``, the moments carried bit for
-        bit (``fsdp.reshard_rows``; the padding re-cut), replicated
-        entries (step counts, 0-d parameters' state) from rank 0. The
-        guard counters and the wire rows follow this optimizer's flags:
-        carried, made as zeros when newly on, dropped when off. ``ag``
-        residuals re-split like the moments; ``rs`` residuals are each
-        rank's full-geometry error, and the wire only consumes their sum,
-        so rank 0 takes the old ranks' sum and the rest zeros."""
+        bit (the padding re-cut), replicated entries (step counts, 0-d
+        parameters' state) from rank 0. The guard counters, the wire rows
+        and the ``"local"`` family follow this optimizer's flags:
+        carried, made when newly on (zeros; the anchor from this
+        optimizer's parameters), dropped when off. ``ag`` residuals
+        re-split like the moments; ``rs`` residuals are each rank's
+        full-geometry error, and the wire only consumes their sum, so
+        rank 0 takes the old ranks' sum (slice 0's under local SGD) and
+        the rest zeros. With a local-SGD split on either side the rows
+        are re-cut from slice 0's (:meth:`_recut`)."""
         if new_world < 1:
             raise ValueError(f"new_world must be >= 1, got {new_world}")
         states = list(states)
         old = states[0]["state"]
+        old_local = states[0].get("local")
+        old_width = (int(old_local["intra"]) if old_local is not None
+                     else len(states))
+        new_width = self._width(new_world)
         sizes = [p.numel() for p in self._params]
         scalar = set(self._scalars)
         per_rank = [dict() for _ in range(new_world)]
@@ -727,8 +928,8 @@ class ShardedDistributedOptimizer:
                 if torch.is_tensor(v) and v.dim() >= 1 and idx not in scalar:
                     rows = torch.stack([st["state"]["state"][idx][key].cpu()
                                         for st in states])
-                    new = fsdp.reshard_rows(rows, sizes[idx], new_world)
-                    vals = [new[r].clone() for r in range(new_world)]
+                    vals = self._recut(rows, sizes[idx], new_world,
+                                       old_width, new_width)
                 else:
                     vals = [v.clone() if torch.is_tensor(v) else v
                             for _ in range(new_world)]
@@ -745,23 +946,71 @@ class ShardedDistributedOptimizer:
                 sd["guard"] = dict(g)
             out.append(sd)
         if self._wants_wire_rows():
-            wires = self._reshard_wire(states, new_world, sizes)
+            wires = self._reshard_wire(states, new_world, sizes, old_width,
+                                       new_width)
             for sd, w in zip(out, wires):
                 sd["wire"] = w
+        if self._local is not None:
+            fams = self._reshard_local(states, new_world, sizes, old_width,
+                                       new_width)
+            for sd, fam in zip(out, fams):
+                sd["local"] = fam
         return out
 
-    def _reshard_wire(self, states, new_world: int, sizes) -> List[dict]:
+    def _reshard_local(self, states, new_world: int, sizes, old_width: int,
+                       new_width: int) -> List[dict]:
+        """The ``"local"`` family for ``new_world``: the anchor (the same
+        on every slice after a round) and the residual (slice 0's,
+        adopted by every new slice) re-cut at the new width, the round
+        carried; newly on, the anchor is this optimizer's parameters and
+        the residual zeros."""
+        old = states[0].get("local")
+        rnd = 0 if old is None else int(old["round"])
+        by_rank = [([], []) for _ in range(new_world)]
+        for i, p in enumerate(self._params):
+            if old is None:
+                anchor = [fsdp.host_shard(p.detach().cpu(), new_width,
+                                          r % new_width).clone()
+                          for r in range(new_world)]
+                res = [torch.zeros_like(a) for a in anchor]
+            elif p.dim() == 0:
+                anchor = [old["anchor"][i].cpu().clone()] * new_world
+                res = [old["residual"][i].cpu().clone()
+                       if "residual" in old else torch.zeros_like(
+                           anchor[0])] * new_world
+            else:
+                anchor = self._recut(
+                    torch.stack([st["local"]["anchor"][i].cpu()
+                                 for st in states]),
+                    sizes[i], new_world, old_width, new_width)
+                res = (self._recut(
+                    torch.stack([st["local"]["residual"][i].cpu()
+                                 for st in states]),
+                    sizes[i], new_world, old_width, new_width)
+                    if "residual" in old else
+                    [torch.zeros_like(a) for a in anchor])
+            for r in range(new_world):
+                by_rank[r][0].append(anchor[r])
+                by_rank[r][1].append(res[r])
+        return [self._local_family(a, rr, rnd, new_width)
+                for a, rr in by_rank]
+
+    def _reshard_wire(self, states, new_world: int, sizes, old_width: int,
+                      new_width: int) -> List[dict]:
         old = states[0].get("wire")
         step = int(old["step"]) if old is not None else 0
         out = [{"step": step} for _ in range(new_world)]
         if not self._ef:
             return out
+        # a local-SGD slice's rs carry is defined against its own sum:
+        # only slice 0's rows are summed
+        n_sum = (len(states) if old_width == len(states) else old_width)
         for i, p in enumerate(self._params):
             if old is None or "rs" not in old:  # newly on: zero carries
                 rs = [torch.zeros(p.shape, dtype=p.dtype)
                       for _ in range(new_world)]
                 cols = () if p.dim() == 0 else (
-                    fsdp.shard_cols(sizes[i], new_world),)
+                    fsdp.shard_cols(sizes[i], new_width),)
                 ag = [torch.zeros(cols, dtype=p.dtype)
                       for _ in range(new_world)]
             elif p.dim() == 0:
@@ -769,14 +1018,13 @@ class ShardedDistributedOptimizer:
                 ag = [old["ag"][i].cpu().clone() for _ in range(new_world)]
             else:
                 total = states[0]["wire"]["rs"][i].cpu().clone()
-                for st in states[1:]:  # in rank order, as a row sum
+                for st in states[1:n_sum]:  # in rank order, as a row sum
                     total += st["wire"]["rs"][i].cpu()
                 rs = [total] + [torch.zeros_like(total)
                                 for _ in range(new_world - 1)]
-                rows = torch.stack([st["wire"]["ag"][i].cpu()
-                                    for st in states])
-                new = fsdp.reshard_rows(rows, sizes[i], new_world)
-                ag = [new[r].clone() for r in range(new_world)]
+                ag = self._recut(
+                    torch.stack([st["wire"]["ag"][i].cpu() for st in states]),
+                    sizes[i], new_world, old_width, new_width)
             for r in range(new_world):
                 out[r].setdefault("rs", {})[i] = rs[r]
                 out[r].setdefault("ag", {})[i] = ag[r]

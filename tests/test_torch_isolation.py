@@ -38,7 +38,9 @@ def test_import_pulls_in_no_jax():
         "horovod_tpu_torch.models.convert, horovod_tpu_torch.ops.traced, "
         "horovod_tpu_torch.ops.overlap, horovod_tpu_torch.ops.int8_wire, "
         "horovod_tpu_torch.common.metrics, horovod_tpu_torch.parallel.fsdp, "
-        "horovod_tpu_torch.sharded_optimizer\n"
+        "horovod_tpu_torch.sharded_optimizer, horovod_tpu_torch.local_sgd, "
+        "horovod_tpu_torch.common.retry, horovod_tpu_torch.testing.chaos, "
+        "horovod_tpu_torch.testing.recorder\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"

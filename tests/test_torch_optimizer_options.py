@@ -457,11 +457,17 @@ def test_options_raise(monkeypatch):
         p = [torch.nn.Parameter(torch.zeros(N))]
         with pytest.raises(ValueError, match="cannot both be set"):
             _opt(p, average=True, op=hvd.Sum)
-        for kw, item in ((dict(local_sgd_steps=4), "A11"),
-                         (dict(local_sgd_inter_wire="int8"), "A11"),
-                         (dict(local_sgd_intra=2), "A11")):
-            with pytest.raises(NotImplementedError, match=item):
+        # local SGD (ROADMAP A11) is ported: in a world of one there is
+        # no second slice, its option checks come first, and one local
+        # step is the plain path
+        for kw, match in ((dict(local_sgd_steps=4), "two-level topology"),
+                          (dict(local_sgd_steps=4,
+                                local_sgd_inter_wire="fp8"), "inter_wire"),
+                          (dict(local_sgd_steps=4, op=hvd.Adasum),
+                           "Sum/Average")):
+            with pytest.raises(ValueError, match=match):
                 _opt(p, **kw)
+        _opt(p, local_sgd_inter_wire="int8", local_sgd_intra=2).remove_hooks()
         # the bucketed overlap (ROADMAP A8) is ported: its options are
         # accepted, and an explicit bucket count refuses Adasum
         _opt(p, overlap_buckets=2).remove_hooks()

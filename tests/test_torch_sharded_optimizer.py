@@ -117,11 +117,15 @@ def _make(hvd, **kw):
     (dict(wire="bf16", error_feedback=True), ValueError, "error_feedback"),
     (dict(zero_stage=3, wire="int8", error_feedback=True), ValueError,
      "stage"),
-    (dict(local_sgd_steps=4), NotImplementedError, "A11"),
-    (dict(local_sgd_intra=2), NotImplementedError, "A11"),
+    (dict(local_sgd_steps=4), ValueError, "two-level topology"),
+    (dict(local_sgd_steps=4, local_sgd_intra=2), ValueError,
+     "two-level topology"),
+    (dict(local_sgd_steps=4, zero_stage=3), NotImplementedError,
+     "zero_stage<=2"),
     (dict(overlap_buckets=-1), ValueError, "overlap_buckets"),
 ], ids=["adasum", "stage4", "fp8", "auto", "ef_bf16", "ef_stage3",
-        "local_sgd", "local_sgd_intra", "negative_buckets"])
+        "local_sgd", "local_sgd_intra", "local_sgd_stage3",
+        "negative_buckets"])
 def test_constructor_refusals(hvd, kw, exc, match):
     if kw.get("op") == "adasum":
         kw["op"] = hvd.Adasum
