@@ -158,9 +158,42 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    ``local_sgd.sync@1:reset;local_sgd.sync@2:reset`` on rank 0 with 2
    attempts: the round defers on every rank, leaving the parameters,
    and the next one reconciles them; the world runs under a time limit.
-   The flash counts of phases 5, 10, 12, 13, 14, 15 and 16, and the
-   wire counts of phases 8, 9, 13, 14, 15 and 16, add up in the
+17. Model parallelism (``horovod_tpu_torch/parallel/``): the composed
+   dp × pp × ep × sp × tp transformer in a gloo world of 4 processes on
+   the card (as phase 13's), GPT-2 medium's widths (24 layers, d_model
+   1024, 16 heads of 64, d_ff 4096, max_len 1024) with the vocabulary
+   50304 (GPT-2's 50257 padded to a multiple of 128, as Megatron-LM
+   pads it, so that tp = 2 splits the vocab-parallel head), 4 experts,
+   weights from the seed, 8 sequences of 1024 tokens of the learnable
+   sequence. (a) ``MeshSpec(sp=2, tp=2)`` on the flash ring
+   (``flash_ring=True``), bf16 on fp32 masters, SGD lr 0.1, 3 steps: the
+   mean loss falls, each rank's B5/B6 launches (forward, delta, dQ,
+   dK/dV) equal the counts predicted from the ring's live hops, every
+   launch on the tensor cores, replicated leaves bitwise equal on the
+   ranks that hold them. (b) ``MeshSpec(pp=2, ep=2)``, 1F1B with 4
+   microbatches and ``moe_wire="int8"``: the same, B3 launched at every
+   dispatch and return (its count exact) and the 1F1B stash within
+   ``max_in_flight + 1``. (c) One fp32 SGD step at 4 layers (capacity
+   8.0) on dp 4, sp 2 × tp 2 (flash ring), pp 2 × ep 2 (1F1B) and dp 2 ×
+   sp 2 (dense ring): every rank's parameters within rtol 5e-4, atol
+   1e-5 of dp 4's, the losses within rtol 1e-5. (d) ``ulysses_attention``
+   over sp 4 (b 8, t 1024, 16 heads of 64, bf16, causal) and
+   ``ring_flash_attention`` over sp 4 with 16 q heads over 4 KV heads,
+   forward and gradients through B5/B6, each against its plain twin on
+   the same rank: Ulysses within one bf16 rounding, the ring within one
+   a live hop; ``hierarchical_alltoall`` (2 nodes of 2) bitwise the flat
+   alltoall on integer-valued fp32 and on the int32 expert map, and
+   ``quantized_alltoall`` within one quantum of its block, pad slots
+   exact zeros. It prints each arm's step times, each rank's peak
+   memory and the launch counts.
+   The flash counts of phases 5, 10, 12, 13, 14, 15, 16 and 17, and the
+   wire counts of phases 8, 9, 13, 14, 15, 16 and 17, add up in the
    ``kernels`` line.
+
+``python3 chip_smoke.py --only 17`` builds the kernels and runs phase 17
+alone (a development aid; it prints no ``ok`` line). ``--log FILE``
+also writes every line printed after the card and the package are found
+to ``FILE``.
 
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
 its last line ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -187,13 +220,27 @@ FP32_FLOPS = 67e12         # H100 SXM fp32 peak outside the tensor cores
 SEED = 1234
 
 
+# with --log FILE every line also goes to FILE once main() has found the
+# card and the package: a runner that keeps only the end of the output
+# would lose the phases' lines behind the kernels line
+_keep = {"file": None}
+
+
+def _write(line: str) -> None:
+    if _keep["file"]:
+        with open(_keep["file"], "a") as f:
+            f.write(line + "\n")
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    _write(f"chip_smoke: FAIL: {msg}")
     sys.exit(1)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    _write(msg)
 
 
 def card_line() -> str:
@@ -4227,10 +4274,541 @@ def phase_local(card):
     return launches, flash
 
 
+# ------------------------------------------------ phase 17 model parallelism
+
+MP_WORLD = 4
+MP_STEPS = 3
+MP_BATCH, MP_SEQ = 8, 1024
+# GPT-2's vocabulary (50257 = 29 × 1733) padded to a multiple of 128 as
+# Megatron-LM pads it: tp = 2 must split the vocab-parallel head
+MP_VOCAB = 50304
+MP_LR = 0.1  # examples/transformer_lm.py's SGD rate
+MP_CROSS_LAYERS = 4
+MP_CROSS_CAPACITY = 8.0  # no drops: routing independent of the layout
+MP_TIMEOUT_S = 400
+
+
+def _mp_cfg(**kw):
+    import torch
+
+    from horovod_tpu_torch.parallel.transformer import (
+        ParallelTransformerConfig)
+
+    base = dict(vocab_size=MP_VOCAB, num_layers=24, d_model=1024,
+                num_heads=16, d_ff=4096, max_len=MP_SEQ, n_experts=4,
+                learning_rate=MP_LR, dtype=torch.bfloat16)
+    base.update(kw)
+    return ParallelTransformerConfig(**base)
+
+
+def _mp_predicted(cfg, mesh, schedule, n_micro):
+    """Flash launches a step on this rank from the hop structure: a
+    causal ring rank at sp index s runs s + 1 live hops (the diagonal and
+    every earlier block), each one forward (B5) and one dQ and one dK/dV
+    (B6), and the delta pass once a backward. 1F1B recomputes each
+    stage's forward at its backward tick; GPipe runs n_micro + pp − 1
+    ticks a stage."""
+    live = mesh.coords["sp"] + 1
+    layers = cfg.num_layers // mesh.size("pp")
+    if schedule == "1f1b":
+        calls = layers * n_micro
+        return {"flash_fwd": 2 * calls * live, "flash_bwd_delta": calls,
+                "flash_bwd_dq": calls * live, "flash_bwd_dkv": calls * live}
+    calls = layers * (n_micro + mesh.size("pp") - 1)
+    return {"flash_fwd": calls * live, "flash_bwd_delta": calls,
+            "flash_bwd_dq": calls * live, "flash_bwd_dkv": calls * live}
+
+
+def _mp_leaf_digests(params, specs):
+    """(leaf path, the mesh axes it is sharded on, digest) of every
+    leaf: the parent compares the ranks that hold the same block."""
+    from torch.utils import _pytree as pytree
+
+    from horovod_tpu_torch.parallel.transformer import _is_spec
+
+    leaves = pytree.tree_flatten_with_path(params)[0]
+    spec_leaves = pytree.tree_flatten(specs, is_leaf=_is_spec)[0]
+    return [(pytree.keystr(path), tuple(a for a in spec if a), _digest(t))
+            for (path, t), spec in zip(leaves, spec_leaves)]
+
+
+def _mp_train(label, cfg, spec, steps, tokens, labels, gen_seed):
+    """``steps`` SGD steps of the composed model on ``spec``'s mesh with
+    the flash and B3 counters zeroed just before: losses, host-clock
+    step times, launches, the peak memory and the leaves' digests."""
+    import torch
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.parallel import transformer as ptf
+
+    mesh = spec.build()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(gen_seed)
+    params = ptf.make_sharded_params(cfg, mesh, gen)
+    step = ptf.make_train_step(cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash()
+    ck.int8_block_quantize.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        params, loss = step(params, tokens, labels)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    flash = _read_flash()
+    b3 = ck.int8_block_quantize.launches
+    schedule = ("1f1b" if cfg.pipeline_schedule == "1f1b"
+                and mesh.size("pp") > 1 else "gpipe")
+    n_micro = ptf._pick_n_micro(MP_BATCH // (mesh.size("dp")
+                                             * mesh.size("ep")),
+                                cfg.n_microbatches)
+    pred = _mp_predicted(cfg, mesh, schedule, n_micro)
+    out = {
+        "arm": label, "coords": dict(mesh.coords), "losses": losses,
+        "step_ms": times, "flash": flash[0], "flash_tc": flash[1],
+        "b3": b3, "predicted": {k: v * steps for k, v in pred.items()},
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "stats": dict(step.stats), "n_micro": n_micro,
+        "digests": _mp_leaf_digests(params, ptf.param_specs(cfg)),
+    }
+    if mesh.size("pp") > 1 and mesh.coords["pp"] == mesh.size("pp") - 1:
+        out["b3_predicted"] = 2 * n_micro * steps  # dispatch + return
+    elif mesh.size("pp") > 1:
+        out["b3_predicted"] = 0
+    return out
+
+
+def _mp_cross(tokens, labels):
+    """(c): one SGD step at full width, 4 layers, fp32, capacity 8.0, on
+    dp 4 and three factorizations; every rank's shards against the dp-4
+    step's, and the losses."""
+    import torch
+
+    from horovod_tpu_torch.parallel import MeshSpec
+    from horovod_tpu_torch.parallel import transformer as ptf
+
+    out = {}
+    base = None
+    for label, axes, over in (
+            ("dp4", dict(dp=4), {}),
+            ("sp2_tp2_flash", dict(sp=2, tp=2), dict(flash_ring=True)),
+            ("pp2_ep2_1f1b", dict(pp=2, ep=2), {}),
+            ("dp2_sp2_dense", dict(dp=2, sp=2), dict(flash_ring=False))):
+        cfg = _mp_cfg(num_layers=MP_CROSS_LAYERS, dtype=torch.float32,
+                      moe_capacity_factor=MP_CROSS_CAPACITY, **over)
+        mesh = MeshSpec(**axes).build()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        params = ptf.make_sharded_params(cfg, mesh, gen)
+        step = ptf.make_train_step(cfg, mesh)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, loss = step(params, tokens, labels)
+        torch.cuda.synchronize()
+        row = {"loss": float(loss), "ms": (time.monotonic() - t0) * 1e3}
+        if base is None:
+            base = (params, row["loss"])
+        else:
+            want = ptf.shard_params(base[0], cfg, mesh)
+            worst, where = 0.0, None
+            from torch.utils import _pytree as pytree
+
+            for (path, a), b in zip(
+                    pytree.tree_flatten_with_path(params)[0],
+                    pytree.tree_leaves(want)):
+                ratio = float(((a - b).abs() / (1e-5 + 5e-4 * b.abs()))
+                              .max())
+                if ratio > worst:
+                    worst, where = ratio, pytree.keystr(path)
+            row.update(worst_ratio=worst, worst_leaf=where,
+                       loss_rel=abs(row["loss"] - base[1]) / abs(base[1]))
+        out[label] = row
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+class _PlainFlash:
+    """The flash kernels' plain versions as one differentiable attention
+    (the Ulysses inner attention's twin)."""
+
+    @staticmethod
+    def fn(q, k, v, causal):
+        import torch
+
+        from horovod_tpu_torch.ops import flash_attention as fa
+
+        class F(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v):
+                o, lse = fa.flash_fwd_plain(q, k, v, causal)
+                ctx.save_for_backward(q, k, v, o, lse)
+                return o
+
+            @staticmethod
+            def backward(ctx, do):
+                q, k, v, o, lse = ctx.saved_tensors
+                return fa.flash_bwd_plain(q, k, v, o, lse, do.contiguous(),
+                                          causal)
+
+        return F.apply(q, k, v)
+
+
+def _mp_within_roundings(label, got, ref):
+    """Worst |kernel − plain| in bf16 roundings (phase 2's unit, floored
+    at 2^-6), and whether it is within one."""
+    import torch
+
+    if not torch.isfinite(got.float()).all():
+        raise RuntimeError(f"{label}: non-finite output")
+    diff = (got.float() - ref.float()).abs()
+    tol = _ulp_bf16(torch.maximum(got.float().abs(), ref.float().abs()))
+    return float((diff / tol).max()), bool((diff <= tol).all())
+
+
+def _mp_site(label, q, k, v, do, causal, worst, checks, fwd=True, o=None,
+             lse=None):
+    """B5 and B6 at one call site against their plain versions on the
+    same inputs (phase 2's check): the forward kernel when ``fwd``, the
+    dQ and dK/dV kernels given ``o`` and ``lse`` (the plain forward's
+    when None)."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    parts = []
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
+    if fwd:
+        parts.append(("fwd", fa.flash_fwd(q, k, v, causal)[0], o_ref))
+    o = o_ref if o is None else o
+    lse = lse_ref if lse is None else lse
+    delta = fa.flash_bwd_delta(o, do)
+    got = ((fa.flash_bwd_dq(q, k, v, o, lse, do, causal, delta=delta),)
+           + tuple(fa.flash_bwd_dkv(q, k, v, o, lse, do, causal,
+                                    delta=delta)))
+    ref = fa.flash_bwd_plain(q, k, v, o, lse, do, causal)
+    parts += list(zip(("dq", "dk", "dv"), got, ref))
+    for part, a, b in parts:
+        w, ok = _mp_within_roundings(f"{label} {part}", a, b)
+        worst[f"{label} {part}"] = w
+        checks[f"{label} {part} within one rounding"] = ok
+
+
+def _mp_rel(a, b) -> float:
+    """max |a − b| over max |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+def _mp_kernels(rank, n):
+    """(d): Ulysses over sp 4 and the GQA flash ring over sp 4, forward
+    and backward through B5/B6. At each call site (Ulysses' inner
+    attention on the exchanged heads; each live ring hop, its backward
+    with the global o and lse) the kernels are held against their plain
+    versions on the same inputs within one bf16 rounding; each whole
+    function against its plain twin within 1e-2 of its largest value
+    (the twin computes from its own rounded o and lse, so the difference
+    compounds the forward's rounding through the backward). Then the
+    two expert alltoalls on the fp32 wires bit for bit and the int8
+    wire's contract."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.common import topology as topo_mod
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import traced
+    from horovod_tpu_torch.parallel.mesh import world_axis
+    from horovod_tpu_torch.parallel.ring_attention import (
+        _flash_fwd_pass, _hops, ring_flash_attention,
+        ring_flash_attention_plain)
+    from horovod_tpu_torch.parallel.ulysses import ulysses_attention
+
+    worst, checks, rel = {}, {}, {}
+    axis = world_axis()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 17)
+    tl = MP_SEQ // n
+    sl = slice(rank * tl, (rank + 1) * tl)
+    seen = {}
+
+    def inner(q, k, v, causal):
+        seen["qkv"] = (q.detach(), k.detach(), v.detach())
+        o = fa.FlashAttentionFunction.apply(q, k, v, None, causal, None)
+        o.register_hook(lambda gr: seen.__setitem__(
+            "do", gr.detach().contiguous()))
+        return o
+
+    for name, kvh, fn, twin in (
+            ("ulysses", 16, lambda q, k, v: ulysses_attention(
+                q, k, v, axis, causal=True, attn_fn=inner),
+             lambda q, k, v: ulysses_attention(
+                q, k, v, axis, causal=True, attn_fn=_PlainFlash.fn)),
+            ("ring_gqa", 4, lambda q, k, v: ring_flash_attention(
+                q, k, v, axis, causal=True),
+             lambda q, k, v: ring_flash_attention_plain(
+                q, k, v, axis, causal=True))):
+        full = [torch.randn((MP_BATCH, MP_SEQ, h, 64), generator=g,
+                            device="cuda").to(torch.bfloat16)
+                for h in (16, kvh, kvh, 16)]
+        res = []
+        for f in (fn, twin):
+            q, k, v = (x[:, sl].clone().requires_grad_() for x in full[:3])
+            o = f(q, k, v)
+            o.backward(full[3][:, sl])
+            res.append([o.detach(), q.grad, k.grad, v.grad])
+        for part, a, b in zip(("o", "dq", "dk", "dv"), *res):
+            rel[f"{name} {part}"] = _mp_rel(a, b)
+            checks[f"{name} {part} within 1e-2 of the twin"] = \
+                rel[f"{name} {part}"] <= 1e-2
+        if name == "ulysses":
+            _mp_site("ulysses inner", *seen["qkv"], seen["do"], True,
+                     worst, checks)
+            continue
+        q, k, v, do = (x[:, sl].contiguous() for x in full)
+        o_g, lse_g = _flash_fwd_pass(q, k, v, axis, True, True)
+        for i, src, diag, live in _hops(axis, True):
+            if live:
+                blk = slice(src * tl, (src + 1) * tl)
+                _mp_site(f"ring hop {i}", q, full[1][:, blk].contiguous(),
+                         full[2][:, blk].contiguous(), do, diag, worst,
+                         checks, o=o_g, lse=lse_g)
+
+    # the expert wires: [n, slots, d] dispatch buffers, integer-valued
+    stages = topo_mod.hierarchy_stages(world=n, mode="on", intra=2)
+    gi = torch.Generator(device="cuda")
+    gi.manual_seed(SEED + rank)
+    x = torch.randint(-8, 9, (n, 256, 1024), generator=gi,
+                      device="cuda").float()
+    flat = traced._all_to_all(x, dist.group.WORLD)
+    hier = traced.hierarchical_alltoall(x, stages=stages)
+    idx = torch.randint(-1, 4, (n, 256, 1), generator=gi, device="cuda",
+                        dtype=torch.int32)
+    checks["hier_fp32_bitwise_flat"] = torch.equal(hier, flat)
+    checks["hier_int32_map_bitwise_flat"] = torch.equal(
+        traced.hierarchical_alltoall(idx, stages=stages, inter_wire="int8"),
+        traced._all_to_all(idx, dist.group.WORLD))
+    xn = torch.randn((n, 256, 1024), generator=gi, device="cuda")
+    xn[:, 200:] = 0.0  # pad slots
+    fn_ = traced._all_to_all(xn, dist.group.WORLD)
+    q8 = traced.quantized_alltoall(xn, seed=5, block_size=512)
+    # one quantum: the sender's block absmax / 127, block by block
+    absmax = traced._all_to_all(
+        xn.reshape(n, 256, 2, 512).abs().amax(-1, keepdim=True),
+        dist.group.WORLD)
+    err = (q8 - fn_).reshape(n, 256, 2, 512).abs()
+    checks["int8_pads_exact_zero"] = bool((q8[:, 200:] == 0).all())
+    checks["int8_within_one_quantum"] = bool(
+        (err <= absmax / 127.0 * (1 + 1e-6)).all())
+    h8 = traced.hierarchical_alltoall(xn, stages=stages, inter_wire="int8",
+                                      seed=5, block_size=512)
+    node = rank // 2
+    same = slice(node * 2, node * 2 + 2)
+    checks["hier_int8_intra_blocks_exact"] = torch.equal(h8[same],
+                                                         fn_[same])
+    out = {"worst_roundings_at_call_sites": worst,
+           "composite_rel_to_twin": rel,
+           "int8_err_quanta": float((err / (absmax / 127.0).clamp_min(
+               1e-30)).max())}
+    return out, checks
+
+
+def _mp_rank(rank, n, port, results):
+    """One rank of phase 17: its own process on the one card in a gloo
+    world of 4 that ``hvd.init`` adopts. Puts ``(rank, readings)``."""
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
+                      PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    sys.path.insert(0, HERE)
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=n)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.parallel import MeshSpec
+
+    hvd.init(device="cuda")
+    tokens, labels = _lm_batch(MP_VOCAB, MP_BATCH, MP_SEQ)
+    out = {"rank": rank}
+    t0 = time.monotonic()
+    out["a"] = _mp_train("a", _mp_cfg(flash_ring=True),
+                            MeshSpec(sp=2, tp=2), MP_STEPS, tokens, labels,
+                            SEED)
+    out["a"]["arm_s"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    out["b"] = _mp_train("b", _mp_cfg(pipeline_schedule="1f1b",
+                                         n_microbatches=4, moe_wire="int8"),
+                            MeshSpec(pp=2, ep=2), MP_STEPS, tokens, labels,
+                            SEED)
+    out["b"]["arm_s"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    _zero_flash()
+    out["c"] = _mp_cross(tokens, labels)
+    out["c_flash"] = _read_flash()
+    out["c_s"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    out["d"], out["d_checks"] = _mp_kernels(rank, n)
+    out["d_s"] = time.monotonic() - t0
+    hvd.shutdown()
+    dist.destroy_process_group()
+    results.put((rank, out))
+
+
+def _mp_world():
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = _free_port()
+    n = MP_WORLD
+    procs = [ctx.Process(target=_mp_rank, args=(r, n, port, results),
+                         daemon=True) for r in range(n)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    got = {}
+    while len(got) < n:
+        dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+        if dead or time.monotonic() - t0 > MP_TIMEOUT_S:
+            for p in procs:
+                p.kill()
+            fail(f"model parallel world: ranks {dead} ended with "
+                 f"{[procs[r].exitcode for r in dead]}" if dead else
+                 f"model parallel world: not done in {MP_TIMEOUT_S} s")
+        try:
+            rank, out = results.get(timeout=5)
+        except queue.Empty:
+            continue
+        got[rank] = out
+    for p in procs:
+        p.join(timeout=60)
+        if p.exitcode != 0:
+            p.kill()
+            fail(f"model parallel world: a rank exited with {p.exitcode}")
+    return [got[r] for r in range(n)], time.monotonic() - t0
+
+
+def _mp_replicas_equal(arm_outs):
+    """Every leaf's block bitwise equal on the ranks that hold it (the
+    ranks that agree on the leaf's sharded axes)."""
+    bad = []
+    for i, (path, axes, _) in enumerate(arm_outs[0]["digests"]):
+        blocks = {}
+        for o in arm_outs:
+            key = tuple(o["coords"][a] for a in axes)
+            blocks.setdefault(key, set()).add(o["digests"][i][2])
+        if any(len(d) != 1 for d in blocks.values()):
+            bad.append(path)
+    return bad
+
+
+def phase_model_parallel(card):
+    """Phase 17: the composed transformer (``parallel/transformer.py``)
+    in a gloo world of 4 processes on the one card, at GPT-2 medium's
+    widths with the vocabulary padded to 50304, weights from the seed,
+    tokens on the learnable sequence, 8 sequences of 1024 tokens: (a)
+    sp 2 × tp 2 on the flash ring, bf16 on fp32 masters, 3 steps; (b) pp
+    2 × ep 2 on 1F1B with 4 microbatches and the int8 expert wire, 3
+    steps; (c) one fp32 step at 4 layers (capacity 8.0) on dp 4, sp 2 ×
+    tp 2 (flash ring), pp 2 × ep 2 (1F1B) and dp 2 × sp 2 (dense ring),
+    each against dp 4's parameters (rtol 5e-4, atol 1e-5) and loss (rtol
+    1e-5); (d) Ulysses and the GQA flash ring over sp 4 through B5/B6
+    against their plain twins, and the expert alltoalls. Returns the
+    launches of (a)–(c)."""
+    t_phase = time.monotonic()
+    outs, wall_s = _mp_world()
+    failed = []
+    summary = {}
+    for arm in ("a", "b"):
+        rs = [o[arm] for o in outs]
+        losses = [sum(r["losses"][s] for r in rs) / len(rs)
+                  for s in range(MP_STEPS)]
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            failed.append(f"({arm}) the mean loss did not fall: {losses}")
+        for r in rs:
+            for k, want in r["predicted"].items():
+                if r["flash"][k] != want:
+                    failed.append(f"({arm}) rank at {r['coords']}: {k} "
+                                  f"{r['flash'][k]} != predicted {want}")
+            for k, v in r["flash_tc"].items():
+                if v != r["flash"][k]:
+                    failed.append(f"({arm}) {k}: {v} of {r['flash'][k]} "
+                                  "launches on the tensor cores")
+            if "b3_predicted" in r and r["b3"] != r["b3_predicted"]:
+                failed.append(f"({arm}) B3 {r['b3']} != predicted "
+                              f"{r['b3_predicted']} at {r['coords']}")
+        bad = _mp_replicas_equal(rs)
+        if bad:
+            failed.append(f"({arm}) replicated leaves differ: {bad[:4]}")
+        if arm == "b":
+            for r in rs:
+                st = r["stats"]
+                if not 1 <= st["stash_peak"] <= st["max_in_flight"] + 1:
+                    failed.append(f"(b) stash {st}")
+            if sum(r["b3"] for r in rs) < 1:
+                failed.append("(b) B3 never launched")
+        summary[arm] = {
+            "mean_losses": losses,
+            "step_ms_by_rank": [r["step_ms"] for r in rs],
+            "peak_gb_by_rank": [r["peak_gb"] for r in rs],
+            "flash_by_rank": [r["flash"] for r in rs],
+            "b3_by_rank": [r["b3"] for r in rs],
+            "stats_rank0": rs[0]["stats"], "n_micro": rs[0]["n_micro"],
+            "arm_s_by_rank": [r["arm_s"] for r in rs]}
+    for r, o in enumerate(outs):
+        for label, row in o["c"].items():
+            if "worst_ratio" in row and (row["worst_ratio"] > 1.0
+                                         or row["loss_rel"] > 1e-5):
+                failed.append(f"(c) rank {r} {label}: {row}")
+        bad = [k for k, ok in o["d_checks"].items() if not ok]
+        if bad:
+            failed.append(f"(d) rank {r}: {bad} {o['d']}")
+    launches = {k: sum(o[arm]["flash"][k] for o in outs for arm in "ab")
+                + sum(o["c_flash"][0][k] for o in outs)
+                for k in outs[0]["a"]["flash"]}
+    tc = {k: sum(o[arm]["flash_tc"][k] for o in outs for arm in "ab")
+          + sum(o["c_flash"][1][k] for o in outs)
+          for k in outs[0]["a"]["flash_tc"]}
+    b3 = sum(o["b"]["b3"] for o in outs) + sum(o["a"]["b3"] for o in outs)
+    log("model parallel: " + json.dumps({
+        "world": MP_WORLD, "backend": "gloo, one card",
+        "widths": "gpt2_medium, vocab 50304 (50257 padded to 128s)",
+        "batch": MP_BATCH, "seq": MP_SEQ, "steps": MP_STEPS,
+        "wall_s": wall_s, "arms": summary,
+        "cross_mesh_by_rank": [o["c"] for o in outs],
+        "cross_s_by_rank": [o["c_s"] for o in outs],
+        "kernels_by_rank": [o["d"] for o in outs],
+        "d_s_by_rank": [o["d_s"] for o in outs],
+        "launches": launches, "tensor_core_launches": tc, "b3": b3,
+        "phase_s": time.monotonic() - t_phase, "card": card,
+    }, sort_keys=True))
+    if failed:
+        fail("model parallel: " + "; ".join(failed))
+    return b3, (launches, tc)
+
+
 # ------------------------------------------------------------------ main
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=["17"],
+                    help="build the kernels and run this phase alone")
+    ap.add_argument("--log", help="also write every printed line here")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -4247,6 +4825,11 @@ def main() -> int:
              f"({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.log:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log)),
+                    exist_ok=True)
+        open(args.log, "w").close()
+        _keep["file"] = args.log
 
     # phase 1: device and build
     card = card_line()
@@ -4264,6 +4847,11 @@ def main() -> int:
             f"{min(regs, default=0)}-{max(regs, default=0)}, "
             f"{sum(1 for s in spills if int(s))} with spill stores")
 
+    if args.only == "17":
+        t0 = time.monotonic()
+        phase_model_parallel(card)
+        log(f"model parallel phase: {time.monotonic() - t0:.2f} s")
+        return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     t0 = time.monotonic()
@@ -4383,6 +4971,15 @@ def main() -> int:
     for name in ("int8_block_quantize", "adasum_dots", "adasum_apply"):
         wire_launches[name] += local_launches[name]
     log(f"local sgd phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 17: the composed model-parallel transformer in a gloo world
+    # of 4 on the card
+    t0 = time.monotonic()
+    mp_b3, mp_flash = phase_model_parallel(card)
+    flash_runs.append(mp_flash)
+    wire_launches["int8_block_quantize"] += mp_b3
+    log(f"model parallel phase: {time.monotonic() - t0:.2f} s")
     flash_launches = {k: sum(r[0][k] for r in flash_runs)
                       for k in flash_runs[1][0]}
     flash_tc_launches = {k: sum(r[1][k] for r in flash_runs)

@@ -205,6 +205,15 @@ def topology() -> topo_mod.Topology:
     return _require_init().topology
 
 
+def live_config() -> TrainConfig:
+    """The initialized world's snapshot when there is one, else a fresh
+    read of the environment: what a default that defers to the config
+    resolves against (the expert wire's)."""
+    if _state.initialized and _state.config is not None:
+        return _state.config
+    return TrainConfig.from_env()
+
+
 def get_config() -> TrainConfig:
     """The ``HOROVOD_*`` snapshot taken at ``init()``."""
     return _require_init().config

@@ -11,7 +11,9 @@ package the same way:
   ``HOROVOD_FUSION_WIRE_HIER`` and ``HOROVOD_INTRA_SIZE``, and the
   bucketed overlap's ``HOROVOD_OVERLAP``, ``HOROVOD_OVERLAP_BUCKETS`` and
   ``HOROVOD_OVERLAP_MIN_BYTES``, and ZeRO's ``HOROVOD_ZERO_STAGE`` and
-  ``HOROVOD_ZERO_WIRE``, and local SGD's ``HOROVOD_LOCAL_SGD_STEPS``),
+  ``HOROVOD_ZERO_WIRE``, local SGD's ``HOROVOD_LOCAL_SGD_STEPS``, and
+  the expert wire's ``HOROVOD_MOE_WIRE``, ``HOROVOD_MOE_INTRA_WIRE``,
+  ``HOROVOD_MOE_WIRE_BLOCK`` and ``HOROVOD_MOE_CAPACITY_FACTOR``),
   snapshotted at ``hvd.init()`` as the JAX package does;
 * :class:`ServeConfig`, the serving part (``HOROVOD_SERVE_*``), read by
   :func:`live_config` when a serving object is built (serving needs no
@@ -54,6 +56,14 @@ DEFAULT_OVERLAP_MIN_BYTES = 1 << 20
 # the wire tuner of ROADMAP A12)
 DEFAULT_ZERO_STAGE = 1
 DEFAULT_ZERO_WIRE = "fp32"
+# The expert wire (parallel/moe.py): the dispatch/return wire (fp32,
+# bf16, int8; auto needs the wire tuner of ROADMAP A12), the ICI legs'
+# wire under a two-level split, the int8 wire's elements a block scale,
+# and the capacity factor of the static per-destination buffer
+DEFAULT_MOE_WIRE = "fp32"
+DEFAULT_MOE_INTRA_WIRE = "fp32"
+DEFAULT_MOE_WIRE_BLOCK = 512
+DEFAULT_MOE_CAPACITY_FACTOR = 1.25
 # consecutive non-finite steps the grad guard skips before it escalates
 DEFAULT_GUARD_MAX_SKIPS = 3
 # The retry ladder of common/retry.py (HOROVOD_RETRY_*), the JAX
@@ -191,6 +201,13 @@ class TrainConfig:
     # pass None; 1 is the every-step path, K > 1 trains K steps within
     # each slice between sync rounds
     local_sgd_steps: int = 1
+    # the expert wire (parallel/moe.py) when moe_ffn names none; under a
+    # two-level split moe_wire names the inter hop and moe_intra_wire
+    # the intra legs (fp32 or bf16, never int8)
+    moe_wire: str = DEFAULT_MOE_WIRE
+    moe_intra_wire: str = DEFAULT_MOE_INTRA_WIRE
+    moe_wire_block: int = DEFAULT_MOE_WIRE_BLOCK
+    moe_capacity_factor: float = DEFAULT_MOE_CAPACITY_FACTOR
     # the launcher's view of this process (None outside a launcher)
     rank: Optional[int] = None
     size: Optional[int] = None
@@ -238,6 +255,15 @@ class TrainConfig:
             zero_wire=_env_choice("HOROVOD_ZERO_WIRE", DEFAULT_ZERO_WIRE,
                                   ("fp32", "bf16", "int8", "auto")),
             local_sgd_steps=_env_int("HOROVOD_LOCAL_SGD_STEPS", 1),
+            moe_wire=_env_choice("HOROVOD_MOE_WIRE", DEFAULT_MOE_WIRE,
+                                 ("fp32", "bf16", "int8", "auto")),
+            moe_intra_wire=_env_choice("HOROVOD_MOE_INTRA_WIRE",
+                                       DEFAULT_MOE_INTRA_WIRE,
+                                       ("fp32", "bf16")),
+            moe_wire_block=_env_int("HOROVOD_MOE_WIRE_BLOCK",
+                                    DEFAULT_MOE_WIRE_BLOCK),
+            moe_capacity_factor=_env_float("HOROVOD_MOE_CAPACITY_FACTOR",
+                                           DEFAULT_MOE_CAPACITY_FACTOR),
             rank=_env_opt_int("HOROVOD_RANK"),
             size=_env_opt_int("HOROVOD_SIZE"),
             local_rank=_env_opt_int("HOROVOD_LOCAL_RANK"),

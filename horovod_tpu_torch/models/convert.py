@@ -19,7 +19,10 @@ fp32 CPU tensors:
   first dense layer and the port flattens NCHW, so that layer's rows
   are reordered from (h, w, c) to (c, h, w);
 * :func:`vit_params_from_flax`: ``horovod_tpu.models.vit.ViT``, whose
-  encoder blocks map as the Transformer's.
+  encoder blocks map as the Transformer's;
+* :func:`parallel_params_from_jax`: the composed model of
+  ``horovod_tpu/parallel/transformer.py``, from its full (unsharded)
+  parameter tree to this rank's shards on a mesh.
 
 A tree of the same layout maps the same way: a JAX gradient tree
 (``jax.grad`` of a loss over the parameters) becomes the port's
@@ -55,7 +58,13 @@ def _block(out, pre: str, blk, gqa: bool) -> None:
     attn = blk["MultiHeadAttention_0"]
     dense = [(f"attn.{n}", attn[n])
              for n in (("q", "kv", "out") if gqa else ("qkv", "out"))]
-    dense += [("fc1", blk["Dense_0"]), ("fc2", blk["Dense_1"])]
+    if "moe" in blk:  # the MoE bank in place of the dense FFN
+        moe = blk["moe"]
+        dense.append(("moe.router", moe["router"]))
+        for name in ("w1", "b1", "w2", "b2"):
+            out[f"{pre}.moe.{name}"] = _tensor(moe[name])
+    else:
+        dense += [("fc1", blk["Dense_0"]), ("fc2", blk["Dense_1"])]
     for name, node in dense:
         out[f"{pre}.{name}.kernel"] = _tensor(node["kernel"])
         out[f"{pre}.{name}.bias"] = _tensor(node["bias"])
@@ -145,3 +154,30 @@ def vit_params_from_flax(params, num_layers: int) -> Dict[str, torch.Tensor]:
     out["ln.bias"] = _tensor(p["LayerNorm_0"]["bias"])
     _walk(out, "head.", p["head"])
     return out
+
+
+def parallel_params_from_jax(full, cfg, mesh, device=None):
+    """This rank's shards of the composed model's parameters
+    (:mod:`..parallel.transformer`) from the JAX package's full tree
+    (``_init_full_params``, or a trained tree gathered to the host, as
+    nested dicts of numpy arrays; the MoE leaf a ``MoEParams`` or a
+    dict), cut by ``param_specs`` for ``mesh``, as fp32 masters on
+    ``device`` (the card unless ``"cpu"`` is passed)."""
+    from ..common.config import resolve_device
+    from ..parallel.moe import MoEParams
+    from ..parallel.transformer import shard_params
+
+    dev = resolve_device(device)
+
+    def leaf(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32,
+                                         copy=True)).to(dev)
+
+    tree = {group: {k: leaf(v) for k, v in full[group].items()
+                    if k != "moe"}
+            for group in ("embed", "stages", "tail")}
+    moe = full["tail"]["moe"]
+    fields = moe._asdict() if hasattr(moe, "_asdict") else moe
+    tree["tail"]["moe"] = MoEParams(**{k: leaf(fields[k])
+                                       for k in MoEParams._fields})
+    return shard_params(tree, cfg, mesh)

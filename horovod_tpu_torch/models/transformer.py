@@ -36,8 +36,13 @@ On the paged layout ``paged_attn=True`` reads the pool through
 :func:`~horovod_tpu_torch.ops.paged_attention.paged_attention`: the
 hand-written kernel for CUDA tensors (it launches or raises), its plain
 version for CPU tensors. ``paged_attn=False`` takes the plain version
-(gather the pages, attend densely) on any device. MoE feed-forward
-banks and the sliding window on the cached path are not ported yet.
+(gather the pages, attend densely) on any device. The sliding window
+on the cached path is not ported yet.
+
+``moe_experts > 0`` replaces each block's feed-forward with
+:class:`MoEFFN`, the JAX model's switch-style top-1 bank (fp32 router,
+softmax, argmax, the experts as one-hot einsums); it serves the full and
+the cached forward alike, since the FFN is position-wise.
 
 The flash gate differs from the JAX one where the TPU shaped it: the
 Mosaic rungs (``supports_seq``'s block divisibility, ``fits_vmem``)
@@ -96,7 +101,7 @@ class TransformerConfig:
     # grouped-query attention: KV heads (None = MHA, the fused qkv
     # projection)
     num_kv_heads: Optional[int] = None
-    # MoE feed-forward banks are not ported yet; must stay 0
+    # MoE feed-forward banks: experts per block (0 = the dense FFN)
     moe_experts: int = 0
     # LM head: cfg.dtype operands, fp32 accumulation (True) or all fp32
     head_mixed_precision: bool = True
@@ -438,6 +443,48 @@ class MultiHeadAttention(nn.Module):
         return _attend(q, k_cache, v_cache, valid[:, None], cfg.dtype)
 
 
+class MoEFFN(nn.Module):
+    """Switch-style top-1 MoE FFN (``horovod_tpu/models/transformer.py:
+    505-546``): router logits in fp32, argmax routing (data: no shape
+    depends on it), and the expert bank applied through dense one-hot
+    einsums over the leading ``[E]`` axis. Every token is served by its
+    routed expert, gated by the router probability; no capacity, no
+    drops. Flax's ``lecun_normal(in_axis=-2, out_axis=-1)`` of an ``[E,
+    d, f]`` bank counts the expert axis into the fan-in (E·d)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        e, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
+        self.router = DenseGeneral((d,), (e,), torch.float32, device=device,
+                                   generator=generator)
+        self.w1 = nn.Parameter(torch.empty(e, d, f, device=device))
+        self.b1 = nn.Parameter(torch.zeros(e, f, device=device))
+        self.w2 = nn.Parameter(torch.empty(e, f, d, device=device))
+        self.b2 = nn.Parameter(torch.zeros(e, d, device=device))
+        _trunc_normal_(self.w1, e * d, generator)
+        _trunc_normal_(self.w2, e * f, generator)
+
+    def forward(self, x):
+        cfg = self.cfg
+        probs = torch.softmax(self.router(x.float()), dim=-1)  # [b, t, E]
+        idx = probs.argmax(dim=-1)
+        gate = probs.gather(-1, idx[..., None])
+        # the einsums run in the promoted type of the (fp32) input and
+        # cfg.dtype, as jnp.einsum promotes its operands
+        ct = torch.promote_types(x.dtype, cfg.dtype)
+        sel = F.one_hot(idx, cfg.moe_experts).to(cfg.dtype).to(ct)
+        w1, b1, w2, b2 = (p.to(cfg.dtype).to(ct)
+                          for p in (self.w1, self.b1, self.w2, self.b2))
+        h = torch.einsum("btd,edf,bte->btf", x.to(ct), w1, sel)
+        h = h + torch.einsum("ef,bte->btf", b1, sel)
+        h = F.gelu(h, approximate="tanh")
+        y = torch.einsum("btf,efd,bte->btd", h, w2, sel)
+        y = y + torch.einsum("ed,bte->btd", b2, sel)
+        # cfg.dtype out, as the dense branch it replaces
+        return (y * gate).to(cfg.dtype)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None, generator=None):
         super().__init__()
@@ -446,8 +493,11 @@ class Block(nn.Module):
         self.ln1 = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, device=device)
         self.attn = MultiHeadAttention(cfg, device=device, generator=generator)
         self.ln2 = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, device=device)
-        self.fc1 = DenseGeneral((cfg.d_model,), (cfg.d_ff,), **kw)
-        self.fc2 = DenseGeneral((cfg.d_ff,), (cfg.d_model,), **kw)
+        if cfg.moe_experts:
+            self.moe = MoEFFN(cfg, device=device, generator=generator)
+        else:
+            self.fc1 = DenseGeneral((cfg.d_model,), (cfg.d_ff,), **kw)
+            self.fc2 = DenseGeneral((cfg.d_ff,), (cfg.d_model,), **kw)
 
     def forward(self, x, mask=None, lengths=None, seed=None, cache=None,
                 step=None, paged_attn=False):
@@ -461,6 +511,8 @@ class Block(nn.Module):
         h = self.attn(self.ln1(x.float()), mask=mask, lengths=lengths,
                       cache=cache, step=step, paged_attn=paged_attn)
         x = x + _dropout(h, rate, gen)
+        if self.cfg.moe_experts:
+            return x + _dropout(self.moe(self.ln2(x.float())), rate, gen)
         h = F.gelu(self.fc1(self.ln2(x.float())), approximate="tanh")
         return x + _dropout(self.fc2(h), rate, gen)
 
@@ -510,10 +562,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                "MoE feed-forward banks (moe_experts > 0) are not ported yet"
-            )
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device)
@@ -551,8 +599,10 @@ class Transformer(nn.Module):
         if self.pos_embed is not None:
             params.append(self.pos_embed.weight)
         for mod in self.modules():
-            if isinstance(mod, DenseGeneral):
-                params += [mod.kernel, mod.bias]
+            if isinstance(mod, DenseGeneral) and mod.dtype == dt:
+                params += [mod.kernel, mod.bias]  # not the fp32 router
+            elif isinstance(mod, MoEFFN):
+                params += [mod.w1, mod.b1, mod.w2, mod.b2]
         if self.cfg.head_mixed_precision:
             params.append(self.lm_head.kernel)
         for p in params:

@@ -13,7 +13,9 @@ one place.
   ``all_to_all`` at all. It takes ``all_to_all_single`` with split sizes
   on CUDA and on CPU tensors, so :func:`exchange` composes a pairwise
   exchange from that on a gloo group, chosen by the backend's name, and
-  uses ``batch_isend_irecv`` on every other backend.
+  uses ``batch_isend_irecv`` on every other backend; :func:`permute`,
+  the ring shift of ring attention and the pipeline schedules, is built
+  the same way.
 """
 
 from __future__ import annotations
@@ -82,6 +84,48 @@ def exchange(send: Optional[torch.Tensor], recv: Optional[torch.Tensor],
         pos = peer if group is None else dist.get_group_rank(group, peer)
         in_splits[pos] = 0 if send is None else send.numel()
         out_splits[pos] = 0 if recv is None else recv.numel()
+    empty = ref.new_empty(0)
+    dist.all_to_all_single(
+        empty if recv is None else recv.view(-1),
+        empty if send is None else send.reshape(-1),
+        out_splits, in_splits, group=group)
+
+
+def permute(send: Optional[torch.Tensor], recv: Optional[torch.Tensor],
+            perm, group=None, like: Optional[torch.Tensor] = None) -> None:
+    """``lax.ppermute`` over ``group``: member i's ``send`` lands in
+    member ``perm[i]``'s ``recv`` (positions in the group; ``perm`` a
+    permutation). Every member calls it together. A member with nothing
+    to send passes ``send=None``, and the member it would reach then
+    passes ``recv=None``; a member with neither passes ``like``, a
+    tensor of the exchange's device and dtype. On a gloo group the shift
+    is one ``all_to_all_single`` with split sizes, nonzero only toward
+    ``perm[me]`` and from ``perm⁻¹[me]``; elsewhere ``batch_isend_irecv``
+    (a self-send is a copy)."""
+    ref = next(t for t in (send, recv, like) if t is not None)
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    dst, src = perm[me], list(perm).index(me)
+    if n == 1 or (dst == me and _backend(group, ref.device) != "gloo"):
+        if recv is not None:
+            recv.copy_(send.reshape(recv.shape))
+        return
+    if _backend(group, ref.device) != "gloo":
+        def glob(pos):
+            return pos if group is None else dist.get_global_rank(group, pos)
+
+        ops = []
+        if send is not None:
+            ops.append(dist.P2POp(dist.isend, send.contiguous(), glob(dst),
+                                  group=group))
+        if recv is not None:
+            ops.append(dist.P2POp(dist.irecv, recv, glob(src), group=group))
+        for work in dist.batch_isend_irecv(ops) if ops else ():
+            work.wait()
+        return
+    in_splits, out_splits = [0] * n, [0] * n
+    in_splits[dst] = 0 if send is None else send.numel()
+    out_splits[src] = 0 if recv is None else recv.numel()
     empty = ref.new_empty(0)
     dist.all_to_all_single(
         empty if recv is None else recv.view(-1),

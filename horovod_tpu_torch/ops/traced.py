@@ -8,9 +8,10 @@ no handles and no fusion manager. Eagerly each collective is a
 ``torch.distributed`` call on a fresh output; under
 ``torch.compile(fullgraph=True)`` it is the functional collective of
 ``torch.distributed._functional_collectives``, a node of the graph. The
-int8 quantizers run as the custom operators of ``cuda_kernels``
-(kernels B2 and B3 on the card), so a compiled call launches the
-hand-written kernels and advances their counters.
+int8 quantizers (kernels B2 and B3 on the card) run as the custom
+operators of ``cuda_kernels`` in a compiled region, so a compiled call
+launches the hand-written kernels and advances their counters, and
+through the same kernels' wrappers eagerly.
 
 - The exact collectives (:func:`allreduce`, :func:`grouped_allreduce`,
   :func:`allgather`, :func:`broadcast`, :func:`alltoall`,
@@ -33,6 +34,10 @@ hand-written kernels and advances their counters.
   contract. Stochastic rounding draws Philox keyed by (seed, stream),
   the stream naming the rank and the stage, so ranks and stages are
   decorrelated; it cannot match ``jax.random``'s bits.
+- The expert wire's alltoalls of a ``[n, slots, d]`` dispatch buffer:
+  :func:`quantized_alltoall` (block-scaled int8 by B3, pad slots exact
+  zeros) and :func:`hierarchical_alltoall` (an inter hop and an intra
+  hop, each at its own wire).
 - The two-level recipes (:func:`hierarchical_allreduce_groups`,
   :func:`hierarchical_reducescatter`, :func:`hierarchical_allgather`)
   take ``stages``, the ``(intra, inter)`` rank lists of
@@ -66,7 +71,7 @@ from .reduction_ops import Adasum, Average, Max, Min, Product, Sum, resolve_op
 INTER_AXIS, INTRA_AXIS = "inter", "intra"
 _FUNCOL_OPS = {Min: "min", Max: "max", Product: "product"}
 # Philox streams of this module's quantizers: 8 a rank, one a purpose
-_STAGE1, _STAGE2, _REDUCESCATTER, _ALLGATHER = range(4)
+_STAGE1, _STAGE2, _REDUCESCATTER, _ALLGATHER, _ALLTOALL = range(5)
 
 
 def rank() -> int:
@@ -461,11 +466,21 @@ def _gather(group, n):
     return gather
 
 
+def _kernels() -> int8_wire.Kernels:
+    """The quantizers: the custom operators inside a compiled region, so
+    that the graph holds the kernels; their wrappers eagerly (the same
+    kernels: the operators call them), as a process's first call of a
+    custom operator imports the compiler stack, seconds of host time."""
+    if torch.compiler.is_compiling():
+        return int8_wire.COMPILABLE
+    return int8_wire.EAGER
+
+
 def _stochastic_round_rows(x2d: torch.Tensor, seed: int = 0,
                            stream: int = 0):
     """One absmax scale a row, stochastic rounding (B2 a row): int8
     ``[rows, cols]`` and fp32 scales ``[rows, 1]``."""
-    return int8_wire._quantize(x2d, None, seed, stream, int8_wire.COMPILABLE)
+    return int8_wire._quantize(x2d, None, seed, stream, _kernels())
 
 
 def _stochastic_round_blocks(x2d: torch.Tensor, block: int, seed: int = 0,
@@ -473,7 +488,7 @@ def _stochastic_round_blocks(x2d: torch.Tensor, block: int, seed: int = 0,
     """One absmax scale a ``block`` elements within each row (B3):
     int8 ``[rows, cols]`` and fp32 scales ``[rows, nb]``; the tail block
     is padded for the absmax only, so padding sets no scale."""
-    return int8_wire.COMPILABLE.block(x2d, block, seed, stream)
+    return _kernels().block(x2d, block, seed, stream)
 
 
 def _block_dequant(q: torch.Tensor, scales: torch.Tensor,
@@ -492,7 +507,7 @@ def _quantized_allreduce(tensor, op, group, n, idx, seed, return_residual,
     block = int(block_size) if block_size else None
     st = int8_wire.quantized_sum(
         chunks, block, seed, (_stream(_STAGE1), _stream(_STAGE2)),
-        _exchange(group), _gather(group, n), int8_wire.COMPILABLE,
+        _exchange(group), _gather(group, n), _kernels(),
         prescale=prescale_factor, divisor=n if op == Average else None)
     out = int8_wire.unpack(st.all_q, st.all_s, block, m).reshape(shape).to(
         dtype)
@@ -603,6 +618,111 @@ def quantized_allgather(shard: torch.Tensor, seed: int = 0,
     return out, (x - int8_wire.dequantize(q, s, block))[0]
 
 
+def _check_dispatch(tensor: torch.Tensor, n: int) -> None:
+    if tensor.dim() != 3 or tensor.shape[0] != n:
+        raise ValueError(
+            f"dispatch buffer must be [n={n}, slots, d], got "
+            f"{tuple(tensor.shape)}")
+
+
+def quantized_alltoall_in(tensor: torch.Tensor, group, n: int,
+                          seed: int = 0,
+                          block_size: Optional[int] = None) -> torch.Tensor:
+    """:func:`quantized_alltoall` within ``group`` (``n`` members), a
+    process group the caller made: the expert wire's form on a mesh
+    axis."""
+    _check_dispatch(tensor, n)
+    _, slots, d = tensor.shape
+    x = tensor.reshape(n * slots, d).to(torch.float32)
+    # clamp to the row width: a block wider than d would zero-pad every
+    # row up to it and the int8 wire would move more bytes than fp32
+    block = max(min(int(block_size), d) if block_size else d, 1)
+    q, scales = _stochastic_round_blocks(x, block, seed, _stream(_ALLTOALL))
+    if n > 1:
+        q, scales = _all_to_all(q, group), _all_to_all(scales, group)
+    return int8_wire.dequantize(q, scales, block).reshape(n, slots, d)
+
+
+def quantized_alltoall(tensor: torch.Tensor, seed: int = 0,
+                       block_size: Optional[int] = None,
+                       groups=None) -> torch.Tensor:
+    """Block-scaled int8 alltoall of a ``[n, slots, d]`` dispatch buffer,
+    row j bound for rank j (``traced.py:859``; the MoE expert-dispatch
+    layout of ``parallel/moe.py``): each (destination, slot) row is
+    quantized by B3 with one absmax scale per ``block_size`` elements of
+    ``d`` (clamped to ``d``; default ``d``) and stochastic rounding, int8
+    and scales are exchanged, and the receiver dequantizes to fp32.
+
+    Pad exclusion by construction: empty slots are all-zero rows, and
+    zeros quantize to zeros without raising a block's absmax, so a pad
+    slot sets no scale and arrives as exact zeros. ``groups`` (rank
+    lists partitioning the world) restricts the exchange to this rank's
+    group; ``n`` is then its size. Returns fp32 ``[n, slots, d]``."""
+    group, _, n = ((dist.group.WORLD, 0, dist.get_world_size())
+                   if groups is None else _mine(groups))
+    return quantized_alltoall_in(tensor, group, n, seed, block_size)
+
+
+def hierarchical_alltoall_in(tensor: torch.Tensor, intra, inter,
+                             intra_wire: str = "fp32",
+                             inter_wire: str = "fp32", seed: int = 0,
+                             block_size: Optional[int] = None
+                             ) -> torch.Tensor:
+    """:func:`hierarchical_alltoall` over process groups the caller
+    made: ``intra`` and ``inter`` are ``(group, position, size)`` of
+    this rank's intra and inter groups."""
+    (gi, _, L), (ge, pos, H) = intra, inter
+    n = L * H
+    _check_dispatch(tensor, n)
+    _, slots, d = tensor.shape
+    dtype = tensor.dtype
+    exact = not tensor.is_floating_point()
+    # destination blocks, slice-major: xr[h] = everything bound for
+    # slice h
+    xr = tensor.reshape(H, L * slots, d)
+    if inter_wire == "int8" and not exact:
+        y = quantized_alltoall_in(xr, ge, H, seed, block_size).to(dtype)
+    else:
+        wire = "fp32" if exact else inter_wire
+        y = _all_to_all(_stage_cast(xr, wire), ge).to(dtype) if H > 1 \
+            else xr
+    if inter_wire in ("bf16", "int8") and not exact:
+        # the self-slice block never crossed the inter hop: restore the
+        # original so intra-bound tokens stay exact
+        y = torch.cat([y[:pos], xr[pos:pos + 1], y[pos + 1:]])
+    # y[h_s] = blocks from (h_s, this node-local slot) for every
+    # destination; regroup by destination intra position
+    y = y.reshape(H, L, slots, d).transpose(0, 1).reshape(L, H * slots, d)
+    iw = "fp32" if exact else intra_wire
+    z = _all_to_all(_stage_cast(y, iw), gi).to(dtype) if L > 1 else y
+    # z[l_s] = blocks from (h_s, l_s): back to flat rank-major order
+    return z.reshape(L, H, slots, d).transpose(0, 1).reshape(n, slots, d)
+
+
+def hierarchical_alltoall(tensor: torch.Tensor, stages=None,
+                          intra_wire: str = "fp32",
+                          inter_wire: str = "fp32", seed: int = 0,
+                          block_size: Optional[int] = None) -> torch.Tensor:
+    """Two-level alltoall of a ``[n, slots, d]`` dispatch buffer
+    (``traced.py:919``) over ``stages`` (``topology.hierarchy_stages``'
+    contiguous-intra rank lists), elementwise equal to the flat alltoall
+    on exact wires:
+
+    1. the inter hop: same-position ranks across nodes exchange whole
+       per-destination-node sub-buffers at ``inter_wire`` (fp32, bf16,
+       or int8 by :func:`quantized_alltoall`); either lossy wire restores
+       the self-node block from the original afterwards, so tokens bound
+       for intra-node experts never pay the loss;
+    2. the intra hop: one alltoall inside each node delivers every block
+       to its destination rank at ``intra_wire`` (fp32, bf16).
+
+    Non-float payloads (the MoE expert-index map) ride both hops exact.
+    Returns the input dtype."""
+    intra, inter, _ = _stages(stages)
+    return hierarchical_alltoall_in(tensor, intra, inter, intra_wire,
+                                    inter_wire, seed, block_size)
+
+
 # ----------------------------------------------- the two-level recipes
 
 
@@ -637,7 +757,7 @@ def _quantized_sum_groups(row: torch.Tensor, groups, n: int, block: int,
     chunks = torch.nn.functional.pad(row, (0, chunk * n - m)).view(n, chunk)
     st = int8_wire.quantized_sum(
         chunks, block, seed, (_stream(_STAGE1), _stream(_STAGE2)),
-        _exchange(group), _gather(group, n), int8_wire.COMPILABLE)
+        _exchange(group), _gather(group, n), _kernels())
     out = int8_wire.unpack(st.all_q, st.all_s, block, m)
     if not want_residual:
         return out, None

@@ -40,7 +40,12 @@ def test_import_pulls_in_no_jax():
         "horovod_tpu_torch.common.metrics, horovod_tpu_torch.parallel.fsdp, "
         "horovod_tpu_torch.sharded_optimizer, horovod_tpu_torch.local_sgd, "
         "horovod_tpu_torch.common.retry, horovod_tpu_torch.testing.chaos, "
-        "horovod_tpu_torch.testing.recorder\n"
+        "horovod_tpu_torch.testing.recorder, "
+        "horovod_tpu_torch.parallel.mesh, horovod_tpu_torch.parallel.tp, "
+        "horovod_tpu_torch.parallel.ring_attention, "
+        "horovod_tpu_torch.parallel.ulysses, horovod_tpu_torch.parallel.moe, "
+        "horovod_tpu_torch.parallel.pipeline, "
+        "horovod_tpu_torch.parallel.transformer\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"

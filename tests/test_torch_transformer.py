@@ -126,8 +126,10 @@ def test_rope_matches_jax():
 
 def test_unported_paths_raise():
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.Transformer(dataclasses.replace(tcfg, moe_experts=2), device="cpu")
+    # the MoE banks are ported (tests/test_torch_moe.py holds them to Flax)
+    moe = tt.Transformer(dataclasses.replace(tcfg, moe_experts=2),
+                         device="cpu")
+    assert isinstance(moe.blocks[0].moe, tt.MoEFFN)
     with pytest.raises(ValueError, match="position"):
         tt.init_cache(tcfg, 1, 128)
     windowed = tt.Transformer(dataclasses.replace(tcfg, sliding_window=4),
