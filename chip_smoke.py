@@ -21,6 +21,10 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    kernel launch counters are zeroed just before and read just after.
    Decode and chunk launches are reported apart; every chunk launch
    (more than 4 packed rows a KV head) must take the tensor cores.
+   After the burst's readings, one request with a ``traceparent``
+   header under ``HOROVOD_TRACE=1``: its reply echoes the trace id and
+   ``GET /traces`` holds its ``http.generate``, ``serve.prefill``,
+   ``engine.prefill_chunk`` and ``serve.decode`` spans.
 4. Correctness at full width: the same weights in fp32 serve two
    requests whose greedy tokens must equal the uncached full-forward
    argmax loop; fp32 launches no tensor-core kernel, and its decode
@@ -222,12 +226,38 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    Every step of every arm launches B3 twice a fused batch and the
    flash kernels 2L/L/L/L, all on the tensor cores. It prints each
    arm's seconds, the start's marks, the commit and restore seconds and
-   bytes, each rank's peak memory and the launch counts.
-   The flash counts of phases 5, 10, 12, 13, 14, 15, 16, 17 and 18, and
-   the wire counts of phases 8, 9 and 13–18, add up in the ``kernels``
-   line.
+   bytes, each rank's peak memory and the launch counts; (c)'s driver,
+   which quarantines stragglers by default, must quarantine none.
+19. Observability and the tuners, on phase 5's model and batch in a
+   world of one on NCCL, one build, the flash and B3 counters zeroed
+   just before: (a) three turns of a step with the eager timeline off
+   and on (``start_timeline(mark_cycles=True)``): every gradient tensor
+   shows QUEUE and ALLREDUCE in every step, the device spans number the
+   batches the fusion layer dispatched, every batch of more than one
+   tensor shows MEMCPY_IN/OUT_FUSION_BUFFER, CYCLE marks number the
+   cycles; the step times off and on are printed. (b) Two steps of
+   ``overlap_buckets=4`` under ``start_timeline(traced=True)`` and
+   ``timeline_step``: the chrome JSON names B5's and B6's tensor-core
+   kernels and every bucket's range, and ``collective_overlap_stats``
+   counts the published buckets. (c) ``HOROVOD_TELEMETRY=1`` and
+   ``HOROVOD_METRICS_PORT``: three ``step_begin``/``step_end`` records,
+   ``/metrics`` with the step-time summary and the ``overlap.*``,
+   ``stall.*`` and ``fusion.*`` gauges, ``/telemetry`` as JSON. (d)
+   ``HOROVOD_FUSION_WIRE=auto`` and ``HOROVOD_AUTOTUNE=1`` (warmup 1, 2
+   steps a sample, 4 samples, one trial a candidate) until the
+   threshold freezes, then three steps: every tier of the running
+   threshold tried each candidate of its menu, B3 ran twice a fused
+   int8 batch and, on the first int8 batch, bitwise its plain version,
+   the loss fell, the cache file was written; a second world over the
+   cache takes no trial and picks the first's wires. (e) A handle left
+   unwaited past ``HOROVOD_STALL_CHECK_TIME_SECONDS=1`` warns and shows
+   in ``stall.pending``; past ``..._SHUTDOWN_TIME_SECONDS=2`` the next
+   tick raises ``HorovodInternalError``.
+   The flash counts of phases 5, 10, 12, 13, 14, 15, 16, 17, 18 and 19,
+   and the wire counts of phases 8, 9 and 13–19, add up in the
+   ``kernels`` line.
 
-``python3 chip_smoke.py --only 17`` (or ``--only 18``) builds the
+``python3 chip_smoke.py --only 17`` (or ``--only 18``, ``--only 19``) builds the
 kernels and runs that phase alone (a development aid; it prints no
 ``ok`` line). ``--log FILE`` also writes every line printed after the
 card and the package are found to ``FILE``.
@@ -882,6 +912,58 @@ def serve_prompts(vocab_size):
     return prompts, prompt
 
 
+TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
+
+
+def _traced_request(port, prompt, kernel):
+    """One request with a ``traceparent`` header under ``HOROVOD_TRACE=1``
+    after the burst: its reply echoes the trace id, and ``GET /traces``
+    holds the frontend's, the batcher's, the prefill's and the decode's
+    spans under it; the paged kernel runs under tracing."""
+    from horovod_tpu_torch.common import tracing
+
+    saved = os.environ.get("HOROVOD_TRACE")
+    os.environ["HOROVOD_TRACE"] = "1"
+    tracing._reset()  # the settings are read once a process
+    try:
+        before = kernel.launches
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps({"tokens": prompt, "max_tokens": 8}).encode(),
+            headers={"Content-Type": "application/json",
+                     "traceparent": f"00-{TRACE_ID}-00f067aa0ba902b7-01"},
+            method="POST")
+        with urllib.request.urlopen(req, timeout=180) as resp:
+            echoed = resp.headers.get("X-Trace-Id")
+            body = json.load(resp)
+        want = {"http.generate", "serve.prefill", "serve.decode",
+                "engine.prefill_chunk"}
+        for _ in range(200):  # spans end after the reply's bytes
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/traces", timeout=30) as r:
+                spans = [x for x in json.load(r)["spans"]
+                         if x["trace_id"] == TRACE_ID]
+            if want <= {x["name"] for x in spans}:
+                break
+            time.sleep(0.02)
+        launched = kernel.launches - before
+    finally:
+        if saved is None:
+            os.environ.pop("HOROVOD_TRACE", None)
+        else:
+            os.environ["HOROVOD_TRACE"] = saved
+        tracing._reset()
+    names = sorted({x["name"] for x in spans})
+    if (body.get("status") != "done" or body.get("trace_id") != TRACE_ID
+            or echoed != TRACE_ID or not want <= set(names)
+            or launched <= 0):
+        fail(f"serve: the traced request came back {body.get('status')!r}, "
+             f"trace id {body.get('trace_id')!r}/{echoed!r}, spans {names}, "
+             f"{launched} paged-attention launches")
+    return {"spans": names, "paged_attention_launches": launched,
+            "span_ms": {x["name"]: x["dur_ms"] for x in spans}}
+
+
 def phase_serve(model, prompts, max_tokens, card):
     """serve() of the bf16 GPT-2 medium model over HTTP; every request
     must come back ``done`` with ``max_tokens`` tokens, through the
@@ -904,6 +986,7 @@ def phase_serve(model, prompts, max_tokens, card):
         stats = handle.engine.stats()
         mgr = handle.engine.manager.stats()
         slo = handle.batcher.recorder.summaries()
+        traced = _traced_request(handle.port, prompts[0], fn)
     finally:
         handle.stop()
     _check_burst("serve", results, prompts, max_tokens)
@@ -945,6 +1028,7 @@ def phase_serve(model, prompts, max_tokens, card):
         "kernel_launches": launches,
         "card": card,
     }
+    summary["traced_request"] = traced
     log("serve: " + json.dumps(summary, sort_keys=True))
     return launches
 
@@ -5428,6 +5512,15 @@ def phase_durability(card):
                 _p18_step_counts(label, rec)
                 if not rec["counts"]:
                     fail(f"durability {label} rank {rec['rank']}: no step")
+        # the driver quarantines stragglers by default (3 polls, as the
+        # JAX driver): these ranks share one card for a few steps, and
+        # none may be taken for one
+        quarantined = _p18_tail(root, "c", 1 << 30).count(
+            "quarantining straggler")
+        summary["driver_quarantined"] = quarantined
+        if quarantined:
+            fail(f"durability (c): the driver quarantined {quarantined} "
+                 "straggler host(s)\n" + _p18_tail(root, "c"))
         summary["elastic_losses_mean"] = mean
         summary["elastic_restore_s"] = [rec["restore_s"] for rec in e1]
         summary["residual_check_s"] = [rec["residual_check_s"] for rec in e1]
@@ -5479,11 +5572,455 @@ def phase_durability(card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+OBS_TURNS = 3  # (a): off/on turns of the timeline
+OBS_TUNE = dict(HOROVOD_AUTOTUNE_WARMUP_SAMPLES="1",
+                HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE="2",
+                HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES="4")
+OBS_STALL_S = (1.0, 2.0)  # (e): the warning and the shutdown age
+
+
+def _env(**kv):
+    """Set (a string) or unset (None) environment variables; returns the
+    previous values for :func:`_env` to put back."""
+    old = {k: os.environ.get(k) for k in kv}
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return old
+
+
+def _http_get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return r.read().decode()
+
+
+def _obs_timeline(hvd, model, opt, tokens, labels, tmp):
+    """(a): turns of a step with the timeline off and a step with it on;
+    the file's events against the fusion layer's counters."""
+    import torch
+
+    from horovod_tpu_torch.common import basics
+
+    fusion = basics.state().fusion
+    path = os.path.join(tmp, "timeline.json")
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    loss_fn = lambda: _loss(model, tokens, labels)  # noqa: E731
+    _step(opt, loss_fn)  # the first step pays the warm-up
+    off_ms, on_ms, batches, cycles = [], [], 0, 0
+    for turn in range(OBS_TURNS):
+        for on in (False, True):
+            if on:
+                hvd.start_timeline(path, mark_cycles=True)
+                b0, c0 = fusion.dispatched_batches, fusion.cycles
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            loss = _step(opt, loss_fn)
+            float(loss.detach())
+            (on_ms if on else off_ms).append((time.monotonic() - t0) * 1e3)
+            if on:
+                hvd.stop_timeline()
+                batches += fusion.dispatched_batches - b0
+                cycles += fusion.cycles - c0
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    pid_name = {e["pid"]: e["args"]["name"] for e in events
+                if e.get("ph") == "M" and e.get("name") == "process_name"}
+    per = {}
+    for e in events:
+        if e.get("ph") in ("B", "X") and e["pid"] in pid_name:
+            per.setdefault(pid_name[e["pid"]], []).append(e["name"])
+    for n in names:
+        seen = per.get(n, [])
+        if seen.count("QUEUE") != OBS_TURNS or seen.count(
+                "ALLREDUCE") != OBS_TURNS:
+            fail(f"observe (a): {n} shows QUEUE {seen.count('QUEUE')} and "
+                 f"ALLREDUCE {seen.count('ALLREDUCE')} times in "
+                 f"{OBS_TURNS} steps")
+    members = {}
+    for e in events:
+        if e["name"] == "ALLREDUCE_DEVICE":
+            members.setdefault((e["ts"], e["dur"]), []).append(
+                pid_name[e["pid"]])
+    if len(members) != batches:
+        fail(f"observe (a): {len(members)} fused batches in the timeline, "
+             f"the fusion layer dispatched {batches}")
+    multi = [m for m in members.values() if len(m) > 1]
+    if not multi:
+        fail("observe (a): no fused batch held more than one tensor")
+    for m in multi:
+        for n in m:
+            for ph in ("MEMCPY_IN_FUSION_BUFFER", "MEMCPY_OUT_FUSION_BUFFER"):
+                if ph not in per[n]:
+                    fail(f"observe (a): {n}, in a batch of {len(m)}, "
+                         f"has no {ph}")
+    marks = sum(1 for e in events if e["name"] == "CYCLE")
+    if marks != cycles or marks < OBS_TURNS:
+        fail(f"observe (a): {marks} CYCLE marks, {cycles} cycles")
+    return {"events": len(events), "batches": batches, "cycles": cycles,
+            "batches_of_many": len(multi),
+            "step_ms_timeline_off": off_ms, "step_ms_timeline_on": on_ms}
+
+
+def _obs_traced(hvd, model, tokens, labels, tmp):
+    """(b): two steps of the bucketed overlap under the traced timeline;
+    the chrome JSON names B5's and B6's kernels and every bucket, and
+    the overlap ledger reads the published bucket count."""
+    import torch
+
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common.metrics import registry
+
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        named_parameters=model.named_parameters(), overlap_buckets=4)
+    loss_fn = lambda: _loss(model, tokens, labels)  # noqa: E731
+    try:
+        _step(opt, loss_fn)
+        n = opt._overlap.schedule.n_buckets
+        path = os.path.join(tmp, "traced.json")
+        t0 = time.monotonic()
+        hvd.start_timeline(path, traced=True)
+        for i in range(2):
+            with hvd.timeline_step("train", i):
+                _step(opt, loss_fn)
+        torch.cuda.synchronize()
+        hvd.stop_timeline()
+        export_s = time.monotonic() - t0
+    finally:
+        opt.remove_hooks()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [str(e.get("name", "")) for e in events]
+    kernels = {k: sum(1 for x in names if k in x) for k in (
+        "flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+        "flash_bwd_dkv_tc_kernel")}
+    ranges = {b: names.count(f"hvd.overlap.bucket{b}") for b in range(n)}
+    if min(kernels.values()) < 2 * model.cfg.num_layers:
+        fail(f"observe (b): the traced timeline names the flash kernels "
+             f"{kernels} times in 2 steps")
+    if min(ranges.values()) < 2 or "train#1" not in names:
+        fail(f"observe (b): bucket ranges {ranges}, steps "
+             f"{[x for x in names if x.startswith('train#')]}")
+    stats = basics.state().traced_timeline.last_overlap_stats
+    published = registry.snapshot().get("overlap.buckets")
+    if stats is None or stats["buckets"] != n or published != n or not {
+            "collective_us", "hidden_us", "exposed_us", "spans"} <= set(stats):
+        fail(f"observe (b): overlap stats {stats}, published buckets "
+             f"{published}, schedule {n}")
+    share = (stats["hidden_us"] / stats["collective_us"]
+             if stats["collective_us"] else None)
+    return {"events": len(events), "buckets": n, "kernel_names": kernels,
+            "bucket_ranges": ranges, "overlap_stats": stats,
+            "hidden_share": share, "traced_s": export_s,
+            "json_mb": os.path.getsize(path) / 1e6}
+
+
+def _obs_telemetry(hvd, model, tokens, labels, port):
+    """(c): explicit step records with the scrape server up."""
+    import torch
+
+    from horovod_tpu_torch.common import telemetry
+
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        named_parameters=model.named_parameters())
+    try:
+        before = len(telemetry.hub())
+        for i in range(3):
+            hvd.step_begin(i)
+            _step(opt, lambda: _loss(model, tokens, labels))
+            hvd.step_end()
+        recs = telemetry.hub().records()[before:]
+    finally:
+        opt.remove_hooks()
+    if [r["step"] for r in recs] != [0, 1, 2] or any(
+            r["fusion_dispatches"] < 1 for r in recs):
+        fail(f"observe (c): ring records {recs}")
+    body = _http_get(port, "/metrics")
+    for want in ('telemetry_step_ms{quantile="0.5"}', "hvd_telemetry_step_ms",
+                 "hvd_telemetry_step_ms_p50", "hvd_telemetry_step_ms_p95",
+                 "hvd_overlap_buckets", "hvd_stall_pending",
+                 "hvd_fusion_dispatches"):
+        if want not in body:
+            fail(f"observe (c): /metrics lacks {want}")
+    doc = json.loads(_http_get(port, "/telemetry"))
+    if len(doc["steps"]) < 3:
+        fail(f"observe (c): /telemetry holds {len(doc['steps'])} steps")
+    return {"ring_steps": [r["step"] for r in recs],
+            "step_ms": [r["wall_ms"] for r in recs],
+            "percentiles": doc["percentiles"],
+            "metrics_lines": len(body.splitlines())}
+
+
+def _obs_autotune(hvd, model, tokens, labels, tmp):
+    """(d): the tuned wire and threshold, then a second optimizer over
+    the same cache. Returns its readings and B3's launches."""
+    import torch
+
+    from horovod_tpu_torch.common import autotune, basics
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    fusion = basics.state().fusion
+    tuner = fusion.wire_tuner
+    tuner.trials = 1  # one trial a candidate: the phase stays short
+    pm = basics.state().parameter_manager
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        named_parameters=model.named_parameters())
+    loss_fn = lambda: _loss(model, tokens, labels)  # noqa: E731
+    captured = {}
+    kernel = ck.int8_block_quantize
+
+    def capture(x, *args, **kw):  # the first B3 call of an int8 batch
+        out = kernel(x, *args, **kw)  # counted on kernel.launches
+        if "x" not in captured:
+            captured.update(x=x.clone(), args=args, kw=kw,
+                            q=out[0].clone(), s=out[1].clone())
+        return out
+
+    losses, thresholds, trials, steps = [], [], [], 0
+    try:
+        while steps < 30 and (not pm.frozen or steps < 6):
+            i8, l0, t0 = (fusion.wire_batches["int8"], kernel.launches,
+                          fusion.wire_trials)
+            ck.int8_block_quantize = capture
+            try:
+                losses.append(float(_step(opt, loss_fn).detach()))
+            finally:
+                ck.int8_block_quantize = kernel
+            steps += 1
+            thresholds.append(fusion.threshold_bytes)
+            trials.append(fusion.wire_trials - t0)
+            b3 = kernel.launches - l0
+            if b3 != 2 * (fusion.wire_batches["int8"] - i8):
+                fail(f"observe (d) step {steps}: {b3} B3 launches for "
+                     f"{fusion.wire_batches['int8'] - i8} int8 batches")
+        # the running configuration's tiers: one step per candidate
+        fusion.wire_choices = {}
+        for _ in range(3):
+            losses.append(float(_step(opt, loss_fn).detach()))
+            steps += 1
+    finally:
+        opt.remove_hooks()
+    if not all(math.isfinite(x) for x in losses) or not (
+            losses[-1] < losses[0]):
+        fail(f"observe (d): losses {losses}")
+    menus = {}
+    for key in fusion.wire_choices:
+        menu = [c for c in ("fp32", "bf16", "int8")
+                if c != "int8" or key[1] * 4 >= tuner.min_int8_bytes]
+        tried = [c for c in menu if not tuner.needs_trial(key, c)]
+        menus[str(key)] = tried
+        if tried != menu:
+            fail(f"observe (d): tier {key} tried {tried} of {menu}")
+    if "x" not in captured:
+        fail("observe (d): no int8 trial ran")
+    q, s = ck.int8_block_quantize_plain(captured["x"], *captured["args"],
+                                        **captured["kw"])
+    if not (torch.equal(q, captured["q"]) and torch.equal(
+            s.reshape(captured["s"].shape), captured["s"])):
+        fail("observe (d): B3 inside the tuned wire differs from its plain "
+             "version")
+    path = autotune.persist(tuner, "wire")
+    if not path or not os.path.exists(path):
+        fail(f"observe (d): the tuner cache was not written ({path})")
+    # what a warm tuner picks for every tier this run explored whole
+    expect = {}
+    for key in {k for k, _ in tuner._obs}:
+        menu = [c for c in ("fp32", "bf16", "int8")
+                if c != "int8" or key[1] * 4 >= tuner.min_int8_bytes]
+        if not any(tuner.needs_trial(key, c) for c in menu):
+            expect[key] = tuner.choose(key, key[1] * 4, itemsize=4)
+    return {"steps": steps, "losses": losses, "thresholds": thresholds,
+            "trials_per_step": trials, "frozen": pm.frozen,
+            "tiers": menus, "wire_batches": dict(fusion.wire_batches),
+            "b3_bitwise": True, "cache": os.path.basename(path)}, expect
+
+
+def _obs_second(hvd, model, tokens, labels, expect):
+    """(d), second half: a fresh world over the same cache."""
+    import torch
+
+    from horovod_tpu_torch.common import basics
+
+    fusion = basics.state().fusion
+    fusion.wire_tuner.trials = 1
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        named_parameters=model.named_parameters())
+    try:
+        for _ in range(2):
+            _step(opt, lambda: _loss(model, tokens, labels))
+    finally:
+        opt.remove_hooks()
+    if fusion.wire_trials:
+        fail(f"observe (d): the second optimizer took {fusion.wire_trials} "
+             "trials over a warm cache")
+    got = dict(fusion.wire_choices)
+    if any(got[k] != expect.get(k) for k in got) or not got:
+        fail(f"observe (d): second optimizer chose {got}, first {expect}")
+    return {str(k): v for k, v in got.items()}
+
+
+def _obs_stall(hvd):
+    """(e): a handle left unwaited warns and counts; the shutdown age
+    raises from the next tick."""
+    import logging
+    import torch
+
+    from horovod_tpu_torch.common import stall_inspector, telemetry
+    from horovod_tpu_torch.common.metrics import registry
+
+    messages = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    handler = _Keep(logging.WARNING)
+    stall_inspector.logger.addHandler(handler)
+    warn_s, shut_s = OBS_STALL_S
+    try:
+        left = hvd.allreduce_async(torch.ones(1024, device="cuda"),
+                                   name="observe.left_open")
+        time.sleep(warn_s + 0.05)
+        hvd.allreduce(torch.ones(4, device="cuda"), name="observe.other")
+        warned = any("observe.left_open" in m for m in messages)
+        pending = registry.snapshot().get("stall.pending", 0)
+        telemetry.device_step_tick(0)
+        time.sleep(shut_s - warn_s)
+        try:
+            telemetry.device_step_tick(1)
+            raised = None
+        except hvd.HorovodInternalError as e:
+            raised = str(e)
+        hvd.synchronize(left)
+    finally:
+        stall_inspector.logger.removeHandler(handler)
+    if not warned or pending < 1 or not raised or (
+            "observe.left_open" not in raised):
+        fail(f"observe (e): warned {warned}, stall.pending {pending}, "
+             f"escalation {raised!r}")
+    return {"warned": warned, "stall_pending": pending, "raised": raised}
+
+
+def phase_observe(gen, card):
+    """Phase 19: the timeline (a), the traced timeline (b), telemetry and
+    /metrics (c), the tuners (d) and the stall inspector (e) on GPT-2
+    medium at full width (phase 5's configuration), one model build, the
+    flash and B3 counters zeroed just before. Returns B3's launches and
+    the flash launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.common import autotune, telemetry
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="hvd-observe-")
+    quiet = dict(HOROVOD_TELEMETRY=None, HOROVOD_METRICS_PORT=None,
+                 HOROVOD_FUSION_WIRE=None, HOROVOD_AUTOTUNE=None,
+                 HOROVOD_TUNER_CACHE=None, HOROVOD_TIMELINE=None,
+                 HOROVOD_STALL_CHECK_TIME_SECONDS=None,
+                 HOROVOD_STALL_SHUTDOWN_TIME_SECONDS=None)
+    saved = _env(**quiet)
+    out = {"card": card}
+    try:
+        cfg = dataclasses.replace(TransformerConfig.gpt2_medium(),
+                                  remat=True)
+        model = Transformer(cfg, device="cuda", generator=gen)
+        tokens, labels = _lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+        _zero_flash()
+        ck.int8_block_quantize.launches = 0
+        # (a) and (b): the world of phase 5
+        hvd.init()
+        try:
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+                named_parameters=model.named_parameters())
+            try:
+                t0 = time.monotonic()
+                out["timeline"] = _obs_timeline(hvd, model, opt, tokens,
+                                                labels, tmp)
+                out["timeline"]["s"] = time.monotonic() - t0
+            finally:
+                opt.remove_hooks()
+            t0 = time.monotonic()
+            out["traced"] = _obs_traced(hvd, model, tokens, labels, tmp)
+            out["traced"]["s"] = time.monotonic() - t0
+        finally:
+            hvd.shutdown()
+        # (c) telemetry with the scrape server
+        port = _free_port()
+        _env(HOROVOD_TELEMETRY="1", HOROVOD_METRICS_PORT=str(port))
+        telemetry._reset_hub()
+        hvd.init()
+        try:
+            t0 = time.monotonic()
+            out["telemetry"] = _obs_telemetry(hvd, model, tokens, labels,
+                                              port)
+            out["telemetry"]["s"] = time.monotonic() - t0
+        finally:
+            hvd.shutdown()
+            _env(HOROVOD_TELEMETRY=None, HOROVOD_METRICS_PORT=None)
+            telemetry._reset_hub()  # the rest runs without a consumer
+        # (d) the tuners, then a second world over the same cache
+        _env(HOROVOD_FUSION_WIRE="auto", HOROVOD_AUTOTUNE="1",
+             HOROVOD_TUNER_CACHE=os.path.join(tmp, "tuners"), **OBS_TUNE)
+        autotune.reset_shared_tuners()
+        hvd.init()
+        try:
+            t0 = time.monotonic()
+            out["autotune"], expect = _obs_autotune(hvd, model, tokens,
+                                                    labels, tmp)
+        finally:
+            hvd.shutdown()
+        _env(HOROVOD_AUTOTUNE=None)
+        hvd.init()
+        try:
+            out["autotune"]["second_choices"] = _obs_second(
+                hvd, model, tokens, labels, expect)
+            out["autotune"]["s"] = time.monotonic() - t0
+        finally:
+            hvd.shutdown()
+        # (e) the stall inspector's ages
+        _env(HOROVOD_FUSION_WIRE=None, HOROVOD_TUNER_CACHE=None,
+             HOROVOD_STALL_CHECK_TIME_SECONDS=str(OBS_STALL_S[0]),
+             HOROVOD_STALL_SHUTDOWN_TIME_SECONDS=str(OBS_STALL_S[1]))
+        hvd.init()
+        try:
+            out["stall"] = _obs_stall(hvd)
+        finally:
+            hvd.shutdown()
+        launches = _read_flash()
+        b3 = ck.int8_block_quantize.launches
+        out["launches"] = {"int8_block_quantize": b3, "flash": launches[0],
+                           "flash_tc": launches[1]}
+        out["phase_s"] = time.monotonic() - t_phase
+        log("observe: " + json.dumps(out, sort_keys=True, default=str))
+        return b3, launches
+    finally:
+        _env(**{k: v for k, v in saved.items()})
+        for k in OBS_TUNE:
+            os.environ.pop(k, None)
+        telemetry._reset_hub()
+        autotune.reset_shared_tuners()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["17", "18"],
+    ap.add_argument("--only", choices=["17", "18", "19"],
                     help="build the kernels and run this phase alone")
     ap.add_argument("--log", help="also write every printed line here")
     ap.add_argument("--worker18", metavar="ARM",
@@ -5539,6 +6076,13 @@ def main() -> int:
         t0 = time.monotonic()
         phase_durability(card)
         log(f"durability phase: {time.monotonic() - t0:.2f} s")
+        return 0
+    if args.only == "19":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        t0 = time.monotonic()
+        phase_observe(gen, card)
+        log(f"observe phase: {time.monotonic() - t0:.2f} s")
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -5677,6 +6221,14 @@ def main() -> int:
     flash_runs.append(dur_flash)
     wire_launches["int8_block_quantize"] += dur_b3
     log(f"durability phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 19: observability and the tuners on phase 5's model
+    t0 = time.monotonic()
+    obs_b3, obs_flash = phase_observe(gen, card)
+    flash_runs.append(obs_flash)
+    wire_launches["int8_block_quantize"] += obs_b3
+    log(f"observe phase: {time.monotonic() - t0:.2f} s")
     flash_launches = {k: sum(r[0][k] for r in flash_runs)
                       for k in flash_runs[1][0]}
     flash_tc_launches = {k: sum(r[1][k] for r in flash_runs)

@@ -59,140 +59,221 @@ slices are ported:
 - serving: ``serve()`` answers HTTP ``POST /generate`` through a
   continuous batcher and an engine over a paged KV pool, and attention
   reads the pool through a hand-written CUDA kernel
-  (``ops/paged_attention.py``).
+  (``ops/paged_attention.py``), with request tracing (``traceparent``,
+  ``HOROVOD_TRACE``, ``GET /traces``);
+- observability and autotune: ``hvd.start_timeline(path,
+  mark_cycles=, traced=)``/``hvd.stop_timeline()`` (the eager
+  collectives' lifecycle timeline, or with ``traced=True`` a
+  ``torch.profiler`` session whose steps ``hvd.timeline_step()`` marks),
+  the flight recorder ``hvd.telemetry`` (``hvd.step_begin``/``step_end``,
+  ``HOROVOD_TELEMETRY``, ``HOROVOD_METRICS_PORT``: ``/metrics``,
+  ``/telemetry``, ``/traces``), the stall inspector, and the tuners
+  (``HOROVOD_AUTOTUNE``, ``HOROVOD_FUSION_WIRE=auto``,
+  ``HOROVOD_TUNER_CACHE``).
 
-It imports ``torch``, numpy and the standard library only.
+It imports ``torch``, numpy and the standard library only, and each
+public name only at its first use.
 """
 
 __version__ = "0.1.0"
 
-from .common.basics import (  # noqa: F401
-    HorovodInternalError,
-    HostsUpdatedInterrupt,
-    NotInitializedError,
-    add_process_set,
-    ccl_built,
-    cross_rank,
-    cross_size,
-    cuda_built,
-    ddl_built,
-    get_config,
-    get_process_set,
-    get_process_set_ids,
-    global_process_set,
-    gloo_built,
-    gloo_enabled,
-    init,
-    is_homogeneous,
-    is_initialized,
-    local_rank,
-    local_size,
-    mpi_built,
-    mpi_enabled,
-    mpi_threads_supported,
-    nccl_built,
-    rank,
-    remove_process_set,
-    rocm_built,
-    shutdown,
-    size,
-    topology,
-    xla_built,
-)
-from .common.guard import check as guard_check  # noqa: F401
-from .common.guard import status as guard_status  # noqa: F401
-from .common.process_sets import ProcessSet  # noqa: F401
-from .models import (  # noqa: F401
-    VGG16,
-    InceptionV3,
-    MNISTConvNet,
-    ResNet50,
-    ResNet101,
-    Transformer,
-    TransformerConfig,
-    ViT,
-    ViTConfig,
-    init_cache,
-)
-from .models.convert import params_from_flax  # noqa: F401
-from .ops.adasum import adasum_allreduce  # noqa: F401
-from .ops.compression import (  # noqa: F401
-    Compression,
-    Compressor,
-    HierarchicalInt8Compressor,
-    Int8BlockCompressor,
-    Int8Compressor,
-)
-from .ops.eager import (  # noqa: F401
-    allgather,
-    allgather_async,
-    allreduce,
-    allreduce_,
-    allreduce_async,
-    allreduce_async_,
-    alltoall,
-    alltoall_async,
-    barrier,
-    broadcast,
-    broadcast_,
-    broadcast_async,
-    broadcast_async_,
-    current_join_mask,
-    flush,
-    grouped_allgather,
-    grouped_allgather_async,
-    grouped_allreduce,
-    grouped_allreduce_async,
-    grouped_reducescatter,
-    grouped_reducescatter_async,
-    join,
-    join_ranks,
-    poll,
-    reducescatter,
-    reducescatter_async,
-    synchronize,
-)
-from .ops import overlap, traced  # noqa: F401
-from .ops.flash_attention import flash_attention  # noqa: F401
-from .ops.fused_xent import fused_linear_cross_entropy  # noqa: F401
-from .ops.overlap import (  # noqa: F401
-    bucketed_allreduce,
-    bucketed_reduce_scatter,
-    bucketed_shard_all_gather,
-    build_bucket_schedule,
-    overlap_boundary,
-)
-from .ops.reduction_ops import (  # noqa: F401
-    Adasum,
-    Average,
-    Max,
-    Min,
-    Product,
-    ReduceOp,
-    Sum,
-)
-from .optimizer import (  # noqa: F401
-    DistributedOptimizer,
-    allgather_object,
-    broadcast_object,
-    broadcast_optimizer_state,
-    broadcast_parameters,
-)
-from .sharded_optimizer import ShardedDistributedOptimizer  # noqa: F401
-from . import local_sgd, testing  # noqa: F401
-from . import checkpoint, data, elastic, preemption  # noqa: F401
-from .audit import audit, maybe_audit  # noqa: F401
-from .serving import (  # noqa: F401
-    ContinuousBatcher,
-    InferenceEngine,
-    KVCacheManager,
-    LatencyRecorder,
-    PagedKVCacheManager,
-    PagePoolExhausted,
-    Rejected,
-    ServeFrontend,
-    ServeHandle,
-    create_kv_manager,
-    serve,
-)
-from .sync_batch_norm import SyncBatchNorm  # noqa: F401
+# Every public name, by the module that defines it: imported at first
+# use (PEP 562), so importing the package imports no torch and
+# ``python -m horovod_tpu_torch.runner`` starts without it.
+_EXPORTS = {
+    ".common.basics": (
+        "HorovodInternalError", "HostsUpdatedInterrupt", "NotInitializedError",
+        "add_process_set", "ccl_built", "cross_rank", "cross_size",
+        "cuda_built", "ddl_built", "get_config", "get_process_set",
+        "get_process_set_ids", "global_process_set", "gloo_built",
+        "gloo_enabled", "init", "is_homogeneous", "is_initialized",
+        "local_rank", "local_size", "mpi_built", "mpi_enabled",
+        "mpi_threads_supported", "nccl_built", "rank", "remove_process_set",
+        "rocm_built", "shutdown", "size", "topology", "xla_built",
+    ),
+    ".common.guard": (
+        ("guard_check", "check"), ("guard_status", "status"),
+    ),
+    ".common.process_sets": (
+        "ProcessSet",
+    ),
+    ".models": (
+        "VGG16", "InceptionV3", "MNISTConvNet", "ResNet50", "ResNet101",
+        "Transformer", "TransformerConfig", "ViT", "ViTConfig", "init_cache",
+    ),
+    ".models.convert": (
+        "params_from_flax",
+    ),
+    ".ops.adasum": (
+        "adasum_allreduce",
+    ),
+    ".ops.compression": (
+        "Compression", "Compressor", "HierarchicalInt8Compressor",
+        "Int8BlockCompressor", "Int8Compressor",
+    ),
+    ".ops.eager": (
+        "allgather", "allgather_async", "allreduce", "allreduce_",
+        "allreduce_async", "allreduce_async_", "alltoall", "alltoall_async",
+        "barrier", "broadcast", "broadcast_", "broadcast_async",
+        "broadcast_async_", "current_join_mask", "flush", "grouped_allgather",
+        "grouped_allgather_async", "grouped_allreduce",
+        "grouped_allreduce_async", "grouped_reducescatter",
+        "grouped_reducescatter_async", "join", "join_ranks", "poll",
+        "reducescatter", "reducescatter_async", "synchronize",
+    ),
+    ".ops.flash_attention": (
+        "flash_attention",
+    ),
+    ".ops.fused_xent": (
+        "fused_linear_cross_entropy",
+    ),
+    ".ops.overlap": (
+        "bucketed_allreduce", "bucketed_reduce_scatter",
+        "bucketed_shard_all_gather", "build_bucket_schedule",
+        "overlap_boundary",
+    ),
+    ".ops.reduction_ops": (
+        "Adasum", "Average", "Max", "Min", "Product", "ReduceOp", "Sum",
+    ),
+    ".optimizer": (
+        "DistributedOptimizer", "allgather_object", "broadcast_object",
+        "broadcast_optimizer_state", "broadcast_parameters",
+    ),
+    ".sharded_optimizer": (
+        "ShardedDistributedOptimizer",
+    ),
+    ".serving": (
+        "ContinuousBatcher", "InferenceEngine", "KVCacheManager",
+        "LatencyRecorder", "PagedKVCacheManager", "PagePoolExhausted",
+        "Rejected", "ServeFrontend", "ServeHandle", "create_kv_manager",
+        "serve",
+    ),
+    ".sync_batch_norm": (
+        "SyncBatchNorm",
+    ),
+    ".common.telemetry": (
+        "step_begin", "step_end",
+    ),
+}
+_SUBMODULES = {
+    "overlap": ".ops.overlap",
+    "traced": ".ops.traced",
+    "local_sgd": ".local_sgd",
+    "testing": ".testing",
+    "checkpoint": ".checkpoint",
+    "data": ".data",
+    "elastic": ".elastic",
+    "preemption": ".preemption",
+    "telemetry": ".common.telemetry",
+}
+_WHERE = {(n if isinstance(n, str) else n[0]):
+          (mod, n if isinstance(n, str) else n[1])
+          for mod, names in _EXPORTS.items() for n in names}
+__all__ = sorted(_WHERE) + sorted(_SUBMODULES) + [
+    "audit", "maybe_audit", "start_timeline", "stop_timeline",
+    "timeline_step"]
+
+# the submodule audit.py shares the function's name: bound now, before any
+# import of the submodule could bind the name to the module (it imports
+# no torch)
+from .audit import audit, maybe_audit  # noqa: E402,F401
+
+
+def __getattr__(name: str):
+    """Import a public name, or a subpackage, at its first use."""
+    import importlib
+
+    if name in _WHERE:
+        mod, attr = _WHERE[name]
+        value = getattr(importlib.import_module(mod, __name__), attr)
+    elif name in _SUBMODULES:
+        value = importlib.import_module(_SUBMODULES[name], __name__)
+    elif not name.startswith("__"):
+        try:
+            value = importlib.import_module("." + name, __name__)
+        except ModuleNotFoundError as e:
+            if e.name != f"{__name__}.{name}":
+                raise
+            raise AttributeError(
+                f"module {__name__!r} has no attribute {name!r}") from None
+    else:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))
+
+
+def start_timeline(file_path: str, mark_cycles: bool = False,
+                   traced: bool = False) -> None:
+    """Start a timeline at run time (``horovod_tpu/__init__.py:185``).
+
+    ``traced=False``: the eager collectives' lifecycle timeline
+    (``common/timeline.py``: QUEUE, the op, the fusion buffer's copies,
+    CYCLE marks with ``mark_cycles``), attached to the fusion manager and
+    the telemetry hub. ``traced=True``: a ``torch.profiler`` session
+    (``common/traced_timeline.py``) whose steps :func:`timeline_step`
+    marks; :func:`stop_timeline` writes its chrome-trace JSON."""
+    from .common import basics as _basics
+    from .common import telemetry
+
+    st = _basics._require_init()
+    if traced:
+        from .common.traced_timeline import TracedTimeline
+
+        if st.traced_timeline is None or not st.traced_timeline.active:
+            st.traced_timeline = TracedTimeline(file_path)
+        st.traced_timeline.start()
+        return
+    from .common.timeline import Timeline
+
+    if st.timeline is None:
+        st.timeline = Timeline(file_path, mark_cycles=mark_cycles)
+        st.fusion.timeline = st.timeline
+        telemetry.hub().timeline = st.timeline
+    st.timeline.start()
+
+
+def stop_timeline() -> None:
+    """Stop the timelines and write their files."""
+    from .common import basics as _basics
+
+    st = _basics._require_init()
+    if st.traced_timeline is not None:
+        st.traced_timeline.stop()
+    if st.timeline is not None:
+        st.timeline.stop()
+
+
+def timeline_step(name: str = "step", step_num=None):
+    """A context manager marking one training step in the traced
+    timeline (a ``record_function`` range; nothing when no traced
+    timeline runs). When telemetry is on, the same boundary opens and
+    closes a flight-recorder record, so profiler steps and telemetry
+    steps share ids."""
+    import contextlib
+
+    from .common import basics as _basics
+    from .common import telemetry
+    from .common.traced_timeline import TracedTimeline
+
+    st = _basics._require_init()
+    if st.traced_timeline is None:
+        st.traced_timeline = TracedTimeline("horovod_timeline.json")
+    ctx = st.traced_timeline.step(name, step_num)
+    if not telemetry.auto_enabled():
+        return ctx
+
+    @contextlib.contextmanager
+    def _with_telemetry():
+        telemetry.hub().step_begin(step_num)
+        try:
+            with ctx:
+                yield
+        finally:
+            telemetry.hub().step_end()
+
+    return _with_telemetry()

@@ -31,11 +31,10 @@ import hashlib
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
-import torch
-
 from .common.logging import get_logger
 
+# torch and numpy are imported where they are used: the package binds
+# audit() at its own import, which imports no torch
 _log = get_logger("audit")
 
 _lock = threading.Lock()
@@ -114,12 +113,17 @@ def to_host(leaf: Any) -> Any:
     """A leaf as the digest reads it: a tensor detached, contiguous and
     on the host (a copy, so a later in-place step cannot change it), an
     array as it is, any other leaf unchanged."""
+    import torch
+
     if torch.is_tensor(leaf):
         return leaf.detach().contiguous().cpu().clone()
     return leaf
 
 
 def _leaf_meta(leaf: Any) -> Tuple[str, Tuple[int, ...]]:
+    import numpy as np
+    import torch
+
     if torch.is_tensor(leaf):
         return str(leaf.dtype), tuple(leaf.shape)
     if isinstance(leaf, np.ndarray):
@@ -128,6 +132,9 @@ def _leaf_meta(leaf: Any) -> Tuple[str, Tuple[int, ...]]:
 
 
 def _leaf_bytes(leaf: Any) -> bytes:
+    import numpy as np
+    import torch
+
     if torch.is_tensor(leaf):
         return leaf.reshape(-1).view(torch.uint8).numpy().tobytes()
     if isinstance(leaf, np.ndarray):

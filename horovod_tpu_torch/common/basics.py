@@ -30,6 +30,17 @@ versions rank 0 runs (``runner.rendezvous.check_version_consistency``).
 ``init(); shutdown(); init()`` works and binds no port
 again: the TCP store lives as long as the process, and each
 initialization meets under a ``PrefixStore`` of its own generation.
+
+``init()`` also attaches what the snapshot asks for, as the JAX
+package's does: the logger's level (``configure_from_init``), the
+metrics' JSON-lines sink (``HOROVOD_METRICS_FILE``), the eager timeline
+(``HOROVOD_TIMELINE``), the stall inspector (on unless
+``HOROVOD_STALL_CHECK_DISABLE``), the telemetry hub's knobs with the
+timeline and the inspector, the ``/metrics`` server
+(``HOROVOD_METRICS_PORT``) and the parameter manager
+(``HOROVOD_AUTOTUNE``); ``shutdown()`` detaches them, closes the
+timeline and dumps the flight recorder. With none of these variables
+set, ``init()`` starts no thread, opens no socket and writes no file.
 """
 
 from __future__ import annotations
@@ -81,6 +92,13 @@ class _GlobalState:
         # ops/traced.py's process groups by rank lists: (group, position,
         # size), made eagerly on first use, in the same order on every rank
         self.traced_groups: dict = {}
+        # observability (common/timeline.py, traced_timeline.py,
+        # stall_inspector.py, telemetry.py, autotune.py)
+        self.timeline = None
+        self.traced_timeline = None
+        self.stall_inspector = None
+        self.telemetry_server = None
+        self.parameter_manager = None
 
 
 _state = _GlobalState()
@@ -182,7 +200,9 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None, *,
                 dist.destroy_process_group()
             raise
         from ..ops.fusion import FusionManager
+        from . import autotune
 
+        autotune.start_world(autotune.topology_fingerprint(topology, dev))
         _state.config = cfg
         _state.topology = topology
         _state.process_set_table = table
@@ -190,10 +210,18 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None, *,
         _state.fusion = FusionManager(cfg.fusion_threshold_bytes,
                                       wire=cfg.fusion_wire,
                                       wire_block=cfg.fusion_wire_block,
-                                      wire_hier=cfg.fusion_wire_hier)
+                                      wire_hier=cfg.fusion_wire_hier,
+                                      wire_min_bytes=cfg.fusion_wire_min_bytes)
         _state.owns_group = owns
         _state.device = dev
         _state.traced_groups = {}
+        try:
+            _attach_observability(cfg)
+        except BaseException:
+            _detach_observability()
+            if owns:
+                dist.destroy_process_group()
+            raise
         _state.initialized = True
 
 
@@ -207,6 +235,7 @@ def shutdown() -> None:
             _state.fusion.flush()
             _state.fusion.wait_all()
         finally:
+            _detach_observability()
             if _state.owns_group and dist.is_initialized():
                 dist.destroy_process_group()
             _state.initialized = False
@@ -218,6 +247,83 @@ def shutdown() -> None:
             _state.owns_group = False
             _state.device = None
             _state.traced_groups = {}
+
+
+def _attach_observability(cfg: TrainConfig) -> None:
+    """What ``horovod_tpu/common/basics.py:159-207`` attaches at init,
+    each only when its variable asks for it (the stall inspector unless
+    disabled). The telemetry hub is process-wide and outlives
+    init/shutdown cycles: init refreshes its knobs and hands it the
+    current timeline and inspector."""
+    from . import telemetry as telemetry_mod
+    from .logging import configure_from_init
+    from .metrics import registry as _metrics
+
+    configure_from_init(cfg.log_level, cfg.log_timestamp)
+    _metrics.configure_export()  # HOROVOD_METRICS_FILE, if set
+    fusion = _state.fusion
+    # the registry outlives the world, the fusion counters do not: start
+    # the fusion.* gauges from this world's zeros, so the first step
+    # record's deltas are this world's
+    _metrics.update("fusion", fusion.stats())
+    if cfg.timeline:
+        from .timeline import Timeline
+
+        _state.timeline = Timeline(cfg.timeline,
+                                   mark_cycles=cfg.timeline_mark_cycles)
+        fusion.timeline = _state.timeline
+    if not cfg.stall_check_disable:
+        from .stall_inspector import StallInspector
+
+        _state.stall_inspector = StallInspector(
+            warning_seconds=cfg.stall_warning_seconds,
+            shutdown_seconds=cfg.stall_shutdown_seconds,
+            straggler_factor=cfg.straggler_factor,
+        )
+        fusion.stall_inspector = _state.stall_inspector
+    hub = telemetry_mod.hub()
+    hub.configure(capacity=cfg.telemetry_steps,
+                  flight_path=cfg.flight_recorder)
+    hub.timeline = _state.timeline
+    hub.stall_inspector = _state.stall_inspector
+    if cfg.metrics_port:
+        _state.telemetry_server = telemetry_mod.MetricsServer(
+            port=cfg.metrics_port)
+        _state.telemetry_server.start()
+    if cfg.autotune:
+        from .autotune import ParameterManager, agree_sample
+
+        dev = _state.device
+        _state.parameter_manager = ParameterManager.from_config(
+            cfg, agree=lambda b, s: agree_sample(b, s, dev))
+        fusion.parameter_manager = _state.parameter_manager
+
+
+def _detach_observability() -> None:
+    """``shutdown()``'s half (``basics.py:210-243``): close the
+    timelines, stop the server, detach the hub and dump its ring (a
+    clean teardown is a natural dump point; the ring survives)."""
+    from . import telemetry as telemetry_mod
+
+    if _state.timeline is not None:
+        _state.timeline.close()
+    if _state.traced_timeline is not None:
+        _state.traced_timeline.close()
+    if _state.telemetry_server is not None:
+        _state.telemetry_server.stop()
+    hub = telemetry_mod.hub()
+    hub.timeline = None
+    hub.stall_inspector = None
+    try:
+        hub.dump()
+    except OSError:
+        pass
+    _state.timeline = _state.traced_timeline = None
+    _state.stall_inspector = _state.telemetry_server = None
+    _state.parameter_manager = None
+    from .autotune import end_world
+
+    end_world()  # the next world's tuners start from the cache alone
 
 
 def is_initialized() -> bool:

@@ -18,27 +18,37 @@ package the same way:
   world's store, ``HOROVOD_GLOO_RENDEZVOUS_ADDR``/``_PORT``, the
   launcher's HTTP KV, ``HOROVOD_CONTROLLER``, ``HOROVOD_ELASTIC_EPOCH``,
   ``HOROVOD_SECRET_KEY``, ``HOROVOD_GLOO_TIMEOUT_SECONDS``,
-  ``HOROVOD_AUDIT_STEPS``), snapshotted at ``hvd.init()``
-  as the JAX package does;
+  ``HOROVOD_AUDIT_STEPS``, and the observability and autotune knobs:
+  ``HOROVOD_LOG_LEVEL``/``_TIMESTAMP``, ``HOROVOD_TIMELINE``/
+  ``_MARK_CYCLES``, ``HOROVOD_TELEMETRY_STEPS``,
+  ``HOROVOD_FLIGHT_RECORDER``, ``HOROVOD_METRICS_PORT``,
+  ``HOROVOD_TRACE``/``_SAMPLE``/``_SPANS``, ``HOROVOD_STALL_CHECK_*``,
+  ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS``, ``HOROVOD_STRAGGLER_FACTOR``,
+  ``HOROVOD_STRAGGLER_QUARANTINE_POLLS``, ``HOROVOD_AUTOTUNE*``,
+  ``HOROVOD_TUNER_CACHE`` and ``HOROVOD_FUSION_WIRE_MIN_BYTES``),
+  snapshotted at ``hvd.init()`` as the JAX package does;
 * :class:`ServeConfig`, the serving part (``HOROVOD_SERVE_*``), read by
   :func:`live_config` when a serving object is built (serving needs no
   init step).
 
-Knobs of planes not ported yet (timeline, KV transfer, the fleet
-router) come with those planes. ``HOROVOD_FUSION_WIRE=auto`` raises: it
-needs the wire tuner of ROADMAP A12. ``HOROVOD_CYCLE_TIME`` is parsed
-and kept, not acted on: with one process a rank, a flush driven by the
-clock would let ranks cut different batches, which needs the
-coordinator's negotiation of ready tensors (ROADMAP A3).
+Knobs of planes not ported yet (KV transfer, the fleet router) come
+with those planes. ``HOROVOD_FUSION_WIRE=auto`` picks each fused
+batch's wire by the wire tuner (``common/autotune.py``).
+``HOROVOD_CYCLE_TIME`` is parsed and kept, not acted on: with one
+process a rank, a flush driven by the clock would let ranks cut
+different batches, which needs the coordinator's negotiation of ready
+tensors (ROADMAP A3); ``HOROVOD_AUTOTUNE`` records it as the JAX
+parameter manager does and tunes the threshold only.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 # Default fusion threshold matches the reference: 64 MB
 # (ref: horovod/common/fusion_buffer_manager.cc).
@@ -57,12 +67,12 @@ DEFAULT_HIERARCHICAL = "auto"
 DEFAULT_OVERLAP_BUCKETS = 4
 DEFAULT_OVERLAP_MIN_BYTES = 1 << 20
 # ShardedDistributedOptimizer(zero_stage=None, wire=None): the sharding
-# stage and the wire of its exchange legs (fp32, bf16, int8; auto needs
-# the wire tuner of ROADMAP A12)
+# stage and the wire of its exchange legs (fp32, bf16, int8, or auto:
+# the wire tuner's choice a bucket)
 DEFAULT_ZERO_STAGE = 1
 DEFAULT_ZERO_WIRE = "fp32"
 # The expert wire (parallel/moe.py): the dispatch/return wire (fp32,
-# bf16, int8; auto needs the wire tuner of ROADMAP A12), the ICI legs'
+# bf16, int8, or auto: the shared wire tuner's choice), the intra legs'
 # wire under a two-level split, the int8 wire's elements a block scale,
 # and the capacity factor of the static per-destination buffer
 DEFAULT_MOE_WIRE = "fp32"
@@ -85,6 +95,16 @@ DEFAULT_RETRY_CIRCUIT_COOLDOWN_S = 30.0
 DEFAULT_ELASTIC_DISCOVERY_INTERVAL = 1.0
 DEFAULT_AUDIT_STEPS = 0
 DEFAULT_GLOO_TIMEOUT_SECONDS = 30.0
+# the fused wire tuner's payload floor under which int8 is never tried
+DEFAULT_FUSION_WIRE_MIN_BYTES = 64 * 1024
+# the stall inspector: the warning age, and the age past which a pending
+# entry or a silent rank raises HorovodInternalError (0: never)
+DEFAULT_STALL_WARNING_SECONDS = 60.0
+DEFAULT_STALL_SHUTDOWN_SECONDS = 0.0
+# the driver quarantines a host whose rank stays a straggler this many
+# consecutive fresh heartbeats (0: observe only), as the JAX driver does
+DEFAULT_STRAGGLER_QUARANTINE_POLLS = 3
+DEFAULT_STRAGGLER_FACTOR = 3.0
 
 # Serving plane: decode-slot count (concurrent sequences), admissions per
 # decode step, default per-request token budget/deadline, and the
@@ -160,11 +180,6 @@ def _env_opt_int(name: str) -> Optional[int]:
 def _fusion_wire() -> str:
     wire = _env_choice("HOROVOD_FUSION_WIRE", DEFAULT_FUSION_WIRE,
                        ("fp32", "bf16", "int8", "auto"))
-    if wire == "auto":
-        raise NotImplementedError(
-            "HOROVOD_FUSION_WIRE=auto needs the wire tuner, not ported "
-            "yet (ROADMAP A12's autotune); use fp32, bf16 or int8"
-        )
     return wire
 
 
@@ -194,7 +209,8 @@ class TrainConfig:
     # poll/wait/step, which every rank reaches after the same enqueues;
     # a clock would need the negotiation of ready tensors (ROADMAP A3)
     cycle_time_ms: float = DEFAULT_CYCLE_TIME_MS
-    # the fused buffer's wire when a call names none: fp32, bf16 or int8
+    # the fused buffer's wire when a call names none: fp32, bf16, int8 or
+    # auto (each batch's wire from the wire tuner)
     fusion_wire: str = DEFAULT_FUSION_WIRE
     fusion_wire_block: int = DEFAULT_FUSION_WIRE_BLOCK
     # an int8 wire places bf16 on the intra hops and int8 on the inter
@@ -261,6 +277,40 @@ class TrainConfig:
     gloo_timeout_seconds: float = DEFAULT_GLOO_TIMEOUT_SECONDS
     # hvd.maybe_audit's cadence in steps (0: never)
     audit_steps: int = DEFAULT_AUDIT_STEPS
+    # the wire tuner's int8 payload floor (HOROVOD_FUSION_WIRE=auto)
+    fusion_wire_min_bytes: int = DEFAULT_FUSION_WIRE_MIN_BYTES
+    # autotune (common/autotune.py): the parameter manager's switch, log
+    # and windows, and the tuners' persistent state directory
+    autotune: bool = False
+    autotune_log: Optional[str] = None
+    tuner_cache: Optional[str] = None
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
+    autotune_bayes_opt_max_samples: int = 20
+    autotune_gaussian_process_noise: float = 0.8
+    # the eager timeline (common/timeline.py): its path at init, CYCLE marks
+    timeline: Optional[str] = None
+    timeline_mark_cycles: bool = False
+    # telemetry (common/telemetry.py): the ring's steps, the flight
+    # recorder's dump path, the scrape port (0: no server), and the
+    # straggler factor of the stall inspector
+    telemetry_steps: int = 256
+    flight_recorder: Optional[str] = None
+    metrics_port: int = 0
+    straggler_factor: float = DEFAULT_STRAGGLER_FACTOR
+    # request tracing (common/tracing.py)
+    trace: bool = False
+    trace_sample: float = 1.0
+    trace_spans: int = 2048
+    # the stall inspector (common/stall_inspector.py)
+    stall_check_disable: bool = False
+    stall_warning_seconds: float = DEFAULT_STALL_WARNING_SECONDS
+    stall_shutdown_seconds: float = DEFAULT_STALL_SHUTDOWN_SECONDS
+    # the elastic driver's straggler quarantine (0: observe only)
+    straggler_quarantine_polls: int = DEFAULT_STRAGGLER_QUARANTINE_POLLS
+    # the logger's level and timestamp prefix, applied at init
+    log_level: str = "warning"
+    log_timestamp: bool = True
 
     @staticmethod
     def from_env() -> "TrainConfig":
@@ -328,6 +378,43 @@ class TrainConfig:
                 "HOROVOD_GLOO_TIMEOUT_SECONDS", DEFAULT_GLOO_TIMEOUT_SECONDS
             ),
             audit_steps=_env_int("HOROVOD_AUDIT_STEPS", DEFAULT_AUDIT_STEPS),
+            fusion_wire_min_bytes=_env_int(
+                "HOROVOD_FUSION_WIRE_MIN_BYTES",
+                DEFAULT_FUSION_WIRE_MIN_BYTES),
+            autotune=_env_bool("HOROVOD_AUTOTUNE"),
+            autotune_log=os.environ.get("HOROVOD_AUTOTUNE_LOG") or None,
+            tuner_cache=os.environ.get("HOROVOD_TUNER_CACHE") or None,
+            autotune_warmup_samples=_env_int(
+                "HOROVOD_AUTOTUNE_WARMUP_SAMPLES", 3),
+            autotune_steps_per_sample=_env_int(
+                "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", 10),
+            autotune_bayes_opt_max_samples=_env_int(
+                "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", 20),
+            autotune_gaussian_process_noise=_env_float(
+                "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE", 0.8),
+            timeline=os.environ.get("HOROVOD_TIMELINE") or None,
+            timeline_mark_cycles=_env_bool("HOROVOD_TIMELINE_MARK_CYCLES"),
+            telemetry_steps=_env_int("HOROVOD_TELEMETRY_STEPS", 256),
+            flight_recorder=os.environ.get("HOROVOD_FLIGHT_RECORDER") or None,
+            metrics_port=_env_int("HOROVOD_METRICS_PORT", 0),
+            straggler_factor=_env_float("HOROVOD_STRAGGLER_FACTOR",
+                                        DEFAULT_STRAGGLER_FACTOR),
+            trace=_env_bool("HOROVOD_TRACE"),
+            trace_sample=_env_float("HOROVOD_TRACE_SAMPLE", 1.0),
+            trace_spans=_env_int("HOROVOD_TRACE_SPANS", 2048),
+            stall_check_disable=_env_bool("HOROVOD_STALL_CHECK_DISABLE"),
+            stall_warning_seconds=_env_float(
+                "HOROVOD_STALL_CHECK_TIME_SECONDS",
+                DEFAULT_STALL_WARNING_SECONDS),
+            stall_shutdown_seconds=_env_float(
+                "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS",
+                DEFAULT_STALL_SHUTDOWN_SECONDS),
+            straggler_quarantine_polls=_env_int(
+                "HOROVOD_STRAGGLER_QUARANTINE_POLLS",
+                DEFAULT_STRAGGLER_QUARANTINE_POLLS),
+            log_level=os.environ.get("HOROVOD_LOG_LEVEL",
+                                     "warning").lower(),
+            log_timestamp=_env_bool("HOROVOD_LOG_TIMESTAMP", True),
         )
 
 
@@ -406,6 +493,8 @@ def resolve_device(device=None) -> torch.device:
     is the local rank's card, ``cuda:{local_rank % device_count}``: each
     rank of a host owns one card, as the JAX launcher's per-slot process
     owns its device; outside a launcher it is the current device."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

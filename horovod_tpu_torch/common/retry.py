@@ -16,9 +16,9 @@ that package). One :class:`RetryPolicy` a call site, configured by the
   :class:`CircuitOpenError` for a cooldown window.
 
 Local SGD's round driver (``local_sgd.run_round``) retries each sync
-round whole under a policy of site ``local_sgd.sync``. The JAX module
-also tags the active trace span with each retry; the port's span plane
-is not ported (ROADMAP A12), so this copy does not. Importable before
+round whole under a policy of site ``local_sgd.sync``. Each retry
+annotates the active trace span (``common/tracing.py``) with its site,
+attempt and backoff, as the JAX module does. Importable before
 ``hvd.init()``: :meth:`RetryPolicy.from_env` reads the environment.
 """
 
@@ -335,6 +335,13 @@ class RetryPolicy:
                     "%s: attempt %d/%d failed (%s: %s); retrying in "
                     "%.0fms", self.site, attempt, self.attempts,
                     type(e).__name__, e, delay * 1e3,
+                )
+                # pin this retry to the span it runs under (a thread-local
+                # read when the request is untraced)
+                from . import tracing as _tracing
+
+                _tracing.annotate(
+                    f"retry:{self.site}#{attempt}@{delay * 1e3:.0f}ms"
                 )
                 self._sleep(delay)
             else:

@@ -15,16 +15,20 @@ compares the gang's published parameter digests (``audit.py``) and
 restarts the gang on a divergence, quarantining the divergent hosts
 when the capacity allows.
 
+``_poll_heartbeats`` relays the gang's heartbeats, with the flight
+recorder's ``{step, step_ms_p50, last_step_ts}`` beside them, into the
+driver's :class:`~..common.stall_inspector.StallInspector` once an
+interval: silence past ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS`` escalates
+to a gang restart, and ``_maybe_quarantine`` blacklists the host of a
+rank flagged a straggler for ``HOROVOD_STRAGGLER_QUARANTINE_POLLS``
+consecutive fresh heartbeats (default 3, as in the JAX driver; 0
+observes only) and restarts the gang without it, unless that leaves
+less than ``min_np``. ``driver.quarantined_hosts`` counts them.
+
 What waits for other items, and raises when a variable asks for it:
 
-* the stall inspector's half: ``_poll_heartbeats``' escalation, the
-  straggler quarantine (``HOROVOD_STRAGGLER_QUARANTINE_POLLS``), the
-  rebalance (``HOROVOD_REBALANCE``) and the expert-load ledger (ROADMAP
-  A12). The JAX package quarantines by default
-  (``HOROVOD_STRAGGLER_QUARANTINE_POLLS`` 3); the port reads the
-  heartbeats (``driver.heartbeat_ranks``) and does not act on them
-  until the inspector lands, so that default is not acted on yet, and
-  setting the variable raises;
+* the straggler rebalance (``HOROVOD_REBALANCE``) and the expert-load
+  ledger (ROADMAP A12's remainder);
 * warm standby (``HOROVOD_WARM_STANDBY`` > 0, ROADMAP A16), the
   serve-capacity scale-up (A15) and the schedule-divergence audit
   (A16's ``sched_audit``).
@@ -63,13 +67,9 @@ def check_deferred_knobs(env: Optional[dict] = None) -> None:
     if env.get("HOROVOD_REBALANCE", "").strip().lower() in (
             "1", "true", "yes", "on"):
         raise NotImplementedError(
-            "HOROVOD_REBALANCE: the straggler rebalance needs the stall "
-            "inspector, not ported yet (ROADMAP A12)")
-    if "HOROVOD_STRAGGLER_QUARANTINE_POLLS" in env:
-        raise NotImplementedError(
-            "HOROVOD_STRAGGLER_QUARANTINE_POLLS: the straggler quarantine "
-            "needs the stall inspector, not ported yet (ROADMAP A12); the "
-            "port's driver does not quarantine stragglers")
+            "HOROVOD_REBALANCE: the straggler rebalance and the expert-load "
+            "ledger are not ported yet (ROADMAP A12's remainder); the "
+            "driver quarantines stragglers instead")
 
 
 class SlotAssignment:
@@ -109,9 +109,24 @@ class ElasticDriver:
         ssh_port: Optional[int] = None,
         verbose: bool = False,
     ) -> None:
-        from ..common.config import DEFAULT_ELASTIC_DISCOVERY_INTERVAL, _env_float
+        from ..common.config import (
+            DEFAULT_ELASTIC_DISCOVERY_INTERVAL,
+            TrainConfig,
+            _env_float,
+        )
+        from ..common.stall_inspector import StallInspector
 
         check_deferred_knobs()
+        cfg = TrainConfig.from_env()
+        # the gang's heartbeats and straggler ledger (the reference's
+        # "ranks absent" report, rebuilt on the rendezvous KV)
+        self.stall_inspector = StallInspector(
+            warning_seconds=cfg.stall_warning_seconds,
+            shutdown_seconds=cfg.stall_shutdown_seconds,
+            straggler_factor=cfg.straggler_factor,
+        )
+        self._quarantine_polls = cfg.straggler_quarantine_polls
+        self._last_stragglers: tuple = ()
         if placement == "per-host":
             raise ValueError(
                 "--placement per-host: torch has no process that drives "
@@ -201,6 +216,7 @@ class ElasticDriver:
         server = self._rendezvous()
         from ..runner.rendezvous import AUDIT_SCOPE, HEARTBEAT_SCOPE
 
+        self.stall_inspector.reset_heartbeats()
         server.store.drop_scope(HEARTBEAT_SCOPE)
         server.store.drop_scope(AUDIT_SCOPE)
         self._last_audit_step = None
@@ -333,8 +349,8 @@ class ElasticDriver:
         last_refresh = 0.0
         while not self._stop.is_set():
             now = time.monotonic()
-            self._poll_heartbeats(now)
-            restart_reason = self._poll_audit(now)
+            restart_reason = (self._poll_heartbeats(now)
+                              or self._poll_audit(now))
             if restart_reason:
                 self._terminate_gang()
                 if not self._reset(reason=restart_reason):
@@ -368,24 +384,77 @@ class ElasticDriver:
         self._terminate_gang()
         return 0
 
-    def _poll_heartbeats(self, now: float) -> None:
-        """Read the gang's heartbeats into ``driver.heartbeat_ranks`` and
-        ``driver.heartbeat_age_max_s``, once an interval. Observation
-        only: acting on silence is the stall inspector's (ROADMAP A12)."""
+    def _poll_heartbeats(self, now: float) -> Optional[str]:
+        """Relay the gang's heartbeats into the stall inspector, once
+        an interval (``driver.py:657``), and publish
+        ``driver.heartbeat_ranks``/``_age_max_s``. Returns a restart
+        reason when the gang should be torn down: the inspector
+        escalated past ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS``, or a
+        straggler's host was quarantined; None while the gang looks
+        healthy."""
         if self._server is None or now - self._last_hb_poll < self._interval:
-            return
+            return None
         self._last_hb_poll = now
+        from ..common.basics import HorovodInternalError
         from ..common.metrics import registry as _metrics
-        from ..runner.rendezvous import read_heartbeats
+        from ..runner.rendezvous import read_heartbeat_stats
 
         try:
-            beats = read_heartbeats(self._server.store)
-        except Exception:  # noqa: BLE001 - observation only
-            return
+            beats = read_heartbeat_stats(self._server.store)
+        except Exception:  # noqa: BLE001 - the next poll retries
+            _log.debug("heartbeat poll failed", exc_info=True)
+            return None
         _metrics.gauge("driver.heartbeat_ranks", len(beats))
         if beats:
             _metrics.gauge("driver.heartbeat_age_max_s",
-                           max(time.time() - ts for ts in beats.values()))
+                           max(time.time() - b["ts"] for b in beats.values()))
+        deferred_max = 0.0
+        for rank, payload in beats.items():
+            self.stall_inspector.record_heartbeat(
+                rank, payload["ts"], step=payload.get("step"),
+                step_ms_p50=payload.get("step_ms_p50"),
+                last_step_ts=payload.get("last_step_ts"))
+            deferred_max = max(deferred_max, float(
+                payload.get("local_sgd_rounds_deferred", 0.0)))
+        if deferred_max > 0.0:
+            _metrics.gauge("driver.local_sgd.rounds_deferred", deferred_max)
+        try:
+            self.stall_inspector.check()  # publishes stall.*
+        except HorovodInternalError as e:
+            # silence past the shutdown age is a worker failure
+            _log.error("stall escalation: %s", e)
+            return "worker heartbeat silence"
+        stragglers = tuple(self.stall_inspector.straggler_ranks())
+        if stragglers != self._last_stragglers:
+            if stragglers:
+                _log.warning("straggler ranks (slow, not silent): %s",
+                             ",".join(map(str, stragglers)))
+            elif self._last_stragglers:
+                _log.info("straggler ranks recovered")
+            self._last_stragglers = stragglers
+        return self._maybe_quarantine()
+
+    def _maybe_quarantine(self) -> Optional[str]:
+        """Blacklist the hosts of ranks flagged a straggler for
+        ``HOROVOD_STRAGGLER_QUARANTINE_POLLS`` consecutive fresh
+        heartbeats and return a restart reason (``driver.py:918``);
+        None when nothing qualifies or the capacity guard keeps them."""
+        if self._quarantine_polls <= 0:
+            return None
+        ranks = self.stall_inspector.quarantine_candidates(
+            self._quarantine_polls)
+        if not ranks:
+            return None
+        hosts = self._hosts_of_ranks(ranks)
+        if not hosts or not self._try_blacklist(hosts,
+                                                "straggler quarantine"):
+            return None
+        _log.warning("quarantining straggler host(s) %s (ranks %s flagged "
+                     "for %d consecutive polls); restarting gang without "
+                     "them", ",".join(hosts), ",".join(map(str, ranks)),
+                     self._quarantine_polls)
+        return (f"straggler quarantine: hosts {','.join(hosts)} "
+                f"(ranks {','.join(map(str, ranks))})")
 
     def _hosts_of_ranks(self, ranks) -> List[str]:
         with self._lock:

@@ -18,8 +18,11 @@ client and local SGD's per-gang state, then, under the elastic driver,
 starts the notification endpoint, registers it under
 ``workers.<epoch>/<process id>``, publishes the restart time
 (``elastic.restart_ms``) and stamps ``heartbeat/<rank>`` every 10 s
-(chaos site ``heartbeat``). The JAX worker's rebalance and expert-load
-channels wait for the driver's self-healing (ROADMAP A12).
+(chaos site ``heartbeat``), the flight recorder's ``{step, step_ms_p50,
+last_step_ts}`` beside the stamp (``telemetry.heartbeat_stats()``, empty
+before the first recorded step), which the driver's stall inspector
+judges stragglers by. The JAX worker's rebalance and expert-load
+channels wait with the rest of ROADMAP A12's remainder.
 """
 
 from __future__ import annotations
@@ -94,6 +97,7 @@ class WorkerNotificationManager:
             self._hb_stop = stop
 
             def _beat():
+                from ..common import telemetry as _telemetry
                 from ..testing import chaos as _chaos
 
                 while not stop.is_set():
@@ -101,7 +105,9 @@ class WorkerNotificationManager:
                         # ``heartbeat`` site: a late or lost stamp reads
                         # as one late beat, never a dead thread
                         _chaos.inject("heartbeat")
-                        _rdv.put_heartbeat(client, rank)
+                        _rdv.put_heartbeat(
+                            client, rank,
+                            stats=_telemetry.heartbeat_stats())
                     except Exception:  # noqa: BLE001 - the job is ending
                         pass
                     stop.wait(HEARTBEAT_INTERVAL_S)

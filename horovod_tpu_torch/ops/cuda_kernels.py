@@ -28,8 +28,10 @@ docstring gives for its own model, the reference's
 Each has a ``*_plain`` version in plain PyTorch computing the same
 function. A wrapper takes the plain version only for a tensor on the
 CPU; a CUDA tensor launches the kernel or raises. Every launch adds one
-to the wrapper's ``launches``. :func:`int8_block_dequantize` is plain
-PyTorch on every device, as the JAX function is plain jnp.
+to the wrapper's ``launches``, on the function this module defined even
+where a caller has rebound the module's name to wrap it.
+:func:`int8_block_dequantize` is plain PyTorch on every device, as the
+JAX function is plain jnp.
 
 A ctypes call is opaque to ``torch.compile``, so each kernel is also a
 ``torch.library`` custom operator in the port's namespace ``hvd_torch``
@@ -212,7 +214,7 @@ def scale_cast(x: torch.Tensor, scale, out_dtype=None) -> torch.Tensor:
                              DTYPE_CODES[out_dtype], xf.numel(),
                              *_device_args(x))
     _raise_on(err, lib, "scale_cast")
-    scale_cast.launches += 1
+    _count("scale_cast")
     return out
 
 
@@ -257,7 +259,7 @@ def int8_quantize(x: torch.Tensor, seed=0, stream=0):
                                 scale.data_ptr(), q.data_ptr(), _u32(seed),
                                 _u32(stream), *_device_args(x))
     _raise_on(err, lib, "int8_quantize")
-    int8_quantize.launches += 1
+    _count("int8_quantize")
     return q, scale
 
 
@@ -351,7 +353,7 @@ def int8_block_quantize(x: torch.Tensor, block_size: int = 512, seed=0,
         *_device_args(x),
     )
     _raise_on(err, lib, "int8_block_quantize")
-    int8_block_quantize.launches += 1
+    _count("int8_block_quantize")
     return q, (scales if rows else scales.reshape(nb))
 
 
@@ -410,7 +412,7 @@ def adasum_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                               partials.data_ptr(), out.data_ptr(),
                               *_device_args(a))
     _raise_on(err, lib, "adasum_dots")
-    adasum_dots.launches += 1
+    _count("adasum_dots")
     return out
 
 
@@ -452,7 +454,7 @@ def adasum_apply(a: torch.Tensor, b: torch.Tensor,
                                out.data_ptr(), DTYPE_CODES[a.dtype],
                                af.numel(), *_device_args(a))
     _raise_on(err, lib, "adasum_apply")
-    adasum_apply.launches += 1
+    _count("adasum_apply")
     return out
 
 
@@ -471,6 +473,14 @@ def adasum_pair(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 KERNELS = (scale_cast, int8_quantize, int8_block_quantize, adasum_dots,
            adasum_apply)
+_BY_NAME = {k.__name__: k for k in KERNELS}
+
+
+def _count(name: str) -> None:
+    """One launch of kernel ``name``, counted on the wrapper as this
+    module defined it (``KERNELS``), not through the module's attribute,
+    which a capture may rebind."""
+    _BY_NAME[name].launches += 1
 
 
 # ------------------------------------------------------- custom operators

@@ -114,6 +114,53 @@ continues the stream instead of replaying it. A bare ``hvd.allreduce``
 takes a per-dispatch counter of this manager, which starts at 0 in
 every ``init()``: its stream is the process's, not the job's. Left for
 ROADMAP A3: the exact and bucket executor tiers.
+
+**Cycles and observability** (``horovod_tpu/ops/fusion.py:543-720``).
+A cycle is a :meth:`FusionManager.flush` that finds work (pending
+entries, or batches dispatched since the last cycle); the port's fusion
+ticks at poll/wait/step/flush, never by the clock. The manager feeds:
+
+- the timeline (``common/timeline.py``, while one is attached):
+  ``QUEUE`` from enqueue to the batch's dispatch, the op phase around
+  the dispatch, ``MEMCPY_IN_FUSION_BUFFER`` around the pack and
+  ``MEMCPY_OUT_FUSION_BUFFER`` around the unpack of a batch of more than
+  one tensor, a ``CYCLE`` mark a cycle and the per-cycle counters
+  (``fusion.pad_bytes``, ``fusion.dispatches``,
+  ``fusion.wire_bytes_saved``, ``fusion.wire_format``). While a
+  timeline is active each batch is waited on and the card synchronized
+  once, for its ``<OP>_DEVICE`` span: the JAX package's rule, a cost
+  only a watched run pays;
+- the stall inspector: ``record_enqueue`` at enqueue,
+  ``record_complete`` when the handle's output is made, ``check()``
+  once a cycle (dict operations, no device read, no lock held across a
+  launch);
+- the metrics registry (``fusion.*``, ``alltoall.*``) once a cycle;
+- the parameter manager (``HOROVOD_AUTOTUNE``): each cycle adds its
+  useful bytes and its seconds, from its first enqueue to its end, to
+  the step's; :meth:`FusionManager.end_step`, called at each step of a
+  world ``DistributedOptimizer``, hands the step to the manager as one
+  record and applies its threshold. At a sample's boundary the manager
+  synchronizes the card and takes the world's maximum
+  (``autotune.agree_sample``). Steps, not cycles: every rank takes the
+  same steps, while a process set's batches add cycles on its members
+  only, so every rank proposes, and applies, the same threshold at the
+  same step. An eager loop with no such optimizer closes no sample.
+
+**The tuned wire** (``HOROVOD_FUSION_WIRE=auto``, ``fusion.py:883-1030``):
+a Sum or Average batch of floating payloads takes its wire at dispatch
+from the :class:`~..common.autotune.WireTuner` of its bucket tier
+(``("allreduce", 2**ceil(log2(elems)), dtype)``, per hop on the
+two-level route, the intra hop choosing between fp32 and bf16 only; a
+process set's batches key by its ranks too, ``autotune.group_key``). A
+dispatch whose (tier, wire) still needs trials is a trial: the manager
+waits for the batches in flight and synchronizes the card, dispatches,
+waits for the batch and synchronizes again, takes the maximum of the
+seconds over the batch's group (one small CPU collective), and records
+useful bytes over those seconds. Every rank of the group so records the
+same numbers under a key only that group's batches use, and makes the
+same choices; the tuner starts from the world's agreed state
+(``autotune.adopt``). A residual asks for int8, and anything the int8
+wire cannot take rides fp32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -121,14 +168,16 @@ from __future__ import annotations
 import dataclasses
 import math
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-from ..common import basics
+from ..common import autotune, basics
 from ..common import topology as topo_mod
+from ..common.logging import get_logger
 from ..common.process_sets import ProcessSet
 from . import int8_wire
 from ._collectives import gather_into, scatter_reduce_into
@@ -136,6 +185,8 @@ from .adasum import adasum_allreduce
 from .int8_wire import WIRE_RANGES
 from .traced import _exchange, _mine
 from .reduction_ops import Adasum, Average, Max, Min, Product, ReduceOp, Sum
+
+_log = get_logger("fusion")
 
 _DIST_OPS = {
     Average: dist.ReduceOp.SUM,
@@ -311,6 +362,22 @@ def _unpack(flat: torch.Tensor, entries: List[_Entry]) -> List[torch.Tensor]:
     return out
 
 
+def _memcpy(tl, entries: List[_Entry], phase: str, fn):
+    """``fn()`` inside the timeline's ``phase`` for a batch of more
+    than one tensor (the fusion buffer's copy in or out)."""
+    if tl is None or len(entries) < 2:
+        return fn()
+    for e in entries:
+        tl.begin(e.name, phase)
+    out = fn()
+    for e in entries:
+        tl.end(e.name, phase)
+    return out
+
+
+_IN, _OUT = "MEMCPY_IN_FUSION_BUFFER", "MEMCPY_OUT_FUSION_BUFFER"
+
+
 def _rows(n_rows: int, n: int, j: int) -> Tuple[int, int]:
     """(offset, count) of rank j's rows when ``n_rows`` rows scatter over
     n ranks, the earlier ranks taking one extra row."""
@@ -371,8 +438,9 @@ class Handle:
     batches differently on different ranks, so the port ticks at these
     calls, which every rank reaches after the same enqueues."""
 
-    def __init__(self, fusion: "FusionManager"):
+    def __init__(self, fusion: "FusionManager", name: str = ""):
         self._fusion = fusion
+        self._name = name  # the stall inspector's key
         self._batch: Optional[_Batch] = None
         self._index = 0  # the entry's place in its batch
 
@@ -386,6 +454,9 @@ class Handle:
             self._fusion.flush()
         out = self._batch.output(self._index)
         self._fusion._forget(self._batch)
+        insp = self._fusion.stall_inspector
+        if insp is not None:
+            insp.record_complete(self._name)
         return out
 
     def finite(self) -> Optional[torch.Tensor]:
@@ -397,6 +468,16 @@ class Handle:
 
 
 WIRES = ("fp32", "bf16", "int8")
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).rpartition(".")[2]
+
+
+def _tier(elems: int) -> int:
+    """A batch's bucket tier for the wire tuner's key: its element
+    count rounded up to a power of two."""
+    return 1 << max(int(elems) - 1, 0).bit_length()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -415,10 +496,11 @@ class FusionManager:
     """Pending entries by fusion key, cut into batches by bytes."""
 
     def __init__(self, threshold_bytes: int, wire: str = "fp32",
-                 wire_block: int = 512, wire_hier: bool = False):
-        if wire not in WIRES:
-            raise ValueError(f"fusion wire must be one of {WIRES}, got "
-                             f"{wire!r}")
+                 wire_block: int = 512, wire_hier: bool = False,
+                 wire_min_bytes: int = 64 * 1024):
+        if wire not in WIRES + ("auto",):
+            raise ValueError(f"fusion wire must be one of {WIRES} or auto, "
+                             f"got {wire!r}")
         if int(wire_block) < 1:
             raise ValueError(f"wire block must be >= 1, got {wire_block}")
         self.threshold_bytes = int(threshold_bytes)
@@ -447,6 +529,34 @@ class FusionManager:
         self.local_dispatches = 0
         self._seed_counter = 0  # the int8 wire's per-dispatch seed
         self._seed_base = [None, 0]  # a seed base and its batches so far
+        # observability, attached by basics.init (common/timeline.py,
+        # stall_inspector.py, autotune.py)
+        self.timeline = None
+        self.stall_inspector = None
+        self.parameter_manager = None
+        self._clock = time.monotonic
+        self.cycles = 0
+        self.flushed_bytes = 0  # useful payload bytes of allreduce batches
+        self.alltoall_dispatches = 0
+        self.alltoall_wire_bytes = 0
+        self._cycle_t0: Optional[float] = None  # first enqueue this cycle
+        self._cycle = [0, 0, 0]  # batches, useful bytes, bytes saved
+        self._step = [0, 0.0, 0]  # the parameter manager's: bytes, s, wire
+        # the tuned wire (HOROVOD_FUSION_WIRE=auto): trials taken, the
+        # batches of each wire, and each tier's last choice
+        self.wire_min_bytes = int(wire_min_bytes)
+        self.wire_tuner = self._make_wire_tuner() if wire == "auto" else None
+        self.wire_trials = 0
+        self.wire_batches = {w: 0 for w in WIRES}
+        self.wire_choices: Dict[Tuple, str] = {}
+
+    def _make_wire_tuner(self):
+        """The per-dispatch WireTuner, started from the world's agreed
+        ``HOROVOD_TUNER_CACHE`` state and persisted with it
+        (``fusion.py:485-504``)."""
+        tuner = autotune.WireTuner(min_int8_bytes=self.wire_min_bytes)
+        autotune.adopt(tuner, "wire")
+        return tuner
 
     def _wire_seed(self, e0: _Entry) -> int:
         """The int8 wire's seed for a batch led by ``e0``: its base plus
@@ -495,6 +605,17 @@ class FusionManager:
             from .. import local_sgd
 
             e.local = local_sgd.active_intra_groups()
+        if wire == "auto":
+            # the batch's wire is the tuner's, at dispatch (_tune_wire)
+            eligible = (e.op in (Sum, Average)
+                        and e.tensor.is_floating_point())
+            if e.want_residual:
+                wire = "int8"
+            elif not eligible:
+                wire = "fp32"
+            else:
+                e.wire = "auto"
+                return
         explicit = wire == "int8_hier" or (wire == "int8" and self.wire_hier)
         if wire == "int8_hier":
             wire = "int8" if e.local is None or e.two_level else "bf16"
@@ -520,9 +641,16 @@ class FusionManager:
         dispatch every batch the unit closes."""
         handles = []
         with self._lock:
+            tl, insp = self.timeline, self.stall_inspector
             for e in entries:
-                e.handle = Handle(self)
+                e.handle = Handle(self, e.name)
                 handles.append(e.handle)
+                if tl is not None:
+                    tl.begin(e.name, "QUEUE")
+                if insp is not None:
+                    insp.record_enqueue(e.name)
+            if self._cycle_t0 is None:
+                self._cycle_t0 = self._clock()
             kind = entries[0].kind
             if kind == "reducescatter":
                 self._dispatch(entries)
@@ -547,10 +675,86 @@ class FusionManager:
         return handles
 
     def flush(self) -> None:
-        """Dispatch every pending batch, in enqueue order of its key."""
+        """Run a cycle: dispatch every pending batch, in enqueue order
+        of its key, then publish the cycle (module docstring). A flush
+        that finds no work is no cycle."""
         with self._lock:
+            if not self._pending and self._cycle_t0 is None:
+                return
+            if self.timeline is not None:
+                self.timeline.mark_cycle()
+            if self.stall_inspector is not None:
+                self.stall_inspector.check()
             for key in list(self._pending):
                 self._dispatch_key(key)
+            self._end_cycle()
+
+    def stats(self) -> Dict[str, float]:
+        """The ``fusion.*`` gauges (the JAX ``cache_stats`` names the
+        port has; it has no executor cache, so no hits)."""
+        from ..common.metrics import WIRE_FORMAT_CODES as codes
+
+        return {
+            "dispatches": self.dispatched_batches,
+            "dispatched_bytes": self.dispatched_bytes,
+            "cycles": self.cycles,
+            "flushed_bytes": self.flushed_bytes,
+            "wire_bytes_saved": self.wire_bytes_saved,
+            "quant_blocks": self.quant_blocks,
+            "hier_dispatches": self.hier_dispatches,
+            "wire_bytes_saved_intra": self.wire_bytes_saved_intra,
+            "wire_bytes_saved_inter": self.wire_bytes_saved_inter,
+            "local_dispatches": self.local_dispatches,
+            "wire_trials": self.wire_trials,
+            "wire_format": codes.get(self.last_wire_format, 0),
+            "wire_format_intra": codes.get(self.last_wire_format_intra, 0),
+            "wire_format_inter": codes.get(self.last_wire_format_inter, 0),
+        }
+
+    def _end_cycle(self) -> None:
+        """Close the cycle: the registry, the timeline's counters and
+        the parameter manager's record (``fusion.py:646-717``)."""
+        from ..common.metrics import WIRE_FORMAT_CODES, registry
+
+        t0 = self._cycle_t0 if self._cycle_t0 is not None else self._clock()
+        batches, useful, saved = self._cycle
+        self._cycle_t0, self._cycle = None, [0, 0, 0]
+        self.cycles += 1
+        if _log.isEnabledFor(10):  # DEBUG: the cycle's numbers
+            _log.debug("cycle %d: %d batches, %dB useful, %dB saved, "
+                       "%.2fms", self.cycles, batches, useful, saved,
+                       (self._clock() - t0) * 1e3)
+        registry.update("fusion", self.stats())
+        registry.gauge("alltoall.dispatches", self.alltoall_dispatches)
+        registry.gauge("alltoall.wire_bytes", self.alltoall_wire_bytes)
+        registry.gauge("fusion.last_flush_bytes", useful)
+        registry.gauge("fusion.last_cycle_dispatches", batches)
+        registry.gauge("fusion.last_cycle_wire_saved", saved)
+        registry.maybe_dump()
+        tl = self.timeline
+        if tl is not None:
+            tl.counter("fusion.pad_bytes", 0)
+            tl.counter("fusion.dispatches", batches)
+            tl.counter("fusion.wire_bytes_saved", saved)
+            tl.counter("fusion.wire_format",
+                       WIRE_FORMAT_CODES.get(self.last_wire_format, 0))
+        if self.parameter_manager is not None:
+            self._step[0] += useful
+            self._step[1] += self._clock() - t0
+            self._step[2] += max(useful - saved, 0)
+
+    def end_step(self) -> None:
+        """A step of a world ``DistributedOptimizer`` ended (every rank
+        ends as many): the step's cycles make the parameter manager's
+        one record, and its threshold applies from the next batch."""
+        pm = self.parameter_manager
+        if pm is None:
+            return
+        with self._lock:
+            useful, seconds, wire = self._step
+            self._step = [0, 0.0, 0]
+            pm.record(bytes_=useful, seconds=seconds, wire_bytes=wire)
+            self.threshold_bytes = int(pm.current()[0])
 
     def wait_all(self) -> None:
         """Wait for every dispatched batch."""
@@ -573,7 +777,96 @@ class FusionManager:
         if units:
             self._dispatch([e for unit in units for e in unit])
 
+    def _tune_wire(self, entries: List[_Entry]) -> List[Tuple]:
+        """Resolve an ``auto`` batch's wire from the tuner
+        (``fusion.py:925-960``) and set the route as ``_resolve_wire``
+        would for that wire; returns the (key, wire) pairs this dispatch
+        is a trial for."""
+        e0 = entries[0]
+        elems = sum(e.tensor.numel() for e in entries)
+        itemsize = e0.tensor.element_size()
+        key = autotune.group_key(
+            ("allreduce", _tier(elems), _dtype_name(e0.tensor.dtype)),
+            _group(e0.process_set))
+        tuner = self.wire_tuner  # made at construction: auto is the knob's
+        hier = (e0.mask is None and _is_world(e0.process_set)
+                and e0.local is None and self._split(False) is not None)
+        if hier:
+            plan = self._split(False)
+            wire = tuner.choose(key + ("inter",),
+                                payload_bytes=key[1] * itemsize // plan.L,
+                                itemsize=itemsize)
+            intra = tuner.choose(key + ("intra",),
+                                 payload_bytes=key[1] * itemsize,
+                                 itemsize=itemsize,
+                                 candidates=("fp32", "bf16"))
+            pairs = [(key + ("inter",), wire), (key + ("intra",), intra)]
+        else:
+            wire = tuner.choose(key, payload_bytes=key[1] * itemsize,
+                                itemsize=itemsize)
+            if e0.local is not None and wire == "int8":
+                wire = "fp32"  # no int8 inside a slice; never a trial
+            pairs = [] if e0.local is not None else [(key, wire)]
+            intra = None
+            if wire == "int8" and self.wire_hier and e0.mask is None \
+                    and _is_world(e0.process_set) and e0.local is None:
+                hier = self._split(True) is not None
+                intra = "bf16" if hier else None
+        for e in entries:
+            e.wire = wire
+            e.hier = hier
+            e.intra_wire = intra if hier else None
+            e.wire_block = (e.wire_block or self.wire_block) \
+                if wire == "int8" else None
+        for k, c in pairs:
+            self.wire_choices[k] = c
+        return [(k, c) for k, c in pairs if tuner.needs_trial(k, c)]
+
+    def _drain(self) -> None:
+        """Wait for every batch in flight and synchronize the card: a
+        trial's clock then measures its own dispatch alone."""
+        for b in list(self._inflight):
+            b.wait()
+        autotune.device_sync(basics.state().device)
+
     def _dispatch(self, entries: List[_Entry]) -> None:
+        e0 = entries[0]
+        trials: List[Tuple] = []
+        if e0.kind == "allreduce" and e0.wire == "auto":
+            trials = self._tune_wire(entries)
+        tl = self.timeline
+        phase = e0.kind.upper()
+        if tl is not None:
+            for e in entries:
+                tl.begin(e.name, phase)
+        if trials:
+            self._drain()
+        t_disp = self._clock()
+        batch, group = self._launch(entries)
+        if trials or (tl is not None and tl.active):
+            batch.wait()
+            autotune.device_sync(e0.tensor.device)
+        if trials:
+            seconds = autotune.agree_max([self._clock() - t_disp], group)[0]
+            useful = (sum(e.nbytes for e in entries)
+                      * _scope(e0)[0])
+            for k, c in trials:
+                self.wire_tuner.record(k, c, useful_bytes=useful,
+                                       seconds=seconds)
+            self.wire_trials += 1
+        if tl is not None:
+            if tl.active:
+                dur_us = (self._clock() - t_disp) * 1e6
+                t0_us = tl.now_us() - dur_us
+                for e in entries:
+                    tl.span(e.name, f"{phase}_DEVICE", t0_us, dur_us)
+            for e in entries:
+                tl.end(e.name, phase)
+                tl.end(e.name, "QUEUE")
+
+    def _launch(self, entries: List[_Entry]):
+        """Issue the batch's collectives; returns the batch and the
+        process group it runs over."""
         e0 = entries[0]
         ps = e0.process_set
         if ps is not None and not ps.included(dist.get_rank()):
@@ -623,13 +916,23 @@ class FusionManager:
         self._inflight.append(batch)
         self.dispatched_batches += 1
         self.dispatched_bytes += nbytes
+        self._cycle[0] += 1
+        if e0.kind == "allreduce":
+            useful = sum(e.tensor.numel() for e in entries) \
+                * e0.tensor.element_size()
+            self.flushed_bytes += useful
+            self._cycle[1] += useful
+            self.wire_batches[e0.wire if e0.wire in WIRES else "fp32"] += 1
+        return batch, group
 
     def _account(self, elems: int, wire: str, itemsize: int, n: int,
                  block: int) -> int:
         """Count one flat allreduce batch's wire bytes and what its wire
         saved against the payload width; returns the wire bytes."""
         nbytes, blocks = hop_bytes(elems, wire, itemsize, n, block)
-        self.wire_bytes_saved += max(elems * itemsize - nbytes, 0)
+        saved = max(elems * itemsize - nbytes, 0)
+        self.wire_bytes_saved += saved
+        self._cycle[2] += saved
         self.quant_blocks += blocks
         self.last_wire_format = wire
         return nbytes
@@ -650,6 +953,7 @@ class FusionManager:
         self.wire_bytes_saved_intra += max(full - intra, 0)
         self.wire_bytes_saved_inter += max(full - inter, 0)
         self.wire_bytes_saved += max(full - intra - inter, 0)
+        self._cycle[2] += max(full - intra - inter, 0)
         self.last_wire_format_intra = e0.intra_wire
         self.last_wire_format_inter = self.last_wire_format = e0.wire
         self.hier_dispatches += 1
@@ -657,7 +961,8 @@ class FusionManager:
 
     def _allreduce(self, entries, group, ps):
         e0 = entries[0]
-        flat = _pack(entries)
+        tl = self.timeline
+        flat = _memcpy(tl, entries, _IN, lambda: _pack(entries))
         active, count = _active(e0)
         if not active:
             _identity(flat, e0.op)
@@ -672,7 +977,8 @@ class FusionManager:
                 flat.copy_(wire_buf)
             _scale_out(flat, count, e0.op, e0.postscale,
                        e0.mask is not None)
-            return _unpack(flat, entries), _finite(e0, flat)
+            return (_memcpy(tl, entries, _OUT, lambda: _unpack(flat, entries)),
+                    _finite(e0, flat))
 
         nbytes = self._account(flat.numel(), e0.wire, flat.element_size(),
                                _scope(e0)[0], self.wire_block)
@@ -693,8 +999,9 @@ class FusionManager:
         plan = self._split(True)
         dtype = e0.tensor.dtype
         quantized = e0.wire == "int8"
+        tl = self.timeline
         with record_function(WIRE_RANGES["pack"]):
-            flat = _pack(entries)
+            flat = _memcpy(tl, entries, _IN, lambda: _pack(entries))
             if quantized:
                 flat = flat.to(torch.float32)
             m = flat.numel()
@@ -738,7 +1045,8 @@ class FusionManager:
                 out = gathered.to(acc)[:m]
                 _scale_out(out, plan.L * plan.H, e0.op, e0.postscale)
                 out = out.to(dtype)
-                outs = _unpack(out, entries)
+                outs = _memcpy(tl, entries, _OUT,
+                               lambda: _unpack(out, entries))
                 if res_all is not None:
                     outs = list(zip(outs, _unpack(res_all[:m].to(dtype),
                                                   entries)))
@@ -804,8 +1112,10 @@ class FusionManager:
         active, count = _active(e0)
         block = e0.wire_block
         dtype = e0.tensor.dtype
+        tl = self.timeline
         with record_function(WIRE_RANGES["pack"]):
-            row = _pack(entries).to(torch.float32)
+            row = _memcpy(tl, entries, _IN,
+                          lambda: _pack(entries)).to(torch.float32)
             if not active:
                 row.zero_()
             m = row.numel()
@@ -844,7 +1154,8 @@ class FusionManager:
                 if e0.postscale != 1.0:
                     out = out * e0.postscale
                 out = out.to(dtype)
-                outs = _unpack(out, entries)
+                outs = _memcpy(tl, entries, _OUT,
+                               lambda: _unpack(out, entries))
                 if res is not None:
                     outs = list(zip(outs, _unpack(res, entries)))
                 return outs, _finite(e0, out)
@@ -962,6 +1273,9 @@ class FusionManager:
         each rank of the set, whose counts are exchanged first; with
         splits the output is ``(tensor, received_splits)``."""
         x = e0.tensor.detach().contiguous()
+        n = dist.get_world_size(group)
+        self.alltoall_dispatches += 1
+        self.alltoall_wire_bytes += e0.nbytes * (n - 1) // max(n, 1)
         if e0.splits is None:
             out = torch.empty_like(x)
             work = dist.all_to_all_single(out, x, group=group, async_op=True)

@@ -52,8 +52,20 @@ while earlier layers are still differentiating:
   always rides the flat wire. A matched pair shares one cached
   schedule. :func:`leg_stats` counts their collectives.
 
-Not here yet: the schedule's sidecar on disk (ROADMAP A16) and the wire
-tuner (A12: ``wire="auto"`` raises).
+- ``wire="auto"`` (``overlap.py:623-690``) resolves a leg's wire a
+  bucket through :func:`resolve_wire`: under
+  ``HOROVOD_FUSION_WIRE_MIN_BYTES`` fp32; above it the shared
+  :func:`wire_tuner`'s goodput argmax where it holds measurements for
+  the bucket's key, else int8 for 4-byte payloads. Nothing in the port
+  feeds the shared tuner yet (nor in the JAX package), so without
+  measurements in ``HOROVOD_TUNER_CACHE`` this is a fixed prior, int8
+  above the floor, not a tuned choice. The tuner starts from the
+  world's agreed state (``autotune.adopt``), so every rank resolves the
+  same wires. The bucket count has its own tuner,
+  :func:`~..common.autotune.OverlapTuner`, which
+  ``DistributedOptimizer(overlap_buckets="auto")`` drives.
+
+Not here yet: the schedule's sidecar on disk (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -487,17 +499,46 @@ def reset_leg_stats() -> None:
         _LEGS[k] = 0
 
 
-def resolve_wire(wire) -> str:
-    """A leg's wire format: fp32, bf16 or int8 (``overlap.py:641``);
-    ``auto`` needs the wire tuner."""
+def wire_tuner():
+    """The process-wide WireTuner ``wire='auto'`` buckets consult
+    (``autotune.shared_wire_tuner``). A step harness that feeds its
+    ``record`` must record readings agreed over the leg's group, under
+    ``autotune.group_key`` (``common/autotune.py``'s last section); none
+    does yet."""
+    from ..common.autotune import shared_wire_tuner
+
+    return shared_wire_tuner()
+
+
+def resolve_wire(wire, bucket_bytes: int = 0, itemsize: int = 4, key=None,
+                 hop=None) -> str:
+    """A bucket's wire format, fp32, bf16 or int8 (``overlap.py:641``).
+    Explicit formats pass through (int8 never rides the intra hop);
+    ``auto``: fp32 under the tuner's floor, else the tuner's goodput
+    argmax where it has measured this bucket's key, else int8 for 4-byte
+    payloads. ``hop`` (``"intra"``/``"inter"``) splits the key per hop;
+    the intra menu is fp32 and bf16."""
     if wire in (None, "fp32"):
         return "fp32"
     if wire in ("bf16", "int8"):
+        if hop == "intra" and wire == "int8":
+            return "fp32"
         return wire
     if wire == "auto":
-        raise NotImplementedError(
-            "wire='auto' needs the wire tuner, not ported yet (ROADMAP "
-            "A12's WireTuner); use fp32, bf16 or int8")
+        tuner = wire_tuner()
+        if int(bucket_bytes) < tuner.min_int8_bytes:
+            return "fp32"
+        candidates = (("fp32", "bf16") if hop == "intra"
+                      else tuner.CANDIDATES)
+        key = key if key is not None else ("bucket", int(bucket_bytes))
+        if hop is not None:
+            key = tuple(key) + (hop,)
+        if any(tuner.goodput(key, c) > 0 for c in candidates):
+            return tuner.choose(key, int(bucket_bytes), itemsize=itemsize,
+                                candidates=candidates)
+        if "int8" in candidates and itemsize >= 4:
+            return "int8"
+        return "fp32"
     raise ValueError(f"unknown wire format {wire!r}")
 
 
@@ -644,7 +685,7 @@ def bucketed_reduce_scatter(grads, op=None, average: Optional[bool] = None,
     if op not in (Sum, Average):
         raise ValueError("bucketed_reduce_scatter supports op=Sum/Average "
                          "only")
-    bw = resolve_wire(wire)
+    resolve_wire(wire, 0)  # an unknown format raises before any exchange
     group, n, stages = _leg_route(groups, hier_stages, residuals)
     leaves, treedef = _flatten(grads)
     nonscalar = [i for i, g in enumerate(leaves)
@@ -665,6 +706,8 @@ def bucketed_reduce_scatter(grads, op=None, average: Optional[bool] = None,
             out[i] = traced.allreduce(g, op=op, groups=groups)
     for b, idxs in enumerate(schedule.buckets):
         ids = [nonscalar[j] for j in idxs]
+        bw = resolve_wire(wire, schedule.bucket_bytes[b],
+                          leaves[ids[0]].element_size())
         got, new_r = _rs_bucket(
             [leaves[i] for i in ids],
             None if r_leaves is None else [r_leaves[i] for i in ids],
@@ -698,7 +741,7 @@ def bucketed_shard_all_gather(shards, like,
     shards have more than one dtype gathers them one by one, exactly.
     The int8 wire hands every rank, the owner too, the dequantized
     values, so the replicas stay bitwise equal."""
-    bw = resolve_wire(wire)
+    resolve_wire(wire, 0)
     group, n, stages = _leg_route(groups, hier_stages, residuals)
     s_leaves, s_def = _flatten(shards)
     l_leaves, l_def = _flatten(like)
@@ -725,6 +768,8 @@ def bucketed_shard_all_gather(shards, like,
                 out[i] = full[:l_leaves[i].numel()].view(l_leaves[i].shape)
                 _LEGS["all_gather"] += 1
             continue
+        bw = resolve_wire(wire, schedule.bucket_bytes[b],
+                          l_leaves[ids[0]].element_size())
         got, new_r = _ag_bucket(
             [s_leaves[i] for i in ids],
             None if r_leaves is None else [r_leaves[i] for i in ids],

@@ -26,7 +26,10 @@ package's ``optimizer.py`` is its oracle):
   never fused); ``gradient_predivide_factor`` f splits the average as
   ``Sum`` of ``x / (n·f)`` times f; ``compression=`` none, fp16, bf16,
   or the quantized ``int8``/``int8_block``, which send the fused
-  gradient buffer over the fusion manager's int8 wire;
+  gradient buffer over the fusion manager's int8 wire; with no
+  ``compression=`` the fused batches take the manager's wire
+  (``HOROVOD_FUSION_WIRE``, ``auto`` included), as the JAX shim's
+  optimizer does, and ``Compression.none`` pins fp32;
 - ``error_feedback=True`` (a quantized compression only) keeps one
   residual per parameter: the hook enqueues ``grad + residual`` with
   ``return_residual=True`` and ``synchronize`` stores the new residual,
@@ -84,7 +87,15 @@ package's ``optimizer.py`` is its oracle):
   is per bucket, and the guard ANDs the buckets' flags. With Sum on fp32 the result is bitwise the fused path's. An
   explicit ``overlap_buckets`` with Adasum, Min, Max or Product raises
   ``ValueError``; the environment's default falls back to the fused
-  path.
+  path. ``overlap_buckets="auto"`` picks the count from the shared
+  ``OverlapTuner`` by whole-step goodput (``_BucketTuning``), the same
+  count on every rank, and rebuilds the schedule between windows.
+
+- Telemetry: each window's end calls ``telemetry.device_step_tick``
+  once when a consumer of the flight recorder exists
+  (``telemetry.auto_enabled``), and synchronizes the fused path's
+  cycle (``fusion.flush()``) before waiting on the handles, so each
+  step is one fusion cycle at least.
 
 - ``local_sgd_steps=K`` (None: ``HOROVOD_LOCAL_SGD_STEPS``, with one
   warning) with K > 1 switches to local SGD (``local_sgd.py``,
@@ -111,6 +122,7 @@ that order).
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Dict, List, Optional, Set
 
 import torch
@@ -121,6 +133,7 @@ from . import local_sgd
 from .common import basics
 from .common import guard as _guard
 from .common.process_sets import ProcessSet
+from .common import telemetry as _telemetry
 from .ops import eager, overlap, traced
 from .ops.compression import Compression
 from .ops.reduction_ops import Adasum, Average, Sum, resolve_op
@@ -130,7 +143,7 @@ class DistributedOptimizer:
     """``torch.optim`` wrapper that averages gradients across ranks."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
-                 named_parameters=None, compression=Compression.none,
+                 named_parameters=None, compression=None,
                  backward_passes_per_step: int = 1, op=None,
                  gradient_predivide_factor: float = 1.0,
                  average: Optional[bool] = None,
@@ -162,8 +175,9 @@ class DistributedOptimizer:
             stages = local_sgd.prepare_split(basics.size(), local_sgd_intra,
                                              local_sgd_inter_wire)
         quantized = getattr(compression, "quantized_wire", False)
+        auto_buckets = overlap_buckets == "auto"
         buckets = (overlap.default_buckets() if overlap_buckets is None
-                   else int(overlap_buckets))
+                   else 1 if auto_buckets else int(overlap_buckets))
         if buckets < 0:
             raise ValueError(f"overlap_buckets must be >= 0, got {buckets}")
         if buckets and op not in (Sum, Average):
@@ -190,7 +204,13 @@ class DistributedOptimizer:
         if k < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         self._opt = optimizer
-        self._compression = compression
+        # None (the default): the fused path's wire is the manager's
+        # (HOROVOD_FUSION_WIRE: fp32, bf16, int8 or auto), as the JAX
+        # shim's optimizer hands its gradients to allreduce_async_ with
+        # no compression; an explicit Compression.none pins fp32
+        self._entry_compression = compression
+        self._compression = (Compression.none if compression is None
+                             else compression)
         self._error_feedback = bool(error_feedback)
         # only hier_int8's residual batch takes the two-level route
         # (``horovod_tpu/optimizer.py:80-90``); int8 and int8_block stay
@@ -246,6 +266,10 @@ class DistributedOptimizer:
         self._accum: Dict[int, torch.Tensor] = {}  # earlier passes' sum
         self._handles: Dict[int, eager.TorchHandle] = {}
         self._overlap = None
+        self._tuning = None
+        if buckets and auto_buckets:
+            self._tuning = _BucketTuning(self, overlap_min_bytes)
+            buckets = self._tuning.current
         if buckets:
             self._overlap = _Buckets(self, buckets, overlap_min_bytes)
         self._hooks = [p.register_post_accumulate_grad_hook(self._hook)
@@ -290,7 +314,7 @@ class DistributedOptimizer:
         pre = self._pre / passes if self._average_window else self._pre
         self._handles[id(p)] = eager._submit(*eager._allreduce_entry(
             grad, self._names[id(p)], self._op, pre, self._post,
-            self._process_set, self._compression,
+            self._process_set, self._entry_compression,
             return_residual=self._error_feedback, guard=self._guard,
             two_level=self._two_level, local=self._local,
             seed=self._updates * max(len(self._params), 1),
@@ -309,6 +333,7 @@ class DistributedOptimizer:
             for p in self._params:
                 if p.grad is not None and id(p) not in self._handles:
                     self._enqueue(p)
+        basics.state().fusion.flush()  # the step's cycle ends here
         handles, self._handles = self._handles, {}
         by_id = {id(p): p for p in self._params}
         residuals, flags = {}, {}
@@ -364,12 +389,24 @@ class DistributedOptimizer:
         finite = (self.synchronize() if self._overlap is None
                   else self._overlap.synchronize(passes))
         self._updates += 1
+        if self._process_set is None or self._process_set.process_set_id == 0:
+            basics.state().fusion.end_step()  # HOROVOD_AUTOTUNE's record
         if finite:
             self._streak = 0
-            return self._opt.step(closure)
-        self._streak += 1
-        _guard.record_skip(self._streak, self._updates, self._max_skips)
-        return None
+            out = self._opt.step(closure)
+        else:
+            self._streak += 1
+            _guard.record_skip(self._streak, self._updates,
+                               self._max_skips)
+            out = None
+        if self._tuning is not None:
+            n = self._tuning.current
+            if self._tuning.window_end() != n:  # the schedule's rebuilt
+                self._overlap = _Buckets(self, self._tuning.current,
+                                         self._tuning.min_bytes)
+        if _telemetry.auto_enabled():  # one flight-recorder boundary
+            _telemetry.device_step_tick(self._updates)
+        return out
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self._opt.zero_grad(set_to_none=set_to_none)
@@ -468,6 +505,59 @@ class DistributedOptimizer:
         for h in self._hooks:
             h.remove()
         self._hooks = []
+
+
+class _BucketTuning:
+    """``overlap_buckets="auto"``: the bucket count from the shared
+    :class:`~.common.autotune.OverlapTuner` by whole-step goodput (the
+    gradient bytes over the seconds from one window's end to the next).
+    While any candidate still needs trials, each window's end
+    synchronizes the card and the seconds are the maximum over the
+    optimizer's ranks, so every rank records the same numbers and picks
+    the same count; a process set's optimizer records under a key that
+    names its ranks (``autotune.group_key``)."""
+
+    def __init__(self, opt: "DistributedOptimizer",
+                 min_bytes: Optional[int]):
+        from .common import autotune
+
+        self.min_bytes = int(overlap.default_min_bytes() if min_bytes is None
+                             else min_bytes)
+        self.tuner = autotune.shared_overlap_tuner(
+            min_bucket_bytes=self.min_bytes)
+        ps = opt._process_set
+        self.group = (None if ps is None or ps.process_set_id == 0
+                      else ps.group)
+        self.total = sum(p.numel() * p.element_size() for p in opt._params)
+        self.key = autotune.group_key(
+            ("DistributedOptimizer", len(opt._params), self.total),
+            self.group)
+        self.current = self.tuner.choose(self.key, self.total)
+        self.device = (opt._params[0].device if opt._params
+                       else torch.device("cpu"))
+        self.clock = time.monotonic
+        self._t0: Optional[float] = None
+
+    def _exploring(self) -> bool:
+        return any(self.tuner.needs_trial(self.key, c)
+                   for c in self.tuner.viable(self.total))
+
+    def window_end(self) -> int:
+        """Record the window just ended (while exploring) and return
+        the bucket count of the next."""
+        if not self._exploring():
+            self._t0 = None
+            return self.current
+        from .common import autotune
+
+        autotune.device_sync(self.device)
+        now = self.clock()
+        if self._t0 is not None:
+            seconds = autotune.agree_max([now - self._t0], self.group)[0]
+            self.tuner.record(self.key, self.current, self.total, seconds)
+        self._t0 = now
+        self.current = self.tuner.choose(self.key, self.total)
+        return self.current
 
 
 class _Buckets:

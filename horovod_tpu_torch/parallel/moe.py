@@ -17,7 +17,12 @@ computed on fp32 logits BEFORE any wire cast, so it is identical across
 wires. On the lossy wires (bf16, int8) the cotangent rides the exact
 inverse exchange (straight-through): stochastic rounding has no useful
 gradient, and the exact exchange is the all-to-all's own transpose.
-``wire="auto"`` needs the wire tuner (ROADMAP A12) and raises.
+``wire="auto"`` asks the shared wire tuner (``common/autotune.py``) for
+the ``("alltoall", payload tier, "float32", hop)`` key, per hop under a
+split (the intra legs between fp32 and bf16); as in the JAX function
+the choice is made as the step is built. No harness feeds the tuner's
+``record`` yet, in either package, so without cached measurements
+``auto`` is a fixed prior (fp32, the first candidate of each menu).
 
 Every exchange is an autograd Function over the axis's process group,
 so each rank differentiates its own program: the experts' gradients
@@ -48,8 +53,8 @@ class MoEParams(NamedTuple):
 
 class MoEStats(NamedTuple):
     """Per-step expert-load counters, summed over the axis so that every
-    rank holds the global view (the capacity tuner's feed, ROADMAP
-    A12)."""
+    rank holds the global view (the capacity tuner's feed; the tuner
+    waits with ROADMAP A12's remainder)."""
 
     expert_tokens: torch.Tensor  # [E_total] f32 — kept tokens per expert
     dropped: torch.Tensor  # scalar f32 — tokens past capacity (zero out)
@@ -98,20 +103,41 @@ def _resolve_hier(hier, ep: int):
     return hier
 
 
-def _resolve_wire(wire, intra_wire):
+def _resolve_wire(wire, intra_wire, payload_bytes: int = 0, hier=None):
+    """The dispatch wire and the intra legs' (``moe.py:89-135``);
+    ``auto`` asks the shared WireTuner for the payload's tier, per hop
+    under a split. Nothing feeds that tuner yet (nor in the JAX
+    package): without measurements in ``HOROVOD_TUNER_CACHE`` its first
+    untried candidate, fp32 on every hop, is a fixed prior. The tuner
+    starts from the world's agreed state, so every rank resolves
+    alike."""
     cfg = basics.live_config()
     wire = cfg.moe_wire if wire is None else wire
     intra_wire = cfg.moe_intra_wire if intra_wire is None else intra_wire
-    if wire == "auto":
-        raise NotImplementedError(
-            "moe wire='auto' needs the wire tuner, not ported yet (ROADMAP "
-            "A12's autotune); use fp32, bf16 or int8")
-    if wire not in ("fp32", "bf16", "int8"):
+    if wire not in ("fp32", "bf16", "int8", "auto"):
         raise ValueError(
             f"moe wire must be fp32/bf16/int8/auto, got {wire!r}")
     if intra_wire not in ("fp32", "bf16"):
         raise ValueError(
             f"moe intra_wire must be fp32/bf16, got {intra_wire!r}")
+    if wire == "auto":
+        from ..common.autotune import shared_wire_tuner
+
+        tuner = shared_wire_tuner()
+        bucket = 1 << max(int(payload_bytes) - 1, 1).bit_length()
+        if hier is not None:
+            H = len(hier[1][0])
+            wire = tuner.choose(
+                ("alltoall", bucket, "float32", "inter"),
+                payload_bytes=payload_bytes * (H - 1) // max(H, 1),
+                itemsize=4)
+            intra_wire = tuner.choose(
+                ("alltoall", bucket, "float32", "intra"),
+                payload_bytes=payload_bytes, itemsize=4,
+                candidates=("fp32", "bf16"))
+        else:
+            wire = tuner.choose(("alltoall", bucket, "float32", "flat"),
+                                payload_bytes=payload_bytes, itemsize=4)
     return wire, intra_wire
 
 
@@ -243,7 +269,8 @@ def moe_ffn(
     k = info.size if info is not None else ep
     stages = None if info is not None else _resolve_hier(hier, ep)
     capacity = int(max(1, round(float(capacity_factor) * t_local / k)))
-    wire, intra_wire = _resolve_wire(wire, intra_wire)
+    wire, intra_wire = _resolve_wire(wire, intra_wire,
+                                     k * capacity * d * 4, stages)
     if info is not None and wire == "int8":
         # the set's alltoall moves raw blocks; quantized + process set is
         # not a supported combination (as in the JAX function)

@@ -25,9 +25,11 @@ registration order; the serving frontend registers one that finishes
 every accepted request; a failing hook never blocks the next), the
 chaos site ``preemption.drain``, then the state's ``persist()`` and
 ``wait_until_finished()``, then ``os._exit(143)`` (128 + SIGTERM, which
-launchers read as stopped by the infrastructure). The JAX package's
-flight-recorder dump between the drains and the checkpoint waits for
-the port's telemetry (ROADMAP A12). The persist is per rank: rank 0's
+launchers read as stopped by the infrastructure). Between the drains and
+the chaos site the flight recorder's ring is dumped
+(``telemetry.hub().dump()``: a bounded tmp + rename write, to
+``HOROVOD_FLIGHT_RECORDER``, nothing without it), so a failed checkpoint
+still leaves the last steps on disk. The persist is per rank: rank 0's
 commit waits for the other ranks' files at most ``persist_timeout``
 seconds and starts no collective, so a gang with a dead member keeps
 its grace window (the step then stays uncommitted).
@@ -168,13 +170,19 @@ class GracefulShutdown:
 
     def drain(self) -> None:
         """The shutdown sequence without the exit: every drain hook (one
-        failure never blocking the next), the ``preemption.drain`` chaos
-        site, then the state's persist."""
+        failure never blocking the next), the flight recorder's dump, the
+        ``preemption.drain`` chaos site, then the state's persist."""
         for fn in list(self._drains) + drain_hooks():
             try:
                 fn()
             except Exception:  # noqa: BLE001
                 _log.exception("drain hook %r failed", fn)
+        try:
+            from .common import telemetry as _telemetry
+
+            _telemetry.hub().dump()  # the flight recorder, before the save
+        except Exception:  # noqa: BLE001 - the checkpoint comes first
+            pass
         try:
             from .testing import chaos as _chaos
 

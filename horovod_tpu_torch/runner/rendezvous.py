@@ -17,7 +17,7 @@ its ``_native`` layer, not ported: ROADMAP A17); every process speaks
 for one rank, so the object collectives key by rank; the version check
 compares the port's version, torch's and CUDA's; the schedule,
 rebalance, expert-load and standby channels wait for the modules that
-use them (ROADMAP A12, A15, A16).
+use them (ROADMAP A12's remainder, A15, A16).
 
 Wire protocol:
     GET    /kv/<scope>/<key>   -> 200 value | 404
@@ -401,9 +401,8 @@ def allgather_via_kv(obj, name: Optional[str] = None):
 
 
 # ------------------------------------------------------------- heartbeats
-# Worker→driver liveness over the KV channel (the rebuilt signal for the
-# stall inspector's cross-process half; the port's driver reads them
-# once that inspector is ported, ROADMAP A12).
+# Worker→driver liveness over the KV channel, with the flight recorder's
+# straggler ledger beside it: the driver's stall inspector reads them.
 
 HEARTBEAT_SCOPE = "heartbeat"
 

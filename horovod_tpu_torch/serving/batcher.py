@@ -87,6 +87,8 @@ class Request:
     top_k: int = 0
     seed: Optional[int] = None
     trace: Optional[object] = dataclasses.field(default=None, repr=False)
+    # the admit-to-retire ``serve.decode`` span of a traced request
+    span: Optional[object] = dataclasses.field(default=None, repr=False)
     _done: threading.Event = dataclasses.field(
         default_factory=threading.Event
     )
@@ -98,7 +100,7 @@ class Request:
         return self._done.is_set()
 
     def result(self) -> Dict:
-        return {
+        out = {
             "id": self.id,
             "status": self.status,
             "tokens": list(self.out_tokens),
@@ -106,6 +108,15 @@ class Request:
             "ttft_ms": round(self.ttft_ms, 3),
             "gen_ms": round(self.gen_ms, 3),
         }
+        if self.trace is not None:
+            out["trace_id"] = self.trace.trace_id
+        return out
+
+    def end_span(self, **tags) -> None:
+        """Close the ``serve.decode`` span, if one is open."""
+        if self.span is not None:
+            self.span.end(**tags)
+            self.span = None
 
 
 class ContinuousBatcher:
@@ -283,6 +294,7 @@ class ContinuousBatcher:
                 self.engine.manager.release_kept(req.kept_pages)
                 req.kept_pages = None
             req.status = ERROR
+            req.end_span(outcome="error")
             req._done.set()
             _metrics.counter("serve.errored")
         self._publish_gauges(min_interval=0.0)
@@ -394,6 +406,11 @@ class ContinuousBatcher:
                 )
             else:
                 self.engine.clear_sampling(slot)
+            if req.trace is not None and req.span is None:
+                # admit→retire: opened once (a pause keeps it open),
+                # closed at retire or abort; no work per decode step
+                req.span = _tracing.start_span("serve.decode", req.trace,
+                                               slot=slot)
             with self._cond:
                 self._queue.popleft()  # single consumer: still req
                 self._slot_req[slot] = req
@@ -416,6 +433,7 @@ class ContinuousBatcher:
         if req.deadline_ts is not None and now >= req.deadline_ts:
             mgr.free(slot)
             req.status = DEADLINE
+            req.end_span(outcome=DEADLINE, tokens=len(req.out_tokens))
             req._done.set()
             _metrics.counter("serve.expired")
             return True
@@ -507,6 +525,7 @@ class ContinuousBatcher:
         else:
             req.status = DONE
             _metrics.counter("serve.completed")
+        req.end_span(outcome=req.status, tokens=len(req.out_tokens))
         req._done.set()
 
     # --------------------------------------------------------------- stats

@@ -7,11 +7,18 @@ A stdlib ``ThreadingHTTPServer`` per worker, no dependencies. Routes:
   thread parks on the request until the batcher's thread has finished
   it, then replies the result JSON (tokens, status, TTFT, generation
   wall). 400 on a malformed body, 429 when the request can never fit,
-  503 while draining, 500 when the scheduler failed under it.
+  503 while draining, 500 when the scheduler failed under it. Request
+  tracing (``common/tracing.py``): the handler adopts a ``traceparent``
+  header, or mints a root when ``HOROVOD_TRACE`` is on, opens the
+  ``http.generate`` span and hands its context to the batcher; a traced
+  reply carries ``X-Trace-Id``, the receive/send stamps and
+  ``trace_id`` in its JSON.
 * ``GET /healthz``: liveness and capacity (free slots and pages, queue
   depth).
-* ``GET /metrics``: the TTFT/TPOT Prometheus summaries, then the
-  registry rendered as gauges.
+* ``GET /metrics``: the TTFT/TPOT Prometheus summaries, then the flight
+  recorder's step-time summary and the registry rendered as gauges.
+* ``GET /traces``: the span ring, with this worker's identity and the
+  scrape's receive/send stamps.
 * ``GET /stats``: engine and batcher counters as JSON.
 
 The HTTP threads never touch tensors: they queue requests and read host
@@ -31,6 +38,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..common import telemetry as _telemetry
 from ..common import tracing as _tracing
 from ..common.config import live_config
 from ..common.logging import TRACE as _TRACE, get_logger
@@ -68,18 +76,22 @@ class ServeFrontend:
             def log_message(self, fmt, *args):
                 _log.log(_TRACE, "http " + fmt, *args)
 
-            def _reply(self, code, body: bytes, ctype: str) -> None:
+            def _reply(self, code, body: bytes, ctype: str,
+                       headers=None) -> None:
                 if getattr(self, "_count_status", False):
                     outer._note_status(code)
+                self._last_code = code
                 self.send_response(code)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(body)
 
-            def _json(self, code, obj) -> None:
+            def _json(self, code, obj, headers=None) -> None:
                 self._reply(code, json.dumps(obj).encode(),
-                            "application/json")
+                            "application/json", headers)
 
             def do_GET(self):
                 path = self.path.split("?", 1)[0]
@@ -93,8 +105,17 @@ class ServeFrontend:
                 if path == "/metrics":
                     body = "\n".join(
                         outer.batcher.recorder.render_prometheus_summaries()
-                    ) + "\n" + render_prometheus(_metrics.snapshot())
+                    ) + "\n" + render_prometheus(
+                        _metrics.snapshot(), _telemetry.hub().percentiles())
                     return self._reply(200, body.encode(), PROM_CONTENT_TYPE)
+                if path == "/traces":
+                    recv_ts = time.time()
+                    rec = _tracing.recorder()
+                    return self._json(200, {
+                        "spans": rec.spans(), "capacity": rec.capacity,
+                        "host": rec.host, "pid": rec.pid, "role": rec.role,
+                        "recv_ts": recv_ts, "send_ts": time.time(),
+                    })
                 return self._reply(
                     404, b"not found\n", "text/plain; charset=utf-8"
                 )
@@ -102,6 +123,7 @@ class ServeFrontend:
             def do_POST(self):
                 # read the body first: a keep-alive connection with body
                 # bytes left on it would desynchronise its next request
+                recv_ts = time.time()
                 length = int(self.headers.get("Content-Length", 0))
                 body = self.rfile.read(length) if length else b""
                 path = self.path.split("?", 1)[0]
@@ -110,12 +132,24 @@ class ServeFrontend:
                         404, b"not found\n", "text/plain; charset=utf-8"
                     )
                 self._count_status = True
+                # adopt the caller's traceparent, or mint a root when
+                # tracing is on; None (the default) costs nothing after
+                tctx = _tracing.adopt(
+                    self.headers.get(_tracing.TRACEPARENT_HEADER))
+                span = _tracing.start_span("http.generate", tctx)
+                hdrs = None
+                if tctx is not None:
+                    hdrs = _tracing.server_stamps(recv_ts)
+                    hdrs[_tracing.TRACE_ID_HEADER] = tctx.trace_id
                 try:
-                    return self._generate(body)
+                    return self._generate(body, span, hdrs)
                 finally:
                     self._count_status = False
+                    if span is not None:
+                        span.end(code=getattr(self, "_last_code", 0))
 
-            def _generate(self, body):
+            def _generate(self, body, span=None, hdrs=None):
+                trace = span.ctx if span is not None else None
                 try:
                     payload = json.loads(body or b"{}")
                     if not isinstance(payload, dict):
@@ -125,10 +159,11 @@ class ServeFrontend:
                         )
                     tokens = payload["tokens"]
                 except (json.JSONDecodeError, KeyError, ValueError) as e:
-                    return self._json(400, {"error": f"bad request: {e}"})
+                    return self._json(400, {"error": f"bad request: {e}"},
+                                      hdrs)
                 if outer.draining:
                     return self._json(503, {"error": "draining",
-                                            "retry": True})
+                                            "retry": True}, hdrs)
                 with outer._inflight_lock:
                     outer._inflight += 1
                 try:
@@ -142,19 +177,20 @@ class ServeFrontend:
                             ),
                             top_k=int(payload.get("top_k", 0)),
                             seed=payload.get("seed"),
+                            trace=trace,
                         )
                     except Rejected as e:
                         # draining is the worker's state (503); 429 is
                         # for requests that can never fit
                         code = 503 if outer.draining else 429
-                        return self._json(code, {"error": str(e)})
+                        return self._json(code, {"error": str(e)}, hdrs)
                     except (TypeError, ValueError) as e:
                         return self._json(
-                            400, {"error": f"bad request: {e}"}
+                            400, {"error": f"bad request: {e}"}, hdrs
                         )
                     req.wait()
                     code = 500 if req.status == "error" else 200
-                    return self._json(code, req.result())
+                    return self._json(code, req.result(), hdrs)
                 finally:
                     with outer._inflight_lock:
                         outer._inflight -= 1

@@ -53,8 +53,11 @@ replicas stay bitwise equal (``traced.quantized_allgather``'s contract).
 
 Options (the JAX constructor's): ``op``/``average`` (Sum or Average),
 ``zero_stage`` (None: ``HOROVOD_ZERO_STAGE``), ``wire`` (None:
-``HOROVOD_ZERO_WIRE``, never ``HOROVOD_FUSION_WIRE``; ``auto`` raises
-naming ROADMAP A12), ``wire_block`` (None: ``HOROVOD_FUSION_WIRE_BLOCK``),
+``HOROVOD_ZERO_WIRE``, never ``HOROVOD_FUSION_WIRE``; ``auto`` resolves
+once, at construction, through ``overlap.resolve_wire`` on the mean
+bucket's bytes, from the shared wire tuner every rank starts alike, a
+fixed prior until something feeds it: the optimizer keeps one wire for
+every leg), ``wire_block`` (None: ``HOROVOD_FUSION_WIRE_BLOCK``),
 ``error_feedback`` (stages 1–2, ``wire="int8"``: ``rs`` residuals in
 full-gradient geometry, ``ag`` residuals in shard geometry, a wire seed
 a step; padding holds a zero residual), ``overlap_buckets``/
@@ -223,6 +226,22 @@ class _Gather(torch.autograd.Function):
             ctx.opt._scatter_bucket(ctx.b, list(grads), ctx.step))
 
 
+def _auto_wire(optimizer, overlap_buckets) -> str:
+    """``wire="auto"``'s one wire: ``resolve_wire`` on the gradient
+    bytes over the bucket count, from the shared tuner, whose state every
+    rank starts alike (a fixed prior until something feeds it:
+    ``ops/overlap.py``'s docstring)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]
+              if p.requires_grad]
+    if not params:
+        return "fp32"
+    n = (overlap.default_buckets() if overlap_buckets is None
+         else int(overlap_buckets))
+    total = sum(p.numel() * p.element_size() for p in params)
+    return overlap.resolve_wire("auto", total // max(n, 1),
+                                params[0].element_size())
+
+
 class ShardedDistributedOptimizer:
     """``torch.optim`` wrapper with reduce-scatter/all-gather weight
     update and ZeRO stages 1–3 (module docstring)."""
@@ -258,7 +277,9 @@ class ShardedDistributedOptimizer:
         if wire not in _WIRE_FORMATS:
             raise ValueError(
                 f"wire must be one of {_WIRE_FORMATS}, got {wire!r}")
-        self._wire = overlap.resolve_wire(wire)  # auto: A12
+        if wire == "auto":
+            wire = _auto_wire(optimizer, overlap_buckets)
+        self._wire = overlap.resolve_wire(wire)
         self._block = int(cfg.fusion_wire_block if wire_block is None
                           else wire_block)
         self._hier = None if hierarchical is False else "auto"

@@ -260,7 +260,6 @@ def test_driver_notifies_the_worker_manager(monkeypatch):
 @pytest.mark.parametrize("env,item", [
     ({"HOROVOD_WARM_STANDBY": "1"}, "A16"),
     ({"HOROVOD_REBALANCE": "on"}, "A12"),
-    ({"HOROVOD_STRAGGLER_QUARANTINE_POLLS": "3"}, "A12"),
 ])
 def test_deferred_knobs_raise_with_their_items(monkeypatch, env, item):
     for k, v in env.items():
@@ -268,6 +267,37 @@ def test_deferred_knobs_raise_with_their_items(monkeypatch, env, item):
     with pytest.raises(NotImplementedError, match=item):
         ElasticDriver(FakeDiscovery([]), ["true"], 1)
     drv.check_deferred_knobs({"HOROVOD_WARM_STANDBY": "0"})  # off: fine
+
+
+def test_driver_quarantines_stragglers_by_default(monkeypatch):
+    """The JAX driver's default (3 consecutive fresh heartbeats) holds
+    in the port: a host whose ranks stay stragglers is blacklisted and
+    the gang restarts without it; HOROVOD_STRAGGLER_QUARANTINE_POLLS
+    sets the count and 0 observes only."""
+    import json as _json
+
+    from horovod_tpu_torch.runner.rendezvous import HEARTBEAT_SCOPE, KVStore
+
+    monkeypatch.delenv("HOROVOD_STRAGGLER_QUARANTINE_POLLS", raising=False)
+    d = ElasticDriver(FakeDiscovery([HostInfo("a", 1), HostInfo("b", 3)]),
+                      ["true"], 1)
+    assert d._quarantine_polls == 3
+    d.host_manager.refresh()
+    d._server = type("S", (), {"store": KVStore()})()
+    d._blocks = [{"HOROVOD_RANK": str(r), "HOROVOD_HOSTNAME": h}
+                 for r, h in enumerate("abbb")]
+    reasons = []
+    for beat in range(3):
+        for r in range(4):
+            d._server.store.put(HEARTBEAT_SCOPE, str(r), _json.dumps({
+                "ts": 1e9 + beat, "step": 10,
+                "step_ms_p50": 900.0 if r == 0 else 10.0}).encode())
+        d._last_hb_poll = -1e9
+        reasons.append(d._poll_heartbeats(0.0))
+    assert reasons[:2] == [None, None] and "quarantine" in reasons[2]
+    assert list(d.host_manager.blacklisted) == ["a"]
+    monkeypatch.setenv("HOROVOD_STRAGGLER_QUARANTINE_POLLS", "0")
+    assert ElasticDriver(FakeDiscovery([]), ["true"], 1)._quarantine_polls == 0
 
 
 def test_driver_refuses_per_host_placement():

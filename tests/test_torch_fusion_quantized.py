@@ -334,9 +334,30 @@ def test_wire_env_knobs(monkeypatch):
         assert torch.equal(out, torch.ones(1000))  # all-equal blocks
     finally:
         hvd.shutdown()
+    # auto: each batch's wire from the wire tuner; the first dispatches
+    # of a tier are trials of its menu in order (fp32, bf16, int8), and
+    # the sums stay exact on integer-valued fp32 under fp32 and bf16
     monkeypatch.setenv("HOROVOD_FUSION_WIRE", "auto")
-    with pytest.raises(NotImplementedError, match="A12"):
-        hvd.init(device="cpu")
+    monkeypatch.delenv("HOROVOD_TUNER_CACHE", raising=False)
+    hvd.init(device="cpu")
+    try:
+        fusion = basics.state().fusion
+        assert fusion.wire == "auto" and fusion.wire_tuner is not None
+        key = ("allreduce", 1 << 15, "float32")
+        wires = []
+        for _ in range(7):
+            out = hvd.allreduce(torch.ones(1 << 15), op=hvd.Sum)
+            wires.append(fusion.last_wire_format)
+            assert torch.equal(out, torch.ones(1 << 15))
+        assert wires[:6] == ["fp32"] * 3 + ["bf16"] * 3
+        assert wires[6] == "int8" and fusion.wire_trials == 7
+        assert fusion.wire_choices[key] == "int8"
+        # an integer payload rides the exact wire, never a trial
+        hvd.allreduce(torch.ones(8, dtype=torch.int32), op=hvd.Sum)
+        assert fusion.last_wire_format == "fp32"
+        assert fusion.wire_trials == 7
+    finally:
+        hvd.shutdown()
     # the two-level placement of the int8 wire is a switch now
     monkeypatch.setenv("HOROVOD_FUSION_WIRE", "int8")
     monkeypatch.setenv("HOROVOD_FUSION_WIRE_HIER", "1")

@@ -55,7 +55,13 @@ def test_import_pulls_in_no_jax():
         "horovod_tpu_torch.elastic.driver, "
         "horovod_tpu_torch.elastic.discovery, horovod_tpu_torch.checkpoint, "
         "horovod_tpu_torch.audit, horovod_tpu_torch.data, "
-        "horovod_tpu_torch.preemption\n"
+        "horovod_tpu_torch.preemption, horovod_tpu_torch.common.logging, "
+        "horovod_tpu_torch.common.telemetry, "
+        "horovod_tpu_torch.common.timeline, "
+        "horovod_tpu_torch.common.traced_timeline, "
+        "horovod_tpu_torch.common.stall_inspector, "
+        "horovod_tpu_torch.common.tracing, "
+        "horovod_tpu_torch.common.autotune\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -111,3 +117,28 @@ def test_card_scripts_import_no_jax(script):
         offenders += [f"{script}:{node.lineno} {n}" for n in names
                       if _forbidden(n)]
     assert not offenders, offenders
+
+
+_LAUNCHER = ("import runpy, sys\n"
+             "sys.argv = ['hvdrun-torch', '--help']\n"
+             "try:\n"
+             "    runpy.run_module('horovod_tpu_torch.runner', "
+             "run_name='__main__')\n"
+             "except SystemExit:\n"
+             "    pass\n")
+
+
+@pytest.mark.parametrize("code", [
+    "import horovod_tpu_torch as hvd\nassert callable(hvd.audit)\n",
+    _LAUNCHER,
+], ids=["package", "launcher"])
+def test_the_package_and_its_launcher_import_no_torch(code):
+    """``import horovod_tpu_torch`` binds each public name at its first
+    use, so the launcher starts without torch (seconds a gang start)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", code + "import sys\n"
+         "print('torch' in sys.modules)\n"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "False", proc.stdout

@@ -454,8 +454,19 @@ class TestMoEFFN:
     def test_wire_validation(self):
         from horovod_tpu_torch.parallel import moe
 
-        with pytest.raises(NotImplementedError, match="A12"):
-            moe._resolve_wire("auto", None)
+        # auto: the shared wire tuner's choice for the payload's tier
+        # (its first untried candidate; under the int8 floor, fp32/bf16)
+        from horovod_tpu_torch.common import autotune
+
+        autotune.reset_shared_tuners()
+        assert moe._resolve_wire("auto", None) == ("fp32", "fp32")
+        assert moe._resolve_wire("auto", "bf16", 1 << 20) == \
+            ("fp32", "bf16")
+        key = ("alltoall", 1 << 20, "float32", "flat")
+        autotune.shared_wire_tuner().record(key, "fp32", 1 << 20, 1.0)
+        autotune.shared_wire_tuner().trials = 1
+        assert moe._resolve_wire("auto", None, 1 << 20)[0] == "bf16"
+        autotune.reset_shared_tuners()
         with pytest.raises(ValueError, match="fp32/bf16/int8"):
             moe._resolve_wire("fp16", None)
         with pytest.raises(ValueError, match="intra_wire"):

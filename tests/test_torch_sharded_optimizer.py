@@ -113,7 +113,7 @@ def _make(hvd, **kw):
     (dict(op="adasum"), NotImplementedError, "Sum/Average"),
     (dict(zero_stage=4), ValueError, "zero_stage"),
     (dict(wire="fp8"), ValueError, "wire"),
-    (dict(wire="auto"), NotImplementedError, "A12"),
+    (dict(wire="auto", error_feedback=True), ValueError, "error_feedback"),
     (dict(wire="bf16", error_feedback=True), ValueError, "error_feedback"),
     (dict(zero_stage=3, wire="int8", error_feedback=True), ValueError,
      "stage"),
@@ -131,6 +131,20 @@ def test_constructor_refusals(hvd, kw, exc, match):
         kw["op"] = hvd.Adasum
     with pytest.raises(exc, match=match):
         _make(hvd, **kw)
+
+
+def test_wire_auto_resolves_at_construction(hvd):
+    """wire="auto" resolves one wire as the optimizer is built: these
+    small gradients sit under the tuner's int8 floor (fp32); a floor of
+    zero takes the 4-byte prior, int8, and error feedback then holds."""
+    from horovod_tpu_torch.common import autotune
+
+    autotune.reset_shared_tuners()
+    assert _make(hvd, wire="auto")._wire == "fp32"
+    autotune.shared_wire_tuner().min_int8_bytes = 0
+    opt = _make(hvd, wire="auto", error_feedback=True)
+    assert opt._wire == "int8"
+    autotune.reset_shared_tuners()
 
 
 def test_refuses_two_param_groups(hvd):

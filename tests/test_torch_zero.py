@@ -188,11 +188,11 @@ def _zero_worker(rank, n, outdir):
     out["ag_q"], out["ag_q_res"] = hvd.bucketed_shard_all_gather(
         out["rs_sum"], tree, wire="int8", wire_block=16, seed=5,
         residuals=shard_zeros, **leg)
-    try:
-        hvd.bucketed_reduce_scatter(tree, wire="auto")
-        out["auto_raised"] = None
-    except NotImplementedError as e:
-        out["auto_raised"] = str(e)
+    # wire="auto": these buckets sit under the tuner's int8 floor, so
+    # fp32 (the bits of the default wire); a big bucket's prior is int8
+    out["rs_wire_auto"] = hvd.bucketed_reduce_scatter(
+        tree, op=hvd.Sum, wire="auto", **leg)
+    out["auto_big"] = overlap.resolve_wire("auto", 1 << 20)
 
     # the int8 wire's padding (test_zero.py:451-530): a [4, 96] pane
     # buffer whose last 26 columns are padding, and a 24-element shard
@@ -315,7 +315,10 @@ def test_legs_bitwise_equal_jax(world):
                                           o["rs_sum"][k].numpy())
         assert o["rs_sum"]["a"].shape == (-(-33 * 7 // N),)
         assert o["rs_sum"]["s"].shape == ()
-        assert "A12" in o["auto_raised"]
+        for k in LEG_SHAPES:
+            np.testing.assert_array_equal(o["rs_wire_auto"][k].numpy(),
+                                          o["rs_auto"][k].numpy())
+        assert o["auto_big"] == "int8"
 
 
 def test_pair_shares_one_schedule_and_counts_legs(world):
