@@ -227,7 +227,9 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    flash kernels 2L/L/L/L, all on the tensor cores. It prints each
    arm's seconds, the start's marks, the commit and restore seconds and
    bytes, each rank's peak memory and the launch counts; (c)'s driver,
-   which quarantines stragglers by default, must quarantine none.
+   which quarantines stragglers by default, must quarantine none, and
+   under ``HOROVOD_REBALANCE=1`` must publish no weights and export
+   ``driver.rebalance.active`` 0 to its ``HOROVOD_METRICS_FILE``.
 19. Observability and the tuners, on phase 5's model and batch in a
    world of one on NCCL, one build, the flash and B3 counters zeroed
    just before: (a) three turns of a step with the eager timeline off
@@ -253,11 +255,31 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    unwaited past ``HOROVOD_STALL_CHECK_TIME_SECONDS=1`` warns and shows
    in ``stall.pending``; past ``..._SHUTDOWN_TIME_SECONDS=2`` the next
    tick raises ``HorovodInternalError``.
-   The flash counts of phases 5, 10, 12, 13, 14, 15, 16, 17, 18 and 19,
-   and the wire counts of phases 8, 9 and 13–19, add up in the
+20. The training path's remainders, each in a world of one on NCCL:
+   (a) BERT-large at full width (24 layers, 8 × 512 random tokens from
+   the seed, bf16 on fp32 masters, remat) through
+   ``DistributedOptimizer(SGD(0.01, momentum 0.9), op=hvd.Adasum)``, 3
+   steps: the loss finite and falling, each forward launching B5 24
+   times and each backward B5 (remat), delta, dQ and dK/dV 24 times,
+   all on the tensor cores; B5/B6 at BERT's bidirectional shape against
+   their plain versions, SDPA and the bound (phase 2's
+   ``bert-full-t512`` rows). (b) ``HOROVOD_GUARD=1`` and
+   ``HOROVOD_FAULT_PLAN=...fusion.dispatch@3:nan`` over eager
+   ``Compression.int8_block`` allreduces of GPT-2 medium's 294 gradient
+   sizes: ``hvd.guard_check()`` counts exactly one
+   ``guard.nonfinite_batches``, B3 runs twice a batch and bitwise its
+   plain version; ``fusion.dispatch@1:timeout`` raises
+   ``HorovodInternalError``. (c) ``HOROVOD_AUTOTUNE=1`` over a loop of
+   bare ``hvd.allreduce_async`` calls and ``hvd.step_end()``: the
+   threshold moves from 64 MiB and the parameter manager freezes. (d)
+   ``tune_capacity`` on phase 17's composed model (4 experts at ep 1, 4
+   layers), one trial a candidate: the choice, each candidate's drop
+   rate and imbalance, and B5/B6 launches equal to the schedule's.
+   The flash counts of phases 5, 10, 12, 13, 14, 15, 16, 17, 18, 19 and
+   20, and the wire counts of phases 8, 9 and 13–20, add up in the
    ``kernels`` line.
 
-``python3 chip_smoke.py --only 17`` (or ``--only 18``, ``--only 19``) builds the
+``python3 chip_smoke.py --only 17`` (or ``--only 18``, ``19``, ``20``) builds the
 kernels and runs that phase alone (a development aid; it prints no
 ``ok`` line). ``--log FILE`` also writes every line printed after the
 card and the package are found to ``FILE``.
@@ -690,163 +712,169 @@ def phase_flash_kernels(gen):
     backward calls them; each forward, dQ and dK/dV row names the
     variant that ran (``tensor_cores`` or ``cuda_cores``) by the launch
     counters."""
+    results = {"fwd": [], "delta": [], "dq": [], "dkv": []}
+    for c in FLASH_CASES:
+        _flash_case(gen, c, results)
+    return results
+
+
+def _flash_case(gen, c, results):
+    """One row of :func:`phase_flash_kernels` for each kernel at case
+    ``c`` (a :data:`FLASH_CASES` tuple), appended to ``results``."""
     import torch
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    results = {"fwd": [], "delta": [], "dq": [], "dkv": []}
     dev = torch.device("cuda")
-    for c in FLASH_CASES:
-        name, b, t, h, kvh, d, causal, lengths, window = c
+    name, b, t, h, kvh, d, causal, lengths, window = c
 
-        def rnd(heads):
-            return torch.randn((b, t, heads, d), generator=gen,
-                               device=dev).to(torch.bfloat16)
+    def rnd(heads):
+        return torch.randn((b, t, heads, d), generator=gen,
+                           device=dev).to(torch.bfloat16)
 
-        q, k, v, do = rnd(h), rnd(kvh), rnd(kvh), rnd(h)
-        lens = (None if lengths is None else
-                torch.tensor(lengths, dtype=torch.int32, device=dev))
-        kw = dict(causal=causal, lengths=lens, window=window)
-        fwd_tc_before = fa.flash_fwd.tc_launches
-        o, lse = fa.flash_fwd(q, k, v, **kw)
-        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
-        delta = fa.flash_bwd_delta(o_ref, do)
-        tc_before = (fa.flash_bwd_dq.tc_launches,
-                     fa.flash_bwd_dkv.tc_launches)
-        dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, delta=delta, **kw)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do, delta=delta,
-                                  **kw)
-        variant = {
-            kind: ("tensor_cores" if fn.tc_launches > before
-                   else "cuda_cores")
-            for kind, fn, before in (("fwd", fa.flash_fwd, fwd_tc_before),
-                                     ("dq", fa.flash_bwd_dq, tc_before[0]),
-                                     ("dkv", fa.flash_bwd_dkv,
-                                      tc_before[1]))
+    q, k, v, do = rnd(h), rnd(kvh), rnd(kvh), rnd(h)
+    lens = (None if lengths is None else
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+    kw = dict(causal=causal, lengths=lens, window=window)
+    fwd_tc_before = fa.flash_fwd.tc_launches
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, **kw)
+    delta = fa.flash_bwd_delta(o_ref, do)
+    tc_before = (fa.flash_bwd_dq.tc_launches,
+                 fa.flash_bwd_dkv.tc_launches)
+    dq = fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do, delta=delta, **kw)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do, delta=delta,
+                              **kw)
+    variant = {
+        kind: ("tensor_cores" if fn.tc_launches > before
+               else "cuda_cores")
+        for kind, fn, before in (("fwd", fa.flash_fwd, fwd_tc_before),
+                                 ("dq", fa.flash_bwd_dq, tc_before[0]),
+                                 ("dkv", fa.flash_bwd_dkv,
+                                  tc_before[1]))
+    }
+    dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(q, k, v, o_ref, lse_ref,
+                                                do, **kw)
+    delta_ref = fa.flash_bwd_delta_plain(o_ref, do)
+    torch.cuda.synchronize()
+    lse_err = float((lse - lse_ref).abs().max())
+    if lse_err > 1e-4:  # fp32 sums of up to t terms, lse up to ~10
+        fail(f"flash_fwd {name}: lse differs from plain by {lse_err}")
+    # fp32 sums of d products in another order: within 1e-5 of the
+    # row's magnitude (at least 1)
+    delta_err = float(((delta - delta_ref).abs()
+                       / delta_ref.abs().clamp_min(1.0)).max())
+    if not delta_err <= 1e-5:
+        fail(f"flash_bwd_delta {name}: differs from plain by "
+             f"{delta_err:.3g} relative")
+    errs = {
+        "fwd": _check_one_rounding(f"flash_fwd {name}", o, o_ref),
+        "delta": float((delta - delta_ref).abs().max()),
+        "dq": _check_one_rounding(f"flash_bwd_dq {name}", dq, dq_ref),
+        "dkv": max(
+            _check_one_rounding(f"flash_bwd_dkv {name} dk", dk, dk_ref),
+            _check_one_rounding(f"flash_bwd_dkv {name} dv", dv, dv_ref),
+        ),
+    }
+    # the library yardstick: SDPA on [b, h, t, d] copies (made
+    # outside the timed calls), the mask as a boolean bias where
+    # lengths or a window need one
+    qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
+                       for x in (q, k, v, do))
+    mask = None
+    if lens is not None or window:
+        rows = torch.arange(t, device=dev)[:, None]
+        cols = torch.arange(t, device=dev)[None, :]
+        m = (cols <= rows) if causal else torch.ones(
+            (t, t), dtype=torch.bool, device=dev)
+        if window:
+            m = m & (rows - cols < window)
+        m = m[None, None]
+        if lens is not None:
+            m = m & (cols < lens.long()[:, None, None, None])
+        mask = m
+    sdpa_kw = dict(attn_mask=mask, is_causal=causal and mask is None,
+                   enable_gqa=h != kvh)
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
+
+    def lib_fwd(i):
+        F.scaled_dot_product_attention(qh, kh, vh, **sdpa_kw)
+
+    def lib_fwd_bwd(i):
+        out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+        torch.autograd.grad(out, leaves, doh)
+
+    lib_fwd_ms = _time_ms(lib_fwd, iters=20)
+    # SDPA's backward alone: forward and backward captured together
+    # in one graph (a backward runs on its forward's stream), less
+    # the forward; where the capture is refused, timed eagerly
+    # (Python and launch cost included) and labelled so
+    try:
+        lib_bwd_ms = _time_ms(lib_fwd_bwd, iters=20) - lib_fwd_ms
+        how = "graph-replayed, forward+backward less forward"
+    except RuntimeError as e:
+        log(f"flash {name}: SDPA backward capture refused ({e}); "
+            "timing it eagerly")
+        out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+        lib_bwd_ms = _time_ms(
+            lambda i: torch.autograd.grad(out, leaves, doh,
+                                          retain_graph=True),
+            iters=20, graph=False)
+        how = "eager"
+
+    timed = {
+        "fwd": (lambda i: fa.flash_fwd(q, k, v, **kw),
+                lambda i: fa.flash_fwd_plain(q, k, v, **kw)),
+        "delta": (lambda i: fa.flash_bwd_delta(o_ref, do),
+                  lambda i: fa.flash_bwd_delta_plain(o_ref, do)),
+        "dq": (lambda i: fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do,
+                                         delta=delta, **kw),
+               lambda i: fa.flash_bwd_plain(q, k, v, o_ref, lse_ref, do,
+                                            **kw)),
+        "dkv": (lambda i: fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do,
+                                           delta=delta, **kw),
+                lambda i: fa.flash_bwd_plain(q, k, v, o_ref, lse_ref,
+                                             do, **kw)),
+    }
+    # SDPA's backward computes dQ, dK and dV in one call: the same
+    # number stands beside both backward kernels; no one call
+    # computes delta in fp32 from bf16 inputs
+    bwd_call = ("scaled_dot_product_attention backward (dQ, dK and dV "
+                f"together, {how})")
+    library = {"fwd": (lib_fwd_ms,
+                       "scaled_dot_product_attention forward"),
+               "delta": (None, None), "dq": (lib_bwd_ms, bwd_call),
+               "dkv": (lib_bwd_ms, bwd_call)}
+    for kind, (kern, plain) in timed.items():
+        # in turns: plain, kernel, kernel, plain, all graph-replayed
+        p1 = _time_ms(plain, iters=10)
+        k1 = _time_ms(kern, iters=20)
+        k2 = _time_ms(kern, iters=20)
+        p2 = _time_ms(plain, iters=10)
+        bound_ms, bound_by = _flash_bound(kind, c)
+        r = {
+            "name": name,
+            "shape": {"b": b, "t": t, "h": h, "kvh": kvh, "d": d,
+                      "causal": causal, "lengths": lengths,
+                      "window": window, "dtype": "bfloat16"},
+            "max_abs_err": errs[kind],
+            "ms": min(k1, k2),
+            "plain_ms": min(p1, p2),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library[kind][0],
+            "library_call": library[kind][1],
         }
-        dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(q, k, v, o_ref, lse_ref,
-                                                    do, **kw)
-        delta_ref = fa.flash_bwd_delta_plain(o_ref, do)
-        torch.cuda.synchronize()
-        lse_err = float((lse - lse_ref).abs().max())
-        if lse_err > 1e-4:  # fp32 sums of up to t terms, lse up to ~10
-            fail(f"flash_fwd {name}: lse differs from plain by {lse_err}")
-        # fp32 sums of d products in another order: within 1e-5 of the
-        # row's magnitude (at least 1)
-        delta_err = float(((delta - delta_ref).abs()
-                           / delta_ref.abs().clamp_min(1.0)).max())
-        if not delta_err <= 1e-5:
-            fail(f"flash_bwd_delta {name}: differs from plain by "
-                 f"{delta_err:.3g} relative")
-        errs = {
-            "fwd": _check_one_rounding(f"flash_fwd {name}", o, o_ref),
-            "delta": float((delta - delta_ref).abs().max()),
-            "dq": _check_one_rounding(f"flash_bwd_dq {name}", dq, dq_ref),
-            "dkv": max(
-                _check_one_rounding(f"flash_bwd_dkv {name} dk", dk, dk_ref),
-                _check_one_rounding(f"flash_bwd_dkv {name} dv", dv, dv_ref),
-            ),
-        }
-        # the library yardstick: SDPA on [b, h, t, d] copies (made
-        # outside the timed calls), the mask as a boolean bias where
-        # lengths or a window need one
-        qh, kh, vh, doh = (x.transpose(1, 2).contiguous()
-                           for x in (q, k, v, do))
-        mask = None
-        if lens is not None or window:
-            rows = torch.arange(t, device=dev)[:, None]
-            cols = torch.arange(t, device=dev)[None, :]
-            m = (cols <= rows) if causal else torch.ones(
-                (t, t), dtype=torch.bool, device=dev)
-            if window:
-                m = m & (rows - cols < window)
-            m = m[None, None]
-            if lens is not None:
-                m = m & (cols < lens.long()[:, None, None, None])
-            mask = m
-        sdpa_kw = dict(attn_mask=mask, is_causal=causal and mask is None,
-                       enable_gqa=h != kvh)
-        leaves = [x.detach().requires_grad_() for x in (qh, kh, vh)]
-
-        def lib_fwd(i):
-            F.scaled_dot_product_attention(qh, kh, vh, **sdpa_kw)
-
-        def lib_fwd_bwd(i):
-            out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
-            torch.autograd.grad(out, leaves, doh)
-
-        lib_fwd_ms = _time_ms(lib_fwd, iters=20)
-        # SDPA's backward alone: forward and backward captured together
-        # in one graph (a backward runs on its forward's stream), less
-        # the forward; where the capture is refused, timed eagerly
-        # (Python and launch cost included) and labelled so
-        try:
-            lib_bwd_ms = _time_ms(lib_fwd_bwd, iters=20) - lib_fwd_ms
-            how = "graph-replayed, forward+backward less forward"
-        except RuntimeError as e:
-            log(f"flash {name}: SDPA backward capture refused ({e}); "
-                "timing it eagerly")
-            out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
-            lib_bwd_ms = _time_ms(
-                lambda i: torch.autograd.grad(out, leaves, doh,
-                                              retain_graph=True),
-                iters=20, graph=False)
-            how = "eager"
-
-        timed = {
-            "fwd": (lambda i: fa.flash_fwd(q, k, v, **kw),
-                    lambda i: fa.flash_fwd_plain(q, k, v, **kw)),
-            "delta": (lambda i: fa.flash_bwd_delta(o_ref, do),
-                      lambda i: fa.flash_bwd_delta_plain(o_ref, do)),
-            "dq": (lambda i: fa.flash_bwd_dq(q, k, v, o_ref, lse_ref, do,
-                                             delta=delta, **kw),
-                   lambda i: fa.flash_bwd_plain(q, k, v, o_ref, lse_ref, do,
-                                                **kw)),
-            "dkv": (lambda i: fa.flash_bwd_dkv(q, k, v, o_ref, lse_ref, do,
-                                               delta=delta, **kw),
-                    lambda i: fa.flash_bwd_plain(q, k, v, o_ref, lse_ref,
-                                                 do, **kw)),
-        }
-        # SDPA's backward computes dQ, dK and dV in one call: the same
-        # number stands beside both backward kernels; no one call
-        # computes delta in fp32 from bf16 inputs
-        bwd_call = ("scaled_dot_product_attention backward (dQ, dK and dV "
-                    f"together, {how})")
-        library = {"fwd": (lib_fwd_ms,
-                           "scaled_dot_product_attention forward"),
-                   "delta": (None, None), "dq": (lib_bwd_ms, bwd_call),
-                   "dkv": (lib_bwd_ms, bwd_call)}
-        for kind, (kern, plain) in timed.items():
-            # in turns: plain, kernel, kernel, plain, all graph-replayed
-            p1 = _time_ms(plain, iters=10)
-            k1 = _time_ms(kern, iters=20)
-            k2 = _time_ms(kern, iters=20)
-            p2 = _time_ms(plain, iters=10)
-            bound_ms, bound_by = _flash_bound(kind, c)
-            r = {
-                "name": name,
-                "shape": {"b": b, "t": t, "h": h, "kvh": kvh, "d": d,
-                          "causal": causal, "lengths": lengths,
-                          "window": window, "dtype": "bfloat16"},
-                "max_abs_err": errs[kind],
-                "ms": min(k1, k2),
-                "plain_ms": min(p1, p2),
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": library[kind][0],
-                "library_call": library[kind][1],
-            }
-            if kind in variant:
-                r["variant"] = variant[kind]
-            log(f"kernel flash_{kind}[{name}]: "
-                + json.dumps(r, sort_keys=True))
-            results[kind].append(r)
-        bwd_ms = sum(results[k][-1]["ms"] for k in ("delta", "dq", "dkv"))
-        log(f"flash backward[{name}]: delta + dQ + dK/dV {bwd_ms:.5f} ms, "
-            f"SDPA backward {lib_bwd_ms:.5f} ms ({how})")
-        del leaves
-    return results
+        if kind in variant:
+            r["variant"] = variant[kind]
+        log(f"kernel flash_{kind}[{name}]: "
+            + json.dumps(r, sort_keys=True))
+        results[kind].append(r)
+    bwd_ms = sum(results[k][-1]["ms"] for k in ("delta", "dq", "dkv"))
+    log(f"flash backward[{name}]: delta + dQ + dK/dV {bwd_ms:.5f} ms, "
+        f"SDPA backward {lib_bwd_ms:.5f} ms ({how})")
+    del leaves
 
 
 # ------------------------------------------------------- phase 3 main path
@@ -5461,7 +5489,8 @@ def phase_durability(card):
                         "--max-np", str(P18_WORLD),
                         "--host-discovery-script", script],
             dict(env, HOROVOD_FAULT_PLAN=f"train.step.rank0@{P18_FAULT_STEP}"
-                 ":kill"))
+                 ":kill", HOROVOD_REBALANCE="1",
+                 HOROVOD_METRICS_FILE=os.path.join(root, "metrics_c.jsonl")))
         if rc != 0:
             fail(f"durability (c): the elastic launcher exited {rc}\n"
                  + _p18_tail(root, "c"))
@@ -5521,6 +5550,19 @@ def phase_durability(card):
         if quarantined:
             fail(f"durability (c): the driver quarantined {quarantined} "
                  "straggler host(s)\n" + _p18_tail(root, "c"))
+        # the rebalance was on: no straggler, so no weights published
+        # (no update counted, no warning logged) and the gauge at 0
+        rebalance = {}
+        with open(os.path.join(root, "metrics_c.jsonl")) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec["name"].startswith("driver.rebalance."):
+                    rebalance[rec["name"]] = rec["value"]
+        summary["driver_rebalance"] = rebalance
+        if rebalance != {"driver.rebalance.active": 0.0} or (
+                "rebalancing micro-batch" in _p18_tail(root, "c", 1 << 30)):
+            fail(f"durability (c): the rebalance driver exported "
+                 f"{rebalance}\n" + _p18_tail(root, "c"))
         summary["elastic_losses_mean"] = mean
         summary["elastic_restore_s"] = [rec["restore_s"] for rec in e1]
         summary["residual_check_s"] = [rec["residual_check_s"] for rec in e1]
@@ -6016,11 +6058,353 @@ def phase_observe(gen, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phase 20
+
+P20_BERT_STEPS = 3
+P20_BERT_CASE = "bert-full-t512"  # FLASH_CASES' row at BERT-large's shape
+P20_FAULT_BATCH = 3  # (b): the eager batch the nan fault poisons
+# (b): allreduces between two guard polls; the manager keeps the newest
+# 256 sentinels only, and GPT-2 medium has 294 gradients
+P20_POLL_EVERY = 128
+P20_TUNE_STEPS = 20  # (c): the most eager steps before the manager freezes
+P20_CAPACITY_KEY = ("moe", 1, MP_BATCH * MP_SEQ, 1024)
+
+
+def _gpt2_grad_numels():
+    """The element counts of GPT-2 medium's 294 gradients, in the
+    model's parameter order: the two embeddings, 12 a block, the final
+    norm and the LM head."""
+    d, ff, v, t = 1024, 4096, 50257, 1024
+    block = [d, d, d * 3 * d, 3 * d, d * d, d, d, d, d * ff, ff, ff * d, d]
+    return [v * d, t * d] + block * 24 + [d, d, d * v, v]
+
+
+def _p20_bert(gen, flash_results):
+    """(a): BERT-large at full width, 24 layers, 8 × 512 random tokens
+    from the seed, bf16 on fp32 masters with remat, through
+    ``DistributedOptimizer(SGD(0.01, momentum 0.9), op=Adasum)`` in a
+    world of one on NCCL. Each step's forward launches B5 24 times,
+    and its backward 24 more (remat's recompute), the delta pass, dQ and
+    dK/dV 24 times each, every B5/dQ/dK-dV launch on the tensor cores.
+    B5 and B6 at BERT's shape against their plain versions, SDPA and
+    the bound: phase 2's ``bert-full-t512`` rows, or that case run here
+    when phase 2 did not run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import Transformer, TransformerConfig
+
+    if flash_results is None:
+        flash_results = {"fwd": [], "delta": [], "dq": [], "dkv": []}
+        _flash_case(gen, next(c for c in FLASH_CASES
+                              if c[0] == P20_BERT_CASE), flash_results)
+        _zero_flash()  # the comparison's launches are not the path's
+    rows = {k: next(r for r in v if r["name"] == P20_BERT_CASE)
+            for k, v in flash_results.items()}
+    for kind in ("fwd", "dq", "dkv"):
+        if rows[kind]["variant"] != "tensor_cores":
+            fail(f"bert (a): flash_{kind} at {P20_BERT_CASE} ran on the "
+                 f"{rows[kind]['variant']}")
+    cfg = dataclasses.replace(TransformerConfig.bert_large(), remat=True)
+    n = cfg.num_layers
+    rng = np.random.default_rng(SEED)
+    seq = rng.integers(0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ + 1))
+    tokens = torch.as_tensor(seq[:, :-1], device="cuda")
+    labels = torch.as_tensor(seq[:, 1:], device="cuda")
+    hvd.init()
+    try:
+        t0 = time.monotonic()
+        model = Transformer(cfg, device="cuda", generator=gen)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+            named_parameters=model.named_parameters(), op=hvd.Adasum)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        def diff(a, b):  # launches, then tensor-core launches, by name
+            return {**{k: a[0][k] - b[0][k] for k in a[0]},
+                    **{f"{k}_tc": a[1][k] - b[1][k] for k in a[1]}}
+
+        # the forward: B5 once a layer; the backward: remat's recompute
+        # (B5 again), the delta pass, dQ and dK/dV once a layer; every
+        # B5, dQ and dK/dV launch on the tensor cores
+        want_fwd = {"flash_fwd": n, "flash_fwd_tc": n, "flash_bwd_delta": 0,
+                    "flash_bwd_dq": 0, "flash_bwd_dq_tc": 0,
+                    "flash_bwd_dkv": 0, "flash_bwd_dkv_tc": 0}
+        want_bwd = {k: n for k in want_fwd}
+        losses, step_ms, counts = [], [], []
+        try:
+            for i in range(P20_BERT_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                opt.zero_grad(set_to_none=True)
+                before = _read_flash()
+                loss = _loss(model, tokens, labels)
+                fwd = _read_flash()
+                loss.backward()
+                opt.step()
+                losses.append(float(loss.detach()))
+                step_ms.append((time.monotonic() - t0) * 1e3)
+                counts.append({"forward": diff(fwd, before),
+                               "backward": diff(_read_flash(), fwd)})
+        finally:
+            opt.remove_hooks()
+        for i, c in enumerate(counts):
+            if c["forward"] != want_fwd or c["backward"] != want_bwd:
+                fail(f"bert (a) step {i}: launches {c}, want forward "
+                     f"{want_fwd} and backward {want_bwd}")
+        if not all(math.isfinite(x) for x in losses) or not (
+                losses[-1] < losses[0]):
+            fail(f"bert (a): losses {losses}")
+        del model, opt
+        return {"losses": losses, "step_ms": step_ms, "build_s": build_s,
+                "launches_per_step": counts[-1],
+                "kernels_at_bert_shape": {
+                    k: {f: rows[k][f] for f in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "max_abs_err", "variant")
+                        if f in rows[k]} for k in rows}}
+    finally:
+        hvd.shutdown()
+
+
+def _p20_guard(gen):
+    """(b): ``HOROVOD_GUARD=1`` and a ``fusion.dispatch@3:nan`` plan over
+    eager ``Compression.int8_block`` allreduces of GPT-2 medium's
+    gradient sizes, ``hvd.guard_check()`` every ``P20_POLL_EVERY`` of
+    them and at the end: the polls count exactly one non-finite batch,
+    B3 launched twice a batch and, on its first call, bitwise its plain
+    version; then ``fusion.dispatch@1:timeout`` surfaces as
+    ``HorovodInternalError``."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.common.metrics import registry
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.testing import chaos
+
+    grads = [torch.randn(n, generator=gen, device="cuda")
+             for n in _gpt2_grad_numels()]
+    saved = _env(HOROVOD_GUARD="1", HOROVOD_FAULT_PLAN=(
+        f"seed={SEED};fusion.dispatch@{P20_FAULT_BATCH}:nan"))
+    chaos.reset()  # read the plan from the environment
+    kernel = ck.int8_block_quantize
+    captured = {}
+
+    def capture(x, *args, **kw):  # B3's first call
+        out = kernel(x, *args, **kw)
+        if "x" not in captured:
+            captured.update(x=x.clone(), args=args, kw=kw,
+                            q=out[0].clone(), s=out[1].clone())
+        return out
+
+    hvd.init()
+    try:
+        fusion = basics.state().fusion
+        if not fusion.guard:
+            fail("guard (b): HOROVOD_GUARD=1 left the fusion manager "
+                 "unguarded")
+        b3_0, batches_0 = kernel.launches, fusion.dispatched_batches
+        before = registry.snapshot().get("guard.nonfinite_batches", 0.0)
+        ck.int8_block_quantize = capture
+        outs = []
+        try:
+            for i, g in enumerate(grads):
+                outs.append(hvd.allreduce(
+                    g, compression=hvd.Compression.int8_block))
+                if (i + 1) % P20_POLL_EVERY == 0:
+                    hvd.guard_check()
+        finally:
+            ck.int8_block_quantize = kernel
+        hvd.guard_check()
+        poisoned = [i for i, o in enumerate(outs)
+                    if not bool(torch.isfinite(o).all())]
+        counted = registry.snapshot().get("guard.nonfinite_batches",
+                                          0.0) - before
+        b3 = kernel.launches - b3_0
+        batches = fusion.dispatched_batches - batches_0
+        fired = chaos.active().fired()
+        if counted != 1 or poisoned != [P20_FAULT_BATCH - 1]:
+            fail(f"guard (b): guard.nonfinite_batches counted {counted}, "
+                 f"non-finite outputs {poisoned} (want 1, batch "
+                 f"{P20_FAULT_BATCH - 1}); the plan fired {fired}")
+        if b3 != 2 * batches or batches != len(grads):
+            fail(f"guard (b): {b3} B3 launches for {batches} int8 batches "
+                 f"of {len(grads)} allreduces")
+        q, sc = ck.int8_block_quantize_plain(captured["x"], *captured["args"],
+                                             **captured["kw"])
+        if not (torch.equal(q, captured["q"]) and torch.equal(
+                sc.reshape(captured["s"].shape), captured["s"])):
+            fail("guard (b): B3 under the guard differs from its plain "
+                 "version")
+        chaos.configure(f"seed={SEED};fusion.dispatch@1:timeout")
+        try:
+            hvd.allreduce(grads[0], compression=hvd.Compression.int8_block)
+            raised = None
+        except hvd.HorovodInternalError as e:
+            raised = str(e)
+        if raised is None:
+            fail("guard (b): fusion.dispatch@1:timeout did not raise "
+                 "HorovodInternalError")
+        del outs
+        return {"allreduces": len(grads), "b3_launches": b3,
+                    "nonfinite_batches": counted,
+                    "poisoned_batch": poisoned, "b3_bitwise": True,
+                    "timeout_raised": raised}
+    finally:
+        hvd.shutdown()
+        chaos.reset()
+        _env(**saved)
+        chaos.reset()
+
+
+def _p20_autotune(gen):
+    """(c): ``HOROVOD_AUTOTUNE=1`` (warmup 1, 2 steps a sample, 4
+    samples) over a loop of bare ``hvd.allreduce_async`` calls of GPT-2
+    medium's gradient sizes closed by ``hvd.step_end()``, with no
+    ``DistributedOptimizer``: the threshold moves from 64 MiB and the
+    parameter manager freezes."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+
+    grads = [torch.randn(n, generator=gen, device="cuda")
+             for n in _gpt2_grad_numels()]
+    saved = _env(HOROVOD_AUTOTUNE="1", **OBS_TUNE)
+    hvd.init()
+    try:
+        fusion = basics.state().fusion
+        pm = basics.state().parameter_manager
+        start = fusion.threshold_bytes
+        thresholds, batches = [], []
+        for _ in range(P20_TUNE_STEPS):
+            b0 = fusion.dispatched_batches
+            handles = [hvd.allreduce_async(g) for g in grads]
+            for h in handles:
+                h.wait()
+            hvd.step_end()
+            thresholds.append(fusion.threshold_bytes)
+            batches.append(fusion.dispatched_batches - b0)
+            if pm.frozen:
+                break
+        if not pm.frozen or all(t == start for t in thresholds):
+            fail(f"autotune (c): thresholds {thresholds} from {start}, "
+                 f"frozen {pm.frozen}")
+        return {"start": start, "thresholds": thresholds,
+                "batches_per_step": batches, "frozen": pm.frozen}
+    finally:
+        hvd.shutdown()
+        _env(**saved)
+
+
+def _p20_capacity(gen):
+    """(d): the composed model of phase 17 (GPT-2 medium's widths, depth
+    4, 4 experts at ep 1, 8 × 1024 tokens, bf16) in a world of one on
+    NCCL, through ``tune_capacity`` with one trial a candidate: the
+    factor chosen, each candidate's drop rate and imbalance, B5/B6
+    launches equal to the schedule's; the choice is no candidate whose
+    drop rate exceeds ``max_drop_rate`` unless every one does."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common.autotune import CapacityTuner
+    from horovod_tpu_torch.parallel import transformer as ptf
+    from horovod_tpu_torch.parallel.mesh import MeshSpec
+    from horovod_tpu_torch.parallel.moe import tune_capacity
+
+    hvd.init()
+    try:
+        cfg = _mp_cfg()
+        mesh = MeshSpec().build()
+        params = ptf.make_sharded_params(cfg, mesh, gen)
+        step = ptf.make_train_step(cfg, mesh, moe_stats=True)
+        tokens, labels = _lm_batch(MP_VOCAB, MP_BATCH, MP_SEQ)
+        box = {"p": params, "losses": []}
+
+        def run(factor):
+            box["p"], loss = step(box["p"], tokens, labels,
+                                  capacity_factor=factor)
+            box["losses"].append(float(loss))
+            return step.moe_stats
+
+        run(cfg.moe_capacity_factor)  # warm: the first step's set-up
+        tuner = CapacityTuner(trials=1)
+        before = _read_flash()
+        choice, curve = tune_capacity(run, P20_CAPACITY_KEY, tuner,
+                                      device="cuda")
+        after = _read_flash()
+        launches = ({k: after[0][k] - before[0][k] for k in after[0]},
+                    {k: after[1][k] - before[1][k] for k in after[1]})
+        steps = len(box["losses"]) - 1
+        n_micro = ptf._pick_n_micro(MP_BATCH, cfg.n_microbatches)
+        want = {k: v * steps for k, v in
+                _mp_predicted(cfg, mesh, "gpipe", n_micro).items()}
+        if launches[0] != want:
+            fail(f"capacity (d): flash launches {launches[0]}, the "
+                 f"schedule's {want}")
+        over = [c for c in tuner.candidates
+                if tuner.drop_rate(P20_CAPACITY_KEY, c) > tuner.max_drop_rate]
+        if steps != len(tuner.candidates) or (
+                choice in over and len(over) < len(tuner.candidates)):
+            fail(f"capacity (d): {steps} trials, chose {choice}; over "
+                 f"max_drop_rate {over}")
+        if not all(math.isfinite(x) for x in box["losses"]):
+            fail(f"capacity (d): losses {box['losses']}")
+        return {
+            "choice": choice, "losses": box["losses"],
+            "curve": {str(k): v for k, v in curve.items()},
+            "over_max_drop_rate": over, "flash_launches": launches[0]}
+    finally:
+        hvd.shutdown()
+
+
+def phase_bert(gen, card, flash_results=None):
+    """Phase 20: the training path's remainders in a world of one on
+    NCCL, one model build each: (a) BERT-large on Adasum, (b) the eager
+    guard and the ``fusion.dispatch`` fault site, (c) eager
+    ``HOROVOD_AUTOTUNE``, (d) the capacity tuner on the composed model.
+    Returns B3's launches and the flash launches (of (a) and (d))."""
+    import torch
+
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+
+    t_phase = time.monotonic()
+    out = {"card": card}
+    saved = _env(HOROVOD_GUARD=None, HOROVOD_FAULT_PLAN=None,
+                 HOROVOD_AUTOTUNE=None, HOROVOD_FUSION_WIRE=None,
+                 HOROVOD_TUNER_CACHE=None)
+    try:
+        _zero_flash()
+        ck.int8_block_quantize.launches = 0
+        marks = [("bert", lambda: _p20_bert(gen, flash_results)),
+                 ("guard", lambda: _p20_guard(gen)),
+                 ("autotune", lambda: _p20_autotune(gen)),
+                 ("capacity", lambda: _p20_capacity(gen))]
+        for label, fn in marks:
+            t0 = time.monotonic()
+            out[label] = dict(fn(), s=time.monotonic() - t0)
+            torch.cuda.empty_cache()
+        launches = _read_flash()
+        b3 = ck.int8_block_quantize.launches
+        out["launches"] = {"int8_block_quantize": b3, "flash": launches[0],
+                           "flash_tc": launches[1]}
+        out["phase_s"] = time.monotonic() - t_phase
+        log("remainders: " + json.dumps(out, sort_keys=True, default=str))
+        return b3, launches
+    finally:
+        _env(**saved)
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["17", "18", "19"],
+    ap.add_argument("--only", choices=["17", "18", "19", "20"],
                     help="build the kernels and run this phase alone")
     ap.add_argument("--log", help="also write every printed line here")
     ap.add_argument("--worker18", metavar="ARM",
@@ -6077,12 +6461,16 @@ def main() -> int:
         phase_durability(card)
         log(f"durability phase: {time.monotonic() - t0:.2f} s")
         return 0
-    if args.only == "19":
+    if args.only in ("19", "20"):
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
         t0 = time.monotonic()
-        phase_observe(gen, card)
-        log(f"observe phase: {time.monotonic() - t0:.2f} s")
+        if args.only == "19":
+            phase_observe(gen, card)
+            log(f"observe phase: {time.monotonic() - t0:.2f} s")
+        else:
+            phase_bert(gen, card)
+            log(f"remainders phase: {time.monotonic() - t0:.2f} s")
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -6229,6 +6617,15 @@ def main() -> int:
     flash_runs.append(obs_flash)
     wire_launches["int8_block_quantize"] += obs_b3
     log(f"observe phase: {time.monotonic() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    # phase 20: BERT-large on Adasum, the eager guard and its fault site,
+    # eager autotune and the capacity tuner
+    t0 = time.monotonic()
+    bert_b3, bert_flash = phase_bert(gen, card, flash_results)
+    flash_runs.append(bert_flash)
+    wire_launches["int8_block_quantize"] += bert_b3
+    log(f"remainders phase: {time.monotonic() - t0:.2f} s")
     flash_launches = {k: sum(r[0][k] for r in flash_runs)
                       for k in flash_runs[1][0]}
     flash_tc_launches = {k: sum(r[1][k] for r in flash_runs)

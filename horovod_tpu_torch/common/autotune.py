@@ -13,18 +13,25 @@ only (the last section's agreement uses ``torch.distributed``):
   only: its fusion ticks at poll/wait/step, never by the clock
   (``HOROVOD_CYCLE_TIME`` waits for ROADMAP A3). ``agree`` makes the
   sample's numbers the same on every rank (:func:`agree_sample`), so
-  every rank proposes the same threshold.
+  every rank proposes the same threshold. **The one difference from the
+  JAX manager:** it records every flush and closes a sample each
+  ``steps_per_sample`` flushes; the port records a step, closed at a
+  world ``DistributedOptimizer.step()`` or at ``hvd.step_end()``
+  (``FusionManager.end_step``), so ``steps_per_sample`` counts steps.
+  Every rank reaches those two points alike; a count of flushes is not
+  alike across ranks once process sets run batches on their members
+  only.
 - :class:`WireTuner` picks the fused wire of each bucket tier
-  (``HOROVOD_FUSION_WIRE=auto``) and :class:`OverlapTuner` the bucketed
-  exchange's bucket count, each by explore-then-exploit over its menu.
+  (``HOROVOD_FUSION_WIRE=auto``), :class:`OverlapTuner` the bucketed
+  exchange's bucket count and :class:`CapacityTuner` the MoE dispatch's
+  capacity factor (driven by ``parallel/moe.py``'s
+  :func:`~..parallel.moe.tune_capacity`), each by explore-then-exploit
+  over its menu.
 - Their observations persist under ``HOROVOD_TUNER_CACHE``, keyed by
   tuner name and :func:`topology_fingerprint`, so a restarted job
   skips straight to exploitation.
 - How every rank comes to the same choices (one starting state, agreed
   readings, group-scoped keys) is the last section's, and only there.
-
-The MoE capacity tuner waits with the rest of its plane (ROADMAP A12's
-remainder): :func:`shared_capacity_tuner` raises.
 """
 
 from __future__ import annotations
@@ -452,6 +459,103 @@ class OverlapTuner(_GoodputBandit):
         return self._choose_among(step_key, self.viable(total_bytes))
 
 
+class CapacityTuner(_GoodputBandit):
+    """The MoE dispatch's ``capacity_factor`` (``parallel/moe.py``) by
+    kept-token goodput, fed by the load counters the dispatch already
+    makes (``MoEStats``). A larger factor drops fewer tokens and pays a
+    larger dispatch buffer (wire bytes, the experts' padding); a smaller
+    one is cheap until hot experts overflow, and hot experts are
+    stragglers. Kept tokens a second of step time settle it. Capacity is
+    a shape, so the step harness (:func:`~..parallel.moe.tune_capacity`)
+    times whole steps a candidate, never a piece of one.
+
+    :meth:`observe_load` also folds each step's histogram into a drop
+    rate and an imbalance a candidate. :meth:`choose` takes the drop rate
+    as a hard prior: a candidate whose measured drop rate exceeds
+    ``max_drop_rate`` after its trials is never exploited (dropped tokens
+    are lost model quality, not only lost goodput)."""
+
+    CANDIDATES = (1.0, 1.25, 1.5, 2.0)
+
+    def __init__(self, trials: int = 3, candidates=None,
+                 max_drop_rate: float = 0.2):
+        super().__init__(trials=trials)
+        self.candidates = tuple(
+            candidates if candidates is not None else self.CANDIDATES
+        )
+        self.max_drop_rate = float(max_drop_rate)
+        # (key, cand) -> [dropped, routed, hottest expert, steps, experts]
+        self._loads = {}
+
+    def observe_load(self, key, cand, expert_tokens, dropped: float,
+                     total: float, seconds: Optional[float] = None) -> None:
+        """One step's load counters for (key, candidate):
+        ``expert_tokens`` the kept-token histogram (``[E_total]``),
+        ``dropped``/``total`` the overflow and routed counts (host
+        floats). With ``seconds`` the step also feeds the goodput ledger,
+        kept tokens being the useful quantity."""
+        tokens = [float(t) for t in expert_tokens]
+        s = self._loads.setdefault(
+            (key, cand), [0.0, 0.0, 0.0, 0, max(len(tokens), 1)])
+        s[0] += float(dropped)
+        s[1] += float(total)
+        s[2] = max(s[2], max(tokens, default=0.0))
+        s[3] += 1
+        s[4] = max(s[4], len(tokens))
+        if seconds is not None:
+            self.record(key, cand, float(total) - float(dropped), seconds)
+
+    def drop_rate(self, key, cand) -> float:
+        s = self._loads.get((key, cand))
+        if not s or s[1] <= 0:
+            return 0.0
+        return s[0] / s[1]
+
+    def imbalance(self, key, cand) -> float:
+        """The hottest expert's load over the mean kept tokens an expert
+        a step (1.0: balanced)."""
+        s = self._loads.get((key, cand))
+        if not s or s[3] == 0 or s[1] <= s[0]:
+            return 1.0
+        mean_kept = (s[1] - s[0]) / s[3] / max(s[4], 1)
+        if mean_kept <= 0:
+            return 1.0
+        return s[2] / mean_kept
+
+    def choose(self, key) -> float:
+        cands = [c for c in self.candidates
+                 if self.needs_trial(key, c)
+                 or self.drop_rate(key, c) <= self.max_drop_rate]
+        if not cands:
+            # every candidate overflows past the bound: the largest
+            # buffer drops least
+            return max(self.candidates)
+        return self._choose_among(key, tuple(cands))
+
+    def state_dict(self) -> dict:
+        d = super().state_dict()
+        d["loads"] = [
+            [list(key) if isinstance(key, tuple) else [key],
+             cand, s[0], s[1], s[2], s[3], s[4]]
+            for (key, cand), s in self._loads.items()
+        ]
+        return d
+
+    def load_state_dict(self, state: dict) -> int:
+        adopted = super().load_state_dict(state)
+        for row in state.get("loads", ()):
+            try:
+                key_list, cand, dropped, total, hot, n, ne = row
+                entry = (tuple(key_list), cand)
+                if entry in self._loads:
+                    continue
+                self._loads[entry] = [float(dropped), float(total),
+                                      float(hot), int(n), int(ne)]
+            except (TypeError, ValueError):
+                continue
+        return adopted
+
+
 # ---------------------------------------------------------------------------
 # Persistent tuner state (HOROVOD_TUNER_CACHE).
 #
@@ -656,20 +760,30 @@ def shared_overlap_tuner(**kwargs) -> OverlapTuner:
     return _shared_overlap_tuner
 
 
-def shared_capacity_tuner(**kwargs):
-    """The MoE capacity factor's tuner: not ported yet."""
-    raise NotImplementedError(
-        "the capacity tuner (CapacityTuner, shared_capacity_tuner) is not "
-        "ported yet (ROADMAP A12's remainder, with A14's MoE capacity); "
-        "pass capacity_factor= or HOROVOD_MOE_CAPACITY_FACTOR")
+_shared_capacity_tuner: Optional[CapacityTuner] = None
+
+
+def shared_capacity_tuner(**kwargs) -> CapacityTuner:
+    """The process-wide CapacityTuner with durable state, started from
+    the world's agreed ``capacity`` state (:func:`adopt`) on first use
+    and persisted with it. The load ledger rides the snapshot
+    (:meth:`CapacityTuner.state_dict`), so the ``max_drop_rate`` prior
+    survives a restart with the goodput observations. First call's
+    ``kwargs`` win (trials / candidates / max_drop_rate)."""
+    global _shared_capacity_tuner
+    if _shared_capacity_tuner is None:
+        _shared_capacity_tuner = CapacityTuner(**kwargs)
+        adopt(_shared_capacity_tuner, "capacity")
+    return _shared_capacity_tuner
 
 
 def reset_shared_tuners() -> None:
-    """Drop the shared wire and overlap tuners (tests, and
+    """Drop the shared wire, overlap and capacity tuners (tests, and
     :func:`end_world`)."""
-    global _shared_overlap_tuner, _shared_wire_tuner
+    global _shared_overlap_tuner, _shared_wire_tuner, _shared_capacity_tuner
     _shared_overlap_tuner = None
     _shared_wire_tuner = None
+    _shared_capacity_tuner = None
 
 
 _persist_registry = []
@@ -724,9 +838,11 @@ def register_persist_at_exit(tuner: _GoodputBandit, name: str,
 #   readings, and so keep the same state for every key they do see.
 #
 # The ParameterManager's samples close at the steps of a world
-# DistributedOptimizer (``FusionManager.end_step``), which every rank
-# takes as often, never by counting fusion cycles, which a process set's
-# batches add on its members only.
+# DistributedOptimizer and at ``hvd.step_end()`` (``FusionManager.
+# end_step``), which every rank takes as often, never by counting fusion
+# cycles, which a process set's batches add on its members only. The
+# capacity harness agrees each step's seconds and load counters over its
+# group (``parallel/moe.py``'s ``tune_capacity``).
 # ---------------------------------------------------------------------------
 
 _world: dict = {"fingerprint": None, "states": {}, "tuners": []}
@@ -745,6 +861,16 @@ def agree_max(values, group=None) -> List[float]:
     """Each of ``values``' maximum over ``group`` (the world when None):
     one float64 all-reduce on the group's CPU backend, or on the card
     where it has none. Every member calls it at the same point."""
+    return _agree(values, group, "max")
+
+
+def agree_sum(values, group=None) -> List[float]:
+    """Each of ``values``' sum over ``group``, as :func:`agree_max`
+    takes the maximum."""
+    return _agree(values, group, "sum")
+
+
+def _agree(values, group, how: str) -> List[float]:
     import torch
     import torch.distributed as dist
 
@@ -758,7 +884,8 @@ def agree_max(values, group=None) -> List[float]:
     dev = _get_object_coll_device(group)
     t = torch.tensor(values, dtype=torch.float64,
                      device="cpu" if dev == "cpu" else _basics.state().device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(t, op=(dist.ReduceOp.MAX if how == "max"
+                           else dist.ReduceOp.SUM), group=group)
     return t.tolist()
 
 
@@ -801,7 +928,7 @@ def start_world(fingerprint: str) -> None:
         return
     states = {}
     if dist.get_rank() == 0:
-        for name in ("wire", "overlap"):
+        for name in ("wire", "overlap", "capacity"):
             state = _read_state(name, fingerprint)
             if state is not None:
                 states[name] = state

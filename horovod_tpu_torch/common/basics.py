@@ -54,27 +54,16 @@ import torch.distributed as dist
 
 from . import topology as topo_mod
 from .config import TrainConfig, resolve_device
+from .exceptions import (  # noqa: F401
+    HorovodInternalError,
+    HostsUpdatedInterrupt,
+    NotInitializedError,
+)
 from .process_sets import ProcessSet, ProcessSetTable
 
 _TIMEOUT = datetime.timedelta(seconds=300)
 
 
-class NotInitializedError(RuntimeError):
-    def __init__(self):
-        super().__init__(
-            "horovod_tpu_torch has not been initialized; call hvd.init() "
-            "first."
-        )
-
-
-class HorovodInternalError(RuntimeError):
-    """A collective or the training state failed in a way the elastic
-    contract restores from (the grad guard's escalation raises it)."""
-
-
-class HostsUpdatedInterrupt(Exception):
-    """The world's membership changed and the current state is still
-    good (the elastic contract, ``horovod/common/elastic.py``)."""
 
 
 class _GlobalState:
@@ -211,7 +200,8 @@ def init(process_sets: Optional[Sequence[ProcessSet]] = None, *,
                                       wire=cfg.fusion_wire,
                                       wire_block=cfg.fusion_wire_block,
                                       wire_hier=cfg.fusion_wire_hier,
-                                      wire_min_bytes=cfg.fusion_wire_min_bytes)
+                                      wire_min_bytes=cfg.fusion_wire_min_bytes,
+                                      guard=cfg.guard)
         _state.owns_group = owns
         _state.device = dev
         _state.traced_groups = {}

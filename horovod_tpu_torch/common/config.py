@@ -24,7 +24,8 @@ package the same way:
   ``HOROVOD_FLIGHT_RECORDER``, ``HOROVOD_METRICS_PORT``,
   ``HOROVOD_TRACE``/``_SAMPLE``/``_SPANS``, ``HOROVOD_STALL_CHECK_*``,
   ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS``, ``HOROVOD_STRAGGLER_FACTOR``,
-  ``HOROVOD_STRAGGLER_QUARANTINE_POLLS``, ``HOROVOD_AUTOTUNE*``,
+  ``HOROVOD_STRAGGLER_QUARANTINE_POLLS``, ``HOROVOD_REBALANCE``,
+  ``HOROVOD_GUARD``, ``HOROVOD_AUTOTUNE*``,
   ``HOROVOD_TUNER_CACHE`` and ``HOROVOD_FUSION_WIRE_MIN_BYTES``),
   snapshotted at ``hvd.init()`` as the JAX package does;
 * :class:`ServeConfig`, the serving part (``HOROVOD_SERVE_*``), read by
@@ -306,8 +307,15 @@ class TrainConfig:
     stall_check_disable: bool = False
     stall_warning_seconds: float = DEFAULT_STALL_WARNING_SECONDS
     stall_shutdown_seconds: float = DEFAULT_STALL_SHUTDOWN_SECONDS
-    # the elastic driver's straggler quarantine (0: observe only)
+    # the elastic driver's straggler quarantine (0: observe only), and
+    # its straggler rebalance: micro-batch weights published in the KV
+    # for hvd.elastic.rebalance_weight()
     straggler_quarantine_polls: int = DEFAULT_STRAGGLER_QUARANTINE_POLLS
+    rebalance: bool = False
+    # the non-finite sentinel on every floating fused eager batch, counted
+    # by hvd.guard_check() (common/guard.py); the optimizers' default
+    # grad_guard
+    guard: bool = False
     # the logger's level and timestamp prefix, applied at init
     log_level: str = "warning"
     log_timestamp: bool = True
@@ -412,6 +420,8 @@ class TrainConfig:
             straggler_quarantine_polls=_env_int(
                 "HOROVOD_STRAGGLER_QUARANTINE_POLLS",
                 DEFAULT_STRAGGLER_QUARANTINE_POLLS),
+            rebalance=_env_bool("HOROVOD_REBALANCE"),
+            guard=_env_bool("HOROVOD_GUARD"),
             log_level=os.environ.get("HOROVOD_LOG_LEVEL",
                                      "warning").lower(),
             log_timestamp=_env_bool("HOROVOD_LOG_TIMESTAMP", True),

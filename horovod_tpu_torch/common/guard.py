@@ -132,8 +132,16 @@ def record_skip(streak: int, step: int, max_skips: int) -> None:
 
 
 def check() -> None:
-    """``hvd.guard_check()``: raise the latched escalation, if any, as
-    ``HorovodInternalError``. Call it once a step, or at each commit."""
+    """``hvd.guard_check()``: read the eager sentinels when the world's
+    fusion manager guards (``FusionManager.guard_poll``), then raise the
+    latched escalation, if any, as ``HorovodInternalError``. Call it once
+    a step, or at each commit."""
+    from . import basics
+
+    if basics.is_initialized():
+        fusion = basics.state().fusion
+        if fusion is not None and fusion.guard:
+            fusion.guard_poll()
     guard().raise_if_escalated()
 
 

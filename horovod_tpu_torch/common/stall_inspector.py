@@ -36,7 +36,7 @@ import statistics
 import time
 from typing import Dict, List, Optional
 
-from .basics import HorovodInternalError
+from .exceptions import HorovodInternalError
 from .logging import get_logger
 
 logger = get_logger("stall")

@@ -656,8 +656,15 @@ def step_begin(step: Optional[int] = None) -> int:
 
 
 def step_end() -> Optional[dict]:
-    """``hvd.step_end()`` — close the record into the ring."""
-    return hub().step_end()
+    """``hvd.step_end()`` — close the record into the ring, and close the
+    step for ``HOROVOD_AUTOTUNE``'s parameter manager
+    (``FusionManager.end_step``), so that an eager loop tunes too."""
+    rec = hub().step_end()
+    from . import basics
+
+    if basics.is_initialized():
+        basics.state().fusion.end_step(source="step_end")
+    return rec
 
 
 def device_step_tick(step, source: str = "opt") -> None:

@@ -23,17 +23,35 @@ escalation, ``HorovodInternalError``) restores in place:
     train(state)
 """
 
-from .discovery import (  # noqa: F401
-    FixedHosts,
-    HostDiscovery,
-    HostDiscoveryScript,
-    HostManager,
-)
-from .driver import ElasticDriver, SlotAssignment  # noqa: F401
-from .state import ElasticSampler, ObjectState, State, TorchState  # noqa: F401
-from .worker import (  # noqa: F401
-    WorkerNotificationManager,
-    WorkerNotificationService,
-    notification_manager,
-    run,
-)
+# Every public name, by the module that defines it: imported at first use
+# (PEP 562), so the elastic launcher (``runner`` with
+# ``--host-discovery-script``), which needs the driver alone, starts
+# without torch.
+_EXPORTS = {
+    ".discovery": ("FixedHosts", "HostDiscovery", "HostDiscoveryScript",
+                   "HostManager"),
+    ".driver": ("ElasticDriver", "SlotAssignment"),
+    ".state": ("ElasticSampler", "ObjectState", "State", "TorchState"),
+    ".worker": ("WorkerNotificationManager", "WorkerNotificationService",
+                "expert_loads", "notification_manager",
+                "publish_expert_load", "rebalance_weight",
+                "rebalance_weights", "run"),
+}
+_WHERE = {n: mod for mod, names in _EXPORTS.items() for n in names}
+__all__ = sorted(_WHERE)
+
+
+def __getattr__(name: str):
+    """Import a public name at its first use."""
+    import importlib
+
+    if name not in _WHERE:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(_WHERE[name], __name__), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -25,13 +25,22 @@ consecutive fresh heartbeats (default 3, as in the JAX driver; 0
 observes only) and restarts the gang without it, unless that leaves
 less than ``min_np``. ``driver.quarantined_hosts`` counts them.
 
-What waits for other items, and raises when a variable asks for it:
+Below the quarantine, the same poll runs the soft remedies
+(``driver.py:857-916``, ``734-797``): with ``HOROVOD_REBALANCE=1``,
+``_maybe_rebalance`` gives a rank flagged for 2 consecutive fresh
+heartbeats a micro-batch weight of the gang's median p50 over its p50,
+clamped to [0.25, 1.0], publishes the map in the KV on a change
+(``hvd.elastic.rebalance_weight()`` reads it) and resets it on
+recovery (``driver.rebalance.active``/``.updates``);
+``_poll_expert_loads`` sums the gang's published expert loads into
+``driver.expert_load.{ranks,imbalance,drop_rate}``, a rank's entry
+counting while its stamp advances, judged on the driver's monotonic
+clock.
 
-* the straggler rebalance (``HOROVOD_REBALANCE``) and the expert-load
-  ledger (ROADMAP A12's remainder);
-* warm standby (``HOROVOD_WARM_STANDBY`` > 0, ROADMAP A16), the
-  serve-capacity scale-up (A15) and the schedule-divergence audit
-  (A16's ``sched_audit``).
+What waits for other items, and raises when a variable asks for it:
+warm standby (``HOROVOD_WARM_STANDBY`` > 0, ROADMAP A16); the
+serve-capacity scale-up (A15) and the schedule-divergence audit (A16's
+``sched_audit``) are not here either.
 """
 
 from __future__ import annotations
@@ -54,6 +63,15 @@ from .discovery import HostDiscovery, HostManager
 
 _log = get_logger("elastic")
 
+# consecutive fresh-heartbeat flags before a rank's slice is down-weighted
+# (HOROVOD_REBALANCE), below the quarantine's: shed work first, restart
+# the gang only if the rank stays flagged
+_REBALANCE_STREAK = 2
+
+# an expert-load entry whose stamp stops advancing leaves the driver's
+# gauges after this many seconds of the driver's monotonic clock
+_EXPERT_LOAD_STALE_S = 60.0
+
 
 def check_deferred_knobs(env: Optional[dict] = None) -> None:
     """Raise for a variable that asks for a part of the JAX driver the
@@ -64,12 +82,6 @@ def check_deferred_knobs(env: Optional[dict] = None) -> None:
         raise NotImplementedError(
             f"HOROVOD_WARM_STANDBY={standby}: warm standby pre-warms the "
             "executables of a gang, not ported yet (ROADMAP A16)")
-    if env.get("HOROVOD_REBALANCE", "").strip().lower() in (
-            "1", "true", "yes", "on"):
-        raise NotImplementedError(
-            "HOROVOD_REBALANCE: the straggler rebalance and the expert-load "
-            "ledger are not ported yet (ROADMAP A12's remainder); the "
-            "driver quarantines stragglers instead")
 
 
 class SlotAssignment:
@@ -127,6 +139,17 @@ class ElasticDriver:
         )
         self._quarantine_polls = cfg.straggler_quarantine_polls
         self._last_stragglers: tuple = ()
+        self._rebalance = cfg.rebalance
+        self._rebalance_weights: Dict[int, float] = {}
+        from ..common.metrics import registry as _metrics
+
+        _metrics.configure_export()  # HOROVOD_METRICS_FILE, if set
+        if self._rebalance:
+            _metrics.gauge("driver.rebalance.active", 0)
+        # rank -> (its last published stamp, the driver's clock when the
+        # stamp last advanced)
+        self._expert_load_seen: Dict[int, tuple] = {}
+        self._clock = time.monotonic
         if placement == "per-host":
             raise ValueError(
                 "--placement per-host: torch has no process that drives "
@@ -395,7 +418,7 @@ class ElasticDriver:
         if self._server is None or now - self._last_hb_poll < self._interval:
             return None
         self._last_hb_poll = now
-        from ..common.basics import HorovodInternalError
+        from ..common.exceptions import HorovodInternalError
         from ..common.metrics import registry as _metrics
         from ..runner.rendezvous import read_heartbeat_stats
 
@@ -432,7 +455,107 @@ class ElasticDriver:
             elif self._last_stragglers:
                 _log.info("straggler ranks recovered")
             self._last_stragglers = stragglers
-        return self._maybe_quarantine()
+        self._maybe_rebalance()
+        self._poll_expert_loads()
+        reason = self._maybe_quarantine()
+        _metrics.maybe_dump()
+        return reason
+
+    def _maybe_rebalance(self) -> None:
+        """Publish the gang's micro-batch weights (module docstring): a
+        rank flagged for ``_REBALANCE_STREAK`` fresh heartbeats gets the
+        gang's median p50 over its own, clamped to [0.25, 1.0], rounded
+        to 2 places; every other rank 1.0. Nothing is published while
+        the gang never left parity, nor when the map has not changed."""
+        if not self._rebalance or self._server is None:
+            return
+        import statistics
+
+        from ..common.metrics import registry as _metrics
+        from ..runner.rendezvous import put_rebalance_weights
+
+        streaks = self.stall_inspector.straggler_streaks()
+        hb = self.stall_inspector.heartbeat_stats()
+        p50s = {r: s["step_ms_p50"] for r, s in hb.items()
+                if s.get("step_ms_p50", 0) > 0}
+        weights = {r: 1.0 for r in hb}
+        if len(p50s) >= 2:
+            median = statistics.median(p50s.values())
+            for r, n in streaks.items():
+                if n >= _REBALANCE_STREAK and p50s.get(r, 0) > 0 \
+                        and median > 0:
+                    weights[r] = round(max(0.25, min(1.0,
+                                                     median / p50s[r])), 2)
+        down_now = any(w < 1.0 for w in weights.values())
+        down_before = any(w < 1.0 for w in self._rebalance_weights.values())
+        if (not down_now and not down_before) \
+                or weights == self._rebalance_weights:
+            return
+        try:
+            put_rebalance_weights(self._server.store, weights,
+                                  epoch=self._epoch)
+        except Exception:  # noqa: BLE001 - the next poll retries
+            _log.debug("rebalance publish failed", exc_info=True)
+            return
+        self._rebalance_weights = dict(weights)
+        slowed = sorted(r for r, w in weights.items() if w < 1.0)
+        _metrics.gauge("driver.rebalance.active", len(slowed))
+        _metrics.counter("driver.rebalance.updates")
+        if slowed:
+            _log.warning("rebalancing micro-batch weights away from "
+                         "straggling rank(s) %s: %s",
+                         ",".join(map(str, slowed)),
+                         ",".join(f"{r}={weights[r]}" for r in slowed))
+        else:
+            _log.info("straggler rebalance cleared: all weights 1.0")
+
+    def _poll_expert_loads(self) -> None:
+        """Sum the gang's published expert loads into the
+        ``driver.expert_load.*`` gauges: the fleet histogram's hottest
+        over mean kept tokens, and dropped over routed. A rank counts
+        while its stamp advances, or for ``_EXPERT_LOAD_STALE_S`` of the
+        driver's clock after it last did. Observability only; a
+        malformed or absent ledger is silence."""
+        if self._server is None:
+            return
+        from ..runner.rendezvous import read_expert_loads
+
+        try:
+            loads = read_expert_loads(self._server.store)
+        except Exception:  # noqa: BLE001 - the next poll retries
+            return
+        if not loads:
+            return
+        now = self._clock()
+        fresh = {}
+        for rank, payload in loads.items():
+            ts = float(payload.get("ts", 0.0))
+            prev = self._expert_load_seen.get(rank)
+            if prev is None or ts > prev[0]:
+                self._expert_load_seen[rank] = (ts, now)
+                fresh[rank] = payload
+            elif now - prev[1] <= _EXPERT_LOAD_STALE_S:
+                fresh[rank] = payload
+        for rank in list(self._expert_load_seen):
+            if rank not in loads:
+                del self._expert_load_seen[rank]
+        hist: Dict[int, float] = {}
+        dropped = total = 0.0
+        for payload in fresh.values():
+            for i, t in enumerate(payload.get("expert_tokens", ())):
+                hist[i] = hist.get(i, 0.0) + float(t)
+            dropped += float(payload.get("dropped", 0.0))
+            total += float(payload.get("total", 0.0))
+        if not hist or total <= 0:
+            return
+        from ..common.metrics import registry as _metrics
+
+        kept = sum(hist.values())
+        mean = kept / len(hist) if kept > 0 else 0.0
+        _metrics.gauge("driver.expert_load.ranks", len(fresh))
+        _metrics.gauge("driver.expert_load.imbalance",
+                       max(hist.values()) / mean if mean > 0 else 1.0)
+        _metrics.gauge("driver.expert_load.drop_rate", dropped / total)
 
     def _maybe_quarantine(self) -> Optional[str]:
         """Blacklist the hosts of ranks flagged a straggler for
@@ -568,8 +691,11 @@ class ElasticDriver:
         self._stop.set()
 
     def shutdown(self) -> None:
+        from ..common.metrics import registry as _metrics
+
         self.stop()
         self._terminate_gang()
+        _metrics.dump()  # the driver's gauges, where a sink is set
         for f in self._files:
             f.close()
         self._files = []

@@ -21,8 +21,17 @@ starts the notification endpoint, registers it under
 (chaos site ``heartbeat``), the flight recorder's ``{step, step_ms_p50,
 last_step_ts}`` beside the stamp (``telemetry.heartbeat_stats()``, empty
 before the first recorded step), which the driver's stall inspector
-judges stragglers by. The JAX worker's rebalance and expert-load
-channels wait with the rest of ROADMAP A12's remainder.
+judges stragglers by.
+
+The soft remedies' worker side (``horovod_tpu/elastic/worker.py:
+206-340``): :func:`rebalance_weights`/:func:`rebalance_weight` read the
+driver's newest micro-batch weights (``HOROVOD_REBALANCE``), cached for
+5 s so that a loop may poll them each micro-batch;
+:func:`publish_expert_load` puts this rank's expert-load summary (a
+``MoEStats``, host floats) in the KV for the driver's ledger, and
+:func:`expert_loads` reads every rank's. Outside an elastic job they
+degrade to ``{}``, 1.0, ``False`` and ``{}``: a scheduling hint never
+takes training down.
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ class WorkerNotificationManager:
             from ..runner import rendezvous as _rdv
 
             _rdv.reset_poll_shutdown()
+            _reset_rebalance_cache()
             _audit_reset()
             _local_sgd.reset()
             cfg = TrainConfig.from_env()
@@ -161,6 +171,111 @@ class WorkerNotificationManager:
 
 
 notification_manager = WorkerNotificationManager()
+
+
+# the driver publishes on change only, so a map a few seconds old is
+# still good: one KV client an endpoint, and a read at most every 5 s
+_REBALANCE_POLL_S = 5.0
+_rebalance_cache = {"endpoint": None, "client": None, "ts": 0.0, "map": {}}
+
+
+def _reset_rebalance_cache() -> None:
+    """Drop the cached client and map (a gang restart dials anew)."""
+    _rebalance_cache.update(endpoint=None, client=None, ts=0.0, map={})
+
+
+def _kv_client():
+    """This worker's cached KV client, or None outside an elastic or
+    launched job."""
+    from ..common.config import TrainConfig
+    from ..runner.rendezvous import _client_from_cfg
+
+    cfg = TrainConfig.from_env()
+    if not (cfg.rendezvous_addr and cfg.rendezvous_port):
+        return None
+    endpoint = (cfg.rendezvous_addr, cfg.rendezvous_port)
+    if (_rebalance_cache["client"] is None
+            or _rebalance_cache["endpoint"] != endpoint):
+        _rebalance_cache["client"] = _client_from_cfg(cfg)
+        _rebalance_cache["endpoint"] = endpoint
+    return _rebalance_cache["client"]
+
+
+def _rank(rank: Optional[int]) -> int:
+    return int(os.environ.get("HOROVOD_RANK", "0") or 0) if rank is None \
+        else int(rank)
+
+
+def rebalance_weights(max_age_s: float = _REBALANCE_POLL_S) -> dict:
+    """The driver's newest micro-batch weights, ``{rank: weight in (0,
+    1]}``, or ``{}`` when none was published (rebalance off, no elastic
+    driver, or no straggler stayed flagged). A read is reused for
+    ``max_age_s`` (0 reads the KV now)."""
+    import time
+
+    now = time.monotonic()
+    if (_rebalance_cache["client"] is not None
+            and now - _rebalance_cache["ts"] < max_age_s):
+        return dict(_rebalance_cache["map"])
+    from ..runner.rendezvous import read_rebalance_weights
+
+    client = _kv_client()
+    if client is None:
+        return {}
+    try:
+        weights = read_rebalance_weights(client)
+    except OSError:
+        return dict(_rebalance_cache["map"])  # the KV is going away
+    _rebalance_cache.update(ts=now, map=weights)
+    return dict(weights)
+
+
+def rebalance_weight(rank: Optional[int] = None,
+                     default: float = 1.0) -> float:
+    """This rank's micro-batch weight (1.0 when none is published).
+    Scale the local batch by it at a micro-batch boundary::
+
+        w = hvd.elastic.rebalance_weight()
+        local_batch = max(1, int(round(base_batch * w)))
+
+    A hint, not a collective contract: the rank still joins every
+    collective (a join mask or loss weights keep the gradient
+    unbiased when shares differ)."""
+    return float(rebalance_weights().get(_rank(rank), default))
+
+
+def publish_expert_load(expert_tokens, dropped: float, total: float,
+                        capacity_factor: Optional[float] = None,
+                        rank: Optional[int] = None) -> bool:
+    """Put this rank's expert-load summary (a ``MoEStats`` as host
+    floats) in the KV for the driver's ``driver.expert_load.*`` gauges.
+    Call it at the MoE step harness's cadence. Returns False, silently,
+    outside an elastic job or when the KV is going away."""
+    from ..runner.rendezvous import put_expert_load
+
+    client = _kv_client()
+    if client is None:
+        return False
+    try:
+        put_expert_load(client, _rank(rank), expert_tokens, dropped, total,
+                        capacity_factor)
+    except OSError:
+        return False
+    return True
+
+
+def expert_loads() -> dict:
+    """Every rank's newest published expert-load summary, ``{rank:
+    payload}``, or ``{}`` outside an elastic job."""
+    from ..runner.rendezvous import read_expert_loads
+
+    client = _kv_client()
+    if client is None:
+        return {}
+    try:
+        return read_expert_loads(client)
+    except OSError:
+        return {}
 
 
 def _reset_runtime() -> None:

@@ -138,6 +138,20 @@ class TransformerConfig:
         )
 
     @staticmethod
+    def bert_large() -> "TransformerConfig":
+        """BERT-large (340M): 24 layers, d_model 1024, 16 heads,
+        bidirectional, vocab 30522, 512 positions."""
+        return TransformerConfig(
+            vocab_size=30522,
+            num_layers=24,
+            d_model=1024,
+            num_heads=16,
+            d_ff=4096,
+            max_len=512,
+            causal=False,
+        )
+
+    @staticmethod
     def tiny(causal: bool = True) -> "TransformerConfig":
         """Test-sized config."""
         return TransformerConfig(

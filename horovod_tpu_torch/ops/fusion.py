@@ -82,7 +82,18 @@ The core of ``horovod_tpu/ops/fusion.py`` on ``torch.distributed``:
   then also yields one ``all(isfinite)`` flag over the reduced flat
   buffer (``horovod_tpu/ops/fusion.py:1168``), a device tensor that
   :meth:`Handle.finite` returns without a host read. Integer batches
-  have no flag.
+  have no flag. With ``HOROVOD_GUARD=1`` (``FusionManager(guard=True)``)
+  every floating batch but an alltoall's yields one, the eager guard:
+  the manager keeps each, unread, when the batch's outputs are made
+  (the 256 newest), and :meth:`FusionManager.guard_poll`, which
+  ``hvd.guard_check()`` calls, reads them and counts the non-finite
+  batches into ``guard.nonfinite_batches``.
+- The ``fusion.dispatch`` fault site (``testing/chaos.py``) fires once a
+  batch, before its launch: from :meth:`FusionManager.flush` or from an
+  enqueue that closes a batch, since the port cuts batches as entries
+  arrive. ``reset``, ``timeout`` and ``5xx`` raise
+  ``HorovodInternalError`` (and so do the batch's handles); ``nan``
+  poisons element 0 of the batch's first floating payload.
 - ``dispatched_batches``/``dispatched_bytes`` count the collectives
   issued and the bytes they carried, by the JAX package's payload-width
   model (``_hop_bytes``: an int8 batch of ``elems`` elements over ``n``
@@ -138,13 +149,14 @@ ticks at poll/wait/step/flush, never by the clock. The manager feeds:
 - the parameter manager (``HOROVOD_AUTOTUNE``): each cycle adds its
   useful bytes and its seconds, from its first enqueue to its end, to
   the step's; :meth:`FusionManager.end_step`, called at each step of a
-  world ``DistributedOptimizer``, hands the step to the manager as one
-  record and applies its threshold. At a sample's boundary the manager
-  synchronizes the card and takes the world's maximum
-  (``autotune.agree_sample``). Steps, not cycles: every rank takes the
-  same steps, while a process set's batches add cycles on its members
-  only, so every rank proposes, and applies, the same threshold at the
-  same step. An eager loop with no such optimizer closes no sample.
+  world ``DistributedOptimizer`` and at ``hvd.step_end()``, hands the
+  step to the manager as one record and applies its threshold (a
+  ``step_end`` right after an optimizer's step records nothing more). At
+  a sample's boundary the manager synchronizes the card and takes the
+  world's maximum (``autotune.agree_sample``). Steps, not cycles: every
+  rank takes the same steps, while a process set's batches add cycles
+  on its members only, so every rank proposes, and applies, the same
+  threshold at the same step.
 
 **The tuned wire** (``HOROVOD_FUSION_WIRE=auto``, ``fusion.py:883-1030``):
 a Sum or Average batch of floating payloads takes its wire at dispatch
@@ -401,12 +413,14 @@ class _Works:
 
 class _Batch:
     """A dispatched collective; ``finish`` holds what it needs to make
-    the outputs and is let go once it has made them."""
+    the outputs and is let go once it has made them. ``note`` takes the
+    batch's sentinel once it is made (the manager's eager guard)."""
 
-    def __init__(self, work, finish):
+    def __init__(self, work, finish, note=None):
         self.work = work
         # () -> (list of outputs, sentinel or None), after work.wait()
         self._finish = finish
+        self._note = note
         self._outputs: Optional[List[torch.Tensor]] = None
         self.finite: Optional[torch.Tensor] = None
         self._lock = threading.Lock()
@@ -426,6 +440,8 @@ class _Batch:
                 self.work.wait()
                 self._outputs, self.finite = self._finish()
                 self.work = self._finish = None
+                if self._note is not None and self.finite is not None:
+                    self._note(self.finite)
         return self._outputs[index]
 
 
@@ -443,16 +459,21 @@ class Handle:
         self._name = name  # the stall inspector's key
         self._batch: Optional[_Batch] = None
         self._index = 0  # the entry's place in its batch
+        # the fault that dropped the entry's batch before its launch
+        self._error: Optional[Exception] = None
+
+    def _dispatched(self) -> _Batch:
+        if self._batch is None and self._error is None:
+            self._fusion.flush()
+        if self._error is not None:
+            raise self._error
+        return self._batch
 
     def poll(self) -> bool:
-        if self._batch is None:
-            self._fusion.flush()
-        return self._batch.done()
+        return self._dispatched().done()
 
     def wait(self) -> torch.Tensor:
-        if self._batch is None:
-            self._fusion.flush()
-        out = self._batch.output(self._index)
+        out = self._dispatched().output(self._index)
         self._fusion._forget(self._batch)
         insp = self._fusion.stall_inspector
         if insp is not None:
@@ -497,7 +518,7 @@ class FusionManager:
 
     def __init__(self, threshold_bytes: int, wire: str = "fp32",
                  wire_block: int = 512, wire_hier: bool = False,
-                 wire_min_bytes: int = 64 * 1024):
+                 wire_min_bytes: int = 64 * 1024, guard: bool = False):
         if wire not in WIRES + ("auto",):
             raise ValueError(f"fusion wire must be one of {WIRES} or auto, "
                              f"got {wire!r}")
@@ -549,6 +570,14 @@ class FusionManager:
         self.wire_trials = 0
         self.wire_batches = {w: 0 for w in WIRES}
         self.wire_choices: Dict[Tuple, str] = {}
+        # the eager guard (HOROVOD_GUARD): every floating batch's sentinel,
+        # held as device bools until guard_poll() reads them
+        self.guard = bool(guard)
+        self._guard_flags: List[torch.Tensor] = []
+        self._guard_lock = threading.Lock()
+        # the last step the parameter manager recorded was an optimizer's
+        # (end_step)
+        self._optimizer_closed = False
 
     def _make_wire_tuner(self):
         """The per-dispatch WireTuner, started from the world's agreed
@@ -645,6 +674,9 @@ class FusionManager:
             for e in entries:
                 e.handle = Handle(self, e.name)
                 handles.append(e.handle)
+                if (self.guard and e.kind != "alltoall"
+                        and e.tensor.is_floating_point()):
+                    e.guard = True
                 if tl is not None:
                     tl.begin(e.name, "QUEUE")
                 if insp is not None:
@@ -743,18 +775,51 @@ class FusionManager:
             self._step[1] += self._clock() - t0
             self._step[2] += max(useful - saved, 0)
 
-    def end_step(self) -> None:
-        """A step of a world ``DistributedOptimizer`` ended (every rank
-        ends as many): the step's cycles make the parameter manager's
-        one record, and its threshold applies from the next batch."""
+    def end_step(self, source: str = "optimizer") -> None:
+        """A step ended: a world ``DistributedOptimizer``'s step
+        (``source="optimizer"``) or ``hvd.step_end()`` (``"step_end"``),
+        which every rank reaches as often. The step's cycles make the
+        parameter manager's one record, and its threshold applies from
+        the next batch. A ``step_end`` right after an optimizer's step
+        closes the step that step closed, and records nothing."""
         pm = self.parameter_manager
         if pm is None:
             return
         with self._lock:
+            closed, self._optimizer_closed = (self._optimizer_closed,
+                                              source == "optimizer")
+            if source == "step_end" and closed:
+                return
             useful, seconds, wire = self._step
             self._step = [0, 0.0, 0]
             pm.record(bytes_=useful, seconds=seconds, wire_bytes=wire)
             self.threshold_bytes = int(pm.current()[0])
+
+    def _note_guard_flag(self, ok: torch.Tensor) -> None:
+        """Keep a batch's sentinel without reading it; at most the 256
+        newest are kept, so that a guard nobody polls holds no more
+        (the poll is a health check, not an exact ledger)."""
+        with self._guard_lock:
+            self._guard_flags.append(ok)
+            if len(self._guard_flags) > 256:
+                del self._guard_flags[:len(self._guard_flags) - 256]
+
+    def guard_poll(self) -> int:
+        """Read the sentinels kept since the last poll (the host waits
+        for them here, not at each batch), count the non-finite batches
+        into ``guard.nonfinite_batches`` and return the count
+        (``horovod_tpu/ops/fusion.py:1502-1523``). A batch's sentinel is
+        kept when its outputs are made, at its handle's wait."""
+        with self._guard_lock:
+            flags, self._guard_flags = self._guard_flags, []
+        bad = sum(1 for f in flags if not bool(f))
+        if bad:
+            from ..common.metrics import registry
+
+            registry.counter("guard.nonfinite_batches", bad)
+            _log.warning("non-finite values in %d fused batch(es) since the "
+                         "last guard poll", bad)
+        return bad
 
     def wait_all(self) -> None:
         """Wait for every dispatched batch."""
@@ -829,8 +894,37 @@ class FusionManager:
             b.wait()
         autotune.device_sync(basics.state().device)
 
+    def _inject_fault(self, entries: List[_Entry]) -> None:
+        """The ``fusion.dispatch`` fault site, once a batch before it
+        is launched (``horovod_tpu/ops/fusion.py:573-600``). A transport
+        fault raises ``HorovodInternalError``, the exception
+        ``hvd.elastic.run`` restores from, and the batch's handles raise
+        it too; ``nan`` writes NaN into element 0 of the batch's first
+        floating payload (a copy: the caller's tensor stays as it was)."""
+        from ..testing import chaos
+
+        try:
+            kind = chaos.inject("fusion.dispatch")
+        except (ConnectionResetError, TimeoutError,
+                chaos.InjectedServerError) as e:
+            err = basics.HorovodInternalError(
+                f"fusion.dispatch: {type(e).__name__}: {e}")
+            for e_ in entries:
+                e_.handle._error = err
+            raise err from e
+        if kind != "nan":
+            return
+        for e in entries:
+            if e.tensor.is_floating_point():
+                poisoned = e.tensor.detach().clone(
+                    memory_format=torch.contiguous_format)
+                poisoned.view(-1)[0] = float("nan")
+                e.tensor = poisoned
+                return
+
     def _dispatch(self, entries: List[_Entry]) -> None:
         e0 = entries[0]
+        self._inject_fault(entries)
         trials: List[Tuple] = []
         if e0.kind == "allreduce" and e0.wire == "auto":
             trials = self._tune_wire(entries)
@@ -896,10 +990,11 @@ class FusionManager:
             buf = e0.tensor.detach().clone()
             work = dist.broadcast(buf, src=e0.root_rank, group=group,
                                   async_op=True)
-            finish, nbytes = (lambda: ([buf], None)), e0.nbytes
+            finish, nbytes = (lambda: ([buf], _finite(e0, buf))), e0.nbytes
         else:
             raise ValueError(f"unknown collective {e0.kind!r}")
-        batch = _Batch(work, finish)
+        batch = _Batch(work, finish,
+                       self._note_guard_flag if self.guard else None)
         # an entry lets go of its handle here: the handle holds the batch,
         # whose finish holds the entries, and a cycle among them would
         # keep the batch's device buffers until the cyclic collector ran
@@ -1213,7 +1308,8 @@ class FusionManager:
         def finish():
             got = parts if parts is not None else both.transpose(
                 0, 1).reshape((n,) + rows.shape)
-            return [torch.cat([p[:s] for p, s in zip(got, sizes)])], None
+            out = torch.cat([p[:s] for p, s in zip(got, sizes)])
+            return [out], _finite(e0, out)
 
         return work, finish, rows.numel() * rows.element_size() * n
 
@@ -1264,7 +1360,7 @@ class FusionManager:
                 mine = out[off:off + size].view(-1, *e.tensor.shape[1:])
                 outs.append(mine[:cnt])
                 off += size
-            return outs, None
+            return outs, _finite(e0, out)
 
         return work, finish, buf.numel() * buf.element_size()
 

@@ -27,6 +27,11 @@ the choice is made as the step is built. No harness feeds the tuner's
 Every exchange is an autograd Function over the axis's process group,
 so each rank differentiates its own program: the experts' gradients
 arrive from every rank's tokens through the return exchange's backward.
+
+:func:`tune_capacity` is the capacity factor's step harness
+(``bench_moe.py:230-260``): it runs whole steps at each candidate of
+the shared :class:`~..common.autotune.CapacityTuner` and feeds it each
+step's ``MoEStats`` and seconds, agreed over the step's group.
 """
 
 from __future__ import annotations
@@ -53,8 +58,8 @@ class MoEParams(NamedTuple):
 
 class MoEStats(NamedTuple):
     """Per-step expert-load counters, summed over the axis so that every
-    rank holds the global view (the capacity tuner's feed; the tuner
-    waits with ROADMAP A12's remainder)."""
+    rank holds the global view. :func:`tune_capacity` feeds them to the
+    capacity tuner (``common/autotune.CapacityTuner``)."""
 
     expert_tokens: torch.Tensor  # [E_total] f32 — kept tokens per expert
     dropped: torch.Tensor  # scalar f32 — tokens past capacity (zero out)
@@ -361,3 +366,61 @@ def moe_ffn(
         dist.all_reduce(packed, group=axis.group)
     return out, MoEStats(expert_tokens=packed[:e_total],
                          dropped=packed[e_total], total=packed[e_total + 1])
+
+
+def capacity_trial(run, key, tuner=None, group=None, device=None):
+    """One step of the capacity harness: the tuner's factor for ``key``,
+    ``run(factor)`` (a whole training step at that factor, returning its
+    :class:`MoEStats`) timed with the card synchronized before and
+    after, and the step fed to ``tuner.observe_load``. Every rank of
+    ``group`` (the world when None) calls it at the same point: the
+    seconds are the group's maximum and the load counters the mean of
+    its members' (``autotune.agree_max``/``agree_sum``), so every rank
+    records the same numbers and makes the same next choice; they also
+    go to the ``moe.*`` gauges (``metrics.publish_moe``). Returns
+    ``(factor, stats, seconds)`` with ``stats`` the agreed
+    ``(expert_tokens, dropped, total)``, which a caller may hand to
+    ``hvd.elastic.publish_expert_load``."""
+    import time
+
+    from ..common import autotune
+    from ..common.metrics import publish_moe
+
+    tuner = tuner if tuner is not None else autotune.shared_capacity_tuner()
+    factor = tuner.choose(key)
+    autotune.device_sync(device)
+    t0 = time.monotonic()
+    st = run(factor)
+    autotune.device_sync(device)
+    seconds = autotune.agree_max([time.monotonic() - t0], group)[0]
+    packed = torch.cat([st.expert_tokens.reshape(-1).float(),
+                        st.dropped.reshape(1).float(),
+                        st.total.reshape(1).float()]).tolist()
+    n = dist.get_world_size(group) if dist.is_initialized() else 1
+    packed = [v / n for v in autotune.agree_sum(packed, group)]
+    hist, dropped, total = packed[:-2], packed[-2], packed[-1]
+    tuner.observe_load(key, factor, hist, dropped=dropped, total=total,
+                       seconds=seconds)
+    publish_moe(hist, dropped, total, capacity_factor=factor)
+    return factor, (hist, dropped, total), seconds
+
+
+def tune_capacity(run, key, tuner=None, group=None, device=None):
+    """Run :func:`capacity_trial` until the tuner's choice for ``key``
+    needs no more trials (one step a trial: ``trials`` steps at each
+    candidate the drop-rate prior keeps), then return ``(choice,
+    curve)``: the factor to train at and, a candidate tried here, its
+    ``{"drop_rate", "imbalance", "ms_per_step"}`` (the steps' mean)."""
+    from ..common import autotune
+
+    tuner = tuner if tuner is not None else autotune.shared_capacity_tuner()
+    curve, seconds = {}, {}
+    while tuner.needs_trial(key, tuner.choose(key)):
+        factor, _, s = capacity_trial(run, key, tuner, group, device)
+        seconds.setdefault(factor, []).append(s)
+    for factor, ss in seconds.items():
+        curve[factor] = {"drop_rate": tuner.drop_rate(key, factor),
+                         "imbalance": tuner.imbalance(key, factor),
+                         "ms_per_step": sum(ss) / len(ss) * 1e3}
+    return tuner.choose(key), curve
+

@@ -62,7 +62,7 @@ from ..common.config import resolve_device
 from ..ops import flash_attention as fa
 from ..ops import traced
 from .mesh import Axis, Mesh
-from .moe import MoEParams, _resolve_hier, hier_partitions, \
+from .moe import MoEParams, MoEStats, _resolve_hier, hier_partitions, \
     init_moe_params, moe_ffn
 from .pipeline import gpipe, pipeline_1f1b
 from .ring_attention import ring_attention, ring_flash_attention
@@ -309,19 +309,25 @@ def _embed(embed_params, tokens, cfg: ParallelTransformerConfig,
 
 
 def _tail_loss(tail_params, x, labels, cfg: ParallelTransformerConfig,
-               ax: _Axes):
+               ax: _Axes, sink=None):
     """MoE block + final norm + vocab-parallel cross-entropy over the
     stack's output. x: [B, T_local, d], labels: [B, T_local] -> scalar
-    (this rank's mean; the data-axis reduction is the caller's)."""
+    (this rank's mean; the data-axis reduction is the caller's). A
+    ``sink`` list takes the MoE block's :class:`~.moe.MoEStats`."""
     b, t_local = labels.shape
     tail_params = _cast(tail_params, cfg.dtype)
     # expert-parallel MoE block (switch-style) + residual
     flat = x.reshape(b * t_local, -1)
-    x = x + moe_ffn(
+    y = moe_ffn(
         tail_params["moe"], flat, axis=ax.ep,
         capacity_factor=cfg.moe_capacity_factor, wire=cfg.moe_wire,
         intra_wire=cfg.moe_intra_wire, hier=cfg.moe_hier,
-    ).reshape(x.shape)
+        return_stats=sink is not None,
+    )
+    if sink is not None:
+        y, st = y
+        sink.append(MoEStats(*(t.detach() for t in st)))
+    x = x + y.reshape(x.shape)
     x = _layer_norm(x, tail_params["lnf_scale"], tail_params["lnf_bias"])
     # Vocab-parallel cross-entropy: each tp member computes only its
     # (bt, V/tp) logit shard, and the softmax statistics cross the axis
@@ -397,16 +403,22 @@ def _sum_over(x: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 
 def make_train_step(cfg: ParallelTransformerConfig, mesh: Mesh,
-                    device=None):
+                    device=None, moe_stats: bool = False):
     """The full train step over ``mesh`` for this rank: forward,
     backward, gradient sync on every axis, SGD update. Returns
-    ``step(params, tokens, labels) -> (params, loss)``: ``params`` this
-    rank's shards (``make_sharded_params``), ``tokens``/``labels`` the
-    GLOBAL ``[batch, seq]`` batch (every rank passes the same; the step
-    takes its own (dp, ep) batch block and sp sequence block), ``loss``
-    the global mean. Runs on the card unless ``device="cpu"``.
-    ``step.stats`` holds the last 1F1B step's schedule readings
-    (``ticks``, ``stash_peak``, ``n_micro``, ``max_in_flight``)."""
+    ``step(params, tokens, labels, capacity_factor=None) -> (params,
+    loss)``: ``params`` this rank's shards (``make_sharded_params``),
+    ``tokens``/``labels`` the GLOBAL ``[batch, seq]`` batch (every rank
+    passes the same; the step takes its own (dp, ep) batch block and sp
+    sequence block), ``loss`` the global mean; ``capacity_factor``
+    overrides ``cfg.moe_capacity_factor`` for the step (the capacity
+    harness, ``moe.tune_capacity``). Runs on the card unless
+    ``device="cpu"``. ``step.stats`` holds the last 1F1B step's schedule
+    readings (``ticks``, ``stash_peak``, ``n_micro``,
+    ``max_in_flight``); with ``moe_stats=True`` ``step.moe_stats`` holds
+    the last step's :class:`~.moe.MoEStats`, summed over the MoE block's
+    calls (one a microbatch under 1F1B; None on a stage that runs no
+    tail)."""
     dev = resolve_device(device)
     specs = param_specs(cfg)
     tp = mesh.size("tp")
@@ -439,6 +451,8 @@ def make_train_step(cfg: ParallelTransformerConfig, mesh: Mesh,
         else:
             traced.prepare_groups(hier_partitions(stages, ep_axis))
     ax = _Axes(*(mesh.axis(a) for a in ("pp", "ep", "sp", "tp")))
+    # the tail's configuration this step and the MoEStats it collects
+    tail = {"cfg": cfg, "sink": [] if moe_stats else None}
     use_flash_ring = _resolve_flash_ring(cfg, dev)
     stage_fn = functools.partial(_stage_fn, ax=ax,
                                  use_flash_ring=use_flash_ring,
@@ -467,7 +481,8 @@ def make_train_step(cfg: ParallelTransformerConfig, mesh: Mesh,
             xm = x.reshape(n_micro, b_local // n_micro, t_local, -1)
             out = gpipe(stage_fn, p["stages"], xm, axis=ax.pp)
             out = reduce_from(out, ax.pp).reshape(b_local, t_local, -1)
-            loss = _tail_loss(p["tail"], out, labels, cfg, ax)
+            loss = _tail_loss(p["tail"], out, labels, tail["cfg"], ax,
+                              tail["sink"])
             leaves, treedef = pytree.tree_flatten(p)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = pytree.tree_unflatten(
@@ -495,7 +510,8 @@ def make_train_step(cfg: ParallelTransformerConfig, mesh: Mesh,
         stats = {}
         loss, stage_grads, tail_grads, dxm = pipeline_1f1b(
             stage_fn,
-            lambda tp_, y, tgt: _tail_loss(tp_, y, tgt, cfg, ax),
+            lambda tp_, y, tgt: _tail_loss(tp_, y, tgt, tail["cfg"], ax,
+                                           tail["sink"]),
             params["stages"], xm, lm, axis=ax.pp,
             loss_params=params["tail"], return_dx=True, stats=stats)
         step.stats = dict(stats, n_micro=n_micro)
@@ -511,8 +527,17 @@ def make_train_step(cfg: ParallelTransformerConfig, mesh: Mesh,
     data = mesh.axis(*DATA_AXES)
     n_data = data.size
 
-    def step(params, tokens, labels):
+    def step(params, tokens, labels, capacity_factor=None):
+        tail["cfg"] = cfg if capacity_factor is None else dataclasses.replace(
+            cfg, moe_capacity_factor=float(capacity_factor))
+        if moe_stats:
+            tail["sink"].clear()
         loss, grads = grads_fn(params, local(tokens), local(labels))
+        if moe_stats:
+            sink = tail["sink"]
+            step.moe_stats = MoEStats(*(
+                torch.stack([getattr(s, f) for s in sink]).sum(0)
+                for f in MoEStats._fields)) if sink else None
         grads = _sync_grads(grads, specs, mesh)
         new = pytree.tree_map(
             lambda p, g: p.detach() - cfg.learning_rate * g.to(p.dtype),
@@ -521,5 +546,6 @@ def make_train_step(cfg: ParallelTransformerConfig, mesh: Mesh,
         return new, loss
 
     step.stats = {}
+    step.moe_stats = None
     return step
 

@@ -9,15 +9,16 @@ threaded HTTP server holding a scoped KV store; workers PUT and GET
 what the launcher and the elastic driver exchange with the workers:
 the object collectives :func:`broadcast_via_kv`/:func:`allgather_via_kv`,
 the workers' notification addresses, heartbeats, audit digests, the
-restart stamp, the dead-host set and the version check. The wire is
-the JAX package's, so a port client talks to a JAX server and back.
+restart stamp, the dead-host set, the version check, the straggler
+rebalance's weights and the expert-load ledger. The wire is the JAX
+package's, so a port client talks to a JAX server and back, and each
+channel's JSON is the JAX package's byte for byte.
 
 Differences: one Python server (the JAX package's native C++ server is
 its ``_native`` layer, not ported: ROADMAP A17); every process speaks
 for one rank, so the object collectives key by rank; the version check
-compares the port's version, torch's and CUDA's; the schedule,
-rebalance, expert-load and standby channels wait for the modules that
-use them (ROADMAP A12's remainder, A15, A16).
+compares the port's version, torch's and CUDA's; the schedule and
+standby channels wait for the modules that use them (ROADMAP A16).
 
 Wire protocol:
     GET    /kv/<scope>/<key>   -> 200 value | 404
@@ -597,6 +598,85 @@ def read_dead_hosts(store_or_client) -> Dict[str, list]:
             if isinstance(r, (int, float, str)) and str(r).lstrip("-").isdigit()
         ],
     }
+
+
+REBALANCE_SCOPE = "rebalance"
+
+
+def put_rebalance_weights(store_or_client, weights: Dict[int, float],
+                          epoch: int = 0) -> None:
+    """Driver side of the straggler rebalance (``HOROVOD_REBALANCE``):
+    publish the gang's micro-batch weights, ``weights[r]`` in (0, 1]
+    (1.0 a full share; less for a rank whose step p50 stays flagged).
+    One blob, overwritten on each change: workers apply the newest."""
+    import time as _time
+
+    payload = {
+        "ts": _time.time(),
+        "epoch": int(epoch),
+        "weights": {str(int(r)): float(w) for r, w in weights.items()},
+    }
+    store_or_client.put(REBALANCE_SCOPE, "weights",
+                        json.dumps(payload).encode())
+
+
+def read_rebalance_weights(store_or_client) -> Dict[int, float]:
+    """Worker side: ``{rank: weight}`` of the newest published map, or
+    ``{}`` when none was published. A malformed blob reads as ``{}``:
+    a scheduling hint must never stall training."""
+    raw = store_or_client.get(REBALANCE_SCOPE, "weights")
+    if raw is None:
+        return {}
+    try:
+        obj = json.loads(raw.decode())
+        return {int(r): float(w) for r, w in obj.get("weights", {}).items()}
+    except (ValueError, UnicodeDecodeError, AttributeError):
+        return {}
+
+
+EXPERT_LOAD_SCOPE = "expert_load"
+
+
+def put_expert_load(store_or_client, rank: int, expert_tokens,
+                    dropped: float, total: float,
+                    capacity_factor: Optional[float] = None) -> None:
+    """Worker side of the expert-load ledger: this rank's newest
+    kept-token histogram and overflow counters (``parallel/moe.py``'s
+    ``MoEStats``, host floats), one key a rank, overwritten on each
+    publication."""
+    import time as _time
+
+    payload = {
+        "ts": _time.time(),
+        "expert_tokens": [float(t) for t in expert_tokens],
+        "dropped": float(dropped),
+        "total": float(total),
+    }
+    if capacity_factor is not None:
+        payload["capacity_factor"] = float(capacity_factor)
+    store_or_client.put(EXPERT_LOAD_SCOPE, str(int(rank)),
+                        json.dumps(payload).encode())
+
+
+def read_expert_loads(store_or_client) -> Dict[int, dict]:
+    """Driver side: ``{rank: {"ts", "expert_tokens", "dropped", "total",
+    ...}}`` of every published summary; malformed entries are
+    skipped."""
+    out: Dict[int, dict] = {}
+    for key in store_or_client.keys(EXPERT_LOAD_SCOPE):
+        raw = store_or_client.get(EXPERT_LOAD_SCOPE, key)
+        if raw is None:
+            continue
+        try:
+            rank = int(key)
+            obj = json.loads(raw.decode())
+        except (ValueError, UnicodeDecodeError):
+            continue
+        if (isinstance(obj, dict)
+                and isinstance(obj.get("expert_tokens"), list)
+                and "total" in obj):
+            out[rank] = obj
+    return out
 
 
 def _client_from_cfg(cfg) -> "RendezvousClient":

@@ -25,6 +25,10 @@ site                      where it fires
                           committed step, which the digest must catch)
 ``checkpoint.restore``    each restore attempt
 ``preemption.drain``      between the drain hooks and the persist on SIGTERM
+``fusion.dispatch``       each fused batch, before its collective
+                          (``ops/fusion.py``): transport kinds raise
+                          ``HorovodInternalError``, ``nan`` poisons element 0
+                          of the batch's first floating payload
 ========================  ====================================================
 
 The JAX package's serving-fleet sites come with the fleet (ROADMAP

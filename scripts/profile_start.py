@@ -12,15 +12,18 @@ into the card's first tensor, the import of ``models``, the weights from
 a CUDA generator and the ``DistributedOptimizer`` on the int8 block
 wire. ``--phase18`` starts the ranks as phase 18's launcher does (its
 allocator and cuBLAS variables, the eager half of
-``use_deterministic_algorithms``, no allreduce before the model). The
-launcher's own time is the span from the launch to a rank's
+``use_deterministic_algorithms``, no allreduce before the model).
+``--elastic`` launches through the elastic driver instead
+(``--host-discovery-script`` over ``localhost:N``, as phase 18 (c)
+does). The launcher's own time is the span from the launch to a rank's
 start. It prints, per rank, the marks in seconds from the launch and
 the modules whose imports took longest (``-X importtime``'s cumulative
 microseconds, the top level of each import), then the card's name and
 power limit.
 
 Run from the repository root on a machine with a CUDA card:
-``python3 scripts/profile_start.py [--np 4] [--layers 4] [--phase18]``. It
+``python3 scripts/profile_start.py [--np 4] [--layers 4] [--phase18]
+[--elastic]``. It
 prints one JSON object as its last line but one.
 """
 
@@ -123,6 +126,8 @@ def main() -> int:
                     help="also build phase 18's model at this depth")
     ap.add_argument("--phase18", action="store_true",
                     help="start the ranks as phase 18's launcher does")
+    ap.add_argument("--elastic", action="store_true",
+                    help="launch through the elastic driver")
     ap.add_argument("--rank", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.rank:
@@ -136,12 +141,19 @@ def main() -> int:
     if args.phase18:  # chip_smoke.py's _p18_run
         env.update(CUBLAS_WORKSPACE_CONFIG=":4096:8",
                    PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    hosts = ["-H", f"localhost:{args.np}"]
+    if args.elastic:
+        script = os.path.join(out, "discover.sh")
+        with open(script, "w") as f:
+            f.write(f"#!/bin/sh\necho localhost:{args.np}\n")
+        os.chmod(script, 0o755)
+        hosts = ["--min-np", str(args.np), "--max-np", str(args.np),
+                 "--host-discovery-script", script]
     t_launch = time.time()
     rc = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
-         str(args.np), "--gloo", "-H", f"localhost:{args.np}",
-         "--output-filename", out] + rank_cmd,
-        env=env, cwd=ROOT, timeout=600).returncode
+         str(args.np), "--gloo"] + hosts + ["--output-filename", out]
+        + rank_cmd, env=env, cwd=ROOT, timeout=600).returncode
     t_end = time.time()
     ranks = []
     for r in range(args.np):
@@ -155,7 +167,7 @@ def main() -> int:
             "rank": r,
             "marks_s": {k: round(v - t_launch, 3) for k, v in marks.items()},
             "top_imports_us": _top_imports(err)})
-    print(json.dumps({"np": args.np,
+    print(json.dumps({"np": args.np, "elastic": args.elastic,
                       "rc": rc, "wall_s": t_end - t_launch,
                       "ranks": ranks}, sort_keys=True))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

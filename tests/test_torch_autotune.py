@@ -94,6 +94,97 @@ def test_parameter_manager_same_feed_same_thresholds(tmp_path):
     assert calls == [(16, 1.0), (16, 1.0)]
 
 
+def _counting_clock(step=0.01):
+    t = [0.0]
+
+    def clock():
+        t[0] += step
+        return t[0]
+    return clock
+
+
+def test_eager_loop_thresholds_equal_the_jax_manager(monkeypatch, tmp_path):
+    """``HOROVOD_AUTOTUNE=1`` in a loop of bare ``hvd.allreduce`` calls
+    closed by ``hvd.step_end()``, under an injected clock: each step is
+    one record, and the thresholds the port applies equal the JAX
+    manager's for the same records."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+
+    jat = _jax_autotune()
+    for name in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_FUSION_WIRE"):
+        monkeypatch.delenv(name, raising=False)
+    env = {"HOROVOD_AUTOTUNE": "1", "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+           "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "2",
+           "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "4"}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    hvd.init(device="cpu")
+    try:
+        fusion = basics.state().fusion
+        pm = basics.state().parameter_manager
+        pm._agree = None  # a world of one: nothing to agree
+        fusion._clock = _counting_clock()
+        feed, applied = [], []
+        inner = pm.record
+        pm.record = lambda **kw: feed.append(kw) or inner(**kw)
+        rng = np.random.default_rng(3)
+        for step in range(12):
+            for _ in range(int(rng.integers(1, 4))):
+                hvd.allreduce(torch.ones(int(rng.integers(1, 5000))))
+            hvd.step_end()
+            applied.append(fusion.threshold_bytes)
+        assert len(feed) == 12 and pm.frozen
+    finally:
+        hvd.shutdown()
+    jpm = jat.ParameterManager(initial_threshold=1 << 26,
+                               initial_cycle_ms=1.0,
+                               warmup_samples=1, steps_per_sample=2,
+                               max_samples=4)
+    jpm._optimizer._gp = jat.GaussianProcess()
+    want = []
+    for kw in feed:
+        jpm.record(**kw)
+        want.append(jpm.current()[0])
+    assert applied == want and len(set(applied)) > 1
+
+
+def test_a_step_end_after_an_optimizer_step_records_once(monkeypatch):
+    """One record a step whether the step is closed by the optimizer, by
+    ``hvd.step_end()``, or by both."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import basics
+
+    for name in ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_FUSION_WIRE"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("HOROVOD_AUTOTUNE", "1")
+    hvd.init(device="cpu")
+    try:
+        pm = basics.state().parameter_manager
+        records = []
+        pm.record = lambda **kw: records.append(kw)
+        w = torch.nn.Parameter(torch.ones(16))
+        opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=0.1))
+        for step in range(3):  # the optimizer, then step_end
+            opt.zero_grad()
+            (w * w).sum().backward()
+            opt.step()
+            hvd.step_end()
+        assert len(records) == 3
+        for step in range(2):  # step_end alone
+            hvd.allreduce(torch.ones(4))
+            hvd.step_end()
+        assert len(records) == 5
+        for step in range(2):  # the optimizer alone
+            opt.zero_grad()
+            (w * w).sum().backward()
+            opt.step()
+        assert len(records) == 7
+        opt.remove_hooks()
+    finally:
+        hvd.shutdown()
+
+
 def _feed(tuner, rng, keys):
     for _ in range(20):
         key = keys[int(rng.integers(len(keys)))]
@@ -139,14 +230,37 @@ def test_bandits_choose_alike_and_round_trip(kind, tmp_path):
         len(tp._obs)
 
 
-def test_capacity_tuner_waits_with_its_plane(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        pat.shared_capacity_tuner()
+def test_shared_capacity_tuner_warm_starts_and_persists(monkeypatch,
+                                                       tmp_path):
+    """``shared_capacity_tuner`` starts from the ``capacity`` cache file
+    (goodput and the load ledger) and persists back to it, as the JAX
+    module's does (``tests/test_moe_wire.py``'s shared accessors)."""
     monkeypatch.setenv("HOROVOD_TUNER_CACHE", str(tmp_path))
     for name in ("HOROVOD_SIZE", "HOROVOD_RANK", "HOROVOD_INTRA_SIZE"):
         monkeypatch.delenv(name, raising=False)
     assert pat.tuner_cache_path("wire").startswith(str(tmp_path))
     assert pat.topology_fingerprint().startswith("w1-l1-")
+    seed = pat.CapacityTuner(trials=1)
+    seed.observe_load(("k",), 1.25, [3.0, 5.0], dropped=2.0, total=10.0,
+                      seconds=0.5)
+    path = pat.persist(seed, "capacity")
+    assert path == pat.tuner_cache_path("capacity")
+    pat.reset_shared_tuners()
+    try:
+        tuner = pat.shared_capacity_tuner(trials=1)
+        assert pat.shared_capacity_tuner() is tuner
+        assert not tuner.needs_trial(("k",), 1.25)
+        assert tuner.drop_rate(("k",), 1.25) == 0.2
+        assert any(name == "capacity"
+                   for _, (_, name, _) in pat._persist_registry)
+        tuner.observe_load(("k",), 2.0, [4.0, 4.0], dropped=0.0,
+                           total=8.0, seconds=0.25)
+        assert pat.persist(tuner, "capacity") == path
+        again = pat.CapacityTuner(trials=1)
+        assert pat.warm_start(again, "capacity") == 2
+        assert again.state_dict() == tuner.state_dict()
+    finally:
+        pat.reset_shared_tuners()
 
 
 # ------------------------------------------------- agreement across ranks
@@ -229,7 +343,31 @@ def _agreement_worker(rank, n, outdir):
         opt.remove_hooks()
         hvd.shutdown()
 
+    def eager(tag):
+        """A loop of bare allreduces closed by ``hvd.step_end()``, the
+        pair's members running extra cycles: the threshold's samples
+        close at the steps, so every rank applies the same thresholds."""
+        hvd.init(device="cpu", store=file_store(outdir + f"/{tag}", n))
+        fusion = basics.state().fusion
+        fusion._clock = _jittered(300 + rank)
+        pair = hvd.add_process_set([0, 1])
+        g = torch.Generator().manual_seed(rank)
+        thresholds = []
+        for step in range(8):
+            if pair.included(rank):  # cycles the other ranks do not run
+                for _ in range(2):
+                    hvd.allreduce(torch.ones(512), op=hvd.Sum,
+                                  process_set=pair)
+            hvd.allreduce(torch.randint(-8, 9, (4096,), generator=g)
+                          .float(), op=hvd.Sum)
+            hvd.step_end()
+            thresholds.append(fusion.threshold_bytes)
+        out[tag] = dict(thresholds=thresholds,
+                        frozen=basics.state().parameter_manager.frozen)
+        hvd.shutdown()
+
     run("tuned", True)
+    eager("eager")
     os.environ["HOROVOD_FUSION_WIRE"] = "fp32"
     os.environ["HOROVOD_AUTOTUNE"] = "0"
     run("fixed", False)
@@ -239,7 +377,7 @@ def _agreement_worker(rank, n, outdir):
 @pytest.fixture(scope="module")
 def agreement(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("agree")
-    for tag in ("tuned", "fixed"):
+    for tag in ("tuned", "eager", "fixed"):
         (tmp / tag).mkdir()
     env = {"HOROVOD_FUSION_WIRE": "auto", "HOROVOD_AUTOTUNE": "1",
            "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
@@ -271,6 +409,15 @@ def test_skewed_clocks_make_the_same_choices(agreement):
     assert all(t["states"] == "{}" for t in tuned)
     assert all(f["states"] == fixed[0]["states"] for f in fixed)
     assert set(json.loads(fixed[0]["states"])) == {"wire", "overlap"}
+
+
+def test_eager_loop_makes_the_same_choices(agreement):
+    """The eager loop of the gloo world of 4: the same thresholds on
+    every rank, moved from the initial 64 MiB, and frozen."""
+    eager = [o["eager"] for o in agreement]
+    assert all(e["thresholds"] == eager[0]["thresholds"] for e in eager)
+    assert len(set(eager[0]["thresholds"])) > 1
+    assert all(e["frozen"] for e in eager)
 
 
 def test_tuned_results_equal_a_fixed_wire_run(agreement):

@@ -259,7 +259,6 @@ def test_driver_notifies_the_worker_manager(monkeypatch):
 
 @pytest.mark.parametrize("env,item", [
     ({"HOROVOD_WARM_STANDBY": "1"}, "A16"),
-    ({"HOROVOD_REBALANCE": "on"}, "A12"),
 ])
 def test_deferred_knobs_raise_with_their_items(monkeypatch, env, item):
     for k, v in env.items():
@@ -267,6 +266,36 @@ def test_deferred_knobs_raise_with_their_items(monkeypatch, env, item):
     with pytest.raises(NotImplementedError, match=item):
         ElasticDriver(FakeDiscovery([]), ["true"], 1)
     drv.check_deferred_knobs({"HOROVOD_WARM_STANDBY": "0"})  # off: fine
+
+
+def test_rebalance_driver_publishes_weights_for_a_flagged_rank(monkeypatch):
+    """HOROVOD_REBALANCE=1 starts a driver (it raised before the
+    rebalance was ported); the heartbeat poll down-weights a rank
+    flagged for 2 fresh stamps, and a worker reads the weight."""
+    import json as _json
+
+    from horovod_tpu_torch.elastic import worker as wk
+    from horovod_tpu_torch.runner.rendezvous import (
+        HEARTBEAT_SCOPE, KVStore, read_rebalance_weights)
+
+    monkeypatch.setenv("HOROVOD_REBALANCE", "1")
+    monkeypatch.setenv("HOROVOD_STRAGGLER_QUARANTINE_POLLS", "0")
+    d = ElasticDriver(FakeDiscovery([HostInfo("a", 4)]), ["true"], 1)
+    d._server = type("S", (), {"store": KVStore()})()
+    for beat in range(2):
+        for r in range(4):
+            d._server.store.put(HEARTBEAT_SCOPE, str(r), _json.dumps({
+                "ts": 1e9 + beat, "step": 10,
+                "step_ms_p50": 400.0 if r == 2 else 100.0}).encode())
+        d._last_hb_poll = -1e9
+        assert d._poll_heartbeats(0.0) is None
+    assert read_rebalance_weights(d._server.store) == {
+        0: 1.0, 1: 1.0, 2: 0.25, 3: 1.0}
+    assert registry.snapshot()["driver.rebalance.active"] == 1
+    monkeypatch.setattr(wk, "_kv_client", lambda: d._server.store)
+    wk._reset_rebalance_cache()
+    assert wk.rebalance_weight(rank=2) == 0.25
+    assert wk.rebalance_weight(rank=0) == 1.0
 
 
 def test_driver_quarantines_stragglers_by_default(monkeypatch):

@@ -128,13 +128,32 @@ _LAUNCHER = ("import runpy, sys\n"
              "    pass\n")
 
 
+# the elastic launcher: the driver over a discovery script, one worker
+# that exits at once; the launcher's own process must not import torch
+_ELASTIC_LAUNCHER = (
+    "import os, runpy, sys, tempfile\n"
+    "d = tempfile.mkdtemp()\n"
+    "script = os.path.join(d, 'discover.sh')\n"
+    "open(script, 'w').write('#!/bin/sh\\necho localhost:1\\n')\n"
+    "os.chmod(script, 0o755)\n"
+    "sys.argv = ['hvdrun-torch', '-np', '1', '--min-np', '1', "
+    "'--max-np', '1', '--host-discovery-script', script, sys.executable, "
+    "'-c', 'pass']\n"
+    "try:\n"
+    "    runpy.run_module('horovod_tpu_torch.runner', run_name='__main__')\n"
+    "except SystemExit as e:\n"
+    "    assert not e.code, e.code\n")
+
+
 @pytest.mark.parametrize("code", [
     "import horovod_tpu_torch as hvd\nassert callable(hvd.audit)\n",
     _LAUNCHER,
-], ids=["package", "launcher"])
+    _ELASTIC_LAUNCHER,
+], ids=["package", "launcher", "elastic_launcher"])
 def test_the_package_and_its_launcher_import_no_torch(code):
     """``import horovod_tpu_torch`` binds each public name at its first
-    use, so the launcher starts without torch (seconds a gang start)."""
+    use, and so does ``horovod_tpu_torch.elastic``, so the launcher and
+    the elastic driver start without torch (seconds a gang start)."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-c", code + "import sys\n"
