@@ -17,7 +17,8 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    timed beside its plain version, a PyTorch library call computing the
    same function (timed only, never used by the port) and its bound.
 3. Main path: ``serve()`` of GPT-2 medium (full width, random weights
-   from a seed, bf16) answering HTTP ``POST /generate`` requests; the
+   from a seed, bf16) answering HTTP ``POST /generate`` requests, its
+   decode step one captured CUDA graph (``decode_compiles`` 1); the
    kernel launch counters are zeroed just before and read just after.
    Decode and chunk launches are reported apart; every chunk launch
    (more than 4 packed rows a KV head) must take the tensor cores.
@@ -219,10 +220,13 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    resume step 3 (new rank 0's residuals the old ranks' committed sum,
    bit for bit, the others none) and finish step 8:
    every sample of the epoch's first 54 once, the mean loss falling
-   over steps 5–8, the replicas equal. (d) ``HOROVOD_GUARD=1``,
-   ``HOROVOD_GUARD_MAX_SKIPS=1`` and one non-finite gradient element at
-   step 4: ``hvd.elastic.run`` restores step 3's commit and re-inits in
-   place (same process, epoch 0), and steps 4–6 equal A's bit for bit.
+   over steps 5–8, the replicas equal. (d) In A's gang, after A's run
+   (A's gang runs under ``HOROVOD_GUARD=1``, ``HOROVOD_GUARD_MAX_SKIPS=1``,
+   which a run without a non-finite gradient never trips): a fresh model
+   and optimizer with one non-finite gradient element at step 4:
+   ``hvd.elastic.run`` restores step 3's commit and re-inits in place
+   (same process, epoch 0), and steps 1–6 equal A's bit for bit. The
+   phase starts 5 gangs.
    Every step of every arm launches B3 twice a fused batch and the
    flash kernels 2L/L/L/L, all on the tensor cores. It prints each
    arm's seconds, the start's marks, the commit and restore seconds and
@@ -275,13 +279,44 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    ``tune_capacity`` on phase 17's composed model (4 experts at ep 1, 4
    layers), one trial a candidate: the choice, each candidate's drop
    rate and imbalance, and B5/B6 launches equal to the schedule's.
-   The flash counts of phases 5, 10, 12, 13, 14, 15, 16, 17, 18, 19 and
-   20, and the wire counts of phases 8, 9 and 13–20, add up in the
-   ``kernels`` line.
+21. The serving fleet (it runs right after phase 4, on phases 3 and 4's
+   models, with a generator of its own). (a) ``torch.compile(fullgraph=
+   True)`` (Inductor, without fma contraction) of attention alone at
+   ``gpt2-t512``: B5 and B6 through the ``hvd_torch`` operators and
+   their autograd formula, bitwise the eager call; and of a training
+   step of GPT-2 medium at 4 layers (remat): no graph break, B5 8 times
+   (4 in the forward, 4 in the recompute) and B6's three kernels 4 times
+   a step, the loss within one bf16 rounding of eager. (b) The decode
+   step captured into a CUDA graph: one replay's logits bitwise an eager
+   forward of the same step on a copy of the pool (the active slots),
+   ``decode_compiles`` 1, and the step's host clock graphed and eager,
+   in turns. (c) A prefill-role and a decode-role ``serve()`` of the
+   bf16 GPT-2 medium at full width (8 slots, 16-token pages, 512 pages)
+   in this process, announcing through the port's ``RendezvousServer``;
+   phase 3's 9 prompts to the prefill worker over the int8 wire: every
+   request ``done`` with 32 tokens, B3 48 times a request (24 layers ×
+   k, v), the decode worker's B7 decode launches counted through its
+   graph's replays, every ingested page within ``2·blockmax/127`` of the
+   page the prefill worker finished, each first token equal to phase
+   3's, 9 ingests, no fallback, ``decode_compiles`` 1 on the decode
+   worker and 0 on the prefill worker; one traced request's spans and
+   the ``kv.stream`` hop stamps. (d) Phase 4's fp32 model and prompts
+   over the fp32 wire: every greedy token equals the full-forward
+   argmax loop. (e) ``serve.kv_transfer@1:reset``: the retry absorbs it;
+   resets past the retry budget: the request decodes locally on the
+   prefill worker and completes. It prints the ``fleet:`` line (TTFT
+   and TPOT p50/p95, framed bytes, ``serve.kv_transfer_ms``, the hop
+   stamps).
+   Under a CUDA graph the launch counters tick at capture only, so
+   phases 3, 4 and 21 and the ``kernels`` line count a replay's
+   launches times the replays (``engine.graph_launches()``).
+   The flash counts of phases 5, 10, 12, 13, 14, 15, 16, 17, 18, 19,
+   20 and 21, and the wire counts of phases 8, 9 and 13–21, add up in
+   the ``kernels`` line.
 
 ``python3 chip_smoke.py --only 17`` (or ``--only 18``, ``19``, ``20``) builds the
-kernels and runs that phase alone (a development aid; it prints no
-``ok`` line). ``--log FILE`` also writes every line printed after the
+kernels and runs that phase alone; ``--only 21`` runs phases 3, 4 and
+21 (a development aid; it prints no ``ok`` line). ``--log FILE`` also writes every line printed after the
 card and the package are found to ``FILE``.
 
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
@@ -943,11 +978,54 @@ def serve_prompts(vocab_size):
 TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
 
 
-def _traced_request(port, prompt, kernel):
+def _replayed(engine, key="paged_attention", since=None):
+    """What to add to counter ``key`` for the launches of the engine's
+    captured decode graph, whose counters tick at capture only: a
+    replay's launches for every replay, less the capture's count, which
+    launched nothing (``since=None``: the counter was read before the
+    engine existed); or for every replay after the first ``since``
+    (read after the capture)."""
+    g = engine.graph_launches()
+    per = g["per_replay"].get(key, 0)
+    if since is None:
+        return per * (g["replays"] - g["captures"])
+    return per * (g["replays"] - since)
+
+
+# a replay's paged-attention launches times each done engine's replays
+# after its capture, over phases 3, 4 and 21 (their counters tick at
+# capture only); with the counters zeroed at phase 3's start they make
+# the paths' launches (_paged_totals)
+_REPLAYED = {"paged_attention": 0, "paged_attention_chunk": 0,
+             "paged_attention_tc": 0}
+
+
+def _bank_replays(engine):
+    """Add a done engine's graph replays to ``_REPLAYED``."""
+    for key in _REPLAYED:
+        _REPLAYED[key] += _replayed(engine, key)
+
+
+def _paged_totals():
+    """The paged-attention launches since phase 3 zeroed the counters,
+    by kernel, every done engine's replays included."""
+    from horovod_tpu_torch.ops import paged_attention as pa
+
+    fn = pa.paged_attention
+    chunk = fn.chunk_launches + _REPLAYED["paged_attention_chunk"]
+    return {"decode": (fn.launches + _REPLAYED["paged_attention"]
+                       - chunk),
+            "tiled": chunk,
+            "tiled_tensor_cores": (fn.tc_launches
+                                   + _REPLAYED["paged_attention_tc"])}
+
+
+def _traced_request(port, prompt, kernel, engine):
     """One request with a ``traceparent`` header under ``HOROVOD_TRACE=1``
     after the burst: its reply echoes the trace id, and ``GET /traces``
     holds the frontend's, the batcher's, the prefill's and the decode's
-    spans under it; the paged kernel runs under tracing."""
+    spans under it; the paged kernel runs under tracing (its decode
+    launches counted through the graph's replays)."""
     from horovod_tpu_torch.common import tracing
 
     saved = os.environ.get("HOROVOD_TRACE")
@@ -955,6 +1033,7 @@ def _traced_request(port, prompt, kernel):
     tracing._reset()  # the settings are read once a process
     try:
         before = kernel.launches
+        replays = engine.graph_launches()["replays"]
         req = urllib.request.Request(
             f"http://127.0.0.1:{port}/generate",
             data=json.dumps({"tokens": prompt, "max_tokens": 8}).encode(),
@@ -974,7 +1053,8 @@ def _traced_request(port, prompt, kernel):
             if want <= {x["name"] for x in spans}:
                 break
             time.sleep(0.02)
-        launched = kernel.launches - before
+        launched = (kernel.launches - before
+                    + _replayed(engine, since=replays))
     finally:
         if saved is None:
             os.environ.pop("HOROVOD_TRACE", None)
@@ -996,8 +1076,11 @@ def phase_serve(model, prompts, max_tokens, card):
     """serve() of the bf16 GPT-2 medium model over HTTP; every request
     must come back ``done`` with ``max_tokens`` tokens, through the
     kernels and with no fallback: decode steps on the decode kernel,
-    every prefill chunk of more than 4 tokens on the tiled kernel's
-    tensor-core variant. Returns the launches of each, apart."""
+    inside the one captured decode graph (``decode_compiles`` 1), every
+    prefill chunk of more than 4 tokens on the tiled kernel's
+    tensor-core variant. Returns the launches of each, apart (a replay's
+    launches counted by the graph's replays), and each request's first
+    token."""
     from horovod_tpu_torch import serve
     from horovod_tpu_torch.ops import paged_attention as pa
 
@@ -1008,16 +1091,26 @@ def phase_serve(model, prompts, max_tokens, card):
                    handle_sigterm=False, device="cuda")
     try:
         results, wall = _burst(handle.port, prompts, max_tokens)
-        launches = {"decode": fn.launches - fn.chunk_launches,
+        eng = handle.engine
+        launches = {"decode": (fn.launches - fn.chunk_launches
+                               + _replayed(eng)
+                               - _replayed(eng, "paged_attention_chunk")),
                     "tiled": fn.chunk_launches,
                     "tiled_tensor_cores": fn.tc_launches}
-        stats = handle.engine.stats()
-        mgr = handle.engine.manager.stats()
+        graph = eng.graph_launches()
+        stats = eng.stats()
+        mgr = eng.manager.stats()
         slo = handle.batcher.recorder.summaries()
-        traced = _traced_request(handle.port, prompts[0], fn)
+        traced = _traced_request(handle.port, prompts[0], fn, eng)
     finally:
         handle.stop()
+        _bank_replays(handle.engine)
     _check_burst("serve", results, prompts, max_tokens)
+    if stats["decode_compiles"] != 1 or graph["replays"] != stats[
+            "decode_steps"] or graph["per_replay"]["paged_attention"] != (
+            model.cfg.num_layers):
+        fail(f"serve: decode_compiles {stats['decode_compiles']}, graph "
+             f"{graph}, decode steps {stats['decode_steps']}")
     if not handle.engine.paged_attn:
         fail("serve: the engine resolved paged_attn off on the card")
     if (launches["decode"] <= 0 or launches["tiled"] <= 0
@@ -1054,11 +1147,13 @@ def phase_serve(model, prompts, max_tokens, card):
         "paged_attn_calls": stats["paged_attn_calls"],
         "paged_attn_fallbacks": stats["paged_attn_fallbacks"],
         "kernel_launches": launches,
+        "decode_compiles": stats["decode_compiles"],
+        "decode_graph": graph,
         "card": card,
     }
     summary["traced_request"] = traced
     log("serve: " + json.dumps(summary, sort_keys=True))
-    return launches
+    return launches, [body["tokens"][0] for _, body in results]
 
 
 def _full_forward_greedy(model, prompt, n):
@@ -1088,22 +1183,31 @@ def phase_fp32(model32, prompts, max_tokens):
         results, _ = _burst(handle.port, prompts, max_tokens)
         if not handle.engine.paged_attn:
             fail("fp32: the engine resolved paged_attn off on the card")
+        eng = handle.engine
+        decode = (fn.launches - fn.chunk_launches - before[1]
+                  + _replayed(eng) - _replayed(eng, "paged_attention_chunk"))
+        compiles = eng.stats()["decode_compiles"]
     finally:
         handle.stop()
+        _bank_replays(handle.engine)
     _check_burst("fp32", results, prompts, max_tokens)
     if fn.tc_launches != before[0]:
         fail("fp32: a paged launch took the tensor-core kernel")
-    decode = fn.launches - fn.chunk_launches - before[1]
-    if decode <= 0:
-        fail("fp32: no decode step launched the decode kernel")
+    if decode <= 0 or compiles != 1:
+        fail(f"fp32: {decode} decode-kernel launches, decode_compiles "
+             f"{compiles}")
+    wants = []
     for prompt, (_, body) in zip(prompts, results):
         want = _full_forward_greedy(model32, prompt, max_tokens)
         if body["tokens"] != want:
             fail(f"fp32: served tokens {body['tokens']} differ from the "
                  f"full-forward argmax loop {want}")
+        wants.append(want)
     log(f"fp32: {len(prompts)} requests of {[len(p) for p in prompts]} "
         f"prompt tokens match the full-forward argmax loop "
-        f"({max_tokens} tokens each; {decode} decode-kernel launches)")
+        f"({max_tokens} tokens each; {decode} decode-kernel launches, "
+        f"replays counted)")
+    return wants
 
 
 # ------------------------------------------------------- phase 5 training
@@ -5086,6 +5190,8 @@ def _w18_train(root, hvd, arm, t_start, marks):
     r, n = hvd.rank(), hvd.size()
     epoch = basics.get_config().elastic_epoch
     dev = basics.state().device
+    # this run's launches: (d) follows A in A's processes
+    base = _w18_counts()
     model, opt = _w18_model(hvd)
     marks["model"] = time.time()
     fusion = basics.state
@@ -5172,7 +5278,13 @@ def _w18_train(root, hvd, arm, t_start, marks):
                         opt.state_dict()["ef_residuals"])
             rec["t_last_commit"] = time.time()
             rec["indices"][str(step)] = [int(i) for i in idx]
-            rec["totals"] = _w18_counts()
+            now = _w18_counts()
+            rec["totals"] = {
+                "b3": now["b3"] - base["b3"],
+                "flash": {k: now["flash"][k] - base["flash"][k]
+                          for k in now["flash"]},
+                "flash_tc": {k: now["flash_tc"][k] - base["flash_tc"][k]
+                             for k in now["flash_tc"]}}
             rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
             _w18_dump(root, rec)
             if arm == "B" and step == P18_KILL_AFTER:
@@ -5227,6 +5339,9 @@ def worker18(arm: str) -> int:
             _w18_launch_checks(root, hvd)
             marks["launch_checks"] = time.time()
         _w18_train(root, hvd, arm, t_start, marks)
+        if arm == "A":
+            # (d) shares A's gang: a fresh model, the guard's rollback
+            _w18_train(root, hvd, "d", time.time(), {})
     finally:
         hvd.shutdown()
     return 0
@@ -5326,7 +5441,7 @@ def phase_durability(card):
     step; (c) the elastic driver shrinks 4 ranks to 3 after a rank's
     death, every sample once, the new rank 0's residuals the old ranks'
     committed sum bit for bit; (d) the grad guard's escalation rolls
-    back in place. Returns the launches: (B3, (flash launches,
+    back in place (in A's gang, after A). Returns the launches: (B3, (flash launches,
     tensor-core launches))."""
     import shutil
     import tempfile
@@ -5366,8 +5481,11 @@ def phase_durability(card):
         arm_s = {}
 
         # (b)'s A, uninterrupted, which first checks (a), the launch
-        # contract
-        rc, arm_s["A"], t_launch = _p18_run(root, "A", gloo4, env)
+        # contract, and then runs (d) in the same gang; the guard is on
+        # for both (A has no non-finite gradient, so it never trips)
+        rc, arm_s["A"], t_launch = _p18_run(
+            root, "A", gloo4,
+            dict(env, HOROVOD_GUARD="1", HOROVOD_GUARD_MAX_SKIPS="1"))
         if rc != 0:
             fail(f"durability (b) A: exited {rc}\n" + _p18_tail(root, "A"))
         slots = assign_slots(parse_hosts(f"localhost:{P18_WORLD}"), P18_WORLD)
@@ -5573,13 +5691,11 @@ def phase_durability(card):
             rec["t_last_commit"] for rec in e0) - max(
             summary["residual_check_s"])
 
-        # (d) the guard's escalation rolls back in place
-        rc, arm_s["d"], _ = _p18_run(
-            root, "d", gloo4,
-            dict(env, HOROVOD_GUARD="1", HOROVOD_GUARD_MAX_SKIPS="1"))
-        if rc != 0:
-            fail(f"durability (d): exited {rc}\n" + _p18_tail(root, "d"))
+        # (d) the guard's escalation rolled back in place, in A's gang
         D = _p18_recs(root, "d")
+        if len(D) != P18_WORLD:
+            fail(f"durability (d): {len(D)} ranks reported\n"
+                 + _p18_tail(root, "A"))
         for a, dd in zip(A, D):
             q = a["rank"]
             if dd["resets"] != 1 or dd["epoch_end"] != 0 or (
@@ -6400,12 +6516,471 @@ def phase_bert(gen, card, flash_results=None):
         _env(**saved)
 
 
+# ------------------------------------------- phase 21 the serving fleet
+
+FLEET_LAYERS = 4  # (a)'s compiled training step: GPT-2 medium at 4 layers
+FLEET_TURNS = 5  # (b)'s timing: turns of graphed and eager decode steps
+FLEET_STEPS = 20  # decode steps a turn
+BF16_REL = 2.0 ** -7  # one bf16 rounding
+
+
+def _p21_attention(gen):
+    """(a) part 1: ``torch.compile(fullgraph=True)`` of attention alone at
+    ``gpt2-t512`` (B5 forward, B6 backward through the operators'
+    autograd formula) against the eager call, bitwise."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, d = 8, 512, 16, 64
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    for x in (q, k, v):
+        x.requires_grad_(True)
+
+    def attn(q, k, v):
+        return fa.flash_attention(q, k, v, causal=True)
+
+    def run(fn):
+        o = fn(q, k, v)
+        return (o, *torch.autograd.grad(o, (q, k, v), do))
+
+    eager = run(attn)
+    compiled = torch.compile(attn, fullgraph=True)
+    run(compiled)  # the compile
+    _zero_flash()
+    got = run(compiled)
+    launches = _read_flash()[0]
+    unequal = [n for n, a, c in zip(("o", "dq", "dk", "dv"), eager, got)
+               if not torch.equal(a, c)]
+    if unequal or launches != {"flash_fwd": 1, "flash_bwd_delta": 1,
+                               "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
+        fail(f"fleet (a): compiled attention differs from eager in "
+             f"{unequal}; launches {launches}")
+    return {"bitwise": True, "launches": launches}
+
+
+def _p21_train(gen):
+    """(a) part 2: a compiled training step of GPT-2 medium at 4 layers
+    (remat, bf16 on fp32 masters) with no graph break, against eager:
+    B5 4 times a forward and 4 again in the recompute, B6's three
+    kernels 4 times a backward, the loss within one bf16 rounding."""
+    import dataclasses
+
+    import torch
+    from torch._inductor import config as inductor_config
+
+    from horovod_tpu_torch import Transformer, TransformerConfig
+
+    cfg = dataclasses.replace(TransformerConfig.gpt2_medium(),
+                              num_layers=FLEET_LAYERS, remat=True)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    tokens, labels = _lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    loss = _loss(model, tokens, labels)
+    loss.backward()
+    eager_loss = loss.item()
+    model.zero_grad(set_to_none=True)
+    # eager's arithmetic: no fma contraction (as phase 14 (c))
+    os.environ["TRITON_DEFAULT_FP_FUSION"] = "0"
+    t0 = time.monotonic()
+    with inductor_config.patch(emulate_precision_casts=True):
+        compiled = torch.compile(_loss, fullgraph=True)
+        compiled(model, tokens, labels).backward()
+    compile_s = time.monotonic() - t0
+    model.zero_grad(set_to_none=True)
+    _zero_flash()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    closs = compiled(model, tokens, labels)
+    closs.backward()
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) * 1e3
+    launches, tc = _read_flash()
+    L = FLEET_LAYERS
+    want = {"flash_fwd": 2 * L, "flash_bwd_delta": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L}
+    closs = closs.item()
+    rel = abs(closs - eager_loss) / abs(eager_loss)
+    if launches != want or rel > BF16_REL or not math.isfinite(closs):
+        fail(f"fleet (a): the compiled step launched {launches} (want "
+             f"{want}); loss {closs} against eager {eager_loss}")
+    del model
+    return {"layers": L, "loss": closs, "eager_loss": eager_loss,
+            "rel": rel, "launches": launches, "tc_launches": tc,
+            "compile_s": compile_s, "step_ms": step_ms}
+
+
+def _p21_graph(model, prompts):
+    """(b) The graphed decode step: one replay's logits bitwise an eager
+    forward of the same step (the host-built rows, the ctypes-era path)
+    on a copy of the pool, on the active slots; then the step's host
+    clock, graphed and eager, in turns."""
+    import copy
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.serving import InferenceEngine
+
+    eng = InferenceEngine(model, None, slots=8, max_len=1024,
+                          device="cuda", prefill_ceiling=256)
+    mgr = eng.manager
+    slots = [mgr.alloc(i) for i in range(8)]
+    for slot in (1, 6):
+        mgr.free(slot)
+    active = [s for s in slots if s not in (1, 6)]
+    for slot, prompt in zip(active, prompts):
+        eng.prefill(slot, prompt)
+    if eng.prepare_decode():
+        fail("fleet (b): the pool could not take a decode step")
+    toks = np.asarray([(7 * i + 3) % 50257 for i in range(8)], np.int32)
+    live = copy.deepcopy(mgr.cache)
+    with torch.no_grad():
+        want = eng.model(torch.as_tensor(toks[:, None], device="cuda"),
+                         cache=live, cache_index=mgr.lengths_array(),
+                         pages=mgr.tables_array(),
+                         paged_attn=True)[:, 0, :]
+        got = eng._decode_logits(toks).clone()
+    del live
+    if not torch.equal(got[active], want[active]):
+        diff = float((got[active] - want[active]).abs().max())
+        fail(f"fleet (b): a replay's logits differ from eager by {diff}")
+
+    def graphed():
+        return eng._decode_logits(toks).argmax(-1).cpu()
+
+    def eager():
+        with torch.no_grad():
+            return eng.model(
+                torch.as_tensor(toks[:, None], device="cuda"),
+                cache=mgr.cache, cache_index=mgr.lengths_array(),
+                pages=mgr.tables_array(), paged_attn=True,
+            )[:, 0, :].argmax(-1).cpu()
+
+    times = {"graphed": [], "eager": []}
+    for _ in range(FLEET_TURNS):
+        for name, fn in (("graphed", graphed), ("eager", eager)):
+            for _ in range(FLEET_STEPS):
+                t0 = time.perf_counter()
+                fn()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    stats = eng.stats()
+    if stats["decode_compiles"] != 1:
+        fail(f"fleet (b): decode_compiles {stats['decode_compiles']}")
+    out = {"bitwise": True, "active_slots": len(active),
+           "decode_compiles": stats["decode_compiles"],
+           "graph": eng.graph_launches()}
+    for name, ts in times.items():
+        ts = sorted(ts)
+        out[f"{name}_ms_p50"] = statistics.median(ts)
+        out[f"{name}_ms_p95"] = ts[int(0.95 * (len(ts) - 1))]
+    _bank_replays(eng)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _p21_pair(model, wire, port_kw, rdv_port):
+    """A decode-role and a prefill-role ``serve()`` of ``model`` in this
+    process, announcing through the rendezvous KV on ``rdv_port``; waits
+    until the prefill worker's coordinator sees the decode worker."""
+    from horovod_tpu_torch import serve
+    from horovod_tpu_torch.runner.rendezvous import RendezvousClient
+
+    def client():
+        return RendezvousClient("127.0.0.1", rdv_port)
+
+    dec = serve(model, None, role="decode", rank=1, kv_wire=wire,
+                announce_client=client(), **port_kw)
+    pre = serve(model, None, role="prefill", rank=0, kv_wire=wire,
+                announce_client=client(), **port_kw)
+    for _ in range(500):
+        if pre.batcher.transfer.decode_targets():
+            return pre, dec
+        time.sleep(0.01)
+    fail("fleet: the decode worker's announcement never arrived")
+
+
+def _p21_record(pre, dec):
+    """Keep (on the card) each request's pages as the prefill worker
+    finished them for the wire, and (on the host) what the decode worker
+    ingests, both by sequence length, until ``stop()``."""
+    import torch
+
+    sent, got = {}, {}
+    peng = pre.engine
+    finish = peng.finish_pages
+
+    def finish_kept(raw, kept, length, stream=None):
+        pages = finish(raw, kept, length, stream=stream)
+        with torch.cuda.stream(stream):
+            sent[int(length)] = [p.clone() for p in pages]
+        return pages
+
+    peng.finish_pages = finish_kept
+    submit = dec.batcher.submit_ingested
+
+    def submit_kept(*args, **kw):
+        got[int(kw["length"])] = kw["arrays"]
+        return submit(*args, **kw)
+
+    dec.batcher.submit_ingested = submit_kept
+
+    def stop():
+        del peng.finish_pages, dec.batcher.submit_ingested
+
+    return sent, got, stop
+
+
+def _p21_envelope(sent, got, block):
+    """The worst ratio of an ingested page's error to its block's
+    ``2·blockmax/127`` envelope, over every leaf of every request."""
+    import torch
+
+    worst = 0.0
+    if sorted(sent) != sorted(got):
+        fail(f"fleet (c): sent lengths {sorted(sent)}, ingested "
+             f"{sorted(got)}")
+    for length, pages in sent.items():
+        for p, q in zip(pages, got[length]):
+            a = p.float().reshape(p.shape[0], -1, block)
+            b = q.to("cuda").float().reshape(a.shape)
+            bound = 2.0 * a.abs().amax(dim=-1, keepdim=True) / 127.0
+            ratio = ((a - b).abs() / bound.clamp_min(1e-30)).amax()
+            worst = max(worst, float(ratio))
+    return worst
+
+
+def _p21_traced(port):
+    """One traced request through the pair: its spans, and the hop
+    stamps of its ``kv.stream`` (the ingest's NTP edge)."""
+    from horovod_tpu_torch.common import tracing
+
+    trace_id = "0af7651916cd43dd8448eb211c80319c"
+    saved = os.environ.get("HOROVOD_TRACE")
+    os.environ["HOROVOD_TRACE"] = "1"
+    tracing._reset()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate",
+            data=json.dumps({"tokens": list(range(1, 40)),
+                             "max_tokens": 8}).encode(),
+            headers={"Content-Type": "application/json",
+                     "traceparent": f"00-{trace_id}-b7ad6b7169203331-01"},
+            method="POST")
+        with urllib.request.urlopen(req, timeout=180) as resp:
+            body = json.load(resp)
+        want = {"http.generate", "kv.reserve", "serve.prefill", "kv.stream",
+                "kv.ingest", "serve.decode"}
+        for _ in range(300):
+            spans = [x for x in tracing.recorder().spans()
+                     if x["trace_id"] == trace_id]
+            if want <= {x["name"] for x in spans}:
+                break
+            time.sleep(0.02)
+    finally:
+        if saved is None:
+            os.environ.pop("HOROVOD_TRACE", None)
+        else:
+            os.environ["HOROVOD_TRACE"] = saved
+        tracing._reset()
+    names = {x["name"] for x in spans}
+    stream = [x for x in spans if x["name"] == "kv.stream"]
+    hop = {k: stream[0]["tags"].get(k) for k in (
+        "t_send", "t_recv", "peer_recv", "peer_send", "peer", "bytes",
+        "transfer_ms")} if stream else {}
+    if body.get("status") != "done" or not want <= names or hop.get(
+            "peer_recv") is None:
+        fail(f"fleet: the traced request came back {body.get('status')!r} "
+             f"with spans {sorted(names)} and hop stamps {hop}")
+    return {"spans": sorted(names), "kv_stream_hop": hop}
+
+
+def _p21_fleet(model, prompts, max_tokens, first_tokens, card):
+    """(c) The disaggregated pair at full width over the int8 wire, then
+    (e) the fault site: one reset absorbed by the retry, and resets past
+    the retry budget falling back to local decode."""
+    import torch
+
+    from horovod_tpu_torch.common.metrics import registry
+    from horovod_tpu_torch.common.retry import RetryPolicy
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.ops import paged_attention as pa
+    from horovod_tpu_torch.runner.rendezvous import RendezvousServer
+    from horovod_tpu_torch.serving.kv_transfer import wire_block_size
+    from horovod_tpu_torch.testing import chaos
+
+    rdv = RendezvousServer()
+    rdv_port = rdv.start()
+    port_kw = dict(port=0, slots=8, prefill_ceiling=256,
+                   max_new_tokens=max_tokens, addr="127.0.0.1",
+                   handle_sigterm=False, device="cuda")
+    snap0 = registry.snapshot()
+    b3_before = ck.int8_block_quantize.launches
+    fn = pa.paged_attention
+    decode_before = fn.launches - fn.chunk_launches
+    pre, dec = _p21_pair(model, "int8", port_kw, rdv_port)
+    sent, got, stop_recording = _p21_record(pre, dec)
+    try:
+        results, wall = _burst(pre.port, prompts, max_tokens)
+        stop_recording()
+        b3 = ck.int8_block_quantize.launches - b3_before
+        snap = registry.snapshot()
+        dstats, pstats = dec.engine.stats(), pre.engine.stats()
+        dec_launches = (fn.launches - fn.chunk_launches - decode_before
+                        + _replayed(dec.engine)
+                        - _replayed(dec.engine, "paged_attention_chunk"))
+        ttft = pre.batcher.recorder.summaries()["ttft_ms"]
+        tpot = dec.batcher.recorder.summaries()["tpot_ms"]
+        traced = _p21_traced(pre.port)
+        # (e): one reset, retried
+        chaos.configure("serve.kv_transfer@1:reset")
+        ingests = dec.engine.stats()["transfer_ingests"]
+        (code_1, body_1), = _burst(pre.port, [prompts[1]], max_tokens)[0]
+        retried = (dec.engine.stats()["transfer_ingests"] - ingests,
+                   registry.snapshot().get("serve.transfer_fallbacks", 0)
+                   - snap.get("serve.transfer_fallbacks", 0))
+        # (e): resets past the retry budget: the local decode
+        chaos.configure("serve.kv_transfer:p=1:reset")
+        pre.batcher.transfer._retry = RetryPolicy(
+            "serve.kv_transfer", attempts=2, backoff_ms=1.0, deadline_s=10.0,
+            attempt_timeout_s=5.0)
+        (code_2, body_2), = _burst(pre.port, [prompts[2]], max_tokens)[0]
+        fell_back = (registry.snapshot().get("serve.transfer_fallbacks", 0)
+                     - snap.get("serve.transfer_fallbacks", 0))
+        local_compiles = pre.engine.stats()["decode_compiles"]
+    finally:
+        chaos.reset()
+        pre.stop()
+        dec.stop()
+        rdv.stop()
+        _bank_replays(pre.engine)
+        _bank_replays(dec.engine)
+    _check_burst("fleet (c)", results, prompts, max_tokens)
+    firsts = [body["tokens"][0] for _, body in results]
+    page_elems = 16 * model.cfg.kv_heads * model.cfg.head_dim
+    envelope = _p21_envelope(sent, got, wire_block_size(page_elems))
+    sent.clear()
+    torch.cuda.empty_cache()
+    delta = {k: snap.get(k, 0) - snap0.get(k, 0) for k in (
+        "serve.kv_transfer_bytes", "serve.kv_transfer_pages",
+        "serve.kv_transfer_ms", "serve.transfers",
+        "serve.transfer_fallbacks", "serve.transfer_local")}
+    n = len(prompts)
+    checks = {
+        "b3_48_a_request": b3 == 2 * model.cfg.num_layers * n,
+        "decode_worker_b7_decode": dec_launches > 0,
+        "pages_within_envelope": envelope <= 1.0,
+        "first_tokens_equal_phase3": firsts == first_tokens,
+        "transfer_ingests_9": dstats["transfer_ingests"] == n,
+        "no_fallback": delta["serve.transfer_fallbacks"] == 0,
+        "decode_compiles_1_on_decode": dstats["decode_compiles"] == 1,
+        "decode_compiles_0_on_prefill": pstats["decode_compiles"] == 0,
+        "reset_retried": (code_1 == 200 and body_1.get("status") == "done"
+                          and retried == (1, 0)),
+        "fallback_completed": (code_2 == 200
+                               and body_2.get("status") == "done"
+                               and len(body_2["tokens"]) == max_tokens
+                               and fell_back == 1 and local_compiles == 1),
+    }
+    out = {
+        "requests": n, "wall_s": wall,
+        "ttft_ms_p50": ttft["p50"], "ttft_ms_p95": ttft["p95"],
+        "tpot_ms_p50": tpot["p50"], "tpot_ms_p95": tpot["p95"],
+        "framed_bytes": delta["serve.kv_transfer_bytes"],
+        "pages": delta["serve.kv_transfer_pages"],
+        "kv_transfer_ms": delta["serve.kv_transfer_ms"],
+        "transfers": delta["serve.transfers"],
+        "kv_transfer_ms_mean": (delta["serve.kv_transfer_ms"]
+                                / max(delta["serve.transfers"], 1)),
+        "b3_launches": b3, "decode_worker_decode_launches": dec_launches,
+        "decode_graph": dec.engine.graph_launches(),
+        "envelope_worst": envelope,
+        "first_tokens": firsts, "phase3_first_tokens": first_tokens,
+        "decode_stats": {k: dstats[k] for k in (
+            "transfer_ingests", "decode_compiles", "decode_steps")},
+        "prefill_stats": {k: pstats[k] for k in (
+            "prefills", "decode_compiles", "decode_steps")},
+        "retried": retried, "fell_back": fell_back,
+        "traced_request": traced, "card": card,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"fleet (c)/(e): {bad} failed: {json.dumps(out)}")
+    return out, b3
+
+
+def _p21_lossless(model32, prompts, max_tokens, wants):
+    """(d) The fp32 pair over the fp32 wire: every greedy token equals
+    the uncached full-forward argmax loop (phase 4's ``wants``)."""
+    from horovod_tpu_torch.runner.rendezvous import RendezvousServer
+
+    rdv = RendezvousServer()
+    rdv_port = rdv.start()
+    port_kw = dict(port=0, slots=2, prefill_ceiling=256,
+                   max_new_tokens=max_tokens, addr="127.0.0.1",
+                   handle_sigterm=False, device="cuda")
+    pre, dec = _p21_pair(model32, "fp32", port_kw, rdv_port)
+    try:
+        results, _ = _burst(pre.port, prompts, max_tokens)
+        ingests = dec.engine.stats()["transfer_ingests"]
+    finally:
+        pre.stop()
+        dec.stop()
+        rdv.stop()
+        _bank_replays(pre.engine)
+        _bank_replays(dec.engine)
+    _check_burst("fleet (d)", results, prompts, max_tokens)
+    for (_, body), want in zip(results, wants):
+        if body["tokens"] != want:
+            fail(f"fleet (d): fp32-wire tokens {body['tokens']} differ "
+                 f"from the full-forward argmax loop {want}")
+    if ingests != len(prompts):
+        fail(f"fleet (d): {ingests} ingests for {len(prompts)} requests")
+    return {"requests": len(prompts), "tokens_equal_full_forward": True}
+
+
+def phase_fleet(gen, model, model32, prompts, first_tokens, fp32_prompts,
+                fp32_wants, max_tokens, card):
+    """Phase 21: (a) the custom operators in compiled steps; (b) the
+    graphed decode; (c) the disaggregated pair over the int8 wire; (d)
+    the fp32 wire; (e) the fault site. Returns B3's and the flash
+    kernels' launches; the paged kernels' are read by _paged_totals."""
+    import torch
+
+    marks = {}
+    t0 = time.monotonic()
+    attn = _p21_attention(gen)
+    train = _p21_train(gen)
+    flash = _read_flash()
+    torch.cuda.empty_cache()
+    marks["a"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    paged0 = _paged_totals()
+    graph = _p21_graph(model, prompts[:6])
+    marks["b"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    fleet, b3 = _p21_fleet(model, prompts, max_tokens, first_tokens, card)
+    marks["c_e"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    lossless = _p21_lossless(model32, fp32_prompts, max_tokens, fp32_wants)
+    marks["d"] = time.monotonic() - t0
+    paged = {k: v - paged0[k] for k, v in _paged_totals().items()}
+    log("fleet: " + json.dumps({
+        "a_attention": attn, "a_train": train, "b_graph": graph,
+        "c_fleet": fleet, "d_fp32": lossless, "paged_launches": paged,
+        "seconds": marks, "card": card}, sort_keys=True))
+    return b3, flash
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["17", "18", "19", "20"],
-                    help="build the kernels and run this phase alone")
+    ap.add_argument("--only", choices=["17", "18", "19", "20", "21"],
+                    help="build the kernels and run this phase alone "
+                    "(21: with phases 3 and 4, whose outputs it reads)")
     ap.add_argument("--log", help="also write every printed line here")
     ap.add_argument("--worker18", metavar="ARM",
                     choices=["A", "B", "C", "c", "d"],
@@ -6474,10 +7049,11 @@ def main() -> int:
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    t0 = time.monotonic()
-    kernel_results = phase_kernels(gen)
-    flash_results = phase_flash_kernels(gen)
-    log(f"kernel phase: {time.monotonic() - t0:.2f} s")
+    if args.only != "21":
+        t0 = time.monotonic()
+        kernel_results = phase_kernels(gen)
+        flash_results = phase_flash_kernels(gen)
+        log(f"kernel phase: {time.monotonic() - t0:.2f} s")
 
     # phase 3: GPT-2 medium at full width, random weights from the seed;
     # the fp32 copy for phase 4 is taken first (serving the bf16 model
@@ -6493,15 +7069,30 @@ def main() -> int:
     model32.load_state_dict(model.state_dict())
     prompts, prompt = serve_prompts(cfg.vocab_size)
     t0 = time.monotonic()
-    paged_launches = phase_serve(model, prompts, 32, card)
+    _, first_tokens = phase_serve(model, prompts, 32, card)
     log(f"serve phase: {time.monotonic() - t0:.2f} s")
 
     # phase 4: correctness at full width in fp32
     t0 = time.monotonic()
-    phase_fp32(model32, [prompt(24), prompt(300)], 32)
+    fp32_prompts = [prompt(24), prompt(300)]
+    fp32_wants = phase_fp32(model32, fp32_prompts, 32)
     log(f"fp32 phase: {time.monotonic() - t0:.2f} s")
+
+    # phase 21: the serving fleet on phases 3 and 4's models (a generator
+    # of its own, so later phases draw what they drew before it)
+    t0 = time.monotonic()
+    gen21 = torch.Generator(device="cuda")
+    gen21.manual_seed(SEED + 21)
+    fleet_b3, fleet_flash = phase_fleet(
+        gen21, model, model32, prompts, first_tokens, fp32_prompts,
+        fp32_wants, 32, card)
+    # phases 3, 4 and 21's paged launches, replays included
+    paged_launches = _paged_totals()
+    log(f"fleet phase: {time.monotonic() - t0:.2f} s")
     del model, model32
     torch.cuda.empty_cache()
+    if args.only == "21":
+        return 0
 
     # phase 5: training, the second slice's main path
     t0 = time.monotonic()
@@ -6624,7 +7215,8 @@ def main() -> int:
     t0 = time.monotonic()
     bert_b3, bert_flash = phase_bert(gen, card, flash_results)
     flash_runs.append(bert_flash)
-    wire_launches["int8_block_quantize"] += bert_b3
+    wire_launches["int8_block_quantize"] += bert_b3 + fleet_b3
+    flash_runs.append(fleet_flash)
     log(f"remainders phase: {time.monotonic() - t0:.2f} s")
     flash_launches = {k: sum(r[0][k] for r in flash_runs)
                       for k in flash_runs[1][0]}

@@ -123,8 +123,14 @@ DEFAULT_SERVE_PAGE_TOKENS = 16
 DEFAULT_SERVE_PAGES = 0
 DEFAULT_SERVE_PREFIX_CACHE = True
 DEFAULT_SERVE_PAGE_WATERMARK = -1
-# Fleet role: only "unified" is served by the port so far.
+# Fleet role: unified, or one half of a prefill/decode pair.
 DEFAULT_SERVE_ROLE = "unified"
+# the KV-page wire of prefill → decode transfers (int8: block-scaled
+# pages on B3; fp32: the pool dtype's bytes, lossless; bf16 between),
+# and the decode worker's transfer port (0: ephemeral, announced either
+# way)
+DEFAULT_SERVE_KV_WIRE = "int8"
+DEFAULT_SERVE_TRANSFER_PORT = 0
 # Paged-attention read (ops/paged_attention.py): auto = the hand-written
 # kernel on CUDA devices and the plain read elsewhere; on = the kernel
 # path anywhere (its plain PyTorch version for CPU tensors); off = always
@@ -443,6 +449,8 @@ class ServeConfig:
     serve_page_watermark: int = DEFAULT_SERVE_PAGE_WATERMARK
     serve_role: str = DEFAULT_SERVE_ROLE
     serve_paged_attn: str = DEFAULT_SERVE_PAGED_ATTN
+    serve_kv_wire: str = DEFAULT_SERVE_KV_WIRE
+    serve_transfer_port: int = DEFAULT_SERVE_TRANSFER_PORT
     # the worker's rank (HOROVOD_RANK, set by the launcher), announced in
     # /healthz; None outside a launcher
     rank: Optional[int] = None
@@ -481,6 +489,13 @@ class ServeConfig:
             serve_paged_attn=_env_choice(
                 "HOROVOD_SERVE_PAGED_ATTN", DEFAULT_SERVE_PAGED_ATTN,
                 ("auto", "on", "off"),
+            ),
+            serve_kv_wire=_env_choice(
+                "HOROVOD_SERVE_KV_WIRE", DEFAULT_SERVE_KV_WIRE,
+                ("fp32", "bf16", "int8"),
+            ),
+            serve_transfer_port=_env_int(
+                "HOROVOD_SERVE_TRANSFER_PORT", DEFAULT_SERVE_TRANSFER_PORT
             ),
             rank=(
                 _env_int("HOROVOD_RANK", -1)

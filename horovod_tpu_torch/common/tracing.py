@@ -19,9 +19,10 @@ Zero cost when off: ``HOROVOD_TRACE`` defaults off and sampling
 (``HOROVOD_TRACE_SAMPLE``) is decided once at mint, so every carrier
 holds an ``Optional[TraceContext]`` and skips span creation on None.
 The settings are read once a process, at the first tracing call
-(:func:`_reset` drops them). The prefill/decode hop stamps of a
-disaggregated fleet (``tag_hop``) wait for the KV transfer
-(ROADMAP A15).
+(:func:`_reset` drops them). A disaggregated fleet's KV-transfer hops
+(``serving/kv_transfer.py``) echo their stamps as JSON fields
+(:func:`json_stamps`), and the sender tags the four NTP stamps onto its
+hop span (:func:`tag_hop_fields`; :func:`tag_hop` for header echoes).
 """
 
 from __future__ import annotations
@@ -226,6 +227,27 @@ def annotate(note: str) -> None:
         span.annotate(note)
 
 
+class active(object):
+    """Context manager adopting an existing span as this thread's active
+    span without owning its lifetime (the KV-transfer handoff thread
+    runs under its stream span, so retry annotations and hop stamps land
+    on it)."""
+
+    __slots__ = ("_span",)
+
+    def __init__(self, span: Optional[Span]) -> None:
+        self._span = span
+
+    def __enter__(self):
+        if self._span is not None:
+            push_active(self._span)
+        return self._span
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self._span is not None:
+            pop_active(self._span)
+
+
 # -------------------------------------------------------------- recorder
 
 
@@ -402,3 +424,64 @@ def server_stamps(peer_recv_ts: float) -> Dict[str, str]:
         TS_SEND_HEADER: f"{time.time():.6f}",
         PEER_HEADER: f"{rec.host}:{rec.pid}",
     }
+
+
+def json_stamps(peer_recv_ts: float) -> Dict[str, object]:
+    """The :func:`server_stamps` echo for JSON-body protocols (the
+    KV-transfer replies carry the stamps as fields, not headers)."""
+    rec = recorder()
+    return {
+        "recv_ts": round(peer_recv_ts, 6),
+        "send_ts": round(time.time(), 6),
+        "peer": f"{rec.host}:{rec.pid}",
+    }
+
+
+def tag_hop_fields(
+    span: Optional[Span], t_send: float, t_recv: float, obj
+) -> None:
+    """:func:`tag_hop` for JSON-body echoes: the peer's stamps arrive as
+    ``recv_ts``/``send_ts``/``peer`` fields of the reply object."""
+    if span is None or not isinstance(obj, dict):
+        return
+    peer_recv = obj.get("recv_ts")
+    peer_send = obj.get("send_ts")
+    if peer_recv is None or peer_send is None:
+        return
+    try:
+        span.tag(
+            t_send=round(t_send, 6),
+            t_recv=round(t_recv, 6),
+            peer_recv=round(float(peer_recv), 6),
+            peer_send=round(float(peer_send), 6),
+            peer=str(obj.get("peer", "")),
+        )
+    except (TypeError, ValueError):
+        pass
+
+
+def tag_hop(span: Optional[Span], t_send: float, t_recv: float,
+            headers) -> None:
+    """Tag the four NTP stamps and the peer's identity onto a client
+    hop span from the server's echo headers (a no-op without an echo or
+    a span)."""
+    if span is None or headers is None:
+        return
+    try:
+        peer_recv = headers.get(TS_RECV_HEADER)
+        peer_send = headers.get(TS_SEND_HEADER)
+        peer = headers.get(PEER_HEADER)
+    except AttributeError:
+        return
+    if not peer_recv or not peer_send:
+        return
+    try:
+        span.tag(
+            t_send=round(t_send, 6),
+            t_recv=round(t_recv, 6),
+            peer_recv=round(float(peer_recv), 6),
+            peer_send=round(float(peer_send), 6),
+            peer=peer or "",
+        )
+    except (TypeError, ValueError):
+        pass

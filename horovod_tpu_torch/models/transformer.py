@@ -33,9 +33,10 @@ Two forwards share the parameters:
   returns an updated copy for the engine to donate.
 
 On the paged layout ``paged_attn=True`` reads the pool through
-:func:`~horovod_tpu_torch.ops.paged_attention.paged_attention`: the
-hand-written kernel for CUDA tensors (it launches or raises), its plain
-version for CPU tensors. ``paged_attn=False`` takes the plain version
+``hvd_torch::paged_attention``
+(:func:`~horovod_tpu_torch.ops.paged_attention.paged_attention` as a
+custom operator): the hand-written kernel for CUDA tensors (it launches
+or raises), its plain version for CPU tensors. ``paged_attn=False`` takes the plain version
 (gather the pages, attend densely) on any device. The sliding window
 on the cached path is not ported yet.
 
@@ -231,12 +232,60 @@ class CacheStep:
     Positions past a slot's page table, or mapped to the sentinel page,
     are left out of ``src``: the paged write drops them, as the JAX
     model's ``mode="drop"`` scatter does. The rows are worked out once
-    per forward on the host, so no layer waits on the device."""
+    per forward on the host, so no layer waits on the device.
+
+    :meth:`on_device` builds the step a CUDA graph can capture instead:
+    fixed shapes, worked out on the device from device tensors, with no
+    host-to-device copy."""
 
     index: torch.Tensor
     table: Optional[torch.Tensor]
     src: Optional[torch.Tensor]
     dst: torch.Tensor
+
+    @staticmethod
+    def on_device(cache, index: torch.Tensor, table: Optional[torch.Tensor],
+                  t: int, spare_row0: Optional[int] = None) -> "CacheStep":
+        """The step of :meth:`build` from ``index`` (``[batch]`` int32)
+        and ``table`` (``[batch, n_logical]`` int32, None for the slab),
+        both on the cache's device: every row of the call's ``[batch ×
+        t]`` k/v gets a destination, so ``src`` is None and every shape
+        depends on ``batch`` and ``t`` alone. On the paged pool a row the
+        host-built step drops (past the table, or on a sentinel page)
+        goes to its own spare row, ``spare_row0 + row``: the pool's
+        spare pages past the ``spare_row0 // page_tokens`` live ones,
+        which no table names, so no live row reads it and no two rows
+        share one."""
+        leaf = cache[0]["k"]
+        dev = leaf.device
+        b = index.shape[0]
+        idx = index.to(torch.int64)
+        steps = torch.arange(t, device=dev)
+        if table is None:
+            seq = leaf.shape[1]
+            start = idx.clamp(0, max(seq - t, 0))
+            dst = (torch.arange(b, device=dev)[:, None] * seq
+                   + start[:, None] + steps).reshape(-1)
+        else:
+            rows, page_tokens = leaf.shape[0] * leaf.shape[1], leaf.shape[1]
+            if spare_row0 is None or spare_row0 + b * t > rows:
+                raise ValueError(
+                    f"the pool holds {rows} rows; a device-built step of "
+                    f"{b} × {t} rows needs that many spare rows from "
+                    f"{spare_row0}")
+            num_pages = spare_row0 // page_tokens
+            n_logical = table.shape[1]
+            pos = idx[:, None] + steps
+            lp, off = pos // page_tokens, pos % page_tokens
+            phys = torch.gather(table.to(torch.int64), 1,
+                                lp.clamp(0, n_logical - 1))
+            keep = (lp < n_logical) & (phys >= 0) & (phys < num_pages)
+            spare = spare_row0 + torch.arange(b * t, device=dev).reshape(b, t)
+            dst = torch.where(keep, phys * page_tokens + off,
+                              spare).reshape(-1)
+            table = table.to(torch.int32)
+        return CacheStep(index=index.to(torch.int32), table=table, src=None,
+                         dst=dst)
 
     @staticmethod
     def build(cache, cache_index, pages, batch: int, t: int,
@@ -447,10 +496,11 @@ class MultiHeadAttention(nn.Module):
                 rows = rows[step.src]
             buf.view(-1, kvh, d).index_copy_(0, step.dst, rows.to(buf.dtype))
         if step.table is not None:
-            attend = (_pa.paged_attention if paged_attn
-                      else _pa.paged_attention_plain)
-            return attend(q, k_cache, v_cache, step.table, step.index,
-                          causal=True)
+            if paged_attn:
+                return _pa.OPS.paged_attention(q, k_cache, v_cache,
+                                               step.table, step.index, True)
+            return _pa.paged_attention_plain(q, k_cache, v_cache, step.table,
+                                             step.index, causal=True)
         q_pos = step.index.long()[:, None] + torch.arange(t, device=q.device)
         key_pos = torch.arange(k_cache.shape[1], device=q.device)
         valid = key_pos[None, None, :] <= q_pos[:, :, None]  # [b, t, seq]
@@ -627,7 +677,8 @@ class Transformer(nn.Module):
                 return_hidden: bool = False, lengths=None,
                 cache: Optional[List[dict]] = None, cache_index=None,
                 pages=None, paged_attn: bool = False,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None,
+                step: Optional[CacheStep] = None):
         """Logits ``[batch, t, vocab]`` in fp32.
 
         Uncached: ``tokens`` is the whole sequence. ``train`` turns
@@ -641,17 +692,21 @@ class Transformer(nn.Module):
         Cached: ``cache`` (from :func:`init_cache`, one dict per layer)
         takes this call's k/v at ``cache_index`` (``[batch]``: tokens
         already cached per row) and is updated in place; ``pages``
-        (``[batch, n_logical]`` int32) switches it to the paged pool."""
+        (``[batch, n_logical]`` int32) switches it to the paged pool.
+        ``step`` (a :class:`CacheStep`, e.g. :meth:`CacheStep.on_device`)
+        replaces ``cache_index`` and ``pages``."""
         cfg = self.cfg
         dev = self.device
         tokens = torch.as_tensor(tokens, device=dev).long()
         b, t = tokens.shape
-        step = None
         if cache is not None:
             if return_hidden:
                 raise ValueError("return_hidden with cache= is not supported")
-            step = CacheStep.build(cache, cache_index, pages, b, t,
-                                   cache[0]["k"].device)
+            if step is None:
+                step = CacheStep.build(cache, cache_index, pages, b, t,
+                                       cache[0]["k"].device)
+        elif step is not None:
+            raise ValueError("step= requires cache=")
         elif pages is not None:
             raise ValueError("pages= (the page table) requires cache=")
         x = self.embed(tokens).to(cfg.dtype)

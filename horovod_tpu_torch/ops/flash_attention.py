@@ -30,10 +30,17 @@ whose kernel fails to build or launch raises: it never takes the other
 variant or the plain version.
 
 The four JAX custom VJPs (MHA or GQA, with or without lengths) are one
-:class:`FlashAttentionFunction` here. The kernels read q, k, v, o and dO
-through their strides in the ``[b, t, h, d]`` layout, so the slices of
-the fused qkv projection go in without the ``[b·h, t, d]`` copies the
-JAX wrapper makes.
+differentiable ``torch.library`` custom operator here,
+``hvd_torch::flash_fwd`` (``OPS.flash_fwd``: o and lse), whose autograd
+formula calls the three backward operators ``hvd_torch::flash_bwd_delta``,
+``flash_bwd_dq`` and ``flash_bwd_dkv``. Each operator has a fake, so
+``torch.compile(fullgraph=True)`` traces a step through them and a CUDA
+graph captures their launches, as the JAX kernels run inside ``jit``.
+Their CUDA implementations are the wrappers above; their CPU
+implementations the plain versions; a CUDA tensor never reaches a plain
+version. The kernels read q, k, v, o and dO through their strides in the
+``[b, t, h, d]`` layout, so the slices of the fused qkv projection go in
+without the ``[b·h, t, d]`` copies the JAX wrapper makes.
 
 Beside them, :func:`flash_fwd_plain`, :func:`flash_bwd_plain` and
 :func:`flash_bwd_delta_plain` compute the same functions with the same
@@ -187,6 +194,15 @@ def flash_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
     from the saved ``o`` and ``lse``, recomputing ``P = exp(scale·QKᵀ −
     lse)``; with ``lengths`` padded query rows get P = 0. dK and dV sum
     over each KV head's query-head group."""
+    return _bwd_plain(q, k, v, o, lse, do, causal, lengths, window,
+                      want_dq=True, want_dkv=True)
+
+
+def _bwd_plain(q, k, v, o, lse, do, causal, lengths, window, *,
+               want_dq: bool, want_dkv: bool):
+    """:func:`flash_bwd_plain`'s body, computing only what is wanted
+    (None for the rest): the backward operators' CPU implementations
+    take dQ and dK/dV apart with the same bits."""
     window = _check(q, k, v, causal, lengths, window)
     b, t, h, d = q.shape
     kvh = k.shape[2]
@@ -204,14 +220,15 @@ def flash_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
     dp = dof @ vf.transpose(-1, -2)
     delta = (dof * o.to(dt).transpose(1, 2)).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
-    dq = scale * (ds @ kf)
-    dk = (scale * (ds.transpose(-1, -2) @ qf)).reshape(b, kvh, r, t, d)
-    dv = (p.transpose(-1, -2) @ dof).reshape(b, kvh, r, t, d)
-    return (
-        dq.transpose(1, 2).to(q.dtype),
-        dk.sum(dim=2).transpose(1, 2).to(k.dtype),
-        dv.sum(dim=2).transpose(1, 2).to(v.dtype),
-    )
+    dq = dk = dv = None
+    if want_dq:
+        dq = (scale * (ds @ kf)).transpose(1, 2).to(q.dtype)
+    if want_dkv:
+        dk = (scale * (ds.transpose(-1, -2) @ qf)).reshape(b, kvh, r, t, d)
+        dv = (p.transpose(-1, -2) @ dof).reshape(b, kvh, r, t, d)
+        dk = dk.sum(dim=2).transpose(1, 2).to(k.dtype)
+        dv = dv.sum(dim=2).transpose(1, 2).to(v.dtype)
+    return dq, dk, dv
 
 
 def flash_bwd_delta_plain(o, do):
@@ -321,8 +338,7 @@ def flash_fwd(q, k, v, causal: bool = False, lengths=None,
     _launch("hvd_flash_fwd_tc" if tc else "hvd_flash_fwd", q,
             [q, k, v, None, None, o, None, lse, lens, None],
             [q, k, v, None, None, o, None], causal, window, k.shape[2])
-    flash_fwd.launches += 1
-    flash_fwd.tc_launches += tc
+    _count("flash_fwd", tc)
     return o, lse
 
 
@@ -353,7 +369,7 @@ def _delta(o, do) -> torch.Tensor:
     _launch("hvd_flash_bwd_delta", o,
             [None, None, None, o, do, None, None, None, None, delta],
             [None, None, None, o, do, None, None], False, None, h)
-    flash_bwd_delta.launches += 1
+    _count("flash_bwd_delta")
     return delta
 
 
@@ -364,8 +380,7 @@ def _dq(a: _Bwd, delta: torch.Tensor) -> torch.Tensor:
             [a.q, a.k, a.v, None, a.do, dq, None, a.lse, a.lengths, delta],
             [a.q, a.k, a.v, None, a.do, dq, None], a.causal, a.window,
             a.k.shape[2])
-    flash_bwd_dq.launches += 1
-    flash_bwd_dq.tc_launches += tc
+    _count("flash_bwd_dq", tc)
     return dq
 
 
@@ -377,8 +392,7 @@ def _dkv(a: _Bwd, delta: torch.Tensor):
             [a.q, a.k, a.v, None, a.do, dk, dv, a.lse, a.lengths, delta],
             [a.q, a.k, a.v, None, a.do, dk, dv], a.causal, a.window,
             a.k.shape[2])
-    flash_bwd_dkv.launches += 1
-    flash_bwd_dkv.tc_launches += tc
+    _count("flash_bwd_dkv", tc)
     return dk, dv
 
 
@@ -416,8 +430,8 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool = False, lengths=None,
     ``do``; ``delta`` (:func:`flash_bwd_delta`) is computed when not
     given. CPU tensors take :func:`flash_bwd_plain`."""
     if q.device.type != "cuda":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal, lengths,
-                               window)[0]
+        return _bwd_plain(q, k, v, o, lse, do, causal, lengths, window,
+                          want_dq=True, want_dkv=False)[0]
     a = _bwd_inputs(q, k, v, o, lse, do, causal, lengths, window)
     return _dq(a, _delta_arg(a, delta))
 
@@ -428,8 +442,8 @@ def flash_bwd_dkv(q, k, v, o, lse, do, causal: bool = False, lengths=None,
     query-head group; ``delta`` is computed when not given. CPU tensors
     take :func:`flash_bwd_plain`."""
     if q.device.type != "cuda":
-        return flash_bwd_plain(q, k, v, o, lse, do, causal, lengths,
-                               window)[1:]
+        return _bwd_plain(q, k, v, o, lse, do, causal, lengths, window,
+                          want_dq=False, want_dkv=True)[1:]
     a = _bwd_inputs(q, k, v, o, lse, do, causal, lengths, window)
     return _dkv(a, _delta_arg(a, delta))
 
@@ -438,34 +452,145 @@ flash_fwd.launches = flash_fwd.tc_launches = 0
 flash_bwd_delta.launches = 0
 flash_bwd_dq.launches = flash_bwd_dq.tc_launches = 0
 flash_bwd_dkv.launches = flash_bwd_dkv.tc_launches = 0
+KERNELS = (flash_fwd, flash_bwd_delta, flash_bwd_dq, flash_bwd_dkv)
+_BY_NAME = {k.__name__: k for k in KERNELS}
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """One differentiable attention for every variant (MHA or GQA, with
-    or without ``lengths``, with or without ``window``): the forward
-    kernel, then the delta pass, dQ and dK/dV from the saved fp32
-    ``lse``. On the CPU the plain backward computes all three at once."""
+def _count(name: str, tc: bool = False) -> None:
+    """One launch of kernel ``name`` (``tc``: on the tensor cores),
+    counted on the wrapper as this module defined it (``KERNELS``), not
+    through the module's attribute, which a capture may rebind."""
+    fn = _BY_NAME[name]
+    fn.launches += 1
+    if tc:
+        fn.tc_launches += 1
+
+
+# ------------------------------------------------------- custom operators
+
+
+@torch.library.custom_op("hvd_torch::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lengths: Optional[torch.Tensor], causal: bool,
+                  window: Optional[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_fwd(q, k, v, causal, lengths, window)
+
+
+def _contiguous(*xs):
+    """The operators' outputs are contiguous, as the kernels' are and
+    the fakes say; the plain versions may return transposed views."""
+    return tuple(x.contiguous() for x in xs)
+
+
+_flash_fwd_op.register_kernel("cpu")(
+    lambda q, k, v, lengths, causal, window: _contiguous(*flash_fwd_plain(
+        q, k, v, causal, lengths, window)))
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, lengths, causal, window):
+    b, t, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b * h, t), dtype=torch.float32))
+
+
+@torch.library.custom_op("hvd_torch::flash_bwd_delta", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_delta_op(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    return flash_bwd_delta(o, do)
+
+
+_flash_bwd_delta_op.register_kernel("cpu")(
+    lambda o, do: flash_bwd_delta_plain(o, do).contiguous())
+
+
+@_flash_bwd_delta_op.register_fake
+def _(o, do):
+    b, t, h, _ = o.shape
+    return o.new_empty((b * h, t), dtype=torch.float32)
+
+
+@torch.library.custom_op("hvd_torch::flash_bwd_dq", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                     delta: torch.Tensor, lengths: Optional[torch.Tensor],
+                     causal: bool, window: Optional[int]) -> torch.Tensor:
+    return flash_bwd_dq(q, k, v, o, lse, do, causal, lengths, window,
+                        delta=delta)
+
+
+# the plain backward recomputes delta from o and dO: the same rowsum
+_flash_bwd_dq_op.register_kernel("cpu")(
+    lambda q, k, v, o, lse, do, delta, lengths, causal, window: flash_bwd_dq(
+        q, k, v, o, lse, do, causal, lengths, window).contiguous())
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, o, lse, do, delta, lengths, causal, window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("hvd_torch::flash_bwd_dkv", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_dkv_op(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+        lse: torch.Tensor, do: torch.Tensor, delta: torch.Tensor,
+        lengths: Optional[torch.Tensor], causal: bool,
+        window: Optional[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_bwd_dkv(q, k, v, o, lse, do, causal, lengths, window,
+                         delta=delta)
+
+
+_flash_bwd_dkv_op.register_kernel("cpu")(
+    lambda q, k, v, o, lse, do, delta, lengths, causal, window: _contiguous(
+        *flash_bwd_dkv(q, k, v, o, lse, do, causal, lengths, window)))
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, o, lse, do, delta, lengths, causal, window):
+    return (torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, lengths, causal, window = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse, lengths)
+    ctx.causal, ctx.window = causal, window
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, do, _dlse):
+    """B5's autograd formula: the delta pass once, then dQ and dK/dV
+    from the saved fp32 lse (the JAX custom VJP's residuals)."""
+    q, k, v, o, lse, lengths = ctx.saved_tensors
+    do = do.contiguous()
+    delta = OPS.flash_bwd_delta(o, do)
+    dq = OPS.flash_bwd_dq(q, k, v, o, lse, do, delta, lengths, ctx.causal,
+                          ctx.window)
+    dk, dv = OPS.flash_bwd_dkv(q, k, v, o, lse, do, delta, lengths,
+                               ctx.causal, ctx.window)
+    return dq, dk, dv, None, None, None
+
+
+torch.library.register_autograd("hvd_torch::flash_fwd", _flash_backward,
+                                setup_context=_flash_setup)
+
+OPS = torch.ops.hvd_torch
+
+
+class FlashAttentionFunction:
+    """The differentiable attention of every variant (MHA or GQA, with
+    or without ``lengths``, with or without ``window``):
+    ``FlashAttentionFunction.apply(q, k, v, lengths, causal, window)``
+    is o of ``hvd_torch::flash_fwd``, whose autograd formula runs the
+    delta pass, dQ and dK/dV from the saved fp32 ``lse``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lengths, causal, window):
-        o, lse = flash_fwd(q, k, v, causal, lengths, window)
-        ctx.save_for_backward(q, k, v, o, lse, lengths)
-        ctx.causal, ctx.window = causal, window
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse, lengths = ctx.saved_tensors
-        args = (q, k, v, o, lse, do.contiguous(), ctx.causal, lengths,
-                ctx.window)
-        if q.device.type == "cuda":
-            a = _bwd_inputs(*args)  # validated and laid out once
-            delta = _delta(a.o, a.do)
-            dq = _dq(a, delta)
-            dk, dv = _dkv(a, delta)
-        else:
-            dq, dk, dv = flash_bwd_plain(*args)
-        return dq, dk, dv, None, None, None
+    def apply(q, k, v, lengths, causal, window):
+        return OPS.flash_fwd(q, k, v, lengths, causal, window)[0]
 
 
 def flash_attention(q, k, v, causal: bool = False, lengths=None,
@@ -486,7 +611,7 @@ def flash_attention(q, k, v, causal: bool = False, lengths=None,
     out = FlashAttentionFunction.apply(q, k, v, lens, causal, window)
     if lens is None:
         return out
-    # zero padded query rows outside the Function: the contract, and the
+    # zero padded query rows outside the operator: the contract, and the
     # zeroed cotangent keeps their dq/dk/dv contributions at zero
     t = q.shape[1]
     valid = torch.arange(t, device=q.device)[None, :] < lens[:, None].long()

@@ -18,7 +18,14 @@ Beside it, :func:`paged_attention_plain` computes the same function in
 plain PyTorch (gather the pages, mask, softmax, multiply). The wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
 launches the kernel or raises. Every launch adds one to
-``paged_attention.launches``.
+``paged_attention.launches`` (at capture only, under a CUDA graph: a
+replay launches without Python).
+
+The model calls it as the ``torch.library`` custom operator
+``hvd_torch::paged_attention`` (``OPS.paged_attention``), with a fake
+shaped like q, so the engine's decode step can be captured into a CUDA
+graph and a compiled forward traces it, as the JAX kernel runs inside
+the compiled decode executable.
 
 The kernel comes in three variants, chosen by one rule,
 :func:`kernel_variant`, on the packed query rows of one (slot, KV head),
@@ -51,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -234,11 +242,33 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths, *,
         plan = _plans[key] = _Plan(q, k_pool, v_pool, page_table, causal,
                                    variant)
     out = plan.launch(q, k_pool, v_pool, page_table, lengths)
-    paged_attention.launches += 1
-    if plan.variant != "decode":
-        paged_attention.chunk_launches += 1
-        paged_attention.tc_launches += plan.variant == "tensor_cores"
+    _count(plan.variant)
     return out
+
+
+def _count(variant: str) -> None:
+    """One launch of ``variant``, on the wrapper's counters and on this
+    thread's (:func:`thread_counts`)."""
+    fn = paged_attention
+    mine = getattr(_local, "counts", None)
+    if mine is None:
+        mine = _local.counts = dict.fromkeys(COUNTERS, 0)
+    keys = ["launches"]
+    if variant != "decode":
+        keys.append("chunk_launches")
+        if variant == "tensor_cores":
+            keys.append("tc_launches")
+    for key in keys:
+        setattr(fn, key, getattr(fn, key) + 1)
+        mine[key] += 1
+
+
+def thread_counts() -> dict:
+    """This thread's launches by counter (``launches``,
+    ``chunk_launches``, ``tc_launches``): what a capture on this thread
+    recorded, whatever other threads launched meanwhile."""
+    return dict(getattr(_local, "counts", None)
+                or dict.fromkeys(COUNTERS, 0))
 
 
 def _launch(q, k_pool, v_pool, page_table, lengths, causal, variant):
@@ -337,20 +367,27 @@ def _tickets(device: torch.device, numel: int) -> int:
     zeroed by every launch (the block that takes a (slot, KV head)'s
     last ticket resets it), so a call adds no memset. Calls on one
     device share them, so they must not overlap in time on two streams.
-    Grows outside a CUDA graph capture only."""
+    Grows outside a CUDA graph capture only, and a grown buffer never
+    frees the one it replaces: a captured graph keeps its address."""
     buf = _ticket_words.get(device)
     if buf is None or buf.numel() < numel:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
                 "paged_attention's decode kernel needs more ticket words "
                 "than it holds; run the call once before capturing it")
+        if buf is not None:
+            _retired_tickets.append(buf)
         buf = _ticket_words[device] = torch.zeros(
-            numel, dtype=torch.int32, device=device)
+            max(numel, MIN_TICKET_WORDS), dtype=torch.int32, device=device)
     return buf.data_ptr()
 
 
+MIN_TICKET_WORDS = 1 << 16  # 256 KiB: (slots × KV heads) up to 65536
+COUNTERS = ("launches", "chunk_launches", "tc_launches")
+_local = threading.local()
 _plans = {}
 _ticket_words = {}
+_retired_tickets = []
 
 # every launch; the tiled kernel's (more than 4 packed rows: prefill
 # chunks, wide GQA groups), so decode's are launches - chunk_launches;
@@ -358,3 +395,45 @@ _ticket_words = {}
 paged_attention.launches = 0
 paged_attention.chunk_launches = 0
 paged_attention.tc_launches = 0
+
+
+# ------------------------------------------------------- custom operator
+
+
+@torch.library.custom_op("hvd_torch::paged_attention", mutates_args=(),
+                         device_types="cuda")
+def _paged_attention_op(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, page_table: torch.Tensor,
+                        lengths: torch.Tensor, causal: bool) -> torch.Tensor:
+    """B7 as an operator: :func:`paged_attention` (the variant
+    :func:`kernel_variant` picks). The decode kernel keeps hidden state,
+    its per-device ticket words, which every launch leaves zeroed; so
+    a replayed graph and an eager call see the same zeroed words, as
+    long as they do not overlap on two streams."""
+    return paged_attention(q, k_pool, v_pool, page_table, lengths,
+                           causal=causal)
+
+
+_paged_attention_op.register_kernel("cpu")(
+    lambda q, k_pool, v_pool, page_table, lengths, causal:
+    paged_attention_plain(q, k_pool, v_pool, page_table, lengths,
+                          causal=causal).contiguous())
+
+
+@_paged_attention_op.register_fake
+def _(q, k_pool, v_pool, page_table, lengths, causal):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+OPS = torch.ops.hvd_torch
+
+
+def warm_operator() -> None:
+    """One call of the operator on tiny CPU tensors (its plain version:
+    no launch, no count). A process's first call of a ``torch.library``
+    custom operator imports parts of PyTorch's compiler, seconds of
+    host; the engine pays them when it is built, not in a request."""
+    q = torch.zeros((1, 1, 1, HEAD_DIM_MULTIPLE))
+    pool = torch.zeros((1, 1, 1, HEAD_DIM_MULTIPLE))
+    idx = torch.zeros((1, 1), dtype=torch.int32)
+    OPS.paged_attention(q, pool, pool, idx, idx[0], True)

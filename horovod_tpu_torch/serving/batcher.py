@@ -24,8 +24,21 @@ re-prefills its prompt and the tokens generated so far.
 
 ``drain()`` (wired to SIGTERM through ``preemption.register_drain``)
 stops admitting new submissions but runs the queue and in-flight work
-to completion. This port serves the unified role only; the JAX
-batcher's KV-transfer hand-offs, migration and fault-injection sites
+to completion.
+
+Roles (the disaggregated fleet, ``serving/kv_transfer.py``): a
+``prefill`` worker reserves pages on a decode worker before it spends a
+prefill, prefills, detaches the slot's pages and hands them to its
+:class:`~.kv_transfer.TransferCoordinator` (``start_handoff``); the
+result comes back through :meth:`ContinuousBatcher.complete_handoff`,
+or the request comes home for a local decode
+(:meth:`ContinuousBatcher.requeue_fallback`, counted in
+``serve.transfer_fallbacks``). With no decode capacity anywhere the
+request takes the local path at once (``serve.transfer_local``). A
+``decode`` worker takes no prompts: its requests arrive through
+:meth:`ContinuousBatcher.submit_ingested` and their pages land in the
+pool at admission, on the scheduler thread. Both roles need the paged
+plane. Live migration and the JAX batcher's ``serve.worker_kill`` site
 come in a later slice.
 
 The scheduler thread runs all device work and binds itself to the
@@ -87,6 +100,9 @@ class Request:
     top_k: int = 0
     seed: Optional[int] = None
     trace: Optional[object] = dataclasses.field(default=None, repr=False)
+    # a KV-transfer ingest's payload (host pages, logical ids, length,
+    # prompt hashes), landed in the pool when the request is admitted
+    ingest: Optional[dict] = dataclasses.field(default=None, repr=False)
     # the admit-to-retire ``serve.decode`` span of a traced request
     span: Optional[object] = dataclasses.field(default=None, repr=False)
     _done: threading.Event = dataclasses.field(
@@ -131,8 +147,22 @@ class ContinuousBatcher:
         default_deadline_ms: float = 0.0,
         eos_id: Optional[int] = None,
         recorder: Optional[LatencyRecorder] = None,
+        role: str = "unified",
     ) -> None:
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"unknown serve role {role!r}")
+        if role != "unified" and not engine.paged:
+            raise ValueError(
+                "prefill/decode roles need the paged KV plane: the "
+                "transfer wire moves pool pages, not slab slots"
+            )
         self.engine = engine
+        self.role = role
+        # the TransferCoordinator of a prefill worker (serve() wires it);
+        # None: every request decodes here
+        self.transfer = None
+        self._handoffs = 0  # requests streamed out, result not back yet
+        self._drain_active = False  # a drain() loop is stepping
         self.max_admit_per_step = max(int(max_admit_per_step), 1)
         self.default_max_new_tokens = int(default_max_new_tokens)
         self.default_deadline_ms = float(default_deadline_ms)
@@ -161,6 +191,11 @@ class ContinuousBatcher:
         seed: Optional[int] = None,
         trace=None,
     ) -> Request:
+        if self.role == "decode":
+            _metrics.counter("serve.rejected")
+            raise Rejected(
+                "decode-role worker takes KV transfers, not prompts"
+            )
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             _metrics.counter("serve.rejected")
@@ -216,6 +251,128 @@ class ContinuousBatcher:
         self._publish_gauges()
         return req
 
+    # ------------------------------------------------- transfer plane hooks
+
+    def submit_ingested(
+        self,
+        prompt,
+        first_token: int,
+        max_new_tokens: int,
+        logical,
+        arrays,
+        length: int,
+        hashes=(),
+        deadline_ms: Optional[float] = None,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        seed: Optional[int] = None,
+        trace=None,
+    ) -> Request:
+        """Admit a KV-transferred request (the decode worker's side of
+        ``serving/kv_transfer.py``). Called from an HTTP thread: only
+        host bookkeeping here; the pages land in the pool at admission,
+        on the scheduler thread. The remote prefill emitted the first
+        token, so ``out_tokens`` starts with it."""
+        if not self.engine.paged:
+            raise Rejected("KV ingest needs the paged plane")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        pages = [int(lp) for lp in logical]
+        if len(pages) > self.engine.manager.num_pages:
+            _metrics.counter("serve.rejected")
+            raise Rejected(
+                f"ingest of {len(pages)} pages exceeds the "
+                f"{self.engine.manager.num_pages}-page pool"
+            )
+        req = Request(
+            id=next(self._ids),
+            prompt=prompt,
+            max_new_tokens=int(max_new_tokens),
+            deadline_ts=(
+                time.monotonic() + float(deadline_ms) / 1e3
+                if deadline_ms and float(deadline_ms) > 0
+                else None
+            ),
+            temperature=float(temperature),
+            top_k=int(top_k),
+            seed=seed,
+            trace=trace,
+        )
+        req.out_tokens.append(int(first_token))
+        req.ingest = {"logical": pages, "arrays": arrays,
+                      "length": int(length), "hashes": list(hashes)}
+        with self._cond:
+            if self._draining:
+                _metrics.counter("serve.rejected")
+                raise Rejected("worker is draining (shutdown in progress)")
+            self._queue.append(req)
+            self._cond.notify_all()
+        _metrics.counter("serve.requests_total")
+        self._publish_gauges()
+        return req
+
+    def requeue_fallback(self, req: Request, kept, length: int) -> None:
+        """The transfer failed after the prefill (retries exhausted, or
+        the decode worker answered with an error status): bring the
+        request home. Its pages are still held, so it re-queues paused
+        at the front for a pointer resume and a local decode, even while
+        draining (it was accepted). Called from the handoff thread."""
+        req.kept_pages = kept
+        req.resume_length = int(length)
+        req.paused = True
+        req.status = QUEUED
+        with self._cond:
+            self._handoffs -= 1
+            if (self._draining and not self._drain_active
+                    and not self._running and self._thread is None):
+                # nothing will ever serve the queue: fail loudly
+                req.kept_pages = None
+                self.engine.manager.release_kept(kept)
+                req.status = ERROR
+                req.end_span(outcome="error")
+                req._done.set()
+                _metrics.counter("serve.errored")
+                return
+            self._queue.appendleft(req)
+            self._cond.notify_all()
+        _metrics.counter("serve.transfer_fallbacks")
+        _log.info(
+            "request %d fell back to local decode after transfer failure",
+            req.id,
+        )
+
+    def fail_handoff(self, req: Request, kept) -> None:
+        """Packing the pages failed on this worker (a kernel's fault,
+        not the wire's): the request fails with status ``error`` and its
+        pages go; no local decode hides the fault. Called from the
+        handoff thread, which raises the error on."""
+        self.engine.manager.release_kept(kept)
+        req.status = ERROR
+        with self._cond:
+            self._handoffs -= 1
+            self._cond.notify_all()
+        req.end_span(outcome="error")
+        req._done.set()
+        _metrics.counter("serve.errored")
+
+    def complete_handoff(self, req: Request, result: Dict) -> None:
+        """The remote decode finished: take the decode worker's output
+        and release the waiter. TTFT stays the one measured here (the
+        client's clock); ``gen_ms`` is the decode worker's. Called from
+        the handoff thread."""
+        req.out_tokens = [int(t) for t in result.get("tokens", ())]
+        req.gen_ms = float(result.get("gen_ms", 0.0))
+        req.status = DONE if result.get("status") == "done" else DEADLINE
+        with self._cond:
+            self._handoffs -= 1
+            self._cond.notify_all()
+        if req.status == DONE:
+            _metrics.counter("serve.completed")
+        else:
+            _metrics.counter("serve.expired")
+        _metrics.counter("serve.handed_off")
+        req.end_span(outcome=req.status, tokens=len(req.out_tokens))
+        req._done.set()
+
     # ------------------------------------------------------------- the loop
 
     def start(self) -> None:
@@ -243,20 +400,28 @@ class ContinuousBatcher:
             self._draining = True
             self._cond.notify_all()
         deadline = time.monotonic() + timeout
-        while time.monotonic() < deadline:
-            if self._idle():
-                return True
-            if self._running:
-                time.sleep(0.005)
-            elif not self.step():
-                time.sleep(0.005)
-        return self._idle()
+        self._drain_active = True
+        try:
+            while time.monotonic() < deadline:
+                if self._idle():
+                    return True
+                if self._running:
+                    time.sleep(0.005)
+                elif not self.step():
+                    # idle but handoffs in flight: they finish (or fall
+                    # back into the queue) on their own threads
+                    time.sleep(0.005)
+            return self._idle()
+        finally:
+            self._drain_active = False
 
     def _idle(self) -> bool:
         # under the lock: an admission moves its request from the queue
-        # to a slot in one critical section, so it is always in one
+        # to a slot (or a handoff) in one critical section, so it is
+        # always in one
         with self._cond:
-            return not self._queue and not self._slot_req
+            return (not self._queue and not self._slot_req
+                    and not self._handoffs)
 
     def _run(self) -> None:
         try:
@@ -341,6 +506,8 @@ class ContinuousBatcher:
         mgr = self.engine.manager
         if req.kept_pages is not None:
             return 0
+        if req.ingest is not None:
+            return len(req.ingest["logical"])
         if req.paused and req.out_tokens:
             return mgr.pages_needed(self._resume_seq(req).size)
         return mgr.pages_needed(int(req.prompt.size))
@@ -373,6 +540,32 @@ class ContinuousBatcher:
                 req.paused = False
                 req.status = RUNNING
                 _metrics.counter("serve.resumed")
+            elif req.ingest is not None:
+                # KV-transfer ingest: the foreign pages land in the pool
+                # in place and pointer-attach; data changes, shapes do
+                # not, so the captured decode graph serves every ingest
+                ing = req.ingest
+                kept = self.engine.ingest_attach(
+                    slot, ing["logical"], ing["arrays"], ing["length"],
+                    ing["hashes"],
+                )
+                if kept is None:
+                    # the pool ran dry between the gate and the alloc:
+                    # the head stays queued; stop admitting this round
+                    self.engine.manager.free(slot)
+                    break
+                npages = len(ing["logical"])
+                req.ingest = None
+                req.status = RUNNING
+                _metrics.counter("serve.transfer_admits")
+                _metrics.counter("serve.tokens_out")
+                if req.trace is not None:
+                    s = _tracing.start_span(
+                        "serve.ingest_admit", req.trace, pages=npages,
+                        slot=slot,
+                    )
+                    if s is not None:
+                        s.end()
             elif req.paused and req.out_tokens:
                 # pages reclaimed while paused: re-prefill; the token it
                 # emits is dropped, the newest real token feeds decode
@@ -382,6 +575,19 @@ class ContinuousBatcher:
                 req.status = RUNNING
                 _metrics.counter("serve.resumed")
             else:
+                reservation = None
+                if (self.role == "prefill" and self.transfer is not None
+                        and req.max_new_tokens > 1):
+                    # reserve decode capacity before spending the
+                    # prefill: pages with nowhere to go are work wasted
+                    need = self.engine.manager.pages_needed(
+                        int(req.prompt.size) + req.max_new_tokens
+                    )
+                    reservation = self.transfer.reserve(need,
+                                                        trace=req.trace)
+                    if reservation is None:
+                        # no decode capacity anywhere: decode here
+                        _metrics.counter("serve.transfer_local")
                 span = _tracing.start_span(
                     "serve.prefill", req.trace,
                     prompt_len=int(req.prompt.size), slot=slot,
@@ -396,6 +602,19 @@ class ContinuousBatcher:
                 self.recorder.record_ttft(req.ttft_ms)
                 _metrics.counter("serve.prefill_tokens", int(req.prompt.size))
                 _metrics.counter("serve.tokens_out")
+                if reservation is not None:
+                    # hand the finished pages over: detach_keep frees the
+                    # slot (its references move to the handoff); the
+                    # stream and the result wait run on a thread of
+                    # their own, and this worker never decodes it
+                    kept, length = self.engine.manager.detach_keep(slot)
+                    with self._cond:
+                        self._queue.popleft()  # single consumer: req
+                        self._handoffs += 1
+                    self.transfer.start_handoff(self, req, kept, length,
+                                                reservation)
+                    admitted += 1
+                    continue
             if mid_decode:
                 _metrics.counter("serve.admitted_mid_decode")
             admitted += 1
@@ -452,7 +671,11 @@ class ContinuousBatcher:
     def _reclaim_paused_pages(self) -> bool:
         """Last resort: drop the kept pages of the paused request with the
         least deadline headroom (no deadline is spared longest). It stays
-        queued and re-prefills on resume."""
+        queued and re-prefills on resume. Never on a decode worker: it
+        cannot prefill, so its kept pages could not be rebuilt, and a
+        pause (a pointer resume) is its only remedy."""
+        if self.role == "decode":
+            return False
         with self._cond:
             holders = [r for r in self._queue if r.kept_pages]
         if not holders:
@@ -545,6 +768,7 @@ class ContinuousBatcher:
             "queue_depth": self.queue_depth(),
             "decode_steps": self._decode_steps,
             "draining": 1.0 if self._draining else 0.0,
+            "handoffs_inflight": float(self._handoffs),
         }
         out.update(self.engine.manager.stats())
         return out

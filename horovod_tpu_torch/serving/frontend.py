@@ -24,9 +24,18 @@ A stdlib ``ThreadingHTTPServer`` per worker, no dependencies. Routes:
 The HTTP threads never touch tensors: they queue requests and read host
 counters. ``serve()`` registers the frontend's drain with
 ``preemption.register_drain``, so SIGTERM finishes every accepted
-request before the worker exits. This slice serves one unified worker;
-the JAX frontend's fleet router, capacity announcements, hedging,
-result dedupe, live migration and KV-transfer server come later.
+request before the worker exits.
+
+A fleet meets in the rendezvous KV: each worker announces its capacity
+(:meth:`ServeFrontend.capacity`: role, free slots and pages, the
+transfer port) under scope ``serve`` every second
+(:func:`put_announcement`), and a prefill worker's
+:class:`~.kv_transfer.TransferCoordinator` reads the decode workers'
+announcements (:func:`read_announcements`). ``serve(role="prefill")``
+wires that coordinator; ``serve(role="decode")`` (and a paged unified
+worker) runs a :class:`~.kv_transfer.KVTransferServer`. The JAX
+frontend's fleet router, hedging, result dedupe and live migration come
+in a later slice.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Dict, Optional
 
 from ..common import telemetry as _telemetry
 from ..common import tracing as _tracing
@@ -48,6 +57,33 @@ from .batcher import ContinuousBatcher, Rejected
 
 _log = get_logger("serve.frontend")
 
+SERVE_SCOPE = "serve"
+DEFAULT_ANNOUNCE_INTERVAL_S = 1.0
+
+
+def put_announcement(client, rank: int, payload: dict) -> None:
+    """A worker's capacity blob into the rendezvous KV (a ``KVStore`` or
+    a ``RendezvousClient``), scope ``serve``, key the rank."""
+    client.put(SERVE_SCOPE, str(int(rank)), json.dumps(payload).encode())
+
+
+def read_announcements(store_or_client) -> Dict[int, dict]:
+    """Every rank's last capacity blob; entries that do not parse, or
+    carry no ``port``, are skipped."""
+    out: Dict[int, dict] = {}
+    for key in store_or_client.keys(SERVE_SCOPE):
+        raw = store_or_client.get(SERVE_SCOPE, key)
+        if raw is None:
+            continue
+        try:
+            rank = int(key)
+            obj = json.loads(raw.decode())
+        except (ValueError, UnicodeDecodeError):
+            continue
+        if isinstance(obj, dict) and "port" in obj:
+            out[rank] = obj
+    return out
+
 
 class ServeFrontend:
     def __init__(
@@ -57,8 +93,19 @@ class ServeFrontend:
         addr: str = "0.0.0.0",
         advertise_addr: str = "127.0.0.1",
         rank: Optional[int] = None,
+        announce_client=None,
+        announce_interval_s: float = DEFAULT_ANNOUNCE_INTERVAL_S,
+        transfer_server=None,
     ) -> None:
         self.batcher = batcher
+        # the KVTransferServer of a decode (or paged unified) worker: its
+        # port travels in the capacity blob, its reservations debit the
+        # announced headroom
+        self.transfer_server = transfer_server
+        self._announce_client = announce_client
+        self._announce_interval = float(announce_interval_s)
+        self._announce_stop = threading.Event()
+        self._announce_thread: Optional[threading.Thread] = None
         self.advertise_addr = advertise_addr
         if rank is None:
             rank = live_config().rank
@@ -223,7 +270,7 @@ class ServeFrontend:
             "rank": self.rank,
             "addr": self.advertise_addr,
             "port": self.port,
-            "role": "unified",
+            "role": getattr(self.batcher, "role", "unified"),
             "free_slots": mgr["slots_free"],
             "slots_total": mgr["slots_total"],
             "queue_depth": self.batcher.queue_depth(),
@@ -231,10 +278,16 @@ class ServeFrontend:
             "host": socket.gethostname(),
             "ts": time.time(),
         }
+        if self.transfer_server is not None:
+            cap["transfer_port"] = self.transfer_server.port
         if "pages_total" in mgr:
             # page headroom is what admission gates on; a saturated pool
             # reads as no free slots, and no free slot as no free pages
             free_pages = manager.admission_headroom()
+            if self.transfer_server is not None:
+                # pages promised to transfers in flight are spoken for
+                free_pages = max(
+                    free_pages - self.transfer_server.reserved_pages(), 0)
             cap["free_pages"] = free_pages
             cap["pages_total"] = mgr["pages_total"]
             cap["prefix_hit_rate"] = round(mgr["prefix_hit_rate"], 4)
@@ -253,13 +306,52 @@ class ServeFrontend:
             daemon=True,
         )
         self._thread.start()
+        client = self._resolve_announce_client()
+        if client is not None:
+            self._announce_client = client
+            self._announce_stop.clear()
+            self._announce_thread = threading.Thread(
+                target=self._announce_loop, name="hvd-serve-announce",
+                daemon=True,
+            )
+            self._announce_thread.start()
         _log.info("serve frontend on port %d (rank %d)", self.port, self.rank)
         return self.port
+
+    def _resolve_announce_client(self):
+        """The client given, else the launcher's rendezvous KV
+        (``HOROVOD_GLOO_RENDEZVOUS_ADDR/PORT``), else None (no fleet)."""
+        if self._announce_client is not None:
+            return self._announce_client
+        from ..common.config import TrainConfig
+
+        cfg = TrainConfig.from_env()
+        if not cfg.rendezvous_addr or not cfg.rendezvous_port:
+            return None
+        from ..runner.rendezvous import _client_from_cfg
+
+        return _client_from_cfg(cfg)
+
+    def _announce_loop(self) -> None:
+        while not self._announce_stop.is_set():
+            self.announce()
+            self._announce_stop.wait(self._announce_interval)
+
+    def announce(self) -> None:
+        """One capacity PUT into the rendezvous KV (scope ``serve``)."""
+        if self._announce_client is None:
+            return
+        try:
+            put_announcement(self._announce_client, self.rank,
+                             self.capacity())
+        except (OSError, RuntimeError) as e:
+            _log.debug("serve announce failed: %s", e)
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Refuse new work, finish the accepted work, let the in-flight
         responses flush."""
         self._draining = True
+        self.announce()  # the router-side view: draining, no capacity
         ok = self.batcher.drain(timeout=timeout)
         deadline = time.monotonic() + 5.0
         while time.monotonic() < deadline:
@@ -285,6 +377,10 @@ class ServeFrontend:
         )
 
     def stop(self) -> None:
+        self._announce_stop.set()
+        if self._announce_thread is not None:
+            self._announce_thread.join(timeout=5)
+            self._announce_thread = None
         if self._thread is None:
             self._httpd.server_close()
             return
@@ -297,10 +393,12 @@ class ServeFrontend:
 class ServeHandle:
     """What :func:`serve` returns: the running plane and its lifecycle."""
 
-    def __init__(self, engine, batcher, frontend, shutdown_ctx=None):
+    def __init__(self, engine, batcher, frontend, shutdown_ctx=None,
+                 transfer_server=None):
         self.engine = engine
         self.batcher = batcher
         self.frontend = frontend
+        self.transfer_server = transfer_server
         self._shutdown_ctx = shutdown_ctx
         self._stopped = threading.Event()
 
@@ -321,6 +419,8 @@ class ServeHandle:
         preemption.unregister_drain(self._drain_hook)
         self.frontend.stop()
         self.batcher.stop()
+        if self.transfer_server is not None:
+            self.transfer_server.stop()
         if self._shutdown_ctx is not None:
             self._shutdown_ctx.__exit__(None, None, None)
             self._shutdown_ctx = None
@@ -346,6 +446,9 @@ def serve(
     rank: Optional[int] = None,
     handle_sigterm: bool = True,
     role: Optional[str] = None,
+    kv_wire: Optional[str] = None,
+    transfer_port: Optional[int] = None,
+    announce_client=None,
     device=None,
     **engine_kwargs,
 ) -> ServeHandle:
@@ -364,18 +467,33 @@ def serve(
     ``handle_sigterm=True`` installs a :class:`~horovod_tpu_torch.
     preemption.GracefulShutdown`, so the worker drains on SIGTERM and
     exits 143; pass False when the caller owns the signal.
+
+    A disaggregated fleet: ``role`` (``HOROVOD_SERVE_ROLE``) ``"prefill"``
+    or ``"decode"`` (``"unified"`` serves alone), ``kv_wire``
+    (``HOROVOD_SERVE_KV_WIRE``: ``int8``, ``bf16`` or ``fp32``, checked
+    on every role) and ``transfer_port`` (``HOROVOD_SERVE_TRANSFER_PORT``,
+    0 ephemeral) for the decode worker's KV server. The workers meet in
+    the rendezvous KV: ``announce_client`` (a ``RendezvousClient`` or
+    ``KVStore``), or the launcher's ``HOROVOD_GLOO_RENDEZVOUS_ADDR/
+    PORT``; a prefill worker with no decode worker announced decodes
+    locally.
     """
     from .. import preemption
-    from .engine import InferenceEngine
+    from .engine import ROLES, InferenceEngine
+    from .kv_transfer import WIRE_FORMATS
 
     cfg = live_config()
     if role is None:
         role = cfg.serve_role
-    if role != "unified":
-        raise NotImplementedError(
-            f"role {role!r}: only the unified role is ported; the "
-            "prefill/decode split needs the KV-transfer plane"
-        )
+    if role not in ROLES:
+        raise ValueError(f"role must be one of {ROLES}, got {role!r}")
+    if kv_wire is None:
+        kv_wire = cfg.serve_kv_wire
+    if kv_wire not in WIRE_FORMATS:
+        raise ValueError(
+            f"kv wire must be one of {WIRE_FORMATS}, got {kv_wire!r}")
+    if transfer_port is None:
+        transfer_port = cfg.serve_transfer_port
     _tracing.set_role(role)
     if port is None:
         port = cfg.serve_port
@@ -391,7 +509,7 @@ def serve(
         max_len = model.cfg.max_len
     engine = InferenceEngine(
         model, params, slots=slots, max_len=max_len, device=device,
-        **engine_kwargs,
+        role=role, **engine_kwargs,
     )
     batcher = ContinuousBatcher(
         engine,
@@ -399,15 +517,37 @@ def serve(
         default_max_new_tokens=max_new_tokens,
         default_deadline_ms=deadline_ms,
         eos_id=eos_id,
+        role=role,
     )
+    transfer_server = None
+    if role == "decode" or (role == "unified" and engine.paged):
+        # decode workers take prefill handoffs; a paged unified worker
+        # runs the server too, as the JAX one does (live migration's
+        # target, a later slice)
+        from .kv_transfer import KVTransferServer
+
+        transfer_server = KVTransferServer(batcher, port=transfer_port,
+                                           addr=addr)
+        transfer_server.start()
     frontend = ServeFrontend(
         batcher, port=port, addr=addr, advertise_addr=advertise_addr,
-        rank=rank,
+        rank=rank, announce_client=announce_client,
+        transfer_server=transfer_server,
     )
+    if role == "prefill":
+        from .kv_transfer import TransferCoordinator
+
+        # reads the announcements the fleet publishes, resolved lazily:
+        # a prefill worker with no fleet decodes locally
+        batcher.transfer = TransferCoordinator(
+            engine, wire=kv_wire,
+            client_factory=frontend._resolve_announce_client,
+        )
     shutdown_ctx = None
     if handle_sigterm:
         shutdown_ctx = preemption.GracefulShutdown(None).__enter__()
-    handle = ServeHandle(engine, batcher, frontend, shutdown_ctx)
+    handle = ServeHandle(engine, batcher, frontend, shutdown_ctx,
+                         transfer_server=transfer_server)
     preemption.register_drain(handle._drain_hook)
     batcher.start()
     frontend.start()

@@ -112,8 +112,19 @@ class PagedKVCacheManager(KVCacheManager):
             watermark = 0 if self.num_pages >= full_backing else self.slots
         self.watermark = min(int(watermark), max(self.num_pages - 1, 0))
         self.prefix_cache_enabled = bool(prefix_cache)
-        # the pool: batch axis = pages, seq axis = page_tokens
-        self.cache = cache_factory(self.num_pages, self.page_tokens)
+        # the pool: batch axis = pages, seq axis = page_tokens. Past the
+        # live pages sit spare pages no table names, one row a slot: the
+        # graphed decode step's dropped writes (inactive slots, full
+        # slots) land there (CacheStep.on_device). ``full_cache`` is the
+        # whole pool; ``cache`` views its live pages (same storage)
+        self.spare_pages = -(-self.slots // self.page_tokens)
+        self.spare_row0 = self.num_pages * self.page_tokens
+        self.full_cache = cache_factory(self.num_pages + self.spare_pages,
+                                        self.page_tokens)
+        self.cache = [
+            {name: leaf[: self.num_pages] for name, leaf in layer.items()}
+            for layer in self.full_cache
+        ]
         self._lock = threading.Lock()
         self._owner: Dict[int, object] = {}
         self._lengths = np.zeros(self.slots, np.int32)
@@ -288,6 +299,53 @@ class PagedKVCacheManager(KVCacheManager):
                 self._page_hash[phys] = h
                 self._ref[phys] += 1
                 self._counters["prefix_published"] += 1
+
+    def publish_hashes(
+        self, kept: List[Tuple[int, int]], hashes: List[bytes]
+    ) -> None:
+        """Warm the prefix index from transferred pages: the sender's
+        chained page hashes travel with the payload, so this worker's
+        cache serves later shared-prefix admissions it never prefilled.
+        Only full prompt pages carry a hash (``hashes[lp]``); the tail
+        page has none. First publisher wins, as :meth:`publish_prefix`."""
+        if not self.prefix_cache_enabled:
+            return
+        with self._lock:
+            for lp, phys in kept:
+                if lp >= len(hashes):
+                    continue
+                h = hashes[lp]
+                if h in self._index:
+                    continue
+                self._index[h] = phys
+                self._index.move_to_end(h)
+                self._page_hash[phys] = h
+                self._ref[phys] += 1
+                self._counters["prefix_published"] += 1
+
+    # ------------------------------------------------ transfer-ingest surface
+
+    def ingest_alloc(self, count: int) -> Optional[List[int]]:
+        """``count`` pool pages for a KV-transfer ingest, each with one
+        caller-held reference (as :meth:`detach_keep`'s kept pages, so
+        they go straight into :meth:`reattach`). All or nothing: on a dry
+        pool the pages taken so far go back and None is returned (the
+        sender's cue to fall back)."""
+        got: List[int] = []
+        with self._lock:
+            for _ in range(int(count)):
+                page = self._alloc_page_locked()
+                if page is None:
+                    for p in got:
+                        self._ref[p] = 0
+                        self._free.append(p)
+                    return None
+                self._ref[page] = 1
+                got.append(page)
+            self._counters["page_allocs"] += len(got)
+            self._counters["transfer_pages_in"] += len(got)
+        self._publish()
+        return got
 
     # ------------------------------------------------- pause/resume surface
 

@@ -29,10 +29,16 @@ site                      where it fires
                           (``ops/fusion.py``): transport kinds raise
                           ``HorovodInternalError``, ``nan`` poisons element 0
                           of the batch's first floating payload
+``serve.kv_transfer``     each HTTP attempt of a disaggregated fleet's
+                          KV-page stream (``serving/kv_transfer.py``;
+                          transport faults retry under the RetryPolicy,
+                          exhaustion falls the request back to local decode,
+                          counted in ``serve.transfer_fallbacks``, never a
+                          client-visible 500)
 ========================  ====================================================
 
-The JAX package's serving-fleet sites come with the fleet (ROADMAP
-A15). Sites the library does not own (a script's training loop, as
+The JAX package's ``serve.worker_kill`` and ``serve.migrate`` sites come
+with the fleet's router and live migration (ROADMAP A15). Sites the library does not own (a script's training loop, as
 ``train.step.rank<r>`` in ``chip_smoke.py``'s phase 18) can call
 :func:`inject` with their own names; the plan does not care.
 

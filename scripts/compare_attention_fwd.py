@@ -28,8 +28,10 @@ device time a step), with ``--serve`` its phase 3 (the burst of 9
 requests to ``serve()``: TTFT, TPOT, tokens/s). ``--decode`` times
 the decode kernel at the decode shapes (each merge and split width the
 checkout has, the host time of 24 eager calls, SDPA and the bound),
-``--quantize`` the per-tensor int8 quantizer at phase 7's sizes in fp32
-and bf16 (each variant the checkout has, rotating over copies of x
+``--dispatch`` the host time of one attention forward and backward at
+a launch-bound shape, through ``flash_attention`` and through the bare
+kernel wrappers, ``--quantize`` the per-tensor int8 quantizer at phase
+7's sizes in fp32 and bf16 (each variant the checkout has, rotating over copies of x
 that exceed L2). ``--block-quantize`` times the block quantizer (B3) at
 each of phase 7's B3 cases as ``chip_smoke.py`` times them, held bitwise
 to plain first, then runs phase 8 (GPT-2 medium on the int8 wire, its
@@ -51,7 +53,7 @@ two in one call.
 Run from the repository root on a machine with a CUDA card:
 ``python3 scripts/compare_attention_fwd.py [--backward | --train |
 --train-host [--steps N] [--head fp32] [--import MOD ...] | --serve |
---decode | --quantize | --block-quantize] [--root DIR]``. To
+--decode | --dispatch | --quantize | --block-quantize] [--root DIR]``. To
 compare a parent commit with this one, unpack it into a git-ignored
 directory and run in turns, parent, change, change, parent:
 ``for r in P . . P; do python3 scripts/compare_attention_fwd.py
@@ -599,6 +601,67 @@ def backward_rows(cs, gen, card):
         print(json.dumps(row, sort_keys=True), flush=True)
 
 
+def dispatch_rows(cs, card, iters=200):
+    """The host cost of attention's dispatch: one forward and backward
+    of ``flash_attention`` at a launch-bound shape (bf16, b 1, t 16,
+    h 1, d 64, causal: a few microseconds of card time a kernel),
+    ``iters`` calls a round, the card synchronized at each round's end,
+    the median microseconds a call over 7 rounds; beside it the four
+    kernel wrappers called one after another with no autograd and no
+    operator dispatch (``flash_fwd``, then ``flash_bwd_delta``,
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` given the delta), in turns
+    (through autograd, wrappers, wrappers, through autograd), and the
+    fixed CPU workload before and after (the host's speed)."""
+    import time
+
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(cs.SEED)
+    q, k, v, do = (torch.randn((1, 16, 1, 64), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def through_autograd():
+        out = fa.flash_attention(*leaves, causal=True)
+        torch.autograd.grad(out, leaves, do)
+
+    def wrappers():
+        o, lse = fa.flash_fwd(q, k, v, True)
+        delta = fa.flash_bwd_delta(o, do)
+        fa.flash_bwd_dq(q, k, v, o, lse, do, True, delta=delta)
+        fa.flash_bwd_dkv(q, k, v, o, lse, do, True, delta=delta)
+
+    def median_us(fn):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e6 / iters)
+        return sorted(out)[len(out) // 2]
+
+    probe_before = _cpu_probe_ms()
+    a1 = median_us(through_autograd)
+    w1 = median_us(wrappers)
+    w2 = median_us(wrappers)
+    a2 = median_us(through_autograd)
+    row = {"shape": [1, 16, 1, 64], "dtype": "bfloat16", "iters": iters,
+           "flash_attention_fwd_bwd_us": [a1, a2],
+           "wrappers_fwd_bwd_us": [w1, w2],
+           "cpu_probe_ms_before": probe_before,
+           "cpu_probe_ms_after": _cpu_probe_ms(),
+           "root": os.path.dirname(os.path.abspath(cs.__file__)),
+           "card": card}
+    print(json.dumps(row, sort_keys=True), flush=True)
+
+
 def serve_burst(cs, gen, card):
     """``chip_smoke.py``'s phase 3: GPT-2 medium in bf16, random weights
     from the seed, and the same 9 prompts."""
@@ -624,6 +687,8 @@ def main() -> int:
                       help="run chip_smoke.py's phase 3 instead")
     mode.add_argument("--decode", action="store_true",
                       help="time the decode kernel instead")
+    mode.add_argument("--dispatch", action="store_true",
+                      help="time attention's host dispatch instead")
     mode.add_argument("--quantize", action="store_true",
                       help="time the per-tensor int8 quantizer instead")
     mode.add_argument("--block-quantize", action="store_true",
@@ -666,6 +731,8 @@ def main() -> int:
         backward_rows(cs, gen, card)
     elif args.decode:
         decode_rows(cs, gen, card)
+    elif args.dispatch:
+        dispatch_rows(cs, card)
     elif args.quantize:
         quantize_rows(cs, gen, card)
     elif args.block_quantize:

@@ -24,6 +24,7 @@ def _forbidden(module: str) -> bool:
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, horovod_tpu_torch, horovod_tpu_torch.serving, "
+        "horovod_tpu_torch.serving.kv_transfer, "
         "horovod_tpu_torch.ops.paged_attention, "
         "horovod_tpu_torch.optimizer, horovod_tpu_torch.ops.flash_attention, "
         "horovod_tpu_torch.ops.fusion, horovod_tpu_torch.ops.eager, "

@@ -715,3 +715,99 @@ def test_int8_block_quantize_nan_propagates_as_plain(cuda_card, block):
     qb, qpb = q.view(4, block), qp.view(4, block)
     assert torch.equal(qb[keep], qpb[keep])
     assert torch.isnan(ck.int8_quantize(x, seed=1)[1]).all()
+
+
+# -------------------------------- B5/B6/B7 operators and the decode graph
+
+
+def _attention_op_cases(device):
+    """Each attention operator's call and its ctypes wrapper's, on
+    GPT-2 medium's head size in bf16."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    ops = torch.ops.hvd_torch
+    gen = torch.Generator(device=device).manual_seed(3)
+    q, k, v, do = (torch.randn((2, 64, 4, 64), generator=gen, device=device,
+                               dtype=torch.bfloat16) for _ in range(4))
+    lens = torch.tensor([64, 40], dtype=torch.int32, device=device)
+    o, lse = fa.flash_fwd(q, k, v, True, lens, None)
+    delta = fa.flash_bwd_delta(o, do)
+    pq, pk, pv, table, lengths = (
+        torch.from_numpy(x).to(device) for x in _case(
+            b=4, t=1, h=2, kvh=2, d=64, pt=16, n_logical=32,
+            lengths=[0, 5, 300, 511]))
+    pq, pk, pv = (x.to(torch.bfloat16) for x in (pq, pk, pv))
+    return {
+        "flash_fwd": (lambda: ops.flash_fwd(q, k, v, lens, True, None),
+                      lambda: fa.flash_fwd(q, k, v, True, lens, None)),
+        "flash_bwd_delta": (lambda: ops.flash_bwd_delta(o, do),
+                            lambda: fa.flash_bwd_delta(o, do)),
+        "flash_bwd_dq": (
+            lambda: ops.flash_bwd_dq(q, k, v, o, lse, do, delta, lens, True,
+                                     None),
+            lambda: fa.flash_bwd_dq(q, k, v, o, lse, do, True, lens,
+                                    delta=delta)),
+        "flash_bwd_dkv": (
+            lambda: ops.flash_bwd_dkv(q, k, v, o, lse, do, delta, lens, True,
+                                      None),
+            lambda: fa.flash_bwd_dkv(q, k, v, o, lse, do, True, lens,
+                                     delta=delta)),
+        "paged_attention": (
+            lambda: ops.paged_attention(pq, pk, pv, table, lengths, True),
+            lambda: pa.paged_attention(pq, pk, pv, table, lengths)),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_delta",
+                                  "flash_bwd_dq", "flash_bwd_dkv",
+                                  "paged_attention"])
+def test_attention_op_equals_wrapper(cuda_card, name):
+    op_call, wrapper_call = _attention_op_cases(cuda_card)[name]
+    got, want = op_call(), wrapper_call()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_decode_graph_replay_equals_eager(cuda_card):
+    """The engine's captured decode step, replayed, against an eager
+    forward of the same step (the host-built rows) on a copy of the
+    pool: the active slots' logits bitwise; one capture, made when the
+    engine was built, for several steps."""
+    import copy
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.serving import InferenceEngine
+
+    cfg = tt.TransformerConfig(vocab_size=512, num_layers=2, d_model=256,
+                               num_heads=4, d_ff=512, max_len=128)
+    model = tt.Transformer(cfg, device=cuda_card,
+                           generator=torch.Generator(
+                               device=cuda_card).manual_seed(0))
+    eng = InferenceEngine(model, None, slots=4, max_len=128,
+                          device=cuda_card, page_tokens=16)
+    assert eng.stats()["decode_compiles"] == 1  # captured when built
+    mgr = eng.manager
+    assert [mgr.alloc(i) for i in range(4)] == [0, 1, 2, 3]
+    mgr.free(1)
+    for slot, n in ((0, 5), (2, 40), (3, 17)):
+        eng.prefill(slot, list(range(1, n + 1)))
+    toks = np.asarray([7, 0, 9, 3], np.int32)
+    for _ in range(3):
+        assert eng.prepare_decode() == []
+        live = copy.deepcopy(mgr.cache)
+        with torch.no_grad():
+            want = eng.model(
+                torch.as_tensor(toks[:, None], device=cuda_card),
+                cache=live, cache_index=mgr.lengths_array(),
+                pages=mgr.tables_array(), paged_attn=True)[:, 0, :]
+            got = eng._decode_logits(toks).clone()
+        active = [0, 2, 3]
+        assert torch.equal(got[active], want[active])
+        for slot in active:
+            mgr.advance(slot)
+    assert eng.stats()["decode_compiles"] == 1
+    assert eng.graph_launches()["replays"] == 3
+    assert eng.graph_launches()["per_replay"]["paged_attention"] == 2
