@@ -307,16 +307,48 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    prefill worker and completes. It prints the ``fleet:`` line (TTFT
    and TPOT p50/p95, framed bytes, ``serve.kv_transfer_ms``, the hop
    stamps).
+22. The fleet's control plane (right after phase 21, on phase 3's bf16
+   GPT-2 medium at full width and depth and its prompts; every worker
+   built by ``serve()`` with phase 3's settings, announcing through the
+   port's ``RendezvousServer``). (a) Two paged unified workers; phase
+   3's 9 prompts through ``Router.route`` at once, each with a
+   ``request_id``: every request ``done`` with phase 3's tokens, both
+   workers served, and one id POSTed again answered from the dedupe
+   cache (``serve.replay_dedupe_hits`` +1, no B7 launch, no graph
+   replay). (b) A third frontend over a batcher whose scheduler never
+   starts, the freest announced worker: ``route(hedge_ms=50)`` comes
+   back ``done`` with phase 3's tokens, ``serve.hedges`` +1. (c) Two
+   fresh workers, the 9 prompts routed; once both decode,
+   ``serve.worker_kill@1:reset``: exactly one scheduler dies, every
+   request comes back ``done`` with phase 3's tokens, ``serve.replays``
+   >= 1, the dead worker tombstoned. (d) A fresh unified worker decoding
+   4 of the prompts and a sampled request (temperature 0.7, top_k 7,
+   seed 42) drains with ``migrate_after=0`` to a decode worker over the
+   bf16 wire: phase 3's greedy tokens, the sampled request's tokens
+   unmigrated, ``serve.migrations`` equal to the records exported, the
+   receiver's ``decode_compiles`` 1 and no prefill. (e) The same over
+   the int8 wire from another worker with ``serve.migrate@1:reset``:
+   every request ``done``, B3 48 times a migrated request, each page
+   within ``2·blockmax/127``, the reset retried and each record
+   admitted once. (f) GPT-2 medium's widths at 4 layers, fp32,
+   ``sliding_window=128``, served on the paged plane
+   (``paged_attn='off'``) and on the slab: two prompts of 300 and 600
+   tokens give the uncached forward's argmax loop (B5 under its window
+   mask), the window changes tokens, and ``paged_attn='on'`` raises.
+   It prints the ``router:`` line (route TTFT and TPOT p50, hedges,
+   replays, dedupe hits, migrations, ``serve.migration_ms``, framed
+   bytes, each part's seconds).
    Under a CUDA graph the launch counters tick at capture only, so
-   phases 3, 4 and 21 and the ``kernels`` line count a replay's
+   phases 3, 4, 21 and 22 and the ``kernels`` line count a replay's
    launches times the replays (``engine.graph_launches()``).
    The flash counts of phases 5, 10, 12, 13, 14, 15, 16, 17, 18, 19,
-   20 and 21, and the wire counts of phases 8, 9 and 13–21, add up in
-   the ``kernels`` line.
+   20, 21 and 22, and the wire counts of phases 8, 9 and 13–22, add up
+   in the ``kernels`` line, after a line with the whole run's seconds.
 
 ``python3 chip_smoke.py --only 17`` (or ``--only 18``, ``19``, ``20``) builds the
 kernels and runs that phase alone; ``--only 21`` runs phases 3, 4 and
-21 (a development aid; it prints no ``ok`` line). ``--log FILE`` also writes every line printed after the
+21, ``--only 22`` phases 3, 4 and 22 (development aids; they print no
+``ok`` line). ``--log FILE`` also writes every line printed after the
 card and the package are found to ``FILE``.
 
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
@@ -1079,8 +1111,8 @@ def phase_serve(model, prompts, max_tokens, card):
     inside the one captured decode graph (``decode_compiles`` 1), every
     prefill chunk of more than 4 tokens on the tiled kernel's
     tensor-core variant. Returns the launches of each, apart (a replay's
-    launches counted by the graph's replays), and each request's first
-    token."""
+    launches counted by the graph's replays), and each request's
+    tokens."""
     from horovod_tpu_torch import serve
     from horovod_tpu_torch.ops import paged_attention as pa
 
@@ -1153,7 +1185,7 @@ def phase_serve(model, prompts, max_tokens, card):
     }
     summary["traced_request"] = traced
     log("serve: " + json.dumps(summary, sort_keys=True))
-    return launches, [body["tokens"][0] for _, body in results]
+    return launches, [body["tokens"] for _, body in results]
 
 
 def _full_forward_greedy(model, prompt, n):
@@ -6702,10 +6734,11 @@ def _p21_pair(model, wire, port_kw, rdv_port):
     fail("fleet: the decode worker's announcement never arrived")
 
 
-def _p21_record(pre, dec):
-    """Keep (on the card) each request's pages as the prefill worker
+def _p21_record(pre, dec, submit_name="submit_ingested"):
+    """Keep (on the card) each request's pages as the sending worker
     finished them for the wire, and (on the host) what the decode worker
-    ingests, both by sequence length, until ``stop()``."""
+    admits through ``submit_name``, both by sequence length, until
+    ``stop()``."""
     import torch
 
     sent, got = {}, {}
@@ -6719,16 +6752,17 @@ def _p21_record(pre, dec):
         return pages
 
     peng.finish_pages = finish_kept
-    submit = dec.batcher.submit_ingested
+    submit = getattr(dec.batcher, submit_name)
 
     def submit_kept(*args, **kw):
         got[int(kw["length"])] = kw["arrays"]
         return submit(*args, **kw)
 
-    dec.batcher.submit_ingested = submit_kept
+    setattr(dec.batcher, submit_name, submit_kept)
 
     def stop():
-        del peng.finish_pages, dec.batcher.submit_ingested
+        del peng.finish_pages
+        delattr(dec.batcher, submit_name)
 
     return sent, got, stop
 
@@ -6974,13 +7008,505 @@ def phase_fleet(gen, model, model32, prompts, first_tokens, fp32_prompts,
     return b3, flash
 
 
+# ------------------------------------------ phase 22 the fleet's control plane
+
+CTL_WINDOW = 128  # (f)'s sliding window
+CTL_WINDOW_LAYERS = 4  # (f)'s model: GPT-2 medium's widths at 4 layers
+CTL_SAMPLED = dict(temperature=0.7, top_k=7, seed=42)
+
+
+def _p22_client(rdv_port):
+    from horovod_tpu_torch.runner.rendezvous import RendezvousClient
+
+    return RendezvousClient("127.0.0.1", rdv_port)
+
+
+def _p22_serve(model, rdv_port, rank, role="unified", **kw):
+    """A ``serve()`` worker of ``model`` (phase 3's settings) announcing
+    through the rendezvous KV on ``rdv_port``; returns once announced."""
+    from horovod_tpu_torch import serve
+    from horovod_tpu_torch.runner.rendezvous import read_announcements
+
+    h = serve(model, None, port=0, slots=8, prefill_ceiling=256,
+              max_new_tokens=32, addr="127.0.0.1", handle_sigterm=False,
+              device="cuda", role=role, rank=rank,
+              announce_client=_p22_client(rdv_port), **kw)
+    client = _p22_client(rdv_port)
+    for _ in range(500):
+        if rank in read_announcements(client):
+            return h
+        time.sleep(0.01)
+    fail(f"control plane: worker {rank} never announced")
+
+
+def _p22_retire(*handles):
+    """Drain (announcing it: no router or sender picks it again), stop,
+    and bank each worker's graph replays."""
+    for h in handles:
+        h.drain(timeout=30.0)
+        h.stop()
+        _bank_replays(h.engine)
+
+
+def _p22_route_burst(router, prompts, max_tokens, ids, on_started=None):
+    """Every prompt through ``router.route`` at once, one client thread
+    each, each with its request id; ``on_started`` runs once the threads
+    are started. Returns the results in prompt order and the wall
+    seconds."""
+    results = [None] * len(prompts)
+
+    def one(i):
+        try:
+            results[i] = router.route(prompts[i], max_tokens=max_tokens,
+                                      request_id=ids[i], timeout=180.0)
+        except Exception as e:  # reported as a failed request below
+            results[i] = {"status": f"route error: {e}"}
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.monotonic()
+    for th in threads:
+        th.start()
+    if on_started is not None:
+        on_started()
+    for th in threads:
+        th.join()
+    return results, time.monotonic() - t0
+
+
+def _p22_check_tokens(part, results, wants):
+    for i, (out, want) in enumerate(zip(results, wants)):
+        if out.get("status") != "done" or out.get("tokens") != want:
+            fail(f"control plane ({part}): request {i} came back "
+                 f"{out.get('status')!r} with {out.get('tokens')}, phase 3 "
+                 f"gave {want}")
+
+
+def _p22_routing(model, rdv_port, prompts, wants, max_tokens):
+    """(a) Two paged unified workers; phase 3's 9 prompts through
+    ``Router.route`` with request ids: phase 3's tokens, both workers
+    served, and a re-POSTed id answered from the dedupe cache with no
+    B7 launch and no graph replay."""
+    from horovod_tpu_torch.common.metrics import registry
+    from horovod_tpu_torch.ops import paged_attention as pa
+    from horovod_tpu_torch.serving import Router
+
+    a = _p22_serve(model, rdv_port, 0)
+    b = _p22_serve(model, rdv_port, 1)
+    ids = [f"p22a-{i}" for i in range(len(prompts))]
+    results, wall = _p22_route_burst(Router(_p22_client(rdv_port)),
+                                     prompts, max_tokens, ids)
+    _p22_check_tokens("a", results, wants)
+    served = [h.engine.stats()["prefills"] for h in (a, b)]
+    if min(served) <= 0:
+        fail(f"control plane (a): prefills by worker {served}")
+    owner = next(h for h in (a, b)
+                 if h.frontend._dedupe_get(ids[0]) is not None)
+    fn = pa.paged_attention
+    before = (registry.snapshot().get("serve.replay_dedupe_hits", 0),
+              fn.launches, [h.engine.graph_launches()["replays"]
+                            for h in (a, b)])
+    code, again = _post(owner.port, {"tokens": prompts[0],
+                                     "max_tokens": max_tokens,
+                                     "request_id": ids[0]})
+    after = (registry.snapshot().get("serve.replay_dedupe_hits", 0),
+             fn.launches, [h.engine.graph_launches()["replays"]
+                           for h in (a, b)])
+    if (code != 200 or again != results[0] or after[0] != before[0] + 1
+            or after[1:] != before[1:]):
+        fail(f"control plane (a): the re-POSTed id came back {code}, "
+             f"equal {again == results[0]}; dedupe hits, B7 launches and "
+             f"replays {before} -> {after}")
+    ttft = sorted(r["ttft_ms"] for r in results)
+    tpot = sorted(r["gen_ms"] / max(len(r["tokens"]) - 1, 1)
+                  for r in results)
+    return (a, b), {
+        "requests": len(prompts), "wall_s": wall, "prefills_by_worker": served,
+        "route_ttft_ms_p50": ttft[len(ttft) // 2],
+        "route_tpot_ms_p50": tpot[len(tpot) // 2],
+        "dedupe_hits": after[0] - before[0],
+    }
+
+
+def _p22_hedge(model, rdv_port, live, prompt, want, max_tokens):
+    """(b) A third frontend whose scheduler never starts, the freest
+    announced worker (16 slots): ``route(hedge_ms=50)`` comes back from
+    the backup with phase 3's tokens, ``serve.hedges`` +1. Then its
+    scheduler starts and the losing arm's answer lands, discarded."""
+    from horovod_tpu_torch.common.metrics import registry
+    from horovod_tpu_torch.runner.rendezvous import read_announcements
+    from horovod_tpu_torch.serving import (
+        ContinuousBatcher,
+        InferenceEngine,
+        Router,
+        ServeFrontend,
+    )
+
+    stalled = ContinuousBatcher(
+        InferenceEngine(model, None, slots=16, max_len=128, device="cuda"),
+        default_max_new_tokens=max_tokens)
+    sfe = ServeFrontend(stalled, port=0, addr="127.0.0.1", rank=2,
+                        announce_client=_p22_client(rdv_port))
+    sfe.start()
+    client = _p22_client(rdv_port)
+    for _ in range(500):
+        if 2 in read_announcements(client):
+            break
+        time.sleep(0.01)
+    before = registry.snapshot().get("serve.hedges", 0)
+    t0 = time.monotonic()
+    out = Router(client).route(prompt, max_tokens=max_tokens, hedge_ms=50.0,
+                               timeout=180.0, request_id="p22b")
+    hedged_s = time.monotonic() - t0
+    hedges = registry.snapshot().get("serve.hedges", 0) - before
+    stalled.start()
+    _p22_check_tokens("b", [out], [want])
+    if hedges != 1:
+        fail(f"control plane (b): {hedges} hedges")
+    for _ in range(3000):  # the primary's answer, discarded
+        if stalled.engine.stats()["prefills"] and not stalled._slot_req \
+                and not stalled.queue_depth():
+            break
+        time.sleep(0.01)
+    sfe.drain(timeout=30.0)
+    sfe.stop()
+    stalled.stop()
+    _bank_replays(stalled.engine)
+    _p22_retire(*live)
+    return {"hedges": hedges, "hedged_route_s": hedged_s}
+
+
+def _p22_kill(model, rdv_port, prompts, wants, max_tokens):
+    """(c) Two fresh workers, phase 3's prompts routed; once both hold
+    requests in flight, ``serve.worker_kill@1:reset``: the next round of
+    either scheduler raises. Exactly one scheduler dies, every request
+    comes back ``done`` with phase 3's tokens (replayed on the other),
+    ``serve.replays`` >= 1, the dead worker tombstoned. Then the sampled
+    reference of (d) runs on the survivor, unmigrated."""
+    from horovod_tpu_torch.common.metrics import registry
+    from horovod_tpu_torch.serving import Router
+    from horovod_tpu_torch.testing import chaos
+
+    c1 = _p22_serve(model, rdv_port, 4)
+    c2 = _p22_serve(model, rdv_port, 5)
+    router = Router(_p22_client(rdv_port))
+    before = registry.snapshot().get("serve.replays", 0)
+    armed = {}
+
+    def arm():
+        for _ in range(20000):
+            if all(h.batcher._slot_req for h in (c1, c2)):
+                chaos.configure("serve.worker_kill@1:reset")
+                armed["at"] = time.monotonic()
+                return
+            time.sleep(0.0005)
+
+    try:
+        results, wall = _p22_route_burst(
+            router, prompts, max_tokens,
+            [f"p22c-{i}" for i in range(len(prompts))], on_started=arm)
+        fired = chaos.active().fired() if chaos.active() else []
+    finally:
+        chaos.reset()
+    replays = registry.snapshot().get("serve.replays", 0) - before
+    dead = [h for h in (c1, c2) if h.batcher.draining]
+    _p22_check_tokens("c", results, wants)
+    if ("at" not in armed or len(fired) != 1 or len(dead) != 1
+            or replays < 1 or dead[0].frontend.rank not in router._tombstones):
+        fail(f"control plane (c): armed {armed}, fired {fired}, dead "
+             f"{[h.frontend.rank for h in dead]}, replays {replays}, "
+             f"tombstones {sorted(router._tombstones)}")
+    survivor = c2 if dead[0] is c1 else c1
+    return (c1, c2), survivor, {
+        "requests": len(prompts), "wall_s": wall, "replays": replays,
+        "dead_rank": dead[0].frontend.rank,
+        "survivor_prefills": survivor.engine.stats()["prefills"],
+    }
+
+
+def _p22_burst_inflight(h, jobs, max_tokens, wire):
+    """POST every ``(prompt, knobs)`` job to worker ``h`` at once; once
+    all are decoding, ``h.drain(migrate_after=0)`` over ``wire``
+    (``HOROVOD_SERVE_KV_WIRE``, read when the drain builds its
+    coordinator). Returns the replies, the records exported, and the
+    drain's result and seconds."""
+    exported = []
+    export = h.batcher.export_inflight
+
+    def export_counted():
+        records = export()
+        exported.extend(records)
+        return records
+
+    h.batcher.export_inflight = export_counted
+    results = [None] * len(jobs)
+
+    def one(i):
+        prompt, knobs = jobs[i]
+        try:
+            results[i] = _post(h.port, dict(tokens=prompt,
+                                            max_tokens=max_tokens, **knobs))
+        except Exception as e:  # reported as a failed request below
+            results[i] = (0, {"status": f"client error: {e}"})
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(jobs))]
+    for th in threads:
+        th.start()
+    for _ in range(20000):
+        if len(h.batcher._slot_req) == len(jobs):
+            break
+        time.sleep(0.0005)
+    saved = os.environ.get("HOROVOD_SERVE_KV_WIRE")
+    os.environ["HOROVOD_SERVE_KV_WIRE"] = wire
+    try:
+        t0 = time.monotonic()
+        ok = h.drain(timeout=120.0, migrate_after=0.0)
+        drain_s = time.monotonic() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("HOROVOD_SERVE_KV_WIRE", None)
+        else:
+            os.environ["HOROVOD_SERVE_KV_WIRE"] = saved
+    for th in threads:
+        th.join()
+    del h.batcher.export_inflight
+    return results, exported, ok, drain_s
+
+
+def _p22_migration(model, rdv_port, prompts, wants, sampled, max_tokens):
+    """(d) A fresh paged unified worker mid-decode on 4 of phase 3's
+    prompts and the sampled request drains with ``migrate_after=0`` over
+    the bf16 wire (the pool's bytes) to a decode worker: phase 3's greedy
+    tokens, the sampled request's unmigrated tokens, ``serve.migrations``
+    equal to the records exported, the receiver's one decode graph and
+    no prefill."""
+    from horovod_tpu_torch.common.metrics import registry
+
+    dec = _p22_serve(model, rdv_port, 6, role="decode")
+    src = _p22_serve(model, rdv_port, 7, max_admit_per_step=8)
+    snap0 = registry.snapshot()
+    jobs = [(p, {}) for p in prompts] + [(sampled[0], CTL_SAMPLED)]
+    results, exported, drained, drain_s = _p22_burst_inflight(
+        src, jobs, max_tokens, "bf16")
+    snap = registry.snapshot()
+    delta = {k: snap.get(k, 0) - snap0.get(k, 0) for k in (
+        "serve.migrations", "serve.migrations_in", "serve.migration_ms",
+        "serve.kv_transfer_bytes", "serve.transfer_fallbacks")}
+    dstats = dec.engine.stats()
+    bodies = [body for _, body in results]
+    _p22_check_tokens("d", bodies, list(wants) + [sampled[1]])
+    checks = {
+        "drained": drained is True,
+        "all_exported": len(exported) == len(jobs),
+        "migrations_equal_records": (delta["serve.migrations"]
+                                     == len(exported)
+                                     == delta["serve.migrations_in"]),
+        "no_fallback": delta["serve.transfer_fallbacks"] == 0,
+        "receiver_one_graph": dstats["decode_compiles"] == 1,
+        "receiver_no_prefill": dstats["prefills"] == 0,
+        "receiver_ingests": dstats["transfer_ingests"] == len(exported),
+    }
+    out = {"requests": len(jobs), "exported": len(exported),
+           "drain_s": drain_s, **delta,
+           "migration_ms_mean": (delta["serve.migration_ms"]
+                                 / max(delta["serve.migrations"], 1)),
+           "exported_lengths": sorted(r["length"] for r in exported)}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"control plane (d): {bad} failed: {json.dumps(out)}")
+    src.stop()
+    _bank_replays(src.engine)
+    return dec, out
+
+
+def _p22_int8(model, rdv_port, dec, prompts, max_tokens):
+    """(e) The same over the int8 wire from another fresh worker, with
+    ``serve.migrate@1:reset`` armed: every request ``done``, B3 48
+    launches a migrated request, each received page within
+    ``2·blockmax/127`` of the page sent, the reset retried and each
+    record admitted once."""
+    from horovod_tpu_torch.common.metrics import registry
+    from horovod_tpu_torch.ops import cuda_kernels as ck
+    from horovod_tpu_torch.serving.kv_transfer import wire_block_size
+    from horovod_tpu_torch.testing import chaos
+
+    src = _p22_serve(model, rdv_port, 8, max_admit_per_step=8)
+    sent, got, stop_recording = _p21_record(src, dec, "submit_migrated")
+    snap0 = registry.snapshot()
+    b3_before = ck.int8_block_quantize.launches
+    chaos.configure("serve.migrate@1:reset")
+    try:
+        results, exported, drained, drain_s = _p22_burst_inflight(
+            src, [(p, {}) for p in prompts], max_tokens, "int8")
+        fired = chaos.active().fired()
+    finally:
+        chaos.reset()
+        stop_recording()
+    b3 = ck.int8_block_quantize.launches - b3_before
+    snap = registry.snapshot()
+    delta = {k: snap.get(k, 0) - snap0.get(k, 0) for k in (
+        "serve.migrations", "serve.migrations_in", "serve.migration_ms",
+        "serve.kv_transfer_bytes", "serve.transfer_fallbacks")}
+    _check_burst("control plane (e)", results, prompts, max_tokens)
+    page_elems = 16 * model.cfg.kv_heads * model.cfg.head_dim
+    envelope = _p21_envelope(sent, got, wire_block_size(page_elems))
+    sent.clear()
+    n = len(exported)
+    checks = {
+        "drained": drained is True,
+        "all_exported": n == len(prompts),
+        "b3_48_a_request": b3 == 2 * model.cfg.num_layers * n,
+        "pages_within_envelope": envelope <= 1.0,
+        "reset_fired_once": len(fired) == 1,
+        "admitted_once": (delta["serve.migrations_in"] == n
+                          == delta["serve.migrations"]),
+        "no_fallback": delta["serve.transfer_fallbacks"] == 0,
+    }
+    out = {"requests": len(prompts), "exported": n, "drain_s": drain_s,
+           "b3_launches": b3, "envelope_worst": envelope, **delta,
+           "migration_ms_mean": (delta["serve.migration_ms"]
+                                 / max(delta["serve.migrations"], 1))}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"control plane (e): {bad} failed: {json.dumps(out)}")
+    src.stop()
+    _bank_replays(src.engine)
+    return out, b3
+
+
+def _p22_window(gen, prompt, max_tokens):
+    """(f) GPT-2 medium's widths at 4 layers, fp32, ``sliding_window``
+    128, served on the paged plane with ``paged_attn='off'`` and on the
+    slab: two prompts of 300 and 600 tokens give the uncached forward's
+    argmax loop (B5 under its window mask) token for token; the same
+    weights without a window give other tokens; ``paged_attn='on'``
+    raises."""
+    import dataclasses
+
+    import torch
+
+    from horovod_tpu_torch import Transformer, TransformerConfig, serve
+    from horovod_tpu_torch.serving import InferenceEngine
+
+    cfg = dataclasses.replace(TransformerConfig.gpt2_medium(),
+                              num_layers=CTL_WINDOW_LAYERS,
+                              dtype=torch.float32, sliding_window=CTL_WINDOW)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    plain = Transformer(dataclasses.replace(cfg, sliding_window=None),
+                        device="cuda")
+    plain.load_state_dict(model.state_dict())
+    prompts = [prompt(300), prompt(600)]
+    _zero_flash()
+    wants = [_full_forward_greedy(model, p, max_tokens) for p in prompts]
+    unwindowed = [_full_forward_greedy(plain, p, max_tokens)
+                  for p in prompts]
+    flash = _read_flash()
+    del plain
+    if wants == unwindowed:
+        fail("control plane (f): the window changed no token")
+    served = {}
+    for name, kw in (("paged", dict(paged=True, paged_attn="off")),
+                     ("slab", dict(paged=False))):
+        h = serve(model, None, port=0, slots=2, prefill_ceiling=256,
+                  max_new_tokens=max_tokens, addr="127.0.0.1",
+                  handle_sigterm=False, device="cuda", **kw)
+        try:
+            results, _ = _burst(h.port, prompts, max_tokens)
+            compiles = h.engine.stats()["decode_compiles"]
+        finally:
+            h.stop()
+            _bank_replays(h.engine)
+        _check_burst(f"control plane (f) {name}", results, prompts,
+                     max_tokens)
+        for (_, body), want in zip(results, wants):
+            if body["tokens"] != want:
+                fail(f"control plane (f) {name}: served tokens "
+                     f"{body['tokens']} differ from the uncached argmax "
+                     f"loop {want}")
+        served[name] = {"decode_compiles": compiles}
+    try:
+        InferenceEngine(model, None, slots=2, max_len=1024, device="cuda",
+                        paged_attn="on")
+    except RuntimeError as e:
+        raised = str(e)
+    else:
+        fail("control plane (f): paged_attn='on' with a window did not "
+             "raise")
+    differ = sum(a != b for w, u in zip(wants, unwindowed)
+                 for a, b in zip(w, u))
+    return {"prompt_tokens": [len(p) for p in prompts], "served": served,
+            "tokens_differing_without_window": differ,
+            "paged_attn_on_raised": raised[:80],
+            "b5_launches": flash[0]["flash_fwd"]}, flash
+
+
+def phase_control(gen, model, prompts, phase3_tokens, prompt, max_tokens,
+                  card):
+    """Phase 22: the fleet's control plane on phase 3's model and
+    prompts. Returns B3's launches and the flash kernels'; the paged
+    kernels' are read by _paged_totals."""
+    import torch
+
+    from horovod_tpu_torch.runner.rendezvous import RendezvousServer
+
+    rdv = RendezvousServer()
+    rdv_port = rdv.start()
+    marks, parts = {}, {}
+    try:
+        t0 = time.monotonic()
+        live, parts["a"] = _p22_routing(model, rdv_port, prompts,
+                                        phase3_tokens, max_tokens)
+        marks["a"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        parts["b"] = _p22_hedge(model, rdv_port, live, prompts[0],
+                                phase3_tokens[0], max_tokens)
+        marks["b"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        pair, survivor, parts["c"] = _p22_kill(model, rdv_port, prompts,
+                                               phase3_tokens, max_tokens)
+        # (d)'s sampled request, unmigrated, on a worker that decodes it
+        # whole; its prompt is in no worker's prefix cache
+        sampled_prompt = [(17 * i + 5) % model.cfg.vocab_size
+                          for i in range(64)]
+        code, body = _post(survivor.port, dict(
+            tokens=sampled_prompt, max_tokens=max_tokens, **CTL_SAMPLED))
+        if code != 200 or body.get("status") != "done":
+            fail(f"control plane (c): the sampled reference came back "
+                 f"{code} {body.get('status')!r}")
+        _p22_retire(*pair)
+        marks["c"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        dec, parts["d"] = _p22_migration(
+            model, rdv_port, prompts[:4], phase3_tokens[:4],
+            (sampled_prompt, body["tokens"]), max_tokens)
+        marks["d"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        parts["e"], b3 = _p22_int8(model, rdv_port, dec,
+                                   [prompts[i] for i in (1, 4, 5, 6)],
+                                   max_tokens)
+        dec.stop()
+        _bank_replays(dec.engine)
+        marks["e"] = time.monotonic() - t0
+    finally:
+        rdv.stop()
+    t0 = time.monotonic()
+    parts["f"], flash = _p22_window(gen, prompt, max_tokens)
+    marks["f"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    log("router: " + json.dumps({**parts, "seconds": marks, "card": card},
+                                sort_keys=True))
+    return b3, flash
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["17", "18", "19", "20", "21"],
+    ap.add_argument("--only", choices=["17", "18", "19", "20", "21", "22"],
                     help="build the kernels and run this phase alone "
-                    "(21: with phases 3 and 4, whose outputs it reads)")
+                    "(21, 22: with phases 3 and 4, whose outputs they "
+                    "read)")
     ap.add_argument("--log", help="also write every printed line here")
     ap.add_argument("--worker18", metavar="ARM",
                     choices=["A", "B", "C", "c", "d"],
@@ -6988,6 +7514,7 @@ def main() -> int:
     args = ap.parse_args()
     if args.worker18:
         return worker18(args.worker18)
+    run_t0 = time.monotonic()
     try:
         import torch
     except ImportError:
@@ -7049,7 +7576,7 @@ def main() -> int:
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    if args.only != "21":
+    if args.only not in ("21", "22"):
         t0 = time.monotonic()
         kernel_results = phase_kernels(gen)
         flash_results = phase_flash_kernels(gen)
@@ -7069,7 +7596,8 @@ def main() -> int:
     model32.load_state_dict(model.state_dict())
     prompts, prompt = serve_prompts(cfg.vocab_size)
     t0 = time.monotonic()
-    _, first_tokens = phase_serve(model, prompts, 32, card)
+    _, phase3_tokens = phase_serve(model, prompts, 32, card)
+    first_tokens = [t[0] for t in phase3_tokens]
     log(f"serve phase: {time.monotonic() - t0:.2f} s")
 
     # phase 4: correctness at full width in fp32
@@ -7080,18 +7608,30 @@ def main() -> int:
 
     # phase 21: the serving fleet on phases 3 and 4's models (a generator
     # of its own, so later phases draw what they drew before it)
-    t0 = time.monotonic()
-    gen21 = torch.Generator(device="cuda")
-    gen21.manual_seed(SEED + 21)
-    fleet_b3, fleet_flash = phase_fleet(
-        gen21, model, model32, prompts, first_tokens, fp32_prompts,
-        fp32_wants, 32, card)
-    # phases 3, 4 and 21's paged launches, replays included
+    fleet_b3, fleet_flash = 0, None
+    if args.only != "22":
+        t0 = time.monotonic()
+        gen21 = torch.Generator(device="cuda")
+        gen21.manual_seed(SEED + 21)
+        fleet_b3, fleet_flash = phase_fleet(
+            gen21, model, model32, prompts, first_tokens, fp32_prompts,
+            fp32_wants, 32, card)
+        log(f"fleet phase: {time.monotonic() - t0:.2f} s")
+
+    # phase 22: the fleet's control plane on phase 3's model and prompts
+    ctl_b3, ctl_flash = 0, None
+    if args.only != "21":
+        t0 = time.monotonic()
+        gen22 = torch.Generator(device="cuda")
+        gen22.manual_seed(SEED + 22)
+        ctl_b3, ctl_flash = phase_control(gen22, model, prompts,
+                                          phase3_tokens, prompt, 32, card)
+        log(f"control plane phase: {time.monotonic() - t0:.2f} s")
+    # phases 3, 4, 21 and 22's paged launches, replays included
     paged_launches = _paged_totals()
-    log(f"fleet phase: {time.monotonic() - t0:.2f} s")
     del model, model32
     torch.cuda.empty_cache()
-    if args.only == "21":
+    if args.only in ("21", "22"):
         return 0
 
     # phase 5: training, the second slice's main path
@@ -7215,8 +7755,9 @@ def main() -> int:
     t0 = time.monotonic()
     bert_b3, bert_flash = phase_bert(gen, card, flash_results)
     flash_runs.append(bert_flash)
-    wire_launches["int8_block_quantize"] += bert_b3 + fleet_b3
+    wire_launches["int8_block_quantize"] += bert_b3 + fleet_b3 + ctl_b3
     flash_runs.append(fleet_flash)
+    flash_runs.append(ctl_flash)
     log(f"remainders phase: {time.monotonic() - t0:.2f} s")
     flash_launches = {k: sum(r[0][k] for r in flash_runs)
                       for k in flash_runs[1][0]}
@@ -7302,6 +7843,7 @@ def main() -> int:
         })
         if "variant" in main_shape:  # B3
             entries[-1]["variant"] = main_shape["variant"]
+    log(f"whole run: {time.monotonic() - run_t0:.2f} s")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({

@@ -28,12 +28,12 @@ package the same way:
   ``HOROVOD_GUARD``, ``HOROVOD_AUTOTUNE*``,
   ``HOROVOD_TUNER_CACHE`` and ``HOROVOD_FUSION_WIRE_MIN_BYTES``),
   snapshotted at ``hvd.init()`` as the JAX package does;
-* :class:`ServeConfig`, the serving part (``HOROVOD_SERVE_*``), read by
-  :func:`live_config` when a serving object is built (serving needs no
-  init step).
+* :class:`ServeConfig`, the serving part (``HOROVOD_SERVE_*``, the
+  fleet's ``HOROVOD_SERVE_HEDGE_MS``, ``_DRAIN_DEADLINE_S`` and
+  ``_DEDUPE_TTL_S`` included), read by :func:`live_config` when a
+  serving object is built (serving needs no init step).
 
-Knobs of planes not ported yet (KV transfer, the fleet router) come
-with those planes. ``HOROVOD_FUSION_WIRE=auto`` picks each fused
+``HOROVOD_FUSION_WIRE=auto`` picks each fused
 batch's wire by the wire tuner (``common/autotune.py``).
 ``HOROVOD_CYCLE_TIME`` is parsed and kept, not acted on: with one
 process a rank, a flush driven by the clock would let ranks cut
@@ -136,6 +136,15 @@ DEFAULT_SERVE_TRANSFER_PORT = 0
 # path anywhere (its plain PyTorch version for CPU tensors); off = always
 # the plain read. A kernel asked for that cannot run raises.
 DEFAULT_SERVE_PAGED_ATTN = "auto"
+# The fleet's control plane (serving/frontend.py): the delay in ms before
+# the Router fires a first-writer-wins backup request (0 = off), the
+# drain deadline in seconds past which in-flight sequences are
+# live-migrated to a peer instead of run to completion (0 = run to
+# completion), and the TTL of the completed-result dedupe cache that
+# makes a retry by request_id idempotent.
+DEFAULT_SERVE_HEDGE_MS = 0.0
+DEFAULT_SERVE_DRAIN_DEADLINE_S = 0.0
+DEFAULT_SERVE_DEDUPE_TTL_S = 120.0
 
 
 def _env_bool(name: str, default: bool = False) -> bool:
@@ -451,6 +460,9 @@ class ServeConfig:
     serve_paged_attn: str = DEFAULT_SERVE_PAGED_ATTN
     serve_kv_wire: str = DEFAULT_SERVE_KV_WIRE
     serve_transfer_port: int = DEFAULT_SERVE_TRANSFER_PORT
+    serve_hedge_ms: float = DEFAULT_SERVE_HEDGE_MS
+    serve_drain_deadline_s: float = DEFAULT_SERVE_DRAIN_DEADLINE_S
+    serve_dedupe_ttl_s: float = DEFAULT_SERVE_DEDUPE_TTL_S
     # the worker's rank (HOROVOD_RANK, set by the launcher), announced in
     # /healthz; None outside a launcher
     rank: Optional[int] = None
@@ -496,6 +508,16 @@ class ServeConfig:
             ),
             serve_transfer_port=_env_int(
                 "HOROVOD_SERVE_TRANSFER_PORT", DEFAULT_SERVE_TRANSFER_PORT
+            ),
+            serve_hedge_ms=_env_float(
+                "HOROVOD_SERVE_HEDGE_MS", DEFAULT_SERVE_HEDGE_MS
+            ),
+            serve_drain_deadline_s=_env_float(
+                "HOROVOD_SERVE_DRAIN_DEADLINE_S",
+                DEFAULT_SERVE_DRAIN_DEADLINE_S,
+            ),
+            serve_dedupe_ttl_s=_env_float(
+                "HOROVOD_SERVE_DEDUPE_TTL_S", DEFAULT_SERVE_DEDUPE_TTL_S
             ),
             rank=(
                 _env_int("HOROVOD_RANK", -1)

@@ -35,12 +35,15 @@ recovery (``driver.rebalance.active``/``.updates``);
 ``_poll_expert_loads`` sums the gang's published expert loads into
 ``driver.expert_load.{ranks,imbalance,drop_rate}``, a rank's entry
 counting while its stamp advances, judged on the driver's monotonic
-clock.
+clock; ``_poll_serve_capacity`` sums a serving fleet's announcements by
+role into ``driver.serve.{role}.{workers,free_slots,free_pages}``,
+guarded the same way (a blob with no ``role`` counts as unified).
 
 What waits for other items, and raises when a variable asks for it:
-warm standby (``HOROVOD_WARM_STANDBY`` > 0, ROADMAP A16); the
-serve-capacity scale-up (A15) and the schedule-divergence audit (A16's
-``sched_audit``) are not here either.
+warm standby (``HOROVOD_WARM_STANDBY`` > 0, ROADMAP A16), and with it
+the serve scale-up that releases a standby (the JAX driver's
+``_maybe_scale_up``); the schedule-divergence audit (A16's
+``sched_audit``) is not here either.
 """
 
 from __future__ import annotations
@@ -68,8 +71,9 @@ _log = get_logger("elastic")
 # the gang only if the rank stays flagged
 _REBALANCE_STREAK = 2
 
-# an expert-load entry whose stamp stops advancing leaves the driver's
-# gauges after this many seconds of the driver's monotonic clock
+# an expert-load entry (or a serve announcement) whose stamp stops
+# advancing leaves the driver's gauges after this many seconds of the
+# driver's monotonic clock
 _EXPERT_LOAD_STALE_S = 60.0
 
 
@@ -149,6 +153,8 @@ class ElasticDriver:
         # rank -> (its last published stamp, the driver's clock when the
         # stamp last advanced)
         self._expert_load_seen: Dict[int, tuple] = {}
+        # the same for the serving fleet's capacity announcements
+        self._serve_cap_seen: Dict[int, tuple] = {}
         self._clock = time.monotonic
         if placement == "per-host":
             raise ValueError(
@@ -457,6 +463,7 @@ class ElasticDriver:
             self._last_stragglers = stragglers
         self._maybe_rebalance()
         self._poll_expert_loads()
+        self._poll_serve_capacity()
         reason = self._maybe_quarantine()
         _metrics.maybe_dump()
         return reason
@@ -556,6 +563,53 @@ class ElasticDriver:
         _metrics.gauge("driver.expert_load.imbalance",
                        max(hist.values()) / mean if mean > 0 else 1.0)
         _metrics.gauge("driver.expert_load.drop_rate", dropped / total)
+
+    def _poll_serve_capacity(self) -> None:
+        """Sum the serving fleet's capacity announcements (scope
+        ``serve``) by role into ``driver.serve.{role}.workers``,
+        ``.free_slots`` and ``.free_pages``: how many prefill and decode
+        workers are live and the admission headroom each side of the
+        wire has left (a draining worker counts as a worker with none).
+        A rank counts while its ``ts`` advances, or for
+        ``_EXPERT_LOAD_STALE_S`` of the driver's clock after, as in
+        :meth:`_poll_expert_loads`. Observability only."""
+        if self._server is None:
+            return
+        from ..runner.rendezvous import read_announcements, worker_role
+
+        try:
+            anns = read_announcements(self._server.store)
+        except Exception:  # noqa: BLE001 - the next poll retries
+            return
+        if not anns:
+            return
+        now = self._clock()
+        fresh = {}
+        for rank, ann in anns.items():
+            ts = float(ann.get("ts", 0.0))
+            prev = self._serve_cap_seen.get(rank)
+            if prev is None or ts > prev[0]:
+                self._serve_cap_seen[rank] = (ts, now)
+                fresh[rank] = ann
+            elif now - prev[1] <= _EXPERT_LOAD_STALE_S:
+                fresh[rank] = ann
+        for rank in list(self._serve_cap_seen):
+            if rank not in anns:
+                del self._serve_cap_seen[rank]
+        per_role: Dict[str, Dict[str, float]] = {}
+        for ann in fresh.values():
+            agg = per_role.setdefault(
+                worker_role(ann),
+                {"workers": 0.0, "free_slots": 0.0, "free_pages": 0.0})
+            agg["workers"] += 1.0
+            if not ann.get("draining"):
+                agg["free_slots"] += float(ann.get("free_slots", 0))
+                agg["free_pages"] += float(ann.get("free_pages", 0))
+        from ..common.metrics import registry as _metrics
+
+        for role, agg in per_role.items():
+            for key, val in agg.items():
+                _metrics.gauge(f"driver.serve.{role}.{key}", val)
 
     def _maybe_quarantine(self) -> Optional[str]:
         """Blacklist the hosts of ranks flagged a straggler for

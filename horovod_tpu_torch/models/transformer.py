@@ -37,8 +37,12 @@ On the paged layout ``paged_attn=True`` reads the pool through
 (:func:`~horovod_tpu_torch.ops.paged_attention.paged_attention` as a
 custom operator): the hand-written kernel for CUDA tensors (it launches
 or raises), its plain version for CPU tensors. ``paged_attn=False`` takes the plain version
-(gather the pages, attend densely) on any device. The sliding window
-on the cached path is not ported yet.
+(gather the pages, attend densely) on any device. A model with
+``sliding_window`` reads the cache as the JAX model's gather read does,
+on every device: the slab, or each row's pages gathered in logical
+order, attended densely under the causal mask and ``q_pos − key_pos <
+window``; the paged kernel has no window, so ``paged_attn=True`` with
+one raises.
 
 ``moe_experts > 0`` replaces each block's feed-forward with
 :class:`MoEFFN`, the JAX model's switch-style top-1 bank (fp32 router,
@@ -97,7 +101,8 @@ class TransformerConfig:
     # learned absolute position table is not built
     rope: bool = False
     rope_base: float = 10000.0
-    # causal sliding window (uncached forward only in this port)
+    # causal sliding window: a query attends to the ``sliding_window``
+    # newest positions up to its own, cached or not
     sliding_window: Optional[int] = None
     # grouped-query attention: KV heads (None = MHA, the fused qkv
     # projection)
@@ -479,13 +484,15 @@ class MultiHeadAttention(nn.Module):
 
     def _cached_attention(self, q, k, v, cache, step, paged_attn):
         """Write this call's k/v into the cache at ``step.dst``, then
-        attend q against the whole cache under the global causal mask.
-        Stale and unwritten positions sit past every row's frontier and
-        get probability exactly 0."""
+        attend q against the whole cache under the global causal mask
+        (and the window, where the model has one). Stale and unwritten
+        positions sit past every row's frontier and get probability
+        exactly 0."""
         cfg = self.cfg
-        if cfg.sliding_window:
-            raise NotImplementedError(
-                "sliding_window on the cached path is not ported yet"
+        if cfg.sliding_window and paged_attn:
+            raise ValueError(
+                "sliding_window is not implemented by the paged kernel: "
+                "pass paged_attn=False for the windowed gather read"
             )
         b, t, h, d = q.shape
         k_cache, v_cache = cache["k"], cache["v"]
@@ -495,15 +502,25 @@ class MultiHeadAttention(nn.Module):
             if step.src is not None:
                 rows = rows[step.src]
             buf.view(-1, kvh, d).index_copy_(0, step.dst, rows.to(buf.dtype))
-        if step.table is not None:
+        if step.table is not None and not cfg.sliding_window:
             if paged_attn:
                 return _pa.OPS.paged_attention(q, k_cache, v_cache,
                                                step.table, step.index, True)
             return _pa.paged_attention_plain(q, k_cache, v_cache, step.table,
                                              step.index, causal=True)
+        if step.table is not None:
+            # the gather read: each row's pages in logical order (sentinel
+            # entries clamp to a page whose rows the mask zeroes)
+            table = step.table.long().clamp(0, k_cache.shape[0] - 1)
+            seq = table.shape[1] * k_cache.shape[1]
+            k_cache = k_cache[table].reshape(b, seq, kvh, d)
+            v_cache = v_cache[table].reshape(b, seq, kvh, d)
         q_pos = step.index.long()[:, None] + torch.arange(t, device=q.device)
         key_pos = torch.arange(k_cache.shape[1], device=q.device)
-        valid = key_pos[None, None, :] <= q_pos[:, :, None]  # [b, t, seq]
+        dist = q_pos[:, :, None] - key_pos[None, None, :]  # [b, t, seq]
+        valid = dist >= 0
+        if cfg.sliding_window:
+            valid = valid & (dist < cfg.sliding_window)
         return _attend(q, k_cache, v_cache, valid[:, None], cfg.dtype)
 
 

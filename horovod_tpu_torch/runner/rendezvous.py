@@ -600,6 +600,43 @@ def read_dead_hosts(store_or_client) -> Dict[str, list]:
     }
 
 
+SERVE_SCOPE = "serve"
+SERVE_ROLES = ("prefill", "decode", "unified")
+
+
+def put_announcement(client, rank: int, payload: dict) -> None:
+    """A serve worker's capacity blob into the KV (a ``KVStore`` or a
+    ``RendezvousClient``), scope ``serve``, key the rank."""
+    client.put(SERVE_SCOPE, str(int(rank)), json.dumps(payload).encode())
+
+
+def read_announcements(store_or_client) -> Dict[int, dict]:
+    """Every serve rank's last capacity blob; entries that do not parse,
+    or carry no ``port`` (and the non-numeric ``dead_hosts`` key), are
+    skipped."""
+    out: Dict[int, dict] = {}
+    for key in store_or_client.keys(SERVE_SCOPE):
+        raw = store_or_client.get(SERVE_SCOPE, key)
+        if raw is None:
+            continue
+        try:
+            rank = int(key)
+            obj = json.loads(raw.decode())
+        except (ValueError, UnicodeDecodeError):
+            continue
+        if isinstance(obj, dict) and "port" in obj:
+            out[rank] = obj
+    return out
+
+
+def worker_role(ann: dict) -> str:
+    """The role a capacity announcement claims. Blobs of workers that
+    announce no ``role`` (older ones) are unified and stay routable, so
+    a missing or unknown value reads as ``"unified"``."""
+    role = ann.get("role", "unified")
+    return role if role in SERVE_ROLES else "unified"
+
+
 REBALANCE_SCOPE = "rebalance"
 
 

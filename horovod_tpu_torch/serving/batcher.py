@@ -24,7 +24,9 @@ re-prefills its prompt and the tokens generated so far.
 
 ``drain()`` (wired to SIGTERM through ``preemption.register_drain``)
 stops admitting new submissions but runs the queue and in-flight work
-to completion.
+to completion; with ``migrate_after=`` and an ``on_deadline`` hook, the
+sequences still in flight past the deadline are exported
+(:meth:`ContinuousBatcher.export_inflight`) for live migration instead.
 
 Roles (the disaggregated fleet, ``serving/kv_transfer.py``): a
 ``prefill`` worker reserves pages on a decode worker before it spends a
@@ -38,8 +40,13 @@ request takes the local path at once (``serve.transfer_local``). A
 ``decode`` worker takes no prompts: its requests arrive through
 :meth:`ContinuousBatcher.submit_ingested` and their pages land in the
 pool at admission, on the scheduler thread. Both roles need the paged
-plane. Live migration and the JAX batcher's ``serve.worker_kill`` site
-come in a later slice.
+plane. A live-migrated sequence arrives mid-decode through
+:meth:`ContinuousBatcher.submit_migrated`: its whole token history and
+the sender's sampling state, its pages landed at admission with no
+prefill. The ``serve.worker_kill`` fault site fires at the top of every
+round (:meth:`ContinuousBatcher.step`): a transport kind crashes the
+scheduler, which aborts every accepted request, the dark worker the
+fleet's Router replays around.
 
 The scheduler thread runs all device work and binds itself to the
 engine's device; submitting threads only touch host bookkeeping.
@@ -60,6 +67,7 @@ import torch
 from ..common import tracing as _tracing
 from ..common.logging import get_logger
 from ..common.metrics import registry as _metrics
+from ..testing import chaos as _chaos
 from .paged_kv import PagePoolExhausted
 from .slo import LatencyRecorder
 
@@ -310,6 +318,65 @@ class ContinuousBatcher:
         self._publish_gauges()
         return req
 
+    def submit_migrated(
+        self,
+        prompt,
+        tokens,
+        max_new_tokens: int,
+        logical,
+        arrays,
+        length: int,
+        deadline_ms: Optional[float] = None,
+        sample: Optional[dict] = None,
+        trace=None,
+    ) -> Request:
+        """Admit a live-migrated sequence (the ``migrate`` frame of
+        ``serving/kv_transfer.py``). It arrives mid-decode: its whole
+        generated history seeds ``out_tokens`` (the newest token, whose
+        k/v is not in the pages, feeds the next decode step, so
+        ``length`` is prompt + generated − 1), and ``sample`` is the
+        sender's armed sampling state with its generator's raw state,
+        so a sampled sequence draws on where it stopped. No prefix is
+        published: the pages hold generated tokens. Called from an HTTP
+        thread: host bookkeeping only."""
+        if not self.engine.paged:
+            raise Rejected("migration needs the paged plane")
+        toks = [int(t) for t in tokens]
+        if not toks:
+            raise Rejected("migrated sequence carries no tokens")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        pages = [int(lp) for lp in logical]
+        if len(pages) > self.engine.manager.num_pages:
+            _metrics.counter("serve.rejected")
+            raise Rejected(
+                f"migration of {len(pages)} pages exceeds the "
+                f"{self.engine.manager.num_pages}-page pool"
+            )
+        req = Request(
+            id=next(self._ids),
+            prompt=prompt,
+            max_new_tokens=int(max_new_tokens),
+            deadline_ts=(
+                time.monotonic() + float(deadline_ms) / 1e3
+                if deadline_ms and float(deadline_ms) > 0
+                else None
+            ),
+            trace=trace,
+        )
+        req.out_tokens.extend(toks)
+        req.ingest = {"logical": pages, "arrays": arrays,
+                      "length": int(length), "hashes": [],
+                      "sample": sample}
+        with self._cond:
+            if self._draining:
+                _metrics.counter("serve.rejected")
+                raise Rejected("worker is draining (shutdown in progress)")
+            self._queue.append(req)
+            self._cond.notify_all()
+        _metrics.counter("serve.requests_total")
+        self._publish_gauges()
+        return req
+
     def requeue_fallback(self, req: Request, kept, length: int) -> None:
         """The transfer failed after the prefill (retries exhausted, or
         the decode worker answered with an error status): bring the
@@ -392,19 +459,40 @@ class ContinuousBatcher:
             self._thread.join(timeout=10)
             self._thread = None
 
-    def drain(self, timeout: float = 30.0) -> bool:
+    def drain(self, timeout: float = 30.0,
+              migrate_after: Optional[float] = None,
+              on_deadline=None) -> bool:
         """Stop admitting new submissions; run everything accepted to
         completion. True when the plane is empty. Without a running
-        loop the drain steps inline."""
+        loop the drain steps inline.
+
+        With ``migrate_after`` (seconds) and an ``on_deadline`` hook,
+        the sequences still in flight past that point are exported
+        (:meth:`export_inflight`) and handed to the hook, the frontend's
+        live migration. The records count as handoffs, so the drain
+        waits until each one's remote result lands or its fallback,
+        requeued here, is stepped to its end."""
         with self._cond:
             self._draining = True
             self._cond.notify_all()
-        deadline = time.monotonic() + timeout
+        start = time.monotonic()
+        deadline = start + timeout
+        migrate_at = (start + max(float(migrate_after), 0.0)
+                      if migrate_after is not None and on_deadline is not None
+                      else None)
         self._drain_active = True
         try:
             while time.monotonic() < deadline:
                 if self._idle():
                     return True
+                if migrate_at is not None and time.monotonic() >= migrate_at:
+                    migrate_at = None
+                    if self._slot_req:
+                        records = self.export_inflight()
+                        _log.info("drain deadline: migrating %d in-flight "
+                                  "sequence(s)", len(records))
+                        on_deadline(records)
+                    continue
                 if self._running:
                     time.sleep(0.005)
                 elif not self.step():
@@ -414,6 +502,31 @@ class ContinuousBatcher:
             return self._idle()
         finally:
             self._drain_active = False
+
+    def export_inflight(self) -> List[dict]:
+        """Detach every in-flight sequence for live migration. Stops the
+        scheduler loop first, so the calling thread is the one consumer
+        from here on; then, a slot at a time, snapshots the slot's armed
+        sampling state (before the detach: the generator's raw state
+        mid-stream), detaches its pages with their references, and
+        counts the record as a handoff, so :meth:`drain` waits for its
+        remote result or its fallback. Records: ``{"req", "kept",
+        "length", "sample"}``."""
+        self.stop()
+        if self.engine.device.type == "cuda":
+            torch.cuda.set_device(self.engine.device)
+        records: List[dict] = []
+        for slot in sorted(self._slot_req):
+            req = self._slot_req.pop(slot)
+            sample = self.engine.export_sampling(slot)
+            kept, length = self.engine.manager.detach_keep(slot)
+            self.engine.clear_sampling(slot)
+            records.append({"req": req, "kept": kept, "length": length,
+                            "sample": sample})
+        with self._cond:
+            self._handoffs += len(records)
+        self._publish_gauges(min_interval=0.0)
+        return records
 
     def _idle(self) -> bool:
         # under the lock: an admission moves its request from the queue
@@ -468,7 +581,10 @@ class ContinuousBatcher:
 
     def step(self) -> bool:
         """One round: expire → admit → decode → retire. False when there
-        was nothing to do."""
+        was nothing to do. The ``serve.worker_kill`` fault site fires
+        first: a transport kind raises into the loop's crash handler,
+        ``kill`` SIGKILLs the worker."""
+        _chaos.inject("serve.worker_kill")
         now = time.monotonic()
         self._expire_queued(now)
         admitted = self._admit(now)
@@ -531,6 +647,7 @@ class ContinuousBatcher:
             # req stays at the queue head until it holds its slot, so a
             # drain never sees the plane empty while it is in prefill
             req.admit_seq = next(self._admit_ids)
+            sample_armed = False
             if req.kept_pages is not None:
                 # resume from pause: pointer re-attach, no prefill
                 self.engine.manager.reattach(
@@ -541,9 +658,10 @@ class ContinuousBatcher:
                 req.status = RUNNING
                 _metrics.counter("serve.resumed")
             elif req.ingest is not None:
-                # KV-transfer ingest: the foreign pages land in the pool
-                # in place and pointer-attach; data changes, shapes do
-                # not, so the captured decode graph serves every ingest
+                # KV-transfer ingest or migration: the foreign pages land
+                # in the pool in place and pointer-attach; data changes,
+                # shapes do not, so the captured decode graph serves
+                # every one
                 ing = req.ingest
                 kept = self.engine.ingest_attach(
                     slot, ing["logical"], ing["arrays"], ing["length"],
@@ -554,6 +672,11 @@ class ContinuousBatcher:
                     # the head stays queued; stop admitting this round
                     self.engine.manager.free(slot)
                     break
+                if ing.get("sample"):
+                    # a migrated resume: the sender's sampling state as
+                    # it stood (arming below would re-seed and fork it)
+                    self.engine.import_sampling(slot, ing["sample"])
+                    sample_armed = True
                 npages = len(ing["logical"])
                 req.ingest = None
                 req.status = RUNNING
@@ -562,7 +685,7 @@ class ContinuousBatcher:
                 if req.trace is not None:
                     s = _tracing.start_span(
                         "serve.ingest_admit", req.trace, pages=npages,
-                        slot=slot,
+                        slot=slot, migrated=sample_armed,
                     )
                     if s is not None:
                         s.end()
@@ -618,7 +741,9 @@ class ContinuousBatcher:
             if mid_decode:
                 _metrics.counter("serve.admitted_mid_decode")
             admitted += 1
-            if req.temperature > 0 or req.top_k > 0:
+            if sample_armed:
+                pass
+            elif req.temperature > 0 or req.top_k > 0:
                 self.engine.set_sampling(
                     slot, req.temperature, req.top_k,
                     seed=req.id if req.seed is None else req.seed,

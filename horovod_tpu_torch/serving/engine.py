@@ -216,6 +216,10 @@ class InferenceEngine:
         self._graph_launches: Dict[str, int] = {}
         self._graph_replays = 0
         self._capture_ms = 0.0  # the warm-up and the capture, host clock
+        # the CUDA stream the last prefill or decode step wrote the pool
+        # on: a gather for the wire is ordered after it, whichever
+        # thread asks (a drain exports from a thread of its own)
+        self._work_stream = None
         if self.paged_attn:
             _pa.warm_operator()
         if self.device.type == "cuda" and role != "prefill":
@@ -232,7 +236,11 @@ class InferenceEngine:
         plain read. A kernel that is asked for and cannot run raises
         with the reason: the port never falls back, so
         ``paged_attn_fallbacks`` (kept for the JAX engine's stats keys)
-        stays 0."""
+        stays 0. A model with ``sliding_window`` is one such case (the
+        kernel has no window): ``on`` anywhere and ``auto`` on a CUDA
+        card raise, and ``off`` serves it on the windowed gather read
+        of ``models/transformer.py``, where the JAX engine counts a
+        fallback to that read instead."""
         if isinstance(requested, bool):
             requested = "on" if requested else "off"
         requested = str(requested).lower()
@@ -299,6 +307,7 @@ class InferenceEngine:
             )
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         n = prompt.size
+        self._note_stream()
         if not 0 < n <= self.max_len:
             raise ValueError(
                 f"prompt length {n} outside (0, {self.max_len}]"
@@ -363,6 +372,7 @@ class InferenceEngine:
                 if starved:
                     raise PagePoolExhausted(starved)
             self._decode_swept = False
+        self._note_stream()
         logits = self._decode_logits(tokens)
         nxt = _sample_next(logits, self._sample_temps,
                            self._sample_topks, self._generators)
@@ -371,6 +381,10 @@ class InferenceEngine:
             if self.paged_attn:
                 self._counters["paged_attn_calls"] += 1
         return nxt.to(torch.int32).cpu().numpy()
+
+    def _note_stream(self) -> None:
+        if self.device.type == "cuda":
+            self._work_stream = torch.cuda.current_stream(self.device)
 
     def _decode_logits(self, tokens: np.ndarray) -> torch.Tensor:
         """``[slots, vocab]`` fp32 logits of one decode step: a replay of
@@ -509,20 +523,29 @@ class InferenceEngine:
                 for name in sorted(layer)]
 
     def gather_pages(self, kept) -> Gathered:
-        """The scheduler-thread half of :meth:`extract_pages`: one
-        indexed read a leaf into fresh device buffers (no storage shared
-        with the pool, which later steps write), and on a CUDA card an
-        event recorded after them. Hand the result to
+        """The first half of :meth:`extract_pages`, on the thread that
+        detached the pages: one indexed read a leaf into fresh device
+        buffers (no storage shared with the pool, which later steps
+        write), and on a CUDA card an event recorded after them. Both
+        run on the stream the last prefill or decode step wrote the pool
+        on, not this thread's current one, so the read follows the
+        writes even when a drain's thread asks. Hand the result to
         :meth:`pages_to_host` (or the transfer codec) off this thread."""
         if not self.paged:
             raise RuntimeError("gather_pages needs the paged plane")
-        idx = torch.as_tensor([p for _, p in kept], dtype=torch.long,
-                              device=self.device)
-        pages = [leaf.index_select(0, idx) for leaf in self._leaves()]
-        event = None
+        stream = None
         if self.device.type == "cuda":
+            stream = (self._work_stream
+                      or torch.cuda.current_stream(self.device))
+        with (torch.cuda.stream(stream) if stream is not None
+              else _nullcontext()):
+            idx = torch.as_tensor([p for _, p in kept], dtype=torch.long,
+                                  device=self.device)
+            pages = [leaf.index_select(0, idx) for leaf in self._leaves()]
+        event = None
+        if stream is not None:
             event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+            event.record(stream)
         return Gathered(pages, event)
 
     def finish_pages(self, raw: Gathered, kept, length: int,

@@ -1,18 +1,20 @@
-"""HTTP frontend: ``serve(model, params, port=…)``.
+"""HTTP frontend and fleet routing: ``serve(model, params, port=…)``.
 
 A stdlib ``ThreadingHTTPServer`` per worker, no dependencies. Routes:
 
 * ``POST /generate``: body ``{"tokens": [...], "max_tokens"?,
-  "deadline_ms"?, "temperature"?, "top_k"?, "seed"?}``. The handler
-  thread parks on the request until the batcher's thread has finished
-  it, then replies the result JSON (tokens, status, TTFT, generation
-  wall). 400 on a malformed body, 429 when the request can never fit,
-  503 while draining, 500 when the scheduler failed under it. Request
-  tracing (``common/tracing.py``): the handler adopts a ``traceparent``
-  header, or mints a root when ``HOROVOD_TRACE`` is on, opens the
-  ``http.generate`` span and hands its context to the batcher; a traced
-  reply carries ``X-Trace-Id``, the receive/send stamps and
-  ``trace_id`` in its JSON.
+  "deadline_ms"?, "temperature"?, "top_k"?, "seed"?, "request_id"?}``.
+  The handler thread parks on the request until the batcher's thread has
+  finished it, then replies the result JSON (tokens, status, TTFT,
+  generation wall). 400 on a malformed body, 429 when the request can
+  never fit, 503 while draining, 500 when the scheduler failed under it.
+  A ``request_id`` this worker already answered gets the cached result
+  (``serve.replay_dedupe_hits``), even mid-drain: a retry never
+  recomputes. Request tracing (``common/tracing.py``): the handler adopts
+  a ``traceparent`` header, or mints a root when ``HOROVOD_TRACE`` is
+  on, opens the ``http.generate`` span and hands its context to the
+  batcher; a traced reply carries ``X-Trace-Id``, the receive/send
+  stamps and ``trace_id`` in its JSON.
 * ``GET /healthz``: liveness and capacity (free slots and pages, queue
   depth).
 * ``GET /metrics``: the TTFT/TPOT Prometheus summaries, then the flight
@@ -24,18 +26,32 @@ A stdlib ``ThreadingHTTPServer`` per worker, no dependencies. Routes:
 The HTTP threads never touch tensors: they queue requests and read host
 counters. ``serve()`` registers the frontend's drain with
 ``preemption.register_drain``, so SIGTERM finishes every accepted
-request before the worker exits.
+request before the worker exits. With ``HOROVOD_SERVE_DRAIN_DEADLINE_S``
+set (or ``drain(migrate_after=)``), sequences still decoding past the
+deadline are live-migrated to a peer over the ``migrate`` frame of
+``serving/kv_transfer.py`` and finish there; one that cannot go
+anywhere decodes here (``serve.transfer_fallbacks``).
 
 A fleet meets in the rendezvous KV: each worker announces its capacity
 (:meth:`ServeFrontend.capacity`: role, free slots and pages, the
 transfer port) under scope ``serve`` every second
-(:func:`put_announcement`), and a prefill worker's
+(``runner.rendezvous.put_announcement``), and a prefill worker's
 :class:`~.kv_transfer.TransferCoordinator` reads the decode workers'
-announcements (:func:`read_announcements`). ``serve(role="prefill")``
-wires that coordinator; ``serve(role="decode")`` (and a paged unified
-worker) runs a :class:`~.kv_transfer.KVTransferServer`. The JAX
-frontend's fleet router, hedging, result dedupe and live migration come
-in a later slice.
+announcements. ``serve(role="prefill")`` wires that coordinator;
+``serve(role="decode")`` (and a paged unified worker) runs a
+:class:`~.kv_transfer.KVTransferServer`.
+
+:class:`Router` sends each request to the least-loaded live worker
+whose rank the heartbeat straggler ledger does not flag: prefill
+workers when any exist, unified ones otherwise, never a decode worker;
+page headroom and slot headroom folded into one unit, and blobs without
+page fields (or a ``role``) still routable. Freshness is judged on the
+router's own monotonic clock; the driver's dead-host set (scope
+``serve`` key ``dead_hosts``) evicts at once. The routed payload is the
+journal: a worker that goes dark mid-call gets the request replayed on
+another (``serve.replays``) and its announcement tombstoned for one
+freshness period. ``HOROVOD_SERVE_HEDGE_MS`` fires a backup request on
+a second worker after the delay, first writer wins (``serve.hedges``).
 """
 
 from __future__ import annotations
@@ -44,8 +60,10 @@ import json
 import socket
 import threading
 import time
+import uuid
+from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from ..common import telemetry as _telemetry
 from ..common import tracing as _tracing
@@ -53,36 +71,23 @@ from ..common.config import live_config
 from ..common.logging import TRACE as _TRACE, get_logger
 from ..common.metrics import registry as _metrics
 from ..common.telemetry import PROM_CONTENT_TYPE, render_prometheus
+from ..runner.rendezvous import (  # noqa: F401
+    SERVE_SCOPE,
+    put_announcement,
+    read_announcements,
+    worker_role,
+)
 from .batcher import ContinuousBatcher, Rejected
 
 _log = get_logger("serve.frontend")
 
-SERVE_SCOPE = "serve"
 DEFAULT_ANNOUNCE_INTERVAL_S = 1.0
-
-
-def put_announcement(client, rank: int, payload: dict) -> None:
-    """A worker's capacity blob into the rendezvous KV (a ``KVStore`` or
-    a ``RendezvousClient``), scope ``serve``, key the rank."""
-    client.put(SERVE_SCOPE, str(int(rank)), json.dumps(payload).encode())
-
-
-def read_announcements(store_or_client) -> Dict[int, dict]:
-    """Every rank's last capacity blob; entries that do not parse, or
-    carry no ``port``, are skipped."""
-    out: Dict[int, dict] = {}
-    for key in store_or_client.keys(SERVE_SCOPE):
-        raw = store_or_client.get(SERVE_SCOPE, key)
-        if raw is None:
-            continue
-        try:
-            rank = int(key)
-            obj = json.loads(raw.decode())
-        except (ValueError, UnicodeDecodeError):
-            continue
-        if isinstance(obj, dict) and "port" in obj:
-            out[rank] = obj
-    return out
+# announcements older than this are a dead or partitioned worker as far
+# as routing is concerned
+DEFAULT_ANNOUNCE_TTL_S = 10.0
+# the completed-result dedupe cache's bound in entries: the TTL prunes
+# first, this caps memory under a flood of unique request ids
+DEDUPE_MAX_ENTRIES = 1024
 
 
 class ServeFrontend:
@@ -115,6 +120,14 @@ class ServeFrontend:
         self._inflight_lock = threading.Lock()
         self._status_lock = threading.Lock()
         self._status_counts = {2: 0, 4: 0, 5: 0}
+        # completed results by client request_id: (result, expiry on the
+        # monotonic clock); a replay or a retry of work done here gets
+        # the cached answer instead of a second generation
+        self._dedupe: "OrderedDict[str, tuple]" = OrderedDict()
+        self._dedupe_lock = threading.Lock()
+        # the live-migration coordinator of a deadline drain, built at
+        # the first one (a prefill worker reuses its batcher's)
+        self._migrator = None
         outer = self
 
         class _Handler(BaseHTTPRequestHandler):
@@ -208,6 +221,18 @@ class ServeFrontend:
                 except (json.JSONDecodeError, KeyError, ValueError) as e:
                     return self._json(400, {"error": f"bad request: {e}"},
                                       hdrs)
+                request_id = str(payload.get("request_id") or "")
+                if span is not None and request_id:
+                    span.tag(request_id=request_id)
+                if request_id:
+                    # before the draining gate: a retry of work this
+                    # worker finished gets its answer even mid-drain
+                    hit = outer._dedupe_get(request_id)
+                    if hit is not None:
+                        _metrics.counter("serve.replay_dedupe_hits")
+                        if span is not None:
+                            span.tag(outcome="dedupe_hit")
+                        return self._json(200, hit, hdrs)
                 if outer.draining:
                     return self._json(503, {"error": "draining",
                                             "retry": True}, hdrs)
@@ -237,7 +262,12 @@ class ServeFrontend:
                         )
                     req.wait()
                     code = 500 if req.status == "error" else 200
-                    return self._json(code, req.result(), hdrs)
+                    result = req.result()
+                    if span is not None:
+                        span.tag(outcome=req.status)
+                    if request_id and code == 200:
+                        outer._dedupe_put(request_id, result)
+                    return self._json(code, result, hdrs)
                 finally:
                     with outer._inflight_lock:
                         outer._inflight -= 1
@@ -347,19 +377,76 @@ class ServeFrontend:
         except (OSError, RuntimeError) as e:
             _log.debug("serve announce failed: %s", e)
 
-    def drain(self, timeout: float = 30.0) -> bool:
+    def drain(self, timeout: float = 30.0,
+              migrate_after: Optional[float] = None) -> bool:
         """Refuse new work, finish the accepted work, let the in-flight
-        responses flush."""
+        responses flush; announce the drained state before and after.
+
+        ``migrate_after`` (seconds; None reads
+        ``HOROVOD_SERVE_DRAIN_DEADLINE_S``, where 0 is off) bounds how
+        long in-flight sequences keep decoding here on the paged plane:
+        past it they are live-migrated to a reserved peer
+        (:meth:`_migrate_inflight`) and finish there."""
         self._draining = True
         self.announce()  # the router-side view: draining, no capacity
-        ok = self.batcher.drain(timeout=timeout)
+        if migrate_after is None:
+            deadline_s = live_config().serve_drain_deadline_s
+            migrate_after = deadline_s if deadline_s > 0 else None
+        if migrate_after is not None and self.batcher.engine.paged:
+            ok = self.batcher.drain(
+                timeout=timeout, migrate_after=float(migrate_after),
+                on_deadline=self._migrate_inflight,
+            )
+        else:
+            ok = self.batcher.drain(timeout=timeout)
         deadline = time.monotonic() + 5.0
         while time.monotonic() < deadline:
             with self._inflight_lock:
                 if self._inflight == 0:
                     break
             time.sleep(0.01)
+        self.announce()
         return ok
+
+    def _resolve_migrator(self):
+        """The TransferCoordinator a deadline drain streams through: a
+        prefill worker's own, else one built on the same announcements."""
+        if self.batcher.transfer is not None:
+            return self.batcher.transfer
+        if self._migrator is None:
+            from .kv_transfer import TransferCoordinator
+
+            self._migrator = TransferCoordinator(
+                self.batcher.engine,
+                client_factory=self._resolve_announce_client,
+            )
+        return self._migrator
+
+    def _migrate_inflight(self, records) -> None:
+        """``batcher.drain``'s deadline hook: each exported record goes
+        to a reserved peer; one that cannot (no coordinator, or its
+        reservation or gather failed) comes home for a local decode,
+        which the drain steps. A failure to pack the pages is the
+        migrate thread's, and ends that request ``error``."""
+        try:
+            coord = self._resolve_migrator()
+        except Exception as e:  # noqa: BLE001 - decode locally instead
+            _log.warning("no migration coordinator (%s); draining %d "
+                         "sequence(s) locally", e, len(records))
+            coord = None
+        for rec in records:
+            if coord is None:
+                self.batcher.requeue_fallback(rec["req"], rec["kept"],
+                                              rec["length"])
+                continue
+            try:
+                coord.migrate(self.batcher, rec)
+            except Exception as e:  # noqa: BLE001 - this record only
+                _log.warning("migration of request %d failed at export "
+                             "(%s); falling back to local decode",
+                             rec["req"].id, e)
+                self.batcher.requeue_fallback(rec["req"], rec["kept"],
+                                              rec["length"])
 
     def _note_status(self, code: int) -> None:
         """``serve.http_2xx/4xx/5xx`` counters and the
@@ -376,6 +463,35 @@ class ServeFrontend:
             (counts[4] + counts[5]) / sum(counts.values()),
         )
 
+    # ----------------------------------------------------- the dedupe cache
+
+    def _dedupe_get(self, request_id: str) -> Optional[dict]:
+        with self._dedupe_lock:
+            hit = self._dedupe.get(request_id)
+            if hit is None:
+                return None
+            result, expiry = hit
+            if time.monotonic() >= expiry:
+                del self._dedupe[request_id]
+                return None
+            return result
+
+    def _dedupe_put(self, request_id: str, result: dict) -> None:
+        """Keep a completed result for ``HOROVOD_SERVE_DEDUPE_TTL_S``
+        (0 keeps none), at most ``DEDUPE_MAX_ENTRIES`` of them."""
+        ttl = float(live_config().serve_dedupe_ttl_s)
+        if ttl <= 0:
+            return
+        now = time.monotonic()
+        with self._dedupe_lock:
+            for k in [k for k, (_, exp) in self._dedupe.items()
+                      if exp <= now]:
+                del self._dedupe[k]
+            self._dedupe[request_id] = (result, now + ttl)
+            self._dedupe.move_to_end(request_id)
+            while len(self._dedupe) > DEDUPE_MAX_ENTRIES:
+                self._dedupe.popitem(last=False)
+
     def stop(self) -> None:
         self._announce_stop.set()
         if self._announce_thread is not None:
@@ -388,6 +504,359 @@ class ServeFrontend:
         self._httpd.server_close()
         self._thread.join(timeout=5)
         self._thread = None
+
+
+class Router:
+    """The fleet's router over the rendezvous KV: capacity announcements
+    and the heartbeat straggler ledger in, pick-and-forward out.
+    Stateless apart from a local debit a route, so a burst routed
+    between two announcements spreads, the freshness stamps and the
+    tombstones."""
+
+    def __init__(self, store_or_client,
+                 straggler_factor: Optional[float] = None,
+                 announce_ttl_s: float = DEFAULT_ANNOUNCE_TTL_S) -> None:
+        from ..common.stall_inspector import (
+            DEFAULT_STRAGGLER_FACTOR,
+            StallInspector,
+        )
+
+        self._store = store_or_client
+        self._ttl = float(announce_ttl_s)
+        self._inspector = StallInspector(
+            straggler_factor=(DEFAULT_STRAGGLER_FACTOR
+                              if straggler_factor is None
+                              else straggler_factor))
+        self._debits: Dict[int, int] = {}
+        # rank -> (last announced ts, the router's monotonic stamp of
+        # when it last changed): freshness on this clock, so a worker's
+        # skewed wall clock neither drops it nor keeps a dead one
+        self._seen_ts: Dict[int, tuple] = {}
+        # rank -> (announced ts at the failure, monotonic expiry): a
+        # worker that failed a live call stays out for one freshness
+        # period, or until it announces a newer ts
+        self._tombstones: Dict[int, tuple] = {}
+        self._lock = threading.Lock()
+
+    def snapshot(self) -> Dict[int, dict]:
+        """The live workers: announcements not draining, not in the
+        driver's dead set, not tombstoned, whose ts keeps advancing on
+        the router's clock. A rank's first sight has no history, so its
+        wall ts decides once (a wall-stale leftover stays out, and
+        revives on its next announcement)."""
+        now = time.monotonic()
+        out = {}
+        dead_hosts, dead_ranks = self._dead_set()
+        with self._lock:
+            for rank, ann in read_announcements(self._store).items():
+                if ann.get("draining"):
+                    continue
+                if (rank in dead_ranks
+                        or str(ann.get("host") or "") in dead_hosts
+                        or str(ann.get("addr") or "") in dead_hosts):
+                    continue  # the driver declared it dead: out now
+                ts = float(ann.get("ts", 0))
+                tomb = self._tombstones.get(rank)
+                if tomb is not None:
+                    if ts == tomb[0] and now < tomb[1]:
+                        continue  # the blob it announced before failing
+                    del self._tombstones[rank]  # alive again, or aged out
+                prev = self._seen_ts.get(rank)
+                if prev is None:
+                    wall_fresh = abs(time.time() - ts) <= self._ttl
+                    stamp = now if wall_fresh else now - self._ttl - 1
+                    self._seen_ts[rank] = (ts, stamp)
+                    if wall_fresh:
+                        out[rank] = ann
+                elif prev[0] != ts:
+                    self._seen_ts[rank] = (ts, now)
+                    out[rank] = ann
+                elif now - prev[1] <= self._ttl:
+                    out[rank] = ann
+        return out
+
+    def _dead_set(self):
+        """The driver's dead hosts and the ranks it mapped onto them;
+        empty when the read fails (the set speeds eviction, it never
+        blocks routing)."""
+        from ..runner.rendezvous import read_dead_hosts
+
+        try:
+            dead = read_dead_hosts(self._store)
+        except (OSError, RuntimeError, ValueError):
+            return set(), set()
+        return ({str(h) for h in dead.get("hosts", ())},
+                {int(r) for r in dead.get("ranks", ())})
+
+    def tombstone(self, rank: int, ann: Optional[dict] = None) -> None:
+        """Keep a worker that failed a live call out: its current
+        announcement is unroutable for one freshness period, or until
+        it announces a newer ts."""
+        with self._lock:
+            self._tombstones[int(rank)] = (
+                float((ann or {}).get("ts", 0.0)),
+                time.monotonic() + self._ttl,
+            )
+
+    def straggler_ranks(self) -> List[int]:
+        """The heartbeat ledger read fleet-side: every heartbeat's step
+        stats into a :class:`~horovod_tpu_torch.common.stall_inspector.
+        StallInspector`, whose flagged ranks the pick avoids."""
+        from ..runner.rendezvous import read_heartbeat_stats
+
+        try:
+            stats = read_heartbeat_stats(self._store)
+        except (OSError, RuntimeError):
+            return []
+        for rank, payload in stats.items():
+            self._inspector.record_heartbeat(
+                rank, ts=payload.get("ts"), step=payload.get("step"),
+                step_ms_p50=payload.get("step_ms_p50"),
+                last_step_ts=payload.get("last_step_ts"),
+            )
+        return self._inspector.straggler_ranks()
+
+    def pick(self, exclude=()) -> Optional[dict]:
+        """The least-loaded live worker that takes prompts (prefill ones
+        when any exist, else unified; never decode), avoiding flagged
+        stragglers unless they are all that is left; ``exclude`` drops
+        ranks already failed this round. Debits the pick by one."""
+        workers = self.snapshot()
+        for rank in exclude:
+            workers.pop(rank, None)
+        workers = {r: w for r, w in workers.items()
+                   if worker_role(w) != "decode"}
+        prefill = {r: w for r, w in workers.items()
+                   if worker_role(w) == "prefill"}
+        workers = prefill or workers
+        if not workers:
+            return None
+        flagged = set(self.straggler_ranks())
+        healthy = {r: w for r, w in workers.items() if r not in flagged}
+        pool = healthy or workers
+        if not healthy:
+            _log.warning("all serve workers flagged as stragglers (%s); "
+                         "routing to a flagged rank anyway",
+                         sorted(flagged))
+        with self._lock:
+            def load(item):
+                rank, w = item
+                # a request needs a slot and pages: the smaller headroom,
+                # in requests; a blob without pages routes on slots
+                pages = w.get("free_pages")
+                free = w.get("free_slots", 0)
+                if pages is not None:
+                    free = min(int(free), int(pages))
+                free -= self._debits.get(rank, 0)
+                return (-free, w.get("queue_depth", 0), rank)
+
+            rank, ann = min(pool.items(), key=load)
+            self._debits[rank] = self._debits.get(rank, 0) + 1
+            return dict(ann, rank=rank)
+
+    def credit(self, rank: int) -> None:
+        """Return a pick's debit once its request is over."""
+        with self._lock:
+            if self._debits.get(rank, 0) > 0:
+                self._debits[rank] -= 1
+
+    def _post_generate(self, ann: dict, body: bytes, timeout: float,
+                       span=None) -> dict:
+        """One ``/generate`` POST to one worker, the unit of every path
+        (first try, replay, hedge arm). A leg ``span`` carries its
+        context in the ``traceparent`` header and takes the reply's
+        clock stamps."""
+        import urllib.request
+
+        url = (f"http://{ann.get('addr', '127.0.0.1')}:{ann['port']}"
+               f"/generate")
+        headers = {"Content-Type": "application/json"}
+        if span is not None:
+            headers[_tracing.TRACEPARENT_HEADER] = (
+                span.ctx.to_traceparent())
+        req = urllib.request.Request(url, data=body, headers=headers,
+                                     method="POST")
+        t_send = time.time()
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            out = json.loads(resp.read().decode())
+            _tracing.tag_hop(span, t_send, time.time(), resp.headers)
+        return out
+
+    def _note_failure(self, ann: dict, err: Exception, span=None) -> None:
+        """A failed live call: a 503 is an orderly refusal (plain
+        failover); anything else means the worker went dark with the
+        request possibly in flight, so the retry is a replay
+        (``serve.replays``) and its announcement is tombstoned."""
+        import urllib.error
+
+        _metrics.counter("serve.route_failover")
+        if isinstance(err, urllib.error.HTTPError) and err.code == 503:
+            if span is not None:
+                span.end(outcome="failover", code=503)
+            return
+        _metrics.counter("serve.replays")
+        if span is not None:
+            span.end(outcome="replayed",
+                     error=f"{type(err).__name__}: {err}")
+        self.tombstone(ann["rank"], ann)
+
+    def route(self, tokens, max_tokens: Optional[int] = None,
+              deadline_ms: Optional[float] = None, timeout: float = 60.0,
+              attempts: int = 3, temperature: float = 0.0, top_k: int = 0,
+              seed: Optional[int] = None, request_id: Optional[str] = None,
+              hedge_ms: Optional[float] = None, trace=None) -> dict:
+        """POST ``/generate`` on the picked worker. The payload is the
+        journal: a dead or draining pick fails over, and a worker that
+        dies mid-call has the request replayed on another, idempotent by
+        ``request_id`` (made here when the caller brings none). A 4xx is
+        the request's fault and raises at once. ``hedge_ms`` (default
+        ``HOROVOD_SERVE_HEDGE_MS``, 0 off) fires a backup on a second
+        worker after the delay; the first answer wins. Each leg is a
+        ``route.attempt`` span under the ``route`` root."""
+        import urllib.error
+
+        payload: dict = {"tokens": [int(t) for t in tokens]}
+        if max_tokens is not None:
+            payload["max_tokens"] = int(max_tokens)
+        if deadline_ms is not None:
+            payload["deadline_ms"] = float(deadline_ms)
+        if temperature:
+            payload["temperature"] = float(temperature)
+        if top_k:
+            payload["top_k"] = int(top_k)
+        if seed is not None:
+            payload["seed"] = int(seed)
+        payload["request_id"] = str(request_id or uuid.uuid4().hex)
+        body = json.dumps(payload).encode()
+        last_err: Optional[Exception] = None
+        failed: set = set()
+        tctx = trace if trace is not None else _tracing.mint()
+        root = _tracing.root_span("route", tctx,
+                                  request_id=payload["request_id"])
+        try:
+            if hedge_ms is None:
+                hedge_ms = live_config().serve_hedge_ms
+            if hedge_ms and float(hedge_ms) > 0:
+                out, failed, last_err = self._route_hedged(
+                    body, timeout, float(hedge_ms) / 1e3, tctx=tctx)
+                if out is not None:
+                    if root is not None:
+                        root.tag(outcome="ok")
+                        out.setdefault("trace_id", tctx.trace_id)
+                    return out
+                # every arm went dark: the loop below replays, the
+                # failed ranks excluded
+            for _ in range(max(int(attempts), 1)):
+                ann = self.pick(exclude=failed)
+                if ann is None:
+                    if failed:
+                        raise RuntimeError(
+                            f"routing failed: every live worker errored "
+                            f"({sorted(failed)}): {last_err}")
+                    raise RuntimeError("no live serve workers announced")
+                leg = _tracing.start_span(
+                    "route.attempt", tctx, rank=int(ann["rank"]),
+                    mode="replay" if failed else "first")
+                try:
+                    out = self._post_generate(ann, body, timeout, span=leg)
+                    if leg is not None:
+                        leg.end(outcome="ok")
+                        out.setdefault("trace_id", tctx.trace_id)
+                    if root is not None:
+                        root.tag(outcome="ok")
+                    return out
+                except urllib.error.HTTPError as e:
+                    if e.code >= 500:
+                        # the worker's fault: the next candidate
+                        last_err = e
+                        failed.add(ann["rank"])
+                        self._note_failure(ann, e, span=leg)
+                        continue
+                    # the request's fault: every worker would say so
+                    if leg is not None:
+                        leg.end(outcome="rejected", code=e.code)
+                    try:
+                        detail = json.loads(e.read().decode()).get(
+                            "error", "")
+                    except (ValueError, OSError):
+                        detail = ""
+                    raise RuntimeError(
+                        f"request rejected by rank {ann['rank']} (HTTP "
+                        f"{e.code}): {detail or e.reason}") from e
+                except (OSError, ValueError) as e:
+                    last_err = e
+                    failed.add(ann["rank"])
+                    self._note_failure(ann, e, span=leg)
+                    continue
+                finally:
+                    self.credit(ann["rank"])
+            raise RuntimeError(
+                f"routing failed after {attempts} attempts: {last_err}")
+        finally:
+            if root is not None:
+                if "outcome" not in root.tags:
+                    root.tag(outcome="error")
+                root.end()
+
+    def _route_hedged(self, body: bytes, timeout: float, hedge_s: float,
+                      tctx=None):
+        """The primary at once; if nothing has landed after ``hedge_s``,
+        a backup on a second worker (``serve.hedges``). The first
+        answer wins and the loser's is dropped when it lands. Returns
+        ``(result or None, failed ranks, last error)``; each arm is a
+        ``route.attempt`` span tagged ``hedge=primary|backup``."""
+        primary = self.pick()
+        if primary is None:
+            return None, set(), None
+        cv = threading.Condition()
+        box: dict = {"errors": []}
+
+        def arm(ann, hedge_tag):
+            leg = _tracing.start_span("route.attempt", tctx,
+                                      rank=int(ann["rank"]), hedge=hedge_tag)
+            try:
+                out = self._post_generate(ann, body, timeout, span=leg)
+            except Exception as e:  # noqa: BLE001 - an arm's failure is data
+                with cv:
+                    box["errors"].append((ann, e, leg))
+                    cv.notify_all()
+            else:
+                with cv:
+                    won = "result" not in box
+                    box.setdefault("result", out)
+                    cv.notify_all()
+                if leg is not None:
+                    leg.end(outcome="ok" if won else "discarded")
+            finally:
+                self.credit(ann["rank"])
+
+        threading.Thread(target=arm, args=(primary, "primary"),
+                         name="hvd-route-primary", daemon=True).start()
+        arms = 1
+        deadline = time.monotonic() + timeout
+        with cv:
+            cv.wait(timeout=hedge_s)
+            if "result" not in box and not box["errors"]:
+                backup = self.pick(exclude={primary["rank"]})
+                if backup is not None:
+                    _metrics.counter("serve.hedges")
+                    arms = 2
+                    threading.Thread(target=arm, args=(backup, "backup"),
+                                     name="hvd-route-hedge",
+                                     daemon=True).start()
+            while "result" not in box and len(box["errors"]) < arms:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0 or not cv.wait(timeout=remaining):
+                    break
+            errors = list(box["errors"])
+            result = box.get("result")
+        failed: set = set()
+        last_err: Optional[Exception] = None
+        for ann, err, leg in errors:
+            failed.add(ann["rank"])
+            last_err = err
+            self._note_failure(ann, err, span=leg)
+        return result, failed, last_err
 
 
 class ServeHandle:
@@ -406,8 +875,10 @@ class ServeHandle:
     def port(self) -> int:
         return self.frontend.port
 
-    def drain(self, timeout: float = 30.0) -> bool:
-        return self.frontend.drain(timeout=timeout)
+    def drain(self, timeout: float = 30.0,
+              migrate_after: Optional[float] = None) -> bool:
+        return self.frontend.drain(timeout=timeout,
+                                   migrate_after=migrate_after)
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         """Block until stop()."""
@@ -427,6 +898,7 @@ class ServeHandle:
         self._stopped.set()
 
     def _drain_hook(self) -> None:
+        # the deadline from HOROVOD_SERVE_DRAIN_DEADLINE_S
         self.frontend.drain()
 
 
@@ -522,8 +994,8 @@ def serve(
     transfer_server = None
     if role == "decode" or (role == "unified" and engine.paged):
         # decode workers take prefill handoffs; a paged unified worker
-        # runs the server too, as the JAX one does (live migration's
-        # target, a later slice)
+        # runs the server too, so a draining peer can live-migrate its
+        # in-flight sequences here: a one-role fleet is still evacuable
         from .kv_transfer import KVTransferServer
 
         transfer_server = KVTransferServer(batcher, port=transfer_port,

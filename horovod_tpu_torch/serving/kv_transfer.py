@@ -1,12 +1,15 @@
 """Streamed KV-page transfer: the disaggregated fleet's wire.
 
-The counterpart of ``horovod_tpu/serving/kv_transfer.py`` (its live
-migration, the ``migrate`` frame, comes in a later slice). In a
+The counterpart of ``horovod_tpu/serving/kv_transfer.py``. In a
 role-split fleet a *prefill* worker runs the chunked prefill into its own
 page pool, then ships the finished pages to a *decode* worker, where the
 request enters continuous batching with its page table rebuilt by
 pointer (``engine.ingest_attach``). A long prompt's prefill therefore
-never runs on the worker that holds in-flight decode streams.
+never runs on the worker that holds in-flight decode streams. The same
+wire carries live migration: a draining worker's in-flight sequence,
+its pages, whole token history and sampling state, travels in a
+``migrate`` frame to a decode or unified peer and resumes there
+mid-decode with no prefill (:meth:`TransferCoordinator.migrate`).
 
 Wire format (``HOROVOD_SERVE_KV_WIRE``): ``int8`` (the default) sends
 block-scaled int8 pages at about a quarter of the pool's bytes, ``fp32``
@@ -34,14 +37,19 @@ through the capacity blobs (``frontend.put_announcement``):
 * ``POST /kv/ingest``: the framed pages; admits the request into the
   decode batcher and replies its id at once (idempotent by the sender's
   request id, so a retried stream never admits twice);
+* ``POST /kv/migrate``: a migrated sequence's frame, on the same
+  idempotency ledger (``serve.migrations_in``);
 * ``GET /kv/result``: a long poll for the finished decode.
 
 The sender (:class:`TransferCoordinator`, driven by the prefill
-batcher) picks the least-loaded announced decode worker, reserves,
-streams under a ``RetryPolicy`` with the ``serve.kv_transfer`` fault
-site fired on every attempt, and on exhaustion falls back to decoding
-locally (``serve.transfer_fallbacks``): a transfer outage degrades to a
-unified worker, it never errors the request.
+batcher or a deadline drain) picks the least-loaded announced target,
+reserves, streams under a ``RetryPolicy`` with the ``serve.kv_transfer``
+(or ``serve.migrate``) fault site fired on every attempt, and on
+exhaustion falls back to decoding locally (``serve.transfer_fallbacks``):
+a transfer outage degrades to a unified worker, it never errors the
+request. Packing the pages (B3 on the card for the int8 wire) runs
+before that fallback's reach: a kernel that fails ends the request
+``error`` and raises on the stream's thread.
 """
 
 from __future__ import annotations
@@ -64,11 +72,13 @@ from ..common.logging import get_logger
 from ..common.metrics import registry as _metrics
 from ..common.retry import RetryPolicy
 from ..ops.cuda_kernels import int8_block_dequantize, int8_block_quantize
+from ..runner.rendezvous import worker_role  # noqa: F401
 from ..testing import chaos as _chaos
 
 _log = get_logger("serve.kv_transfer")
 
 CHAOS_SITE = "serve.kv_transfer"
+MIGRATE_CHAOS_SITE = "serve.migrate"
 WIRE_FORMATS = ("fp32", "bf16", "int8")
 # the int8 block cap: clamped down to a divisor of the page's elements,
 # so a scale never spans two pages
@@ -92,14 +102,6 @@ def wire_block_size(page_elems: int, cap: int = DEFAULT_WIRE_BLOCK) -> int:
         if page_elems % b == 0:
             return b
     return 1
-
-
-def worker_role(ann: dict) -> str:
-    """The role a capacity announcement claims. Blobs of workers that
-    announce no ``role`` (older ones) are unified and stay routable, so
-    a missing or unknown value reads as ``"unified"``."""
-    role = ann.get("role", "unified")
-    return role if role in ("prefill", "decode", "unified") else "unified"
 
 
 # ------------------------------------------------------------ pack/unpack
@@ -277,6 +279,8 @@ class KVTransferServer:
                     code, obj = outer._handle_reserve(body)
                 elif path == "/kv/ingest":
                     code, obj = outer._handle_ingest(body)
+                elif path == "/kv/migrate":
+                    code, obj = outer._handle_migrate(body)
                 else:
                     code, obj = 404, {"error": "not found"}
                 # every reply is an NTP edge for the trace assembler
@@ -413,6 +417,61 @@ class KVTransferServer:
             self._results[rid] = req
         _metrics.counter("serve.kv_transfer_bytes_in", len(body))
         _metrics.counter("serve.kv_transfer_pages_in", len(meta["pages"]))
+        if span is not None:
+            span.end(outcome="ok", bytes=len(body))
+        return 200, {"rid": rid}
+
+    def _handle_migrate(self, body: bytes):
+        """The ``migrate`` frame: a live-migrated sequence (its pages,
+        its whole generated history and its sampling state) resuming
+        mid-decode with no prefill. The same idempotency ledger as
+        ingest: a stream retried after a mid-flight reset admits once."""
+        try:
+            meta, blob = unframe(body)
+        except (ValueError, json.JSONDecodeError) as e:
+            return 400, {"error": f"bad migrate frame: {e}"}
+        request_id = str(meta.get("request_id", ""))
+        tctx = _tracing.TraceContext.from_dict(meta.get("trace"))
+        span = _tracing.start_span("kv.migrate", tctx,
+                                   pages=len(meta.get("pages", ())))
+        with self._lock:
+            rid = self._by_request.get(request_id)
+            if rid is not None:
+                if span is not None:
+                    span.end(outcome="duplicate")
+                return 200, {"rid": rid, "duplicate": True}
+            if meta.get("reservation"):
+                self._reservations.pop(meta["reservation"], None)
+        if self.batcher.draining:
+            if span is not None:
+                span.end(outcome="draining")
+            return 503, {"error": "draining"}
+        try:
+            arrays = unpack_pages(meta, blob)
+            req = self.batcher.submit_migrated(
+                prompt=meta.get("prompt", ()),
+                tokens=meta["tokens"],
+                max_new_tokens=int(meta["max_new_tokens"]),
+                deadline_ms=meta.get("deadline_ms"),
+                logical=meta["pages"],
+                arrays=arrays,
+                length=int(meta["length"]),
+                sample=meta.get("sample"),
+                trace=span.ctx if span is not None else tctx,
+            )
+        except Exception as e:  # Rejected, malformed frames
+            _log.warning("kv migrate rejected: %s", e)
+            if span is not None:
+                span.end(outcome="error", error=str(e))
+            return 503, {"error": str(e)}
+        rid = uuid.uuid4().hex
+        with self._lock:
+            if request_id:
+                self._by_request[request_id] = rid
+            self._results[rid] = req
+        _metrics.counter("serve.kv_transfer_bytes_in", len(body))
+        _metrics.counter("serve.kv_transfer_pages_in", len(meta["pages"]))
+        _metrics.counter("serve.migrations_in")
         if span is not None:
             span.end(outcome="ok", bytes=len(body))
         return 200, {"rid": rid}
@@ -619,15 +678,16 @@ class TransferCoordinator:
                 wire=self.wire, seed=seed,
             )
 
-    def _post(self, url: str, body: bytes, timeout: float) -> dict:
-        """One HTTP attempt with the fault site fired first (the
+    def _post(self, url: str, body: bytes, timeout: float,
+              site: str = CHAOS_SITE) -> dict:
+        """One HTTP attempt with the fault ``site`` fired first (the
         RetryPolicy's unit of work): 5xx, 429 and transport faults raise
         retryably; any other 4xx is the frame's own fault and surfaces
         at once."""
         import urllib.error
         import urllib.request
 
-        _chaos.inject(CHAOS_SITE)
+        _chaos.inject(site)
         req = urllib.request.Request(
             url, data=body, method="POST",
             headers={"Content-Type": "application/octet-stream"},
@@ -659,19 +719,8 @@ class TransferCoordinator:
             rank=int(reservation.get("rank", -1)), pages=len(kept),
             wire=self.wire,
         )
-        try:
-            # outside the wire's fallback: a kernel that fails here fails
-            # the request and raises, it never decodes locally
-            if self.engine.device.type == "cuda":
-                torch.cuda.set_device(self.engine.device)
-            with _tracing.active(span):
-                meta, blob = self.pack(raw, kept, length, seed=req.id)
-        except Exception as e:
-            if span is not None:
-                span.end(outcome="error", error=f"{type(e).__name__}: {e}")
-            self._credit(reservation)
-            batcher.fail_handoff(req, kept)
-            raise
+        meta, blob = self._pack_or_fail(batcher, req, kept, length,
+                                        reservation, raw, span)
         del raw
         try:
             with _tracing.active(span):
@@ -735,6 +784,117 @@ class TransferCoordinator:
             return
         # the remote decode finished: the local page holds can go (the
         # prefix index may still hold published pages)
+        self.engine.manager.release_kept(kept)
+        batcher.complete_handoff(req, result)
+
+    def _pack_or_fail(self, batcher, req, kept, length, reservation, raw,
+                      span):
+        """Pack on the stream's thread, outside the wire's fallback: a
+        kernel that fails here fails the request (``error``, its pages
+        released) and raises; it never decodes locally."""
+        try:
+            if self.engine.device.type == "cuda":
+                torch.cuda.set_device(self.engine.device)
+            with _tracing.active(span):
+                return self.pack(raw, kept, length, seed=req.id)
+        except Exception as e:
+            if span is not None:
+                span.end(outcome="error", error=f"{type(e).__name__}: {e}")
+            self._credit(reservation)
+            batcher.fail_handoff(req, kept)
+            raise
+
+    # ------------------------------------------------------------ migration
+
+    def migrate(self, batcher, rec: dict) -> bool:
+        """Live-migrate one exported in-flight sequence (a record of
+        ``batcher.export_inflight``: the request, its detached pages and
+        its sampling state) to a reserved decode or unified peer. On the
+        drain's thread only the reservation and the device gather run;
+        packing and HTTP run on a thread of their own. With no capacity
+        anywhere the request comes home for a local decode
+        (``requeue_fallback``) and this returns False."""
+        req, kept, length = rec["req"], rec["kept"], rec["length"]
+        reservation = self.reserve(len(kept), roles=("decode", "unified"),
+                                   trace=getattr(req, "trace", None))
+        if reservation is None:
+            batcher.requeue_fallback(req, kept, length)
+            return False
+        raw = self.engine.gather_pages(kept)
+        threading.Thread(
+            target=self._stream_migrate,
+            args=(batcher, rec, reservation, raw),
+            name=f"hvd-kv-migrate-{req.id}",
+            daemon=True,
+        ).start()
+        return True
+
+    def _stream_migrate(self, batcher, rec, reservation, raw):
+        req, kept, length = rec["req"], rec["kept"], rec["length"]
+        base = f"http://{reservation['addr']}:{reservation['port']}"
+        t0 = time.perf_counter()
+        span = _tracing.start_span(
+            "kv.migrate", getattr(req, "trace", None),
+            rank=int(reservation.get("rank", -1)), pages=len(kept),
+            wire=self.wire, tokens=len(req.out_tokens),
+        )
+        meta, blob = self._pack_or_fail(batcher, req, kept, length,
+                                        reservation, raw, span)
+        del raw
+        try:
+            with _tracing.active(span):
+                remaining_ms = None
+                if req.deadline_ts is not None:
+                    remaining_ms = max(
+                        (req.deadline_ts - time.monotonic()) * 1e3, 1.0)
+                meta.update(
+                    request_id=f"{id(self)}-mig-{req.id}",
+                    reservation=reservation["rid"],
+                    prompt=[int(t) for t in req.prompt],
+                    # the whole generated history: the receiver continues
+                    # mid-decode and never decodes a token again
+                    tokens=[int(t) for t in req.out_tokens],
+                    max_new_tokens=int(req.max_new_tokens),
+                    deadline_ms=remaining_ms,
+                    sample=rec.get("sample"),
+                )
+                if span is not None:
+                    meta["trace"] = span.ctx.to_dict()
+                body = frame(meta, blob)
+                out = self._retry.call(
+                    self._post, base + "/kv/migrate", body,
+                    self._retry.attempt_timeout_s, MIGRATE_CHAOS_SITE,
+                    peer=base,
+                )
+            migration_ms = (time.perf_counter() - t0) * 1e3
+            _metrics.counter("serve.kv_transfer_bytes", len(body))
+            _metrics.counter("serve.kv_transfer_pages", len(kept))
+            _metrics.counter("serve.migrations")
+            _metrics.counter("serve.migration_ms", migration_ms)
+            if span is not None:
+                span.end(outcome="ok", bytes=len(body),
+                         migration_ms=round(migration_ms, 3))
+            result = self._await_result(base, out["rid"])
+        except Exception as e:  # any wire failure falls back
+            _log.warning(
+                "live migration of request %d to rank %s failed (%s); "
+                "falling back to local decode", req.id,
+                reservation.get("rank"), e,
+            )
+            if span is not None:
+                span.end(outcome="fallback",
+                         error=f"{type(e).__name__}: {e}")
+            self._credit(reservation)
+            batcher.requeue_fallback(req, kept, length)
+            return
+        self._credit(reservation)
+        if result.get("status") not in ("done", "deadline"):
+            _log.warning(
+                "migration target returned status %r for request %d; "
+                "falling back to local decode", result.get("status"), req.id,
+            )
+            batcher.requeue_fallback(req, kept, length)
+            return
         self.engine.manager.release_kept(kept)
         batcher.complete_handoff(req, result)
 

@@ -35,10 +35,21 @@ site                      where it fires
                           exhaustion falls the request back to local decode,
                           counted in ``serve.transfer_fallbacks``, never a
                           client-visible 500)
+``serve.worker_kill``     serving scheduler, top of every batcher round
+                          (``serving/batcher.py`` ``step``; transport kinds
+                          crash the scheduler: accepted requests abort and
+                          the Router's replay path fires, ``serve.replays``;
+                          ``kill`` SIGKILLs the worker for the subprocess
+                          drills)
+``serve.migrate``         each HTTP attempt of a live-migration stream
+                          (``serving/kv_transfer.py`` ``migrate`` frame;
+                          transport faults retry under the RetryPolicy,
+                          exhaustion brings the sequence home for a local
+                          decode, ``serve.transfer_fallbacks``, never a
+                          dropped request)
 ========================  ====================================================
 
-The JAX package's ``serve.worker_kill`` and ``serve.migrate`` sites come
-with the fleet's router and live migration (ROADMAP A15). Sites the library does not own (a script's training loop, as
+Sites the library does not own (a script's training loop, as
 ``train.step.rank<r>`` in ``chip_smoke.py``'s phase 18) can call
 :func:`inject` with their own names; the plan does not care.
 

@@ -811,3 +811,73 @@ def test_decode_graph_replay_equals_eager(cuda_card):
     assert eng.stats()["decode_compiles"] == 1
     assert eng.graph_launches()["replays"] == 3
     assert eng.graph_launches()["per_replay"]["paged_attention"] == 2
+
+
+def test_migrated_sequence_equals_unmigrated(cuda_card):
+    """Live migration between two CUDA engines: a greedy and a sampled
+    sequence exported mid-decode from a unified worker resume on a
+    decode worker (its captured graph, no prefill) and give the tokens of
+    the same requests run unmigrated on one engine, bitwise."""
+    import json
+    import time as _time
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.serving import (
+        ContinuousBatcher,
+        InferenceEngine,
+        KVTransferServer,
+        TransferCoordinator,
+    )
+
+    cfg = tt.TransformerConfig(vocab_size=512, num_layers=2, d_model=256,
+                               num_heads=4, d_ff=512, max_len=128)
+    model = tt.Transformer(cfg, device=cuda_card,
+                           generator=torch.Generator(
+                               device=cuda_card).manual_seed(0))
+    jobs = [(list(range(1, 40)), {}),
+            (list(range(5, 30)), dict(temperature=0.7, top_k=7, seed=42))]
+
+    def engine(role="unified"):
+        return InferenceEngine(model, None, slots=4, max_len=128,
+                               device=cuda_card, page_tokens=16, role=role)
+
+    ref = ContinuousBatcher(engine())
+    reqs = [ref.submit(p, max_new_tokens=12, **kw) for p, kw in jobs]
+    while not all(r.finished() for r in reqs):
+        ref.step()
+    want = [r.result()["tokens"] for r in reqs]
+
+    dbat = ContinuousBatcher(engine("decode"), role="decode")
+    server = KVTransferServer(dbat, port=0, addr="127.0.0.1")
+    server.start()
+    dbat.start()
+
+    class _Client:
+        def keys(self, scope):
+            return ["0"] if scope == "serve" else []
+
+        def get(self, scope, key):
+            return json.dumps({
+                "port": 1, "addr": "127.0.0.1", "role": "decode",
+                "transfer_port": server.port, "free_pages": 100,
+                "free_slots": 4, "ts": _time.time()}).encode()
+
+    try:
+        seng = engine()
+        sbat = ContinuousBatcher(seng)
+        coord = TransferCoordinator(seng, client=_Client(), wire="fp32")
+        reqs = [sbat.submit(p, max_new_tokens=12, **kw) for p, kw in jobs]
+        for _ in range(5):
+            sbat.step()
+        assert all(r.status == "running" for r in reqs)
+        for rec in sbat.export_inflight():
+            assert coord.migrate(sbat, rec)
+        for r in reqs:
+            assert r.wait(timeout=120) and r.status == "done"
+        assert [r.result()["tokens"] for r in reqs] == want
+        stats = dbat.engine.stats()
+        assert stats["prefills"] == 0 and stats["decode_compiles"] == 1
+        assert stats["transfer_ingests"] == 2
+    finally:
+        dbat.stop()
+        server.stop()

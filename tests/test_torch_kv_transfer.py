@@ -12,8 +12,14 @@ model, staggered multi-slot admissions), and on the int8 wire a greedy
 match of at least 0.9; the role gates, reservation denial and
 failover, a retried mid-transfer reset, the fallback to local decode on
 exhaustion and the local path without capacity (both with no 5xx), the
-capacity blob's keys and roleless announcements. The JAX unified
-tokens are computed once for the module. The port runs with
+capacity blob's keys and roleless announcements. Live migration (the
+``migrate`` frame): a sequence exported mid-decode resumes on a decode
+worker with the JAX unified tokens bit for bit (fp32 wire), a sampled
+one with the tokens of the port's own unmigrated run (torch's Philox is
+not ``jax.random``), the drain deadline migrates, a ``serve.migrate``
+reset admits once, no capacity decodes locally, and a quantizer that
+fails while packing ends the request ``error`` with no fallback. The
+JAX unified tokens are computed once for the module. The port runs with
 ``device="cpu"``, where each kernel wrapper takes its plain version."""
 
 import json
@@ -58,6 +64,10 @@ GQA = dict(prompt=list(range(2, 14)), n=6)
 STAGGERED = [list(range(1, 8)), list(range(3, 15)), [7, 5, 3, 2, 9]]
 INT8 = [list(range(1, 10)), list(range(5, 17)), [9, 1, 4, 4, 8]]
 FALLBACK = list(range(1, 9))
+# live migration: (prompt, tokens), exported after 4 rounds mid-decode
+MIGRATE = [(list(range(1, 9)), 10), (list(range(2, 10)), 10),
+           (list(range(1, 8)), 9), (list(range(4, 12)), 8)]
+SAMPLED = dict(temperature=0.7, top_k=7, seed=42)
 
 
 def _models(**kw):
@@ -92,13 +102,14 @@ def oracle():
     of every job below)."""
     jm, jp, tm = _models()
     jobs = ([(MHA["prompt"], MHA["n"])] + [(p, 6) for p in STAGGERED]
-            + [(p, 8) for p in INT8] + [(FALLBACK, 5)])
+            + [(p, 8) for p in INT8] + [(FALLBACK, 5)] + MIGRATE)
     toks = _jax_unified(jm, jp, jobs)
     jg, jgp, tg = _models(rope=True, num_kv_heads=1)
     (gqa,) = _jax_unified(jg, jgp, [(GQA["prompt"], GQA["n"])])
     return {
         "mha": tm, "gqa": tg, "mha_tokens": toks[0],
         "staggered": toks[1:4], "int8": toks[4:7], "fallback": toks[7],
+        "migrate": toks[8:],
         "gqa_tokens": gqa, "jax": (jm, jp),
     }
 
@@ -619,3 +630,202 @@ def test_export_import_sampling_continues_the_stream(oracle):
     got = _sample_next(logits, b._sample_temps, b._sample_topks,
                        b._generators)[1]
     assert int(got) == int(want) and first is a._generators[1]
+
+
+# ------------------------------------------------------- live migration
+
+
+def _receiver(model):
+    """A decode worker behind a real KVTransferServer, its scheduler
+    running: where migrated sequences land."""
+    deng = _engine(model, "decode")
+    dbat = ContinuousBatcher(deng, role="decode")
+    server = tkv.KVTransferServer(dbat, port=0, addr="127.0.0.1")
+    server.start()
+    dbat.start()
+    return dbat, server
+
+
+def _mid_decode(model, prompt, n, client, wire="fp32", retry=None,
+                submit_kw=None):
+    """A unified worker of the port stepped 4 rounds: (batcher, its
+    coordinator, the request, mid-decode)."""
+    seng = _engine(model)
+    sbat = ContinuousBatcher(seng, default_max_new_tokens=8)
+    coord = tkv.TransferCoordinator(seng, client=client, wire=wire,
+                                    retry=retry)
+    req = sbat.submit(prompt, max_new_tokens=n, **(submit_kw or {}))
+    for _ in range(4):
+        sbat.step()
+    assert req.status == "running" and 2 <= len(req.out_tokens) < n
+    return sbat, coord, req
+
+
+def _port_unified(model, prompt, n, **kw):
+    bat = ContinuousBatcher(_engine(model))
+    req = bat.submit(prompt, max_new_tokens=n, **kw)
+    while not req.finished():
+        bat.step()
+    return req.result()["tokens"]
+
+
+def test_migration_mid_decode_equals_jax_unified(oracle):
+    """A sequence exported mid-decode resumes on the decode worker with
+    its whole token history and no prefill: on the fp32 wire its tokens
+    are the JAX unified tokens, bit for bit."""
+    (prompt, n), want = MIGRATE[0], oracle["migrate"][0]
+    dbat, server = _receiver(oracle["mha"])
+    before = metrics.snapshot()
+    try:
+        sbat, coord, req = _mid_decode(
+            oracle["mha"], prompt, n,
+            _Announcements({0: _decode_ann(0, server.port)}))
+        records = sbat.export_inflight()
+        assert len(records) == 1 and sbat._handoffs == 1
+        assert coord.migrate(sbat, records[0])
+        assert req.wait(timeout=30) and req.status == "done"
+        assert req.result()["tokens"] == want
+        after = metrics.snapshot()
+        for key in ("serve.migrations", "serve.migrations_in"):
+            assert after.get(key, 0) == before.get(key, 0) + 1, key
+        assert dbat.engine.stats()["prefills"] == 0
+        assert dbat.engine.stats()["transfer_ingests"] == 1
+        assert sbat._handoffs == 0
+        assert sbat.engine.manager.stats()["pages_active"] == 0
+    finally:
+        dbat.stop()
+        server.stop()
+
+
+def test_migration_continues_the_sampling_stream(oracle):
+    """A sampled sequence migrated mid-decode draws what the same request
+    unmigrated on one worker of the port draws: the generator's raw
+    state travels, not the seed (re-seeding would fork the stream)."""
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+    want = _port_unified(oracle["mha"], prompt, 10, **SAMPLED)
+    dbat, server = _receiver(oracle["mha"])
+    try:
+        sbat, coord, req = _mid_decode(
+            oracle["mha"], prompt, 10,
+            _Announcements({0: _decode_ann(0, server.port)}),
+            submit_kw=SAMPLED)
+        (rec,) = sbat.export_inflight()
+        assert rec["sample"]["temperature"] == np.float32(0.7)
+        assert coord.migrate(sbat, rec)
+        assert req.wait(timeout=30) and req.status == "done"
+        assert req.result()["tokens"] == want
+    finally:
+        dbat.stop()
+        server.stop()
+
+
+def test_drain_deadline_migrates_inflight(oracle):
+    """``ServeFrontend.drain(migrate_after=0)`` exports the in-flight
+    slot and streams it out; the drain returns True and the request
+    completes remotely with the JAX unified tokens."""
+    (prompt, n), want = MIGRATE[1], oracle["migrate"][1]
+    dbat, server = _receiver(oracle["mha"])
+    try:
+        sbat, coord, req = _mid_decode(
+            oracle["mha"], prompt, n,
+            _Announcements({0: _decode_ann(0, server.port)}))
+        sbat.transfer = coord
+        before = metrics.snapshot().get("serve.migrations", 0)
+        fe = ServeFrontend(sbat, port=0, addr="127.0.0.1")
+        try:
+            assert fe.drain(timeout=30.0, migrate_after=0.0)
+        finally:
+            fe.stop()
+        assert req.finished() and req.status == "done"
+        assert req.result()["tokens"] == want
+        assert metrics.snapshot().get("serve.migrations", 0) == before + 1
+    finally:
+        dbat.stop()
+        server.stop()
+
+
+def test_migration_reset_admits_exactly_once(oracle):
+    """``serve.migrate@1:reset``: the retry re-POSTs the same frame and
+    the receiver's ledger admits it once; the tokens stay the JAX
+    unified tokens."""
+    (prompt, n), want = MIGRATE[2], oracle["migrate"][2]
+    chaos.configure("seed=7;serve.migrate@1:reset")
+    retry = RetryPolicy("serve.kv_transfer", attempts=3, backoff_ms=1.0,
+                        attempt_timeout_s=10.0)
+    dbat, server = _receiver(oracle["mha"])
+    before = metrics.snapshot()
+    try:
+        sbat, coord, req = _mid_decode(
+            oracle["mha"], prompt, n,
+            _Announcements({0: _decode_ann(0, server.port)}), retry=retry)
+        (rec,) = sbat.export_inflight()
+        assert coord.migrate(sbat, rec)
+        assert req.wait(timeout=30) and req.status == "done"
+        assert req.result()["tokens"] == want
+        snap = metrics.snapshot()
+        assert snap.get("chaos.serve.migrate.reset", 0) >= 1
+        assert snap.get("serve.migrations_in", 0) == before.get(
+            "serve.migrations_in", 0) + 1
+        assert dbat.engine.stats()["transfer_ingests"] == 1
+    finally:
+        dbat.stop()
+        server.stop()
+
+
+def test_migration_without_capacity_decodes_locally(oracle):
+    """No peer announced: the exported record comes home paused on its
+    own pages and the same drain finishes it, counted in
+    ``serve.transfer_fallbacks``, with the JAX unified tokens."""
+    (prompt, n), want = MIGRATE[3], oracle["migrate"][3]
+    sbat, coord, req = _mid_decode(oracle["mha"], prompt, n,
+                                   _Announcements({}))
+    before = metrics.snapshot().get("serve.transfer_fallbacks", 0)
+
+    def on_deadline(records):
+        for rec in records:
+            assert not coord.migrate(sbat, rec)
+
+    assert sbat.drain(timeout=30.0, migrate_after=0.0,
+                      on_deadline=on_deadline)
+    assert req.status == "done" and req.result()["tokens"] == want
+    assert metrics.snapshot().get("serve.transfer_fallbacks", 0) == before + 1
+
+
+def test_migration_pack_failure_raises_and_never_falls_back(oracle,
+                                                            monkeypatch):
+    """The int8 quantizer failing while a migration packs is a kernel's
+    fault: the request ends ``error``, the migrate thread raises it, the
+    pages go back, and no local decode (``serve.transfer_fallbacks``)
+    hides it. Packing runs before the wire's retry and fallback."""
+    def broken(*args, **kw):
+        raise RuntimeError("block quantizer failed to launch")
+
+    raised = []
+    monkeypatch.setattr(tkv, "int8_block_quantize", broken)
+    monkeypatch.setattr(
+        "threading.excepthook", lambda hook: raised.append(hook.exc_value))
+    dbat, server = _receiver(oracle["mha"])
+    before = metrics.snapshot()
+    try:
+        sbat, coord, req = _mid_decode(
+            oracle["mha"], MIGRATE[0][0], MIGRATE[0][1],
+            _Announcements({0: _decode_ann(0, server.port)}), wire="int8")
+        (rec,) = sbat.export_inflight()
+        assert coord.migrate(sbat, rec)
+        assert req.wait(timeout=30) and req.status == "error"
+        deadline = time.monotonic() + 10
+        while not raised and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert [str(e) for e in raised] == [
+            "block quantizer failed to launch"]
+        after = metrics.snapshot()
+        for key, grew in (("serve.transfer_fallbacks", 0),
+                          ("serve.errored", 1), ("serve.migrations", 0),
+                          ("serve.migrations_in", 0)):
+            assert after.get(key, 0) - before.get(key, 0) == grew, key
+        assert sbat._handoffs == 0
+        assert sbat.engine.manager.stats()["pages_active"] == 0
+        assert dbat.engine.stats()["transfer_ingests"] == 0
+    finally:
+        dbat.stop()
+        server.stop()

@@ -132,13 +132,22 @@ def test_unported_paths_raise():
     assert isinstance(moe.blocks[0].moe, tt.MoEFFN)
     with pytest.raises(ValueError, match="position"):
         tt.init_cache(tcfg, 1, 128)
+    # the sliding window is ported on the cached path too: the slab read
+    # gives the uncached forward's logits (tolerance ATOL); only the
+    # paged kernel, which has no window, refuses it
     windowed = tt.Transformer(dataclasses.replace(tcfg, sliding_window=4),
                               device="cpu")
+    seq = torch.from_numpy(np.random.default_rng(5).integers(0, 61, (1, 9)))
     with torch.no_grad():
-        windowed(torch.zeros((1, 6), dtype=torch.long))  # uncached: fine
-        with pytest.raises(NotImplementedError, match="sliding_window"):
-            windowed(torch.zeros((1, 2), dtype=torch.long),
-                     cache=tt.init_cache(tcfg, 1, 16), cache_index=[0])
+        want = windowed(seq)[:, -1:]
+        cache = tt.init_cache(tcfg, 1, 16)
+        windowed(seq[:, :8], cache=cache, cache_index=[0])
+        got = windowed(seq[:, 8:], cache=cache, cache_index=[8])
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+        with pytest.raises(ValueError, match="sliding_window"):
+            windowed(seq[:, :2], cache=tt.init_cache(tcfg, 4, 4),
+                     cache_index=[0], pages=np.zeros((1, 4), np.int32),
+                     paged_attn=True)
 
 
 def test_default_device_needs_a_card():
