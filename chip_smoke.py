@@ -191,7 +191,25 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    alltoall on integer-valued fp32 and on the int32 expert map, and
    ``quantized_alltoall`` within one quantum of its block, pad slots
    exact zeros. It prints each arm's step times, each rank's peak
-   memory and the launch counts.
+   memory and the launch counts. (e) The sharded serving engine in the
+   same world: ``MeshSpec(ep=2, tp=2)``, GPT-2 medium's widths at 4
+   layers with 4 experts (each rank 8 KV heads of 64 and 2 experts, cut
+   by ``convert.shard_state_dict`` from one whole model), rank 0 the
+   leader, the others following its operations. (e1) fp32: phase 3's
+   prompts of 16, 129, 400 and 700 tokens, 16 greedy tokens each,
+   through ``ContinuousBatcher`` on the leader: every request done,
+   the tokens equal to an unsharded engine's on the whole weights and,
+   for the 129-token prompt, to the uncached argmax loop; no
+   tensor-core launch. (e2) bf16 through ``serve(mesh=)``: HTTP on the
+   leader only, every request done, on every rank the B7 counters
+   (zeroed just before) show decode launches equal to layers × decode
+   steps (the sharded step is eager: ``decode_compiles`` 0) and every
+   chunk launch on the tensor cores. (e3) B7 at a rank's geometry over
+   (e2)'s pool, a decode and a 256-row chunk, within one bf16 rounding
+   of its plain version. It prints the ``serving mesh:`` line (each
+   rank's launches, pool heads and experts, (e1)'s equalities, (e2)'s
+   TTFT and TPOT p50, the arm's seconds); (e)'s launches join rows 9a
+   and 9b of the ``kernels`` line, and (e1)'s argmax loop B5's.
 18. Launch and durability: the port's launcher (``python -m
    horovod_tpu_torch.runner -np 4 --gloo``) starts 4 processes on the
    card, each this script with ``--worker18 <arm>``; GPT-2 medium's
@@ -4912,6 +4930,192 @@ def _mp_kernels(rank, n):
     return out, checks
 
 
+# (e): the sharded serving engine on ep 2 × tp 2, phase 3's prompts of
+# 16, 129, 400 and 700 tokens, 16 greedy tokens each; the 129-token one
+# is held against the uncached argmax loop
+MP_SERVE_PROMPTS = (0, 3, 5, 6)
+MP_SERVE_CHECKED = 1
+MP_SERVE_TOKENS = 16
+MP_SERVE_SLOTS = 4
+MP_SERVE_MAX_LEN = 1024
+MP_SERVE_CHUNK = 256
+
+
+def _mp_paged():
+    from horovod_tpu_torch.ops import paged_attention as pa
+
+    fn = pa.paged_attention
+    return {"decode": fn.launches - fn.chunk_launches,
+            "tiled": fn.chunk_launches, "tiled_tensor_cores": fn.tc_launches}
+
+
+def _mp_zero_paged():
+    from horovod_tpu_torch.ops import paged_attention as pa
+
+    fn = pa.paged_attention
+    fn.launches = fn.chunk_launches = fn.tc_launches = 0
+
+
+def _mp_serve_run(eng, prompts):
+    """The leader's ContinuousBatcher over ``prompts``, stepped to the
+    end; each request's status and tokens."""
+    from horovod_tpu_torch.serving import ContinuousBatcher
+
+    bat = ContinuousBatcher(eng, default_max_new_tokens=MP_SERVE_TOKENS)
+    reqs = [bat.submit(p, max_new_tokens=MP_SERVE_TOKENS) for p in prompts]
+    while not all(r.finished() for r in reqs):
+        bat.step()
+    return [r.status for r in reqs], [list(r.out_tokens) for r in reqs]
+
+
+def _mp_within_rounding(got, ref):
+    """|kernel − plain| within one bf16 ulp of the larger magnitude (as
+    ``_check_one_rounding``, without leaving the rank)."""
+    diff = (got.float() - ref.float()).abs()
+    tol = _ulp_bf16(ref.float().abs().maximum(got.float().abs()))
+    return bool(got.float().isfinite().all() and (diff <= tol).all()), \
+        float(diff.max())
+
+
+def _mp_serving(rank, n):
+    """(e): the sharded serving engine on ``MeshSpec(ep=2, tp=2)``, a
+    rank of GPT-2 medium's widths at ``GLOO_LAYERS`` layers with 4
+    experts (weights from the seed; every rank cuts its shard from the
+    same whole model). (e1) fp32: the leader serves 4 of phase 3's
+    prompts through ``ContinuousBatcher``, the others follow; then, on
+    the leader, an unsharded engine on the whole weights and the
+    uncached argmax loop for one prompt. (e2) bf16 through
+    ``serve(mesh=)``: HTTP on the leader, none on the followers; each
+    rank's B7 counters zeroed just before. (e3) B7 at this rank's
+    geometry (8 heads of 64) over (e2)'s pool, a decode and a 256-row
+    chunk against its plain version. Returns (readings, checks)."""
+    import dataclasses
+
+    import torch
+
+    from horovod_tpu_torch import Transformer, TransformerConfig
+    from horovod_tpu_torch.models.convert import shard_state_dict
+    from horovod_tpu_torch.ops import paged_attention as pa
+    from horovod_tpu_torch.parallel import MeshSpec
+    from horovod_tpu_torch.serving import InferenceEngine, serve
+
+    t0 = time.monotonic()
+    checks, out = {}, {}
+    mesh = MeshSpec(ep=2, tp=2).build()
+    cfg = TransformerConfig(vocab_size=MP_VOCAB, num_layers=GLOO_LAYERS,
+                            d_model=1024, num_heads=16, d_ff=4096,
+                            max_len=MP_SERVE_MAX_LEN, moe_experts=4,
+                            dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 17)
+    whole = Transformer(cfg, device="cuda", generator=gen)
+    shard = shard_state_dict(whole.state_dict(), cfg, mesh)
+    all_prompts, _ = serve_prompts(50257)  # phase 3's
+    prompts = [all_prompts[i] for i in MP_SERVE_PROMPTS]
+    kw = dict(slots=MP_SERVE_SLOTS, max_len=MP_SERVE_MAX_LEN,
+              prefill_ceiling=MP_SERVE_CHUNK, device="cuda", mesh=mesh)
+
+    # (e1) fp32, eager on every rank
+    _mp_zero_paged()
+    eng = InferenceEngine(Transformer(cfg, device="cuda", mesh=mesh), shard,
+                          **kw)
+    out["leader"] = eng.leader
+    out["pool_heads"] = sorted({leaf.shape[2] for layer in eng.manager.cache
+                                for leaf in layer.values()})
+    out["experts"] = eng.model.blocks[0].moe.w1.shape[0]
+    if eng.leader:
+        status, toks = _mp_serve_run(eng, prompts)
+        eng.close()
+    else:
+        eng.follow()
+    torch.cuda.synchronize()
+    out["e1_paged"] = _mp_paged()
+    out["e1_stats"] = eng.stats()
+    checks["e1 no tensor-core launch in fp32"] = \
+        out["e1_paged"]["tiled_tensor_cores"] == 0
+    checks["e1 decode launches = layers x steps"] = (
+        out["e1_paged"]["decode"]
+        == GLOO_LAYERS * out["e1_stats"]["decode_steps"])
+    del eng
+    if out["leader"]:
+        checks["e1 every request done"] = status == ["done"] * len(prompts)
+        ref = InferenceEngine(whole, None, slots=MP_SERVE_SLOTS,
+                              max_len=MP_SERVE_MAX_LEN,
+                              prefill_ceiling=MP_SERVE_CHUNK, device="cuda")
+        _, ref_toks = _mp_serve_run(ref, prompts)
+        del ref
+        _zero_flash()
+        loop = _full_forward_greedy(whole, prompts[MP_SERVE_CHECKED],
+                                    MP_SERVE_TOKENS)
+        out["e1_flash"] = _read_flash()
+        out["e1_equal_unsharded"] = toks == ref_toks
+        out["e1_equal_argmax_loop"] = toks[MP_SERVE_CHECKED] == loop
+        checks["e1 tokens equal the unsharded engine's"] = \
+            out["e1_equal_unsharded"]
+        checks["e1 tokens equal the uncached argmax loop"] = \
+            out["e1_equal_argmax_loop"]
+    del whole
+    torch.cuda.empty_cache()
+
+    # (e2) bf16 through serve(mesh=)
+    cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    _mp_zero_paged()
+    handle = serve(Transformer(cfg16, device="cuda", mesh=mesh), shard,
+                   port=0, max_new_tokens=MP_SERVE_TOKENS, addr="127.0.0.1",
+                   handle_sigterm=False, **kw)
+    if handle.port is not None:
+        results, wall = _burst(handle.port, prompts, MP_SERVE_TOKENS)
+        slo = handle.batcher.recorder.summaries()
+        handle.stop()
+        checks["e2 every request done over HTTP"] = all(
+            code == 200 and body.get("status") == "done"
+            and len(body["tokens"]) == MP_SERVE_TOKENS
+            for code, body in results)
+        out["e2_wall_s"] = wall
+        out["e2_ttft_ms_p50"] = slo["ttft_ms"]["p50"]
+        out["e2_tpot_ms_p50"] = slo["tpot_ms"]["p50"]
+    else:
+        checks["e2 the follower ended on the leader's stop"] = (
+            handle.wait(timeout=MP_TIMEOUT_S) and handle.error is None)
+    torch.cuda.synchronize()
+    eng = handle.engine
+    out["e2_paged"] = _mp_paged()
+    out["e2_stats"] = eng.stats()
+    p = out["e2_paged"]
+    checks["e2 decode launches = layers x steps"] = (
+        p["decode"] == GLOO_LAYERS * out["e2_stats"]["decode_steps"] > 0)
+    checks["e2 every chunk launch on the tensor cores"] = (
+        p["tiled"] == p["tiled_tensor_cores"] > 0)
+    checks["e2 decode_compiles 0 (eager)"] = (
+        out["e2_stats"]["decode_compiles"] == 0
+        and out["e2_stats"]["decode_graphed"] == 0)
+
+    # (e3) B7 at this rank's geometry over (e2)'s pool, kernel vs plain
+    k, v = eng.manager.cache[0]["k"], eng.manager.cache[0]["v"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 170 + rank)
+    table = torch.randperm(k.shape[0], generator=g, device="cuda")[
+        :eng.manager.pages_per_slot].to(torch.int32)[None]
+    out["e3"] = {}
+    for label, t, start in (("decode", 1, 700),
+                            (f"chunk{MP_SERVE_CHUNK}", MP_SERVE_CHUNK, 444)):
+        q = torch.randn((1, t, k.shape[2], k.shape[3]), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        idx = torch.tensor([start], dtype=torch.int32, device="cuda")
+        tc = pa.paged_attention.tc_launches
+        got = pa.paged_attention(q, k, v, table, idx, causal=True)
+        ref = pa.paged_attention_plain(q, k, v, table, idx, causal=True)
+        ok, err = _mp_within_rounding(got, ref)
+        out["e3"][label] = {"heads": k.shape[2], "max_abs_err": err,
+                            "tensor_cores": pa.paged_attention.tc_launches
+                            - tc}
+        checks[f"e3 {label} within one bf16 rounding of plain"] = ok
+    del eng, handle
+    torch.cuda.empty_cache()
+    out["e_s"] = time.monotonic() - t0
+    return out, checks
+
+
 def _mp_rank(rank, n, port, results):
     """One rank of phase 17: its own process on the one card in a gloo
     world of 4 that ``hvd.init`` adopts. Puts ``(rank, readings)``."""
@@ -4958,6 +5162,9 @@ def _mp_rank(rank, n, port, results):
     t0 = time.monotonic()
     out["d"], out["d_checks"] = _mp_kernels(rank, n)
     out["d_s"] = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["e"], out["e_checks"] = _mp_serving(rank, n)
     hvd.shutdown()
     dist.destroy_process_group()
     results.put((rank, out))
@@ -5024,8 +5231,10 @@ def phase_model_parallel(card):
     tp 2 (flash ring), pp 2 × ep 2 (1F1B) and dp 2 × sp 2 (dense ring),
     each against dp 4's parameters (rtol 5e-4, atol 1e-5) and loss (rtol
     1e-5); (d) Ulysses and the GQA flash ring over sp 4 through B5/B6
-    against their plain twins, and the expert alltoalls. Returns the
-    launches of (a)–(c)."""
+    against their plain twins, and the expert alltoalls; (e) the sharded
+    serving engine on ep 2 × tp 2 (``_mp_serving``). Returns B3's
+    launches, the flash launches of (a)–(c) and (e1)'s argmax loop, and
+    (e)'s paged launches."""
     t_phase = time.monotonic()
     outs, wall_s = _mp_world()
     failed = []
@@ -5075,12 +5284,52 @@ def phase_model_parallel(card):
         bad = [k for k, ok in o["d_checks"].items() if not ok]
         if bad:
             failed.append(f"(d) rank {r}: {bad} {o['d']}")
+        bad = [k for k, ok in o["e_checks"].items() if not ok]
+        if bad:
+            failed.append(f"(e) rank {r}: {bad}")
+    es = [o["e"] for o in outs]
+    lead = next(e for e in es if e["leader"])
+    for key in ("e1_stats", "e2_stats"):
+        steps = {e[key]["decode_steps"] for e in es}
+        if len(steps) != 1:
+            failed.append(f"(e) ranks' decode steps differ: {key} {steps}")
+    if [e["pool_heads"] for e in es] != [[8]] * MP_WORLD or \
+            [e["experts"] for e in es] != [2] * MP_WORLD:
+        failed.append("(e) a rank's pool heads or experts are not 8 and 2")
+    loop_flash = lead["e1_flash"]
     launches = {k: sum(o[arm]["flash"][k] for o in outs for arm in "ab")
-                + sum(o["c_flash"][0][k] for o in outs)
+                + sum(o["c_flash"][0][k] for o in outs) + loop_flash[0][k]
                 for k in outs[0]["a"]["flash"]}
     tc = {k: sum(o[arm]["flash_tc"][k] for o in outs for arm in "ab")
-          + sum(o["c_flash"][1][k] for o in outs)
+          + sum(o["c_flash"][1][k] for o in outs) + loop_flash[1][k]
           for k in outs[0]["a"]["flash_tc"]}
+    paged = {k: sum(e[arm][k] for e in es for arm in ("e1_paged",
+                                                      "e2_paged"))
+             for k in es[0]["e1_paged"]}
+    log("serving mesh: " + json.dumps({
+        "mesh": "ep 2 x tp 2, gloo, one card", "layers": GLOO_LAYERS,
+        "widths": "gpt2_medium, vocab 50304, 4 experts",
+        "prompts": [len(p) for i, p in enumerate(serve_prompts(50257)[0])
+                    if i in MP_SERVE_PROMPTS],
+        "tokens": MP_SERVE_TOKENS,
+        "paged_by_rank": [{"e1": e["e1_paged"], "e2": e["e2_paged"]}
+                          for e in es],
+        "pool_heads_by_rank": [e["pool_heads"] for e in es],
+        "experts_by_rank": [e["experts"] for e in es],
+        "decode_steps": {"e1": lead["e1_stats"]["decode_steps"],
+                         "e2": lead["e2_stats"]["decode_steps"]},
+        "control": {arm: {k: lead[arm][k] for k in
+                          ("control_ops", "control_broadcasts")}
+                    for arm in ("e1_stats", "e2_stats")},
+        "e1_equal_unsharded": lead["e1_equal_unsharded"],
+        "e1_equal_argmax_loop": lead["e1_equal_argmax_loop"],
+        "e1_argmax_loop_flash": loop_flash,
+        "e2_ttft_ms_p50": lead["e2_ttft_ms_p50"],
+        "e2_tpot_ms_p50": lead["e2_tpot_ms_p50"],
+        "e2_wall_s": lead["e2_wall_s"],
+        "e3_by_rank": [e["e3"] for e in es],
+        "e_s_by_rank": [e["e_s"] for e in es], "card": card,
+    }, sort_keys=True))
     b3 = sum(o["b"]["b3"] for o in outs) + sum(o["a"]["b3"] for o in outs)
     log("model parallel: " + json.dumps({
         "world": MP_WORLD, "backend": "gloo, one card",
@@ -5097,7 +5346,7 @@ def phase_model_parallel(card):
     }, sort_keys=True))
     if failed:
         fail("model parallel: " + "; ".join(failed))
-    return b3, (launches, tc)
+    return b3, (launches, tc), paged
 
 
 # ------------------------------------------------------------------ main
@@ -7727,8 +7976,10 @@ def main() -> int:
     # phase 17: the composed model-parallel transformer in a gloo world
     # of 4 on the card
     t0 = time.monotonic()
-    mp_b3, mp_flash = phase_model_parallel(card)
+    mp_b3, mp_flash, mp_paged = phase_model_parallel(card)
     flash_runs.append(mp_flash)
+    for key, count in mp_paged.items():
+        paged_launches[key] += count
     wire_launches["int8_block_quantize"] += mp_b3
     log(f"model parallel phase: {time.monotonic() - t0:.2f} s")
     torch.cuda.empty_cache()

@@ -10,6 +10,7 @@ from .transformer import (  # noqa: F401
     Transformer,
     TransformerConfig,
     init_cache,
+    shard_moe_params,
 )
 from .vgg import VGG, VGG16  # noqa: F401
 from .vit import ViT, ViTConfig  # noqa: F401

@@ -22,7 +22,10 @@ fp32 CPU tensors:
   encoder blocks map as the Transformer's;
 * :func:`parallel_params_from_jax`: the composed model of
   ``horovod_tpu/parallel/transformer.py``, from its full (unsharded)
-  parameter tree to this rank's shards on a mesh.
+  parameter tree to this rank's shards on a mesh;
+* :func:`shard_state_dict`: a whole Transformer ``state_dict`` (from
+  :func:`params_from_flax`, or a model's own) to this rank's shard of a
+  serving mesh, what ``Transformer(cfg, mesh=)`` loads.
 
 A tree of the same layout maps the same way: a JAX gradient tree
 (``jax.grad`` of a loss over the parameters) becomes the port's
@@ -84,6 +87,51 @@ def params_from_flax(params, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
     out["lm_head.kernel"] = _tensor(p["lm_head"]["kernel"])
     out["lm_head.bias"] = _tensor(p["lm_head"]["bias"])
     return out
+
+
+# a Transformer leaf sharded over tp: (name in its block, axis cut)
+_TP_CUTS = {
+    "attn.qkv.kernel": 2,  # [d, 3, h, hd]
+    "attn.qkv.bias": 1,  # [3, h, hd]
+    "attn.q.kernel": 1,  # [d, h, hd]
+    "attn.q.bias": 0,  # [h, hd]
+    "attn.kv.kernel": 2,  # [d, 2, kvh, hd]
+    "attn.kv.bias": 1,  # [2, kvh, hd]
+    "attn.out.kernel": 0,  # [h, hd, d]: row-parallel, the bias whole
+    "fc1.kernel": 1,  # [d, f]: column-parallel
+    "fc1.bias": 0,
+    "fc2.kernel": 0,  # [f, d]: row-parallel, the bias whole
+}
+
+
+def shard_state_dict(state: Dict[str, torch.Tensor], cfg: TransformerConfig,
+                     mesh, tp_axis: str = "tp", ep_axis: str = "ep"
+                     ) -> Dict[str, torch.Tensor]:
+    """This rank's shard of a whole Transformer ``state_dict`` on
+    ``mesh``: over ``tp_axis`` the attention heads (the ``[d, 3, h, hd]``,
+    ``[d, h, hd]`` and ``[d, 2, kvh, hd]`` kernels and their biases),
+    ``out.kernel``'s ``[h, hd, d]`` rows, ``fc1`` by columns and ``fc2``
+    by rows (rank ``i`` the ``i``-th contiguous run); over ``ep_axis``
+    the expert banks (:func:`~.transformer.shard_moe_params`). Every
+    other leaf is the whole one. Raises ``ValueError`` when an axis does
+    not divide what it cuts."""
+    from .transformer import axis_share, mesh_axis, shard_moe_params
+
+    tp = mesh_axis(mesh, tp_axis)
+    out = dict(state)
+    if tp is not None:
+        axis_share(cfg.num_heads, tp, "head count")
+        axis_share(cfg.kv_heads, tp, "kv head count")
+        if not cfg.moe_experts:  # the expert banks are not cut over tp
+            axis_share(cfg.d_ff, tp, "d_ff")
+        for key, leaf in state.items():
+            parts = key.split(".")
+            axis = _TP_CUTS.get(".".join(parts[2:]))
+            if parts[0] != "blocks" or axis is None:
+                continue
+            n = leaf.shape[axis] // tp.size
+            out[key] = leaf.narrow(axis, tp.index * n, n).contiguous()
+    return shard_moe_params(out, mesh, ep_axis)
 
 
 _LEAF = {"scale": "weight", "mean": "running_mean", "var": "running_var"}

@@ -49,6 +49,20 @@ one raises.
 softmax, argmax, the experts as one-hot einsums); it serves the full and
 the cached forward alike, since the FFN is position-wise.
 
+``Transformer(cfg, mesh=)`` builds this rank's shard of the model for a
+serving mesh (``parallel.mesh.MeshSpec(ep=, tp=).build()``), Megatron's
+split: over ``tp`` each attention holds ``num_heads/tp`` query and
+``kv_heads/tp`` KV heads, its ``out`` projection is row-parallel (an
+all-reduce over ``tp``, then the bias once), and the dense FFN's ``fc1``
+is column-parallel and ``fc2`` row-parallel; over ``ep`` each
+:class:`MoEFFN` holds ``moe_experts/ep`` experts, a token routed to
+another rank's expert contributes zero here, and the sum is all-reduced
+over ``ep``. The embeddings, the LayerNorms, the router and the LM head
+stay whole on every rank. :func:`shard_moe_params` and
+``convert.shard_state_dict`` cut a whole ``state_dict`` to fit. Without
+a mesh (or with ``tp`` and ``ep`` of 1) the modules are the unsharded
+ones, bit for bit.
+
 The flash gate differs from the JAX one where the TPU shaped it: the
 Mosaic rungs (``supports_seq``'s block divisibility, ``fits_vmem``)
 are gone, since the kernels take any sequence length; the kernels' own
@@ -74,6 +88,7 @@ from ..common.config import resolve_device
 from ..ops import flash_attention as _fa
 from ..ops.fused_xent import mixed_linear
 from ..ops import paged_attention as _pa
+from ..parallel.tp import copy_to, reduce_from
 
 _NEG_INF = -1e30
 _LN_EPS = 1e-6  # Flax's LayerNorm default (torch's is 1e-5)
@@ -360,14 +375,19 @@ def _trunc_normal_(t: torch.Tensor, fan_in: int, generator=None):
 class DenseGeneral(nn.Module):
     """Flax's ``DenseGeneral``: contract the last ``len(in_shape)``
     axes of ``x`` with a kernel of shape ``in_shape + out_shape``, cast
-    to ``dtype`` at use, then add the bias in ``dtype``."""
+    to ``dtype`` at use, then add the bias in ``dtype``. With ``reduce``
+    (a mesh axis) it is row-parallel: the kernel holds this rank's rows,
+    the product is all-reduced over the axis, and the whole bias is
+    added once after the reduce."""
 
     def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
-                 dtype: torch.dtype, device=None, generator=None):
+                 dtype: torch.dtype, device=None, generator=None,
+                 reduce=None):
         super().__init__()
         self.in_shape = tuple(int(s) for s in in_shape)
         self.out_shape = tuple(int(s) for s in out_shape)
         self.dtype = dtype
+        self.reduce = reduce
         self.kernel = nn.Parameter(torch.empty(
             self.in_shape + self.out_shape, device=device
         ))
@@ -379,6 +399,8 @@ class DenseGeneral(nn.Module):
         lead = x.shape[: x.dim() - len(self.in_shape)]
         w = self.kernel.reshape(n_in, n_out).to(self.dtype)
         y = x.reshape(*lead, n_in).to(self.dtype) @ w
+        if self.reduce is not None:
+            y = reduce_from(y, self.reduce)
         y = y + self.bias.reshape(n_out).to(self.dtype)
         return y.reshape(*lead, *self.out_shape)
 
@@ -400,23 +422,45 @@ def _attend(q, k, v, valid, dtype):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.to(dtype))
 
 
+def axis_share(count: int, axis, what: str) -> int:
+    """``count`` over a mesh axis (None: whole): this rank's share."""
+    if axis is None:
+        return count
+    if count % axis.size:
+        raise ValueError(
+            f"the '{axis.name}' axis size ({axis.size}) must divide the "
+            f"{what} ({count})"
+        )
+    return count // axis.size
+
+
 class MultiHeadAttention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None, generator=None):
+    """Self-attention. With ``tp`` (a mesh axis) this rank holds
+    ``num_heads/tp`` query heads and ``kv_heads/tp`` KV heads, in both
+    the fused ``qkv`` and the GQA ``q``/``kv`` layouts (rank ``i`` the
+    ``i``-th contiguous run of each, so every local query head keeps its
+    KV group), and ``out`` is row-parallel."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None,
+                 tp=None):
         super().__init__()
         self.cfg = cfg
-        d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+        self.tp = tp
+        d, hd = cfg.d_model, cfg.head_dim
         kw = dict(dtype=cfg.dtype, device=device, generator=generator)
+        if cfg.num_kv_heads and cfg.num_heads % cfg.num_kv_heads:
+            raise ValueError(
+                f"num_kv_heads ({cfg.num_kv_heads}) must divide "
+                f"num_heads ({cfg.num_heads})"
+            )
+        h = axis_share(cfg.num_heads, tp, "head count")
+        kvh = axis_share(cfg.kv_heads, tp, "kv head count")
         if cfg.num_kv_heads:
-            if h % cfg.num_kv_heads:
-                raise ValueError(
-                    f"num_kv_heads ({cfg.num_kv_heads}) must divide "
-                    f"num_heads ({h})"
-                )
             self.q = DenseGeneral((d,), (h, hd), **kw)
-            self.kv = DenseGeneral((d,), (2, cfg.num_kv_heads, hd), **kw)
+            self.kv = DenseGeneral((d,), (2, kvh, hd), **kw)
         else:
             self.qkv = DenseGeneral((d,), (3, h, hd), **kw)
-        self.out = DenseGeneral((h, hd), (d,), **kw)
+        self.out = DenseGeneral((h, hd), (d,), reduce=tp, **kw)
 
     def forward(self, x, mask=None, lengths=None,
                 cache: Optional[dict] = None,
@@ -432,6 +476,8 @@ class MultiHeadAttention(nn.Module):
                     "cache= does not compose with mask=/lengths=: the "
                     "cache_index is the per-slot length"
                 )
+        if self.tp is not None:
+            x = copy_to(x, self.tp)
         if cfg.num_kv_heads:
             q = self.q(x)
             kv = self.kv(x)
@@ -531,23 +577,35 @@ class MoEFFN(nn.Module):
     einsums over the leading ``[E]`` axis. Every token is served by its
     routed expert, gated by the router probability; no capacity, no
     drops. Flax's ``lecun_normal(in_axis=-2, out_axis=-1)`` of an ``[E,
-    d, f]`` bank counts the expert axis into the fan-in (E·d)."""
+    d, f]`` bank counts the expert axis into the fan-in (E·d).
 
-    def __init__(self, cfg: TransformerConfig, device=None, generator=None):
+    With ``ep`` (a mesh axis) this rank holds experts ``[i·E/ep,
+    (i+1)·E/ep)`` (``i`` its ``ep`` index) and the whole router: a token
+    routed elsewhere gets zero here, and the output is all-reduced over
+    ``ep`` (one term of each token's sum is not zero, so the sum is
+    exact)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None,
+                 ep=None):
         super().__init__()
         self.cfg = cfg
-        e, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
-        self.router = DenseGeneral((d,), (e,), torch.float32, device=device,
-                                   generator=generator)
+        self.ep = ep
+        d, f = cfg.d_model, cfg.d_ff
+        e = axis_share(cfg.moe_experts, ep, "expert count")
+        self.router = DenseGeneral((d,), (cfg.moe_experts,), torch.float32,
+                                   device=device, generator=generator)
         self.w1 = nn.Parameter(torch.empty(e, d, f, device=device))
         self.b1 = nn.Parameter(torch.zeros(e, f, device=device))
         self.w2 = nn.Parameter(torch.empty(e, f, d, device=device))
         self.b2 = nn.Parameter(torch.zeros(e, d, device=device))
-        _trunc_normal_(self.w1, e * d, generator)
-        _trunc_normal_(self.w2, e * f, generator)
+        # the fan-in counts the whole bank, as the unsharded one does
+        _trunc_normal_(self.w1, cfg.moe_experts * d, generator)
+        _trunc_normal_(self.w2, cfg.moe_experts * f, generator)
 
     def forward(self, x):
         cfg = self.cfg
+        if self.ep is not None:
+            x = copy_to(x, self.ep)
         probs = torch.softmax(self.router(x.float()), dim=-1)  # [b, t, E]
         idx = probs.argmax(dim=-1)
         gate = probs.gather(-1, idx[..., None])
@@ -555,6 +613,9 @@ class MoEFFN(nn.Module):
         # cfg.dtype, as jnp.einsum promotes its operands
         ct = torch.promote_types(x.dtype, cfg.dtype)
         sel = F.one_hot(idx, cfg.moe_experts).to(cfg.dtype).to(ct)
+        if self.ep is not None:
+            n = self.w1.shape[0]
+            sel = sel[..., self.ep.index * n:(self.ep.index + 1) * n]
         w1, b1, w2, b2 = (p.to(cfg.dtype).to(ct)
                           for p in (self.w1, self.b1, self.w2, self.b2))
         h = torch.einsum("btd,edf,bte->btf", x.to(ct), w1, sel)
@@ -563,22 +624,63 @@ class MoEFFN(nn.Module):
         y = torch.einsum("btf,efd,bte->btd", h, w2, sel)
         y = y + torch.einsum("ed,bte->btd", b2, sel)
         # cfg.dtype out, as the dense branch it replaces
-        return (y * gate).to(cfg.dtype)
+        y = (y * gate).to(cfg.dtype)
+        return y if self.ep is None else reduce_from(y, self.ep)
+
+
+_MOE_LEAVES = ("w1", "b1", "w2", "b2")
+
+
+def shard_moe_params(params, mesh, ep_axis: str = "ep"):
+    """This rank's expert slice of a whole ``state_dict``
+    (``horovod_tpu/models/transformer.py:581-619``): every
+    ``blocks.{i}.moe.{w1,b1,w2,b2}`` keeps rows ``[i·E/ep, (i+1)·E/ep)``
+    of its leading ``[E]`` axis, ``i`` this rank's ``ep_axis`` index;
+    the router and everything else stay whole. Returns ``params``
+    itself when there is no mesh or the axis has size 1, and raises
+    ``ValueError`` when the axis does not divide the expert count (a
+    quiet replication would undo expert parallelism)."""
+    if mesh is None or mesh.size(ep_axis) <= 1:
+        return params
+    ep = mesh.size(ep_axis)
+    out = dict(params)
+    for key, leaf in params.items():
+        parts = key.split(".")
+        if parts[-2:-1] != ["moe"] or parts[-1] not in _MOE_LEAVES:
+            continue
+        if leaf.shape[0] % ep:
+            raise ValueError(
+                f"moe_experts ({leaf.shape[0]}) must divide over the "
+                f"'{ep_axis}' mesh axis ({ep})"
+            )
+        n = leaf.shape[0] // ep
+        i = mesh.axis(ep_axis).index
+        out[key] = leaf[i * n:(i + 1) * n].contiguous()
+    return out
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None, generator=None):
+    """Pre-LayerNorm block. ``tp``/``ep`` (mesh axes, None for whole):
+    the attention's and the dense FFN's tensor-parallel split (``fc1``
+    column-parallel, ``fc2`` row-parallel) and the MoE bank's expert
+    split."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, generator=None,
+                 tp=None, ep=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         kw = dict(dtype=cfg.dtype, device=device, generator=generator)
         self.ln1 = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, device=device)
-        self.attn = MultiHeadAttention(cfg, device=device, generator=generator)
+        self.attn = MultiHeadAttention(cfg, device=device, generator=generator,
+                                       tp=tp)
         self.ln2 = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, device=device)
         if cfg.moe_experts:
-            self.moe = MoEFFN(cfg, device=device, generator=generator)
+            self.moe = MoEFFN(cfg, device=device, generator=generator, ep=ep)
         else:
-            self.fc1 = DenseGeneral((cfg.d_model,), (cfg.d_ff,), **kw)
-            self.fc2 = DenseGeneral((cfg.d_ff,), (cfg.d_model,), **kw)
+            f = axis_share(cfg.d_ff, tp, "d_ff")
+            self.fc1 = DenseGeneral((cfg.d_model,), (f,), **kw)
+            self.fc2 = DenseGeneral((f,), (cfg.d_model,), reduce=tp, **kw)
 
     def forward(self, x, mask=None, lengths=None, seed=None, cache=None,
                 step=None, paged_attn=False):
@@ -594,7 +696,10 @@ class Block(nn.Module):
         x = x + _dropout(h, rate, gen)
         if self.cfg.moe_experts:
             return x + _dropout(self.moe(self.ln2(x.float())), rate, gen)
-        h = F.gelu(self.fc1(self.ln2(x.float())), approximate="tanh")
+        h = self.ln2(x.float())
+        if self.tp is not None:
+            h = copy_to(h, self.tp)
+        h = F.gelu(self.fc1(h), approximate="tanh")
         return x + _dropout(self.fc2(h), rate, gen)
 
 
@@ -632,19 +737,36 @@ class LMHead(nn.Module):
         return mixed_linear(x, self.kernel, self.bias, dtype)
 
 
+def mesh_axis(mesh, name: str):
+    """The :class:`~..parallel.mesh.Axis` that shards over ``name`` on
+    this rank of ``mesh``, or None: no mesh, or an axis of size 1."""
+    if mesh is None or mesh.size(name) <= 1:
+        return None
+    return mesh.axis(name)
+
+
 class Transformer(nn.Module):
     """The decoder stack. Parameters are created in fp32 on ``device``
     (None means the CUDA card, and raises without one; the CPU only when
     asked for) and initialised from ``generator`` (a ``torch.Generator``
     on the same device) as Flax initialises the JAX model: embeddings
     normal with variance 1/d_model, kernels ``lecun_normal``, biases 0,
-    LayerNorm scale 1."""
+    LayerNorm scale 1.
+
+    ``mesh`` (a built ``parallel.mesh.Mesh`` this rank is on) makes the
+    model this rank's shard over ``tp_axis`` and ``ep_axis`` (the module
+    docstring); load it with ``convert.shard_state_dict`` of a whole
+    ``state_dict``, as every rank must hold slices of one model."""
 
     def __init__(self, cfg: TransformerConfig, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 mesh=None, tp_axis: str = "tp", ep_axis: str = "ep"):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        self.tp_axis, self.ep_axis = tp_axis, ep_axis
+        tp, ep = mesh_axis(mesh, tp_axis), mesh_axis(mesh, ep_axis)
         self.embed = nn.Embedding(cfg.vocab_size, cfg.d_model, device=device)
         self.pos_embed = None
         if not cfg.rope:
@@ -656,7 +778,7 @@ class Transformer(nn.Module):
                 if emb is not None:
                     emb.weight.normal_(0.0, std, generator=generator)
         self.blocks = nn.ModuleList(
-            Block(cfg, device=device, generator=generator)
+            Block(cfg, device=device, generator=generator, tp=tp, ep=ep)
             for _ in range(cfg.num_layers)
         )
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=_LN_EPS, device=device)
@@ -705,7 +827,8 @@ class Transformer(nn.Module):
         ``lengths`` (``[batch]``) right-pads the batch; ``mask``
         (``[batch, t]`` bool, keys to attend) takes the dense path;
         ``return_hidden`` returns the final LayerNorm's output instead
-        of the logits.
+        of the logits (on either forward: a follower rank of a sharded
+        engine stops there, the LM head runs on the leader).
         Cached: ``cache`` (from :func:`init_cache`, one dict per layer)
         takes this call's k/v at ``cache_index`` (``[batch]``: tokens
         already cached per row) and is updated in place; ``pages``
@@ -717,8 +840,6 @@ class Transformer(nn.Module):
         tokens = torch.as_tensor(tokens, device=dev).long()
         b, t = tokens.shape
         if cache is not None:
-            if return_hidden:
-                raise ValueError("return_hidden with cache= is not supported")
             if step is None:
                 step = CacheStep.build(cache, cache_index, pages, b, t,
                                        cache[0]["k"].device)
@@ -736,7 +857,8 @@ class Transformer(nn.Module):
             for i, block in enumerate(self.blocks):
                 x = block(x, cache=cache[i], step=step,
                           paged_attn=paged_attn)
-            return self.lm_head(self.ln_f(x.float()))
+            h = self.ln_f(x.float())
+            return h if return_hidden else self.lm_head(h)
         seeds = [None] * cfg.num_layers
         if train and cfg.dropout_rate > 0:
             if rng is None:

@@ -28,8 +28,10 @@ import torch.distributed as dist
 # Outer→inner order: dp spans hosts first, tp stays innermost.
 AXIS_ORDER = ("dp", "pp", "ep", "sp", "tp")
 # combinations of axes a composed step reduces over (the loss over the
-# data axes; the gradients of expert-sharded leaves over dp and sp)
-COMBOS = (("dp", "ep", "sp"), ("dp", "sp"))
+# data axes; the gradients of expert-sharded leaves over dp and sp), and
+# the serving engine's control group (its leader's broadcasts reach
+# every rank of an ep × tp engine)
+COMBOS = (("dp", "ep", "sp"), ("dp", "sp"), ("ep", "tp"))
 
 
 class Axis(NamedTuple):

@@ -3,6 +3,7 @@
 from .batcher import ContinuousBatcher, Rejected, Request  # noqa: F401
 from .engine import InferenceEngine  # noqa: F401
 from .frontend import (  # noqa: F401
+    FollowerHandle,
     Router,
     ServeFrontend,
     ServeHandle,

@@ -11,6 +11,9 @@ Policy knobs:
   (``HOROVOD_SERVE_MAX_BATCH``). Prefill runs on the decode thread, so
   each admission delays every in-flight token by one prefill: this is
   the TTFT-versus-TPOT trade.
+* ``policy="static"``: the A/B baseline, classic batched inference with
+  its head-of-line blocking: admissions only when no request is in
+  flight, up to ``slots`` at once.
 * per-request deadlines: queued requests expire before a prefill is
   spent on them; running ones are evicted at the deadline with their
   partial output (status ``"deadline"``).
@@ -49,7 +52,10 @@ scheduler, which aborts every accepted request, the dark worker the
 fleet's Router replays around.
 
 The scheduler thread runs all device work and binds itself to the
-engine's device; submitting threads only touch host bookkeeping.
+engine's device; submitting threads only touch host bookkeeping. Over a
+sharded engine (``serving/engine.py``) it runs on the leader, and when
+it has nothing to do it lets the engine keep its followers' wait alive
+(``engine.keepalive()``).
 """
 
 from __future__ import annotations
@@ -156,7 +162,10 @@ class ContinuousBatcher:
         eos_id: Optional[int] = None,
         recorder: Optional[LatencyRecorder] = None,
         role: str = "unified",
+        policy: str = "continuous",
     ) -> None:
+        if policy not in ("continuous", "static"):
+            raise ValueError(f"unknown policy {policy!r}")
         if role not in ("unified", "prefill", "decode"):
             raise ValueError(f"unknown serve role {role!r}")
         if role != "unified" and not engine.paged:
@@ -166,6 +175,7 @@ class ContinuousBatcher:
             )
         self.engine = engine
         self.role = role
+        self.policy = policy
         # the TransferCoordinator of a prefill worker (serve() wires it);
         # None: every request decodes here
         self.transfer = None
@@ -548,6 +558,7 @@ class ContinuousBatcher:
                     with self._cond:
                         if self._running and not self._queue:
                             self._cond.wait(timeout=0.02)
+                    self.engine.keepalive()
         except Exception:
             # the scheduler thread must never die silently: abort
             # everything accepted (waiters unblock with status "error"),
@@ -631,7 +642,11 @@ class ContinuousBatcher:
     def _admit(self, now: float) -> int:
         admitted = 0
         mid_decode = bool(self._slot_req)
-        while admitted < self.max_admit_per_step:
+        if self.policy == "static" and mid_decode:
+            return 0  # the batch barrier
+        limit = (self.engine.slots if self.policy == "static"
+                 else self.max_admit_per_step)
+        while admitted < limit:
             with self._cond:
                 if not self._queue:
                     break
@@ -887,6 +902,10 @@ class ContinuousBatcher:
     def queue_depth(self) -> int:
         with self._cond:
             return len(self._queue)
+
+    def active(self) -> int:
+        """Requests holding a decode slot."""
+        return len(self._slot_req)
 
     def stats(self) -> Dict[str, float]:
         out = {

@@ -41,6 +41,48 @@ prefill compile tiers (exact/bucket executables, background promotion,
 the executable disk cache) have no counterpart, and their counters in
 :meth:`stats` stay 0.
 
+**A sharded engine** (``mesh=``, the JAX engine's ``mesh``/``tp_axis``/
+``ep_axis``): ``tp`` shards the KV pool's kv heads and the attention
+heads, ``ep`` the MoE expert banks (``models/transformer.py``). The
+design is one engine class and one process per rank, the leader
+driving:
+
+* every rank of the mesh builds the engine on its own device, with its
+  shard of the weights (``Transformer(cfg, mesh=)`` loaded from
+  ``convert.shard_state_dict``) and of the KV pool;
+* the rank at coordinate 0 of ``ep × tp`` is the **leader**. It alone
+  owns the slot and page bookkeeping, the batcher, the HTTP frontend,
+  sampling and the logits;
+* every other rank is a **follower**: :meth:`follow` receives each
+  device operation from the leader over the mesh's ``ep × tp`` group
+  and runs the same operation on its own shards, until the leader's
+  :meth:`close` sends "stop". Before it runs an operation the leader
+  broadcasts a fixed-size header (operation, batch, t, ...) and then,
+  in one more broadcast, the tokens and the ``CacheStep`` inputs
+  (cache index or lengths, and page tables); the copy-on-write page
+  copy is sent the same way. Prefix hits change tables only and frees
+  write nothing, so the followers' pools stay the leader's, whatever
+  the manager decides. An idle leader's batcher sends a no-op every
+  ``KEEPALIVE_S``, so no follower's wait reaches the group's timeout;
+* followers compute no logits: they stop at the last block, and the
+  LM head runs on the leader only;
+* **the decode step runs eagerly**: its all-reduces sit between
+  layers, a gloo collective cannot be captured, and a captured NCCL
+  collective cannot be exercised with one card. So ``decode_compiles``
+  stays 0 and ``stats()["decode_graphed"]`` is 0 on such an engine.
+  This is a mode, not a fallback: the step still runs on the card,
+  through the paged kernel on this rank's heads;
+* an engine without a mesh, or on a mesh whose ``tp`` and ``ep`` are 1
+  (no group), is the engine above, its captured graph included.
+
+A sharded engine refuses a mesh with another axis above 1 (the JAX
+engine shards over ``tp_axis`` and ``ep_axis`` only) and the prefill
+and decode roles: a sharded worker would have to gather every tp rank's
+pages for the wire, and its pages cannot leave the ranks
+(:meth:`gather_pages` and :meth:`ingest_attach` raise). A graph per
+rank with NCCL collectives captured inside, and the sharded roles, wait
+for a 4-card cell (ROADMAP A15).
+
 The model contract: ``model(tokens, cache=, cache_index=, pages=,
 paged_attn=)`` (or ``step=`` instead of the index and the pages) returns
 ``[batch, t, vocab]`` logits and updates the cache in place
@@ -50,6 +92,7 @@ paged_attn=)`` (or ``step=`` instead of the index and the pages) returns
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
 from contextlib import nullcontext as _nullcontext
@@ -57,12 +100,14 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..common.config import live_config, resolve_device
 from ..common.metrics import registry as _metrics
 from ..common import tracing as _tracing
 from ..models.transformer import CacheStep, init_cache
 from ..ops import paged_attention as _pa
+from ..parallel.mesh import AXIS_ORDER
 from .kv_cache import create_kv_manager
 from .paged_kv import PagePoolExhausted, page_hashes
 
@@ -77,6 +122,10 @@ _STAT_KEYS = (
     "prefill_bg_promotions",
 )
 ROLES = ("unified", "prefill", "decode")
+# the leader's control operations (serving on a mesh)
+OP_STOP, OP_NOOP, OP_PREFILL, OP_DECODE, OP_COPY = range(5)
+_HEADER = 6  # op, batch, t, slot or new page, old page, payload length
+KEEPALIVE_S = 5.0  # an idle leader's no-op interval
 
 
 class Gathered(NamedTuple):
@@ -96,6 +145,40 @@ def _paged_counts() -> Dict[str, int]:
     return {"paged_attention": c["launches"],
             "paged_attention_chunk": c["chunk_launches"],
             "paged_attention_tc": c["tc_launches"]}
+
+
+def _control_axis(model, role: str, mesh, tp_axis: str, ep_axis: str):
+    """The ``ep × tp`` axis a sharded engine's leader drives its
+    followers over, or None for an engine with no group. Raises on what
+    the sharded engine does not serve."""
+    model_mesh = getattr(model, "mesh", None)
+    if mesh is not None:
+        other = [a for a, n in zip(AXIS_ORDER, mesh.shape)
+                 if a not in (tp_axis, ep_axis) and n > 1]
+        if other:
+            raise ValueError(
+                f"the serving engine shards over '{tp_axis}' and "
+                f"'{ep_axis}' only; the mesh has {other} above 1 "
+                "(ROADMAP A15)")
+    if mesh is None or mesh.size(tp_axis) * mesh.size(ep_axis) == 1:
+        if model_mesh is not None and (
+                model_mesh.size(model.tp_axis) * model_mesh.size(
+                    model.ep_axis) > 1):
+            raise ValueError(
+                "the model is one rank's shard of a mesh: pass that mesh "
+                "to the engine (mesh=)")
+        return None
+    if role != "unified":
+        raise ValueError(
+            f"role={role!r} on a mesh: a sharded prefill or decode worker "
+            "would gather every tp rank's pages for the wire, which is "
+            "queued in ROADMAP A15; serve the mesh as role='unified'")
+    if model_mesh is not mesh:
+        raise ValueError(
+            "a sharded engine serves this rank's shard: build the model "
+            "as Transformer(cfg, mesh=mesh) and load "
+            "convert.shard_state_dict of the whole state_dict")
+    return mesh.axis(ep_axis, tp_axis)
 
 
 def next_pow2(n: int) -> int:
@@ -137,6 +220,13 @@ class InferenceEngine:
     means the CUDA card), sets eval mode, and stores its matmul weights
     in ``cfg.dtype`` (``Transformer.cast_weights_``: the values every
     forward used are unchanged, the per-call cast kernels go).
+
+    ``mesh`` (a built ``parallel.mesh.Mesh``) shards the engine over
+    ``tp_axis`` and ``ep_axis`` (the module docstring): ``model`` is
+    then this rank's shard, ``Transformer(cfg, mesh=mesh)``, and
+    ``params`` its ``convert.shard_state_dict``. The leader
+    (``leader``) is driven as any engine; a follower runs
+    :meth:`follow`.
     """
 
     def __init__(
@@ -155,12 +245,19 @@ class InferenceEngine:
         page_watermark: Optional[int] = None,
         paged_attn=None,
         role: str = "unified",
+        mesh=None,
+        tp_axis: str = "tp",
+        ep_axis: str = "ep",
     ) -> None:
         if role not in ROLES:
             raise ValueError(
                 f"role must be unified/prefill/decode, got {role!r}"
             )
         self.role = role
+        self.mesh = mesh
+        self._ctl = _control_axis(model, role, mesh, tp_axis, ep_axis)
+        self.sharded = self._ctl is not None
+        self.leader = not self.sharded or self._ctl.index == 0
         self.device = resolve_device(device)
         if params is not None:
             model.load_state_dict(params)
@@ -188,6 +285,7 @@ class InferenceEngine:
                 cfg.serve_page_watermark if page_watermark is None
                 else int(page_watermark)
             ),
+            mesh=mesh, tp_axis=tp_axis,
         )
         self.slots = self.manager.slots
         self.max_len = self.manager.max_len
@@ -220,9 +318,23 @@ class InferenceEngine:
         # on: a gather for the wire is ordered after it, whichever
         # thread asks (a drain exports from a thread of its own)
         self._work_stream = None
+        # the leader's control stream, held by one thread at a time (the
+        # batcher's, a drain's close), its last send, and its end
+        self._drive_lock = threading.RLock()
+        self._last_send = time.monotonic()
+        self._closed = False
+        self._failed: Optional[BaseException] = None
+        if self.sharded:
+            self._ctl_src = self._ctl.ranks[0]
+            self._ctl_dev = (torch.device("cpu")
+                             if dist.get_backend(self._ctl.group) == "gloo"
+                             else self.device)
+            if self.paged and self.leader:
+                self.manager.copy_hook = self._send_copy
         if self.paged_attn:
             _pa.warm_operator()
-        if self.device.type == "cuda" and role != "prefill":
+        if (self.device.type == "cuda" and role != "prefill"
+                and not self.sharded):
             # capture before any request: a step with every slot
             # inactive writes only the spare rows. A prefill worker
             # decodes only when a transfer falls back, and captures then
@@ -273,24 +385,39 @@ class InferenceEngine:
     def _forward_chunk(self, slot: int, tokens: np.ndarray,
                        start: int) -> torch.Tensor:
         """One prefill chunk through the slot's cache; the greedy next
-        token after its last position (on the device)."""
-        toks = torch.as_tensor(tokens[None], device=self.device)
-        index = np.asarray([start], np.int32)
-        if self.paged:
-            logits = self.model(
-                toks, cache=self.manager.cache, cache_index=index,
-                pages=self.manager.table_row(slot)[None],
-                paged_attn=self.paged_attn,
-            )
-        else:
-            row = [
-                {name: leaf[slot:slot + 1] for name, leaf in layer.items()}
-                for layer in self.manager.cache
-            ]
-            logits = self.model(toks, cache=row, cache_index=index)
+        token after its last position (on the device). A sharded
+        leader sends the chunk to its followers first."""
+        table = self.manager.table_row(slot)[None] if self.paged else None
+        with self._driving():
+            if self.sharded:
+                parts = [tokens, [start]]
+                if table is not None:
+                    parts.append(table.reshape(-1))
+                self._send(OP_PREFILL, 1, tokens.size, slot,
+                           0 if table is None else table.shape[1], parts)
+            logits = self._chunk(slot, tokens, start, table, head=True)
         if self.paged_attn:
             self._counters["paged_attn_calls"] += 1
         return torch.argmax(logits[0, -1])
+
+    def _chunk(self, slot: int, tokens: np.ndarray, start: int,
+               table: Optional[np.ndarray], head: bool) -> torch.Tensor:
+        """The chunk's forward: logits, or (``head`` False, a follower)
+        the final LayerNorm's output."""
+        toks = torch.as_tensor(np.asarray(tokens)[None], device=self.device)
+        index = np.asarray([start], np.int32)
+        if self.paged:
+            return self.model(
+                toks, cache=self.manager.cache, cache_index=index,
+                pages=table, paged_attn=self.paged_attn,
+                return_hidden=not head,
+            )
+        row = [
+            {name: leaf[slot:slot + 1] for name, leaf in layer.items()}
+            for layer in self.manager.cache
+        ]
+        return self.model(toks, cache=row, cache_index=index,
+                          return_hidden=not head)
 
     @torch.no_grad()
     def prefill(self, slot: int, prompt, trace=None) -> int:
@@ -305,6 +432,7 @@ class InferenceEngine:
                 "finished KV pages over the transfer wire "
                 "(serving/kv_transfer.py), never prompts"
             )
+        self._check_leader("prefill")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         n = prompt.size
         self._note_stream()
@@ -365,6 +493,7 @@ class InferenceEngine:
         index in, each slot's next token out. Inactive slots (length 0)
         compute junk at position 0; on the paged plane their table is
         all sentinel, so their write goes to a spare row of the pool."""
+        self._check_leader("decode_step")
         tokens = np.asarray(tokens, np.int32).reshape(self.slots)
         if self.paged:
             if not self._decode_swept:
@@ -388,8 +517,21 @@ class InferenceEngine:
 
     def _decode_logits(self, tokens: np.ndarray) -> torch.Tensor:
         """``[slots, vocab]`` fp32 logits of one decode step: a replay of
-        the captured graph on a CUDA card; elsewhere the same body, run
+        the captured graph on a CUDA card; elsewhere, and on a sharded
+        engine (sent to the followers first), the same body, run
         eagerly."""
+        if self.sharded:
+            mgr = self.manager
+            lengths = mgr.lengths_array()
+            tables = mgr.tables_array() if self.paged else None
+            with self._driving():
+                parts = [tokens, lengths]
+                if tables is not None:
+                    parts.append(tables.reshape(-1))
+                self._send(OP_DECODE, self.slots, 1, 0,
+                           0 if tables is None else tables.shape[1], parts)
+                self._load_static(tokens, lengths, tables)
+                return self._decode_body()
         self._load_static(tokens)
         if self.device.type != "cuda":
             return self._decode_body()
@@ -399,11 +541,16 @@ class InferenceEngine:
         self._graph_replays += 1
         return self._graph_out
 
-    def _load_static(self, tokens: np.ndarray) -> None:
-        """Copy the step's tokens, lengths and page tables into the
-        step's static inputs (made on the first call), which the graph
-        reads on a CUDA card."""
+    def _load_static(self, tokens: np.ndarray,
+                     lengths: Optional[np.ndarray] = None,
+                     tables: Optional[np.ndarray] = None) -> None:
+        """Copy the step's tokens, lengths and page tables (the
+        manager's unless given) into the step's static inputs (made on
+        the first call), which the graph reads on a CUDA card."""
         mgr = self.manager
+        if lengths is None:
+            lengths = mgr.lengths_array()
+            tables = mgr.tables_array() if self.paged else None
         if self._static is None:
             dev = self.device
             self._static = {
@@ -418,21 +565,25 @@ class InferenceEngine:
         st = self._static
         st["tokens"].copy_(torch.from_numpy(
             np.asarray(tokens, np.int64).reshape(self.slots, 1)))
-        st["lengths"].copy_(torch.from_numpy(mgr.lengths_array()))
+        st["lengths"].copy_(torch.from_numpy(
+            np.asarray(lengths, np.int32)))
         if self.paged:
-            st["tables"].copy_(torch.from_numpy(mgr.tables_array()))
+            st["tables"].copy_(torch.from_numpy(
+                np.asarray(tables, np.int32)))
 
-    def _decode_body(self) -> torch.Tensor:
+    def _decode_body(self, head: bool = True) -> torch.Tensor:
         """The decode forward over the static inputs, with the write
         rows built on the device: what the graph captures, and the
-        decode step off the card."""
+        decode step off the card and on a sharded engine (a follower's,
+        ``head`` False, stops at the final LayerNorm)."""
         mgr = self.manager
         st = self._static
         cache = getattr(mgr, "full_cache", mgr.cache)
         step = CacheStep.on_device(cache, st["lengths"], st["tables"], 1,
                                    getattr(mgr, "spare_row0", None))
         return self.model(st["tokens"], cache=cache, step=step,
-                          paged_attn=self.paged_attn)[:, 0, :]
+                          paged_attn=self.paged_attn,
+                          return_hidden=not head)[:, 0, :]
 
     @torch.no_grad()
     def _capture(self) -> None:
@@ -470,6 +621,142 @@ class InferenceEngine:
                 "replays": self._graph_replays,
                 "per_replay": dict(self._graph_launches),
                 "capture_ms": self._capture_ms}
+
+    # ------------------------------------------------------- the mesh's ranks
+
+    def _check_leader(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(
+                f"{what} on a follower rank of a sharded engine: the "
+                "leader drives; a follower runs follow()"
+            )
+
+    def _whole_pool(self, what: str) -> None:
+        if self.sharded:
+            raise RuntimeError(
+                f"{what}: a sharded engine's pages hold this rank's kv "
+                "heads only; the page wire over tp ranks is ROADMAP A15"
+            )
+
+    @contextlib.contextmanager
+    def _driving(self):
+        """The leader's control stream, held for one operation (its
+        sends and its forward): a failure inside leaves a sharded
+        engine failed, since its followers are then out of step."""
+        with self._drive_lock:
+            if self._failed is not None:
+                raise RuntimeError(
+                    "the sharded engine's control stream failed earlier; "
+                    "its followers are out of step") from self._failed
+            if self._closed:
+                raise RuntimeError("the sharded engine was closed: its "
+                                   "followers have stopped")
+            try:
+                yield
+            except BaseException as e:
+                if self.sharded:
+                    self._failed = e
+                raise
+
+    def _send(self, op: int, batch: int = 0, t: int = 0, a: int = 0,
+              b: int = 0, parts=()) -> None:
+        """Broadcast one operation to the followers: the header, then
+        its payload (``parts`` flattened to one int64 tensor)."""
+        payload = (np.concatenate([np.asarray(p, np.int64).reshape(-1)
+                                   for p in parts])
+                   if len(parts) else np.zeros(0, np.int64))
+        header = torch.tensor([op, batch, t, a, b, payload.size],
+                              dtype=torch.int64, device=self._ctl_dev)
+        dist.broadcast(header, src=self._ctl_src, group=self._ctl.group)
+        if payload.size:
+            dist.broadcast(torch.from_numpy(payload).to(self._ctl_dev),
+                           src=self._ctl_src, group=self._ctl.group)
+        self._last_send = time.monotonic()
+        with self._lock:
+            self._counters["control_ops"] += 1
+            self._counters["control_broadcasts"] += 1 + bool(payload.size)
+
+    def _send_copy(self, new: int, old: int) -> None:
+        """The manager's copy-on-write hook: the followers copy the same
+        page in their pools before the leader does in its own."""
+        with self._driving():
+            self._send(OP_COPY, 0, 0, new, old)
+
+    def keepalive(self) -> None:
+        """An idle sharded leader's no-op, at most one a ``KEEPALIVE_S``
+        (the batcher calls it when it has nothing to do); a no-op
+        elsewhere."""
+        if not self.sharded or not self.leader:
+            return
+        with self._drive_lock:
+            if (self._closed or self._failed is not None
+                    or time.monotonic() - self._last_send < KEEPALIVE_S):
+                return
+            with self._driving():
+                self._send(OP_NOOP)
+
+    def close(self) -> None:
+        """The leader's "stop": every follower's :meth:`follow` returns,
+        and this engine takes no more work. Idempotent; a no-op on an
+        unsharded engine, on a follower and after a failed operation
+        (the followers are out of step: they end on the group's
+        error)."""
+        if not self.sharded or not self.leader:
+            return
+        with self._drive_lock:
+            if self._closed or self._failed is not None:
+                return
+            self._send(OP_STOP)
+            self._closed = True
+
+    @torch.no_grad()
+    def follow(self) -> int:
+        """A follower's loop: receive each operation the leader sends and
+        run it on this rank's shards, until "stop". Returns the number
+        of operations run. Raises when the operation raises (the
+        leader's next collective then fails, and its requests end
+        ``error``)."""
+        if not self.sharded or self.leader:
+            raise RuntimeError("follow() runs on a follower rank of a "
+                               "sharded engine")
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        header = torch.zeros(_HEADER, dtype=torch.int64,
+                             device=self._ctl_dev)
+        ran = 0
+        while True:
+            dist.broadcast(header, src=self._ctl_src, group=self._ctl.group)
+            op, batch, t, a, b, n = (int(v) for v in header.tolist())
+            payload = np.zeros(0, np.int64)
+            if n:
+                buf = torch.zeros(n, dtype=torch.int64, device=self._ctl_dev)
+                dist.broadcast(buf, src=self._ctl_src, group=self._ctl.group)
+                payload = buf.cpu().numpy()
+            if op == OP_STOP:
+                return ran
+            if op == OP_NOOP:
+                continue
+            self._note_stream()
+            if op == OP_COPY:
+                self.manager.copy_page(a, b)
+            elif op == OP_PREFILL:
+                table = payload[t + 1:].reshape(1, b) if b else None
+                self._chunk(a, payload[:t], int(payload[t]), table,
+                            head=False)
+                with self._lock:
+                    self._counters["chunks_followed"] += 1
+            elif op == OP_DECODE:
+                tokens = payload[:batch]
+                lengths = payload[batch:2 * batch]
+                tables = (payload[2 * batch:].reshape(batch, b) if b
+                          else None)
+                self._load_static(tokens, lengths, tables)
+                self._decode_body(head=False)
+                with self._lock:
+                    self._counters["decode_steps"] += 1
+            else:
+                raise RuntimeError(f"unknown control operation {op}")
+            ran += 1
 
     # ------------------------------------------------------------- sampling
 
@@ -533,6 +820,7 @@ class InferenceEngine:
         :meth:`pages_to_host` (or the transfer codec) off this thread."""
         if not self.paged:
             raise RuntimeError("gather_pages needs the paged plane")
+        self._whole_pool("gather_pages")
         stream = None
         if self.device.type == "cuda":
             stream = (self._work_stream
@@ -604,6 +892,7 @@ class InferenceEngine:
         Scheduler thread only (the pool's one writer)."""
         if not self.paged:
             raise RuntimeError("ingest_attach needs the paged plane")
+        self._whole_pool("ingest_attach")
         mgr = self.manager
         phys = mgr.ingest_alloc(len(logical))
         if phys is None:
@@ -630,6 +919,12 @@ class InferenceEngine:
             out.setdefault(key, 0)
         out["prefill_exact_entries"] = 0
         out["prefill_bucket_entries"] = 0
+        # a sharded engine's decode is eager (decode_graphed 0); its
+        # leader's control stream: operations and broadcasts sent
+        out["decode_graphed"] = int(self._graph is not None)
+        out["mesh_ranks"] = self._ctl.size if self.sharded else 1
+        out.setdefault("control_ops", 0)
+        out.setdefault("control_broadcasts", 0)
         return out
 
     def publish(self) -> None:

@@ -32,6 +32,14 @@ deadline are live-migrated to a peer over the ``migrate`` frame of
 ``serving/kv_transfer.py`` and finish there; one that cannot go
 anywhere decodes here (``serve.transfer_fallbacks``).
 
+A sharded engine (``serve(mesh=)``, one process per rank): on the
+engine's leader ``serve()`` starts the batcher and the frontend as
+above (no KV transfer server: its pages hold one rank's heads, and a
+deadline drain finishes its sequences here); on a follower it opens no
+port and runs the engine's ``follow()`` on a thread bound to the
+device, returning a :class:`FollowerHandle`. The leader's ``stop()``
+and drain send the followers "stop" after the last request.
+
 A fleet meets in the rendezvous KV: each worker announces its capacity
 (:meth:`ServeFrontend.capacity`: role, free slots and pages, the
 transfer port) under scope ``serve`` every second
@@ -392,7 +400,9 @@ class ServeFrontend:
         if migrate_after is None:
             deadline_s = live_config().serve_drain_deadline_s
             migrate_after = deadline_s if deadline_s > 0 else None
-        if migrate_after is not None and self.batcher.engine.paged:
+        engine = self.batcher.engine
+        if (migrate_after is not None and engine.paged
+                and not engine.sharded):
             ok = self.batcher.drain(
                 timeout=timeout, migrate_after=float(migrate_after),
                 on_deadline=self._migrate_inflight,
@@ -877,8 +887,12 @@ class ServeHandle:
 
     def drain(self, timeout: float = 30.0,
               migrate_after: Optional[float] = None) -> bool:
-        return self.frontend.drain(timeout=timeout,
-                                   migrate_after=migrate_after)
+        """The frontend's drain; a sharded leader then sends its
+        followers "stop"."""
+        ok = self.frontend.drain(timeout=timeout,
+                                 migrate_after=migrate_after)
+        self.engine.close()
+        return ok
 
     def wait(self, timeout: Optional[float] = None) -> bool:
         """Block until stop()."""
@@ -888,18 +902,65 @@ class ServeHandle:
         from .. import preemption
 
         preemption.unregister_drain(self._drain_hook)
-        self.frontend.stop()
-        self.batcher.stop()
-        if self.transfer_server is not None:
-            self.transfer_server.stop()
-        if self._shutdown_ctx is not None:
-            self._shutdown_ctx.__exit__(None, None, None)
-            self._shutdown_ctx = None
-        self._stopped.set()
+        try:
+            self.frontend.stop()
+            self.batcher.stop()
+            if self.transfer_server is not None:
+                self.transfer_server.stop()
+            self.engine.close()  # a sharded leader's followers stop
+        finally:
+            if self._shutdown_ctx is not None:
+                self._shutdown_ctx.__exit__(None, None, None)
+                self._shutdown_ctx = None
+            self._stopped.set()
 
     def _drain_hook(self) -> None:
         # the deadline from HOROVOD_SERVE_DRAIN_DEADLINE_S
-        self.frontend.drain()
+        self.drain()
+
+
+class FollowerHandle:
+    """What :func:`serve` returns on a follower rank of a sharded engine:
+    the engine's ``follow()`` on a thread bound to the device, and no
+    port. ``wait()`` and ``stop()`` end with the leader's "stop";
+    ``error`` holds what ``follow()`` raised, if it did (the thread logs
+    it too)."""
+
+    port = None
+    batcher = None
+    frontend = None
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.error: Optional[BaseException] = None
+        self.ops = 0
+        self._thread = threading.Thread(target=self._follow,
+                                        name="hvd-serve-follower",
+                                        daemon=True)
+        self._thread.start()
+
+    def _follow(self) -> None:
+        try:
+            self.ops = self.engine.follow()
+        except BaseException as e:  # noqa: BLE001 - kept and logged
+            self.error = e
+            _log.exception("serve follower failed")
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the leader's "stop" (or a failure); True once the
+        follower has ended."""
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
+    def drain(self, timeout: float = 30.0, migrate_after=None) -> bool:
+        """A follower has nothing of its own to drain: wait for the
+        leader's "stop"."""
+        return self.wait(timeout)
+
+    def stop(self, timeout: Optional[float] = None) -> None:
+        """Wait for the leader's "stop": a follower cannot leave its
+        leader's group early."""
+        self.wait(timeout)
 
 
 def serve(
@@ -922,8 +983,10 @@ def serve(
     transfer_port: Optional[int] = None,
     announce_client=None,
     device=None,
+    mesh=None,
+    policy: str = "continuous",
     **engine_kwargs,
-) -> ServeHandle:
+):
     """Start the inference plane on this worker: engine, continuous
     batcher and HTTP frontend, drain-wired into SIGTERM.
 
@@ -949,6 +1012,14 @@ def serve(
     ``KVStore``), or the launcher's ``HOROVOD_GLOO_RENDEZVOUS_ADDR/
     PORT``; a prefill worker with no decode worker announced decodes
     locally.
+
+    ``policy`` is the batcher's (``"continuous"`` or ``"static"``).
+    ``mesh`` (a built ``parallel.mesh.Mesh``; every rank of it calls
+    ``serve``) serves a sharded engine: ``model`` is this rank's shard
+    (``Transformer(cfg, mesh=mesh)``) and ``params`` its
+    ``convert.shard_state_dict`` (or None). The engine's leader serves
+    HTTP as above; a follower returns a :class:`FollowerHandle` and opens
+    no port.
     """
     from .. import preemption
     from .engine import ROLES, InferenceEngine
@@ -981,8 +1052,10 @@ def serve(
         max_len = model.cfg.max_len
     engine = InferenceEngine(
         model, params, slots=slots, max_len=max_len, device=device,
-        role=role, **engine_kwargs,
+        role=role, mesh=mesh, **engine_kwargs,
     )
+    if not engine.leader:
+        return FollowerHandle(engine)
     batcher = ContinuousBatcher(
         engine,
         max_admit_per_step=max_admit_per_step,
@@ -990,9 +1063,11 @@ def serve(
         default_deadline_ms=deadline_ms,
         eos_id=eos_id,
         role=role,
+        policy=policy,
     )
     transfer_server = None
-    if role == "decode" or (role == "unified" and engine.paged):
+    if role == "decode" or (role == "unified" and engine.paged
+                            and not engine.sharded):
         # decode workers take prefill handoffs; a paged unified worker
         # runs the server too, so a draining peer can live-migrate its
         # in-flight sequences here: a one-role fleet is still evacuable

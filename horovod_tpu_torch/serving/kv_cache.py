@@ -16,19 +16,59 @@ sequence. This manager owns:
 
 The slab is the baseline; the default memory plane is the paged block
 pool of ``paged_kv.py`` behind the same slot API, and
-:func:`create_kv_manager` is where the engine picks. The slice runs on
-one card, so the JAX manager's tensor-parallel placement of the cache
-is not ported.
+:func:`create_kv_manager` is where the engine picks.
+
+Tensor parallelism: with ``mesh=`` (a built ``parallel.mesh.Mesh``)
+every cache leaf keeps this rank's ``kv_heads/tp`` heads of its
+kv-heads axis (#2 of ``[slots, seq, kv_heads, head_dim]``), the
+``i``-th contiguous run for ``tp`` index ``i``, as the sharded
+attention of ``models/transformer.py`` reads them; the manager keeps a
+:class:`KVSharding` record where the JAX manager keeps its
+``NamedSharding``. Every rank of a sharded engine builds the same
+manager, so the pools have the same pages and spare rows.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
 from ..common.metrics import registry as _metrics
+
+
+class KVSharding(NamedTuple):
+    """Where this rank's cache sits on the mesh: the tensor-parallel
+    axis, its size and this rank's index along it."""
+
+    axis: str
+    size: int
+    index: int
+
+
+def shard_cache(cache: List[dict], mesh, tp_axis: str):
+    """``(cache, KVSharding)``: every leaf cut to this rank's run of its
+    kv-heads axis. Raises ``ValueError`` when the axis does not divide
+    the kv head count (``horovod_tpu/serving/kv_cache.py:118-129``)."""
+    tp = mesh.size(tp_axis)
+    heads = {leaf.shape[2] for layer in cache for leaf in layer.values()}
+    for h in heads:
+        if h % tp:
+            raise ValueError(
+                f"the '{tp_axis}' axis size ({tp}) must divide the kv "
+                f"head count ({h}) to shard the cache"
+            )
+    if tp == 1:
+        return cache, KVSharding(tp_axis, 1, 0)
+    i = mesh.axis(tp_axis).index
+    cut = [
+        {name: leaf[:, :, i * (leaf.shape[2] // tp):
+                    (i + 1) * (leaf.shape[2] // tp)].contiguous()
+         for name, leaf in layer.items()}
+        for layer in cache
+    ]
+    return cut, KVSharding(tp_axis, tp, i)
 
 
 def create_kv_manager(
@@ -41,9 +81,12 @@ def create_kv_manager(
     num_pages: int = 0,
     prefix_cache: bool = True,
     watermark: int = -1,
+    mesh=None,
+    tp_axis: str = "tp",
 ):
     """The paged block-pool manager (the default) or the contiguous
-    slab; both speak the same slot API."""
+    slab; both speak the same slot API. ``mesh`` shards every leaf's kv
+    heads over ``tp_axis``."""
     if paged:
         from .paged_kv import PagedKVCacheManager
 
@@ -51,8 +94,10 @@ def create_kv_manager(
             cache_factory, slots, max_len,
             page_tokens=page_tokens, num_pages=num_pages,
             prefix_cache=prefix_cache, watermark=watermark,
+            mesh=mesh, tp_axis=tp_axis,
         )
-    return KVCacheManager(cache_factory, slots=slots, max_len=max_len)
+    return KVCacheManager(cache_factory, slots=slots, max_len=max_len,
+                          mesh=mesh, tp_axis=tp_axis)
 
 
 class KVCacheManager:
@@ -60,12 +105,16 @@ class KVCacheManager:
     cache tensors are touched only by the engine (one consumer, the
     batcher's step loop)."""
 
-    def __init__(self, cache_factory, slots: int, max_len: int) -> None:
+    def __init__(self, cache_factory, slots: int, max_len: int, mesh=None,
+                 tp_axis: str = "tp") -> None:
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.cache = cache_factory(self.slots, self.max_len)
+        self.sharding: Optional[KVSharding] = None
+        if mesh is not None:
+            self.cache, self.sharding = shard_cache(self.cache, mesh, tp_axis)
         self._lock = threading.Lock()
         self._free: List[int] = list(range(self.slots))
         self._owner: Dict[int, object] = {}

@@ -28,6 +28,12 @@ The batcher gates admission on free pages above a reserve watermark
 (:meth:`admission_headroom`); pool exhaustion mid-decode pauses the
 youngest request (:meth:`detach_keep` / :meth:`reattach`) instead of
 failing.
+
+With ``mesh=`` every leaf holds this rank's kv heads
+(``kv_cache.shard_cache``). The copy-on-write copy is the one write
+into the pool outside a forward: ``copy_hook(new, old)``, when set, is
+called before it, so a sharded engine's leader sends it to its
+followers (``serving/engine.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .kv_cache import KVCacheManager
+from .kv_cache import KVCacheManager, shard_cache
 
 
 class PagePoolExhausted(RuntimeError):
@@ -86,6 +92,8 @@ class PagedKVCacheManager(KVCacheManager):
         num_pages: int = 0,
         prefix_cache: bool = True,
         watermark: int = -1,
+        mesh=None,
+        tp_axis: str = "tp",
     ) -> None:
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
@@ -121,6 +129,11 @@ class PagedKVCacheManager(KVCacheManager):
         self.spare_row0 = self.num_pages * self.page_tokens
         self.full_cache = cache_factory(self.num_pages + self.spare_pages,
                                         self.page_tokens)
+        self.sharding = None
+        if mesh is not None:
+            self.full_cache, self.sharding = shard_cache(self.full_cache,
+                                                         mesh, tp_axis)
+        self.copy_hook = None
         self.cache = [
             {name: leaf[: self.num_pages] for name, leaf in layer.items()}
             for layer in self.full_cache
@@ -226,10 +239,17 @@ class PagedKVCacheManager(KVCacheManager):
             self._ref[new] = 1
             self._unref_locked(old)
             self._counters["page_cow"] += 1
+        if self.copy_hook is not None:
+            self.copy_hook(new, old)
+        self.copy_page(new, old)
+        return True
+
+    def copy_page(self, new: int, old: int) -> None:
+        """Page ``old``'s rows into page ``new``, every leaf (a device
+        copy per layer)."""
         for layer in self.cache:
             for leaf in layer.values():
                 leaf[new].copy_(leaf[old])
-        return True
 
     def ensure_decode_pages(self) -> List[int]:
         """Pre-decode sweep: every active slot's next write position
