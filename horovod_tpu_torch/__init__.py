@@ -69,7 +69,15 @@ slices are ported:
   ``HOROVOD_TELEMETRY``, ``HOROVOD_METRICS_PORT``: ``/metrics``,
   ``/telemetry``, ``/traces``), the stall inspector, and the tuners
   (``HOROVOD_AUTOTUNE``, ``HOROVOD_FUSION_WIRE=auto``,
-  ``HOROVOD_TUNER_CACHE``).
+  ``HOROVOD_TUNER_CACHE``);
+- the warm start and the audit: ``HOROVOD_EXE_CACHE`` keeps Inductor's
+  compiled artifacts a graph on disk (``common.exe_cache.backend()`` for
+  ``torch.compile``), with the bucketed overlap's schedules beside
+  them; ``hvd.analysis`` holds the collective-schedule audit
+  (``HOROVOD_SCHED_AUDIT``, checked by the elastic driver) and the
+  fleet's trace assembly; ``HOROVOD_WARM_STANDBY`` holds hosts out of an
+  elastic gang, staged by ``python -m horovod_tpu_torch.elastic.standby``,
+  and swaps one in on a failure or a saturated serve role.
 
 It imports ``torch``, numpy and the standard library only, and each
 public name only at its first use.
@@ -156,6 +164,7 @@ _EXPORTS = {
     ),
 }
 _SUBMODULES = {
+    "analysis": ".analysis",
     "overlap": ".ops.overlap",
     "traced": ".ops.traced",
     "local_sgd": ".local_sgd",

@@ -13,7 +13,9 @@ host and not another) trains on quietly wrong. This module checks it:
 * :func:`audit`: digest the tree, count ``audit.digests`` and set
   ``audit.last_digest_step``, and under the launcher publish ``{step,
   digest}`` to the rendezvous KV (``runner/rendezvous.py`` ``put_audit``),
-  where the elastic driver compares the gang's digests.
+  where the elastic driver compares the gang's digests, and beside it
+  the rank's collective-schedule fingerprint
+  (``analysis/sched_audit.py``, ``put_sched``).
 * :func:`maybe_audit`: the same every ``HOROVOD_AUDIT_STEPS`` steps
   (0: never), so a loop can call it every step.
 * :func:`find_divergent`: the driver's comparison, a copy of the JAX
@@ -232,6 +234,11 @@ def audit(tree: Any, step: int = 0, rank: Optional[int] = None) -> str:
     _metrics.counter("audit.digests")
     _metrics.gauge("audit.last_digest_step", step)
     _publish(int(rank), step, digest)
+    # the collective-schedule fingerprint rides the same cadence and KV
+    # (analysis/sched_audit.py): the two halves of one audit plane
+    from .analysis import sched_audit
+
+    sched_audit.publish(step, rank=rank)
     _log.debug("audit step %d: %s", step, digest[:16])
     return digest
 

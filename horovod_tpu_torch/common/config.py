@@ -18,7 +18,8 @@ package the same way:
   world's store, ``HOROVOD_GLOO_RENDEZVOUS_ADDR``/``_PORT``, the
   launcher's HTTP KV, ``HOROVOD_CONTROLLER``, ``HOROVOD_ELASTIC_EPOCH``,
   ``HOROVOD_SECRET_KEY``, ``HOROVOD_GLOO_TIMEOUT_SECONDS``,
-  ``HOROVOD_AUDIT_STEPS``, and the observability and autotune knobs:
+  ``HOROVOD_AUDIT_STEPS``, ``HOROVOD_SCHED_AUDIT``, ``HOROVOD_EXE_CACHE``,
+  ``HOROVOD_WARM_STANDBY``, and the observability and autotune knobs:
   ``HOROVOD_LOG_LEVEL``/``_TIMESTAMP``, ``HOROVOD_TIMELINE``/
   ``_MARK_CYCLES``, ``HOROVOD_TELEMETRY_STEPS``,
   ``HOROVOD_FLIGHT_RECORDER``, ``HOROVOD_METRICS_PORT``,
@@ -293,6 +294,20 @@ class TrainConfig:
     gloo_timeout_seconds: float = DEFAULT_GLOO_TIMEOUT_SECONDS
     # hvd.maybe_audit's cadence in steps (0: never)
     audit_steps: int = DEFAULT_AUDIT_STEPS
+    # the collective-schedule audit (analysis/sched_audit.py): every
+    # fused eager dispatch folds into a per-rank rolling fingerprint,
+    # published beside the parameter digests on the audit cadence; the
+    # elastic driver restarts the gang on a divergent rank (reason
+    # sched_divergence). One hash a dispatch, so on by default
+    sched_audit: bool = True
+    # the persistent compiled-artifact store's root (common/exe_cache.py):
+    # Inductor's artifacts a graph, keyed by (topology, graph, wire,
+    # donation); None: no disk tier
+    exe_cache: Optional[str] = None
+    # hosts the elastic driver holds out of the gang as warm standbys
+    # (elastic/standby.py), swapped in on a failure or a saturated serve
+    # role instead of a cold start; 0: none
+    warm_standby: int = 0
     # the wire tuner's int8 payload floor (HOROVOD_FUSION_WIRE=auto)
     fusion_wire_min_bytes: int = DEFAULT_FUSION_WIRE_MIN_BYTES
     # autotune (common/autotune.py): the parameter manager's switch, log
@@ -401,6 +416,9 @@ class TrainConfig:
                 "HOROVOD_GLOO_TIMEOUT_SECONDS", DEFAULT_GLOO_TIMEOUT_SECONDS
             ),
             audit_steps=_env_int("HOROVOD_AUDIT_STEPS", DEFAULT_AUDIT_STEPS),
+            sched_audit=_env_bool("HOROVOD_SCHED_AUDIT", True),
+            exe_cache=os.environ.get("HOROVOD_EXE_CACHE") or None,
+            warm_standby=_env_int("HOROVOD_WARM_STANDBY", 0),
             fusion_wire_min_bytes=_env_int(
                 "HOROVOD_FUSION_WIRE_MIN_BYTES",
                 DEFAULT_FUSION_WIRE_MIN_BYTES),

@@ -14,8 +14,7 @@ schedule through :func:`publish_overlap`, the stall inspector
 Dumps are delta-aware: after the first full snapshot only changed values
 are appended (``dump(force=True)`` re-emits everything). Thread-safe;
 values are floats. The legends below name each family once, so
-dashboards and tests never re-derive the spelling; the persistent
-executable cache's names wait for that cache (ROADMAP A16).
+dashboards and tests never re-derive the spelling.
 """
 
 from __future__ import annotations
@@ -266,6 +265,55 @@ SERVING_FAILOVER_METRICS = (
     "serve.migrations_in",
     "serve.migration_ms",
 )
+
+# The persistent compiled-artifact store and the warm restart
+# (common/exe_cache.py, elastic/driver.py and standby.py, the elastic
+# worker's init; analysis/sched_audit.py for the schedule audit):
+#   exe_cache.hits / misses       disk-tier lookups that loaded an entry
+#                                 / found none (counters)
+#   exe_cache.corrupt             torn or bit-flipped entries, or
+#                                 payloads Inductor refused, degraded to
+#                                 a cold compile (counter; chaos site
+#                                 `exe_cache.load`)
+#   exe_cache.rejected            entries refused by the invalidation
+#                                 rules (torch, CUDA, capability,
+#                                 Triton, platform, topology, wire,
+#                                 donation), never loaded (counter)
+#   exe_cache.stores              entries made and queued (counter)
+#   exe_cache.bytes               entry bytes read on hits (counter)
+#   exe_cache.deserialize_ms      wall-ms loading payloads into
+#                                 Inductor's caches (counter)
+#   elastic.restart_ms            gang teardown to this worker's init,
+#                                 wall-ms (gauge, per worker)
+#   elastic.restart_warm          1.0 when a warm standby absorbed the
+#                                 restart (gauge)
+#   serve.scaleup_ms              restart_ms of a serve-saturation grow
+#                                 restart (gauge)
+#   driver.standby.reserved       hosts held as warm standbys (gauge)
+#   driver.standby.swapins        standbys released into a gang
+#                                 (counter)
+#   audit.sched_published         schedule fingerprints published
+#                                 (counter); audit.sched_dispatches and
+#                                 audit.sched_last_step are its gauges
+#   driver.sched_divergence_restarts  gang restarts for a divergent
+#                                 collective schedule (counter)
+EXE_CACHE_METRICS = (
+    "exe_cache.hits",
+    "exe_cache.misses",
+    "exe_cache.corrupt",
+    "exe_cache.rejected",
+    "exe_cache.stores",
+    "exe_cache.bytes",
+    "exe_cache.deserialize_ms",
+    "elastic.restart_ms",
+    "elastic.restart_warm",
+    "serve.scaleup_ms",
+    "driver.standby.reserved",
+    "driver.standby.swapins",
+    "audit.sched_published",
+    "driver.sched_divergence_restarts",
+)
+
 
 class MetricsRegistry:
     def __init__(self) -> None:

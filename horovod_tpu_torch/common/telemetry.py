@@ -88,6 +88,10 @@ _COUNTER_KEYS = (
     # flight recorder pins integrity events to exact steps
     "guard.nonfinite_steps",
     "audit.digests",
+    # collective-schedule audit (analysis/sched_audit.py): a nonzero
+    # sched_published delta marks the steps whose records carried a
+    # schedule-fingerprint publish
+    "audit.sched_published",
     # local-SGD regime (local_sgd.py): local_steps is the
     # host-driver cadence meter, a sync_rounds delta marks the steps
     # that closed a reconciliation round, a rounds_deferred delta pins
@@ -119,6 +123,17 @@ _COUNTER_KEYS = (
     "serve.kv_transfer_pages",
     "serve.kv_transfer_ms",
     "serve.transfer_fallbacks",
+    # persistent compiled-artifact store (common/exe_cache.py): a step
+    # whose record shows a hits/misses delta compiled a graph through
+    # the disk tier, and a corrupt delta pins an entry degraded to a
+    # cold compile to the step that read it
+    "exe_cache.hits",
+    "exe_cache.misses",
+    "exe_cache.corrupt",
+    "exe_cache.rejected",
+    "exe_cache.stores",
+    "exe_cache.bytes",
+    "exe_cache.deserialize_ms",
 )
 
 # Gauges copied into the record's ``tuner`` dict — the autotune /

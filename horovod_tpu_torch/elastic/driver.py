@@ -39,11 +39,31 @@ clock; ``_poll_serve_capacity`` sums a serving fleet's announcements by
 role into ``driver.serve.{role}.{workers,free_slots,free_pages}``,
 guarded the same way (a blob with no ``role`` counts as unified).
 
-What waits for other items, and raises when a variable asks for it:
-warm standby (``HOROVOD_WARM_STANDBY`` > 0, ROADMAP A16), and with it
-the serve scale-up that releases a standby (the JAX driver's
-``_maybe_scale_up``); the schedule-divergence audit (A16's
-``sched_audit``) is not here either.
+**Warm standby** (``HOROVOD_WARM_STANDBY`` = N > 0, ``driver.py:208-545``):
+``compute_assignment`` holds up to N hosts out of the gang while the rest
+still clears ``min_np`` (``_reserve_standbys``: existing reservations
+first, then from the tail of the sorted host list; a released host is
+never reserved again), and ``_sync_standby_warmers`` launches a warmer
+(``python -m horovod_tpu_torch.elastic.standby``) on each newly reserved
+local host, which stages the torch process's cold-start costs ahead of
+time and announces itself in the KV's ``standby`` scope. A failed or
+quarantined host releases one standby (``_release_standby``, an armed
+one first) into the pool, so that the restart that follows swaps it in
+instead of shrinking the world; a serve role whose live workers have no
+free slot and no free page left (``_maybe_scale_up``, fed by
+``_poll_serve_capacity``) releases one and restarts the gang grown
+(reason ``serve scaleup``), at most once a staleness window. The restart
+stamp records whether a standby absorbed the restart (``warm``) and its
+kind, which the next epoch's workers publish as
+``elastic.restart_warm`` and ``serve.scaleup_ms``. The launcher imports
+no torch: the warmer imports it, in its own process.
+
+**The schedule audit** (``HOROVOD_SCHED_AUDIT``, ``driver.py:1060-1100``):
+``_poll_audit`` first compares the gang's published collective-schedule
+fingerprints (``analysis/sched_audit.py``) at the newest quorum step; a
+divergent rank's host is quarantined and the gang restarts with reason
+``sched_divergence``, the log naming the first divergent dispatch index
+recovered from the published rings.
 """
 
 from __future__ import annotations
@@ -75,17 +95,6 @@ _REBALANCE_STREAK = 2
 # advancing leaves the driver's gauges after this many seconds of the
 # driver's monotonic clock
 _EXPERT_LOAD_STALE_S = 60.0
-
-
-def check_deferred_knobs(env: Optional[dict] = None) -> None:
-    """Raise for a variable that asks for a part of the JAX driver the
-    port has not yet: each names the ROADMAP item it waits for."""
-    env = os.environ if env is None else env
-    standby = env.get("HOROVOD_WARM_STANDBY", "").strip()
-    if standby and int(standby) > 0:
-        raise NotImplementedError(
-            f"HOROVOD_WARM_STANDBY={standby}: warm standby pre-warms the "
-            "executables of a gang, not ported yet (ROADMAP A16)")
 
 
 class SlotAssignment:
@@ -132,7 +141,6 @@ class ElasticDriver:
         )
         from ..common.stall_inspector import StallInspector
 
-        check_deferred_knobs()
         cfg = TrainConfig.from_env()
         # the gang's heartbeats and straggler ledger (the reference's
         # "ranks absent" report, rebuilt on the rendezvous KV)
@@ -188,7 +196,17 @@ class ElasticDriver:
         self._last_hb_poll = 0.0
         self._last_audit_poll = 0.0
         self._last_audit_step: Optional[int] = None
+        self._last_sched_step: Optional[int] = None
         self._quarantine_capacity_warned = False
+        # warm standby (module docstring): hosts held out of the gang,
+        # their warmers, and the ones released into the pool
+        self._warm_standby = cfg.warm_standby
+        self._standby_current: set = set()
+        self._standby_released: set = set()
+        self._standby_warmers: Dict[str, Optional[subprocess.Popen]] = {}
+        self._standby_swapins = 0
+        self._scaleup_reason: Optional[str] = None
+        self._last_scaleup = -float("inf")
 
     # ---------------------------------------------------------- planning
 
@@ -200,19 +218,47 @@ class ElasticDriver:
         if self._slots_per_host is not None:
             hosts = [HostInfo(h.hostname, self._slots_per_host)
                      for h in hosts]
-        capacity = sum(h.slots for h in hosts)
+        reserved = self._reserve_standbys(hosts)
+        active = [h for h in hosts if h.hostname not in reserved]
+        capacity = sum(h.slots for h in active)
         if capacity < self._min_np:
             return None
+        self._standby_current = reserved
         return SlotAssignment(
             self._epoch if epoch is None else epoch,
-            assign_slots(hosts, min(capacity, self._max_np)),
+            assign_slots(active, min(capacity, self._max_np)),
         )
 
+    def _reserve_standbys(self, hosts) -> set:
+        """Up to ``HOROVOD_WARM_STANDBY`` hosts held out of the
+        assignment, only while the rest still clears min_np. Existing
+        reservations come first (a warmer mid-staging is not churned
+        away), then new ones from the tail of the sorted host list (rank
+        0's host stays put); a released host is never reserved again."""
+        if self._warm_standby <= 0:
+            return set()
+        by_name = {h.hostname: h for h in hosts}
+        candidates = [hn for hn in self._standby_warmers
+                      if hn in by_name and hn not in self._standby_released]
+        candidates += [hn for hn in sorted(by_name, reverse=True)
+                       if hn not in candidates
+                       and hn not in self._standby_released]
+        capacity = sum(h.slots for h in hosts)
+        reserved: set = set()
+        for hn in candidates:
+            if len(reserved) >= self._warm_standby:
+                break
+            if capacity - by_name[hn].slots >= self._min_np:
+                reserved.add(hn)
+                capacity -= by_name[hn].slots
+        return reserved
+
     def handle_host_failure(self, hostname: str) -> None:
-        """Blacklist the host of a failed worker and publish the dead
-        set."""
+        """Blacklist the host of a failed worker, publish the dead set,
+        and release a standby to take its place in the next gang."""
         self.host_manager.blacklist(hostname)
         self._publish_dead_hosts()
+        self._release_standby(f"host {hostname} failed")
 
     def _publish_dead_hosts(self) -> None:
         """The blacklist into the KV's ``serve`` scope (the serving
@@ -243,12 +289,14 @@ class ElasticDriver:
                   assignment.epoch, assignment.world_size,
                   ",".join(assignment.hostnames))
         server = self._rendezvous()
-        from ..runner.rendezvous import AUDIT_SCOPE, HEARTBEAT_SCOPE
+        from ..runner.rendezvous import (AUDIT_SCOPE, HEARTBEAT_SCOPE,
+                                         SCHED_SCOPE)
 
         self.stall_inspector.reset_heartbeats()
-        server.store.drop_scope(HEARTBEAT_SCOPE)
-        server.store.drop_scope(AUDIT_SCOPE)
+        for scope in (HEARTBEAT_SCOPE, AUDIT_SCOPE, SCHED_SCOPE):
+            server.store.drop_scope(scope)
         self._last_audit_step = None
+        self._last_sched_step = None
         local = all(_is_local(h) for h in assignment.hostnames)
         addr = "127.0.0.1" if local else os.uname().nodename
         blocks = worker_envs(
@@ -299,6 +347,125 @@ class ElasticDriver:
             self._procs = procs
             self._blocks = blocks
             self._assignment = assignment
+        self._sync_standby_warmers(assignment, addr, server.port)
+
+    # ------------------------------------------------------- warm standby
+
+    def _sync_standby_warmers(self, assignment: SlotAssignment, addr: str,
+                              kv_port: int) -> None:
+        """Launch a warmer on each newly reserved local host and stop
+        those whose host left the reservation. A remote reserved host is
+        held out of the gang but runs no warmer of this driver's (its
+        operator runs one there)."""
+        from ..common.metrics import registry as _metrics
+
+        reserved = set(self._standby_current)
+        for hn in list(self._standby_warmers):
+            if hn not in reserved:
+                proc = self._standby_warmers.pop(hn)
+                if proc is not None and proc.poll() is None:
+                    proc.terminate()
+        for hn in sorted(reserved):
+            proc = self._standby_warmers.get(hn)
+            if proc is not None and proc.poll() is None:
+                continue
+            launched = None
+            if _is_local(hn):
+                env = dict(os.environ)
+                env.update(self._extra_env)
+                env.update(
+                    HOROVOD_GLOO_RENDEZVOUS_ADDR=addr,
+                    HOROVOD_GLOO_RENDEZVOUS_PORT=str(kv_port),
+                    HOROVOD_SECRET_KEY=self._secret.hex(),
+                    HOROVOD_STANDBY_HOSTNAME=hn,
+                    # the preload targets the fingerprint of the world
+                    # the standby would join
+                    HOROVOD_SIZE=str(assignment.world_size),
+                    HOROVOD_LOCAL_SIZE=str(max(
+                        (s.local_size for s in assignment.slots), default=1)),
+                )
+                cwd = os.getcwd()
+                prior = env.get("PYTHONPATH")
+                env["PYTHONPATH"] = cwd if not prior else cwd + os.pathsep + prior
+                try:
+                    launched = subprocess.Popen(
+                        [sys.executable, "-m",
+                         "horovod_tpu_torch.elastic.standby"], env=env)
+                except OSError:
+                    _log.warning("standby warmer launch failed on %s", hn,
+                                 exc_info=True)
+            else:
+                _log.info("host %s reserved as warm standby (remote: no "
+                          "warmer launched)", hn)
+            self._standby_warmers[hn] = launched
+            _log.info("warm standby reserved on %s", hn)
+        _metrics.gauge("driver.standby.reserved", len(reserved))
+
+    def standby_status(self) -> Dict[str, dict]:
+        """``{hostname: announcement}`` of every warmer (the KV's
+        ``standby`` scope): the announce, staging, armed, released
+        lifecycle."""
+        if self._server is None:
+            return {}
+        from ..runner.rendezvous import read_standbys
+
+        try:
+            return read_standbys(self._server.store)
+        except Exception:  # noqa: BLE001 - observability only
+            return {}
+
+    def _release_standby(self, reason: str) -> Optional[str]:
+        """Swap-in: fold one reserved standby back into the pool, so the
+        next assignment includes it, an armed one before one still
+        staging, and tell its warmer to stand down. Returns the host, or
+        None when no standby is held."""
+        candidates = [hn for hn in sorted(self._standby_warmers)
+                      if hn not in self._standby_released]
+        if not candidates:
+            return None
+        status = self.standby_status()
+        armed = [hn for hn in candidates
+                 if status.get(hn, {}).get("state") == "armed"]
+        hostname = (armed or candidates)[0]
+        self._standby_released.add(hostname)
+        self._standby_swapins += 1
+        if self._server is not None:
+            from ..runner.rendezvous import STANDBY_SCOPE
+
+            try:
+                self._server.store.put(STANDBY_SCOPE, f"release.{hostname}",
+                                       b"1")
+            except Exception:  # noqa: BLE001 - SIGTERM at shutdown
+                pass
+        from ..common.metrics import registry as _metrics
+
+        _metrics.counter("driver.standby.swapins")
+        _metrics.gauge("driver.standby.reserved", len(candidates) - 1)
+        _log.info("releasing warm standby %s into the gang (%s); swap-in "
+                  "#%d", hostname, reason, self._standby_swapins)
+        return hostname
+
+    def _maybe_scale_up(self, per_role: Dict[str, dict]) -> None:
+        """A serve role with live workers and no admission headroom (no
+        free slot and no free page) while a standby is held releases the
+        standby and queues a grow restart (reason ``serve scaleup``), at
+        most once a staleness window."""
+        if self._scaleup_reason is not None or not self._standby_warmers:
+            return
+        if self._clock() - self._last_scaleup < _EXPERT_LOAD_STALE_S:
+            return
+        saturated = sorted(role for role, agg in per_role.items()
+                           if agg["workers"] > 0 and agg["free_slots"] <= 0
+                           and agg["free_pages"] <= 0)
+        if not saturated:
+            return
+        released = self._release_standby(
+            f"serve saturation: role(s) {','.join(saturated)}")
+        if released is None:
+            return
+        self._last_scaleup = self._clock()
+        self._scaleup_reason = (f"serve scaleup: standby {released} absorbs "
+                                f"saturated role(s) {','.join(saturated)}")
 
     def _terminate_gang(self, grace: float = 10.0) -> None:
         with self._lock:
@@ -466,6 +633,11 @@ class ElasticDriver:
         self._poll_serve_capacity()
         reason = self._maybe_quarantine()
         _metrics.maybe_dump()
+        if reason is not None:
+            return reason
+        # a serve scale-up queued by _maybe_scale_up: restart the gang
+        # with the released standby in it
+        reason, self._scaleup_reason = self._scaleup_reason, None
         return reason
 
     def _maybe_rebalance(self) -> None:
@@ -610,6 +782,7 @@ class ElasticDriver:
         for role, agg in per_role.items():
             for key, val in agg.items():
                 _metrics.gauge(f"driver.serve.{role}.{key}", val)
+        self._maybe_scale_up(per_role)
 
     def _maybe_quarantine(self) -> Optional[str]:
         """Blacklist the hosts of ranks flagged a straggler for
@@ -659,17 +832,22 @@ class ElasticDriver:
         for hostname in hosts:
             self.host_manager.blacklist(hostname)
             _metrics.counter("driver.quarantined_hosts")
+            self._release_standby(f"{why}: {hostname}")
         self._publish_dead_hosts()
         return True
 
     def _poll_audit(self, now: float) -> Optional[str]:
-        """Compare the gang's published parameter digests once an
-        interval; a divergent replica's host is quarantined (capacity
-        allowing) and a restart reason returned: the restart's sync
-        re-replicates rank 0's state, which is the repair."""
+        """Compare the gang's published collective-schedule fingerprints
+        (:meth:`_check_sched_divergence`), then its parameter digests,
+        once an interval; a divergent replica's host is quarantined
+        (capacity allowing) and a restart reason returned: the restart's
+        sync re-replicates rank 0's state, which is the repair."""
         if self._server is None or now - self._last_audit_poll < self._interval:
             return None
         self._last_audit_poll = now
+        sched_reason = self._check_sched_divergence()
+        if sched_reason:
+            return sched_reason
         from ..audit import find_divergent
         from ..runner.rendezvous import read_audit_digests
 
@@ -699,6 +877,51 @@ class ElasticDriver:
         return (f"divergence: ranks {','.join(map(str, bad_ranks))} at "
                 f"audit step {step}")
 
+    def _check_sched_divergence(self) -> Optional[str]:
+        """The schedule half of :meth:`_poll_audit`: at the newest quorum
+        step the majority fingerprint wins; a divergent rank's host is
+        quarantined through the shared gate and the gang restarts with
+        reason ``sched_divergence``, the log naming the first divergent
+        dispatch recovered from the rings."""
+        from ..analysis import sched_audit
+        from ..runner.rendezvous import read_sched_fingerprints
+
+        try:
+            entries = read_sched_fingerprints(self._server.store)
+        except Exception:  # noqa: BLE001 - the next poll retries
+            _log.debug("sched audit poll failed", exc_info=True)
+            return None
+        found = sched_audit.find_divergent(entries)
+        if found is None:
+            return None
+        step, bad_ranks = found
+        if step == self._last_sched_step:
+            return None  # this round was judged already
+        self._last_sched_step = step
+        from ..common.metrics import registry as _metrics
+
+        _metrics.counter("driver.sched_divergence_restarts")
+        good = sorted(r for r in entries if r not in bad_ranks
+                      and entries[r].get("step") == step)
+        first = (sched_audit.first_divergent_index(entries[bad_ranks[0]],
+                                                    entries[good[0]])
+                 if good else None)
+        counts = {r: entries[r].get("dispatches") for r in sorted(entries)}
+        hosts = self._hosts_of_ranks(bad_ranks)
+        quarantined = hosts and self._try_blacklist(
+            hosts, "sched divergence quarantine")
+        _log.error("collective-schedule divergence at audit step %d: ranks "
+                   "%s disagree with the gang's majority fingerprint (first "
+                   "divergent dispatch %s; dispatch counts %s)%s; restarting "
+                   "gang", step, ",".join(map(str, bad_ranks)),
+                   "outside ring" if first is None else f"#{first}", counts,
+                   f" (hosts {','.join(hosts)} quarantined)" if quarantined
+                   else " (hosts kept: capacity guard)")
+        return (f"sched_divergence: ranks {','.join(map(str, bad_ranks))} at "
+                f"audit step {step}"
+                + ("" if first is None
+                   else f" (first divergent dispatch #{first})"))
+
     def _reset(self, reason: str) -> bool:
         """Bump the epoch and clear the assignment so that the loop
         relaunches; False when ``reset_limit`` is spent."""
@@ -717,8 +940,10 @@ class ElasticDriver:
             from ..runner.rendezvous import put_restart_stamp
 
             try:  # the next epoch's workers read it: elastic.restart_ms
-                put_restart_stamp(self._server.store, epoch=self._epoch,
-                                  reason=reason)
+                put_restart_stamp(
+                    self._server.store, epoch=self._epoch, reason=reason,
+                    warm=bool(self._standby_released),
+                    kind="scaleup" if "scaleup" in reason else "restart")
             except Exception:  # noqa: BLE001
                 pass
         with self._lock:
@@ -749,6 +974,15 @@ class ElasticDriver:
 
         self.stop()
         self._terminate_gang()
+        for proc in self._standby_warmers.values():
+            if proc is not None and proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=5)
+        self._standby_warmers.clear()
         _metrics.dump()  # the driver's gauges, where a sink is set
         for f in self._files:
             f.close()

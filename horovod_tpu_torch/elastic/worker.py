@@ -14,10 +14,12 @@ the retry.
 
 ``notification_manager.init()`` (``run`` calls it) re-arms what a gang
 of the port holds per process: the KV poll latch, the audit's KV
-client and local SGD's per-gang state, then, under the elastic driver,
-starts the notification endpoint, registers it under
-``workers.<epoch>/<process id>``, publishes the restart time
-(``elastic.restart_ms``) and stamps ``heartbeat/<rank>`` every 10 s
+client, the schedule audit's fingerprint and local SGD's per-gang
+state, then, under the elastic driver, starts the notification
+endpoint, registers it under ``workers.<epoch>/<process id>``,
+publishes the restart time (``elastic.restart_ms``, with
+``elastic.restart_warm`` and a scale-up's ``serve.scaleup_ms``) and
+stamps ``heartbeat/<rank>`` every 10 s
 (chaos site ``heartbeat``), the flight recorder's ``{step, step_ms_p50,
 last_step_ts}`` beside the stamp (``telemetry.heartbeat_stats()``, empty
 before the first recorded step), which the driver's stall inspector
@@ -76,6 +78,7 @@ class WorkerNotificationManager:
             if self._service is not None:
                 return
             from .. import local_sgd as _local_sgd
+            from ..analysis import sched_audit
             from ..audit import _reset_client as _audit_reset
             from ..common.config import TrainConfig
             from ..runner import rendezvous as _rdv
@@ -83,6 +86,10 @@ class WorkerNotificationManager:
             _rdv.reset_poll_shutdown()
             _reset_rebalance_cache()
             _audit_reset()
+            # a (re)joining gang starts a fresh collective schedule: the
+            # old epoch's fingerprint would flag the new gang against
+            # itself
+            sched_audit.reset()
             _local_sgd.reset()
             cfg = TrainConfig.from_env()
             if not (cfg.rendezvous_addr and cfg.rendezvous_port
@@ -129,7 +136,9 @@ class WorkerNotificationManager:
         """Close the restart clock the driver stamped at the gang's
         teardown: ``elastic.restart_ms`` is now minus the stamp, for a
         worker of the stamped epoch (a missing or older stamp is a first
-        launch)."""
+        launch); ``elastic.restart_warm`` is 1.0 when a warm standby
+        absorbed the restart, and a serve scale-up's restart is also
+        ``serve.scaleup_ms``."""
         import time
 
         from ..common.metrics import registry as _metrics
@@ -143,6 +152,10 @@ class WorkerNotificationManager:
             return
         ms = max((time.time() - float(stamp["ts"])) * 1e3, 0.0)
         _metrics.gauge("elastic.restart_ms", ms)
+        _metrics.gauge("elastic.restart_warm",
+                       1.0 if stamp.get("warm") else 0.0)
+        if stamp.get("kind") == "scaleup":
+            _metrics.gauge("serve.scaleup_ms", ms)
 
     def _on_hosts_updated(self, request: dict) -> dict:
         self._updated.set()

@@ -170,7 +170,9 @@ def _allreduce_entry(tensor, name, op, prescale, postscale, process_set,
                    mask=_mask_key(), two_level=bool(two_level),
                    local=None if local is None else tuple(
                        tuple(int(r) for r in g) for g in local),
-                   seed=seed)
+                   seed=seed,
+                   src_dtype=(tensor.dtype if payload.dtype != tensor.dtype
+                              else None))
     return entry, post
 
 

@@ -173,12 +173,26 @@ same numbers under a key only that group's batches use, and makes the
 same choices; the tuner starts from the world's agreed state
 (``autotune.adopt``). A residual asks for int8, and anything the int8
 wire cannot take rides fp32, as in the JAX package.
+
+**The schedule audit** (``HOROVOD_SCHED_AUDIT``, on by default;
+``horovod_tpu/ops/fusion.py:1139-1160,2155``): each dispatch, its wire
+resolved, folds into ``analysis/sched_audit.py``'s rolling fingerprint
+under the JAX package's key: ``<kind>:<op>`` (``alltoall`` alone), then
+``(family, entry names, shapes, dtype)`` with each shape rank-major
+(``(world, *shape)``, the JAX payload's), an auto-name's counter
+dropped (:func:`_sched_entry_name`) and the caller's dtype where a
+compressor cast the payload (``src_dtype``), then the wire (``<intra>/<inter>``
+on the two-level route) and the process set's id. A batch of the same
+entries so folds to the same digest in both packages; the port sends
+allgather, broadcast and Adasum one entry a collective, the JAX package
+fuses them, so those agree when a batch holds one entry.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -187,6 +201,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from ..analysis import sched_audit
 from ..common import autotune, basics
 from ..common import topology as topo_mod
 from ..common.logging import get_logger
@@ -207,6 +222,48 @@ _DIST_OPS = {
     Max: dist.ReduceOp.MAX,
     Product: dist.ReduceOp.PRODUCT,
 }
+
+
+_SCHED_NONAME = re.compile(r"^(\w+)\.noname\.\d+(\..+)?$")
+
+
+def _sched_entry_name(name: str) -> str:
+    """An entry's name as the schedule fingerprint folds it: an
+    automatic ``<op>.noname.<counter>`` becomes ``<op>`` (the counter
+    only restates the dispatch order, and a rejoined worker restarts
+    it), a grouped member's ``<op>.noname.<counter>.<i>`` keeps its
+    index ``<i>``, a caller's name stays as it is (the JAX package's
+    ``_sched_entry_name``)."""
+    m = _SCHED_NONAME.match(name or "")
+    if m is None:
+        return name or ""
+    return m.group(1) + (m.group(2) or "")
+
+
+def _sched_record(entries) -> None:
+    """Fold one dispatch into the schedule audit (module docstring)."""
+    e0 = entries[0]
+    world = dist.get_world_size()
+    dtype = _dtype_name(e0.src_dtype or e0.tensor.dtype)
+    ps = e0.process_set
+    pset = 0 if ps is None else ps.process_set_id
+    if e0.kind == "alltoall":
+        sched_audit.record(
+            "alltoall", (_sched_entry_name(e0.name),
+                         (world,) + tuple(e0.tensor.shape), dtype),
+            wire=e0.wire, pset=pset)
+        return
+    family = e0.kind
+    if e0.op == Adasum and not _is_world(ps):
+        family = "adasum_pset"
+    wire = e0.wire if e0.kind == "allreduce" else None
+    if e0.hier:
+        wire = f"{e0.intra_wire}/{e0.wire}"
+    sched_audit.record(
+        f"{e0.kind}:{int(e0.op)}",
+        (family, tuple(_sched_entry_name(e.name) for e in entries),
+         tuple((world,) + tuple(e.tensor.shape) for e in entries), dtype),
+        wire=wire, pset=pset)
 
 
 @dataclasses.dataclass(eq=False)
@@ -243,6 +300,9 @@ class _Entry:
     # the int8 wire's seed base (DistributedOptimizer's); None: the
     # manager's per-dispatch counter
     seed: Optional[int] = None
+    # the caller's dtype where a compressor cast the payload for the wire
+    # (the schedule audit folds it, as the JAX package folds its payload's)
+    src_dtype: Optional[torch.dtype] = None
 
     @property
     def nbytes(self) -> int:
@@ -928,6 +988,8 @@ class FusionManager:
         trials: List[Tuple] = []
         if e0.kind == "allreduce" and e0.wire == "auto":
             trials = self._tune_wire(entries)
+        if sched_audit.enabled():
+            _sched_record(entries)
         tl = self.timeline
         phase = e0.kind.upper()
         if tl is not None:

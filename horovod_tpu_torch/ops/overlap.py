@@ -65,7 +65,13 @@ while earlier layers are still differentiating:
   :func:`~..common.autotune.OverlapTuner`, which
   ``DistributedOptimizer(overlap_buckets="auto")`` drives.
 
-Not here yet: the schedule's sidecar on disk (ROADMAP A16).
+With ``HOROVOD_EXE_CACHE`` set, :func:`schedule_for` persists each
+partition it builds in the cache's ``overlap_schedule`` sidecar
+(``common/exe_cache.py``, the JAX package's ``overlap.py:104-157``), and
+a fresh process (a restarted worker) replays a recorded partition
+verbatim instead of re-deriving it, so a change of the balancing rule
+does not move a persisted schedule (``schedule_cache_stats()
+["disk_hits"]``).
 """
 
 from __future__ import annotations
@@ -117,7 +123,11 @@ def _leaf_key(leaf) -> Tuple:
 
 _CACHE: dict = {}
 _CACHE_CAP = 256
-_STATS = {"hits": 0, "misses": 0}
+_STATS = {"hits": 0, "misses": 0, "disk_hits": 0}
+
+# the HOROVOD_EXE_CACHE sidecar holding the partitions built (module
+# docstring)
+_SIDECAR = "overlap_schedule"
 
 
 def schedule_cache_stats() -> dict:
@@ -126,8 +136,42 @@ def schedule_cache_stats() -> dict:
 
 def reset_schedule_cache() -> None:
     _CACHE.clear()
-    _STATS["hits"] = 0
-    _STATS["misses"] = 0
+    for k in _STATS:
+        _STATS[k] = 0
+
+
+def _sidecar_key(key: tuple) -> str:
+    import hashlib
+
+    return hashlib.sha256(repr(key).encode()).hexdigest()[:24]
+
+
+def _schedule_from_record(rec) -> Optional[BucketSchedule]:
+    """A sidecar record as a schedule; None when malformed (a corrupt
+    record reads as a rebuild)."""
+    try:
+        return BucketSchedule(
+            buckets=tuple(tuple(int(i) for i in b) for b in rec["buckets"]),
+            bucket_bytes=tuple(int(b) for b in rec["bucket_bytes"]),
+            total_bytes=int(rec["total_bytes"]),
+            passthrough=tuple(int(i) for i in rec.get("passthrough", ())),
+        )
+    except (KeyError, TypeError, ValueError):
+        return None
+
+
+def _schedule_record(key: tuple, sched: BucketSchedule) -> dict:
+    """The sidecar's record, the JAX package's fields."""
+    return {
+        "buckets": [list(b) for b in sched.buckets],
+        "bucket_bytes": list(sched.bucket_bytes),
+        "total_bytes": int(sched.total_bytes),
+        "passthrough": list(sched.passthrough),
+        "n_leaves": sum(len(b) for b in sched.buckets)
+        + len(sched.passthrough),
+        "n_buckets": int(key[2]),
+        "min_bucket_bytes": int(key[3]),
+    }
 
 
 def build_bucket_schedule(leaves: Sequence[Optional[torch.Tensor]],
@@ -186,7 +230,11 @@ def build_bucket_schedule(leaves: Sequence[Optional[torch.Tensor]],
 def schedule_for(leaves: Sequence[Optional[torch.Tensor]], treedef: Any,
                  n_buckets: int, min_bucket_bytes: int = 0) -> BucketSchedule:
     """:func:`build_bucket_schedule`, cached by the tree's structure, the
-    leaves' shapes and dtypes and the knobs, counting hits and misses."""
+    leaves' shapes and dtypes and the knobs, counting hits and misses;
+    with ``HOROVOD_EXE_CACHE`` set, a miss first replays the sidecar's
+    record (``disk_hits``) and a build is persisted there."""
+    from ..common import exe_cache
+
     key = (str(treedef), tuple(_leaf_key(leaf) for leaf in leaves),
            int(n_buckets), int(min_bucket_bytes))
     sched = _CACHE.get(key)
@@ -194,7 +242,17 @@ def schedule_for(leaves: Sequence[Optional[torch.Tensor]], treedef: Any,
         _STATS["hits"] += 1
         return sched
     _STATS["misses"] += 1
-    sched = build_bucket_schedule(leaves, n_buckets, min_bucket_bytes)
+    disk = exe_cache.cache_dir()
+    if disk:
+        rec = exe_cache.load_json(_SIDECAR).get(_sidecar_key(key))
+        sched = None if rec is None else _schedule_from_record(rec)
+        if sched is not None:
+            _STATS["disk_hits"] += 1
+    if sched is None:
+        sched = build_bucket_schedule(leaves, n_buckets, min_bucket_bytes)
+        if disk:
+            exe_cache.persist_json(
+                _SIDECAR, {_sidecar_key(key): _schedule_record(key, sched)})
     if len(_CACHE) >= _CACHE_CAP:
         _CACHE.pop(next(iter(_CACHE)))
     _CACHE[key] = sched

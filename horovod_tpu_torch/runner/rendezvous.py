@@ -8,17 +8,17 @@ threaded HTTP server holding a scoped KV store; workers PUT and GET
 ``torch.distributed`` TCP store (``common/basics.py``); this KV carries
 what the launcher and the elastic driver exchange with the workers:
 the object collectives :func:`broadcast_via_kv`/:func:`allgather_via_kv`,
-the workers' notification addresses, heartbeats, audit digests, the
-restart stamp, the dead-host set, the version check, the straggler
-rebalance's weights and the expert-load ledger. The wire is the JAX
+the workers' notification addresses, heartbeats, audit digests and
+collective-schedule fingerprints, the restart stamp, the warm
+standbys' announcements, the dead-host set, the version check, the
+straggler rebalance's weights and the expert-load ledger. The wire is the JAX
 package's, so a port client talks to a JAX server and back, and each
 channel's JSON is the JAX package's byte for byte.
 
 Differences: one Python server (the JAX package's native C++ server is
 its ``_native`` layer, not ported: ROADMAP A17); every process speaks
 for one rank, so the object collectives key by rank; the version check
-compares the port's version, torch's and CUDA's; the schedule and
-standby channels wait for the modules that use them (ROADMAP A16).
+compares the port's version, torch's and CUDA's.
 
 Wire protocol:
     GET    /kv/<scope>/<key>   -> 200 value | 404
@@ -509,6 +509,83 @@ def read_audit_digests(store_or_client) -> Dict[int, dict]:
             continue
         if isinstance(obj, dict) and "digest" in obj and "step" in obj:
             out[rank] = obj
+    return out
+
+
+SCHED_SCOPE = "sched"
+
+
+def put_sched(client, rank: int, step: int, fingerprint: str,
+              dispatches: int, ring=None) -> None:
+    """Worker side of the collective-schedule ledger
+    (``analysis/sched_audit.py``): this rank's rolling schedule
+    fingerprint, its dispatch count and the bounded ring of recent
+    per-dispatch digests (``[[index, digest], ...]``, how the driver
+    finds the FIRST divergent dispatch). One key a rank, overwritten a
+    round, the scope dropped at each gang launch."""
+    import time as _time
+
+    payload = {
+        "ts": _time.time(),
+        "step": int(step),
+        "fingerprint": str(fingerprint),
+        "dispatches": int(dispatches),
+        "ring": [[int(i), str(d)] for i, d in (ring or [])],
+    }
+    client.put(SCHED_SCOPE, str(int(rank)), json.dumps(payload).encode())
+
+
+def read_sched_fingerprints(store_or_client) -> Dict[int, dict]:
+    """Driver side: ``{rank: {"ts", "step", "fingerprint", "dispatches",
+    "ring"}}``; malformed entries are skipped."""
+    out: Dict[int, dict] = {}
+    for key in store_or_client.keys(SCHED_SCOPE):
+        raw = store_or_client.get(SCHED_SCOPE, key)
+        if raw is None:
+            continue
+        try:
+            rank = int(key)
+            obj = json.loads(raw.decode())
+        except (ValueError, UnicodeDecodeError):
+            continue
+        if isinstance(obj, dict) and "fingerprint" in obj and "step" in obj:
+            out[rank] = obj
+    return out
+
+
+STANDBY_SCOPE = "standby"
+
+
+def put_standby(store_or_client, hostname: str, state: str,
+                detail: Optional[dict] = None) -> None:
+    """The warm-standby warmer's lifecycle (``elastic/standby.py``):
+    ``announce``, ``staging``, ``armed`` (ready to swap in) or
+    ``released``, with what was staged. One key a host, refreshed by the
+    warmer's keepalive so that the driver can age out a dead warmer. The
+    driver releases a host by writing ``release.<host>`` in the scope."""
+    import time as _time
+
+    payload = {"ts": _time.time(), "state": str(state)}
+    if detail:
+        payload.update(detail)
+    store_or_client.put(STANDBY_SCOPE, str(hostname),
+                        json.dumps(payload).encode())
+
+
+def read_standbys(store_or_client) -> Dict[str, dict]:
+    """Driver side: ``{hostname: {"ts", "state", ...}}``; malformed
+    entries (and the release markers) are skipped."""
+    out: Dict[str, dict] = {}
+    for key in store_or_client.keys(STANDBY_SCOPE):
+        raw = store_or_client.get(STANDBY_SCOPE, key)
+        if raw is None:
+            continue
+        try:
+            obj = json.loads(raw.decode())
+        except (ValueError, UnicodeDecodeError):
+            continue
+        if isinstance(obj, dict) and "state" in obj:
+            out[key] = obj
     return out
 
 

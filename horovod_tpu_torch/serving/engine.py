@@ -36,10 +36,18 @@ The counterpart of ``horovod_tpu/serving/engine.py`` on one CUDA card:
   :meth:`extract_pages`, :meth:`export_sampling` and
   :meth:`import_sampling` are the JAX engine's.
 
-Prefill runs eagerly at each chunk's exact width: the JAX engine's
-prefill compile tiers (exact/bucket executables, background promotion,
-the executable disk cache) have no counterpart, and their counters in
-:meth:`stats` stay 0.
+Prefill runs eagerly at each chunk's exact width: no pad tokens and
+nothing compiled. The JAX engine's prefill compile tiers (exact/bucket
+executables, background promotion) and its executable disk cache
+(``_warm_start``, ``_disk_prefill_exact``) have no counterpart, and their
+counters in :meth:`stats` (``prefill_disk_hits`` and ``decode_disk_hits``
+among them) stay 0. A CUDA graph holds the capturing process's device
+addresses, so it cannot be persisted: every process captures its decode
+graph again when it builds the engine, and ``stats()["capture_ms"]`` is
+what that took on the host's clock (the warm-up and the capture; 0 when
+nothing was captured). What a torch process can persist is Inductor's
+output (``common/exe_cache.py``); prefill CUDA graphs at bucket widths
+with promotion are queued (ROADMAP A16's remainder).
 
 **A sharded engine** (``mesh=``, the JAX engine's ``mesh``/``tp_axis``/
 ``ep_axis``): ``tp`` shards the KV pool's kv heads and the attention
@@ -922,6 +930,7 @@ class InferenceEngine:
         # a sharded engine's decode is eager (decode_graphed 0); its
         # leader's control stream: operations and broadcasts sent
         out["decode_graphed"] = int(self._graph is not None)
+        out["capture_ms"] = self._capture_ms
         out["mesh_ranks"] = self._ctl.size if self.sharded else 1
         out.setdefault("control_ops", 0)
         out.setdefault("control_broadcasts", 0)

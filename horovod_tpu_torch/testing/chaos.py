@@ -25,6 +25,11 @@ site                      where it fires
                           committed step, which the digest must catch)
 ``checkpoint.restore``    each restore attempt
 ``preemption.drain``      between the drain hooks and the persist on SIGTERM
+``exe_cache.load``        each read of a compiled-artifact entry
+                          (``common/exe_cache.py``; ``bitflip`` corrupts the
+                          bytes read, ``delay`` stalls the load): a corrupt
+                          entry counts ``exe_cache.corrupt`` and the graph
+                          compiles cold, never a failed compile
 ``fusion.dispatch``       each fused batch, before its collective
                           (``ops/fusion.py``): transport kinds raise
                           ``HorovodInternalError``, ``nan`` poisons element 0

@@ -31,7 +31,6 @@ import importlib
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common import guard as _guard
 from horovod_tpu_torch.common.metrics import registry
-from horovod_tpu_torch.elastic import driver as drv
 from horovod_tpu_torch.elastic import (
     ElasticDriver,
     ElasticSampler,
@@ -255,17 +254,6 @@ def test_driver_notifies_the_worker_manager(monkeypatch):
     finally:
         mgr.shutdown()
         d.shutdown()
-
-
-@pytest.mark.parametrize("env,item", [
-    ({"HOROVOD_WARM_STANDBY": "1"}, "A16"),
-])
-def test_deferred_knobs_raise_with_their_items(monkeypatch, env, item):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=item):
-        ElasticDriver(FakeDiscovery([]), ["true"], 1)
-    drv.check_deferred_knobs({"HOROVOD_WARM_STANDBY": "0"})  # off: fine
 
 
 def test_rebalance_driver_publishes_weights_for_a_flagged_rank(monkeypatch):

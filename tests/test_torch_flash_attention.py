@@ -130,6 +130,18 @@ def test_bf16_within_one_rounding(name):
                                    err_msg=label)
 
 
+@pytest.fixture
+def one_thread():
+    """Tiny float64 ops gain nothing from torch's intra-op threads, and
+    beside other test processes the threads only contend for the cores:
+    run on one, then restore the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("name", ["causal", "gqa-lengths-window",
                                   "lengths-full"])
 def test_plain_backward_gradcheck(name):

@@ -325,7 +325,8 @@ def test_driver_per_role_gauges_equal_jax():
     _put(store, 3, role="decode", free_slots=3, free_pages=9,
          draining=True)
     ours = types.SimpleNamespace(_server=types.SimpleNamespace(store=store),
-                                 _serve_cap_seen={}, _clock=time.monotonic)
+                                 _serve_cap_seen={}, _clock=time.monotonic,
+                                 _maybe_scale_up=lambda per_role: None)
     theirs = types.SimpleNamespace(
         _server=types.SimpleNamespace(store=store), _serve_cap_seen={},
         _maybe_scale_up=lambda per_role: None)

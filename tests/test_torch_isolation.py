@@ -62,7 +62,11 @@ def test_import_pulls_in_no_jax():
         "horovod_tpu_torch.common.traced_timeline, "
         "horovod_tpu_torch.common.stall_inspector, "
         "horovod_tpu_torch.common.tracing, "
-        "horovod_tpu_torch.common.autotune\n"
+        "horovod_tpu_torch.common.autotune, "
+        "horovod_tpu_torch.common.exe_cache, horovod_tpu_torch.analysis, "
+        "horovod_tpu_torch.analysis.sched_audit, "
+        "horovod_tpu_torch.analysis.trace_merge, "
+        "horovod_tpu_torch.elastic.standby\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -146,11 +150,23 @@ _ELASTIC_LAUNCHER = (
     "    assert not e.code, e.code\n")
 
 
+# what the elastic driver reads of the schedule audit and the KV, and
+# the warmer before it stages
+_DRIVER_SIDE = (
+    "import horovod_tpu_torch.analysis as a\n"
+    "import horovod_tpu_torch.elastic.standby as sb\n"
+    "from horovod_tpu_torch.common import exe_cache\n"
+    "assert a.sched_audit.find_divergent({}) is None\n"
+    "assert exe_cache.donation_signature(()) == 'none'\n"
+    "assert sb.StandbyWarmer(None, 'h').hostname == 'h'\n")
+
+
 @pytest.mark.parametrize("code", [
     "import horovod_tpu_torch as hvd\nassert callable(hvd.audit)\n",
     _LAUNCHER,
     _ELASTIC_LAUNCHER,
-], ids=["package", "launcher", "elastic_launcher"])
+    _DRIVER_SIDE,
+], ids=["package", "launcher", "elastic_launcher", "driver_side"])
 def test_the_package_and_its_launcher_import_no_torch(code):
     """``import horovod_tpu_torch`` binds each public name at its first
     use, and so does ``horovod_tpu_torch.elastic``, so the launcher and

@@ -60,6 +60,17 @@ from horovod_tpu_torch.models.layers import Conv, same_pads
 TOL = 1e-5
 
 
+@pytest.fixture
+def one_thread():
+    """Small ops gain little from torch's intra-op threads, and beside
+    other test processes the threads only contend for the cores: run on
+    one, then restore the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, what=""):
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
@@ -212,6 +223,7 @@ def test_resnet_small(stem, train):
     _check_step(jm, v, tm, convert.cnn_params_from_flax, x, 7, train)
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_resnet50_eval_logits_and_grads():
     """ResNet-50 at full width, 64² images, in evaluation mode: every
     carried parameter and running statistic in use."""
@@ -279,6 +291,7 @@ def test_dropout_needs_a_generator():
 # --------------------------------------------------------------- Inception
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_inception_v3_eval():
     """Full width at 75², the smallest input the stem takes, in
     evaluation mode: every block's ConvBN order, the counted avg-pool

@@ -320,7 +320,7 @@ def test_schedule_cache_hits_and_misses():
     assert snap["overlap.bucket_bytes_min"] == min(sched.bucket_bytes)
     overlap.reset_schedule_cache()
     assert overlap.schedule_cache_stats() == {"hits": 0, "misses": 0,
-                                              "size": 0}
+                                              "disk_hits": 0, "size": 0}
 
 
 # ------------------------------------------------- the bucketed exchange

@@ -36,6 +36,17 @@ VARIANTS = {
 }
 
 
+@pytest.fixture
+def one_thread():
+    """Small ops gain little from torch's intra-op threads, and beside
+    other test processes the threads only contend for the cores: run on
+    one, then restore the count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(flash=True, **kw):
     base = dict(vocab_size=VOCAB, num_layers=2, d_model=32, num_heads=4,
                 d_ff=64, max_len=32, flash_attention=flash)
@@ -82,6 +93,7 @@ def _torch_step(tmodel, tokens, labels, **kw):
     return float(loss.detach()), logits.detach().numpy(), grads
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_loss_logits_and_gradients_match_jax(variant):
     spec = VARIANTS[variant]
