@@ -18,7 +18,8 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    same function (timed only, never used by the port) and its bound.
 3. Main path: ``serve()`` of GPT-2 medium (full width, random weights
    from a seed, bf16) answering HTTP ``POST /generate`` requests, its
-   decode step one captured CUDA graph (``decode_compiles`` 1); the
+   decode step one captured CUDA graph (``decode_compiles`` 1), each
+   prefill chunk a replay of its tier's graph (phase 24); the
    kernel launch counters are zeroed just before and read just after.
    Decode and chunk launches are reported apart; every chunk launch
    (more than 4 packed rows a KV head) must take the tensor cores.
@@ -223,15 +224,15 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    allreduce bit for bit, a
    ``broadcast_via_kv``/``allgather_via_kv`` round and an ``audit``
    that ``find_divergent`` finds agreeing; ``--check-build`` names
-   torch, CUDA, ``nvcc``, NCCL and gloo. (b) A: 6 steps; B: the same
+   torch, CUDA, ``nvcc``, NCCL and gloo. (b) A: 5 steps; B: the same
    3 under ``DurableTorchState(save_interval=1, max_to_keep=2)``, then
    SIGKILL of the launcher's whole process group after step 3's commit;
    C: a fresh launch, ``resume_latest()`` (step 3, the cursor at the
-   next global index), steps 4–6: its losses and its parameters' and
+   next global index), steps 4–5: its losses and its parameters' and
    residuals' digests equal A's bit for bit (deterministic algorithms
    on), and a
-   ``checkpoint.save@3:bitflip`` plan makes ``restore_latest_good``
-   fall back from step 6 to 5 and count ``checkpoint.fallback``. (c)
+   ``checkpoint.save@2:bitflip`` plan (C's last commit) makes ``restore_latest_good``
+   fall back from step 5 to 4 and count ``checkpoint.fallback``. (c)
    The elastic driver over a discovery script of ``127.0.0.1:1`` and
    ``localhost:3``: ``train.step.rank0@4:kill`` ends rank 0, the driver
    blacklists ``127.0.0.1`` and restarts 3 ranks as epoch 1, which
@@ -243,7 +244,7 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    which a run without a non-finite gradient never trips): a fresh model
    and optimizer with one non-finite gradient element at step 4:
    ``hvd.elastic.run`` restores step 3's commit and re-inits in place
-   (same process, epoch 0), and steps 1–6 equal A's bit for bit. The
+   (same process, epoch 0), and steps 1–5 equal A's bit for bit. The
    phase starts 5 gangs.
    Every step of every arm launches B3 twice a fused batch and the
    flash kernels 2L/L/L/L, all on the tensor cores. It prints each
@@ -302,11 +303,15 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    True)`` (Inductor, without fma contraction) of attention alone at
    ``gpt2-t512``: B5 and B6 through the ``hvd_torch`` operators and
    their autograd formula, bitwise the eager call; and of a training
-   step of GPT-2 medium at 4 layers (remat): no graph break, B5 8 times
-   (4 in the forward, 4 in the recompute) and B6's three kernels 4 times
-   a step, the loss within one bf16 rounding of eager; the step compiles
+   step of GPT-2 medium at 2 layers (remat): no graph
+   break, B5 twice a layer (the forward and the recompute) and B6's
+   three kernels once a layer a step, the loss within one bf16 rounding
+   of eager; the step compiles
    through ``exe_cache.backend`` into a fresh store (a miss and a store,
-   which phase 23 loads). (b) The decode
+   which phase 23 loads). The step's cold compile runs in the
+   background from the end of phase 2 (``--worker21``, niced, weights
+   from a seed of its own), and phase 23 joins and checks it. (b) The
+   decode
    step captured into a CUDA graph: one replay's logits bitwise an eager
    forward of the same step on a copy of the pool (the active slots),
    ``decode_compiles`` 1, and the step's host clock graphed and eager,
@@ -359,11 +364,11 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    replays, dedupe hits, migrations, ``serve.migration_ms``, framed
    bytes, each part's seconds).
 23. The warm start (last, after phase 20). (a) One fresh process
-   (``chip_smoke.py --worker23``) compiles phase 21 (a)'s 4-layer step,
+   (``chip_smoke.py --worker23``) compiles phase 21 (a)'s 2-layer step,
    whose compile went through ``exe_cache.backend`` into a fresh store,
    through the same store with Inductor's own caches empty: the store
    counts a hit and no miss or corrupt entry, the loss and the
-   gradients are bitwise phase 21's, B5 and B6 launch as often, and B5
+   gradients are bitwise the cold compile's, B5 and B6 launch as often, and B5
    and B6 are held against their plain versions at the step's attention
    shape; (b) the same process again with ``exe_cache.load@1:bitflip``
    on a copy of the store: ``exe_cache.corrupt`` 1, the compiler called
@@ -377,17 +382,54 @@ and no network; it imports no JAX. Phases, each printing its own lines:
    18's gang machinery starts every gang anew, so the swap-in itself is
    the CPU tests'). It prints the ``warm:`` line, with phase 3's
    ``capture_ms``.
+24. The prefill tiers (after phase 22, on phases 3 and 4's models).
+   (a) Eleven prompts (buckets of 8 to 256, one length three times, two
+   chunked prompts, one of 1000 tokens whose 232-token rest a bucket
+   would overrun, two on a shared 32-token prefix) through a bf16
+   engine whose prefill entries are CUDA graphs, the same engine with
+   its entries eager, and one with the tiers off (each chunk eager at
+   its exact width). (b) The graphed first tokens equal the exact-width
+   engine's; its live pages are bitwise the eager tiers'; the fp32
+   model through a graphed engine gives the full forward's argmax as
+   first tokens; B7's tiled kernel captured in a graph at widths 64 and
+   256 and replayed at starts past 0 is within one bf16 rounding of its
+   plain version. (c) The tier counters, each graph with its width,
+   tier and ``capture_ms``, a replay's B7 launches (a layer each, all
+   tiled on the tensor cores) and the replays. (d) Fresh prompts at
+   phase 3's lengths through the graphed engine, the same with each
+   product at its own rows (no padding to the ceiling's) and the
+   exact-width engine in turns: each prefill's host clock, the
+   request's time to first token on an idle engine (p50, p95, by
+   length). (f) The slab: an fp32 engine on ``paged=False`` whose
+   prefill graphs are made while slot 0 holds a prompt, decoding both
+   slots: every token equals the full forward's argmax loop. (g) A
+   background promotion while three slots decode: each decode step's
+   host clock while it runs against the same steps without it, the
+   load's tokens equal in both. (e) (before phase 23, once
+   phase 21 (a)'s cold compile has ended: the ``tiers (e):`` line) The
+   collective-program
+   audit (``analysis/rules.py``) on the card: phase 21 (a)'s step, as
+   ``torch.compile`` hands it to a backend, forward and backward as
+   AOTAutograd partitions it (audited in its cold compile's process),
+   carries no
+   collective, B5 twice a layer and B6's three operators once a layer,
+   the LM head's operator once; phase 3's engine: one decode capture
+   and one prefill capture a width served (``CompileBudget``). It
+   prints the ``tiers:`` line.
    Under a CUDA graph the launch counters tick at capture only, so
-   phases 3, 4, 21 and 22 and the ``kernels`` line count a replay's
-   launches times the replays (``engine.graph_launches()``).
+   phases 3, 4, 21, 22 and 24 and the ``kernels`` line count a replay's
+   launches times the replays (``engine.graph_launches()``,
+   ``engine.prefill_launches()``).
    The flash counts of phases 5, 10, 12, 13, 14, 15, 16, 17, 18, 19,
    20, 21, 22 and 23, and the wire counts of phases 8, 9 and 13–22, add up
    in the ``kernels`` line, after a line with the whole run's seconds.
 
 ``python3 chip_smoke.py --only 17`` (or ``--only 18``, ``19``, ``20``) builds the
 kernels and runs that phase alone; ``--only 21`` runs phases 3, 4 and
-21, ``--only 22`` phases 3, 4 and 22, ``--only 23`` phase 21 (a) and
-phase 23 (development aids; they print no ``ok`` line). ``--log FILE`` also writes every line printed after the
+21, ``--only 22`` phases 3, 4 and 22, ``--only 23`` phase 21 (a)'s
+cold compile and phase 23, ``--only 24`` phases 3, 4 and 24 (with the
+cold compile, whose step it audits) (development aids;
+they print no ``ok`` line). ``--log FILE`` also writes every line printed after the
 card and the package are found to ``FILE``.
 
 Then it prints the ``{"kernels": [...]}`` line, the card line, and as
@@ -398,6 +440,7 @@ device or a directory without the package.
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import os
@@ -419,6 +462,23 @@ SEED = 1234
 # card and the package: a runner that keeps only the end of the output
 # would lose the phases' lines behind the kernels line
 _keep = {"file": None}
+# processes the run starts in the background, stopped at exit if still
+# running (a failed check exits before their phase joins them)
+_STARTED: list = []
+
+
+def _stop_started() -> None:
+    import signal
+
+    for proc in _STARTED:  # each leads a process group of its own
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+        proc.wait()
+
+
+atexit.register(_stop_started)
 
 
 def _write(line: str) -> None:
@@ -1051,15 +1111,18 @@ TRACE_ID = "4bf92f3577b34da6a3ce929d0e0e4736"
 
 def _replayed(engine, key="paged_attention", since=None):
     """What to add to counter ``key`` for the launches of the engine's
-    captured decode graph, whose counters tick at capture only: a
-    replay's launches for every replay, less the capture's count, which
+    captured graphs, whose counters tick at capture only: a replay's
+    launches for every replay, less each capture's count, which
     launched nothing (``since=None``: the counter was read before the
-    engine existed); or for every replay after the first ``since``
-    (read after the capture)."""
+    engine existed; the decode graph and every prefill graph); or for
+    every decode replay after the first ``since`` (read after the
+    capture)."""
     g = engine.graph_launches()
     per = g["per_replay"].get(key, 0)
     if since is None:
-        return per * (g["replays"] - g["captures"])
+        pre = engine.prefill_launches()
+        return (per * (g["replays"] - g["captures"])
+                + pre["launched"].get(key, 0) - pre["captured"].get(key, 0))
     return per * (g["replays"] - since)
 
 
@@ -1166,10 +1229,15 @@ def phase_serve(model, prompts, max_tokens, card):
         launches = {"decode": (fn.launches - fn.chunk_launches
                                + _replayed(eng)
                                - _replayed(eng, "paged_attention_chunk")),
-                    "tiled": fn.chunk_launches,
-                    "tiled_tensor_cores": fn.tc_launches}
+                    "tiled": (fn.chunk_launches
+                              + _replayed(eng, "paged_attention_chunk")),
+                    "tiled_tensor_cores": (
+                        fn.tc_launches
+                        + _replayed(eng, "paged_attention_tc"))}
         graph = eng.graph_launches()
         stats = eng.stats()
+        _P24["serve_stats"] = dict(stats)
+        _P24["serve_graphs"] = eng.prefill_graphs()
         mgr = eng.manager.stats()
         slo = handle.batcher.recorder.summaries()
         traced = _traced_request(handle.port, prompts[0], fn, eng)
@@ -1220,6 +1288,7 @@ def phase_serve(model, prompts, max_tokens, card):
         "kernel_launches": launches,
         "decode_compiles": stats["decode_compiles"],
         "decode_graph": graph,
+        "prefill_tiers": {k: stats[k] for k in TIER_COUNTERS},
         # the graph is captured again in every process (a CUDA graph
         # holds its process's addresses): what the capture took
         "capture_ms": stats["capture_ms"],
@@ -1233,6 +1302,16 @@ def phase_serve(model, prompts, max_tokens, card):
     summary["traced_request"] = traced
     log("serve: " + json.dumps(summary, sort_keys=True))
     return launches, [body["tokens"] for _, body in results]
+
+
+TIER_COUNTERS = ("prefill_compiles", "prefill_bucket_hits",
+                 "prefill_exact_hits", "prefill_promotions",
+                 "prefill_bg_promotions", "prefill_pad_tokens",
+                 "prefill_exact_entries", "prefill_bucket_entries",
+                 "chunked_prefill_chunks", "prefill_chunks_skipped",
+                 "prefill_graphs", "prefill_capture_ms")
+# what phase 3 leaves for phase 24: its engine's stats and prefill graphs
+_P24: dict = {}
 
 
 def _full_forward_greedy(model, prompt, n):
@@ -1287,6 +1366,400 @@ def phase_fp32(model32, prompts, max_tokens):
         f"({max_tokens} tokens each; {decode} decode-kernel launches, "
         f"replays counted)")
     return wants
+
+
+# ------------------------------------------------------- phase 24 tiers
+
+TIER_MAX_LEN = 1008  # 63 pages of 16: after 3 chunks of 256, 240 left
+TIER_SLOTS = 4
+TIER_TURNS = 3
+TIER_TIMED = (16, 33, 64, 129, 250, 400, 700)  # phase 3's burst lengths
+TIER_SLAB_TOKENS = 8  # (f): greedy tokens a prompt on the slab
+TIER_STALL_LEN = 77  # (g): a length no earlier prompt of the phase has
+TIER_STALL_AFTER = 20  # (g): decode steps after the promotion lands
+
+
+def _tier_prompts(vocab):
+    """(a)'s prompts, from a stream of their own: buckets 8 to 256, one
+    length three times (promoted after two), chunked prompts (600:
+    256 + 256 + a bucket; 1000: three chunks and a 232-token rest that
+    a 256 bucket would overrun), and two prompts on one 32-token
+    prefix (the second attaches its two pages)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 24)
+
+    def p(n):
+        return rng.integers(0, vocab, n).tolist()
+
+    shared = p(32)
+    return [p(5), p(13), p(40), p(40), p(40), p(100), p(200), p(600),
+            shared + p(9), shared + p(9), p(1000)]
+
+
+def _tier_run(eng, prompts):
+    """Each prompt's prefill in turn (the oldest slot freed when all are
+    taken, background promotions joined after each); the first
+    tokens."""
+    toks = []
+    for i, prompt in enumerate(prompts):
+        slot = eng.manager.alloc(i)
+        if slot is None:
+            eng.manager.free(eng.manager.active_slots()[0])
+            slot = eng.manager.alloc(i)
+        toks.append(eng.prefill(slot, prompt))
+        if not eng.drain_promotions(120):
+            fail("tiers: a background promotion did not land")
+    return toks
+
+
+def _tier_graph_b7(eng, gen):
+    """B7-tiled inside a CUDA graph against its plain version: the
+    operator captured at two bucket widths over ``eng``'s layer-0 pool
+    with a full-width table, replayed at two starts past 0 (the launch
+    geometry from the shapes alone), each within one bf16 rounding."""
+    import torch
+
+    from horovod_tpu_torch.ops import paged_attention as pa
+
+    k, v = eng.manager.cache[0]["k"], eng.manager.cache[0]["v"]
+    n_logical = eng.manager.pages_per_slot
+    out = {}
+    for width in (64, 256):
+        table = torch.randperm(k.shape[0], generator=gen, device="cuda")[
+            :n_logical].to(torch.int32)[None].contiguous()
+        q = torch.randn((1, width, k.shape[2], k.shape[3]), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        start = torch.zeros(1, dtype=torch.int32, device="cuda")
+        pa.OPS.paged_attention(q, k, v, table, start, True)  # warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = pa.OPS.paged_attention(q, k, v, table, start, True)
+        errs = []
+        for s in (17, TIER_MAX_LEN - width):
+            start.fill_(s)
+            graph.replay()
+            ref = pa.paged_attention_plain(q, k, v, table, start,
+                                           causal=True)
+            errs.append(_check_one_rounding(
+                f"tiers: B7 in a graph at width {width}, start {s}",
+                got, ref))
+        out[f"w{width}"] = max(errs)
+    return out
+
+
+def _tier_slab(model32):
+    """(f) The slab: an fp32 engine on ``paged=False`` (no window) whose
+    prefill entries are made while slot 0 holds a prompt (the 300-token
+    prompt's 44-token rest makes bucket 64 mid-prompt, the 20-token
+    prompt bucket 32), then decode steps over both slots: every token
+    equals the full forward's argmax loop."""
+    import numpy as np
+
+    from horovod_tpu_torch.serving import InferenceEngine
+
+    rng = np.random.default_rng(SEED + 243)
+    eng = InferenceEngine(model32, None, slots=2, max_len=TIER_MAX_LEN,
+                          prefill_ceiling=256, paged=False, device="cuda")
+    prompts = [rng.integers(0, model32.cfg.vocab_size, n).tolist()
+               for n in (300, 20)]
+    toks = np.zeros(eng.slots, np.int32)
+    for i, p in enumerate(prompts):
+        slot = eng.manager.alloc(i)
+        toks[slot] = eng.prefill(slot, p)
+    got = [[int(t)] for t in toks]
+    for _ in range(TIER_SLAB_TOKENS - 1):
+        eng.prepare_decode()
+        toks = eng.decode_step(toks)
+        for slot in range(eng.slots):
+            eng.manager.advance(slot)
+            got[slot].append(int(toks[slot]))
+    want = [_full_forward_greedy(model32, p, TIER_SLAB_TOKENS)
+            for p in prompts]
+    if got != want:
+        fail(f"tiers (f): the slab's tokens {got} differ from the full "
+             f"forward's argmax {want}")
+    widths = sorted(g["width"] for g in eng.prefill_graphs())
+    if widths != [32, 64, 256]:
+        fail(f"tiers (f): the slab's prefill graphs {widths}")
+    _bank_replays(eng)
+    return {"tokens_equal_argmax": True, "prompts": [300, 20],
+            "tokens": TIER_SLAB_TOKENS, "graph_widths": widths}
+
+
+def _tier_promotion_stall(eng, vocab):
+    """(g) A background promotion under decode load: three slots decode
+    while the fourth prefills a fresh length twice, whose second sighting
+    starts the promotion; the step goes on until the promotion lands and
+    ``TIER_STALL_AFTER`` steps more. Then the same prompts again, with no
+    promotion, for as many steps. Each decode step's host clock (the
+    TPOT of an engine with no queue) in both runs, and the load slots'
+    tokens, equal in both. The prefix cache is off meanwhile, so every
+    prompt runs whole in both runs."""
+    import statistics
+
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 244)
+    loads = [rng.integers(0, vocab, 64).tolist()
+             for _ in range(eng.slots - 1)]
+    fresh = rng.integers(0, vocab, TIER_STALL_LEN).tolist()
+
+    def run(steps, promote):
+        for s in eng.manager.active_slots():
+            eng.manager.free(s)
+        slots = [eng.manager.alloc(("load", i)) for i in range(len(loads))]
+        toks = np.zeros(eng.slots, np.int32)
+        for s, p in zip(slots, loads):
+            toks[s] = eng.prefill(s, p)
+        out = {s: [] for s in slots}
+        times, during = [], []
+        if promote:
+            for _ in range(2):  # the second sighting promotes
+                spare = eng.manager.alloc("fresh")
+                eng.prefill(spare, fresh)
+                eng.manager.free(spare)
+        threads = list(eng._promote_threads)
+        after = None
+        while (len(times) < steps if steps else after is None or
+               len(times) < after + TIER_STALL_AFTER):
+            alive = any(t.is_alive() for t in threads)
+            eng.prepare_decode()
+            t = time.perf_counter()
+            nxt = eng.decode_step(toks)
+            ms = (time.perf_counter() - t) * 1e3
+            times.append(ms)
+            if alive:
+                during.append(ms)
+            elif after is None:
+                after = len(times)
+            for s in slots:
+                eng.manager.advance(s)
+                out[s].append(int(nxt[s]))
+                toks[s] = nxt[s]
+            if len(times) > TIER_MAX_LEN - 200:
+                fail("tiers (g): the promotion did not land")
+        for s in slots:
+            eng.manager.free(s)
+        return times, during, [out[s] for s in slots]
+
+    mgr = eng.manager
+    saved, mgr.prefix_cache_enabled = mgr.prefix_cache_enabled, False
+    bg0 = eng.stats()["prefill_bg_promotions"]
+    times, during, toks_b = run(0, True)
+    if not eng.drain_promotions(120) or \
+            eng.stats()["prefill_bg_promotions"] <= bg0 or not any(
+                g["width"] == TIER_STALL_LEN and g["tier"] == "exact"
+                for g in eng.prefill_graphs()):
+        fail(f"tiers (g): the promotion of {TIER_STALL_LEN} did not land "
+             f"in the background ({eng.stats()})")
+    base, _, toks_a = run(len(times), False)
+    mgr.prefix_cache_enabled = saved
+    if toks_a != toks_b:
+        fail("tiers (g): the load's tokens under the promotion differ "
+             "from the same steps without it")
+
+    def pct(v):
+        v = sorted(v)
+        if not v:
+            return {"n": 0}
+        return {"p50": statistics.median(v), "p95": v[int(0.95 * (len(v) - 1))],
+                "max": v[-1], "n": len(v)}
+
+    entry = [g for g in eng.prefill_graphs()
+             if g["width"] == TIER_STALL_LEN and g["tier"] == "exact"][0]
+    return {"decode_step_ms_during_promotion": pct(during),
+            "decode_step_ms_without": pct(base),
+            "steps": len(times), "promoted_width": TIER_STALL_LEN,
+            "promotion_capture_ms": entry["capture_ms"],
+            "promotion_warm_ms": entry["warm_ms"], "tokens_equal": True}
+
+
+def phase_tiers_audit(card):
+    """Phase 24 (e), run when phase 21 (a)'s cold compile has ended (just
+    before phase 23): the collective-program audit on the card of phase
+    21 (a)'s compiled step, audited where it compiled (``_p21_audit``,
+    in the background cold compile, joined here); and CompileBudget
+    over phase 3's engine: one decode capture, one prefill capture a
+    width served. Prints the ``tiers (e):`` line."""
+    serve_stats, serve_graphs = _P24["serve_stats"], _P24["serve_graphs"]
+    from horovod_tpu_torch.analysis import rules
+
+    audit = _p21_join_cold()["audit"]
+    if audit["findings"]:
+        fail("tiers (e): " + "; ".join(audit["findings"]))
+    widths = len(serve_graphs)
+    report = rules.run_rules([(rules.CompileBudget(
+        decode_compiles=1, prefill_compiles=widths, prefill_graphs=widths),
+        serve_stats)])
+    if not report.ok:
+        fail("tiers (e): " + "; ".join(str(f) for f in report.findings))
+    log("tiers (e): " + json.dumps(dict(
+        {k: v for k, v in audit.items() if k != "report"},
+        rules=audit["report"]["rules_checked"] + report.checked,
+        prefill_widths=widths, card=card), sort_keys=True))
+
+
+def _tier_pages_equal(a, b):
+    """Every live page of two engines' pools, bitwise."""
+    import torch
+
+    return all(torch.equal(x[name], y[name])
+               for x, y in zip(a.manager.cache, b.manager.cache)
+               for name in x)
+
+
+def phase_tiers(model, model32, card):
+    """Phase 24: the prefill tiers at GPT-2 medium's full width. (a) One
+    prompt sequence (``_tier_prompts``) through a bf16 engine whose
+    prefills are CUDA graphs (the default), the same engine with its
+    tiers' bodies eager (no graph), and one with the tiers off (each
+    chunk eager at its exact width). (b) Its first tokens equal the
+    exact-width engine's; its pool's live pages are bitwise the eager
+    tiers'; phase 4's fp32 weights through a graphed engine give the
+    full-forward argmax's first tokens; B7-tiled inside a graph equals
+    its plain version (``_tier_graph_b7``). (c) The tier counters, each
+    graph with its ``capture_ms``, and the graphs' B7 launches (a
+    replay's times the replays), banked for the ``kernels`` line. (d)
+    In turns on the graphed and the exact-width engine, fresh prompts at
+    phase 3's lengths (and on the graphed engine with its products at
+    their own rows): each prefill's host clock, which is the request's
+    time to first token on an idle engine (p50, p95). (e)
+    ``phase_tiers_audit`` (run later). (f) ``_tier_slab``. (g)
+    ``_tier_promotion_stall``. Returns the tiled launches."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.ops import paged_attention as pa
+    from horovod_tpu_torch.serving import InferenceEngine
+
+    t0 = time.monotonic()
+    fn = pa.paged_attention
+    before = (fn.chunk_launches, fn.tc_launches)
+    kw = dict(slots=TIER_SLOTS, max_len=TIER_MAX_LEN, prefill_ceiling=256,
+              device="cuda")
+    prompts = _tier_prompts(model.cfg.vocab_size)
+    graphed = InferenceEngine(model, None, **kw)
+    eager_tiers = InferenceEngine(model, None, **kw)
+    eager_tiers._graph_prefill = False
+    exact = InferenceEngine(model, None, **kw)
+    exact._tiers = False
+    unpadded = InferenceEngine(model, None, **kw)
+    unpadded._product_rows = 0  # (d): each product at its own rows
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tokens = _tier_run(graphed, prompts)
+    peak = torch.cuda.max_memory_allocated() - mem0
+    want = _tier_run(exact, prompts)
+    if tokens != want:
+        bad = [i for i, (a, b) in enumerate(zip(tokens, want)) if a != b]
+        fail(f"tiers (b): graphed first tokens differ from the exact-width "
+             f"prefill's at prompts {bad}: {tokens} vs {want}")
+    _tier_run(eager_tiers, prompts)
+    if not _tier_pages_equal(graphed, eager_tiers):
+        fail("tiers (b): the graphed engine's live pages differ from the "
+             "eager tiers'")
+    stats = graphed.stats()
+    graphs = graphed.prefill_graphs()
+    tiers = {k: stats[k] for k in TIER_COUNTERS}
+    if not (stats["prefill_pad_tokens"] > 0 and stats["prefill_exact_hits"]
+            and stats["prefill_bucket_hits"]
+            and stats["prefill_promotions"] >= 2
+            and stats["chunked_prefill_chunks"] >= 5
+            and stats["prefill_chunks_skipped"] >= 2
+            and any(g["tier"] == "exact" and g["width"] == 232
+                    for g in graphs)
+            and all(g["graphed"] for g in graphs)
+            and stats["prefill_graphs"] == len(graphs)):
+        fail(f"tiers (c): counters {tiers}, graphs {graphs}")
+    per = {g["width"]: g["per_replay"] for g in graphs}
+    layers = model.cfg.num_layers
+    if any(p.get("paged_attention") != layers for p in per.values()) or any(
+            p.get("paged_attention_chunk") != layers
+            for w, p in per.items() if w > 4):
+        fail(f"tiers (c): a replay's paged launches {per}")
+    # fp32: the first tokens against the full forward's argmax
+    g32 = InferenceEngine(model32, None, **kw)
+    fp32_idx = (0, 2, 3, 7, 9, 10)
+    got32 = _tier_run(g32, [prompts[i] for i in fp32_idx])
+    want32 = [_full_forward_greedy(model32, prompts[i], 1)[0]
+              for i in fp32_idx]
+    if got32 != want32:
+        fail(f"tiers (b): fp32 graphed first tokens {got32} differ from "
+             f"the full forward's argmax {want32}")
+    fp32_graphs = len(g32.prefill_graphs())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 240)
+    b7 = _tier_graph_b7(graphed, gen)
+    slab = _tier_slab(model32)
+    # (d) in turns: fresh prompts each turn, the engines the same ones;
+    # the graphed engine with its products at their own rows too
+    rng = np.random.default_rng(SEED + 241)
+    times = {"graphed": {}, "graphed_unpadded": {}, "exact": {}}
+    for turn in range(TIER_TURNS + 2):
+        batch = [rng.integers(0, model.cfg.vocab_size, n).tolist()
+                 for n in TIER_TIMED]
+        for name, eng in (("graphed", graphed),
+                          ("graphed_unpadded", unpadded), ("exact", exact)):
+            for p in batch:
+                slot = eng.manager.alloc("timed")
+                if slot is None:
+                    eng.manager.free(eng.manager.active_slots()[0])
+                    slot = eng.manager.alloc("timed")
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                eng.prefill(slot, p)
+                ms = (time.perf_counter() - t) * 1e3
+                eng.manager.free(slot)
+                eng.drain_promotions(120)
+                if turn > 1:  # two turns warm up: captures, promotions
+                    times[name].setdefault(len(p), []).append(ms)
+    timing = {}
+    for name, by_len in times.items():
+        flat = sorted(x for v in by_len.values() for x in v)
+        timing[name] = {
+            "ttft_ms_p50": statistics.median(flat),
+            "ttft_ms_p95": flat[int(0.95 * (len(flat) - 1))],
+            "prefill_ms_by_len": {n: statistics.median(v)
+                                  for n, v in sorted(by_len.items())}}
+    timing["padded_over_unpadded_p50"] = (
+        timing["graphed"]["ttft_ms_p50"]
+        / timing["graphed_unpadded"]["ttft_ms_p50"])
+    stall = _tier_promotion_stall(graphed, model.cfg.vocab_size)
+    launched = {}
+    for eng in (graphed, eager_tiers, exact, g32, unpadded):
+        for key in _REPLAYED:
+            launched[key] = launched.get(key, 0) + _replayed(eng, key)
+        _bank_replays(eng)
+    tiled = fn.chunk_launches - before[0] + launched["paged_attention_chunk"]
+    summary = {
+        "a": {"prompt_tokens": [len(p) for p in prompts],
+              "first_tokens_equal_exact_width": True,
+              "pages_bitwise_eager_tiers": True},
+        "b": {"fp32_first_tokens_equal_argmax": True,
+              "fp32_prompts": len(fp32_idx), "fp32_graphs": fp32_graphs,
+              "b7_in_graph_max_abs_err": b7},
+        "c": {"counters": tiers, "graphs": graphs,
+              "capture_ms": {f"{g['tier']}{g['width']}": g["capture_ms"]
+                             for g in graphs},
+              "prefill_peak_bytes": peak,
+              "prefill_launches": graphed.prefill_launches(),
+              "tiled_launches": tiled,
+              "tiled_tensor_core_launches": (
+                  fn.tc_launches - before[1] + launched[
+                      "paged_attention_tc"])},
+        "d": dict(timing, turns=TIER_TURNS, lengths=list(TIER_TIMED)),
+        "e": "the tiers (e) line, once phase 21 (a)'s cold compile ends",
+        "f": slab, "g": stall,
+        "s": time.monotonic() - t0, "card": card,
+    }
+    log("tiers: " + json.dumps(summary, sort_keys=True))
+    del graphed, eager_tiers, exact, g32, unpadded
+    torch.cuda.empty_cache()
+    return tiled
 
 
 # ------------------------------------------------------- phase 5 training
@@ -5386,7 +5859,7 @@ def phase_model_parallel(card):
 P18_WORLD = 4
 P18_RANK_BATCH = TRAIN_BATCH // P18_WORLD  # a quarter of phase 5's batch
 P18_SAMPLES = 64  # the shards' rows: (b)'s 48 and (c)'s 54 without wrap
-P18_STEPS = 6  # (b): A 1-6, B 1-3 then SIGKILL, C 4-6; (d) 1-6
+P18_STEPS = 5  # (b): A 1-5, B 1-3 then SIGKILL, C 4-5; (d) 1-5
 P18_KILL_AFTER = 3
 P18_ELASTIC_STEPS = 8  # (c): 1-3 at 4 ranks, 4-8 at 3
 P18_FAULT_STEP = 4  # (c)'s kill and (d)'s non-finite gradient
@@ -5902,7 +6375,8 @@ def phase_durability(card):
         B = _p18_recs(root, "B")
         rc, arm_s["C"], _ = _p18_run(
             root, "C", gloo4,
-            dict(env, HOROVOD_FAULT_PLAN="checkpoint.save@3:bitflip"))
+            dict(env, HOROVOD_FAULT_PLAN="checkpoint.save@"
+                 f"{P18_STEPS - P18_KILL_AFTER}:bitflip"))
         if rc != 0:
             fail(f"durability (b) C: exited {rc}\n" + _p18_tail(root, "C"))
         C = _p18_recs(root, "C")
@@ -6864,7 +7338,7 @@ def phase_bert(gen, card, flash_results=None):
 
 # ------------------------------------------- phase 21 the serving fleet
 
-FLEET_LAYERS = 4  # (a)'s compiled training step: GPT-2 medium at 4 layers
+FLEET_LAYERS = 2  # (a)'s compiled training step: GPT-2 medium at 2 layers
 FLEET_TURNS = 5  # (b)'s timing: turns of graphed and eager decode steps
 FLEET_STEPS = 20  # decode steps a turn
 BF16_REL = 2.0 ** -7  # one bf16 rounding
@@ -6906,9 +7380,9 @@ def _p21_attention(gen):
     return {"bitwise": True, "launches": launches}
 
 
-# what phase 21 (a) and phase 18 leave for phase 23: the compiled step's
-# cache directory, generator state, bits and launches; the gang's
-# schedule audit; a cold rank's start
+# what phase 21 (a) and phase 18 leave for phase 23: the cold compiles'
+# directories and processes; the gang's schedule audit; a cold rank's
+# start; phase 3's capture_ms
 _P23: dict = {}
 
 
@@ -6925,10 +7399,12 @@ def _p21_model(gen):
     return (model,) + _lm_batch(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
 
 
-def _p21_compile(model, tokens, labels, base):
+def _p21_compile(model, tokens, labels, base, keep=None):
     """``_loss`` compiled by Inductor through the compiled-artifact
     store at ``base``, and its first call and backward (the compile);
-    returns the compiled function and the compile's seconds."""
+    returns the compiled function and the compile's seconds. ``keep``
+    (a list) gets each FX graph the backend is handed, with its example
+    inputs."""
     import torch
     from torch._inductor import config as inductor_config
 
@@ -6936,10 +7412,17 @@ def _p21_compile(model, tokens, labels, base):
 
     # eager's arithmetic: no fma contraction (as phase 14 (c))
     os.environ["TRITON_DEFAULT_FP_FUSION"] = "0"
+    backend = exe_cache.backend(base=base)
+    if keep is not None:
+        store = backend
+
+        def backend(gm, example_inputs):
+            keep.append((gm, list(example_inputs)))
+            return store(gm, example_inputs)
+
     t0 = time.monotonic()
     with inductor_config.patch(emulate_precision_casts=True):
-        compiled = torch.compile(_loss, fullgraph=True,
-                                 backend=exe_cache.backend(base=base))
+        compiled = torch.compile(_loss, fullgraph=True, backend=backend)
         compiled(model, tokens, labels).backward()
     torch.cuda.synchronize()
     return compiled, time.monotonic() - t0
@@ -6964,57 +7447,140 @@ def _p21_step(model, compiled, tokens, labels):
     return (closs.item(), _digest(closs), grads, launches, tc, step_ms)
 
 
-def _p21_train(gen):
-    """(a) part 2: a compiled training step of GPT-2 medium at 4 layers
-    (remat, bf16 on fp32 masters) with no graph break, against eager:
-    B5 4 times a forward and 4 again in the recompute, B6's three
-    kernels 4 times a backward, the loss within one bf16 rounding. The
-    step compiles through ``exe_cache.backend`` into a fresh directory:
-    the store misses and keeps the step's Inductor artifacts, which
-    phase 23's fresh process loads."""
-    import tempfile
-
+def worker21(base: str) -> int:
+    """``chip_smoke.py --worker21 DIR``: (a) part 2, cold,
+    in a process the run starts in the background after the build: a
+    compiled training step of GPT-2 medium at 2 layers (remat, bf16 on
+    fp32 masters, weights from a seed of its own) with no graph break,
+    through ``exe_cache.backend`` into a fresh store at DIR, whose
+    entry phase 23's fresh process loads. Writes the generator's
+    state and the record (eager and compiled loss, bits, gradients'
+    digest, launches, store counts, entries) to DIR; phase 23 checks
+    it."""
     import torch
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, HERE)
     from horovod_tpu_torch.common import exe_cache
     from horovod_tpu_torch.common.metrics import registry
 
-    gen_state = gen.get_state()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    torch.save(gen.get_state(), os.path.join(base, "gen_state.pt"))
     model, tokens, labels = _p21_model(gen)
     loss = _loss(model, tokens, labels)
     loss.backward()
-    eager_loss = loss.item()
+    rec = {"eager_loss": loss.item()}
     model.zero_grad(set_to_none=True)
-    base = tempfile.mkdtemp(prefix="hvd-p21-exe-")
     before = registry.snapshot()
-    compiled, compile_s = _p21_compile(model, tokens, labels, base)
-    if not exe_cache.flush(120):
-        fail("fleet (a): the compiled step's entry was not written")
-    cache = {k: registry.snapshot().get(k, 0.0) - before.get(k, 0.0)
-             for k in ("exe_cache.misses", "exe_cache.stores",
-                       "exe_cache.hits")}
-    closs, loss_bits, grads, launches, tc, step_ms = _p21_step(
-        model, compiled, tokens, labels)
+    kept = []
+    compiled, rec["compile_s"] = _p21_compile(model, tokens, labels, base,
+                                              keep=kept)
+    rec["flushed"] = exe_cache.flush(120)
+    rec["audit"] = _p21_audit(kept[0])
+    rec["cache"] = {k: registry.snapshot().get(k, 0.0) - before.get(k, 0.0)
+                    for k in ("exe_cache.misses", "exe_cache.stores",
+                              "exe_cache.hits")}
+    (rec["loss"], rec["loss_bits"], rec["grads"], rec["launches"],
+     rec["tc_launches"], rec["step_ms"]) = _p21_step(model, compiled, tokens,
+                                                     labels)
+    entries = exe_cache.scan(base=base)
+    rec["entries"] = len(entries)
+    rec["entry_bytes"] = sum(h["payload_bytes"] for h in entries)
+    with open(os.path.join(base, "cold.json.tmp"), "w") as f:
+        json.dump(rec, f)
+    os.replace(os.path.join(base, "cold.json.tmp"),
+               os.path.join(base, "cold.json"))
+    return 0
+
+
+def _p21_audit(kept):
+    """Phase 24 (e)'s program audit of the step's FX graph as its
+    backend got it, forward and backward as AOTAutograd partitions it
+    (traced again here, compiled by no one): no collective of any kind,
+    B5 twice a layer (the remat recompute), B6's three operators once a
+    layer, the LM head's operator once. Returns the report, the kernel
+    nodes, the functions, the nodes and the seconds."""
+    from horovod_tpu_torch.analysis import fx_parse, rules
+
+    t0 = time.monotonic()
+    program = fx_parse.parse_fx(fx_parse.aot_graphs(*kept))
+    L = FLEET_LAYERS
+    checks = [rules.CollectiveCount(kind, 0)
+              for kind in fx_parse.COLLECTIVE_KINDS]
+    checks += [rules.KernelCount(name, n) for name, n in (
+        ("flash_fwd", 2 * L), ("flash_bwd_delta", L), ("flash_bwd_dq", L),
+        ("flash_bwd_dkv", L), ("mixed_linear", 1))]
+    report = rules.check_program(program, checks)
+    return {"report": report.to_dict(),
+            "findings": [str(f) for f in report.findings],
+            "kernel_nodes": program.kernel_counts(),
+            "functions": program.functions(),
+            "nodes": program.node_count(),
+            "audit_s": time.monotonic() - t0}
+
+
+def _p21_start_cold():
+    """Start (a)'s cold compile of phase 21's step in the background, in
+    a niced process of its own, beside the serving phases; phases 24 and
+    23 join it (``_p21_join_cold``)."""
+    import shutil
+    import tempfile
+
+    nice = ["nice", "-n", "10"] if shutil.which("nice") else []
+    base = tempfile.mkdtemp(prefix="hvd-p21-c-")
+    env = dict(os.environ, PYTHONPATH=HERE,
+               TORCHINDUCTOR_CACHE_DIR=base + "-inductor-cold")
+    env.pop("HOROVOD_EXE_CACHE", None)
+    with open(os.path.join(base, "cold.log"), "w") as out:
+        proc = subprocess.Popen(
+            nice + [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                    "--worker21", base],
+            env=env, cwd=HERE, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True)
+    _STARTED.append(proc)
+    _P23["cold"] = {"base": base, "proc": proc, "t0": time.monotonic(),
+                    "done": None}
+
+
+def _p21_join_cold():
+    """Wait for (a)'s cold compile and check it: B5 4 times a forward
+    and 4 again in the recompute, B6's three kernels 4 times a
+    backward, the loss within one bf16 rounding of eager, one entry
+    stored. Returns its record, with the seconds from the start of the
+    background compile to its record."""
+    cold = _P23["cold"]
+    if cold["done"] is not None:
+        return cold["done"]
+    base = cold["base"]
+    path = os.path.join(base, "cold.json")
+    deadline = time.monotonic() + 2 * P23_TIMEOUT_S
+    while not os.path.exists(path) and cold["proc"].poll() is None and \
+            time.monotonic() < deadline:
+        time.sleep(0.2)
+    if not os.path.exists(path):
+        with open(os.path.join(base, "cold.log")) as f:
+            fail(f"fleet (a): the cold compile left no record (exit "
+                 f"{cold['proc'].poll()})\n{f.read()[-3000:]}")
+    seconds = time.monotonic() - cold["t0"]
+    with open(path) as f:
+        rec = json.load(f)
     L = FLEET_LAYERS
     want = {"flash_fwd": 2 * L, "flash_bwd_delta": L, "flash_bwd_dq": L,
             "flash_bwd_dkv": L}
-    rel = abs(closs - eager_loss) / abs(eager_loss)
-    if launches != want or rel > BF16_REL or not math.isfinite(closs):
-        fail(f"fleet (a): the compiled step launched {launches} (want "
-             f"{want}); loss {closs} against eager {eager_loss}")
-    entries = exe_cache.scan(base=base)
-    if cache["exe_cache.stores"] < 1 or not entries:
-        fail(f"fleet (a): the compile stored no entry ({cache})")
-    _P23.update(base=base, gen_state=gen_state.cpu(), loss=closs,
-                loss_bits=loss_bits, grads=grads, launches=launches,
-                tc_launches=tc, compile_s=compile_s,
-                entry_bytes=sum(h["payload_bytes"] for h in entries))
-    del model
-    torch.cuda.empty_cache()
-    return {"layers": L, "loss": closs, "eager_loss": eager_loss,
-            "rel": rel, "launches": launches, "tc_launches": tc,
-            "compile_s": compile_s, "step_ms": step_ms, "exe_cache": cache,
-            "entries": len(entries)}
+    rel = abs(rec["loss"] - rec["eager_loss"]) / abs(rec["eager_loss"])
+    if rec["launches"] != want or rel > BF16_REL or not math.isfinite(
+            rec["loss"]):
+        fail(f"fleet (a): the compiled step launched "
+             f"{rec['launches']} (want {want}); loss {rec['loss']} against "
+             f"eager {rec['eager_loss']}")
+    if not rec["flushed"] or rec["cache"]["exe_cache.stores"] < 1 or not \
+            rec["entries"]:
+        fail(f"fleet (a): the compile stored no entry ({rec})")
+    cold["done"] = dict(rec, base=base, rel=rel, layers=L,
+                        process_s=seconds)
+    return cold["done"]
 
 
 def _p21_graph(model, prompts):
@@ -7361,7 +7927,7 @@ def phase_fleet(gen, model, model32, prompts, first_tokens, fp32_prompts,
     marks = {}
     t0 = time.monotonic()
     attn = _p21_attention(gen)
-    train = _p21_train(gen)
+    train = "compiled cold in the background (phase 23 joins and checks it)"
     flash = _read_flash()
     torch.cuda.empty_cache()
     marks["a"] = time.monotonic() - t0
@@ -7556,7 +8122,8 @@ def _p22_kill(model, rdv_port, prompts, wants, max_tokens):
     requests in flight, ``serve.worker_kill@1:reset``: the next round of
     either scheduler raises. Exactly one scheduler dies, every request
     comes back ``done`` with phase 3's tokens (replayed on the other),
-    ``serve.replays`` >= 1, the dead worker tombstoned. Then the sampled
+    ``serve.replays`` >= 1, the dead worker tombstoned by the router and
+    out of its live set. Then the sampled
     reference of (d) runs on the survivor, unmigrated."""
     from horovod_tpu_torch.common.metrics import registry
     from horovod_tpu_torch.serving import Router
@@ -7565,6 +8132,18 @@ def _p22_kill(model, rdv_port, prompts, wants, max_tokens):
     c1 = _p22_serve(model, rdv_port, 4)
     c2 = _p22_serve(model, rdv_port, 5)
     router = Router(_p22_client(rdv_port))
+    # the ranks the router tombstoned during the burst: a tombstone is
+    # dropped when the worker announces again (a draining worker still
+    # announces, and the snapshot skips it for draining), so the router's
+    # table at the end depends on when it last read the announcements
+    tombstoned = []
+    keep = router.tombstone
+
+    def tombstone(rank, ann=None):
+        tombstoned.append(int(rank))
+        return keep(rank, ann)
+
+    router.tombstone = tombstone
     before = registry.snapshot().get("serve.replays", 0)
     armed = {}
 
@@ -7586,11 +8165,17 @@ def _p22_kill(model, rdv_port, prompts, wants, max_tokens):
     replays = registry.snapshot().get("serve.replays", 0) - before
     dead = [h for h in (c1, c2) if h.batcher.draining]
     _p22_check_tokens("c", results, wants)
+    # the dead worker's state published (its announcer runs on a timer),
+    # then the router's live set, which must leave it out
+    for h in dead:
+        h.frontend.announce()
+    live = router.snapshot()
     if ("at" not in armed or len(fired) != 1 or len(dead) != 1
-            or replays < 1 or dead[0].frontend.rank not in router._tombstones):
+            or replays < 1 or dead[0].frontend.rank not in tombstoned
+            or dead[0].frontend.rank in live):
         fail(f"control plane (c): armed {armed}, fired {fired}, dead "
              f"{[h.frontend.rank for h in dead]}, replays {replays}, "
-             f"tombstones {sorted(router._tombstones)}")
+             f"tombstoned {tombstoned}, live {sorted(live)}")
     survivor = c2 if dead[0] is c1 else c1
     return (c1, c2), survivor, {
         "requests": len(prompts), "wall_s": wall, "replays": replays,
@@ -7917,10 +8502,10 @@ def _p23_kernels_vs_plain(gen):
 
 
 def worker23(base: str) -> int:
-    """``chip_smoke.py --worker23 DIR``: phase 23's fresh process. (a)
-    compiles phase 21's step through the store at DIR, Inductor's own
-    caches empty; (b) compiles it again with the ``exe_cache.load`` bit
-    flip on a copy of the entry; writes its record to DIR."""
+    """``chip_smoke.py --worker23 DIR``: a fresh process of phase 23.
+    (a) compiles phase 21's step through the store at DIR, Inductor's
+    own caches empty; (b) compiles it again with the ``exe_cache.load``
+    bit flip on a copy of the entry. Writes its record to DIR."""
     t_start = time.monotonic()
     import shutil
 
@@ -7953,21 +8538,29 @@ def worker23(base: str) -> int:
                           "exe_cache.stores", "exe_cache.bytes",
                           "exe_cache.deserialize_ms")}
 
-    gen = torch.Generator(device="cuda")
-    gen.set_state(torch.load(os.path.join(base, "gen_state.pt")))
-    model, tokens, labels = _p21_model(gen)
-    marks["model"] = time.monotonic() - t_start
+    def warm(root, rec):
+        """A warm compile from the store at ``root`` and one step."""
+        gen = torch.Generator(device="cuda")
+        gen.set_state(torch.load(os.path.join(root, "gen_state.pt")))
+        model, tokens, labels = _p21_model(gen)
+        marks["model"] = time.monotonic() - t_start
+        before = registry.snapshot()
+        inner = {k: dict(counters[k]) for k in ("inductor", "aot_autograd")}
+        del bypass[:]
+        compiled, rec["compile_s"] = _p21_compile(model, tokens, labels, root)
+        rec["cache"] = deltas(before)
+        rec["inner"] = {
+            k: {n: v - inner[k].get(n, 0) for n, v in counters[k].items()}
+            for k in inner}
+        rec["aot_cache_log"] = [m for m in bypass if "ypass" in m][:3]
+        (rec["loss"], rec["loss_bits"], rec["grads"], rec["launches"],
+         rec["tc_launches"], rec["step_ms"]) = _p21_step(
+            model, compiled, tokens, labels)
+        marks["first_step"] = time.monotonic() - t_start
+        return gen, model, tokens, labels
+
     rec = {"marks": marks}
-    before = registry.snapshot()
-    compiled, rec["compile_s"] = _p21_compile(model, tokens, labels, base)
-    rec["cache"] = deltas(before)
-    rec["inner"] = {k: dict(counters[k]) for k in ("inductor",
-                                                    "aot_autograd")}
-    rec["aot_cache_log"] = [m for m in bypass if "ypass" in m][:3]
-    (rec["loss"], rec["loss_bits"], rec["grads"], rec["launches"],
-     rec["tc_launches"], rec["step_ms"]) = _p21_step(model, compiled, tokens,
-                                                     labels)
-    marks["first_step"] = time.monotonic() - t_start
+    gen, model, tokens, labels = warm(base, rec)
     # (b) the bit flip on a copy: counted corrupt, the compiler called
     # without the entry, the entry written anew
     copy = base + "-copy"
@@ -8048,23 +8641,25 @@ def _p23_warmer(base):
 
 def phase_warm(card):
     """Phase 23: (a) one fresh process compiles phase 21's step through
-    the compiled-artifact store (``HOROVOD_EXE_CACHE`` at phase 21's
-    directory, Inductor's own caches empty): hits >= 1, no miss, nothing
-    corrupt, the loss and gradients bitwise phase 21's, B5/B6 launched as
-    often; B5 and B6 against their plain versions there; (b) the same
-    process with the ``exe_cache.load`` bit flip on a copy of the entry:
-    corrupt 1, the compiler called without it, the same bits; (c) phase
-    18's gang: every rank's schedule fingerprint equal at the quorum
-    step; (d) a standby warmer's staging beside a cold rank's start
-    (phase 18's). Returns the flash launches of (a)'s and (b)'s
-    steps."""
-    import torch
-
-    base = _P23["base"]
-    torch.save(_P23["gen_state"], os.path.join(base, "gen_state.pt"))
+    the compiled-artifact store (``HOROVOD_EXE_CACHE`` at the directory
+    phase 21 (a)'s cold compile filled, Inductor's own caches empty):
+    hits >= 1, no miss, nothing corrupt, the loss and gradients bitwise
+    the cold compile's, B5/B6 launched as often; B5 and B6 against their
+    plain versions there; (b) the same process with the
+    ``exe_cache.load`` bit flip on a copy of the entry: corrupt 1, the
+    compiler called without it, the same bits; (c)
+    phase 18's gang: every rank's schedule fingerprint equal at the
+    quorum step; (d) a standby warmer's staging beside a cold rank's
+    start (phase 18's). Returns the flash launches of the cold compiles'
+    and the fresh process's steps."""
+    marks = {}
+    t0 = time.monotonic()
+    cold = _p21_join_cold()
+    marks["cold_wait"] = time.monotonic() - t0
+    base = cold["base"]
     # the warmer stages beside the fresh process (the phase's budget):
     # its seconds include that contention for the host's cores
-    warmer, marks = {}, {}
+    warmer = {}
 
     def stage():
         t = time.monotonic()
@@ -8093,34 +8688,34 @@ def phase_warm(card):
              f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
     with open(os.path.join(base, "worker23.json")) as f:
         rec = json.load(f)
-    c, b = rec["cache"], rec["b_cache"]
+    c = rec["cache"]
     if c["exe_cache.hits"] < 1 or c["exe_cache.misses"] or \
             c["exe_cache.corrupt"] or c["exe_cache.rejected"]:
         fail(f"warm (a): the fresh process counted {c}")
-    same = {k: rec[k] == _P23[k] for k in ("loss_bits", "grads",
-                                           "launches", "tc_launches")}
+    same = {k: rec[k] == cold[k]
+            for k in ("loss_bits", "grads", "launches", "tc_launches")}
     if not all(same.values()):
-        fail(f"warm (a): against phase 21's process {same}: loss "
-             f"{rec['loss']} vs {_P23['loss']}, launches {rec['launches']} "
-             f"vs {_P23['launches']}")
+        fail(f"warm (a): against the cold compile {same}: loss "
+             f"{rec['loss']} vs {cold['loss']}, launches {rec['launches']}")
+    b = rec["b_cache"]
     if b["exe_cache.corrupt"] != 1 or b["exe_cache.hits"] or \
             b["exe_cache.stores"] < 1:
         fail(f"warm (b): the flipped entry counted {b}")
     if (rec["b_loss_bits"], rec["b_grads"], rec["b_launches"]) != (
-            _P23["loss_bits"], _P23["grads"], _P23["launches"]):
+            cold["loss_bits"], cold["grads"], cold["launches"]):
         fail(f"warm (b): the cold path's loss {rec['b_loss']} and "
-             f"gradients differ from phase 21's {_P23['loss']}")
+             f"gradients differ from the cold compile's {cold['loss']}")
     sched = _P23.get("sched")
     summary = {
+        "cold": {k: cold[k] for k in ("compile_s", "process_s", "loss",
+                                      "eager_loss", "rel", "entries",
+                                      "entry_bytes", "step_ms")},
         "a": {"hits": c["exe_cache.hits"], "misses": c["exe_cache.misses"],
               "corrupt": c["exe_cache.corrupt"],
-              "entry_bytes": _P23["entry_bytes"],
               "deserialize_ms": c["exe_cache.deserialize_ms"],
-              "compile_s": rec["compile_s"],
-              "cold_compile_s": _P23["compile_s"],
-              "step_ms": rec["step_ms"], "loss": rec["loss"],
-              "bitwise": True, "launches": rec["launches"],
-              "inner_caches": rec["inner"], "marks": rec["marks"],
+              "compile_s": rec["compile_s"], "step_ms": rec["step_ms"],
+              "loss": rec["loss"], "bitwise": True,
+              "launches": rec["launches"], "inner_caches": rec["inner"],
               "aot_cache_log": rec["aot_cache_log"],
               "plain_max_abs_err": rec["plain"]},
         "b": {"corrupt": b["exe_cache.corrupt"], "hits": b["exe_cache.hits"],
@@ -8129,13 +8724,15 @@ def phase_warm(card):
         "c": sched if sched is not None else "phase 18 not run",
         "d": dict(warmer, cold_rank=_P23.get("cold_rank",
                                              "phase 18 not run")),
-        "capture_ms": _P23.get("capture_ms"),
+        "capture_ms": _P23.get("capture_ms"), "marks": rec["marks"],
         "seconds": marks, "card": card,
     }
     log("warm: " + json.dumps(summary, sort_keys=True))
-    launches = {k: rec["launches"][k] + rec["b_launches"][k]
+    runs = [cold] + [{k: rec[pre + k] for k in ("launches", "tc_launches")}
+                     for pre in ("", "b_")]
+    launches = {k: sum(r["launches"][k] for r in runs)
                 for k in rec["launches"]}
-    tc = {k: rec["tc_launches"][k] + rec["b_tc_launches"][k]
+    tc = {k: sum(r["tc_launches"][k] for r in runs)
           for k in rec["tc_launches"]}
     return launches, tc
 
@@ -8145,21 +8742,27 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["17", "18", "19", "20", "21", "22",
-                                       "23"],
+                                       "23", "24"],
                     help="build the kernels and run this phase alone "
                     "(21, 22: with phases 3 and 4, whose outputs they "
-                    "read; 23: with phase 21 (a), whose compile it loads)")
+                    "read; 23: with phase 21 (a)'s cold compile, which it "
+                    "loads; 24: with phases 3 and 4, whose engine it "
+                    "audits)")
     ap.add_argument("--log", help="also write every printed line here")
     ap.add_argument("--worker18", metavar="ARM",
                     choices=["A", "B", "C", "c", "d"],
                     help="one rank of phase 18 (its launcher starts it)")
     ap.add_argument("--worker23", metavar="DIR",
                     help="phase 23's fresh process (the phase starts it)")
+    ap.add_argument("--worker21", metavar="DIR",
+                    help="phase 21 (a)'s cold compile (the run starts it)")
     args = ap.parse_args()
     if args.worker18:
         return worker18(args.worker18)
     if args.worker23:
         return worker23(args.worker23)
+    if args.worker21:
+        return worker21(args.worker21)
     run_t0 = time.monotonic()
     try:
         import torch
@@ -8209,11 +8812,9 @@ def main() -> int:
         phase_durability(card)
         log(f"durability phase: {time.monotonic() - t0:.2f} s")
         return 0
+    if args.only in ("23", "24"):
+        _p21_start_cold()
     if args.only == "23":
-        gen21 = torch.Generator(device="cuda")
-        gen21.manual_seed(SEED + 21)
-        _p21_attention(gen21)
-        log("fleet (a): " + json.dumps(_p21_train(gen21), sort_keys=True))
         t0 = time.monotonic()
         phase_warm(card)
         log(f"warm phase: {time.monotonic() - t0:.2f} s")
@@ -8231,11 +8832,15 @@ def main() -> int:
         return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    if args.only not in ("21", "22"):
+    if args.only not in ("21", "22", "24"):
         t0 = time.monotonic()
         kernel_results = phase_kernels(gen)
         flash_results = phase_flash_kernels(gen)
         log(f"kernel phase: {time.monotonic() - t0:.2f} s")
+    if args.only is None:
+        # phase 21 (a)'s cold compiles, in the background from here (after
+        # the kernel timings, beside the serving phases)
+        _p21_start_cold()
 
     # phase 3: GPT-2 medium at full width, random weights from the seed;
     # the fp32 copy for phase 4 is taken first (serving the bf16 model
@@ -8264,7 +8869,7 @@ def main() -> int:
     # phase 21: the serving fleet on phases 3 and 4's models (a generator
     # of its own, so later phases draw what they drew before it)
     fleet_b3, fleet_flash = 0, None
-    if args.only != "22":
+    if args.only not in ("22", "24"):
         t0 = time.monotonic()
         gen21 = torch.Generator(device="cuda")
         gen21.manual_seed(SEED + 21)
@@ -8275,18 +8880,26 @@ def main() -> int:
 
     # phase 22: the fleet's control plane on phase 3's model and prompts
     ctl_b3, ctl_flash = 0, None
-    if args.only != "21":
+    if args.only not in ("21", "24"):
         t0 = time.monotonic()
         gen22 = torch.Generator(device="cuda")
         gen22.manual_seed(SEED + 22)
         ctl_b3, ctl_flash = phase_control(gen22, model, prompts,
                                           phase3_tokens, prompt, 32, card)
         log(f"control plane phase: {time.monotonic() - t0:.2f} s")
-    # phases 3, 4, 21 and 22's paged launches, replays included
+    # phase 24: the prefill tiers at full width, with the audit of phase
+    # 3's engine and of phase 21 (a)'s step
+    if args.only in (None, "24"):
+        t0 = time.monotonic()
+        phase_tiers(model, model32, card)
+        log(f"tiers phase: {time.monotonic() - t0:.2f} s")
+    if args.only == "24":
+        phase_tiers_audit(card)
+    # phases 3, 4, 21, 22 and 24's paged launches, replays included
     paged_launches = _paged_totals()
     del model, model32
     torch.cuda.empty_cache()
-    if args.only in ("21", "22"):
+    if args.only in ("21", "22", "24"):
         return 0
 
     # phase 5: training, the second slice's main path
@@ -8416,6 +9029,11 @@ def main() -> int:
     flash_runs.append(fleet_flash)
     flash_runs.append(ctl_flash)
     log(f"remainders phase: {time.monotonic() - t0:.2f} s")
+
+    # phase 24 (e): the audit of phase 21 (a)'s step and phase 3's engine
+    t0 = time.monotonic()
+    phase_tiers_audit(card)
+    log(f"tiers audit: {time.monotonic() - t0:.2f} s")
 
     # phase 23: the warm start of phase 21's compiled step in a fresh
     # process, a corrupt entry, phase 18's schedule audit, a warmer

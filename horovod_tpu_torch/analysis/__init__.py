@@ -8,14 +8,17 @@ The port's part of ``horovod_tpu/analysis``:
   a rank whose collective schedule diverges (reason
   ``sched_divergence``) before the mismatch hangs a collective;
 * :mod:`trace_merge`: one skew-corrected timeline from every process's
-  spans (``common/tracing.py``).
+  spans (``common/tracing.py``);
+* :mod:`fx_parse` and :mod:`rules`: the collective-program audit, the
+  counterpart of ``hlo_parse`` and ``rules``, over FX graphs of a
+  compiled step or the eager calls ``testing/recorder.py`` records
+  (``scripts/hlo_audit_torch.py`` runs its roster).
 
-The parser and rules over lowered programs (``hlo_parse``, ``rules``)
-are not here: their counterpart, an audit of the recorded NCCL call
-schedule over ``testing/recorder.py``, is queued (ROADMAP A16's
-remainder). Both modules import the standard library only.
+``sched_audit`` and ``trace_merge`` import the standard library only,
+``fx_parse`` and ``rules`` torch as well, inside the functions that
+need it.
 """
 
-from . import sched_audit, trace_merge
+from . import fx_parse, rules, sched_audit, trace_merge
 
-__all__ = ["sched_audit", "trace_merge"]
+__all__ = ["fx_parse", "rules", "sched_audit", "trace_merge"]

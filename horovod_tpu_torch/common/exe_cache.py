@@ -15,12 +15,12 @@ compiled program, and only one of them survives the process:
   capturing process's device addresses. So the serving engine's decode
   graph is captured again in each process when the engine is built
   (``InferenceEngine._capture_ms``, in its ``stats()`` as
-  ``capture_ms``), and prefill stays eager at each chunk's exact width:
-  no pad tokens and nothing compiled. The JAX engine's disk tiers
-  (exact and bucket executables, promotion, ``_warm_start``,
-  ``_disk_prefill_exact``) have no counterpart here, and its
-  ``prefill_disk_hits``/``decode_disk_hits`` stay 0. Prefill CUDA graphs
-  at bucket widths with promotion are queued (ROADMAP A16's remainder).
+  ``capture_ms``), and so is each of its prefill graphs, at bucket and
+  exact widths, when a tier first needs it
+  (``InferenceEngine.prefill_graphs()``). The JAX engine's disk tier
+  under them (``_warm_start``, ``_disk_prefill_exact``) has no
+  counterpart here, and its ``prefill_disk_hits``/``decode_disk_hits``
+  stay 0.
   The fused eager dispatch compiles nothing; the JAX fusion's disk tier
   waits for the port's executor tiers (ROADMAP A3), which are CUDA
   graphs, and the same argument holds for them.
@@ -76,7 +76,8 @@ File format, one entry per file::
 
 Writes ride a background writer thread, flushed by the preemption
 drain hooks and at exit. Telemetry:
-``exe_cache.{hits,misses,corrupt,rejected,stores,bytes,deserialize_ms}``
+``exe_cache.{hits,misses,corrupt,rejected,stores,bytes,deserialize_ms,
+serialize_errors}``
 in the metrics registry (``common/metrics.py``).
 
 The schedule sidecars (:func:`persist_json`/:func:`load_json`) keep the
@@ -483,10 +484,15 @@ def get_or_compile(
             return compile_fn(gm, example_inputs), True
     with _lowering(), _recording() as save:
         compiled = compile_fn(gm, example_inputs)
-        artifacts = save()
-    if artifacts is not None:
-        store(artifacts[0], family, fp, wire, donation, meta, fingerprint,
-              base)
+        try:
+            artifacts = save()
+            if artifacts is None:
+                raise ValueError("save_cache_artifacts returned None")
+            store(artifacts[0], family, fp, wire, donation, meta,
+                  fingerprint, base)
+        except Exception as e:  # noqa: BLE001 - persistence never fails a compile
+            _metrics.counter("exe_cache.serialize_errors")
+            _log.warning("exe cache serialize failed (%s): %s", family, e)
     return compiled, False
 
 

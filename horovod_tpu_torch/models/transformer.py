@@ -265,7 +265,8 @@ class CacheStep:
 
     @staticmethod
     def on_device(cache, index: torch.Tensor, table: Optional[torch.Tensor],
-                  t: int, spare_row0: Optional[int] = None) -> "CacheStep":
+                  t: int, spare_row0: Optional[int] = None,
+                  valid: Optional[torch.Tensor] = None) -> "CacheStep":
         """The step of :meth:`build` from ``index`` (``[batch]`` int32)
         and ``table`` (``[batch, n_logical]`` int32, None for the slab),
         both on the cache's device: every row of the call's ``[batch ×
@@ -275,7 +276,9 @@ class CacheStep:
         goes to its own spare row, ``spare_row0 + row``: the pool's
         spare pages past the ``spare_row0 // page_tokens`` live ones,
         which no table names, so no live row reads it and no two rows
-        share one."""
+        share one. ``valid`` (``[batch]``, paged only) counts each row's
+        real tokens: its rows at and past that step are pad tokens of a
+        fixed-width prefill and go to their spare rows too."""
         leaf = cache[0]["k"]
         dev = leaf.device
         b = index.shape[0]
@@ -300,6 +303,8 @@ class CacheStep:
             phys = torch.gather(table.to(torch.int64), 1,
                                 lp.clamp(0, n_logical - 1))
             keep = (lp < n_logical) & (phys >= 0) & (phys < num_pages)
+            if valid is not None:
+                keep = keep & (steps < valid.to(torch.int64)[:, None])
             spare = spare_row0 + torch.arange(b * t, device=dev).reshape(b, t)
             dst = torch.where(keep, phys * page_tokens + off,
                               spare).reshape(-1)
@@ -378,7 +383,13 @@ class DenseGeneral(nn.Module):
     to ``dtype`` at use, then add the bias in ``dtype``. With ``reduce``
     (a mesh axis) it is row-parallel: the kernel holds this rank's rows,
     the product is all-reduced over the axis, and the whole bias is
-    added once after the reduce."""
+    added once after the reduce.
+
+    ``rows`` (the forward's argument): a product of fewer rows runs at
+    ``rows`` rows, zero rows padded and the real rows sliced back. A
+    product's rounding can depend on how many rows the library's kernel
+    is given, never on the other rows' values, so each real row then
+    rounds as it would in any product of ``rows`` rows."""
 
     def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
                  dtype: torch.dtype, device=None, generator=None,
@@ -394,11 +405,17 @@ class DenseGeneral(nn.Module):
         self.bias = nn.Parameter(torch.zeros(self.out_shape, device=device))
         _trunc_normal_(self.kernel, math.prod(self.in_shape), generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: int = 0) -> torch.Tensor:
         n_in, n_out = math.prod(self.in_shape), math.prod(self.out_shape)
         lead = x.shape[: x.dim() - len(self.in_shape)]
         w = self.kernel.reshape(n_in, n_out).to(self.dtype)
-        y = x.reshape(*lead, n_in).to(self.dtype) @ w
+        real = math.prod(lead)
+        if real < rows:
+            x2 = x.reshape(real, n_in).to(self.dtype)
+            y = (F.pad(x2, (0, 0, 0, rows - real)) @ w)[:real]
+            y = y.reshape(*lead, n_out)
+        else:
+            y = x.reshape(*lead, n_in).to(self.dtype) @ w
         if self.reduce is not None:
             y = reduce_from(y, self.reduce)
         y = y + self.bias.reshape(n_out).to(self.dtype)
@@ -464,7 +481,8 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, mask=None, lengths=None,
                 cache: Optional[dict] = None,
-                step: Optional[CacheStep] = None, paged_attn: bool = False):
+                step: Optional[CacheStep] = None, paged_attn: bool = False,
+                rows: int = 0):
         cfg = self.cfg
         if cache is not None:
             if not cfg.causal:
@@ -479,11 +497,11 @@ class MultiHeadAttention(nn.Module):
         if self.tp is not None:
             x = copy_to(x, self.tp)
         if cfg.num_kv_heads:
-            q = self.q(x)
-            kv = self.kv(x)
+            q = self.q(x, rows)
+            kv = self.kv(x, rows)
             k, v = kv[..., 0, :, :], kv[..., 1, :, :]
         else:
-            qkv = self.qkv(x)
+            qkv = self.qkv(x, rows)
             q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
         if cfg.rope:
             offset = 0 if cache is None else step.index
@@ -491,7 +509,7 @@ class MultiHeadAttention(nn.Module):
             k = apply_rope(k, cfg.rope_base, offset=offset)
         if cache is not None:
             return self.out(self._cached_attention(q, k, v, cache, step,
-                                                   paged_attn))
+                                                   paged_attn), rows)
         if cfg.sliding_window and not cfg.causal:
             raise ValueError("sliding_window requires causal=True")
         if mask is not None and cfg.flash_attention not in ("auto", False):
@@ -602,11 +620,11 @@ class MoEFFN(nn.Module):
         _trunc_normal_(self.w1, cfg.moe_experts * d, generator)
         _trunc_normal_(self.w2, cfg.moe_experts * f, generator)
 
-    def forward(self, x):
+    def forward(self, x, rows: int = 0):
         cfg = self.cfg
         if self.ep is not None:
             x = copy_to(x, self.ep)
-        probs = torch.softmax(self.router(x.float()), dim=-1)  # [b, t, E]
+        probs = torch.softmax(self.router(x.float(), rows), dim=-1)
         idx = probs.argmax(dim=-1)
         gate = probs.gather(-1, idx[..., None])
         # the einsums run in the promoted type of the (fp32) input and
@@ -683,24 +701,27 @@ class Block(nn.Module):
             self.fc2 = DenseGeneral((f,), (cfg.d_model,), reduce=tp, **kw)
 
     def forward(self, x, mask=None, lengths=None, seed=None, cache=None,
-                step=None, paged_attn=False):
+                step=None, paged_attn=False, rows: int = 0):
         """``seed`` (an int, or None for no dropout) seeds this block's
-        dropout masks, so a recompute under ``remat`` draws the same."""
+        dropout masks, so a recompute under ``remat`` draws the same.
+        ``rows`` is each product's row count (:class:`DenseGeneral`)."""
         rate = self.cfg.dropout_rate
         gen = None
         if seed is not None and rate > 0:
             gen = torch.Generator(device=x.device)
             gen.manual_seed(seed)
         h = self.attn(self.ln1(x.float()), mask=mask, lengths=lengths,
-                      cache=cache, step=step, paged_attn=paged_attn)
+                      cache=cache, step=step, paged_attn=paged_attn,
+                      rows=rows)
         x = x + _dropout(h, rate, gen)
         if self.cfg.moe_experts:
-            return x + _dropout(self.moe(self.ln2(x.float())), rate, gen)
+            return x + _dropout(self.moe(self.ln2(x.float()), rows), rate,
+                                gen)
         h = self.ln2(x.float())
         if self.tp is not None:
             h = copy_to(h, self.tp)
-        h = F.gelu(self.fc1(h), approximate="tanh")
-        return x + _dropout(self.fc2(h), rate, gen)
+        h = F.gelu(self.fc1(h, rows), approximate="tanh")
+        return x + _dropout(self.fc2(h, rows), rate, gen)
 
 
 def _dropout(x: torch.Tensor, rate: float,
@@ -817,7 +838,7 @@ class Transformer(nn.Module):
                 cache: Optional[List[dict]] = None, cache_index=None,
                 pages=None, paged_attn: bool = False,
                 rng: Optional[torch.Generator] = None,
-                step: Optional[CacheStep] = None):
+                step: Optional[CacheStep] = None, product_rows: int = 0):
         """Logits ``[batch, t, vocab]`` in fp32.
 
         Uncached: ``tokens`` is the whole sequence. ``train`` turns
@@ -834,7 +855,10 @@ class Transformer(nn.Module):
         already cached per row) and is updated in place; ``pages``
         (``[batch, n_logical]`` int32) switches it to the paged pool.
         ``step`` (a :class:`CacheStep`, e.g. :meth:`CacheStep.on_device`)
-        replaces ``cache_index`` and ``pages``."""
+        replaces ``cache_index`` and ``pages``; ``product_rows`` runs
+        every cached product at that many rows at least
+        (:class:`DenseGeneral`: the serving engine's prefill, whose K/V
+        then do not depend on the width it ran at)."""
         cfg = self.cfg
         dev = self.device
         tokens = torch.as_tensor(tokens, device=dev).long()
@@ -856,7 +880,7 @@ class Transformer(nn.Module):
         if cache is not None:
             for i, block in enumerate(self.blocks):
                 x = block(x, cache=cache[i], step=step,
-                          paged_attn=paged_attn)
+                          paged_attn=paged_attn, rows=product_rows)
             h = self.ln_f(x.float())
             return h if return_hidden else self.lm_head(h)
         seeds = [None] * cfg.num_layers

@@ -15,7 +15,8 @@ gradient. :func:`fused_linear_cross_entropy` never makes either:
 
 The cost is one more ``N × d × chunk`` product a chunk in the backward.
 
-Both this loss and the Transformer's ``LMHead`` multiply through
+Both this loss and the Transformer's ``LMHead`` (:func:`mixed_linear`,
+the operator ``hvd_torch::mixed_linear``) multiply through
 :func:`mixed_mm`: ``compute_dtype`` operands (bf16 by default) with an
 fp32 result, the reference's ``preferred_element_type=f32``. On CUDA
 that is one tensor-core product, ``torch.mm(a, b, out_dtype=float32)``;
@@ -47,45 +48,68 @@ def mixed_mm(a: torch.Tensor, b: torch.Tensor,
     return a.float() @ b.float()
 
 
-class MixedLinear(torch.autograd.Function):
+def _operands(x, kernel, dtype):
+    """The LM head's product operands: ``x`` as 2-D rows and both in
+    ``dtype`` (None: as they are)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if dtype is None:
+        return x2, kernel
+    return x2.to(dtype), kernel.to(dtype)
+
+
+@torch.library.custom_op("hvd_torch::mixed_linear", mutates_args=())
+def _mixed_linear_op(x: torch.Tensor, kernel: torch.Tensor,
+                     bias: torch.Tensor,
+                     dtype: Optional[torch.dtype]) -> torch.Tensor:
     """``x @ kernel + bias`` through :func:`mixed_mm`: fp32 out, the
-    fp32 bias added; the backward's products take ``dtype`` operands
-    too (the cotangent rounded once)."""
+    fp32 bias added."""
+    xr, kr = _operands(x, kernel, dtype)
+    y = mixed_mm(xr, kr, dtype) + bias.float()
+    return y.reshape(*x.shape[:-1], kernel.shape[1])
 
-    @staticmethod
-    def forward(ctx, x, kernel, bias, dtype):
-        lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1])
-        xr = x2 if dtype is None else x2.to(dtype)
-        kr = kernel if dtype is None else kernel.to(dtype)
-        ctx.save_for_backward(xr, kr)
-        ctx.dtype = dtype
-        ctx.dtypes = (x.dtype, kernel.dtype, bias.dtype)
-        ctx.lead = lead
-        y = mixed_mm(xr, kr, dtype) + bias.float()
-        return y.reshape(*lead, kernel.shape[1])
 
-    @staticmethod
-    def backward(ctx, g):
-        xr, kr = ctx.saved_tensors
-        x_dt, k_dt, b_dt = ctx.dtypes
-        g2 = g.reshape(-1, g.shape[-1])
-        gr = g2 if ctx.dtype is None else g2.to(ctx.dtype)
-        dx = dk = db = None
-        if ctx.needs_input_grad[0]:
-            dx = mixed_mm(gr, kr.t(), ctx.dtype).to(x_dt)
-            dx = dx.reshape(*ctx.lead, kr.shape[0])
-        if ctx.needs_input_grad[1]:
-            dk = mixed_mm(xr.t(), gr, ctx.dtype).to(k_dt)
-        if ctx.needs_input_grad[2]:
-            db = g2.float().sum(0).to(b_dt)
-        return dx, dk, db, None
+@_mixed_linear_op.register_fake
+def _(x, kernel, bias, dtype):
+    return x.new_empty((*x.shape[:-1], kernel.shape[1]),
+                       dtype=torch.float32)
+
+
+def _mixed_linear_setup(ctx, inputs, output):
+    x, kernel, bias, dtype = inputs
+    ctx.save_for_backward(x, kernel)
+    ctx.dtype = dtype
+    ctx.bias_dtype = bias.dtype
+
+
+def _mixed_linear_backward(ctx, g):
+    """The backward's products take ``dtype`` operands too (the
+    cotangent rounded once); the operands are rounded again from the
+    saved inputs, the same values the forward used."""
+    x, kernel = ctx.saved_tensors
+    xr, kr = _operands(x, kernel, ctx.dtype)
+    g2 = g.reshape(-1, g.shape[-1])
+    gr = g2 if ctx.dtype is None else g2.to(ctx.dtype)
+    dx = dk = db = None
+    if ctx.needs_input_grad[0]:
+        dx = mixed_mm(gr, kr.t(), ctx.dtype).to(x.dtype).reshape(x.shape)
+    if ctx.needs_input_grad[1]:
+        dk = mixed_mm(xr.t(), gr, ctx.dtype).to(kernel.dtype)
+    if ctx.needs_input_grad[2]:
+        db = g2.float().sum(0).to(ctx.bias_dtype)
+    return dx, dk, db, None
+
+
+torch.library.register_autograd("hvd_torch::mixed_linear",
+                                _mixed_linear_backward,
+                                setup_context=_mixed_linear_setup)
 
 
 def mixed_linear(x, kernel, bias, dtype: Optional[torch.dtype]):
     """The LM head: ``x [..., d] @ kernel [d, V] + bias`` in fp32, the
-    product with ``dtype`` operands (None: fp32)."""
-    return MixedLinear.apply(x, kernel, bias, dtype)
+    product with ``dtype`` operands (None: fp32). It is the operator
+    ``hvd_torch::mixed_linear``, so a compiled step sees one node (and
+    AOTAutograd's cache can key it), as it sees B1-B7."""
+    return torch.ops.hvd_torch.mixed_linear(x, kernel, bias, dtype)
 
 
 def _chunk_starts(vocab: int, chunk: int) -> List[Tuple[int, int]]:

@@ -615,6 +615,7 @@ class FusionManager:
         self.timeline = None
         self.stall_inspector = None
         self.parameter_manager = None
+        self.ef_residual_norm = 0.0  # L2 of the last EF residual batch
         self._clock = time.monotonic
         self.cycles = 0
         self.flushed_bytes = 0  # useful payload bytes of allreduce batches
@@ -1082,6 +1083,23 @@ class FusionManager:
             self.wire_batches[e0.wire if e0.wire in WIRES else "fp32"] += 1
         return batch, group
 
+    def _note_residuals(self, flat: torch.Tensor) -> None:
+        """Error-feedback observability: the L2 norm of the batch's
+        residuals (``flat``, every entry's carry packed in order), as
+        the registry gauge and the timeline counter
+        ``fusion.ef_residual_norm``. Only when a timeline or a metrics
+        sink is watching: the norm is one host transfer."""
+        from ..common.metrics import registry as _metrics
+
+        if self.timeline is None and not _metrics.exporting:
+            return
+        self.ef_residual_norm = float(
+            torch.linalg.vector_norm(flat.float()))
+        _metrics.gauge("fusion.ef_residual_norm", self.ef_residual_norm)
+        if self.timeline is not None:
+            self.timeline.counter("fusion.ef_residual_norm",
+                                  self.ef_residual_norm)
+
     def _account(self, elems: int, wire: str, itemsize: int, n: int,
                  block: int) -> int:
         """Count one flat allreduce batch's wire bytes and what its wire
@@ -1205,8 +1223,9 @@ class FusionManager:
                 outs = _memcpy(tl, entries, _OUT,
                                lambda: _unpack(out, entries))
                 if res_all is not None:
-                    outs = list(zip(outs, _unpack(res_all[:m].to(dtype),
-                                                  entries)))
+                    carry = res_all[:m].to(dtype)
+                    self._note_residuals(carry)
+                    outs = list(zip(outs, _unpack(carry, entries)))
                 return outs, _finite(e0, out)
 
         nbytes = self._account_wire(m, e0.tensor.element_size(), e0, plan)
@@ -1314,6 +1333,7 @@ class FusionManager:
                 outs = _memcpy(tl, entries, _OUT,
                                lambda: _unpack(out, entries))
                 if res is not None:
+                    self._note_residuals(res)
                     outs = list(zip(outs, _unpack(res, entries)))
                 return outs, _finite(e0, out)
 

@@ -1,5 +1,5 @@
-"""InferenceEngine: eager prefill and a graphed decode over a slot-batched
-KV cache.
+"""InferenceEngine: graphed prefill tiers and a graphed decode over a
+slot-batched KV cache.
 
 The counterpart of ``horovod_tpu/serving/engine.py`` on one CUDA card:
 
@@ -8,6 +8,7 @@ The counterpart of ``horovod_tpu/serving/engine.py`` on one CUDA card:
   attending to the cache written before it. On the paged plane the
   prompt's leading full pages are first looked up in the prefix cache:
   every hit is attached by page-table pointer and its chunk never runs.
+  Each chunk runs through the JAX engine's two prefill tiers (below).
 * **Decode** is one step over every slot: each slot's last token at its
   cache index in, each slot's next token out (greedy, or sampled per
   slot with its own ``torch.Generator``). On a CUDA card the step's
@@ -36,18 +37,86 @@ The counterpart of ``horovod_tpu/serving/engine.py`` on one CUDA card:
   :meth:`extract_pages`, :meth:`export_sampling` and
   :meth:`import_sampling` are the JAX engine's.
 
-Prefill runs eagerly at each chunk's exact width: no pad tokens and
-nothing compiled. The JAX engine's prefill compile tiers (exact/bucket
-executables, background promotion) and its executable disk cache
-(``_warm_start``, ``_disk_prefill_exact``) have no counterpart, and their
-counters in :meth:`stats` (``prefill_disk_hits`` and ``decode_disk_hits``
-among them) stay 0. A CUDA graph holds the capturing process's device
-addresses, so it cannot be persisted: every process captures its decode
-graph again when it builds the engine, and ``stats()["capture_ms"]`` is
-what that took on the host's clock (the warm-up and the capture; 0 when
-nothing was captured). What a torch process can persist is Inductor's
-output (``common/exe_cache.py``); prefill CUDA graphs at bucket widths
-with promotion are queued (ROADMAP A16's remainder).
+**The prefill tiers** (``horovod_tpu/serving/engine.py:583-705``): a
+chunk's final piece of ``length`` tokens runs through an *entry* of a
+fixed width. An exact entry of that width serves it when the length was
+promoted (``prefill_exact_hits``); otherwise the power-of-two bucket
+``min(max(next_pow2(length), min_bucket), prefill_ceiling)`` does, with
+pad tokens (``prefill_pad_tokens``). A length seen ``promote_after``
+times is promoted: its exact entry is made in a background thread
+(``prefill_bg_promotions``) while the bucket keeps serving, and installs
+when ready; at most ``exact_capacity`` exact entries are kept (LRU), and
+the sightings map at most ``4 × exact_capacity`` lengths. A bucket that
+would overrun the slot's room (``max_len - start``) makes the exact
+entry at once, on the scheduler's thread. Full chunks at the ceiling
+reuse the ceiling's bucket entry. ``prefill_compiles`` counts entries
+made, ``prefill_promotions`` exact installs.
+
+On a CUDA card an entry is one CUDA graph of the chunk's forward at that
+width, made when the entry is: a warm-up on a side stream, then a
+capture, both with a real length of 0 on inputs that name no live row
+(an all-sentinel table; on the slab, the spare slot row past the live
+ones that the manager keeps for this), so the warm-up writes no row a
+slot owns. Its static inputs are one int64 buffer: the tokens ``[1,
+width]``, the start index, the last real position and the slot's
+page-table row at its full width (the slab's slot index on
+``paged=False``, whose write rows and read are worked out on the device,
+so one graph a width serves every slot). Its output is the greedy token
+at the last real position, with the LM head applied to that row only.
+Pad rows never reach a live page: on the paged plane they go to the
+pool's spare rows (``CacheStep.on_device``'s ``valid``), which are sized
+for ``max(slots, prefill_ceiling)`` rows; on the slab they land in the
+slot's own row past the prompt, as the JAX engine's do, and the mask
+keeps them unattended until decode overwrites them. The attention
+kernel's launch geometry comes from the shapes alone (the table's full
+width, never a host length).
+
+Every prefill's matrix products, an entry's and an eager exact-width
+chunk's alike, run at the ceiling's row count (the model's
+``product_rows`` argument): a bf16 product's rounding depends on how
+many rows the library's kernel is given, so without it a prompt's K/V,
+and the greedy tokens after them, would depend on which tier served it,
+which differs between engines with different histories (the fleet
+replays and migrates requests between them). One divergence is left: a
+final piece of one to four tokens attends through the decode kernel,
+whose sums run in another order than the tiled kernel's, so its row
+(and the tokens after it) can round differently under an exact entry
+of that width than under a wider bucket. What the padding costs is
+measured on the card (``chip_smoke.py`` phase 24 (d)).
+
+The prefill graphs share one memory pool; that is safe because they
+replay on one stream and each graph's output stays alive and is read
+before the next replay. An entry's warm-up runs under the engine's
+device lock, which the scheduler holds over each prefill and decode
+step: it runs kernels (the decode kernel's ticket words among them),
+so it must not overlap the scheduler's launches, and it waits for them
+to finish before it lets go. The capture launches nothing and runs
+outside that lock, on a stream of its own, and without the card-wide
+synchronize and cache flush that ``torch.cuda.graph`` starts with, so
+a background promotion stalls the scheduler for its warm-up only. Every capture in the process
+(a decode graph's too) holds one process-wide lock and runs with
+``capture_error_mode="relaxed"``: the engines of a fleet share the
+process, and under the stricter modes another thread's synchronizing
+call (a token copied to the host, a pool freed) while a graph is being
+captured invalidates the capture; relaxed mode leaves other threads'
+calls alone, and the lock keeps two captures from sharing the
+allocator's capture state. A capture that fails raises, on the
+scheduler's thread at its next prefill when it was a background one; a
+prefill never carries on eagerly on the card. Off the card an entry is
+the same fixed-width body run eagerly, so the tiers, the padding and
+the counters can be held against the JAX engine on the CPU. Tiers serve
+unified and prefill-role engines; a decode-role engine has none, and a
+sharded engine keeps its eager exact-width prefill as a mode (below).
+
+The JAX engine's executable disk cache (``_warm_start``,
+``_disk_prefill_exact``) has no counterpart, and ``prefill_disk_hits``
+and ``decode_disk_hits`` stay 0: a CUDA graph holds the capturing
+process's device addresses, so it cannot be persisted. Every process
+captures its decode graph again when it builds the engine, and
+``stats()["capture_ms"]`` is what that took on the host's clock (the
+warm-up and the capture; 0 when nothing was captured); each prefill
+entry's is in :meth:`prefill_graphs`. What a torch process can persist
+is Inductor's output (``common/exe_cache.py``).
 
 **A sharded engine** (``mesh=``, the JAX engine's ``mesh``/``tp_axis``/
 ``ep_axis``): ``tp`` shards the KV pool's kv heads and the attention
@@ -74,12 +143,14 @@ driving:
   ``KEEPALIVE_S``, so no follower's wait reaches the group's timeout;
 * followers compute no logits: they stop at the last block, and the
   LM head runs on the leader only;
-* **the decode step runs eagerly**: its all-reduces sit between
-  layers, a gloo collective cannot be captured, and a captured NCCL
-  collective cannot be exercised with one card. So ``decode_compiles``
-  stays 0 and ``stats()["decode_graphed"]`` is 0 on such an engine.
-  This is a mode, not a fallback: the step still runs on the card,
-  through the paged kernel on this rank's heads;
+* **the decode step and prefill run eagerly**: their all-reduces sit
+  between layers, a gloo collective cannot be captured, and a captured
+  NCCL collective cannot be exercised with one card. So
+  ``decode_compiles`` and ``prefill_compiles`` stay 0,
+  ``stats()["decode_graphed"]`` is 0, and each prefill chunk runs at
+  its exact width with no tiers (the followers' protocol carries exact
+  widths). This is a mode, not a fallback: the steps still run on the
+  card, through the paged kernel on this rank's heads;
 * an engine without a mesh, or on a mesh whose ``tp`` and ``ep`` are 1
   (no group), is the engine above, its captured graph included.
 
@@ -111,6 +182,7 @@ import torch
 import torch.distributed as dist
 
 from ..common.config import live_config, resolve_device
+from ..common.logging import get_logger
 from ..common.metrics import registry as _metrics
 from ..common import tracing as _tracing
 from ..models.transformer import CacheStep, init_cache
@@ -130,10 +202,17 @@ _STAT_KEYS = (
     "prefill_bg_promotions",
 )
 ROLES = ("unified", "prefill", "decode")
+DEFAULT_MIN_BUCKET = 8
+DEFAULT_PROMOTE_AFTER = 2
+DEFAULT_EXACT_CAPACITY = 32  # exact entries kept, LRU
+_log = get_logger("serve.engine")
 # the leader's control operations (serving on a mesh)
 OP_STOP, OP_NOOP, OP_PREFILL, OP_DECODE, OP_COPY = range(5)
 _HEADER = 6  # op, batch, t, slot or new page, old page, payload length
 KEEPALIVE_S = 5.0  # an idle leader's no-op interval
+# one CUDA graph capture at a time in the process, whichever engine or
+# thread captures (the module docstring)
+_CAPTURE_LOCK = threading.Lock()
 
 
 class Gathered(NamedTuple):
@@ -144,6 +223,24 @@ class Gathered(NamedTuple):
 
     pages: List[torch.Tensor]
     event: Optional[object]
+
+
+class _PrefillEntry:
+    """One prefill width's entry: its static inputs (one int64 buffer:
+    tokens, start, last real position, then the table row or the slab's
+    slot) and, on a CUDA card, its graph, the graph's output (the token
+    and the last row's logits), the paged launches one replay makes,
+    its replays and what making it took on the host's clock (the
+    warm-up's share of it apart)."""
+
+    def __init__(self, width: int, tier: str, static: torch.Tensor):
+        self.width, self.tier, self.static = width, tier, static
+        self.graph = None
+        self.out = None
+        self.launches: Dict[str, int] = {}
+        self.replays = 0
+        self.capture_ms = 0.0
+        self.warm_ms = 0.0
 
 
 def _paged_counts() -> Dict[str, int]:
@@ -245,7 +342,10 @@ class InferenceEngine:
         slots: int,
         max_len: int,
         device=None,
+        min_bucket: int = DEFAULT_MIN_BUCKET,
         prefill_ceiling: Optional[int] = None,
+        promote_after: int = DEFAULT_PROMOTE_AFTER,
+        exact_capacity: int = DEFAULT_EXACT_CAPACITY,
         paged: Optional[bool] = None,
         page_tokens: Optional[int] = None,
         pages: Optional[int] = None,
@@ -277,6 +377,16 @@ class InferenceEngine:
 
         cfg = live_config()
         self.paged = True if paged is None else bool(paged)
+        # chunk ceiling: a power of two that fits the cache
+        floor_pow2 = 1 << (int(max_len).bit_length() - 1)
+        ceiling = int(prefill_ceiling) if prefill_ceiling else floor_pow2
+        self.prefill_ceiling = min(next_pow2(ceiling), floor_pow2)
+        # every prefill product's rows (the module docstring); 0, a
+        # private switch, runs each at its own width
+        self._product_rows = self.prefill_ceiling
+        # the prefill tiers (the module docstring); a sharded engine
+        # prefills eagerly at exact widths, a decode worker never does
+        self._tiers = role != "decode" and not self.sharded
         self.manager = create_kv_manager(
             cache_factory, slots, max_len,
             paged=self.paged,
@@ -294,13 +404,35 @@ class InferenceEngine:
                 else int(page_watermark)
             ),
             mesh=mesh, tp_axis=tp_axis,
+            spare_rows=self.prefill_ceiling if self._tiers else 0,
         )
         self.slots = self.manager.slots
         self.max_len = self.manager.max_len
-        # chunk ceiling: a power of two that fits the cache
-        floor_pow2 = 1 << (self.max_len.bit_length() - 1)
-        ceiling = int(prefill_ceiling) if prefill_ceiling else floor_pow2
-        self.prefill_ceiling = min(next_pow2(ceiling), floor_pow2)
+        self.min_bucket = max(int(min_bucket), 1)
+        self.promote_after = max(int(promote_after), 1)
+        self._exact_capacity = max(int(exact_capacity), 1)
+        self._prefill_exact: "collections.OrderedDict[int, _PrefillEntry]" = (
+            collections.OrderedDict())
+        self._prefill_bucket: Dict[int, _PrefillEntry] = {}
+        self._seen: "collections.OrderedDict[int, int]" = (
+            collections.OrderedDict())
+        self._promoting: set = set()
+        self._promote_threads: List[threading.Thread] = []
+        self._promotion_error: Optional[BaseException] = None
+        self._prefill_pool = None  # the prefill graphs' shared memory pool
+        # entries are graphs on a CUDA card; off (a private switch) they
+        # run their body eagerly there too, the reference a check holds
+        # the graphs to
+        self._graph_prefill = self.device.type == "cuda"
+        # paged launches of the prefill graphs: one replay's, summed over
+        # the replays and over the captures (where they tick)
+        self._prefill_acct = {"captures": 0, "replays": 0,
+                              "launched": collections.Counter(),
+                              "captured": collections.Counter()}
+        self._last_logits: Optional[torch.Tensor] = None
+        # held over each prefill and decode step and over a background
+        # entry's making (the module docstring)
+        self._device_lock = threading.RLock()
         self._decode_swept = False
         self._lock = threading.Lock()  # guards counters for stats readers
         self._counters = collections.Counter()
@@ -411,29 +543,34 @@ class InferenceEngine:
     def _chunk(self, slot: int, tokens: np.ndarray, start: int,
                table: Optional[np.ndarray], head: bool) -> torch.Tensor:
         """The chunk's forward: logits, or (``head`` False, a follower)
-        the final LayerNorm's output."""
+        the final LayerNorm's output. Its products run at the ceiling's
+        rows, as the tiers' entries do, so a chunk's K/V are the same
+        bits whichever path computes it."""
         toks = torch.as_tensor(np.asarray(tokens)[None], device=self.device)
         index = np.asarray([start], np.int32)
+        rows = self._product_rows
         if self.paged:
             return self.model(
                 toks, cache=self.manager.cache, cache_index=index,
                 pages=table, paged_attn=self.paged_attn,
-                return_hidden=not head,
+                return_hidden=not head, product_rows=rows,
             )
         row = [
             {name: leaf[slot:slot + 1] for name, leaf in layer.items()}
             for layer in self.manager.cache
         ]
         return self.model(toks, cache=row, cache_index=index,
-                          return_hidden=not head)
+                          return_hidden=not head, product_rows=rows)
 
     @torch.no_grad()
     def prefill(self, slot: int, prompt, trace=None) -> int:
         """Run the prompt through the slot's cache; returns the first
         greedy token. The final prompt token is always recomputed, even
         on a full prefix hit, so its logits exist and shared pages are
-        never written. The slot's full prompt pages are published into
-        the prefix index afterwards."""
+        never written. Each chunk runs through the prefill tiers (the
+        module docstring), or eagerly at its exact width on a sharded
+        engine. The slot's full prompt pages are published into the
+        prefix index afterwards."""
         if self.role == "decode":
             raise RuntimeError(
                 "prefill on a decode-role engine: decode workers take "
@@ -463,9 +600,24 @@ class InferenceEngine:
                     self._counters["prefill_tokens_skipped"] += start
             if not mgr.ensure_pages(slot, n, write_from=start):
                 raise PagePoolExhausted([slot])
-        ceiling = self.prefill_ceiling
+        if self._tiers:
+            with self._device_lock:
+                tok = self._prefill_tiered(slot, prompt, start, trace)
+        else:
+            tok = self._prefill_exact_widths(slot, prompt, start, trace)
+        self.manager.set_length(slot, n)
+        self._counters["prefills"] += 1
+        if self.paged and hashes:
+            self.manager.publish_prefix(slot, hashes)
+        return tok
+
+    def _prefill_exact_widths(self, slot: int, prompt: np.ndarray,
+                              start: int, trace) -> int:
+        """The eager prefill: each chunk at its exact width, no pads (a
+        sharded engine's, sent to its followers chunk by chunk)."""
+        n = prompt.size
         while True:
-            width = min(n - start, ceiling)
+            width = min(n - start, self.prefill_ceiling)
             span = _tracing.start_span(
                 "engine.prefill_chunk", trace, start=start, width=width,
                 slot=slot,
@@ -476,13 +628,277 @@ class InferenceEngine:
                 span.end()
             start += width
             if start == n:
-                break
+                return int(tok)
             self._counters["chunked_prefill_chunks"] += 1
-        self.manager.set_length(slot, n)
-        self._counters["prefills"] += 1
-        if self.paged and hashes:
-            self.manager.publish_prefix(slot, hashes)
-        return int(tok)
+
+    # ----------------------------------------------------- the prefill tiers
+
+    def _prefill_tiered(self, slot: int, prompt: np.ndarray, start: int,
+                        trace) -> int:
+        """The JAX engine's chunk loop over the tiers: full chunks at the
+        ceiling through its bucket entry, then the rest through
+        :meth:`_get_prefill_entry`."""
+        err, self._promotion_error = self._promotion_error, None
+        if err is not None:
+            raise RuntimeError(
+                "a background prefill promotion failed") from err
+        n = prompt.size
+        ceiling = self.prefill_ceiling
+        while n - start > ceiling:
+            entry = self._bucket_entry(ceiling)
+            self._counters["chunked_prefill_chunks"] += 1
+            self._run_entry(entry, slot, prompt[start:start + ceiling],
+                            start, trace)
+            start += ceiling
+        entry = self._get_prefill_entry(n - start, avail=self.max_len - start)
+        return int(self._run_entry(entry, slot, prompt[start:], start, trace))
+
+    def _bucket_entry(self, width: int) -> _PrefillEntry:
+        """The bucket tier's entry of ``width`` tokens, made on a miss
+        (the JAX engine's ``_bucket_exe``)."""
+        entry = self._prefill_bucket.get(width)
+        if entry is None:
+            entry = self._make_entry(width, "bucket")
+            with self._lock:
+                self._prefill_bucket[width] = entry
+        else:
+            self._counters["prefill_bucket_hits"] += 1
+        return entry
+
+    def _get_prefill_entry(self, length: int,
+                           avail: Optional[int] = None) -> _PrefillEntry:
+        """The two-tier lookup for a final piece of ``length`` tokens
+        (the JAX engine's ``_get_prefill_exe``): the exact entry when
+        promoted, else the bucket, whose pads count
+        ``prefill_pad_tokens``. The ``promote_after``-th sighting of a
+        length starts its background promotion; a bucket wider than
+        ``avail`` (the slot's room) makes the exact entry here."""
+        with self._lock:  # a promotion installs and evicts under it
+            entry = self._prefill_exact.get(length)
+            if entry is not None:
+                self._prefill_exact.move_to_end(length)
+                self._counters["prefill_exact_hits"] += 1
+                return entry
+        count = self._seen.get(length, 0) + 1
+        self._seen[length] = count
+        self._seen.move_to_end(length)
+        while len(self._seen) > 4 * self._exact_capacity:
+            self._seen.popitem(last=False)
+        bucket = min(max(next_pow2(length), self.min_bucket),
+                     self.prefill_ceiling)
+        forced = avail is not None and bucket > avail
+        if forced:
+            entry = self._make_entry(length, "exact")
+            self._install_exact(length, entry)
+            return entry
+        if count >= self.promote_after:
+            self._spawn_promotion(length)
+        entry = self._bucket_entry(bucket)
+        self._counters["prefill_pad_tokens"] += bucket - length
+        return entry
+
+    def _install_exact(self, length: int, entry: _PrefillEntry) -> None:
+        with self._lock:
+            self._prefill_exact[length] = entry
+            self._counters["prefill_promotions"] += 1
+            while len(self._prefill_exact) > self._exact_capacity:
+                self._prefill_exact.popitem(last=False)
+
+    def _spawn_promotion(self, length: int) -> None:
+        """Make the exact entry of ``length`` in a background thread and
+        install it when ready; the bucket serves meanwhile. One thread a
+        length at a time. A failure is raised at the next prefill."""
+        with self._lock:
+            if length in self._promoting:
+                return
+            self._promoting.add(length)
+
+        def work():
+            try:
+                if self.device.type == "cuda":
+                    torch.cuda.set_device(self.device)
+                with torch.no_grad():
+                    entry = self._make_entry(length, "exact")
+                self._install_exact(length, entry)
+                with self._lock:
+                    self._counters["prefill_bg_promotions"] += 1
+            except BaseException as e:  # raised at the next prefill
+                _log.error("background promotion of width %d failed: %s",
+                           length, e)
+                self._promotion_error = e
+            finally:
+                with self._lock:
+                    self._promoting.discard(length)
+
+        t = threading.Thread(target=work, daemon=True,
+                             name=f"serve-promote-{length}")
+        self._promote_threads.append(t)
+        t.start()
+
+    def drain_promotions(self, timeout: float = 60.0) -> bool:
+        """Join the background promotions; True when every one landed."""
+        deadline = time.monotonic() + timeout
+        for t in list(self._promote_threads):
+            t.join(max(deadline - time.monotonic(), 0.0))
+        self._promote_threads = [t for t in self._promote_threads
+                                 if t.is_alive()]
+        return not self._promote_threads
+
+    def _make_entry(self, width: int, tier: str) -> _PrefillEntry:
+        """A new entry of ``width`` tokens, captured on a CUDA card: the
+        warm-up under the device lock, the capture outside it. Its
+        static inputs start at a real length of 0 (every row a pad) on
+        an all-sentinel table, or on the slab's spare slot row, so the
+        warm-up writes no row a slot owns."""
+        mgr = self.manager
+        extra = mgr.pages_per_slot if self.paged else 1
+        static = torch.zeros(width + 2 + extra, dtype=torch.int64,
+                             device=self.device)
+        static[width + 1] = -1
+        static[width + 2:] = mgr.sentinel if self.paged else mgr.spare_slot
+        entry = _PrefillEntry(width, tier, static)
+        if self._graph_prefill:
+            with self._device_lock:
+                self._warm_prefill(entry)
+            self._capture_prefill(entry)
+        with self._lock:
+            self._counters["prefill_compiles"] += 1
+        return entry
+
+    def _prefill_body(self, entry: _PrefillEntry):
+        """The fixed-width chunk forward over ``entry``'s static inputs:
+        what its graph captures, and the prefill off the card. Returns
+        the greedy token at the last real position and that row's fp32
+        logits (the LM head runs on that row alone)."""
+        w, buf = entry.width, entry.static
+        start = buf[w:w + 1].to(torch.int32)
+        last = buf[w + 1:w + 2]
+        mgr = self.manager
+        if self.paged:
+            cache = mgr.full_cache
+            step = CacheStep.on_device(cache, start, buf[w + 2:].view(1, -1),
+                                       w, mgr.spare_row0, valid=last + 1)
+        else:
+            # the slab as a pool of one page a slot: the slot a device
+            # index, so one graph a width serves every slot (the spare
+            # slot row included)
+            cache = mgr.full_cache
+            slot = buf[w + 2:w + 3]
+            dst = (slot * mgr.max_len + buf[w:w + 1]
+                   + torch.arange(w, device=buf.device))
+            step = CacheStep(index=start, table=slot.view(1, 1).to(
+                torch.int32), src=None, dst=dst)
+        hidden = self.model(buf[:w].view(1, w), cache=cache, step=step,
+                            paged_attn=self.paged_attn, return_hidden=True,
+                            product_rows=self._product_rows)
+        logits = self.model.lm_head(
+            hidden[0].index_select(0, last.clamp(min=0)))[0]
+        return torch.argmax(logits), logits
+
+    @torch.no_grad()
+    def _warm_prefill(self, entry: _PrefillEntry) -> None:
+        """Run ``entry``'s body once on a side stream (kernels built, the
+        decode kernel's ticket words grown) and wait for it: the caller
+        holds the device lock, so it overlaps no launch of the
+        scheduler's."""
+        dev = self.device
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._prefill_body(entry)
+        side.synchronize()
+        entry.warm_ms = (time.perf_counter() - t0) * 1e3
+        entry.capture_ms += entry.warm_ms
+
+    @torch.no_grad()
+    def _capture_prefill(self, entry: _PrefillEntry) -> None:
+        """Capture ``entry``'s warmed body into a CUDA graph in the
+        prefill graphs' shared pool, on a stream of its own (one capture
+        at a time in the process, relaxed mode). A capture launches
+        nothing, so the scheduler's replays go on meanwhile; it begins
+        and ends the capture itself, since ``torch.cuda.graph`` first
+        synchronizes the card and empties the allocator's cache, which
+        would stall the scheduler's steps."""
+        dev = self.device
+        t0 = time.perf_counter()
+        if self._prefill_pool is None:
+            self._prefill_pool = torch.cuda.graph_pool_handle()
+        before = _paged_counts()
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK, torch.cuda.stream(torch.cuda.Stream(dev)):
+            graph.capture_begin(pool=self._prefill_pool,
+                                capture_error_mode="relaxed")
+            try:
+                out = self._prefill_body(entry)
+            finally:
+                graph.capture_end()
+        after = _paged_counts()
+        entry.launches = {k: after[k] - before[k] for k in after}
+        entry.graph, entry.out = graph, out
+        entry.capture_ms += (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            self._prefill_acct["captures"] += 1
+            self._prefill_acct["captured"].update(entry.launches)
+
+    def _run_entry(self, entry: _PrefillEntry, slot: int,
+                   tokens: np.ndarray, start: int, trace) -> torch.Tensor:
+        """One chunk through ``entry``: its static inputs loaded in one
+        copy, then a replay (or the body, off the card). Returns the
+        greedy token on the device."""
+        w, real = entry.width, tokens.size
+        span = _tracing.start_span(
+            "engine.prefill_chunk", trace, start=start, width=w, slot=slot,
+            real=real,
+        )
+        host = np.zeros(entry.static.numel(), np.int64)
+        host[:real] = tokens
+        host[w], host[w + 1] = start, real - 1
+        host[w + 2:] = (self.manager.table_row(slot) if self.paged
+                        else slot)
+        entry.static.copy_(torch.from_numpy(host))
+        self._note_stream()
+        if entry.graph is not None:
+            entry.graph.replay()
+            entry.replays += 1
+            with self._lock:
+                self._prefill_acct["replays"] += 1
+                self._prefill_acct["launched"].update(entry.launches)
+            tok, self._last_logits = entry.out
+        else:
+            tok, self._last_logits = self._prefill_body(entry)
+        if span is not None:
+            span.end()
+        if self.paged_attn:
+            self._counters["paged_attn_calls"] += 1
+        return tok
+
+    def prefill_launches(self) -> Dict[str, object]:
+        """The prefill graphs' accounting over the engine's life (evicted
+        entries included): captures, replays, and by counter the paged
+        launches the replays made (``launched``) and the ones the
+        captures ticked without launching (``captured``). The launches a
+        run made are the counter plus ``launched - captured``."""
+        with self._lock:
+            acct = self._prefill_acct
+            return {"captures": acct["captures"], "replays": acct["replays"],
+                    "launched": dict(acct["launched"]),
+                    "captured": dict(acct["captured"])}
+
+    def prefill_graphs(self) -> List[Dict[str, object]]:
+        """Every live prefill entry: its width, tier, replays, the paged
+        launches one replay makes (empty off the card) and what making
+        it took (``capture_ms``, host clock; ``warm_ms`` the warm-up's
+        share, for which the scheduler waits). A launch counter ticks at
+        capture only, so the launches the replays made are
+        ``replays × per_replay``."""
+        with self._lock:
+            entries = (list(self._prefill_bucket.values())
+                       + list(self._prefill_exact.values()))
+        return [{"width": e.width, "tier": e.tier, "replays": e.replays,
+                 "per_replay": dict(e.launches), "capture_ms": e.capture_ms,
+                 "warm_ms": e.warm_ms, "graphed": e.graph is not None}
+                for e in entries]
 
     def prepare_decode(self) -> list:
         """Pre-decode page sweep (paged plane): allocate each active
@@ -510,9 +926,10 @@ class InferenceEngine:
                     raise PagePoolExhausted(starved)
             self._decode_swept = False
         self._note_stream()
-        logits = self._decode_logits(tokens)
-        nxt = _sample_next(logits, self._sample_temps,
-                           self._sample_topks, self._generators)
+        with self._device_lock:
+            logits = self._decode_logits(tokens)
+            nxt = _sample_next(logits, self._sample_temps,
+                               self._sample_topks, self._generators)
         with self._lock:
             self._counters["decode_steps"] += 1
             if self.paged_attn:
@@ -586,7 +1003,7 @@ class InferenceEngine:
         ``head`` False, stops at the final LayerNorm)."""
         mgr = self.manager
         st = self._static
-        cache = getattr(mgr, "full_cache", mgr.cache)
+        cache = mgr.full_cache if self.paged else mgr.cache
         step = CacheStep.on_device(cache, st["lengths"], st["tables"], 1,
                                    getattr(mgr, "spare_row0", None))
         return self.model(st["tokens"], cache=cache, step=step,
@@ -600,8 +1017,8 @@ class InferenceEngine:
         into a CUDA graph. The warm-up writes the loaded step's k/v
         (spare rows only at construction; on a prefill worker's first
         local decode, rows the first replay writes again with the same
-        values). Other threads may use the card meanwhile
-        (``capture_error_mode="thread_local"``)."""
+        values). Other threads may use the card meanwhile (the module
+        docstring: one capture at a time, relaxed mode)."""
         dev = self.device
         t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
@@ -611,7 +1028,9 @@ class InferenceEngine:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = _paged_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with _CAPTURE_LOCK, torch.cuda.graph(
+                graph, stream=torch.cuda.Stream(dev),
+                capture_error_mode="relaxed"):
             out = self._decode_body()
         after = _paged_counts()
         self._graph_launches = {k: after[k] - before[k] for k in after}
@@ -925,8 +1344,11 @@ class InferenceEngine:
             out = dict(self._counters)
         for key in _STAT_KEYS:
             out.setdefault(key, 0)
-        out["prefill_exact_entries"] = 0
-        out["prefill_bucket_entries"] = 0
+        out["prefill_exact_entries"] = len(self._prefill_exact)
+        out["prefill_bucket_entries"] = len(self._prefill_bucket)
+        graphs = self.prefill_graphs()
+        out["prefill_graphs"] = sum(g["graphed"] for g in graphs)
+        out["prefill_capture_ms"] = sum(g["capture_ms"] for g in graphs)
         # a sharded engine's decode is eager (decode_graphed 0); its
         # leader's control stream: operations and broadcasts sent
         out["decode_graphed"] = int(self._graph is not None)

@@ -5,7 +5,7 @@ sequence. This manager owns:
 
 * the cache itself (``[slots, max_len, kv_heads, head_dim]`` per layer,
   from the model's ``init_cache`` factory), which the engine's forwards
-  write in place;
+  write in place, and optionally one spare slot row past it;
 * the batch-slot allocator (free list, per-slot owner and length), so
   the continuous batcher admits a queued request into a freed slot
   between decode steps without touching any other slot;
@@ -83,10 +83,13 @@ def create_kv_manager(
     watermark: int = -1,
     mesh=None,
     tp_axis: str = "tp",
+    spare_rows: int = 0,
 ):
     """The paged block-pool manager (the default) or the contiguous
     slab; both speak the same slot API. ``mesh`` shards every leaf's kv
-    heads over ``tp_axis``."""
+    heads over ``tp_axis``. ``spare_rows`` sizes the paged pool's spare
+    rows (at least one a slot); on the slab, any value above 0 adds
+    one spare slot row."""
     if paged:
         from .paged_kv import PagedKVCacheManager
 
@@ -94,10 +97,11 @@ def create_kv_manager(
             cache_factory, slots, max_len,
             page_tokens=page_tokens, num_pages=num_pages,
             prefix_cache=prefix_cache, watermark=watermark,
-            mesh=mesh, tp_axis=tp_axis,
+            mesh=mesh, tp_axis=tp_axis, spare_rows=spare_rows,
         )
     return KVCacheManager(cache_factory, slots=slots, max_len=max_len,
-                          mesh=mesh, tp_axis=tp_axis)
+                          mesh=mesh, tp_axis=tp_axis,
+                          spare_slot=spare_rows > 0)
 
 
 class KVCacheManager:
@@ -106,15 +110,24 @@ class KVCacheManager:
     batcher's step loop)."""
 
     def __init__(self, cache_factory, slots: int, max_len: int, mesh=None,
-                 tp_axis: str = "tp") -> None:
+                 tp_axis: str = "tp", spare_slot: bool = False) -> None:
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
         self.slots = int(slots)
         self.max_len = int(max_len)
-        self.cache = cache_factory(self.slots, self.max_len)
+        # ``spare_slot``: one more slot row past the live ones, which no
+        # slot owns (a graphed prefill's warm-up writes there).
+        # ``full_cache`` is the whole slab; ``cache`` views its live
+        # slots (same storage)
+        self.spare_slot = self.slots if spare_slot else None
+        self.full_cache = cache_factory(self.slots + int(spare_slot),
+                                        self.max_len)
         self.sharding: Optional[KVSharding] = None
         if mesh is not None:
-            self.cache, self.sharding = shard_cache(self.cache, mesh, tp_axis)
+            self.full_cache, self.sharding = shard_cache(self.full_cache,
+                                                         mesh, tp_axis)
+        self.cache = [{name: leaf[:self.slots] for name, leaf in layer.items()}
+                      for layer in self.full_cache]
         self._lock = threading.Lock()
         self._free: List[int] = list(range(self.slots))
         self._owner: Dict[int, object] = {}
@@ -142,7 +155,18 @@ class KVCacheManager:
                 self._free.append(slot)
         self._publish()
 
+    def owner(self, slot: int):
+        with self._lock:
+            return self._owner.get(slot)
+
+    def active_slots(self) -> List[int]:
+        with self._lock:
+            return sorted(self._owner)
+
     # ------------------------------------------------------------- lengths
+
+    def length(self, slot: int) -> int:
+        return int(self._lengths[slot])
 
     def set_length(self, slot: int, n: int) -> None:
         if not 0 <= n <= self.max_len:
@@ -160,6 +184,9 @@ class KVCacheManager:
         """The ``[slots]`` int32 ``cache_index`` of the decode step (a
         copy: the step's input must not alias bookkeeping)."""
         return self._lengths.copy()
+
+    def capacity_left(self, slot: int) -> int:
+        return self.max_len - int(self._lengths[slot])
 
     # --------------------------------------------------------------- stats
 

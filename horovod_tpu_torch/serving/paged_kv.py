@@ -94,6 +94,7 @@ class PagedKVCacheManager(KVCacheManager):
         watermark: int = -1,
         mesh=None,
         tp_axis: str = "tp",
+        spare_rows: int = 0,
     ) -> None:
         if slots < 1:
             raise ValueError(f"need at least one slot, got {slots}")
@@ -121,11 +122,13 @@ class PagedKVCacheManager(KVCacheManager):
         self.watermark = min(int(watermark), max(self.num_pages - 1, 0))
         self.prefix_cache_enabled = bool(prefix_cache)
         # the pool: batch axis = pages, seq axis = page_tokens. Past the
-        # live pages sit spare pages no table names, one row a slot: the
-        # graphed decode step's dropped writes (inactive slots, full
-        # slots) land there (CacheStep.on_device). ``full_cache`` is the
+        # live pages sit spare pages no table names, ``max(slots,
+        # spare_rows)`` rows: the graphed decode step's dropped writes
+        # (inactive slots, full slots) and a graphed prefill chunk's pad
+        # rows land there (CacheStep.on_device). ``full_cache`` is the
         # whole pool; ``cache`` views its live pages (same storage)
-        self.spare_pages = -(-self.slots // self.page_tokens)
+        self.spare_pages = -(-max(self.slots, int(spare_rows))
+                             // self.page_tokens)
         self.spare_row0 = self.num_pages * self.page_tokens
         self.full_cache = cache_factory(self.num_pages + self.spare_pages,
                                         self.page_tokens)

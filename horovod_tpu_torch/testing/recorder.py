@@ -8,7 +8,8 @@ the port reaches (``all_reduce``, ``all_to_all_single``, ``broadcast``,
 ``all_gather``, ``batch_isend_irecv`` and the allgather and
 reduce-scatter of ``ops/_collectives.py``) for the length of a ``with``
 block and lists, for each call, the collective's name, the global ranks
-of its group and the bytes of the input it was handed::
+of its group and the bytes, dtype and shape of the input it was
+handed (``analysis.fx_parse.parse_calls`` reads them as a program)::
 
     with record_collectives() as calls:
         loss.backward(); opt.step()
@@ -33,6 +34,8 @@ class Call(NamedTuple):
     op: str
     ranks: Tuple[int, ...]  # the group's global ranks
     nbytes: int  # the input handed to the call
+    dtype: str = ""  # the input's dtype ("torch.float32"), "" unknown
+    shape: Tuple[int, ...] = ()  # the input's shape
 
 
 def _ranks(group) -> Tuple[int, ...]:
@@ -43,6 +46,12 @@ def _ranks(group) -> Tuple[int, ...]:
 
 def _nbytes(t) -> int:
     return t.numel() * t.element_size() if torch.is_tensor(t) else 0
+
+
+def _call(name, ranks, t) -> Call:
+    if not torch.is_tensor(t):
+        return Call(name, ranks, 0)
+    return Call(name, ranks, _nbytes(t), str(t.dtype), tuple(t.shape))
 
 
 # the entry point, the position of its input among the arguments
@@ -65,8 +74,8 @@ def record_collectives():
 
         def recorded(*args, **kwargs):
             group = kwargs.get("group")
-            calls.append(Call(name, _ranks(group), _nbytes(
-                args[arg] if len(args) > arg else None)))
+            calls.append(_call(name, _ranks(group),
+                               args[arg] if len(args) > arg else None))
             return fn(*args, **kwargs)
 
         setattr(owner, attr, recorded)
@@ -80,10 +89,10 @@ def record_collectives():
 
     def batch(ops):
         for op in ops:
-            calls.append(Call("send" if op.op is dist.isend else "recv",
-                              _ranks(op.group),
-                              _nbytes(op.tensor) if op.op is dist.isend
-                              else 0))
+            if op.op is dist.isend:
+                calls.append(_call("send", _ranks(op.group), op.tensor))
+            else:
+                calls.append(Call("recv", _ranks(op.group), 0))
         return p2p(ops)
 
     dist.batch_isend_irecv = batch

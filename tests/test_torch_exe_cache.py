@@ -248,6 +248,30 @@ class TestRoundTrip:
                        ("exe_cache.misses", "exe_cache.stores"))
 
 
+
+@pytest.mark.parametrize("failure", ["raise", "none"])
+def test_failed_save_counts_and_returns_the_compiled_graph(
+        cache_base, monkeypatch, failure):
+    """A save that raises or returns None never fails the compile: it
+    counts ``exe_cache.serialize_errors`` once and the compiled graph
+    computes the eager result (the reference's ``store`` contract)."""
+    def broken():
+        if failure == "raise":
+            raise RuntimeError("injected save failure")
+        return None
+
+    monkeypatch.setattr(torch.compiler, "save_cache_artifacts", broken)
+    torch._dynamo.reset()
+    x = torch.randn(4, 8, generator=torch.Generator().manual_seed(0))
+    before = registry.snapshot()
+    fn = torch.compile(lambda x: torch.mm(x, x.t()) + 1.0,
+                       backend=exe_cache.backend(inner="aot_eager"))
+    assert torch.equal(fn(x), torch.mm(x, x.t()) + 1.0)
+    assert _delta("exe_cache.serialize_errors", before) == 1
+    assert _delta("exe_cache.stores", before) == 0
+    torch._dynamo.reset()
+
+
 # ------------------------------------------- corruption / invalidation
 
 

@@ -61,6 +61,20 @@ def _wire_worker(rank, n, outdir):
     out["res_out"], out["res"] = hvd.allreduce(
         x, op=hvd.Sum, compression=int8, return_residual=True)
 
+    # the residual norm: published only while a metrics sink watches
+    from horovod_tpu_torch.common.metrics import registry
+    out["norm_unwatched"] = ("fusion.ef_residual_norm" in registry.snapshot(),
+                             fusion.ef_residual_norm)
+    registry.configure_export(str(Path(outdir) / f"metrics{rank}.jsonl"))
+    try:
+        _, r = hvd.allreduce(x, op=hvd.Sum, compression=int8,
+                             return_residual=True)
+        out["norm"] = (registry.snapshot().get("fusion.ef_residual_norm"),
+                       fusion.ef_residual_norm,
+                       float(torch.linalg.vector_norm(r.double())))
+    finally:
+        registry._path = None  # no sink outside this case
+
     # prescale fold: the same seed for both dispatches
     c = 0.125
     x = torch.from_numpy(_rows(n, 130, 8)[rank])
@@ -221,6 +235,19 @@ def test_residual_reconstructs_the_wire_value(world):
     for o in outs:
         np.testing.assert_allclose(o["res_out"].numpy(), sent, rtol=1e-5,
                                    atol=1e-5 * np.abs(rows).max())
+
+
+def test_ef_residual_norm_gauge_when_observability_on(world):
+    """``fusion.ef_residual_norm`` (the reference's ``_note_residuals``,
+    tests/test_fusion_quantized.py): absent while nothing watches, then
+    the registry gauge equals the manager's attribute and the L2 norm of
+    the residual the call returned."""
+    n, outs = world
+    for out in outs:
+        assert out["norm_unwatched"] == (False, 0.0)
+        gauge, attr, norm = out["norm"]
+        assert gauge == attr and np.isfinite(attr)
+        assert abs(attr - norm) <= 1e-5 * max(norm, 1.0)
 
 
 def test_prescale_folds_into_the_wire_scales_bit_exact(world):

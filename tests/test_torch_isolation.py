@@ -66,6 +66,8 @@ def test_import_pulls_in_no_jax():
         "horovod_tpu_torch.common.exe_cache, horovod_tpu_torch.analysis, "
         "horovod_tpu_torch.analysis.sched_audit, "
         "horovod_tpu_torch.analysis.trace_merge, "
+        "horovod_tpu_torch.analysis.fx_parse, "
+        "horovod_tpu_torch.analysis.rules, "
         "horovod_tpu_torch.elastic.standby\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
@@ -105,7 +107,9 @@ def test_sources_import_no_jax():
 CARD_SCRIPTS = ("scripts/compare_attention_fwd.py",
                 "scripts/compare_torch_wire_step.py",
                 "scripts/profile_start.py",
-                "scripts/profile_torch_decode.py")
+                "scripts/profile_torch_decode.py",
+                "scripts/hlo_audit_torch.py",
+                "scripts/trace_assemble_torch.py")
 
 
 @pytest.mark.parametrize("script", CARD_SCRIPTS)

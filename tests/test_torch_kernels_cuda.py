@@ -194,6 +194,72 @@ def test_paged_tensor_cores_not_causal(cuda_card):
                         2)
 
 
+@pytest.mark.parametrize("width", [64, 256])
+def test_paged_tiled_in_a_prefill_graph_matches_plain(cuda_card, width):
+    """B7's tiled kernel as a prefill graph runs it: captured once at a
+    bucket width over a full-width page table, replayed at starts past 0
+    that differ from the capture's (the launch geometry comes from the
+    shapes alone), each replay within 2 bf16 ulp of the plain version."""
+    q, k, v, table, _ = _case(b=1, t=width, h=16, kvh=16, d=64, pt=16,
+                              n_logical=64, lengths=[1024 - width])
+    q, k, v = (torch.from_numpy(x).to(cuda_card, torch.bfloat16)
+               for x in (q, k, v))
+    table = torch.from_numpy(table).to(cuda_card)
+    start = torch.zeros(1, dtype=torch.int32, device=cuda_card)
+    pa.OPS.paged_attention(q, k, v, table, start, True)  # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = pa.OPS.paged_attention(q, k, v, table, start, True)
+    for s in (17, 300, 1024 - width):
+        start.fill_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_within_ulps(got, pa.paged_attention_plain(
+            q, k, v, table, start), 2)
+
+
+def test_slab_prefill_graphs_keep_live_slots(cuda_card):
+    """Prefill graphs on the slab (``paged=False``, no window), each made
+    while slot 0 holds a prompt: the 20-token prompt's 4-token rest makes
+    bucket 4 mid-prompt, the 7-token prompt bucket 8. Every greedy token
+    of both slots, prefill and decode, equals the full forward's argmax
+    loop in fp32 (a warm-up that wrote a live slot row would change
+    them)."""
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.serving import InferenceEngine
+
+    cfg = tt.TransformerConfig(vocab_size=97, num_layers=2, d_model=64,
+                               num_heads=4, d_ff=128, max_len=64,
+                               dtype=torch.float32)
+    model = tt.Transformer(cfg, device=cuda_card, generator=torch.Generator(
+        device=cuda_card).manual_seed(3))
+    eng = InferenceEngine(model, None, slots=2, max_len=48,
+                          prefill_ceiling=16, min_bucket=4, paged=False,
+                          device=cuda_card)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 97, n).tolist() for n in (20, 7)]
+    toks = np.zeros(2, np.int32)
+    for i, p in enumerate(prompts):
+        slot = eng.manager.alloc(i)
+        toks[slot] = eng.prefill(slot, p)
+    got = [[int(t)] for t in toks]
+    for _ in range(5):
+        toks = eng.decode_step(toks)
+        for slot in range(2):
+            eng.manager.advance(slot)
+            got[slot].append(int(toks[slot]))
+    assert sorted(g["width"] for g in eng.prefill_graphs()) == [4, 8, 16]
+    assert all(g["graphed"] for g in eng.prefill_graphs())
+    for p, out in zip(prompts, got):
+        seq = list(p)
+        with torch.no_grad():
+            for _ in range(6):
+                seq.append(int(model(torch.tensor([seq], device=cuda_card))[
+                    0, -1].argmax()))
+        assert out == seq[len(p):]
+
+
 # ------------------------------------------------------ flash attention
 
 from horovod_tpu_torch.ops import flash_attention as fa  # noqa: E402
